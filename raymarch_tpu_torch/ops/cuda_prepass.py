@@ -1,0 +1,579 @@
+"""Cone-prepass forward renderer: two CUDA kernels and their plain versions.
+
+Port of the main path of `raymarch_tpu/ops/pallas_prepass.py`
+(`make_pallas_image_render_aa` with prepass_block=1, aa_packed=True):
+
+1. **Coarse pass** (`coarse`; kernel `coarse_kernel` in csrc/prepass.cu,
+   replacing the Pallas `coarse_kernel`, pallas_prepass.py:885). One cone
+   ray per pixel centre, stopped at `d < min_dist + omega*t` and stepped by
+   `(d - omega*t)/(1+omega)`: every AA ray of the pixel is un-crossed up to
+   the stop distance, so it becomes the pixel's safe start `t0`; `status` is
+   1 where the cone stopped near a surface, 0 where it escaped (a miss).
+2. **Fine pass** (`fine`; kernel `fine_kernel`, replacing
+   `fine_packed_kernel`, pallas_prepass.py:1521). Every AA ray sphere-traces
+   from its pixel's t0, hit rays take tetrahedron normals and Lambert
+   shading, misses the analytic checker floor, then sqrt gamma and the AA
+   mean: f32[rows, W, 3].
+
+Each wrapper takes tensors on one device. On the CPU it runs its plain
+version (`coarse_plain`, `fine_plain`: vectorised torch over all rays, a
+masked loop of at most max_iter steps, the same formulas); on a CUDA device
+it launches the kernel, or raises. It never falls back from one to the other.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import functools
+import math
+
+import numpy as np
+import torch
+
+from ..config import RenderConfig
+from .cuda_march import (
+    SceneBuffers,
+    compute_bound,
+    scene_buffers,
+    scene_plain,
+    scene_topology,
+    tet_taps_plain,
+)
+from .tape import TapeArrays, TapeSpec
+
+_INF_CAP = 3.0e38
+
+
+def cone_omega(cfg: RenderConfig, width: int, height: int, block: int = 1) -> float:
+    """Max angular deviation (radians, conservative) of any AA sample ray in a
+    `block x block` pixel tile from the tile-center ray. Pixel centers sit at
+    most (block-1)/2 pixels from the tile center and sub-pixel offsets add
+    0.5 - 0.5/n (ops.raygen.aa_offsets), bounded together by block/2. View-
+    plane points sit at |p| >= 1 (z=-1 plane) so the chord bound |offset|
+    bounds the angle; a 1.5x safety factor absorbs the chord-vs-angle slack."""
+    tanf = math.tan(cfg.fovy / 2.0)
+    aspect = width / height
+    pw = 2.0 * tanf * aspect / width
+    ph = 2.0 * tanf / height
+    n = cfg.aa_samples
+    if block == 1:
+        off = max(0.5 - 0.5 / n, 0.0)
+    else:
+        off = block / 2.0
+    return 1.5 * off * math.sqrt(pw * pw + ph * ph)
+
+
+def _f32(v: float) -> float:
+    """A Python constant rounded to f32, as JAX's weak typing rounds it."""
+    return float(np.float32(v))
+
+
+@dataclasses.dataclass(frozen=True)
+class PrepassParams:
+    """Host constants of one renderer (cfg, width, height). Floats are
+    already rounded to f32, so the kernels and the plain versions read the
+    same values."""
+
+    width: int
+    height: int
+    rows: int
+    naa: int
+    max_iter: int
+    use_bound: bool
+    no_prepass: bool
+    min_dist: float
+    max_dist: float
+    omega: float
+    inv1w: float
+    tan_aspect: float
+    tanf: float
+    c2w: float
+    c2h: float
+    eps: float
+    light: tuple
+    albedo: tuple
+    floor_base: tuple
+    floor_y: float
+    floor_checker: float
+    ambient: float
+    inv_s: float
+
+    @staticmethod
+    def make(cfg: RenderConfig, width: int, height: int, no_prepass: bool = False):
+        tanf = math.tan(cfg.fovy / 2.0)
+        omega = cone_omega(cfg, width, height, 1)
+        naa = cfg.aa_samples
+        return PrepassParams(
+            width=width,
+            height=height,
+            rows=height,
+            naa=naa,
+            max_iter=int(cfg.max_iter),
+            use_bound=bool(cfg.bound_accel),
+            no_prepass=bool(no_prepass),
+            min_dist=_f32(cfg.min_dist),
+            max_dist=_f32(cfg.max_dist),
+            omega=_f32(omega),
+            inv1w=_f32(1.0 / (1.0 + omega)),
+            tan_aspect=_f32(tanf * (width / height)),
+            tanf=_f32(tanf),
+            c2w=_f32(2.0 / width),
+            c2h=_f32(2.0 / height),
+            eps=_f32(cfg.normal_eps),
+            light=tuple(_f32(v) for v in cfg.light_position),
+            albedo=tuple(_f32(v) for v in cfg.albedo),
+            floor_base=tuple(_f32(v) for v in cfg.floor_base),
+            floor_y=_f32(cfg.floor_y),
+            floor_checker=_f32(cfg.floor_checker),
+            ambient=_f32(cfg.ambient),
+            inv_s=_f32(1.0 / (naa * naa)),
+        )
+
+
+class _CParams(ctypes.Structure):
+    """ctypes mirror of `RenderParams` in csrc/prepass.cu, field by field."""
+
+    _fields_ = [
+        ("width", ctypes.c_int32),
+        ("height", ctypes.c_int32),
+        ("rows", ctypes.c_int32),
+        ("naa", ctypes.c_int32),
+        ("max_iter", ctypes.c_int32),
+        ("use_bound", ctypes.c_int32),
+        ("no_prepass", ctypes.c_int32),
+        ("min_dist", ctypes.c_float),
+        ("max_dist", ctypes.c_float),
+        ("omega", ctypes.c_float),
+        ("inv1w", ctypes.c_float),
+        ("tan_aspect", ctypes.c_float),
+        ("tanf", ctypes.c_float),
+        ("c2w", ctypes.c_float),
+        ("c2h", ctypes.c_float),
+        ("eps", ctypes.c_float),
+        ("light", ctypes.c_float * 3),
+        ("albedo", ctypes.c_float * 3),
+        ("floor_base", ctypes.c_float * 3),
+        ("floor_y", ctypes.c_float),
+        ("floor_checker", ctypes.c_float),
+        ("ambient", ctypes.c_float),
+        ("inv_s", ctypes.c_float),
+    ]
+
+    @staticmethod
+    def of(p: PrepassParams) -> "_CParams":
+        c = _CParams()
+        for name, _ in _CParams._fields_:
+            v = getattr(p, name)
+            if isinstance(v, tuple):
+                getattr(c, name)[:] = v
+            else:
+                setattr(c, name, v)
+        return c
+
+
+# --------------------------------------------------------------------------
+# Plain versions (any device; the wrappers use them on the CPU)
+
+
+def _view_dirs(x, y, cam, p: PrepassParams):
+    """Screen point -> world ray direction (pallas_prepass._view_dirs)."""
+    vx = x * p.tan_aspect
+    vy = y * p.tanf
+    vz = torch.full_like(x, -1.0)
+    inv_norm = torch.rsqrt(vx * vx + vy * vy + vz * vz)
+    vx = vx * inv_norm
+    vy = vy * inv_norm
+    vz = vz * inv_norm
+    qw, qx, qy, qz = cam[3], cam[4], cam[5], cam[6]
+    tx = 2.0 * (qy * vz - qz * vy)
+    ty = 2.0 * (qz * vx - qx * vz)
+    tz = 2.0 * (qx * vy - qy * vx)
+    dx = vx + qw * tx + (qy * tz - qz * ty)
+    dy = vy + qw * ty + (qz * tx - qx * tz)
+    dz = vz + qw * tz + (qx * ty - qy * tx)
+    return dx, dy, dz
+
+
+def _bound_clip(bound, ox, oy, oz, dx, dy, dz, live_init, t_init, t_cap, min_dist):
+    """Clip rays against the scene bounding sphere -> (live, t0, t_cap)
+    (pallas_prepass._bound_clip)."""
+    bcx, bcy, bcz, br, bvalid = bound[0], bound[1], bound[2], bound[3], bound[4]
+    ocx = ox - bcx
+    ocy = oy - bcy
+    ocz = oz - bcz
+    bq = dx * ocx + dy * ocy + dz * ocz
+    c2 = ocx * ocx + ocy * ocy + ocz * ocz - br * br
+    disc = bq * bq - c2
+    sq = torch.sqrt(torch.clamp_min(disc, 0.0))
+    t_enter = -bq - sq
+    t_exit = -bq + sq
+    hit_bound = torch.where((disc > 0.0) & (t_exit > 0.0), live_init, 0.0)
+    use = bvalid > 0.0
+    live = torch.where(use, hit_bound, live_init)
+    t0 = torch.where(use, torch.clamp_min(t_enter, 0.0) * hit_bound, t_init)
+    cap = torch.where(use, t_exit + min_dist, t_cap)
+    return live, t0, cap
+
+
+def _origin(cam, like):
+    return cam[0].expand_as(like), cam[1].expand_as(like), cam[2].expand_as(like)
+
+
+def coarse_plain(scene: SceneBuffers, cam, bound, p: PrepassParams):
+    """Plain version of the coarse kernel -> (t0, status) f32[rows, W]."""
+    dev = cam.device
+    i = torch.arange(p.rows, device=dev, dtype=torch.float32)[:, None]
+    j = torch.arange(p.width, device=dev, dtype=torch.float32)[None, :]
+    x = 2.0 * (j + 0.5) / p.width - 1.0
+    y = 1.0 - 2.0 * ((i + 0.5) + cam[7]) / p.height
+    x, y = (v.contiguous() for v in torch.broadcast_tensors(x, y))
+    dx, dy, dz = _view_dirs(x, y, cam, p)
+    ox, oy, oz = _origin(cam, dx)
+
+    zero = torch.zeros_like(dx)
+    t = zero
+    live = zero + 1.0
+    t_cap = zero + _INF_CAP
+    if p.use_bound:
+        live, t, t_cap = _bound_clip(
+            bound, ox, oy, oz, dx, dy, dz, live, t, t_cap, p.min_dist
+        )
+    near = zero
+    for _ in range(p.max_iter):
+        if not bool(live.any()):
+            break
+        d = scene_plain(scene, p.max_dist, ox + dx * t, oy + dy * t, oz + dz * t)
+        slack = d - p.omega * t
+        near_now = torch.where(slack < p.min_dist, live, 0.0)
+        escaped = torch.where((d > p.max_dist) | (t > t_cap), live, 0.0)
+        escaped = escaped - escaped * near_now
+        advance = live - near_now - escaped
+        t = t + slack * p.inv1w * advance
+        live = live - near_now - escaped
+        near = near + near_now
+    return t, near
+
+
+def fine_plain(scene: SceneBuffers, cam, bound, p: PrepassParams, t0=None, status=None):
+    """Plain version of the fine kernel -> image f32[rows, W, 3]."""
+    dev = cam.device
+    naa = p.naa
+    S = naa * naa
+    i = torch.arange(p.rows, device=dev, dtype=torch.float32)[:, None, None]
+    j = torch.arange(p.width, device=dev, dtype=torch.float32)[None, :, None]
+    s = torch.arange(S, device=dev)
+    a = s // naa
+    b = s - a * naa
+    fa = ((a.to(torch.float32) + 0.5) / naa - 0.5)[None, None, :]
+    fb = ((b.to(torch.float32) + 0.5) / naa - 0.5)[None, None, :]
+    x = 2.0 * (j + 0.5) / p.width - 1.0 + fa * p.c2w
+    y = 1.0 - 2.0 * (i + 0.5 + cam[7]) / p.height + fb * p.c2h
+    x, y = (v.contiguous() for v in torch.broadcast_tensors(x, y))
+    dx, dy, dz = _view_dirs(x, y, cam, p)
+    ox, oy, oz = _origin(cam, dx)
+
+    zero = torch.zeros_like(dx)
+    if p.no_prepass:
+        t = zero
+        live = zero + 1.0
+    else:
+        t = zero + t0[:, :, None]
+        live = zero + status[:, :, None]
+    t_cap = zero + _INF_CAP
+    if p.use_bound:
+        _, _, t_cap = _bound_clip(
+            bound, ox, oy, oz, dx, dy, dz, live, t, t_cap, p.min_dist
+        )
+    hit = zero
+    for _ in range(p.max_iter):
+        if not bool(live.any()):
+            break
+        d = scene_plain(scene, p.max_dist, ox + dx * t, oy + dy * t, oz + dz * t)
+        hit_now = torch.where(d < p.min_dist, live, 0.0)
+        escaped = torch.where((d > p.max_dist) | (t > t_cap), live, 0.0)
+        escaped = escaped - escaped * hit_now
+        advance = live - hit_now - escaped
+        t = t + d * advance
+        live = live - hit_now - escaped
+        hit = hit + hit_now
+
+    px = ox + dx * t * hit
+    py = oy + dy * t * hit
+    pz = oz + dz * t * hit
+    nx, ny, nz = tet_taps_plain(
+        lambda qx, qy, qz: scene_plain(scene, p.max_dist, qx, qy, qz),
+        px, py, pz, p.eps,
+    )
+    ninv = torch.rsqrt(nx * nx + ny * ny + nz * nz + 1e-20)
+    tlx = px - p.light[0]
+    tly = py - p.light[1]
+    tlz = pz - p.light[2]
+    linv = torch.rsqrt(tlx * tlx + tly * tly + tlz * tlz + 1e-20)
+    diff = (nx * tlx + ny * tly + nz * tlz) * (ninv * linv)
+    diff = torch.clamp_min(diff, p.ambient)
+    # A miss takes diff = 0 (shade_miss): select, never multiply by hit = 0.
+    diff = torch.where(hit > 0.0, diff, 0.0)
+
+    dy_ok = torch.where(torch.abs(dy) > 1e-8, 1.0, 0.0)
+    dy_safe = torch.where(torch.abs(dy) > 1e-8, dy, 1e-8)
+    ft = (p.floor_y - oy) / dy_safe
+    fx = torch.clamp(ox + dx * ft, -1e7, 1e7)
+    fz = torch.clamp(oz + dz * ft, -1e7, 1e7)
+    ipx = torch.round(fx + 0.5).to(torch.int32)  # half to even, as jnp.round
+    ipz = torch.round(fz + 0.5).to(torch.int32)
+    parity = torch.bitwise_and(torch.bitwise_xor(ipx, ipz), 1).to(torch.float32)
+    on_floor = torch.where(ft > 0.0, dy_ok, 0.0)
+    miss = 1.0 - hit
+    out = []
+    for c in range(3):
+        fcol = (p.floor_base[c] + p.floor_checker * parity) * on_floor
+        col = torch.sqrt(
+            torch.clamp_min(hit * (p.albedo[c] * diff) + miss * fcol, 0.0) + 1e-12
+        )
+        out.append(torch.sum(col, dim=-1) * p.inv_s)
+    return torch.stack(out, dim=-1)
+
+
+# --------------------------------------------------------------------------
+# Wrappers: plain on the CPU, the CUDA kernel on a CUDA device
+
+
+def _check(name, x, dtype, shape, device):
+    if not torch.is_tensor(x):
+        raise TypeError(f"{name}: expected a tensor, got {type(x).__name__}")
+    if x.device != device:
+        raise ValueError(f"{name} is on {x.device}, expected {device}")
+    if x.dtype != dtype:
+        raise TypeError(f"{name} has dtype {x.dtype}, expected {dtype}")
+    if shape is not None and tuple(x.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(x.shape)}, expected {tuple(shape)}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name} is not contiguous")
+
+
+def _check_scene(scene: SceneBuffers, cam, bound, p: PrepassParams):
+    dev = cam.device
+    spec = scene.spec
+    _check("cam", cam, torch.float32, (8,), dev)
+    _check("bound", bound, torch.float32, (8,), dev)
+    _check("tape", scene.tape, torch.int32, (3, max(scene.n_instr, 1)), dev)
+    _check("row_kind", scene.row_kind, torch.int32, (spec.n_leaves,), dev)
+    _check("leaf_params", scene.leaf_params, torch.float32, (spec.n_leaves, 16), dev)
+    _check("op_param", scene.op_param, torch.float32, (spec.n_instr,), dev)
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {dev}")
+    if dev.type == "cuda":
+        S = p.naa * p.naa
+        if 32 % S:
+            raise NotImplementedError(
+                f"the fine kernel reduces the AA mean within a warp: "
+                f"aa_samples^2 = {S} must divide 32"
+            )
+        if p.rows > 65535:
+            raise ValueError(f"{p.rows} rows exceed the launch grid")
+    return dev
+
+
+def _scene_ptrs(scene: SceneBuffers):
+    return (
+        scene.leaf_params.data_ptr(),
+        scene.row_kind.data_ptr(),
+        scene.tape.data_ptr(),
+        scene.n_instr,
+        scene.op_param.data_ptr(),
+    )
+
+
+def _raise_on(err: int, what: str):
+    if err != 0:
+        raise RuntimeError(f"{what} launch failed: cudaError_t {err}")
+
+
+def coarse(scene: SceneBuffers, cam, bound, p: PrepassParams):
+    """Coarse pass -> (t0, status) f32[rows, W] on the inputs' device."""
+    dev = _check_scene(scene, cam, bound, p)
+    if dev.type == "cpu":
+        return coarse_plain(scene, cam, bound, p)
+    from .. import _build
+
+    lib = _build.load()
+    t0 = torch.empty((p.rows, p.width), dtype=torch.float32, device=dev)
+    status = torch.empty_like(t0)
+    cp = _CParams.of(p)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.rmt_coarse_launch(
+            *_scene_ptrs(scene), cam.data_ptr(), bound.data_ptr(),
+            ctypes.addressof(cp), t0.data_ptr(), status.data_ptr(), stream,
+        )
+    _raise_on(err, "coarse_kernel")
+    coarse.launches += 1
+    return t0, status
+
+
+coarse.launches = 0
+
+
+def fine(scene: SceneBuffers, cam, bound, p: PrepassParams, t0=None, status=None):
+    """Fine pass -> image f32[rows, W, 3] on the inputs' device. `t0` and
+    `status` are the coarse planes (None with `p.no_prepass`)."""
+    dev = _check_scene(scene, cam, bound, p)
+    if not p.no_prepass:
+        _check("t0", t0, torch.float32, (p.rows, p.width), dev)
+        _check("status", status, torch.float32, (p.rows, p.width), dev)
+    if dev.type == "cpu":
+        return fine_plain(scene, cam, bound, p, t0, status)
+    from .. import _build
+
+    lib = _build.load()
+    img = torch.empty((p.rows, p.width, 3), dtype=torch.float32, device=dev)
+    cp = _CParams.of(p)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.rmt_fine_launch(
+            *_scene_ptrs(scene), cam.data_ptr(), bound.data_ptr(),
+            ctypes.addressof(cp),
+            None if p.no_prepass else t0.data_ptr(),
+            None if p.no_prepass else status.data_ptr(),
+            img.data_ptr(), stream,
+        )
+    _raise_on(err, "fine_kernel")
+    fine.launches += 1
+    return img
+
+
+fine.launches = 0
+
+
+def reset_launch_counts():
+    coarse.launches = 0
+    fine.launches = 0
+
+
+# --------------------------------------------------------------------------
+# Renderer
+
+
+class PrepassRenderer:
+    """`renderer(arrays, cam_vec) -> image f32[H, W, 3]` on one device.
+
+    Built once per (spec, cfg, width, height, device, no_prepass); a scene
+    edit that keeps the TapeSpec uploads new arrays and reuses it. The tape
+    topology is uploaded once, at construction.
+    """
+
+    def __init__(self, spec, cfg, width, height, device, no_prepass):
+        self.spec = spec
+        self.cfg = cfg
+        self.device = device
+        self.params = PrepassParams.make(cfg, width, height, no_prepass)
+        self.topology = scene_topology(spec, device)
+
+    def scene_args(self, arrays: TapeArrays, cam_vec):
+        """(SceneBuffers, cam f32[8], bound f32[8]) for one frame."""
+        scene = scene_buffers(self.spec, arrays, self.device, self.topology)
+        bound = (
+            compute_bound(self.spec, arrays)
+            if self.params.use_bound
+            else np.zeros(8, np.float32)
+        )
+        cam = torch.as_tensor(cam_vec, dtype=torch.float32)
+        if cam.device != self.device:
+            raise ValueError(f"cam_vec is on {cam.device}, expected {self.device}")
+        return scene, cam, torch.as_tensor(bound, device=self.device)
+
+    def coarse(self, arrays, cam_vec):
+        scene, cam, bound = self.scene_args(arrays, cam_vec)
+        return coarse(scene, cam, bound, self.params)
+
+    def fine(self, arrays, cam_vec, pre):
+        scene, cam, bound = self.scene_args(arrays, cam_vec)
+        return fine(scene, cam, bound, self.params, *pre)
+
+    def __call__(self, arrays: TapeArrays, cam_vec):
+        scene, cam, bound = self.scene_args(arrays, cam_vec)
+        pre = () if self.params.no_prepass else coarse(scene, cam, bound, self.params)
+        return fine(scene, cam, bound, self.params, *pre)
+
+    def render_plain(self, arrays: TapeArrays, cam_vec):
+        """The same frame through the plain versions, on this device."""
+        scene, cam, bound = self.scene_args(arrays, cam_vec)
+        pre = () if self.params.no_prepass else coarse_plain(scene, cam, bound, self.params)
+        return fine_plain(scene, cam, bound, self.params, *pre)
+
+
+def _not_ported(option: str, item: str):
+    raise NotImplementedError(f"{option} is not ported yet (ROADMAP: {item})")
+
+
+def resolve_device(device) -> torch.device:
+    """"cpu" or "cuda[:n]" -> a torch.device with the CUDA index filled in;
+    raises for CUDA without a GPU and for any other device type."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(f"device {device!r} was asked for, but CUDA is not available")
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+    elif dev.type == "cpu":
+        dev = torch.device("cpu")
+    else:
+        raise ValueError(f"unsupported device {device!r}: use 'cpu' or 'cuda'")
+    return dev
+
+
+def make_pallas_image_render_aa(
+    spec: TapeSpec,
+    cfg: RenderConfig,
+    width: int,
+    height: int,
+    *,
+    device,
+    prepass_block: int = 1,
+    band_rows=None,
+    prepass_chain: bool = False,
+    n_intervals: int = 0,
+    no_prepass: bool = False,
+    aa_packed: bool = True,
+    soft: bool = False,
+    march_only: bool = False,
+) -> PrepassRenderer:
+    """Cone-prepass forward renderer (the port's counterpart of
+    `raymarch_tpu.ops.pallas_prepass.make_pallas_image_render_aa`), cached
+    per (spec, cfg, width, height, device, no_prepass).
+
+    Takes the main path's options only: prepass_block=1, aa_packed=True, a
+    static tape with no materials, leaf_cull=False, relax=1, n_intervals=0;
+    and `no_prepass=True`, the strict-reference path (every AA ray marches
+    from t=0). Every other option raises NotImplementedError naming its
+    ROADMAP item.
+    """
+    if prepass_block != 1:
+        _not_ported("prepass_block > 1", "§1.9 many-primitive forward")
+    if prepass_chain:
+        _not_ported("prepass_chain", "§1.13 remaining surfaces, K3 coarse_px_kernel")
+    if band_rows is not None:
+        _not_ported("band_rows", "§1.11 multi-device")
+    if n_intervals:
+        _not_ported("n_intervals", "§1.8 forward variants on the main kernels")
+    if cfg.relax > 1.0:
+        _not_ported("relax > 1", "§1.8 forward variants on the main kernels")
+    if spec.has_materials:
+        _not_ported("materials", "§1.8 forward variants on the main kernels")
+    if soft:
+        _not_ported("soft", "§1.10 many-primitive backward and soft coverage")
+    if march_only:
+        _not_ported("march_only", "§1.13 remaining surfaces")
+    if not aa_packed or cfg.aa_shared_normals:
+        _not_ported("the unpacked fine pass (aa_shared_normals)", "§1.13 remaining surfaces, K4 fine_kernel")
+    if cfg.leaf_cull:
+        _not_ported("leaf_cull", "§1.9 many-primitive forward")
+    if spec.static_tape is None:
+        _not_ported("a dynamic tape", "§1.12 dynamic tape, tiered runtime and viewer")
+    return _cached_renderer(spec, cfg, int(width), int(height), resolve_device(device), bool(no_prepass))
+
+
+@functools.lru_cache(maxsize=None)
+def _cached_renderer(spec, cfg, width, height, device, no_prepass):
+    return PrepassRenderer(spec, cfg, width, height, device, no_prepass)

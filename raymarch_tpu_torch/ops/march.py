@@ -1,0 +1,67 @@
+"""Renderer entry point: `make_renderer`, as in `raymarch_tpu.ops.march`.
+
+Only the forward cone-prepass backend is ported so far
+(`backend="pallas_prepass"`, `mode="forward"`, march.py:439-461 of the JAX
+package); the other backend strings and modes raise NotImplementedError
+naming their ROADMAP item.
+"""
+
+from __future__ import annotations
+
+import functools
+
+from ..config import DEFAULT_CONFIG, RenderConfig
+from ..utils.camera import cam_vec
+from .cuda_prepass import make_pallas_image_render_aa
+from .tape import TapeArrays, TapeSpec
+
+_NOT_PORTED = {
+    "jnp": "§1.4 torch reference renderer",
+    "pallas": "§1.13 remaining surfaces, K5",
+    "pallas_image": "§1.13 remaining surfaces, K6",
+    "pallas_full": "§1.13 remaining surfaces, K7",
+    "pallas_fused": "§1.6 fused VJP",
+}
+
+
+def make_renderer(
+    spec: TapeSpec,
+    width: int,
+    height: int,
+    cfg: RenderConfig = DEFAULT_CONFIG,
+    mode: str = "implicit",
+    backend: str = "jnp",
+    *,
+    device,
+):
+    """Build `render(arrays, camera) -> image f32[H, W, 3]` on `device`.
+
+    `device` is required ("cpu" or "cuda[:n]"): on the CPU the kernels'
+    plain versions run, on CUDA the kernels; asking for CUDA without a GPU
+    raises. The renderer is cached per (spec, cfg, width, height, device), so
+    a numeric scene edit that keeps the TapeSpec gets the same renderer back
+    and rebuilds nothing.
+    """
+    if backend != "pallas_prepass":
+        item = _NOT_PORTED.get(backend)
+        if item is None:
+            raise ValueError(f"unknown backend: {backend}")
+        raise NotImplementedError(
+            f"backend {backend!r} is not ported yet (ROADMAP: {item})"
+        )
+    if mode != "forward":
+        raise NotImplementedError(
+            f"mode {mode!r} of backend 'pallas_prepass' is not ported: the "
+            "prepass backend is forward-only (gradients: ROADMAP §1.6 fused VJP)"
+        )
+    rp = make_pallas_image_render_aa(spec, cfg, width, height, device=device)
+    return _prepass_render(rp)
+
+
+@functools.lru_cache(maxsize=None)
+def _prepass_render(rp):
+    def render(arrays: TapeArrays, camera):
+        return rp(arrays, cam_vec(camera, 0.0, device=rp.device))
+
+    render.renderer = rp
+    return render
