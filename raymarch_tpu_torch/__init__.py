@@ -1,18 +1,21 @@
 """raymarch_tpu_torch: the PyTorch/CUDA port of raymarch_tpu.
 
-Sphere-traced rendering of a runtime-editable CSG scene compiled to a flat
-tape, on an NVIDIA GPU: the scene DSL and tape compiler (numpy, copied from
-`raymarch_tpu`), and the cone-prepass forward renderer whose two kernels are
-CUDA C++ (`csrc/`, built with nvcc at first use). On the CPU the kernels'
-plain torch versions run instead. This package imports neither jax nor
+Sphere-traced, differentiable rendering of a runtime-editable CSG scene
+compiled to a flat tape, on an NVIDIA GPU: the scene DSL and tape compiler
+(numpy, copied from `raymarch_tpu`), the cone-prepass forward renderer, the
+fused forward+backward renderer and the scene fit, whose kernels are CUDA
+C++ (`csrc/`, built with nvcc at first use). On the CPU the kernels' plain
+torch versions run instead. This package imports neither jax nor
 `raymarch_tpu`.
 """
 
 from .config import DEFAULT_CONFIG, RenderConfig
+from .fit import FitResult, fit_scene
 from .models import csg
 from .models.csg import box, capsule, cone, cylinder, plane, sphere, torus
 from .ops.march import make_renderer
 from .ops.tape import TapeArrays, TapeSpec, compile_scene, compile_wire, encode_wire
+from .parallel import make_fit_step
 from .utils.camera import Camera, OrbitCameraController, cam_vec
 
 __version__ = "0.1.0"
@@ -29,6 +32,9 @@ __all__ = [
     "capsule",
     "cone",
     "make_renderer",
+    "make_fit_step",
+    "fit_scene",
+    "FitResult",
     "TapeArrays",
     "TapeSpec",
     "compile_scene",

@@ -2,7 +2,8 @@
 
 The sources under `csrc/` compile into one shared library with a plain C
 interface (no PyTorch headers, so the build takes seconds), at the first CUDA
-launch. The library lands in `build/raymarch_tpu_torch/` beside the package
+launch: one nvcc per source, all started together, then one link. The
+library lands in `build/raymarch_tpu_torch/` beside the package
 (git-ignored); its name carries a hash of the sources and flags, so an edit
 rebuilds and an unchanged tree reuses the library built before.
 """
@@ -14,16 +15,21 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "raymarch_tpu_torch"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-    "-Xptxas", "-v",
-)
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# Flags of single sources. The backward replays the forward's scene
+# evaluations at points where its result is ill-conditioned (taps that
+# straddle a CSG crease, grazing rays near the IFT clamp, with per-ray
+# gradients 100x the typical one): without FMA contraction its f32 ops round
+# as its plain torch version's do, op for op, and the two agree to the
+# rounding of the gradient sums instead of to the placement of FMAs.
+SOURCE_FLAGS = {"fused_bwd.cu": ("-fmad=false",)}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -31,8 +37,15 @@ _SIGNATURES = {
     # leaf_params, row_kind, tape, n_instr, op_param, cam, bound, params,
     # t0_out, status_out, stream
     "rmt_coarse_launch": (_P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P),
-    # ... params, t0_in, status_in, img, stream
-    "rmt_fine_launch": (_P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P),
+    # ... params, t0_in, status_in, img, t_out, hit_out, stream
+    "rmt_fine_launch": (_P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P),
+    # leaf_params, row_kind, tape, n_instr, op_param, push_slot, cam, params,
+    # grad_denom_clamp, t, hit, g_img, nscal, op_base, cam_base, partials,
+    # max_blocks, out, stream
+    "rmt_fused_bwd_launch": (
+        _P, _P, _P, _I, _P, _P, _P, _P, ctypes.c_float, _P, _P, _P, _I, _I, _I,
+        _P, _I, _P, _P,
+    ),
 }
 
 _lib = None
@@ -64,10 +77,38 @@ def _sources() -> list[Path]:
 
 def _digest() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h.update(repr(sorted(SOURCE_FLAGS.items())).encode())
     for src in _sources():
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]
+
+
+def _compile(lib_path: Path) -> str:
+    """nvcc every csrc/*.cu to an object in parallel, link them into
+    `lib_path`; returns the compilers' report (ptxas -v)."""
+    nvcc = find_nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        procs = []
+        for src in sorted(CSRC.glob("*.cu")):
+            obj = Path(tmp) / f"{src.stem}.o"
+            cmd = [nvcc, *NVCC_FLAGS, *SOURCE_FLAGS.get(src.name, ()), "-c", str(src), "-o", str(obj)]
+            procs.append((src, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        report = []
+        for src, _, proc in procs:
+            out, _ = proc.communicate()
+            report.append(out)
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {src.name} ({proc.returncode}):\n{out}")
+        out_tmp = Path(tmp) / lib_path.name
+        link = [nvcc, *ARCH, "-shared", "-o", str(out_tmp), *(str(o) for _, o, _ in procs)]
+        proc = subprocess.run(link, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}")
+        os.replace(out_tmp, lib_path)
+    return "".join(report)
 
 
 def load() -> ctypes.CDLL:
@@ -77,20 +118,10 @@ def load() -> ctypes.CDLL:
         return _lib
     lib_path = BUILD_DIR / f"librmt_kernels_{_digest()}.so"
     if not lib_path.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [
-            find_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-            *(str(s) for s in sorted(CSRC.glob("*.cu"))),
-        ]
         t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        report = _compile(lib_path)
         stats["seconds"] += time.perf_counter() - t0
-        report = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{report}")
         lib_path.with_suffix(".log").write_text(report)
-        os.replace(tmp, lib_path)
         stats["builds"] += 1
     log = lib_path.with_suffix(".log")
     stats["ptxas"] = log.read_text() if log.exists() else ""

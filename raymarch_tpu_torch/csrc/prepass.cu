@@ -7,11 +7,14 @@
 // d < min_dist + omega*t, stepped by (d - omega*t)/(1+omega), clipped by the
 // scene's bounding sphere (_cone_march_tile 130, _bound_clip 107).
 //
-// fine_kernel replaces fine_packed_kernel (1521) in its plain forward form
-// (no residual planes, no soft mode, no march_only): every AA ray sphere-
+// fine_kernel replaces fine_packed_kernel (1521) in its hard forward form
+// (no soft mode, no march_only): every AA ray sphere-
 // traces from its pixel's t0 (_fine_march_tile 477, relax == 1), hit rays
 // take 4-tap tetrahedron normals (pallas_march._tet_taps 1049), Lambert
 // shading, the analytic checker floor on a miss, sqrt gamma, and the AA mean.
+// Given residual pointers it also writes each AA ray's march end t and hit
+// flag (emit_th=True, 1850-1862), which the fused backward replays; the
+// image does not depend on whether they are written.
 //
 // What bounds them on an H100: neither reads or writes much memory (the
 // fine kernel writes 12 bytes per pixel, the coarse kernel 8), so both are
@@ -34,68 +37,10 @@
 
 #include <cuda_runtime.h>
 
+#include "render_common.cuh"
 #include "scene_eval.cuh"
 
 namespace rmt {
-
-// Host constants of one renderer; the layout is mirrored by
-// raymarch_tpu_torch/ops/cuda_prepass.py:_CParams (ctypes), field by field.
-struct RenderParams {
-  int32_t width;       // image width in pixels
-  int32_t height;      // full image height (screen y scale)
-  int32_t rows;        // rows rendered: the band starts at cam[7]
-  int32_t naa;         // AA samples per axis; S = naa * naa per pixel
-  int32_t max_iter;    // march step budget
-  int32_t use_bound;   // cfg.bound_accel
-  int32_t no_prepass;  // fine pass: t0 = 0, every ray live
-  float min_dist;
-  float max_dist;
-  float omega;       // cone half-angle bound (cone_omega, block 1)
-  float inv1w;       // f32(1 / (1 + omega))
-  float tan_aspect;  // f32(tan(fovy/2) * W/H)
-  float tanf;        // f32(tan(fovy/2))
-  float c2w;         // f32(2 / width)
-  float c2h;         // f32(2 / height)
-  float eps;         // normal tap offset
-  float light[3];
-  float albedo[3];
-  float floor_base[3];
-  float floor_y;
-  float floor_checker;
-  float ambient;
-  float inv_s;  // f32(1 / S)
-};
-
-struct Ray {
-  float ox, oy, oz, dx, dy, dz;
-};
-
-// Screen point (x, y) -> world ray from the camera (pallas_prepass.py
-// _view_dirs, 696-711). cam = (pos3, quat wxyz, row_offset).
-__device__ __forceinline__ Ray view_ray(const float* __restrict__ cam,
-                                        const RenderParams& p, float x,
-                                        float y) {
-  float vx = x * p.tan_aspect;
-  float vy = y * p.tanf;
-  float vz = -1.0f;
-  const float inv_norm = 1.0f / sqrtf(vx * vx + vy * vy + vz * vz);
-  vx = vx * inv_norm;
-  vy = vy * inv_norm;
-  vz = vz * inv_norm;
-  const float qw = __ldg(cam + 3), qx = __ldg(cam + 4), qy = __ldg(cam + 5),
-              qz = __ldg(cam + 6);
-  const float tx = 2.0f * (qy * vz - qz * vy);
-  const float ty = 2.0f * (qz * vx - qx * vz);
-  const float tz = 2.0f * (qx * vy - qy * vx);
-  Ray r;
-  r.dx = vx + qw * tx + (qy * tz - qz * ty);
-  r.dy = vy + qw * ty + (qz * tx - qx * tz);
-  r.dz = vz + qw * tz + (qx * ty - qy * tx);
-  r.ox = __ldg(cam + 0);
-  r.oy = __ldg(cam + 1);
-  r.oz = __ldg(cam + 2);
-  return r;
-}
 
 // Scene bounding-sphere clip (_bound_clip, 107-127). bound = (c3, R, valid).
 // Updates live / t0 / t_cap only when the bound is valid.
@@ -158,12 +103,15 @@ __global__ void coarse_kernel(SceneView sc, const float* __restrict__ cam,
 
 // One thread per AA ray. Lane q of a row is (pixel j, sample s) with
 // q = j * S + s, so a pixel's S samples sit in S adjacent lanes of one warp
-// (S divides 32; the wrapper checks). Writes the image f32[rows, width, 3].
+// (S divides 32; the wrapper checks). Writes the image f32[rows, width, 3]
+// and, when t_out is not null, the residuals t and hit f32[rows, width, S].
 __global__ void fine_kernel(SceneView sc, const float* __restrict__ cam,
                             const float* __restrict__ bound, RenderParams p,
                             const float* __restrict__ t0_in,
                             const float* __restrict__ status_in,
-                            float* __restrict__ img) {
+                            float* __restrict__ img,
+                            float* __restrict__ t_out,
+                            float* __restrict__ hit_out) {
   const int S = p.naa * p.naa;
   const int q = blockIdx.x * blockDim.x + threadIdx.x;
   const int i = blockIdx.y;
@@ -212,6 +160,11 @@ __global__ void fine_kernel(SceneView sc, const float* __restrict__ cam,
       } else {
         t = t + d;
       }
+    }
+    if (t_out != nullptr) {
+      const size_t ri = ((size_t)i * p.width + j) * S + s;
+      t_out[ri] = t;
+      hit_out[ri] = hit;
     }
 
     // A miss takes diff = 0 and the default albedo (shade_miss, 1683-1694).
@@ -277,27 +230,12 @@ __global__ void fine_kernel(SceneView sc, const float* __restrict__ cam,
 constexpr int COARSE_THREADS = 128;
 constexpr int FINE_THREADS = 128;
 
-SceneView make_scene(const float* leaf_params, const int* row_kind,
-                     const int* tape, int n_instr, const float* op_param,
-                     float max_dist) {
-  // tape = i32[3, n_instr]: opcodes, leaf rows, stack slots.
-  SceneView sc;
-  sc.leaf_params = leaf_params;
-  sc.row_kind = row_kind;
-  sc.tape_ops = tape;
-  sc.tape_arg = tape + n_instr;
-  sc.out_slot = tape + 2 * n_instr;
-  sc.op_param = op_param;
-  sc.n_instr = n_instr;
-  sc.max_dist = max_dist;
-  return sc;
-}
-
 }  // namespace rmt
 
 extern "C" {
 
-// Both launchers return the cudaError_t of the launch (0 = success).
+// Both launchers return the cudaError_t of the launch (0 = success). t_out
+// and hit_out may be null (no residuals).
 int rmt_coarse_launch(const float* leaf_params, const int* row_kind,
                       const int* tape, int n_instr, const float* op_param,
                       const float* cam, const float* bound,
@@ -318,7 +256,8 @@ int rmt_fine_launch(const float* leaf_params, const int* row_kind,
                     const int* tape, int n_instr, const float* op_param,
                     const float* cam, const float* bound,
                     const rmt::RenderParams* params, const float* t0_in,
-                    const float* status_in, float* img, void* stream) {
+                    const float* status_in, float* img, float* t_out,
+                    float* hit_out, void* stream) {
   const rmt::RenderParams p = *params;
   const rmt::SceneView sc = rmt::make_scene(leaf_params, row_kind, tape,
                                             n_instr, op_param, p.max_dist);
@@ -327,7 +266,7 @@ int rmt_fine_launch(const float* leaf_params, const int* row_kind,
   const dim3 grid((unsigned)((lanes + rmt::FINE_THREADS - 1) / rmt::FINE_THREADS),
                   p.rows);
   rmt::fine_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
-      sc, cam, bound, p, t0_in, status_in, img);
+      sc, cam, bound, p, t0_in, status_in, img, t_out, hit_out);
   return (int)cudaGetLastError();
 }
 

@@ -1,0 +1,584 @@
+// Reverse mode through the scene distance of scene_eval.cuh and through
+// one ray's shading, written by hand: CUDA has no jax.grad inside a kernel.
+//
+// Replaces what `jax.grad` derives inside raymarch_tpu/ops/pallas_grad.py:
+// bwd_kernel (1432) from _leaf_distance_tile (pallas_march.py:63-133) and
+// the static combine tape (sdf._apply_static_tape, _combine_static and
+// smooth_min, sdf.py:47-56). The closed forms are those of
+// raymarch_tpu/ops/oracle_grad.py (71-290), here in the f32 op order of
+// the forward.
+//
+// scene_adjoint(p, seed) replays the tape forward once, keeping each
+// combine instruction's inputs in a per-thread record (the forward
+// interpreter keeps only its value stack), then walks the tape backwards
+// with a cotangent stack: every leaf adds seed * dF/dparam to its 16-word
+// bank row, every round/onion/smooth op adds seed * dF/dk to its op word,
+// and the function returns seed * dF/dp.
+//
+// Ties follow JAX: a max/min whose two inputs are equal splits the
+// cotangent in half, and |x| has derivative 0 at 0. Ties are measure-zero;
+// box edges and the cone's branches reach them, and the tolerance of the
+// gradient checks covers them.
+#pragma once
+
+#include <cuda_runtime.h>
+
+#include "render_common.cuh"
+#include "scene_eval.cuh"
+
+namespace rmt {
+
+// Largest tape the backward takes: each thread keeps two floats per
+// instruction. The Python wrapper raises, with the count, above it.
+constexpr int MAX_BWD_INSTR = 64;
+
+struct V3 {
+  float x, y, z;
+};
+
+__device__ __forceinline__ V3 v3(float x, float y, float z) {
+  V3 r;
+  r.x = x;
+  r.y = y;
+  r.z = z;
+  return r;
+}
+__device__ __forceinline__ V3 add(V3 a, V3 b) {
+  return v3(a.x + b.x, a.y + b.y, a.z + b.z);
+}
+__device__ __forceinline__ V3 scale(V3 a, float s) {
+  return v3(a.x * s, a.y * s, a.z * s);
+}
+__device__ __forceinline__ float dot(V3 a, V3 b) {
+  return a.x * b.x + a.y * b.y + a.z * b.z;
+}
+__device__ __forceinline__ V3 cross(V3 a, V3 b) {
+  return v3(a.y * b.z - a.z * b.y, a.z * b.x - a.x * b.z,
+            a.x * b.y - a.y * b.x);
+}
+
+__device__ __forceinline__ float sgn(float x) {
+  return x > 0.0f ? 1.0f : (x < 0.0f ? -1.0f : 0.0f);
+}
+
+// Cotangents of max(a, b) and min(a, b) for the output cotangent g.
+__device__ __forceinline__ void max_adj(float a, float b, float g, float& ga,
+                                        float& gb) {
+  if (a > b) {
+    ga = g;
+    gb = 0.0f;
+  } else if (a < b) {
+    ga = 0.0f;
+    gb = g;
+  } else {
+    ga = 0.5f * g;
+    gb = 0.5f * g;
+  }
+}
+__device__ __forceinline__ void min_adj(float a, float b, float g, float& ga,
+                                        float& gb) {
+  max_adj(-a, -b, g, ga, gb);
+}
+
+// Adjoint of the rotation v' = v + w T + u x T with T = 2 u x v (the
+// quaternion (w, u) applied to v): the cotangent g of v' gives those of v,
+// w and u.
+__device__ __forceinline__ void qrot_adj(float w, V3 u, V3 v, V3 g, V3& gv,
+                                         float& gw, V3& gu) {
+  const V3 T = scale(cross(u, v), 2.0f);
+  gw = dot(T, g);
+  const V3 gT = add(scale(g, w), cross(g, u));
+  gu = add(cross(T, g), scale(cross(v, gT), 2.0f));
+  gv = add(g, scale(cross(gT, u), 2.0f));
+}
+
+// d/da, d/db, d/dk of smooth_min(a, b, k) (scene_eval.cuh) times g.
+__device__ __forceinline__ void smooth_min_adj(float a, float b, float k,
+                                               float g, float& ga, float& gb,
+                                               float& gk) {
+  const float kc = fmaxf(k, 1e-8f);
+  const float e = a - b;
+  const float m = fmaxf(kc - fabsf(e), 0.0f);
+  const float h = m / kc;
+  // r = min(a, b) - h * h * kc / 4
+  const float gh = -0.5f * g * h * kc;
+  float gkc = -0.25f * g * h * h;
+  const float gm = gh / kc;
+  gkc -= gh * h / kc;
+  float gdiff, unused;
+  max_adj(kc - fabsf(e), 0.0f, gm, gdiff, unused);
+  gkc += gdiff;
+  const float ge = -gdiff * sgn(e);
+  float gma, gmb;
+  min_adj(a, b, g, gma, gmb);
+  ga = gma + ge;
+  gb = gmb - ge;
+  float gk_, unused2;
+  max_adj(k, 1e-8f, gkc, gk_, unused2);
+  gk = gk_;
+}
+
+// Reverse mode of leaf_distance for the leaf bank row P at point p: adds
+// g * dd/dP[c] to acc(base + c) when ACC, and returns g * dd/dp.
+template <bool ACC, class Acc>
+__device__ __forceinline__ V3 leaf_adjoint(const float* __restrict__ P,
+                                           int kind, V3 p, float g, int base,
+                                           Acc& acc) {
+  const int type = kind & (ROTATED_BIT - 1);
+  if (type == LEAF_PLANE) {
+    if (ACC) {
+      acc(base + 7, g * p.x);
+      acc(base + 8, g * p.y);
+      acc(base + 9, g * p.z);
+      acc(base + 10, g);
+    }
+    return v3(g * __ldg(P + 7), g * __ldg(P + 8), g * __ldg(P + 9));
+  }
+  const V3 v = v3(p.x - __ldg(P + 4), p.y - __ldg(P + 5), p.z - __ldg(P + 6));
+  const bool rotated = (kind & ROTATED_BIT) != 0;
+  const float qw = __ldg(P + 0);
+  const V3 u = v3(-__ldg(P + 1), -__ldg(P + 2), -__ldg(P + 3));
+  float x = v.x, y = v.y, z = v.z;
+  if (rotated) {
+    // The forward's op order (scene_eval.cuh leaf_distance).
+    const float tx = 2.0f * (u.y * z - u.z * y);
+    const float ty = 2.0f * (u.z * x - u.x * z);
+    const float tz = 2.0f * (u.x * y - u.y * x);
+    const float x2 = x + qw * tx + (u.y * tz - u.z * ty);
+    const float y2 = y + qw * ty + (u.z * tx - u.x * tz);
+    const float z2 = z + qw * tz + (u.x * ty - u.y * tx);
+    x = x2;
+    y = y2;
+    z = z2;
+  }
+  float gx = 0.0f, gy = 0.0f, gz = 0.0f;  // cotangent of the local point
+  float g7 = 0.0f, g8 = 0.0f, g9 = 0.0f;  // of the shape words
+  switch (type) {
+    case LEAF_SPHERE: {
+      const float L = sqrtf(x * x + y * y + z * z + 1e-20f);
+      const float a = g / L;
+      gx = a * x;
+      gy = a * y;
+      gz = a * z;
+      g7 = -g;
+      break;
+    }
+    case LEAF_BOX: {
+      const float qx = fabsf(x) - __ldg(P + 7);
+      const float qy = fabsf(y) - __ldg(P + 8);
+      const float qz = fabsf(z) - __ldg(P + 9);
+      const float ox = fmaxf(qx, 0.0f);
+      const float oy = fmaxf(qy, 0.0f);
+      const float oz = fmaxf(qz, 0.0f);
+      const float O = sqrtf(ox * ox + oy * oy + oz * oz + 1e-20f);
+      const float go = g / O;
+      float gqx = go * ox, gqy = go * oy, gqz = go * oz;
+      const float myz = fmaxf(qy, qz);
+      const float m = fmaxf(qx, myz);
+      float gm, g0, gqx2, gmyz, gqy2, gqz2;
+      min_adj(m, 0.0f, g, gm, g0);
+      max_adj(qx, myz, gm, gqx2, gmyz);
+      max_adj(qy, qz, gmyz, gqy2, gqz2);
+      gqx += gqx2;
+      gqy += gqy2;
+      gqz += gqz2;
+      gx = gqx * sgn(x);
+      gy = gqy * sgn(y);
+      gz = gqz * sgn(z);
+      g7 = -gqx;
+      g8 = -gqy;
+      g9 = -gqz;
+      break;
+    }
+    case LEAF_TORUS: {
+      const float A = sqrtf(x * x + z * z + 1e-20f);
+      const float ring = A - __ldg(P + 7);
+      const float B = sqrtf(ring * ring + y * y + 1e-20f);
+      const float gring = g * ring / B;
+      gy = g * y / B;
+      g8 = -g;
+      g7 = -gring;
+      gx = gring * x / A;
+      gz = gring * z / A;
+      break;
+    }
+    case LEAF_CYLINDER: {
+      const float A = sqrtf(x * x + z * z + 1e-20f);
+      const float qx = A - __ldg(P + 7);
+      const float qy = fabsf(y) - __ldg(P + 8);
+      const float ox = fmaxf(qx, 0.0f);
+      const float oy = fmaxf(qy, 0.0f);
+      const float O = sqrtf(ox * ox + oy * oy + 1e-20f);
+      float gqx = g * ox / O, gqy = g * oy / O;
+      const float m = fmaxf(qx, qy);
+      float gm, g0, ga, gb;
+      min_adj(m, 0.0f, g, gm, g0);
+      max_adj(qx, qy, gm, ga, gb);
+      gqx += ga;
+      gqy += gb;
+      g7 = -gqx;
+      gx = gqx * x / A;
+      gz = gqx * z / A;
+      g8 = -gqy;
+      gy = gqy * sgn(y);
+      break;
+    }
+    case LEAF_CAPSULE: {
+      const float h = __ldg(P + 8);
+      const float mx = fmaxf(y, -h);
+      const float cl = fminf(mx, h);
+      const float yy = y - cl;
+      const float L = sqrtf(x * x + yy * yy + z * z + 1e-20f);
+      const float a = g / L;
+      g7 = -g;
+      gx = a * x;
+      gz = a * z;
+      const float gyy = a * yy;
+      float gmx, gh1, gy2, gnh;
+      min_adj(mx, h, -gyy, gmx, gh1);
+      max_adj(y, -h, gmx, gy2, gnh);
+      gy = gyy + gy2;
+      g8 = gh1 - gnh;
+      break;
+    }
+    case LEAF_CONE: {
+      const float h = __ldg(P + 7);
+      const float r1 = __ldg(P + 8);
+      const float r2 = __ldg(P + 9);
+      const float A = sqrtf(x * x + z * z + 1e-20f);
+      const float k2x = r2 - r1;
+      const float k2y = 2.0f * h;
+      const float sel = y < 0.0f ? r1 : r2;
+      const float mn = fminf(A, sel);
+      const float cax = A - mn;
+      const float cay = fabsf(y) - h;
+      const float S2 = k2x * k2x + k2y * k2y;
+      const float denom = fmaxf(S2, 1e-20f);
+      const float num = (r2 - A) * k2x + (h - y) * k2y;
+      const float traw = num / denom;
+      const float tmx = fmaxf(traw, 0.0f);
+      const float tt = fminf(tmx, 1.0f);
+      const float cbx = A - r2 + k2x * tt;
+      const float cby = y - h + k2y * tt;
+      const float s = (cbx < 0.0f && cay < 0.0f) ? -1.0f : 1.0f;
+      const float da = cax * cax + cay * cay;
+      const float db = cbx * cbx + cby * cby;
+      const float D = sqrtf(fminf(da, db) + 1e-20f);
+      const float gmm = g * s * 0.5f / D;
+      float gda, gdb;
+      min_adj(da, db, gmm, gda, gdb);
+      const float gcax = 2.0f * cax * gda;
+      const float gcay = 2.0f * cay * gda;
+      const float gcbx = 2.0f * cbx * gdb;
+      const float gcby = 2.0f * cby * gdb;
+      float gA = 0.0f, gr1 = 0.0f, gr2 = 0.0f, gh = 0.0f;
+      float gk2x = 0.0f, gk2y = 0.0f, gtt = 0.0f;
+      // cbx = A - r2 + k2x tt; cby = y - h + k2y tt
+      gA += gcbx;
+      gr2 -= gcbx;
+      gk2x += gcbx * tt;
+      gtt += gcbx * k2x;
+      gy += gcby;
+      gh -= gcby;
+      gk2y += gcby * tt;
+      gtt += gcby * k2y;
+      // tt = min(max(traw, 0), 1)
+      float gtmx, gone, gtraw, gzero;
+      min_adj(tmx, 1.0f, gtt, gtmx, gone);
+      max_adj(traw, 0.0f, gtmx, gtraw, gzero);
+      // traw = num / denom, denom = max(k2x^2 + k2y^2, 1e-20)
+      const float gnum = gtraw / denom;
+      const float gden = -gtraw * traw / denom;
+      float gS2, gfloor;
+      max_adj(S2, 1e-20f, gden, gS2, gfloor);
+      gk2x += 2.0f * k2x * gS2;
+      gk2y += 2.0f * k2y * gS2;
+      // num = (r2 - A) k2x + (h - y) k2y
+      gr2 += gnum * k2x;
+      gA -= gnum * k2x;
+      gk2x += gnum * (r2 - A);
+      gh += gnum * k2y;
+      gy -= gnum * k2y;
+      gk2y += gnum * (h - y);
+      // cay = |y| - h
+      gy += gcay * sgn(y);
+      gh -= gcay;
+      // cax = A - min(A, sel)
+      float gmA, gsel;
+      min_adj(A, sel, -gcax, gmA, gsel);
+      gA += gcax + gmA;
+      if (y < 0.0f) {
+        gr1 += gsel;
+      } else {
+        gr2 += gsel;
+      }
+      // k2x = r2 - r1, k2y = 2 h
+      gr2 += gk2x;
+      gr1 -= gk2x;
+      gh += 2.0f * gk2y;
+      gx = gA * x / A;
+      gz = gA * z / A;
+      g7 = gh;
+      g8 = gr1;
+      g9 = gr2;
+      break;
+    }
+    default:
+      break;
+  }
+  V3 gv = v3(gx, gy, gz);
+  if (rotated) {
+    float gw;
+    V3 gu;
+    qrot_adj(qw, u, v, v3(gx, gy, gz), gv, gw, gu);
+    if (ACC) {
+      acc(base + 0, gw);
+      acc(base + 1, -gu.x);
+      acc(base + 2, -gu.y);
+      acc(base + 3, -gu.z);
+    }
+  }
+  if (ACC) {
+    acc(base + 4, -gv.x);
+    acc(base + 5, -gv.y);
+    acc(base + 6, -gv.z);
+    acc(base + 7, g7);
+    acc(base + 8, g8);
+    acc(base + 9, g9);
+  }
+  return gv;
+}
+
+// The scene distance at p, as scene_distance computes it, keeping each
+// combine instruction's inputs in (ra, rb).
+__device__ __forceinline__ float scene_forward_rec(const SceneView& sc, V3 p,
+                                                   float* ra, float* rb) {
+  float stk[MAX_STACK];
+  for (int i = 0; i < sc.n_instr; ++i) {
+    const int op = __ldg(sc.tape_ops + i);
+    const int s = __ldg(sc.out_slot + i);
+    if (op == COP_PUSH) {
+      const int row = __ldg(sc.tape_arg + i);
+      stk[s] = leaf_distance(sc.leaf_params + row * LEAF_PARAM_WIDTH,
+                             __ldg(sc.row_kind + row), p.x, p.y, p.z);
+      continue;
+    }
+    const float k = __ldg(sc.op_param + i);
+    const float a = stk[s];
+    const bool unary = op == COP_ROUND || op == COP_ONION;
+    const float b = unary ? 0.0f : stk[s + 1];
+    ra[i] = a;
+    rb[i] = b;
+    float r;
+    switch (op) {
+      case COP_ROUND:
+        r = a - k;
+        break;
+      case COP_ONION:
+        r = fabsf(a) - k;
+        break;
+      case COP_UNION:
+        r = fminf(a, b);
+        break;
+      case COP_INTERSECTION:
+        r = fmaxf(a, b);
+        break;
+      case COP_SUBTRACTION:
+        r = fmaxf(a, -b);
+        break;
+      case COP_SMOOTH_UNION:
+        r = smooth_min(a, b, k);
+        break;
+      case COP_SMOOTH_INTERSECTION:
+        r = -smooth_min(-a, -b, k);
+        break;
+      case COP_SMOOTH_SUBTRACTION:
+        r = -smooth_min(-a, b, k);
+        break;
+      default:
+        r = a;
+        break;
+    }
+    stk[s] = r;
+  }
+  return stk[0];
+}
+
+// seed * dF/dp at p; with ACC, also adds seed * dF/dtheta to the leaf rows
+// (slot base push_slot[i] for the PUSH at instruction i) and to the op
+// words (slot op_base + i).
+template <bool ACC, class Acc>
+__device__ V3 scene_adjoint(const SceneView& sc,
+                            const int* __restrict__ push_slot, int op_base,
+                            V3 p, float seed, Acc& acc) {
+  V3 gp = v3(0.0f, 0.0f, 0.0f);
+  if (sc.n_instr == 0) return gp;  // the empty scene is a constant
+  float ra[MAX_BWD_INSTR], rb[MAX_BWD_INSTR];
+  scene_forward_rec(sc, p, ra, rb);
+  float gs[MAX_STACK];
+  gs[0] = seed;
+  for (int i = sc.n_instr - 1; i >= 0; --i) {
+    const int op = __ldg(sc.tape_ops + i);
+    const int s = __ldg(sc.out_slot + i);
+    const float g = gs[s];
+    if (op == COP_PUSH) {
+      const int row = __ldg(sc.tape_arg + i);
+      gp = add(gp, leaf_adjoint<ACC>(sc.leaf_params + row * LEAF_PARAM_WIDTH,
+                                     __ldg(sc.row_kind + row), p, g,
+                                     __ldg(push_slot + i), acc));
+      continue;
+    }
+    const float a = ra[i], b = rb[i];
+    const float k = __ldg(sc.op_param + i);
+    float ga = 0.0f, gb = 0.0f, gk = 0.0f;
+    switch (op) {
+      case COP_ROUND:
+        ga = g;
+        gk = -g;
+        break;
+      case COP_ONION:
+        ga = g * sgn(a);
+        gk = -g;
+        break;
+      case COP_UNION:
+        min_adj(a, b, g, ga, gb);
+        break;
+      case COP_INTERSECTION:
+        max_adj(a, b, g, ga, gb);
+        break;
+      case COP_SUBTRACTION: {
+        float gnb;
+        max_adj(a, -b, g, ga, gnb);
+        gb = -gnb;
+        break;
+      }
+      case COP_SMOOTH_UNION:
+        smooth_min_adj(a, b, k, g, ga, gb, gk);
+        break;
+      case COP_SMOOTH_INTERSECTION: {
+        float gna, gnb;
+        smooth_min_adj(-a, -b, k, -g, gna, gnb, gk);
+        ga = -gna;
+        gb = -gnb;
+        break;
+      }
+      case COP_SMOOTH_SUBTRACTION: {
+        float gna;
+        smooth_min_adj(-a, b, k, -g, gna, gb, gk);
+        ga = -gna;
+        break;
+      }
+      default:
+        ga = g;
+        break;
+    }
+    gs[s] = ga;
+    if (op != COP_ROUND && op != COP_ONION) gs[s + 1] = gb;
+    if (ACC) acc(op_base + i, gk);
+  }
+  return gp;
+}
+
+// The gradient of one hit ray (the per-ray body of fused_bwd_kernel, see
+// fused_bwd.cu): adds its leaf, op and camera words to acc. (i, j, s) are
+// the band row, the pixel column and the AA sample, t the march end, and
+// (gr, gg, gb) the pixel's cotangent over S.
+template <class Acc>
+__device__ void ray_backward(const SceneView& sc,
+                             const int* __restrict__ push_slot,
+                             const float* __restrict__ cam,
+                             const RenderParams& p, float clamp, int op_base,
+                             int cam_base, int i, int j, int s, float t,
+                             float gr, float gg, float gb, Acc& acc) {
+  const int a_ = s / p.naa;
+  const int b_ = s - a_ * p.naa;
+  const float fa = ((float)a_ + 0.5f) / (float)p.naa - 0.5f;
+  const float fb = ((float)b_ + 0.5f) / (float)p.naa - 0.5f;
+  const float x = 2.0f * ((float)j + 0.5f) / (float)p.width - 1.0f + fa * p.c2w;
+  const float y =
+      1.0f - 2.0f * ((float)i + 0.5f + __ldg(cam + 7)) / (float)p.height +
+      fb * p.c2h;
+  // The unrotated view direction, then the ray (view_ray).
+  float vx = x * p.tan_aspect;
+  float vy = y * p.tanf;
+  float vz = -1.0f;
+  const float inv_norm = 1.0f / sqrtf(vx * vx + vy * vy + vz * vz);
+  const V3 vn = v3(vx * inv_norm, vy * inv_norm, vz * inv_norm);
+  const Ray r = view_ray(cam, p, x, y);
+  const V3 d = v3(r.dx, r.dy, r.dz);
+  const V3 pt = v3(r.ox + r.dx * t, r.oy + r.dy * t, r.oz + r.dz * t);
+
+  // --- primal: taps, normal, Lambert ---------------------------------------
+  const float e = p.eps;
+  const V3 k0 = v3(1.0f, -1.0f, -1.0f), k1 = v3(-1.0f, -1.0f, 1.0f),
+           k2 = v3(-1.0f, 1.0f, -1.0f), k3 = v3(1.0f, 1.0f, 1.0f);
+  const V3 taps[4] = {k0, k1, k2, k3};
+  V3 n = v3(0.0f, 0.0f, 0.0f);
+  for (int k = 0; k < 4; ++k) {
+    const float dv = scene_distance(sc, pt.x + taps[k].x * e,
+                                    pt.y + taps[k].y * e, pt.z + taps[k].z * e);
+    n = add(n, scale(taps[k], dv));
+  }
+  const float ninv = 1.0f / sqrtf(n.x * n.x + n.y * n.y + n.z * n.z + 1e-20f);
+  const V3 tl = v3(pt.x - p.light[0], pt.y - p.light[1], pt.z - p.light[2]);
+  const float linv =
+      1.0f / sqrtf(tl.x * tl.x + tl.y * tl.y + tl.z * tl.z + 1e-20f);
+  const float dotv = dot(n, tl);
+  const float sn = ninv * linv;
+  const float diff0 = dotv * sn;
+  const float diff = fmaxf(diff0, p.ambient);
+
+  // --- adjoint of the shading ----------------------------------------------
+  const float gcol[3] = {gr, gg, gb};
+  float gdiff = 0.0f;
+  for (int c = 0; c < 3; ++c) {
+    const float v = p.albedo[c] * diff;
+    const float col = sqrtf(fmaxf(v, 0.0f) + 1e-12f);
+    float gv, unused;
+    max_adj(v, 0.0f, gcol[c] * 0.5f / col, gv, unused);
+    gdiff += gv * p.albedo[c];
+  }
+  float gdiff0, gamb;
+  max_adj(diff0, p.ambient, gdiff, gdiff0, gamb);
+  const float gdot = gdiff0 * sn;
+  const float gsn = gdiff0 * dotv;
+  const float gN2 = -0.5f * ninv * ninv * ninv * (gsn * linv);
+  const float gL2 = -0.5f * linv * linv * linv * (gsn * ninv);
+  const V3 gn = add(scale(tl, gdot), scale(n, 2.0f * gN2));
+  V3 gp = add(scale(n, gdot), scale(tl, 2.0f * gL2));  // through the light
+  for (int k = 0; k < 4; ++k) {
+    const V3 q = v3(pt.x + taps[k].x * e, pt.y + taps[k].y * e,
+                    pt.z + taps[k].z * e);
+    gp = add(gp, scene_adjoint<true>(sc, push_slot, op_base, q,
+                                     dot(taps[k], gn), acc));
+  }
+  const float gt = dot(gp, d);
+  V3 go = gp;
+  V3 gd = scale(gp, t);
+
+  // --- implicit-function term ----------------------------------------------
+  const V3 gradF = scene_adjoint<false>(sc, push_slot, op_base, pt, 1.0f, acc);
+  const float fdot = dot(gradF, d);
+  const float denom =
+      fabsf(fdot) > clamp ? fdot : (fdot >= 0.0f ? clamp : -clamp);
+  const float w = -gt / denom;
+  const V3 gq = scene_adjoint<true>(sc, push_slot, op_base, pt, w, acc);
+  go = add(go, gq);
+  gd = add(gd, scale(gq, t));
+
+  // --- camera: o = cam[0:3], d = rotate(cam[3:7], vn) ----------------------
+  const float qw = __ldg(cam + 3);
+  const V3 qu = v3(__ldg(cam + 4), __ldg(cam + 5), __ldg(cam + 6));
+  V3 gvn, gu;
+  float gw;
+  qrot_adj(qw, qu, vn, gd, gvn, gw, gu);
+  acc(cam_base + 0, go.x);
+  acc(cam_base + 1, go.y);
+  acc(cam_base + 2, go.z);
+  acc(cam_base + 3, gw);
+  acc(cam_base + 4, gu.x);
+  acc(cam_base + 5, gu.y);
+  acc(cam_base + 6, gu.z);
+}
+
+}  // namespace rmt

@@ -11,13 +11,15 @@ holds what surrounds it:
   folded by `sdf._apply_static_tape` as the static branch of
   `_make_scene_eval` (685-707) does. It is the plain version of the kernels'
   scene function and is what the CPU path runs.
-- `tet_taps_plain` (`_tet_taps`, 1049) and `compute_bound` (1217), the host
-  scene bounding sphere behind `cfg.bound_accel`.
+- `tet_taps_plain` (`_tet_taps`, 1049) and `compute_bound` /
+  `compute_bound_torch` (1217), the scene bounding sphere behind
+  `cfg.bound_accel`, computed in torch on the parameters' device.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -87,24 +89,62 @@ def scene_topology(spec: TapeSpec, device) -> tuple[torch.Tensor, torch.Tensor]:
     )
 
 
+def _device_array(name: str, x, device) -> torch.Tensor:
+    """`x` as an f32 tensor on `device`: a numpy array (or list) is uploaded;
+    a tensor must already lie on `device` and is used detached, with no
+    host round trip."""
+    if torch.is_tensor(x):
+        if x.device != device:
+            raise ValueError(f"{name} is on {x.device}, expected {device}")
+        if x.dtype != torch.float32:
+            raise TypeError(f"{name} has dtype {x.dtype}, expected torch.float32")
+        return x.detach().contiguous()
+    return torch.as_tensor(np.asarray(x, np.float32), device=device)
+
+
 def scene_buffers(spec: TapeSpec, arrays: TapeArrays, device, topology=None) -> SceneBuffers:
-    """Upload `arrays` for `spec` to `device`; `topology` reuses the
-    (tape, row_kind) pair of an earlier `scene_topology` call."""
+    """`arrays` for `spec` on `device`; `topology` reuses the (tape,
+    row_kind) pair of an earlier `scene_topology` call. Parameters given as
+    numpy arrays are uploaded; tensors must lie on `device` already."""
+    device = torch.device(device)
     tape, row_kind = topology if topology is not None else scene_topology(spec, device)
-    lp = np.asarray(arrays.leaf_params, np.float32)
-    opp = np.asarray(arrays.op_param, np.float32)
-    if lp.shape != (spec.n_leaves, oc.LEAF_PARAM_WIDTH) or opp.shape != (spec.n_instr,):
+    lp = _device_array("leaf_params", arrays.leaf_params, device)
+    opp = _device_array("op_param", arrays.op_param, device)
+    if tuple(lp.shape) != (spec.n_leaves, oc.LEAF_PARAM_WIDTH) or tuple(opp.shape) != (spec.n_instr,):
         raise ValueError(
-            f"arrays do not fit the spec: leaf_params {lp.shape}, op_param "
-            f"{opp.shape} vs ({spec.n_leaves}, {oc.LEAF_PARAM_WIDTH}), ({spec.n_instr},)"
+            f"arrays do not fit the spec: leaf_params {tuple(lp.shape)}, op_param "
+            f"{tuple(opp.shape)} vs ({spec.n_leaves}, {oc.LEAF_PARAM_WIDTH}), ({spec.n_instr},)"
         )
-    return SceneBuffers(
-        spec=spec,
-        tape=tape,
-        row_kind=row_kind,
-        leaf_params=torch.as_tensor(lp, device=device),
-        op_param=torch.as_tensor(opp, device=device),
-    )
+    return SceneBuffers(spec=spec, tape=tape, row_kind=row_kind, leaf_params=lp, op_param=opp)
+
+
+class _SqrtRN(torch.autograd.Function):
+    """f32 sqrt through f64: rounded to nearest (53 >= 2 * 24 + 2 bits, so
+    the double rounding is exact), with torch's own backward formula."""
+
+    @staticmethod
+    def forward(ctx, x):
+        r = torch.sqrt(x.double()).to(torch.float32)
+        ctx.save_for_backward(r)
+        return r
+
+    @staticmethod
+    def backward(ctx, g):
+        (r,) = ctx.saved_tensors
+        return g / (2.0 * r)
+
+
+def sqrt_rn(x: torch.Tensor) -> torch.Tensor:
+    """f32 square root rounded to nearest on every device, as the kernels'
+    `sqrtf` and numpy's are. torch's CUDA sqrt is; its CPU sqrt is not (it
+    misses on ~0.7% of random inputs), and the backward's replay at taps
+    that straddle a crease turns such bits into percent-level gradient
+    differences."""
+    if x.device.type == "cuda":
+        return torch.sqrt(x)
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _SqrtRN.apply(x)
+    return torch.sqrt(x.double()).to(torch.float32)
 
 
 def _leaf_distance_plain(P, ltype, rotated, px, py, pz):
@@ -124,7 +164,7 @@ def _leaf_distance_plain(P, ltype, rotated, px, py, pz):
             z + qw * tz + (qx * ty - qy * tx),
         )
     if ltype == oc.LEAF_SPHERE:
-        return torch.sqrt(x * x + y * y + z * z + 1e-20) - P[7]
+        return sqrt_rn(x * x + y * y + z * z + 1e-20) - P[7]
     if ltype == oc.LEAF_BOX:
         qx_ = torch.abs(x) - P[7]
         qy_ = torch.abs(y) - P[8]
@@ -132,29 +172,29 @@ def _leaf_distance_plain(P, ltype, rotated, px, py, pz):
         ox = torch.clamp_min(qx_, 0.0)
         oy = torch.clamp_min(qy_, 0.0)
         oz = torch.clamp_min(qz_, 0.0)
-        outside = torch.sqrt(ox * ox + oy * oy + oz * oz + 1e-20)
+        outside = sqrt_rn(ox * ox + oy * oy + oz * oz + 1e-20)
         inside = torch.clamp_max(torch.maximum(qx_, torch.maximum(qy_, qz_)), 0.0)
         return outside + inside
     if ltype == oc.LEAF_PLANE:
         return px * P[7] + py * P[8] + pz * P[9] + P[10]
     if ltype == oc.LEAF_TORUS:
-        ring = torch.sqrt(x * x + z * z + 1e-20) - P[7]
-        return torch.sqrt(ring * ring + y * y + 1e-20) - P[8]
+        ring = sqrt_rn(x * x + z * z + 1e-20) - P[7]
+        return sqrt_rn(ring * ring + y * y + 1e-20) - P[8]
     if ltype == oc.LEAF_CYLINDER:
-        qx = torch.sqrt(x * x + z * z + 1e-20) - P[7]
+        qx = sqrt_rn(x * x + z * z + 1e-20) - P[7]
         qy = torch.abs(y) - P[8]
         ox_ = torch.clamp_min(qx, 0.0)
         oy_ = torch.clamp_min(qy, 0.0)
-        return torch.sqrt(ox_ * ox_ + oy_ * oy_ + 1e-20) + torch.clamp_max(
+        return sqrt_rn(ox_ * ox_ + oy_ * oy_ + 1e-20) + torch.clamp_max(
             torch.maximum(qx, qy), 0.0
         )
     if ltype == oc.LEAF_CAPSULE:
         h = P[8]
         yy = y - torch.minimum(torch.maximum(y, -h), h)
-        return torch.sqrt(x * x + yy * yy + z * z + 1e-20) - P[7]
+        return sqrt_rn(x * x + yy * yy + z * z + 1e-20) - P[7]
     if ltype == oc.LEAF_CONE:
         h, r1, r2 = P[7], P[8], P[9]
-        qx = torch.sqrt(x * x + z * z + 1e-20)
+        qx = sqrt_rn(x * x + z * z + 1e-20)
         k2x = r2 - r1
         k2y = 2.0 * h
         cax = qx - torch.minimum(qx, torch.where(y < 0.0, r1, r2))
@@ -164,7 +204,7 @@ def _leaf_distance_plain(P, ltype, rotated, px, py, pz):
         cbx = qx - r2 + k2x * tt
         cby = y - h + k2y * tt
         s = torch.where((cbx < 0.0) & (cay < 0.0), -1.0, 1.0)
-        return s * torch.sqrt(
+        return s * sqrt_rn(
             torch.minimum(cax * cax + cay * cay, cbx * cbx + cby * cby) + 1e-20
         )
     raise ValueError(f"unknown leaf type {ltype}")
@@ -201,35 +241,96 @@ def tet_taps_plain(scene_fn, px, py, pz, eps: float):
     return nx, ny, nz
 
 
-def compute_bound(spec: TapeSpec, arrays: TapeArrays) -> np.ndarray:
-    """Conservative scene bounding sphere -> f32[8] = (cx,cy,cz,R,valid,0,0,0).
-
-    Host numpy f32 over the leaf banks, recomputed per frame so numeric
-    edits move it. Per-leaf conservative radius: sphere r; box |he|; torus
-    R+r; cylinder |(r, h)|; capsule r+h; cone |(max r, h)|. Smooth/round/onion
-    params can push the surface outward, so the sum of |op_param| is added.
-    Planes are unbounded => valid=0 and the acceleration turns itself off.
-    """
-    f32 = np.float32
+@functools.lru_cache(maxsize=None)
+def _bound_rows(spec: TapeSpec):
+    """(rows, types) of the leaves the bound covers, or None when it is
+    invalid (no leaf, or a plane: unbounded)."""
     pushed = None
     if spec.static_tape is not None:
         pushed = {arg for cop, arg, _ in spec.static_tape if cop == oc.COP_PUSH}
     rows = []
-    has_plane = False
     for t, start, stop in spec.type_slices:
         for r in range(start, stop):
             if pushed is not None and r not in pushed:
                 continue
-            has_plane |= t == oc.LEAF_PLANE
+            if t == oc.LEAF_PLANE:
+                return None
             rows.append((r, t))
-    if not rows or has_plane:
-        return np.zeros(8, f32)
+    if not rows:
+        return None
+    return tuple(r for r, _ in rows), tuple(t for _, t in rows)
 
+
+@functools.lru_cache(maxsize=None)
+def _bound_index(spec: TapeSpec, device: torch.device):
+    """`_bound_rows` as tensors on `device` (rows i64[n], types i32[n, 1]),
+    uploaded once per (spec, device) rather than every frame."""
+    got = _bound_rows(spec)
+    if got is None:
+        return None
+    rows, types = got
+    return (torch.as_tensor(rows, dtype=torch.int64, device=device),
+            torch.as_tensor(types, dtype=torch.int32, device=device)[:, None])
+
+
+def compute_bound_torch(spec: TapeSpec, leaf_params: torch.Tensor, op_param: torch.Tensor) -> torch.Tensor:
+    """Conservative scene bounding sphere -> f32[8] = (cx,cy,cz,R,valid,0,0,0)
+    on the parameters' device, from tensors, with no host synchronisation.
+
+    Recomputed per frame from the current parameters, so numeric edits (and
+    fit steps) move it. Per-leaf conservative radius: sphere r; box |he|;
+    torus R+r; cylinder |(r, h)|; capsule r+h; cone |(max r, h)|.
+    Smooth/round/onion params can push the surface outward, so the sum of
+    |op_param| is added. Planes are unbounded => valid=0 and the
+    acceleration turns itself off. The bound carries no gradient.
+
+    Sums over leaves and instructions run in f64 and round once to f32, and
+    3-vectors add in index order, so the numbers do not depend on a
+    library's reduction order: `compute_bound` computes the same in numpy.
+    """
+    dev = leaf_params.device
+    got = _bound_index(spec, dev)
+    if got is None:
+        return torch.zeros(8, dtype=torch.float32, device=dev)
+    rows, types = got
+    lp = leaf_params.detach()[rows]
+    centers = lp[:, 4:7]
+    p7, p8, p9 = lp[:, 7:8], lp[:, 8:9], lp[:, 9:10]
+    pm = torch.maximum(p8, p9)
+    choices = (
+        (oc.LEAF_BOX, torch.sqrt(p7 * p7 + p8 * p8 + p9 * p9)),
+        (oc.LEAF_TORUS, p7 + p8),
+        (oc.LEAF_CYLINDER, torch.sqrt(p7 * p7 + p8 * p8)),
+        (oc.LEAF_CAPSULE, p7 + p8),
+        (oc.LEAF_CONE, torch.sqrt(pm * pm + p7 * p7)),
+    )
+    radii = p7  # spheres, and the default
+    for t, r in choices:
+        radii = torch.where(types == t, r, radii)
+    n = torch.full((), centers.shape[0], dtype=torch.float64, device=dev)
+    center = (torch.sum(centers.double(), dim=0) / n).float()
+    expand = torch.sum(torch.abs(op_param.detach()).double()).float()
+    dc = centers - center
+    spread = torch.sqrt(dc[:, 0] * dc[:, 0] + dc[:, 1] * dc[:, 1] + dc[:, 2] * dc[:, 2])
+    radius = torch.max(spread + radii[:, 0]) + expand + 0.05
+    one = torch.ones(1, dtype=torch.float32, device=dev)
+    return torch.cat([center, radius[None], one, torch.zeros(3, dtype=torch.float32, device=dev)])
+
+
+def compute_bound(spec: TapeSpec, arrays: TapeArrays) -> np.ndarray:
+    """The bound of `compute_bound_torch` in host numpy f32 -> f32[8]. On CPU
+    tensors the torch form gives these numbers bit for bit (a frame rendered
+    from numpy parameters and one rendered from tensors start their marches
+    at the same t)."""
+    f32 = np.float32
+    got = _bound_rows(spec)
+    if got is None:
+        return np.zeros(8, f32)
+    idx, types = (np.asarray(v) for v in got)
     lp = np.asarray(arrays.leaf_params, f32)
-    idx = np.asarray([r for r, _ in rows])
-    types = np.asarray([t for _, t in rows])
     centers = lp[idx, 4:7]
     p7, p8, p9 = lp[idx, 7], lp[idx, 8], lp[idx, 9]
+    pm = np.maximum(p8, p9)
     radii = np.select(
         [
             types == oc.LEAF_SPHERE,
@@ -241,17 +342,18 @@ def compute_bound(spec: TapeSpec, arrays: TapeArrays) -> np.ndarray:
         ],
         [
             p7,
-            np.sqrt(np.sum(lp[idx, 7:10] ** 2, axis=-1)),
+            np.sqrt(p7 * p7 + p8 * p8 + p9 * p9),
             p7 + p8,
             np.sqrt(p7 * p7 + p8 * p8),
             p7 + p8,
-            np.sqrt(np.maximum(p8, p9) ** 2 + p7 * p7),
+            np.sqrt(pm * pm + p7 * p7),
         ],
         default=p7,
     ).astype(f32)
-    center = centers.mean(axis=0, dtype=f32)
-    expand = np.sum(np.abs(np.asarray(arrays.op_param, f32)), dtype=f32)
-    spread = np.sqrt(np.sum((centers - center) ** 2, axis=-1, dtype=f32))
+    center = (centers.astype(np.float64).sum(axis=0) / len(idx)).astype(f32)
+    expand = f32(np.abs(np.asarray(arrays.op_param, f32)).astype(np.float64).sum())
+    dc = centers - center
+    spread = np.sqrt(dc[:, 0] * dc[:, 0] + dc[:, 1] * dc[:, 1] + dc[:, 2] * dc[:, 2])
     radius = f32(np.max(spread + radii)) + expand + f32(0.05)
     out = np.zeros(8, f32)
     out[0:3] = center

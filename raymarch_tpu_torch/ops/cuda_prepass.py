@@ -35,9 +35,11 @@ from ..config import RenderConfig
 from .cuda_march import (
     SceneBuffers,
     compute_bound,
+    compute_bound_torch,
     scene_buffers,
     scene_plain,
     scene_topology,
+    sqrt_rn,
     tet_taps_plain,
 )
 from .tape import TapeArrays, TapeSpec
@@ -181,7 +183,8 @@ def _view_dirs(x, y, cam, p: PrepassParams):
     vx = x * p.tan_aspect
     vy = y * p.tanf
     vz = torch.full_like(x, -1.0)
-    inv_norm = torch.rsqrt(vx * vx + vy * vy + vz * vz)
+    # 1 / sqrt, as the kernels compute it (torch.rsqrt is approximate on CUDA).
+    inv_norm = 1.0 / sqrt_rn(vx * vx + vy * vy + vz * vz)
     vx = vx * inv_norm
     vy = vy * inv_norm
     vz = vz * inv_norm
@@ -205,7 +208,7 @@ def _bound_clip(bound, ox, oy, oz, dx, dy, dz, live_init, t_init, t_cap, min_dis
     bq = dx * ocx + dy * ocy + dz * ocz
     c2 = ocx * ocx + ocy * ocy + ocz * ocz - br * br
     disc = bq * bq - c2
-    sq = torch.sqrt(torch.clamp_min(disc, 0.0))
+    sq = sqrt_rn(torch.clamp_min(disc, 0.0))
     t_enter = -bq - sq
     t_exit = -bq + sq
     hit_bound = torch.where((disc > 0.0) & (t_exit > 0.0), live_init, 0.0)
@@ -220,13 +223,21 @@ def _origin(cam, like):
     return cam[0].expand_as(like), cam[1].expand_as(like), cam[2].expand_as(like)
 
 
+def div_rn(x: torch.Tensor, d) -> torch.Tensor:
+    """x / d rounded to nearest on every device, as the kernels divide.
+    torch's CUDA division by a Python number multiplies by the number's
+    rounded reciprocal instead, which moves a ray by an ulp (and a replayed
+    hit point off the kernel's); a 0-d tensor divisor takes true division."""
+    return x / torch.full((), d, dtype=x.dtype, device=x.device)
+
+
 def coarse_plain(scene: SceneBuffers, cam, bound, p: PrepassParams):
     """Plain version of the coarse kernel -> (t0, status) f32[rows, W]."""
     dev = cam.device
     i = torch.arange(p.rows, device=dev, dtype=torch.float32)[:, None]
     j = torch.arange(p.width, device=dev, dtype=torch.float32)[None, :]
-    x = 2.0 * (j + 0.5) / p.width - 1.0
-    y = 1.0 - 2.0 * ((i + 0.5) + cam[7]) / p.height
+    x = div_rn(2.0 * (j + 0.5), p.width) - 1.0
+    y = 1.0 - div_rn(2.0 * ((i + 0.5) + cam[7]), p.height)
     x, y = (v.contiguous() for v in torch.broadcast_tensors(x, y))
     dx, dy, dz = _view_dirs(x, y, cam, p)
     ox, oy, oz = _origin(cam, dx)
@@ -255,21 +266,31 @@ def coarse_plain(scene: SceneBuffers, cam, bound, p: PrepassParams):
     return t, near
 
 
-def fine_plain(scene: SceneBuffers, cam, bound, p: PrepassParams, t0=None, status=None):
-    """Plain version of the fine kernel -> image f32[rows, W, 3]."""
+def aa_screen(p: PrepassParams, cam, i0: int = 0, n_rows: int | None = None):
+    """Screen coordinates (x, y) f32[n_rows, W, S] of the AA rays of band
+    rows [i0, i0 + n_rows), lane order pixel-major with the sample fastest
+    (the kernels' q = j*S + s), in the f32 op order of pallas_prepass.py:
+    1553-1562."""
     dev = cam.device
     naa = p.naa
     S = naa * naa
-    i = torch.arange(p.rows, device=dev, dtype=torch.float32)[:, None, None]
+    n_rows = p.rows - i0 if n_rows is None else n_rows
+    i = torch.arange(i0, i0 + n_rows, device=dev, dtype=torch.float32)[:, None, None]
     j = torch.arange(p.width, device=dev, dtype=torch.float32)[None, :, None]
     s = torch.arange(S, device=dev)
     a = s // naa
     b = s - a * naa
-    fa = ((a.to(torch.float32) + 0.5) / naa - 0.5)[None, None, :]
-    fb = ((b.to(torch.float32) + 0.5) / naa - 0.5)[None, None, :]
-    x = 2.0 * (j + 0.5) / p.width - 1.0 + fa * p.c2w
-    y = 1.0 - 2.0 * (i + 0.5 + cam[7]) / p.height + fb * p.c2h
-    x, y = (v.contiguous() for v in torch.broadcast_tensors(x, y))
+    fa = (div_rn(a.to(torch.float32) + 0.5, naa) - 0.5)[None, None, :]
+    fb = (div_rn(b.to(torch.float32) + 0.5, naa) - 0.5)[None, None, :]
+    x = div_rn(2.0 * (j + 0.5), p.width) - 1.0 + fa * p.c2w
+    y = 1.0 - div_rn(2.0 * (i + 0.5 + cam[7]), p.height) + fb * p.c2h
+    return tuple(v.contiguous() for v in torch.broadcast_tensors(x, y))
+
+
+def fine_res_plain(scene: SceneBuffers, cam, bound, p: PrepassParams, t0=None, status=None):
+    """Plain version of the fine kernel with residuals -> (image f32[rows,
+    W, 3], t, hit f32[rows, W, S]): each AA ray's march end and hit flag."""
+    x, y = aa_screen(p, cam)
     dx, dy, dz = _view_dirs(x, y, cam, p)
     ox, oy, oz = _origin(cam, dx)
 
@@ -297,7 +318,16 @@ def fine_plain(scene: SceneBuffers, cam, bound, p: PrepassParams, t0=None, statu
         t = t + d * advance
         live = live - hit_now - escaped
         hit = hit + hit_now
+    cols = shade_plain(scene, p, ox, oy, oz, dx, dy, dz, t, hit)
+    img = torch.stack([torch.sum(c, dim=-1) * p.inv_s for c in cols], dim=-1)
+    return img, t, hit
 
+
+def shade_plain(scene: SceneBuffers, p: PrepassParams, ox, oy, oz, dx, dy, dz, t, hit):
+    """Per-ray gamma-corrected colour (r, g, b) of the fine pass at the
+    march result (t, hit): tetrahedron normal, Lambert against the point
+    light, the checker floor on a miss (pallas_grad.py:1600-1651 is the same
+    chain). Differentiable in the scene, the ray and t."""
     px = ox + dx * t * hit
     py = oy + dy * t * hit
     pz = oz + dz * t * hit
@@ -305,11 +335,11 @@ def fine_plain(scene: SceneBuffers, cam, bound, p: PrepassParams, t0=None, statu
         lambda qx, qy, qz: scene_plain(scene, p.max_dist, qx, qy, qz),
         px, py, pz, p.eps,
     )
-    ninv = torch.rsqrt(nx * nx + ny * ny + nz * nz + 1e-20)
+    ninv = 1.0 / sqrt_rn(nx * nx + ny * ny + nz * nz + 1e-20)
     tlx = px - p.light[0]
     tly = py - p.light[1]
     tlz = pz - p.light[2]
-    linv = torch.rsqrt(tlx * tlx + tly * tly + tlz * tlz + 1e-20)
+    linv = 1.0 / sqrt_rn(tlx * tlx + tly * tly + tlz * tlz + 1e-20)
     diff = (nx * tlx + ny * tly + nz * tlz) * (ninv * linv)
     diff = torch.clamp_min(diff, p.ambient)
     # A miss takes diff = 0 (shade_miss): select, never multiply by hit = 0.
@@ -325,14 +355,18 @@ def fine_plain(scene: SceneBuffers, cam, bound, p: PrepassParams, t0=None, statu
     parity = torch.bitwise_and(torch.bitwise_xor(ipx, ipz), 1).to(torch.float32)
     on_floor = torch.where(ft > 0.0, dy_ok, 0.0)
     miss = 1.0 - hit
-    out = []
+    cols = []
     for c in range(3):
         fcol = (p.floor_base[c] + p.floor_checker * parity) * on_floor
-        col = torch.sqrt(
-            torch.clamp_min(hit * (p.albedo[c] * diff) + miss * fcol, 0.0) + 1e-12
+        cols.append(
+            sqrt_rn(torch.clamp_min(hit * (p.albedo[c] * diff) + miss * fcol, 0.0) + 1e-12)
         )
-        out.append(torch.sum(col, dim=-1) * p.inv_s)
-    return torch.stack(out, dim=-1)
+    return cols
+
+
+def fine_plain(scene: SceneBuffers, cam, bound, p: PrepassParams, t0=None, status=None):
+    """Plain version of the fine kernel -> image f32[rows, W, 3]."""
+    return fine_res_plain(scene, cam, bound, p, t0, status)[0]
 
 
 # --------------------------------------------------------------------------
@@ -415,19 +449,22 @@ def coarse(scene: SceneBuffers, cam, bound, p: PrepassParams):
 coarse.launches = 0
 
 
-def fine(scene: SceneBuffers, cam, bound, p: PrepassParams, t0=None, status=None):
-    """Fine pass -> image f32[rows, W, 3] on the inputs' device. `t0` and
-    `status` are the coarse planes (None with `p.no_prepass`)."""
+def _fine_launch(scene: SceneBuffers, cam, bound, p: PrepassParams, t0, status, residuals: bool):
     dev = _check_scene(scene, cam, bound, p)
     if not p.no_prepass:
         _check("t0", t0, torch.float32, (p.rows, p.width), dev)
         _check("status", status, torch.float32, (p.rows, p.width), dev)
     if dev.type == "cpu":
-        return fine_plain(scene, cam, bound, p, t0, status)
+        out = fine_res_plain(scene, cam, bound, p, t0, status)
+        return out if residuals else out[0]
     from .. import _build
 
     lib = _build.load()
     img = torch.empty((p.rows, p.width, 3), dtype=torch.float32, device=dev)
+    t = hit = None
+    if residuals:
+        t = torch.empty((p.rows, p.width, p.naa * p.naa), dtype=torch.float32, device=dev)
+        hit = torch.empty_like(t)
     cp = _CParams.of(p)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -436,19 +473,42 @@ def fine(scene: SceneBuffers, cam, bound, p: PrepassParams, t0=None, status=None
             ctypes.addressof(cp),
             None if p.no_prepass else t0.data_ptr(),
             None if p.no_prepass else status.data_ptr(),
-            img.data_ptr(), stream,
+            img.data_ptr(),
+            t.data_ptr() if residuals else None,
+            hit.data_ptr() if residuals else None,
+            stream,
         )
     _raise_on(err, "fine_kernel")
+    if residuals:
+        fine_res.launches += 1
+        return img, t, hit
     fine.launches += 1
     return img
 
 
+def fine(scene: SceneBuffers, cam, bound, p: PrepassParams, t0=None, status=None):
+    """Fine pass -> image f32[rows, W, 3] on the inputs' device. `t0` and
+    `status` are the coarse planes (None with `p.no_prepass`)."""
+    return _fine_launch(scene, cam, bound, p, t0, status, residuals=False)
+
+
+def fine_res(scene: SceneBuffers, cam, bound, p: PrepassParams, t0=None, status=None):
+    """Fine pass that also keeps its residuals -> (image f32[rows, W, 3], t,
+    hit f32[rows, W, S]), the counterpart of the Pallas fine kernel with
+    `emit_th=True` (pallas_prepass.py:1850-1862). The image is the one
+    `fine` gives; t and hit are each AA ray's march end and hit flag, in
+    the lane order of the kernel (pixel-major, sample fastest)."""
+    return _fine_launch(scene, cam, bound, p, t0, status, residuals=True)
+
+
 fine.launches = 0
+fine_res.launches = 0
 
 
 def reset_launch_counts():
     coarse.launches = 0
     fine.launches = 0
+    fine_res.launches = 0
 
 
 # --------------------------------------------------------------------------
@@ -471,17 +531,24 @@ class PrepassRenderer:
         self.topology = scene_topology(spec, device)
 
     def scene_args(self, arrays: TapeArrays, cam_vec):
-        """(SceneBuffers, cam f32[8], bound f32[8]) for one frame."""
+        """(SceneBuffers, cam f32[8], bound f32[8]) for one frame, all on
+        this renderer's device. Parameters and camera given as tensors must
+        lie there already and are used detached. The bound comes from the
+        current parameters: tensors get it computed on the device, with no
+        host round trip; numpy parameters get the numpy form (the same
+        bits) and one small upload, which costs the host less than the
+        torch form's launches."""
         scene = scene_buffers(self.spec, arrays, self.device, self.topology)
-        bound = (
-            compute_bound(self.spec, arrays)
-            if self.params.use_bound
-            else np.zeros(8, np.float32)
-        )
-        cam = torch.as_tensor(cam_vec, dtype=torch.float32)
+        if not self.params.use_bound:
+            bound = torch.zeros(8, dtype=torch.float32, device=self.device)
+        elif torch.is_tensor(arrays.leaf_params) or torch.is_tensor(arrays.op_param):
+            bound = compute_bound_torch(self.spec, scene.leaf_params, scene.op_param)
+        else:
+            bound = torch.as_tensor(compute_bound(self.spec, arrays), device=self.device)
+        cam = torch.as_tensor(cam_vec, dtype=torch.float32).detach()
         if cam.device != self.device:
             raise ValueError(f"cam_vec is on {cam.device}, expected {self.device}")
-        return scene, cam, torch.as_tensor(bound, device=self.device)
+        return scene, cam, bound
 
     def coarse(self, arrays, cam_vec):
         scene, cam, bound = self.scene_args(arrays, cam_vec)

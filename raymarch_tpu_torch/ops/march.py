@@ -1,8 +1,9 @@
 """Renderer entry point: `make_renderer`, as in `raymarch_tpu.ops.march`.
 
-Only the forward cone-prepass backend is ported so far
-(`backend="pallas_prepass"`, `mode="forward"`, march.py:439-461 of the JAX
-package); the other backend strings and modes raise NotImplementedError
+Ported so far: the forward cone-prepass backend (`backend="pallas_prepass"`,
+`mode="forward"`, march.py:439-461 of the JAX package) and the fused
+forward+backward backend (`backend="pallas_fused"`, `mode="implicit"`,
+462-487); the other backend strings and modes raise NotImplementedError
 naming their ROADMAP item.
 """
 
@@ -12,6 +13,7 @@ import functools
 
 from ..config import DEFAULT_CONFIG, RenderConfig
 from ..utils.camera import cam_vec
+from .cuda_grad import make_fused_render_vjp
 from .cuda_prepass import make_pallas_image_render_aa
 from .tape import TapeArrays, TapeSpec
 
@@ -20,7 +22,6 @@ _NOT_PORTED = {
     "pallas": "§1.13 remaining surfaces, K5",
     "pallas_image": "§1.13 remaining surfaces, K6",
     "pallas_full": "§1.13 remaining surfaces, K7",
-    "pallas_fused": "§1.6 fused VJP",
 }
 
 
@@ -42,6 +43,18 @@ def make_renderer(
     a numeric scene edit that keeps the TapeSpec gets the same renderer back
     and rebuilds nothing.
     """
+    if backend == "pallas_fused":
+        # Fused forward + backward: differentiable with respect to
+        # arrays.leaf_params, arrays.op_param and the camera (tensors).
+        if mode == "soft":
+            raise NotImplementedError(
+                "mode 'soft' of backend 'pallas_fused' is not ported yet "
+                "(ROADMAP: §1.10 many-primitive backward and soft coverage)"
+            )
+        if mode != "implicit":
+            raise ValueError("pallas_fused backend supports 'implicit'/'soft'")
+        rv = make_fused_render_vjp(spec, cfg, width, height, device=device)
+        return _fused_render(rv)
     if backend != "pallas_prepass":
         item = _NOT_PORTED.get(backend)
         if item is None:
@@ -52,7 +65,7 @@ def make_renderer(
     if mode != "forward":
         raise NotImplementedError(
             f"mode {mode!r} of backend 'pallas_prepass' is not ported: the "
-            "prepass backend is forward-only (gradients: ROADMAP §1.6 fused VJP)"
+            "prepass backend is forward-only (gradients: backend 'pallas_fused')"
         )
     rp = make_pallas_image_render_aa(spec, cfg, width, height, device=device)
     return _prepass_render(rp)
@@ -64,4 +77,14 @@ def _prepass_render(rp):
         return rp(arrays, cam_vec(camera, 0.0, device=rp.device))
 
     render.renderer = rp
+    return render
+
+
+@functools.lru_cache(maxsize=None)
+def _fused_render(rv):
+    def render(arrays: TapeArrays, camera):
+        return rv(arrays, cam_vec(camera, 0.0, device=rv.device))
+
+    render.renderer = rv
+    render.backward_info = rv.backward_info
     return render

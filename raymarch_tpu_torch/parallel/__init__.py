@@ -1,0 +1,7 @@
+"""Training around the fused renderer: the fit step and fit-run recovery,
+on one device (multi-device: ROADMAP §1.11)."""
+
+from .elastic import FitCheckpointer, Watchdog
+from .render import FitOptState, make_fit_step
+
+__all__ = ["FitCheckpointer", "FitOptState", "Watchdog", "make_fit_step"]

@@ -1,0 +1,206 @@
+"""The fit step for inverse rendering, on one device.
+
+Port of `raymarch_tpu/parallel/render.py:make_fit_step` (208-371) at world
+size 1: the image is one band (rows [0, H), so `cam_vec[7] = 0`, as
+`_band_cam_vec` (47) builds it for device 0), and no gradient crosses
+devices. Row-sharded training over several devices, `row_interleave` and
+`band_rows` come with ROADMAP §1.11.
+
+Optimizers are torch's: `optimizer` and `camera_optimizer` are callables
+that build a `torch.optim.Optimizer` over a list of tensors, e.g.
+`functools.partial(torch.optim.Adam, lr=1e-2)`; `torch.optim.Adam` computes
+the update of `optax.adam` (eps 1e-8, bias-corrected), `torch.optim.SGD`
+that of `optax.sgd`. The optimizer state (`FitOptState`) holds the
+optimizers and the tensors they update; the step updates it in place and
+returns it.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+from typing import Optional
+
+import torch
+
+from ..config import DEFAULT_CONFIG, RenderConfig
+from ..ops.cuda_grad import make_fused_render_vjp
+from ..ops.cuda_prepass import resolve_device
+from ..ops.tape import TapeArrays, TapeSpec
+from ..utils.camera import Camera, cam_vec
+
+_NOT_PORTED = {
+    "jnp": "§1.4 torch reference renderer",
+    "pallas": "§1.13 remaining surfaces, K5",
+    "pallas_image": "§1.13 remaining surfaces, K6",
+    "pallas_full": "§1.13 remaining surfaces, K7",
+}
+
+
+@dataclasses.dataclass
+class FitOptState:
+    """The optimizers of a fit and the tensors they update: `params` =
+    [leaf_params, op_param], and with `fit_camera` also `cam_params` =
+    [position, rotation]."""
+
+    params: list
+    optimizer: torch.optim.Optimizer
+    cam_params: Optional[list] = None
+    cam_optimizer: Optional[torch.optim.Optimizer] = None
+
+    def state_dict(self) -> dict:
+        return {
+            "optimizer": self.optimizer.state_dict(),
+            "cam_optimizer": None if self.cam_optimizer is None else self.cam_optimizer.state_dict(),
+        }
+
+    def load_state_dict(self, state: dict) -> None:
+        self.optimizer.load_state_dict(state["optimizer"])
+        if (state["cam_optimizer"] is None) != (self.cam_optimizer is None):
+            raise ValueError("the state and this fit disagree on fit_camera")
+        if self.cam_optimizer is not None:
+            self.cam_optimizer.load_state_dict(state["cam_optimizer"])
+
+
+def _on(x, device) -> torch.Tensor:
+    """`x` (numpy or a tensor) as an f32 tensor on `device`, detached."""
+    if torch.is_tensor(x):
+        if x.device != device:
+            raise ValueError(f"a fit input is on {x.device}, expected {device}")
+        return x.detach().to(torch.float32)
+    return torch.as_tensor(x, dtype=torch.float32, device=device)
+
+
+def _one_device(mesh):
+    """`mesh` may be None or hold one device; more is §1.11."""
+    if mesh is None:
+        return
+    n = len(mesh) if hasattr(mesh, "__len__") else getattr(mesh, "size", 1)
+    if n != 1:
+        raise NotImplementedError(
+            f"a fit over {n} devices is not ported yet (ROADMAP: §1.11 multi-device)"
+        )
+
+
+def make_fit_step(
+    spec: TapeSpec,
+    width: int,
+    height: int,
+    mesh=None,
+    optimizer=None,
+    cfg: RenderConfig = DEFAULT_CONFIG,
+    mode: str = "implicit",
+    backend: str = "jnp",
+    fit_camera: bool = False,
+    grad_mask=None,
+    camera_optimizer=None,
+    row_interleave: int = 1,
+    *,
+    device,
+):
+    """Build the training step of inverse rendering on `device`:
+
+        step(arrays, camera, opt_state, target[H, W, 3]) ->
+            (new_arrays, new_camera, opt_state, loss)
+
+    The loss is sum((img - target)^2) / (H * W * 3), a 0-d tensor on the
+    device (reading it is the caller's one synchronisation per step). The
+    gradient runs through `backend="pallas_fused"`. `grad_mask` = (leaf
+    mask, op mask), 1.0 = trainable, multiplies the gradients before the
+    optimizer. With `fit_camera`, the pose is trained by `camera_optimizer`
+    (default SGD, lr 1e-2) and the rotation is projected back to unit norm
+    after each update; `init_opt_state` then takes the camera too. The
+    returned arrays and camera hold tensors on the device.
+    """
+    _one_device(mesh)
+    if int(row_interleave) != 1:
+        raise NotImplementedError(
+            "row_interleave is not ported yet (ROADMAP: §1.11 multi-device)"
+        )
+    if backend != "pallas_fused":
+        item = _NOT_PORTED.get(backend)
+        if item is None:
+            raise ValueError(f"backend {backend!r} cannot be differentiated")
+        raise NotImplementedError(f"backend {backend!r} is not ported yet (ROADMAP: {item})")
+    if mode == "soft":
+        raise NotImplementedError(
+            "mode 'soft' is not ported yet (ROADMAP: §1.10 many-primitive "
+            "backward and soft coverage)"
+        )
+    if mode != "implicit":
+        raise ValueError("pallas_fused backend supports 'implicit'/'soft'")
+    dev = resolve_device(device)
+    if optimizer is None:
+        raise ValueError("make_fit_step needs an optimizer factory, e.g. "
+                         "functools.partial(torch.optim.Adam, lr=1e-2)")
+    if fit_camera and camera_optimizer is None:
+        camera_optimizer = functools.partial(torch.optim.SGD, lr=1e-2)
+    render = make_fused_render_vjp(spec, cfg, width, height, device=dev)
+    denom = float(height * width * 3)
+    masks = None
+    if grad_mask is not None:
+        masks = tuple(_on(m, dev) for m in grad_mask)
+
+    def step(arrays: TapeArrays, camera, opt_state: FitOptState, target):
+        lp = _on(arrays.leaf_params, dev).requires_grad_(True)
+        opp = _on(arrays.op_param, dev).requires_grad_(True)
+        a = dataclasses.replace(arrays, leaf_params=lp, op_param=opp)
+        if fit_camera:
+            pos = _on(camera.position, dev).requires_grad_(True)
+            rot = _on(camera.rotation, dev).requires_grad_(True)
+            cv = cam_vec(Camera(position=pos, rotation=rot), 0.0, device=dev)
+        else:
+            cv = cam_vec(camera, 0.0, device=dev)
+        img = render(a, cv)
+        loss = torch.sum((img - _on(target, dev)) ** 2) / denom
+        inputs = (lp, opp, pos, rot) if fit_camera else (lp, opp)
+        grads = torch.autograd.grad(loss, inputs)
+        g_leaf, g_op = grads[0], grads[1]
+        if masks is not None:
+            # Restrict the fit to the selected parameters (adaptive
+            # optimizers otherwise take full-size steps along noise
+            # directions of parameters the user never meant to move).
+            g_leaf = g_leaf * masks[0]
+            g_op = g_op * masks[1]
+        with torch.no_grad():
+            for p, src, g in zip(opt_state.params, (lp, opp), (g_leaf, g_op)):
+                p.copy_(src)
+                p.grad = g
+        opt_state.optimizer.step()
+        new_arrays = dataclasses.replace(
+            arrays,
+            leaf_params=opt_state.params[0].detach().clone(),
+            op_param=opt_state.params[1].detach().clone(),
+        )
+        new_camera = camera
+        if fit_camera:
+            with torch.no_grad():
+                for p, src, g in zip(opt_state.cam_params, (pos, rot), grads[2:]):
+                    p.copy_(src)
+                    p.grad = g
+            opt_state.cam_optimizer.step()
+            with torch.no_grad():
+                new_pos, q = (p.detach().clone() for p in opt_state.cam_params)
+                # Project the rotation back onto the unit quaternions.
+                q = q / torch.clamp_min(torch.linalg.norm(q), 1e-8)
+            new_camera = Camera(position=new_pos, rotation=q)
+        return new_arrays, new_camera, opt_state, loss.detach()
+
+    def init_opt_state(arrays: TapeArrays, camera=None) -> FitOptState:
+        params = [_on(arrays.leaf_params, dev).clone().requires_grad_(True),
+                  _on(arrays.op_param, dev).clone().requires_grad_(True)]
+        state = FitOptState(params=params, optimizer=optimizer(params))
+        if fit_camera:
+            if camera is None:
+                raise ValueError("init_opt_state needs the camera when fit_camera=True")
+            state.cam_params = [_on(camera.position, dev).clone().requires_grad_(True),
+                                _on(camera.rotation, dev).clone().requires_grad_(True)]
+            state.cam_optimizer = camera_optimizer(state.cam_params)
+        return state
+
+    step.init_opt_state = init_opt_state
+    # Which backward this step trains through, and why the fast O(active)
+    # one was skipped (pallas_grad.py:1887-1895); fit_scene logs it.
+    step.backward_info = render.backward_info
+    step.device = dev
+    return step

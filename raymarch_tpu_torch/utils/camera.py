@@ -6,9 +6,9 @@
 around a target with pan/orbit/dolly events and the same speed/clamp defaults
 (reference src/camera.rs:21-85).
 
-Camera state is numpy (position f32[3], rotation quat f32[4]); `cam_vec`
-packs it into the f32[8] tensor (pos3, quat4, row_offset) that the kernels
-read.
+Camera state is numpy (position f32[3], rotation quat f32[4]), or tensors
+for a pose being fitted; `cam_vec` packs it into the f32[8] tensor (pos3,
+quat4, row_offset) that the kernels read.
 """
 
 from __future__ import annotations
@@ -67,7 +67,20 @@ class Camera:
 def cam_vec(camera: Camera, row_offset: float = 0.0, *, device) -> torch.Tensor:
     """f32[8] = (position xyz, rotation wxyz, row_offset) on `device`: the
     camera layout the kernels read. `row_offset` is the first image row of
-    the rendered band (0 for a full frame)."""
+    the rendered band (0 for a full frame).
+
+    A camera whose position or rotation is a tensor (a pose being fitted)
+    gives a tensor built by `torch.cat`, so gradients with respect to the
+    vector reach those tensors; they must lie on `device` already."""
+    if torch.is_tensor(camera.position) or torch.is_tensor(camera.rotation):
+        device = torch.device(device)
+        parts = []
+        for name, x, n in (("position", camera.position, 3), ("rotation", camera.rotation, 4)):
+            if torch.is_tensor(x) and x.device != device:
+                raise ValueError(f"camera {name} is on {x.device}, expected {device}")
+            parts.append(torch.as_tensor(x, dtype=torch.float32, device=device).reshape(n))
+        parts.append(torch.full((1,), float(row_offset), dtype=torch.float32, device=device))
+        return torch.cat(parts)
     v = np.concatenate(
         [
             np.asarray(camera.position, np.float32).reshape(3),

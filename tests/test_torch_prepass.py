@@ -27,6 +27,11 @@ from raymarch_tpu_torch.ops.cuda_march import compute_bound, scene_buffers
 
 from test_torch_tape import SCENES
 
+# One torch thread per process: the suite runs in several worker processes
+# at once, and a thread pool per process oversubscribes the cores (the
+# small ops of the plain versions then run ~10x slower).
+torch.set_num_threads(1)
+
 W, H = 65, 47  # non-multiples of the lane count and of any tile
 CFG = dataclasses.replace(
     rm.DEFAULT_CONFIG, aa_samples=2, max_iter=80, bound_accel=True, exit_check_every=4
@@ -183,7 +188,7 @@ def test_compute_bound_matches_jax(name):
 def test_params_layout_matches_cuda_struct():
     """The ctypes mirror, the Python params and the C struct list the same
     fields in the same order, all 4 bytes wide (no padding)."""
-    src = (Path(cp.__file__).parent.parent / "csrc" / "prepass.cu").read_text()
+    src = (Path(cp.__file__).parent.parent / "csrc" / "render_common.cuh").read_text()
     body = re.search(r"struct RenderParams \{(.*?)\};", src, re.S).group(1)
     c_fields = re.findall(r"^\s*(?:int32_t|float)\s+(\w+)", body, re.M)
     ct_fields = [name for name, _ in cp._CParams._fields_]

@@ -22,6 +22,11 @@ from raymarch_tpu_torch.ops.cuda_march import scene_buffers
 
 from test_torch_tape import SCENES
 
+# One torch thread per process: the suite runs in several worker processes
+# at once, and a thread pool per process oversubscribes the cores (the
+# small ops of the plain versions then run ~10x slower).
+torch.set_num_threads(1)
+
 # f32 evaluators of the same formulas: differences are rounding in a few
 # ulps of values of order 1-10 (|p| <= 3*sqrt(3)), far inside 1e-5.
 ATOL_F32 = 1e-5
