@@ -25,7 +25,21 @@ Run from the repository root: `python3 chip_smoke.py`. It
 8. fits the headline scene's sphere centre at 1920x1080 with 16 AA rays per
    pixel through `fit_scene(..., device="cuda")`, and BASELINE config 3 (a
    smooth union's centre and blend radius) at 48x48;
-9. prints one JSON line of per-kernel records, then, last,
+9. many-primitive training (bench.py's `fwdbwd_64leaf_compact` row: 64
+   random spheres in one hard union, leaf_cull=True, relax=1.6, no
+   intervals): gates at 256x144 of the culled coarse and fine kernels (item
+   lists of pool and seg1 plans, the gated tape of `rich`; fine with and
+   without residuals), of the compact backward kernel (the 64-sphere scene
+   and a rotated pool of mixed types) and of `rich`'s culled forward
+   followed by the legacy backward, each against its plain version; then at
+   1920x1080 with 4x4 AA the fwd+bwd step of mean(img^2) through
+   `make_renderer(..., backend="pallas_fused")` (CUDA events, launch counts,
+   device idle share, mean active leaves per fine tile, hit fraction), its
+   kernels alone against their plain versions, the culled frames of the
+   64-sphere scene and config 2 against the un-culled plain path, the
+   64-leaf forward frame ("cull + relax, no intervals") and a 5-step fit;
+10. prints one JSON line of per-kernel records (time, plain time, launches,
+   the roofline bound from this run's counted work), then, last,
    {"ok": true, "device": {...}}.
 
 Any failed check raises, so the script exits non-zero and prints no result.
@@ -84,6 +98,86 @@ def scene_rich(m):
         | (e & f.round(0.3)) - c.onion(0.03)
         | (e | f).round(0.02)
     )
+
+
+def scene_spheres(m, n=64):
+    """bench.py:357-368: n random spheres (seed 7) in one hard union."""
+    import numpy as np
+
+    rng = np.random.default_rng(7)
+    parts = []
+    for _ in range(n):
+        c = rng.uniform(-3, 3, 3)
+        c[1] = rng.uniform(-1.0, 1.5)
+        parts.append(m.sphere(center=tuple(c), radius=float(rng.uniform(0.15, 0.5))))
+    scene = parts[0]
+    for p in parts[1:]:
+        scene = scene | p
+    return scene
+
+
+def scene_rotated_mixed(m):
+    """tests/test_pallas_grad.py:362-376: a rotated pool of mixed types."""
+    return (
+        m.sphere(center=(-1.0, 0.1, 0.0), radius=0.6)
+        | m.box(center=(0.9, 0.0, -0.1), half_extents=(0.45, 0.35, 0.4),
+                rotation=(0.9238795, 0.0, 0.3826834, 0.0))
+        | m.torus(center=(0.0, 0.8, 0.1), major_radius=0.55, minor_radius=0.18,
+                  rotation=(0.9689124, 0.2474040, 0.0, 0.0))
+        | m.capsule(center=(1.6, 0.4, 0.6), radius=0.22, half_height=0.45)
+    )
+
+
+# --- the roofline bound -------------------------------------------------------
+# An H100 SXM's published peaks (the on-chip-measurement guide's table): f32
+# outside the tensor cores, and HBM. Operation counts come from this run's
+# inputs: the plain versions count the scene and leaf evaluations each pass
+# needs (`cuda_prepass.WorkCount`), the residuals count the hit rays, and the
+# fine lists the leaves each hit ray's tile keeps. Each evaluation is priced
+# by the f32 operations (add, mul, min/max, abs, sqrt, compare; an FMA = 2)
+# of its formula in csrc/scene_eval.cuh, csrc/scene_grad.cuh and the kernels.
+PEAK_F32 = 67e12
+PEAK_BYTES = 3.35e12
+LEAF_OPS = {0: 11, 1: 25, 2: 6, 3: 17, 4: 21, 5: 17, 6: 44}  # ops/opcodes.py LEAF_*
+ROT_OPS = 30  # the inverse quaternion rotation of a rotated leaf
+COMBINE_OPS = {2: 1, 3: 1, 4: 2, 5: 10, 6: 12, 7: 12, 8: 1, 9: 2}  # COP_* ops
+STEP_OPS = 14  # one march step: the point (3 FMA), the tests, the update
+RAY_OPS = 60  # screen coordinates, the view ray, the bound clip
+SHADE_OPS = 60  # normal, light, Lambert, gamma of a hit ray (fine kernel)
+FLOOR_OPS = 40  # the checker floor and gamma of every ray
+ADJ_RAY_OPS = 230  # the shading adjoint and the camera adjoint of a hit ray
+
+
+def scene_cost(spec):
+    """(pushed leaves, mean ops of one leaf evaluation, ops of the combine
+    instructions of one tape evaluation) of a static spec."""
+    rows = {}
+    for t, start, stop in spec.type_slices:
+        for r in range(start, stop):
+            rows[r] = LEAF_OPS[t] + (ROT_OPS if spec.rotated_types[t] else 0)
+    pushed = [a for c, a, _ in spec.static_tape if c == 1]
+    comb = sum(COMBINE_OPS.get(c, 0) for c, _, _ in spec.static_tape if c != 1)
+    return len(pushed), sum(rows[a] for a in pushed) / max(len(pushed), 1), comb
+
+
+def roofline(flops, nbytes):
+    """(bound_ms, bound_by): the larger of the operations over the f32 peak
+    and the bytes over the HBM rate."""
+    t_ops, t_bytes = flops / PEAK_F32 * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def march_flops(work, rays, spec, compact, hit_rays=0.0, fine=False):
+    """Operations of a forward pass from its counted work: per ray the
+    raygen (and, fine, the floor and gamma), per point a march step and the
+    tape's combine (a compact fold: one min per leaf), per leaf evaluation
+    its formula, per hit ray the shading."""
+    n_push, leaf_ops, comb = scene_cost(spec)
+    points, leaf_evals = float(work.points), float(work.leaf_evals)
+    per_point = STEP_OPS + (0 if compact else comb)
+    per_leaf = leaf_ops + (1 if compact else 0)
+    flops = rays * (RAY_OPS + (FLOOR_OPS if fine else 0)) + points * per_point + leaf_evals * per_leaf
+    return flops + hit_rays * SHADE_OPS
 
 
 def card_line() -> str:
@@ -227,6 +321,275 @@ def cuda_ms(fn, reps):
     return e0.elapsed_time(e1) / reps
 
 
+def device_idle_share(fn, steps):
+    """Share of the wall time of `steps` synchronised runs of `fn` in which
+    the card ran no kernel (torch.profiler's device events, intervals
+    merged), or None when the profiler saw no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        h0 = time.perf_counter()
+        for _ in range(steps):
+            fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - h0) * 1e6
+    spans = sorted(
+        (e.time_range.start, e.time_range.end) for e in prof.events()
+        if e.device_type == torch.autograd.DeviceType.CUDA and e.time_range.end > e.time_range.start
+    )
+    if not spans:
+        return None
+    busy, cur_s, cur_e = 0.0, spans[0][0], spans[0][1]
+    for a, b in spans[1:]:
+        if a > cur_e:
+            busy += cur_e - cur_s
+            cur_s, cur_e = a, b
+        else:
+            cur_e = max(cur_e, b)
+    busy += cur_e - cur_s
+    return max(0.0, 1.0 - busy / wall_us)
+
+
+def many_leaf(rt, cp, cg, dev, smi, cfg, gcam_pos):
+    """Phase 9: the culled forward, the compact backward and the 64-leaf
+    training step (see the module docstring). Returns the kernel records
+    of the compact backward and the numbers the summary prints."""
+    import numpy as np
+    import torch
+
+    cfg64 = dataclasses.replace(cfg, relax=1.6, leaf_cull=True)
+    clamp = float(cfg64.grad_denom_clamp)
+
+    # -- 9a. gates at 256x144 ---------------------------------------------
+    gates = (
+        ("spheres64", scene_spheres, (0.0, 2.5, 9.0)),
+        ("rotated_mixed", scene_rotated_mixed, (0.3, 1.8, 5.0)),
+        ("config2", scene_config2, gcam_pos),
+        ("rich", scene_rich, gcam_pos),
+    )
+    for gname, build, pos in gates:
+        spec_g, arrays_g = rt.compile_scene(build(rt), static=True)
+        cv_g = rt.cam_vec(rt.Camera.looking_at(position=pos, target=(0, 0, 0)), device=dev)
+        rp = cp.make_pallas_image_render_aa(spec_g, cfg64, GATE_W, GATE_H, device=dev)
+        sc, cam, bnd = rp.scene_args(arrays_g, cv_g)
+        cc, fc = rp.cull_args(sc, cam)
+        how = "item lists" if fc.compact else "gated tape"
+        pre_k = cp.coarse(sc, cam, bnd, rp.params, cc)
+        coarse_agreement(f"gate culled coarse kernel vs coarse_plain, {gname} ({how})", pre_k,
+                         cp.coarse_plain(sc, cam, bnd, rp.params, cc), strict=True)
+        img_k = cp.fine(sc, cam, bnd, rp.params, *pre_k, cull=fc)
+        image_class(f"gate culled relaxed fine kernel vs fine_plain, {gname} ({how})", img_k,
+                    cp.fine_plain(sc, cam, bnd, rp.params, *pre_k, cull=fc))
+        img_r, t_k, hit_k = cp.fine_res(sc, cam, bnd, rp.params, *pre_k, cull=fc)
+        if not torch.equal(img_r, img_k):
+            raise AssertionError("the residual output changed the culled fine kernel's image")
+        img_p, t_p, hit_p = cp.fine_res_plain(sc, cam, bnd, rp.params, *pre_k, cull=fc)
+        image_class(f"gate culled fine kernel with residuals vs fine_res_plain, {gname}", img_r, img_p)
+        residual_agreement(f"gate culled residuals vs fine_res_plain, {gname}", (t_k, hit_k), (t_p, hit_p),
+                           strict=False)
+        g_img = seeded_cotangent(GATE_H, GATE_W, dev, 11)
+        if gname in ("spheres64", "rotated_mixed"):
+            fr = cg.make_fused_render_vjp(spec_g, cfg64, GATE_W, GATE_H, device=dev)
+            if fr.backward_info["kind"] != "pallas_compact":
+                raise AssertionError(f"{gname} did not take the compact backward: {fr.backward_info}")
+            got = cg.compact_bwd(sc, fc, cam, rp.params, clamp, t_k, hit_k, g_img)
+            again = cg.compact_bwd(sc, fc, cam, rp.params, clamp, t_k, hit_k, g_img)
+            ref = cg.compact_bwd_plain(sc, fc, cam, rp.params, clamp, t_k, hit_k, g_img)
+            grad_class(f"gate compact_bwd kernel vs compact_bwd_plain, {gname} ({int(hit_k.sum())} hit "
+                       f"rays, mean {float(fc.counts.sum(1).float().mean()):.3f} active leaves per fine tile)",
+                       got, ref)
+            rerun = max(float((a - b).abs().max()) for a, b in zip(got, again)) / float(ref[0].abs().max())
+            log(f"  compact_bwd run to run (shared atomics): max|d| / max|g| = {rerun:.3e}")
+        elif gname == "rich":
+            fr = cg.make_fused_render_vjp(spec_g, cfg64, GATE_W, GATE_H, device=dev)
+            if fr.backward_info["kind"] != "pallas_legacy_unrolled":
+                raise AssertionError(f"rich should take the legacy backward: {fr.backward_info}")
+            grad_class("gate culled forward then fused_bwd kernel vs bwd_plain, rich "
+                       f"({fr.backward_info['reason']})",
+                       cg.bwd(sc, cam, rp.params, fr.layout, t_k, hit_k, g_img),
+                       cg.bwd_plain(sc, cam, rp.params, fr.layout, t_k, hit_k, g_img))
+    torch.cuda.synchronize()
+
+    # -- 9b. the 64-leaf fwd+bwd step at full size ------------------------
+    spec64, arrays64 = rt.compile_scene(scene_spheres(rt), static=True)
+    camera64 = rt.Camera.looking_at(position=(0.0, 2.5, 9.0), target=(0.0, 0.0, 0.0))
+    cv64 = rt.cam_vec(camera64, device=dev)
+    render64 = rt.make_renderer(spec64, WIDTH, HEIGHT, cfg64, mode="implicit", backend="pallas_fused", device=dev)
+    if render64.backward_info["kind"] != "pallas_compact" or render64.backward_info["reason"] is not None:
+        raise AssertionError(f"the 64-leaf scene must take the compact backward: {render64.backward_info}")
+    lp64 = torch.tensor(arrays64.leaf_params, device=dev)
+    op64 = torch.tensor(arrays64.op_param, device=dev)
+    n_rays = WIDTH * HEIGHT * cfg64.aa_samples ** 2
+
+    def fwd_bwd():
+        lp = lp64.clone().requires_grad_(True)
+        opp = op64.clone().requires_grad_(True)
+        cv = cv64.clone().requires_grad_(True)
+        img = render64.renderer(dataclasses.replace(arrays64, leaf_params=lp, op_param=opp), cv)
+        loss = torch.mean(img * img)
+        loss.backward()
+        return img, loss, (lp.grad, opp.grad, cv.grad)
+
+    cp.reset_launch_counts()
+    cg.reset_launch_counts()
+    for _ in range(BWD_WARMUP):
+        fwd_bwd()
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    h0 = time.perf_counter()
+    e0.record()
+    for _ in range(BWD_STEPS):
+        img64, loss64, grads64 = fwd_bwd()
+    e1.record()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - h0) * 1e3 / BWD_STEPS
+    step_ms = e0.elapsed_time(e1) / BWD_STEPS
+    launches = {"coarse_kernel": cp.coarse.launches, "fine_kernel_residuals": cp.fine_res.launches,
+                "compact_bwd_kernel": cg.compact_bwd.launches, "fused_bwd_kernel": cg.bwd.launches}
+    log(f"64-leaf training step (fwdbwd_64leaf_compact: cull + relax, no intervals) {WIDTH}x{HEIGHT} "
+        f"x{cfg64.aa_samples ** 2} AA, fwd+bwd of mean(img^2): {step_ms:.4f} ms/step (CUDA events, "
+        f"{BWD_STEPS} steps after {BWD_WARMUP} warm-up; host clock {host_ms:.4f} ms), "
+        f"{n_rays / (step_ms * 1e-3) / 1e9:.4f} Grays/s on {smi}")
+    log(f"launches in the 64-leaf training run: {launches}")
+    if min(launches[k] for k in ("coarse_kernel", "fine_kernel_residuals", "compact_bwd_kernel")) <= 0:
+        raise AssertionError(f"a kernel of the 64-leaf training path never launched: {launches}")
+    if launches["fused_bwd_kernel"] != 0:
+        raise AssertionError("the 64-leaf step ran the legacy backward")
+    if not all(bool(torch.isfinite(g).all()) for g in grads64) or float(grads64[0].abs().max()) <= 0:
+        raise AssertionError("the 64-leaf gradients are not finite or all zero")
+    idle = device_idle_share(fwd_bwd, 3)
+    log(f"64-leaf step device idle share (torch.profiler, 3 steps): "
+        f"{'not measured (no device events)' if idle is None else f'{idle:.4f}'} ({smi})")
+
+    fr64 = render64.renderer
+    rp64 = fr64.prepass
+    p64 = rp64.params
+    sc, cam, bnd = rp64.scene_args(arrays64, cv64)
+    cc, fc = rp64.cull_args(sc, cam)
+    active_mean = float(fc.counts.sum(1).float().mean())
+    pre_k = cp.coarse(sc, cam, bnd, p64, cc)
+    img_r, t_k, hit_k = cp.fine_res(sc, cam, bnd, p64, *pre_k, cull=fc)
+    hit_frac = float(hit_k.mean())
+    g_img = 2.0 * img_r / img_r.numel()  # the cotangent of mean(img^2)
+    log(f"64-leaf frame: mean {active_mean:.4f} active leaves per {cp.FINE_TILE}x{cp.FINE_TILE} fine tile "
+        f"({fc.counts.shape[0]} tiles, max {int(fc.counts.sum(1).max())}), coarse tiles "
+        f"{float(cc.counts.sum(1).float().mean()):.4f}; hit fraction {hit_frac:.4f} of {n_rays} AA rays")
+    coarse_ms = cuda_ms(lambda: cp.coarse(sc, cam, bnd, p64, cc), KERNEL_REPS)
+    fine_res_ms = cuda_ms(lambda: cp.fine_res(sc, cam, bnd, p64, *pre_k, cull=fc), KERNEL_REPS)
+    cbwd_ms = cuda_ms(lambda: cg.compact_bwd(sc, fc, cam, p64, clamp, t_k, hit_k, g_img), KERNEL_REPS)
+    cull_ms = cuda_ms(lambda: rp64.cull_args(sc, cam), KERNEL_REPS)
+    log(f"64-leaf kernels alone: coarse {coarse_ms:.4f} ms, fine with residuals {fine_res_ms:.4f} ms, "
+        f"compact_bwd {cbwd_ms:.4f} ms; per-frame masks and lists (torch ops) {cull_ms:.4f} ms ({smi})")
+
+    got = cg.compact_bwd(sc, fc, cam, p64, clamp, t_k, hit_k, g_img)
+    torch.cuda.synchronize()
+    e0.record()
+    ref = cg.compact_bwd_plain(sc, fc, cam, p64, clamp, t_k, hit_k, g_img, band_rows=32)
+    e1.record()
+    torch.cuda.synchronize()
+    cbwd_plain_ms = e0.elapsed_time(e1)
+    cbwd_err = grad_class("full-size compact_bwd kernel vs compact_bwd_plain (32-row bands)", got, ref)
+    grad_class("64-leaf training-path gradients vs compact_bwd_plain", grads64, ref)
+    del ref
+    work_c = cp.WorkCount()
+    pre_p = cp.coarse_plain(sc, cam, bnd, p64, cc, work=work_c)
+    coarse_agreement("full-size culled coarse kernel vs coarse_plain, 64 leaves", pre_k, pre_p, strict=False)
+    work_f = cp.WorkCount()
+    e0.record()
+    img_p, t_p, hit_p = cp.fine_res_plain(sc, cam, bnd, p64, *pre_k, cull=fc, work=work_f)
+    e1.record()
+    torch.cuda.synchronize()
+    fine_res_plain_ms = e0.elapsed_time(e1)
+    image_class("full-size culled fine kernel with residuals vs fine_res_plain, 64 leaves", img_r, img_p)
+    residual_agreement("full-size culled residuals vs fine_res_plain, 64 leaves", (t_k, hit_k), (t_p, hit_p),
+                       strict=False)
+    del img_p, t_p, hit_p
+
+    # Bounds of the 64-leaf kernels from this run's counted work.
+    n_px = WIDTH * HEIGHT
+    hit_tiles = cp.leaves_per_point(sc, fc, fc.tile_index(
+        torch.arange(HEIGHT, device=dev)[:, None, None], torch.arange(WIDTH, device=dev)[None, :, None]))
+    pool_items = float((hit_k * hit_tiles).sum())  # leaves in the tiles of the hit rays
+    n_hits = float(hit_k.sum())
+    _, leaf_ops, _ = scene_cost(spec64)
+    list_bytes = 4 * (fc.lists.numel() + fc.counts.numel())
+    cbwd_flops = 5 * pool_items * (leaf_ops + 2) + n_hits * (6 * 3 * leaf_ops + ADJ_RAY_OPS)
+    cbwd_bound = roofline(cbwd_flops, n_rays * 8 + n_px * 12 + list_bytes + 4 * (16 * spec64.n_leaves + spec64.n_instr + 7))
+    coarse_bound = roofline(march_flops(work_c, n_px, spec64, True), n_px * 8 + 4 * (cc.lists.numel() + cc.counts.numel()))
+    fine_bound = roofline(march_flops(work_f, n_rays, spec64, True, float(work_f.hits), fine=True),
+                       n_px * 20 + n_rays * 8 + list_bytes)
+    log(f"64-leaf counted work: coarse {float(work_c.leaf_evals):.6e} leaf evaluations, fine "
+        f"{float(work_f.leaf_evals):.6e}, compact_bwd {pool_items:.6e} list leaves at 5 points of "
+        f"{n_hits:.0f} hit rays; bounds coarse {coarse_bound[0]:.4f} ms, fine with residuals "
+        f"{fine_bound[0]:.4f} ms, compact_bwd {cbwd_bound[0]:.4f} ms ({cbwd_bound[1]})")
+
+    # -- 9c. full-size culled frames against the un-culled plain path -------
+    render_f64 = rt.make_renderer(spec64, WIDTH, HEIGHT, cfg64, mode="forward", backend="pallas_prepass", device=dev)
+    frame64 = render_f64(arrays64, camera64)
+    for fname, spec_c, arrays_c, camera_c, frame_c in (
+        ("64 leaves", spec64, arrays64, camera64, frame64),
+        ("config 2", *rt.compile_scene(scene_config2(rt), static=True),
+         rt.Camera.looking_at(position=(0.0, 1.6, 4.2), target=(0, 0, 0)), None),
+    ):
+        if frame_c is None:
+            frame_c = rt.make_renderer(spec_c, WIDTH, HEIGHT, cfg64, mode="forward", backend="pallas_prepass",
+                                       device=dev)(arrays_c, camera_c)
+        off = cp.make_pallas_image_render_aa(spec_c, dataclasses.replace(cfg64, leaf_cull=False), WIDTH, HEIGHT,
+                                             device=dev)
+        image_class(f"full-size culled frame vs the un-culled plain path, {fname}", frame_c,
+                    off.render_plain(arrays_c, rt.cam_vec(camera_c, device=dev)))
+    torch.cuda.synchronize()
+
+    # -- 9d. the 64-leaf forward frame -----------------------------------
+    for _ in range(WARMUP):
+        render_f64(arrays64, camera64)
+    torch.cuda.synchronize()
+    e0.record()
+    for _ in range(FRAMES):
+        frame64 = render_f64(arrays64, camera64)
+    e1.record()
+    torch.cuda.synchronize()
+    fwd64_ms = e0.elapsed_time(e1) / FRAMES
+    log(f"64-leaf forward frame (cull + relax, no intervals; not the reference's 64leaf_cull_intervals row) "
+        f"{WIDTH}x{HEIGHT} x{cfg64.aa_samples ** 2} AA through make_renderer(backend='pallas_prepass'): "
+        f"{fwd64_ms:.4f} ms/frame, {n_rays / (fwd64_ms * 1e-3) / 1e9:.4f} Grays/s on {smi}")
+
+    # -- 9e. a 5-step 1080p fit of one sphere's centre --------------------
+    truth = arrays64.leaf_params
+    lpn = np.asarray(truth)
+    row = int(np.argmax(lpn[:, 7]))  # the largest sphere
+    start = truth.copy()
+    start[row, 4] -= 0.12
+    mask = np.zeros_like(truth)
+    mask[row, 4] = 1.0
+    fit_kw = dict(width=WIDTH, height=HEIGHT, cfg=cfg64, learning_rate=1e-2, leaf_mask=mask,
+                  backend="pallas_fused", device=dev)
+    rt.fit_scene(spec64, dataclasses.replace(arrays64, leaf_params=start), camera64, frame64, steps=1,
+                 log_fn=lambda m: None, **fit_kw)
+    res = rt.fit_scene(spec64, dataclasses.replace(arrays64, leaf_params=start), camera64, frame64,
+                       steps=FIT_STEPS, log_fn=lambda m: None, **fit_kw)
+    cx = float(res.arrays.leaf_params[row, 4])
+    log(f"64-leaf fit at {WIDTH}x{HEIGHT} ({FIT_STEPS} Adam steps, lr 1e-2, sphere row {row}): loss "
+        f"{res.losses[0]:.6e} -> {res.losses[-1]:.6e}; cx {start[row, 4]:+.4f} -> {cx:+.4f} (truth "
+        f"{truth[row, 4]:+.4f}); {1.0 / res.steps_per_sec:.4f} s/step; backward {res.backward_info} ({smi})")
+    if res.backward_info["kind"] != "pallas_compact":
+        raise AssertionError("the 64-leaf fit did not train through the compact backward")
+    if not (res.losses[-1] < res.losses[0] and abs(cx - truth[row, 4]) < abs(start[row, 4] - truth[row, 4])):
+        raise AssertionError("the 64-leaf fit did not move toward the truth")
+
+    record = dict(name="compact_bwd_kernel", route="cuda", source="raymarch_tpu_torch/csrc/compact_bwd.cu",
+                  replaces="raymarch_tpu/ops/pallas_grad.py:256", launches=launches["compact_bwd_kernel"],
+                  max_abs_err=cbwd_err, ms=cbwd_ms, plain_ms=cbwd_plain_ms, bound_ms=cbwd_bound[0],
+                  bound_by=cbwd_bound[1], library_ms=None)
+    summary = dict(step_ms=step_ms, fwd64_ms=fwd64_ms, coarse_ms=coarse_ms, fine_res_ms=fine_res_ms,
+                   coarse_bound=coarse_bound, fine_bound=fine_bound, fine_res_plain_ms=fine_res_plain_ms,
+                   idle=idle, active_mean=active_mean, hit_frac=hit_frac)
+    return record, summary
+
+
 def main() -> int:
     import torch
 
@@ -354,13 +717,15 @@ def main() -> int:
     pre_k = cp.coarse(sc, cam, bound, p)
     coarse_ms = cuda_ms(lambda: cp.coarse(sc, cam, bound, p), KERNEL_REPS)
     fine_ms = cuda_ms(lambda: cp.fine(sc, cam, bound, p, *pre_k), KERNEL_REPS)
-    pre_p = cp.coarse_plain(sc, cam, bound, p)
+    work_c = cp.WorkCount()
+    pre_p = cp.coarse_plain(sc, cam, bound, p, work=work_c)
     coarse_plain_ms = cuda_ms(lambda: cp.coarse_plain(sc, cam, bound, p), 1)
     coarse_err = coarse_agreement("full-size coarse kernel vs coarse_plain", pre_k, pre_p, strict=False)
     img_fk = cp.fine(sc, cam, bound, p, *pre_k)
     torch.cuda.synchronize()
     e0.record()
-    img_fp = cp.fine_plain(sc, cam, bound, p, *pre_k)
+    work_f = cp.WorkCount()
+    img_fp = cp.fine_plain(sc, cam, bound, p, *pre_k, work=work_f)
     e1.record()
     torch.cuda.synchronize()
     fine_plain_ms = e0.elapsed_time(e1)
@@ -371,6 +736,13 @@ def main() -> int:
     e1.record()
     torch.cuda.synchronize()
     plain_frame_ms = e0.elapsed_time(e1)
+    n_px = WIDTH * HEIGHT
+    coarse_bound = roofline(march_flops(work_c, n_px, spec, False), n_px * 8)
+    fine_bound = roofline(march_flops(work_f, n_rays, spec, False, float(work_f.hits), fine=True), n_px * 20)
+    log(f"counted work: coarse {float(work_c.points):.6e} points, {float(work_c.leaf_evals):.6e} leaf "
+        f"evaluations; fine {float(work_f.points):.6e} points, {float(work_f.leaf_evals):.6e} leaf "
+        f"evaluations, {float(work_f.hits):.0f} hit rays; bounds coarse {coarse_bound[0]:.4f} ms, "
+        f"fine {fine_bound[0]:.4f} ms ({fine_bound[1]})")
     log(f"kernels alone: coarse {coarse_ms:.4f} ms, fine {fine_ms:.4f} ms; plain on the card: "
         f"coarse_plain {coarse_plain_ms:.2f} ms, fine_plain {fine_plain_ms:.2f} ms, "
         f"plain frame {plain_frame_ms:.2f} ms vs kernel frame {frame_ms:.4f} ms ({smi})")
@@ -452,7 +824,8 @@ def main() -> int:
     got = cg.bwd(sc, cam, fr.params, fr.layout, t_k, hit_k, g_img)
     torch.cuda.synchronize()
     e0.record()
-    img_rp, t_p, hit_p = cp.fine_res_plain(sc, cam, bound, fr.params, *pre_k)
+    work_r = cp.WorkCount()
+    img_rp, t_p, hit_p = cp.fine_res_plain(sc, cam, bound, fr.params, *pre_k, work=work_r)
     e1.record()
     torch.cuda.synchronize()
     fine_res_plain_ms = e0.elapsed_time(e1)
@@ -469,6 +842,16 @@ def main() -> int:
     bwd_err = grad_class("full-size fused_bwd kernel vs bwd_plain", got, ref)
     grad_class("training-path gradients vs bwd_plain", (grads_f[0], grads_f[1], grads_f[2]), ref)
     hit_share = float(hit_k.mean())
+    n_hits = float(hit_k.sum())
+    res_bound = roofline(march_flops(work_r, n_rays, spec, False, float(work_r.hits), fine=True),
+                      n_px * 20 + n_rays * 8)
+    n_push, leaf_ops, comb = scene_cost(spec)
+    tape_ops = n_push * leaf_ops + comb
+    # Per hit ray: 4 tap evaluations, 6 taped sweeps (a forward replay and a
+    # reverse pass of ~3x the leaf work and ~4 ops per combine), the adjoint.
+    k8_flops = n_hits * (4 * tape_ops + 6 * (tape_ops + 3 * n_push * leaf_ops + 4 * len(spec.static_tape))
+                         + ADJ_RAY_OPS)
+    bwd_bound = roofline(k8_flops, n_rays * 8 + n_px * 12 + fr.layout.nscal * 4)
     log(f"kernels alone: fine with residuals {fine_res_ms:.4f} ms, fused_bwd {bwd_ms:.4f} ms "
         f"({hit_share:.4f} of the {n_rays} AA rays hit); plain on the card: fine_res_plain "
         f"{fine_res_plain_ms:.2f} ms, bwd_plain {bwd_plain_ms:.2f} ms in {cg.PLAIN_BAND_ROWS}-row bands "
@@ -533,26 +916,38 @@ def main() -> int:
             and abs(k3 - arrays3.op_param[ki]) < abs(op3[ki] - arrays3.op_param[ki])):
         raise AssertionError("the config 3 fit did not move toward the truth")
 
+    # -- 9. many-primitive training ---------------------------------------
+    cbwd_record, s64 = many_leaf(rt, cp, cg, dev, smi, cfg, (0.0, 2.6, 4.2))
+
     log(f"card: {smi}")
     kernels = [
         dict(name="coarse_kernel", route="cuda", source="raymarch_tpu_torch/csrc/prepass.cu",
              replaces="raymarch_tpu/ops/pallas_prepass.py:885",
              launches=launches["coarse_kernel"], max_abs_err=coarse_err,
-             ms=coarse_ms, plain_ms=coarse_plain_ms),
+             ms=coarse_ms, plain_ms=coarse_plain_ms, bound_ms=coarse_bound[0],
+             bound_by=coarse_bound[1], library_ms=None),
         dict(name="fine_kernel", route="cuda", source="raymarch_tpu_torch/csrc/prepass.cu",
              replaces="raymarch_tpu/ops/pallas_prepass.py:1521",
              launches=launches["fine_kernel"], max_abs_err=fine_err,
-             ms=fine_ms, plain_ms=fine_plain_ms),
+             ms=fine_ms, plain_ms=fine_plain_ms, bound_ms=fine_bound[0],
+             bound_by=fine_bound[1], library_ms=None),
         dict(name="fine_kernel (residuals t, hit)", route="cuda",
              source="raymarch_tpu_torch/csrc/prepass.cu",
              replaces="raymarch_tpu/ops/pallas_prepass.py:1521",
              launches=launches_f["fine_kernel_residuals"], max_abs_err=res_err,
-             ms=fine_res_ms, plain_ms=fine_res_plain_ms),
+             ms=fine_res_ms, plain_ms=fine_res_plain_ms, bound_ms=res_bound[0],
+             bound_by=res_bound[1], library_ms=None),
         dict(name="fused_bwd_kernel", route="cuda", source="raymarch_tpu_torch/csrc/fused_bwd.cu",
              replaces="raymarch_tpu/ops/pallas_grad.py:1432",
              launches=launches_f["fused_bwd_kernel"], max_abs_err=bwd_err,
-             ms=bwd_ms, plain_ms=bwd_plain_ms),
+             ms=bwd_ms, plain_ms=bwd_plain_ms, bound_ms=bwd_bound[0],
+             bound_by=bwd_bound[1], library_ms=None),
+        cbwd_record,
     ]
+    log(f"64-leaf summary: step {s64['step_ms']:.4f} ms, forward frame {s64['fwd64_ms']:.4f} ms, culled coarse "
+        f"{s64['coarse_ms']:.4f} ms (bound {s64['coarse_bound'][0]:.4f}), culled fine with residuals "
+        f"{s64['fine_res_ms']:.4f} ms (bound {s64['fine_bound'][0]:.4f}, plain {s64['fine_res_plain_ms']:.2f}) "
+        f"({smi})")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)

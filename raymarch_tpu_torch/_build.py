@@ -29,16 +29,16 @@ NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"
 # gradients 100x the typical one): without FMA contraction its f32 ops round
 # as its plain torch version's do, op for op, and the two agree to the
 # rounding of the gradient sums instead of to the placement of FMAs.
-SOURCE_FLAGS = {"fused_bwd.cu": ("-fmad=false",)}
+SOURCE_FLAGS = {"fused_bwd.cu": ("-fmad=false",), "compact_bwd.cu": ("-fmad=false",)}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     # leaf_params, row_kind, tape, n_instr, op_param, cam, bound, params,
-    # t0_out, status_out, stream
-    "rmt_coarse_launch": (_P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P),
-    # ... params, t0_in, status_in, img, t_out, hit_out, stream
-    "rmt_fine_launch": (_P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P),
+    # cull, t0_out, status_out, stream
+    "rmt_coarse_launch": (_P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P),
+    # ... params, cull, t0_in, status_in, img, t_out, hit_out, stream
+    "rmt_fine_launch": (_P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P),
     # leaf_params, row_kind, tape, n_instr, op_param, push_slot, cam, params,
     # grad_denom_clamp, t, hit, g_img, nscal, op_base, cam_base, partials,
     # max_blocks, out, stream
@@ -46,6 +46,15 @@ _SIGNATURES = {
         _P, _P, _P, _I, _P, _P, _P, _P, ctypes.c_float, _P, _P, _P, _I, _I, _I,
         _P, _I, _P, _P,
     ),
+    # leaf_params, row_kind, tape, n_instr, op_param, cull, cam, params,
+    # grad_denom_clamp, t, hit, g_img, nscal, cam_base, partials, max_blocks,
+    # n_blocks (int*), stream
+    "rmt_compact_bwd_launch": (
+        _P, _P, _P, _I, _P, _P, _P, _P, ctypes.c_float, _P, _P, _P, _I, _I,
+        _P, _I, _P, _P,
+    ),
+    # partials, n_blocks, nscal, out, stream
+    "rmt_bwd_finalize_launch": (_P, _I, _I, _P, _P),
 }
 
 _lib = None

@@ -148,4 +148,14 @@ int rmt_fused_bwd_launch(const float* leaf_params, const int* row_kind,
   return (int)cudaGetLastError();
 }
 
+// Launches bwd_finalize_kernel alone: out[k] = the sum of partials[b, k]
+// over n_blocks rows, in block order (the compact backward's reduction).
+int rmt_bwd_finalize_launch(const float* partials, int n_blocks, int nscal,
+                            float* out, void* stream) {
+  rmt::bwd_finalize_kernel<<<(nscal + 127) / 128, 128, 0,
+                             (cudaStream_t)stream>>>(partials, n_blocks,
+                                                     nscal, out);
+  return (int)cudaGetLastError();
+}
+
 }  // extern "C"

@@ -2,16 +2,24 @@
 // (march + shade + AA mean) kernel, with a plain C interface for ctypes.
 //
 // coarse_kernel replaces raymarch_tpu/ops/pallas_prepass.py:
-// make_pallas_image_render_aa.coarse_kernel (885) with prepass_block=1, no
-// intervals and no culling: one cone ray per pixel centre, stopped at
+// make_pallas_image_render_aa.coarse_kernel (885) with prepass_block=1 and no
+// intervals: one cone ray per pixel centre, stopped at
 // d < min_dist + omega*t, stepped by (d - omega*t)/(1+omega), clipped by the
 // scene's bounding sphere (_cone_march_tile 130, _bound_clip 107).
 //
 // fine_kernel replaces fine_packed_kernel (1521) in its hard forward form
 // (no soft mode, no march_only): every AA ray sphere-
-// traces from its pixel's t0 (_fine_march_tile 477, relax == 1), hit rays
+// traces from its pixel's t0 (_fine_march_tile 477, plain or, with
+// relax > 1, over-relaxed), hit rays
 // take 4-tap tetrahedron normals (pallas_march._tet_taps 1049), Lambert
 // shading, the analytic checker floor on a miss, sqrt gamma, and the AA mean.
+//
+// With leaf culling (cfg.leaf_cull) both kernels evaluate the scene of a
+// point through its pixel's tile (scene_distance_tile): the compact plan's
+// item lists of the tile (O(active leaves) per point) or, for a scene
+// without a residual-free plan, the gated tape with the tile's leaf mask.
+// Each kernel has its own tile grid; every ray (and tap) is evaluated with
+// the list of the tile whose cone holds it.
 // Given residual pointers it also writes each AA ray's march end t and hit
 // flag (emit_th=True, 1850-1862), which the fused backward replays; the
 // image does not depend on whether they are written.
@@ -67,9 +75,11 @@ __device__ __forceinline__ void bound_clip(const float* __restrict__ bound,
 }
 
 // One thread per pixel of the band: writes t0 and status, f32[rows, width].
+// MODE is the culling mode (CullView::mode).
+template <int MODE>
 __global__ void coarse_kernel(SceneView sc, const float* __restrict__ cam,
                               const float* __restrict__ bound, RenderParams p,
-                              float* __restrict__ t0_out,
+                              CullView cv, float* __restrict__ t0_out,
                               float* __restrict__ status_out) {
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
   const int i = blockIdx.y;
@@ -80,12 +90,13 @@ __global__ void coarse_kernel(SceneView sc, const float* __restrict__ cam,
       1.0f - 2.0f * (((float)i + 0.5f) + __ldg(cam + 7)) / (float)p.height;
   const Ray r = view_ray(cam, p, x, y);
 
+  const int tile = MODE != 0 ? tile_of(cv, i, j) : 0;
   float live = 1.0f, t = 0.0f, t_cap = 3.0e38f;
   if (p.use_bound) bound_clip(bound, r, p.min_dist, live, t, t_cap);
   float near = 0.0f;
   for (int k = 0; k < p.max_iter && live > 0.0f; ++k) {
-    const float d =
-        scene_distance(sc, r.ox + r.dx * t, r.oy + r.dy * t, r.oz + r.dz * t);
+    const float d = scene_distance_tile<MODE>(
+        sc, cv, tile, r.ox + r.dx * t, r.oy + r.dy * t, r.oz + r.dz * t);
     const float slack = d - p.omega * t;
     if (slack < p.min_dist) {
       near = 1.0f;
@@ -105,9 +116,11 @@ __global__ void coarse_kernel(SceneView sc, const float* __restrict__ cam,
 // q = j * S + s, so a pixel's S samples sit in S adjacent lanes of one warp
 // (S divides 32; the wrapper checks). Writes the image f32[rows, width, 3]
 // and, when t_out is not null, the residuals t and hit f32[rows, width, S].
+// MODE is the culling mode, RELAX whether cfg.relax > 1.
+template <int MODE, bool RELAX>
 __global__ void fine_kernel(SceneView sc, const float* __restrict__ cam,
                             const float* __restrict__ bound, RenderParams p,
-                            const float* __restrict__ t0_in,
+                            CullView cv, const float* __restrict__ t0_in,
                             const float* __restrict__ status_in,
                             float* __restrict__ img,
                             float* __restrict__ t_out,
@@ -148,17 +161,43 @@ __global__ void fine_kernel(SceneView sc, const float* __restrict__ cam,
       float l = live, t_unused = t;
       bound_clip(bound, r, p.min_dist, l, t_unused, t_cap);
     }
+    const int tile = MODE != 0 ? tile_of(cv, i, j) : 0;
     float hit = 0.0f;
-    for (int k = 0; k < p.max_iter && live > 0.0f; ++k) {
-      const float d = scene_distance(sc, r.ox + r.dx * t, r.oy + r.dy * t,
-                                     r.oz + r.dz * t);
-      if (d < p.min_dist) {
-        hit = 1.0f;
-        live = 0.0f;
-      } else if (d > p.max_dist || t > t_cap) {
-        live = 0.0f;
-      } else {
-        t = t + d;
+    if constexpr (RELAX) {
+      // Over-relaxed stepping (_fine_march_tile 491-525): step omega*d;
+      // when consecutive safe spheres stop overlapping the step overshot,
+      // so step back by (1 - relax)*step and drop the ray to omega = 1. Hit
+      // and escape are tested only at samples that did not overshoot.
+      float prev_r = 0.0f, step_len = 0.0f, omega = p.relax;
+      for (int k = 0; k < p.max_iter && live > 0.0f; ++k) {
+        const float d = scene_distance_tile<MODE>(
+            sc, cv, tile, r.ox + r.dx * t, r.oy + r.dy * t, r.oz + r.dz * t);
+        const bool fail = omega > 1.0f && d + prev_r < step_len;
+        const float new_step = fail ? p.relax_back * step_len : omega * d;
+        if (fail) {
+          omega = 1.0f;
+        } else if (d < p.min_dist) {
+          hit = 1.0f;
+          live = 0.0f;
+        } else if (d > p.max_dist || t > t_cap) {
+          live = 0.0f;
+        }
+        if (live > 0.0f) t = t + new_step;
+        prev_r = d;
+        step_len = new_step;
+      }
+    } else {
+      for (int k = 0; k < p.max_iter && live > 0.0f; ++k) {
+        const float d = scene_distance_tile<MODE>(
+            sc, cv, tile, r.ox + r.dx * t, r.oy + r.dy * t, r.oz + r.dz * t);
+        if (d < p.min_dist) {
+          hit = 1.0f;
+          live = 0.0f;
+        } else if (d > p.max_dist || t > t_cap) {
+          live = 0.0f;
+        } else {
+          t = t + d;
+        }
       }
     }
     if (t_out != nullptr) {
@@ -175,10 +214,10 @@ __global__ void fine_kernel(SceneView sc, const float* __restrict__ cam,
       const float pz = r.oz + r.dz * t;
       // Tetrahedron taps: k in {(+,-,-), (-,-,+), (-,+,-), (+,+,+)}.
       const float e = p.eps;
-      const float d0 = scene_distance(sc, px + e, py - e, pz - e);
-      const float d1 = scene_distance(sc, px - e, py - e, pz + e);
-      const float d2 = scene_distance(sc, px - e, py + e, pz - e);
-      const float d3 = scene_distance(sc, px + e, py + e, pz + e);
+      const float d0 = scene_distance_tile<MODE>(sc, cv, tile, px + e, py - e, pz - e);
+      const float d1 = scene_distance_tile<MODE>(sc, cv, tile, px - e, py - e, pz + e);
+      const float d2 = scene_distance_tile<MODE>(sc, cv, tile, px - e, py + e, pz - e);
+      const float d3 = scene_distance_tile<MODE>(sc, cv, tile, px + e, py + e, pz + e);
       float nx = 0.0f, ny = 0.0f, nz = 0.0f;
       nx = nx + d0; ny = ny - d0; nz = nz - d0;
       nx = nx - d1; ny = ny - d1; nz = nz + d1;
@@ -235,11 +274,12 @@ constexpr int FINE_THREADS = 128;
 extern "C" {
 
 // Both launchers return the cudaError_t of the launch (0 = success). t_out
-// and hit_out may be null (no residuals).
+// and hit_out may be null (no residuals); cull->mode 0 renders unculled.
 int rmt_coarse_launch(const float* leaf_params, const int* row_kind,
                       const int* tape, int n_instr, const float* op_param,
                       const float* cam, const float* bound,
-                      const rmt::RenderParams* params, float* t0_out,
+                      const rmt::RenderParams* params,
+                      const rmt::CullView* cull, float* t0_out,
                       float* status_out, void* stream) {
   const rmt::RenderParams p = *params;
   const rmt::SceneView sc = rmt::make_scene(leaf_params, row_kind, tape,
@@ -247,15 +287,31 @@ int rmt_coarse_launch(const float* leaf_params, const int* row_kind,
   const dim3 block(rmt::COARSE_THREADS);
   const dim3 grid((p.width + rmt::COARSE_THREADS - 1) / rmt::COARSE_THREADS,
                   p.rows);
-  rmt::coarse_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
-      sc, cam, bound, p, t0_out, status_out);
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (cull->mode) {
+    case 0:
+      rmt::coarse_kernel<0><<<grid, block, 0, st>>>(sc, cam, bound, p, *cull,
+                                                    t0_out, status_out);
+      break;
+    case 1:
+      rmt::coarse_kernel<1><<<grid, block, 0, st>>>(sc, cam, bound, p, *cull,
+                                                    t0_out, status_out);
+      break;
+    case 2:
+      rmt::coarse_kernel<2><<<grid, block, 0, st>>>(sc, cam, bound, p, *cull,
+                                                    t0_out, status_out);
+      break;
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
   return (int)cudaGetLastError();
 }
 
 int rmt_fine_launch(const float* leaf_params, const int* row_kind,
                     const int* tape, int n_instr, const float* op_param,
                     const float* cam, const float* bound,
-                    const rmt::RenderParams* params, const float* t0_in,
+                    const rmt::RenderParams* params,
+                    const rmt::CullView* cull, const float* t0_in,
                     const float* status_in, float* img, float* t_out,
                     float* hit_out, void* stream) {
   const rmt::RenderParams p = *params;
@@ -265,8 +321,22 @@ int rmt_fine_launch(const float* leaf_params, const int* row_kind,
   const dim3 block(rmt::FINE_THREADS);
   const dim3 grid((unsigned)((lanes + rmt::FINE_THREADS - 1) / rmt::FINE_THREADS),
                   p.rows);
-  rmt::fine_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
-      sc, cam, bound, p, t0_in, status_in, img, t_out, hit_out);
+  cudaStream_t st = (cudaStream_t)stream;
+  const bool relax = p.relax > 1.0f;
+#define RMT_FINE(MODE, RELAX)                                              \
+  rmt::fine_kernel<MODE, RELAX><<<grid, block, 0, st>>>(                   \
+      sc, cam, bound, p, *cull, t0_in, status_in, img, t_out, hit_out)
+  switch (cull->mode * 2 + (relax ? 1 : 0)) {
+    case 0: RMT_FINE(0, false); break;
+    case 1: RMT_FINE(0, true); break;
+    case 2: RMT_FINE(1, false); break;
+    case 3: RMT_FINE(1, true); break;
+    case 4: RMT_FINE(2, false); break;
+    case 5: RMT_FINE(2, true); break;
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef RMT_FINE
   return (int)cudaGetLastError();
 }
 

@@ -36,6 +36,8 @@ struct RenderParams {
   float floor_checker;
   float ambient;
   float inv_s;  // f32(1 / S)
+  float relax;       // f32(cfg.relax); > 1 takes the relaxed fine march
+  float relax_back;  // f32(1 - cfg.relax): the step back after an overshoot
 };
 
 struct Ray {

@@ -146,10 +146,24 @@ __device__ __forceinline__ float leaf_distance(const float* __restrict__ P,
   }
 }
 
+// Distance substituted for a culled leaf (ops/culling.py FAR).
+constexpr float CULL_FAR = 1.0e4f;
+
+// True when bit `row` of a tile's packed leaf mask is set.
+__device__ __forceinline__ bool mask_bit(const int* __restrict__ mask,
+                                         int row) {
+  return ((__ldg(mask + (row >> 5)) >> (row & 31)) & 1) != 0;
+}
+
 // Distance from point p to the scene. Leaves are evaluated at their PUSH, as
 // the static unroll does; a binary op at slot s reads (s, s+1), writes s.
+// With a tile mask (the gated tape of a culled frame), a leaf whose bit is
+// clear reads CULL_FAR instead of its distance: exact for hits, shading and
+// the escape test by the lemma of ops/culling.py. The plain version is
+// sdf._apply_static_tape with `cull`.
 __device__ __forceinline__ float scene_distance(const SceneView& sc, float px,
-                                                float py, float pz) {
+                                                float py, float pz,
+                                                const int* mask = nullptr) {
   if (sc.n_instr == 0) return sc.max_dist;
   float stk[MAX_STACK];
   for (int i = 0; i < sc.n_instr; ++i) {
@@ -157,8 +171,10 @@ __device__ __forceinline__ float scene_distance(const SceneView& sc, float px,
     const int s = __ldg(sc.out_slot + i);
     if (op == COP_PUSH) {
       const int row = __ldg(sc.tape_arg + i);
-      stk[s] = leaf_distance(sc.leaf_params + row * LEAF_PARAM_WIDTH,
-                             __ldg(sc.row_kind + row), px, py, pz);
+      stk[s] = (mask != nullptr && !mask_bit(mask, row))
+                   ? CULL_FAR
+                   : leaf_distance(sc.leaf_params + row * LEAF_PARAM_WIDTH,
+                                   __ldg(sc.row_kind + row), px, py, pz);
       continue;
     }
     const float k = __ldg(sc.op_param + i);
@@ -196,6 +212,122 @@ __device__ __forceinline__ float scene_distance(const SceneView& sc, float px,
     stk[s] = r;
   }
   return stk[0];
+}
+
+// Per-tile culling of one kernel's tile grid (ops/cuda_prepass.py:TileCull,
+// mirrored field by field by _CCull). mode 0: no culling; 1: the compact
+// plan's per-tile item lists; 2: the gated tape (per-tile leaf masks).
+struct CullView {
+  const int* lists;   // i32[T, n_items]: each group's active entries first
+  const int* counts;  // i32[T, n_counts]: active entries per group
+  const int* masks;   // i32[T, n_words]: packed active-leaf bits
+  const int* prog;    // i32[n_prog, 4]: group offset, count index, source
+                      // (0 pool, 1 seg1 chain, 2 stream), ordered flag
+  int mode;
+  int tile;  // tile side, pixels
+  int n_tx;  // tiles per row of the grid
+  int n_items;
+  int n_counts;
+  int n_words;
+  int n_prog;
+};
+
+// Tile of the pixel (band row i, column j) in a grid of `tile`-pixel tiles.
+__device__ __forceinline__ int tile_of(const CullView& cv, int i, int j) {
+  return (i / cv.tile) * cv.n_tx + j / cv.tile;
+}
+
+// One ordered fold step of a compact entry (pallas_march.py:571-586):
+// mode 0 min(acc, d), 1 smooth_min(acc, d, k), 2 max(acc, -d),
+// 3 smooth_max(acc, -d, k); entry = row | tsel<<10 | mode<<13 | sid<<15 |
+// (kidx+1)<<18, k = op_param[kidx] clamped at 1e-8.
+__device__ __forceinline__ float fold_step(const SceneView& sc, float acc,
+                                           int e, float dv) {
+  const int mode = (e >> 13) & 3;
+  const int ki = e >> 18;
+  const float kp = __ldg(sc.op_param + (ki - 1 > 0 ? ki - 1 : 0));
+  const float kk = fmaxf(kp, 1e-8f);
+  const bool is_sub = mode >= 2;
+  const float hard = is_sub ? fmaxf(acc, -dv) : fminf(acc, dv);
+  if ((mode & 1) == 0) return hard;
+  const float diff = is_sub ? acc + dv : acc - dv;
+  const float h = fmaxf(kk - fabsf(diff), 0.0f) / kk;
+  const float corr = h * h * kk * 0.25f;
+  return is_sub ? hard + corr : hard - corr;
+}
+
+__device__ __forceinline__ float entry_distance(const SceneView& sc, int row,
+                                                float px, float py, float pz) {
+  return leaf_distance(sc.leaf_params + row * LEAF_PARAM_WIDTH,
+                       __ldg(sc.row_kind + row), px, py, pz);
+}
+
+// The scene distance through a tile's compacted item lists: the free pool's
+// min folds, the seg1 chain (free prefix groups, then its ordered fold), and
+// each stream group (ordered folds flushed into the running min at each
+// segment-id change). Replaces pallas_march.py:_make_scene_eval_compact
+// (493-660) for plans with no residual subtrees (those take the gated
+// tape). Loops run the tile's active counts: O(active leaves) per point.
+__device__ __forceinline__ float scene_distance_compact(const SceneView& sc,
+                                                        const CullView& cv,
+                                                        int tile, float px,
+                                                        float py, float pz) {
+  const int* lst = cv.lists + (size_t)tile * cv.n_items;
+  const int* cnt = cv.counts + (size_t)tile * cv.n_counts;
+  float d = CULL_FAR;
+  float chain = CULL_FAR;
+  bool has_chain = false;
+  for (int g = 0; g < cv.n_prog; ++g) {
+    const int off = __ldg(cv.prog + 4 * g + 0);
+    const int n = __ldg(cnt + __ldg(cv.prog + 4 * g + 1));
+    const int source = __ldg(cv.prog + 4 * g + 2);
+    const bool ordered = __ldg(cv.prog + 4 * g + 3) != 0;
+    if (source == 0) {  // free pool
+      for (int j = 0; j < n; ++j)
+        d = fminf(d, entry_distance(sc, __ldg(lst + off + j), px, py, pz));
+    } else if (source == 1) {  // the seg1 chain
+      has_chain = true;
+      for (int j = 0; j < n; ++j) {
+        const int e = __ldg(lst + off + j);
+        const float dv = entry_distance(sc, e & 1023, px, py, pz);
+        chain = ordered ? fold_step(sc, chain, e, dv) : fminf(chain, dv);
+      }
+    } else {  // one stream group
+      float acc_out = d, acc_seg = CULL_FAR;
+      int prev = -1;
+      for (int j = 0; j < n; ++j) {
+        const int e = __ldg(lst + off + j);
+        const int sid = (e >> 15) & 7;
+        if (sid != prev) {
+          acc_out = fminf(acc_out, acc_seg);
+          acc_seg = CULL_FAR;
+        }
+        acc_seg = fold_step(sc, acc_seg, e,
+                            entry_distance(sc, e & 1023, px, py, pz));
+        prev = sid;
+      }
+      d = fminf(acc_out, acc_seg);
+    }
+  }
+  return has_chain ? fminf(d, chain) : d;
+}
+
+// The scene distance at a point of pixel tile `tile` under culling mode
+// MODE (CullView::mode). A template parameter, so that each kernel is built
+// once per mode and the unculled build carries no culling code.
+template <int MODE>
+__device__ __forceinline__ float scene_distance_tile(const SceneView& sc,
+                                                     const CullView& cv,
+                                                     int tile, float px,
+                                                     float py, float pz) {
+  if constexpr (MODE == 1) {
+    return scene_distance_compact(sc, cv, tile, px, py, pz);
+  } else if constexpr (MODE == 2) {
+    return scene_distance(sc, px, py, pz,
+                          cv.masks + (size_t)tile * cv.n_words);
+  } else {
+    return scene_distance(sc, px, py, pz);
+  }
 }
 
 }  // namespace rmt

@@ -1,14 +1,21 @@
 """Fused forward+backward renderer: the cone-prepass forward that keeps its
 residuals, and a CUDA backward kernel.
 
-Port of `raymarch_tpu/ops/pallas_grad.py:make_fused_render_vjp` (1221) on
-the path it takes with `leaf_cull=False`: the legacy backward
-(`backward_info["kind"] == "pallas_legacy_unrolled"`, reason "leaf_cull
-disabled").
+Port of `raymarch_tpu/ops/pallas_grad.py:make_fused_render_vjp` (1221):
+the legacy backward (`backward_info["kind"] == "pallas_legacy_unrolled"`),
+and with `cfg.leaf_cull` the compact backward of pool-only plans
+(`"pallas_compact"`).
 
 - Forward: the coarse kernel, then the fine kernel with residuals
   (`cuda_prepass.fine_res`, the counterpart of the Pallas fine kernel with
-  `emit_th=True`): the image, and each AA ray's march end t and hit flag.
+  `emit_th=True`): the image, and each AA ray's march end t and hit flag;
+  culled per tile with `cfg.leaf_cull`.
+- Compact backward (`compact_bwd`; kernel `compact_bwd_kernel` in
+  csrc/compact_bwd.cu, replacing `_make_compact_bwd.bwd_kernel`,
+  pallas_grad.py:256): for a pool-only compact plan, the same gradient with
+  every scene evaluation folded over the ray's fine-tile list and each
+  point's cotangent pushed through the winning leaf's adjoint alone.
+  `compact_bwd_plain` is its autograd replay.
 - Backward (`bwd`; kernel `fused_bwd_kernel` in csrc/fused_bwd.cu,
   replacing `bwd_kernel`, pallas_grad.py:1432): per hit ray, the adjoint of
   the shading chain plus the implicit-function term, summed over rays into
@@ -35,11 +42,14 @@ import torch
 
 from ..config import RenderConfig
 from . import opcodes as oc
-from .cuda_march import SceneBuffers, scene_plain
+from .cuda_march import SceneBuffers, build_compact_plan, pool_fold_plain, scene_plain
 from .cuda_prepass import (
     PrepassParams,
+    TileCull,
+    _CCull,
     _CParams,
     _check,
+    _check_cull,
     _not_ported,
     _origin,
     _raise_on,
@@ -56,6 +66,7 @@ from .tape import TapeArrays, TapeSpec
 
 MAX_BWD_INSTR = 64  # csrc/scene_grad.cuh MAX_BWD_INSTR
 BWD_THREADS = 64  # csrc/fused_bwd.cu BWD_THREADS
+CBWD_THREADS = 128  # csrc/compact_bwd.cu CBWD_THREADS
 SMEM_PER_BLOCK = 232448  # an H100 block's shared memory, bytes
 PLAIN_BAND_ROWS = 64  # rows per autograd graph in bwd_plain
 
@@ -126,9 +137,15 @@ def _device_index(rows: tuple, device: torch.device) -> torch.Tensor:
 # Plain version
 
 
-def _bwd_plain_band(scene: SceneBuffers, cam, p: PrepassParams, lay: GradLayout, t, hit, g_img, i0):
+def _bwd_plain_band(scene: SceneBuffers, cam, p: PrepassParams, clamp: float, t, hit, g_img, i0,
+                    scene_fn_of=None):
     """Gradient of one band of rows [i0, i0 + len(t)) -> (d_lp, d_opp,
-    d_cam7), the replay of pallas_grad.py:1600-1699 by autograd."""
+    d_cam7), the replay of pallas_grad.py:1600-1699 by autograd.
+    `scene_fn_of(sc)` gives the scene function of the scene buffers `sc`
+    (default: the whole tape, `scene_plain`)."""
+    if scene_fn_of is None:
+        def scene_fn_of(sc):
+            return lambda px, py, pz: scene_plain(sc, p.max_dist, px, py, pz)
     # The fused backward runs inside autograd's backward, where grad mode
     # is off: the replay turns it on for itself.
     with torch.enable_grad():
@@ -147,7 +164,7 @@ def _bwd_plain_band(scene: SceneBuffers, cam, p: PrepassParams, lay: GradLayout,
 
         # Explicit shading path: dL/d(theta, cam, t) (shade_loss).
         tt = t.detach().clone().requires_grad_(True)
-        cols = shade_plain(sc, p, *rays(cam_g), tt, hit)
+        cols = shade_plain(sc, p, *rays(cam_g), tt, hit, scene_fn_of(sc))
         loss = sum(torch.sum(col * gc) for col, gc in zip(cols, g))
         g1 = torch.autograd.grad(loss, (lp, opp, cam7, tt), allow_unused=True)
         gt = g1[3] if g1[3] is not None else torch.zeros_like(t)
@@ -156,13 +173,13 @@ def _bwd_plain_band(scene: SceneBuffers, cam, p: PrepassParams, lay: GradLayout,
         with torch.no_grad():
             ox, oy, oz, dx, dy, dz = rays(cam.detach())
         ts = t.detach().clone().requires_grad_(True)
-        f = scene_plain(scene, p.max_dist, ox + dx * ts, oy + dy * ts, oz + dz * ts)
+        f = scene_fn_of(scene)(ox + dx * ts, oy + dy * ts, oz + dz * ts)
         (fdot,) = torch.autograd.grad(f.sum(), ts)
-        c = lay.grad_denom_clamp
+        c = clamp
         denom = torch.where(torch.abs(fdot) > c, fdot, torch.where(fdot >= 0, c, -c))
         w = (-gt * hit / denom).detach()
         qx, qy, qz, ex, ey, ez = rays(cam_g)
-        f = scene_plain(sc, p.max_dist, qx + ex * t * hit, qy + ey * t * hit, qz + ez * t * hit)
+        f = scene_fn_of(sc)(qx + ex * t * hit, qy + ey * t * hit, qz + ez * t * hit)
         g2 = torch.autograd.grad(torch.sum(w * f), (lp, opp, cam7), allow_unused=True)
 
     out = []
@@ -186,7 +203,7 @@ def bwd_plain(scene: SceneBuffers, cam, p: PrepassParams, lay: GradLayout, t, hi
     d_cam7 = torch.zeros(7, dtype=torch.float32, device=cam.device)
     for i0 in range(0, p.rows, band_rows):
         i1 = min(i0 + band_rows, p.rows)
-        a, b, c = _bwd_plain_band(scene, cam, p, lay, t[i0:i1], hit[i0:i1], g_img[i0:i1], i0)
+        a, b, c = _bwd_plain_band(scene, cam, p, lay.grad_denom_clamp, t[i0:i1], hit[i0:i1], g_img[i0:i1], i0)
         d_lp += a
         d_opp += b
         d_cam7 += c
@@ -197,8 +214,46 @@ def bwd_plain(scene: SceneBuffers, cam, p: PrepassParams, lay: GradLayout, t, hi
     return d_lp, d_opp, torch.cat([d_cam7, torch.zeros(1, dtype=torch.float32, device=cam.device)])
 
 
+def compact_bwd_plain(scene: SceneBuffers, cull: TileCull, cam, p: PrepassParams, clamp: float,
+                      t, hit, g_img, band_rows: int = PLAIN_BAND_ROWS):
+    """Plain version of the compact backward of a pool-only plan -> (d_lp
+    f32[n_leaves, 16], d_opp f32[n_instr], d_cam f32[8]): `bwd_plain`'s
+    autograd replay in row bands, with every scene evaluation the pool fold
+    of the ray's fine tile (`pool_fold_plain`), so each point's cotangent
+    reaches its winner leaf only. `cull` is the fine grid's TileCull of the
+    forward that wrote the residuals (t, hit)."""
+    from .culling import _active_from_mask
+
+    plan = build_compact_plan(scene.spec)
+    act_cols = _active_from_mask(scene.spec, cull.masks).T.contiguous()  # [L, T]
+    d_lp = torch.zeros_like(scene.leaf_params)
+    d_opp = torch.zeros_like(scene.op_param)
+    d_cam7 = torch.zeros(7, dtype=torch.float32, device=cam.device)
+    for i0 in range(0, p.rows, band_rows):
+        i1 = min(i0 + band_rows, p.rows)
+        i = torch.arange(i0, i1, device=cam.device)[:, None, None]
+        j = torch.arange(p.width, device=cam.device)[None, :, None]
+        tid = cull.tile_index(i, j)
+        memo = {}
+
+        def active(row, tid=tid, memo=memo):
+            if row not in memo:
+                memo[row] = act_cols[row][tid]
+            return memo[row]
+
+        def scene_fn_of(sc, active=active):
+            return lambda px, py, pz: pool_fold_plain(sc, plan, active, px, py, pz)
+
+        a, b, c = _bwd_plain_band(scene, cam, p, clamp, t[i0:i1], hit[i0:i1], g_img[i0:i1], i0,
+                                  scene_fn_of)
+        d_lp += a
+        d_opp += b
+        d_cam7 += c
+    return d_lp, d_opp, torch.cat([d_cam7, torch.zeros(1, dtype=torch.float32, device=cam.device)])
+
+
 # --------------------------------------------------------------------------
-# Wrapper: plain on the CPU, the CUDA kernel on a CUDA device
+# Wrappers: plain on the CPU, the CUDA kernel on a CUDA device
 
 
 def _check_bwd(scene: SceneBuffers, cam, p: PrepassParams, lay: GradLayout, t, hit, g_img):
@@ -269,8 +324,87 @@ def bwd(scene: SceneBuffers, cam, p: PrepassParams, lay: GradLayout, t, hit, g_i
 bwd.launches = 0
 
 
+def _check_compact_bwd(scene: SceneBuffers, cull: TileCull, cam, p: PrepassParams, t, hit, g_img):
+    dev = cam.device
+    S = p.naa * p.naa
+    spec = scene.spec
+    plan = build_compact_plan(spec)
+    if plan is None or plan["residual_ops"] or plan["seg1"] is not None or plan["stream"]:
+        raise NotImplementedError(
+            "the compact backward takes pool-only plans; seg1, stream and "
+            "residual plans are not ported yet (ROADMAP: §1.10 many-primitive "
+            "backward and soft coverage)"
+        )
+    _check("cam", cam, torch.float32, (8,), dev)
+    _check("tape", scene.tape, torch.int32, (3, max(scene.n_instr, 1)), dev)
+    _check("row_kind", scene.row_kind, torch.int32, (spec.n_leaves,), dev)
+    _check("leaf_params", scene.leaf_params, torch.float32, (spec.n_leaves, 16), dev)
+    _check("op_param", scene.op_param, torch.float32, (spec.n_instr,), dev)
+    _check("t", t, torch.float32, (p.rows, p.width, S), dev)
+    _check("hit", hit, torch.float32, (p.rows, p.width, S), dev)
+    _check("g_img", g_img, torch.float32, (p.rows, p.width, 3), dev)
+    if cull is None or not cull.compact:
+        raise ValueError("the compact backward needs the fine grid's item lists")
+    _check_cull(cull, spec, p, dev)
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {dev}")
+    nscal = 16 * spec.n_leaves + spec.n_instr + 7
+    if dev.type == "cuda" and nscal * 4 > SMEM_PER_BLOCK:
+        raise NotImplementedError(
+            f"{nscal} gradient words need {nscal * 4} bytes of shared memory per "
+            f"block, more than {SMEM_PER_BLOCK} (ROADMAP §1.10 many-primitive backward)"
+        )
+    return dev, nscal
+
+
+@functools.lru_cache(maxsize=None)
+def _max_compact_blocks(device: torch.device) -> int:
+    n_sm = torch.cuda.get_device_properties(device).multi_processor_count
+    return n_sm * (2048 // CBWD_THREADS)
+
+
+def compact_bwd(scene: SceneBuffers, cull: TileCull, cam, p: PrepassParams, clamp: float, t, hit, g_img):
+    """Compact backward of a pool-only plan -> (d_lp f32[n_leaves, 16],
+    d_opp f32[n_instr], d_cam f32[8]) on the inputs' device; see
+    `compact_bwd_plain` for the arguments. On CUDA: `compact_bwd_kernel`
+    (csrc/compact_bwd.cu), then `bwd_finalize_kernel` over its block rows."""
+    dev, nscal = _check_compact_bwd(scene, cull, cam, p, t, hit, g_img)
+    if dev.type == "cpu":
+        return compact_bwd_plain(scene, cull, cam, p, clamp, t, hit, g_img)
+    from .. import _build
+
+    lib = _build.load()
+    L, n_instr = scene.spec.n_leaves, scene.spec.n_instr
+    cam_base = 16 * L + n_instr
+    max_blocks = _max_compact_blocks(dev)
+    partials = torch.empty(max_blocks * nscal, dtype=torch.float32, device=dev)
+    out = torch.empty(nscal, dtype=torch.float32, device=dev)
+    n_blocks = ctypes.c_int(0)
+    cp = _CParams.of(p)
+    cc = _CCull.of(cull)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.rmt_compact_bwd_launch(
+            *_scene_ptrs(scene), ctypes.addressof(cc), cam.data_ptr(),
+            ctypes.addressof(cp), clamp, t.data_ptr(), hit.data_ptr(), g_img.data_ptr(),
+            nscal, cam_base, partials.data_ptr(), max_blocks, ctypes.byref(n_blocks), stream,
+        )
+        _raise_on(err, "compact_bwd_kernel")
+        compact_bwd.launches += 1
+        err = lib.rmt_bwd_finalize_launch(partials.data_ptr(), n_blocks.value, nscal, out.data_ptr(), stream)
+    _raise_on(err, "bwd_finalize_kernel")
+    d_lp = out[: 16 * L].view(L, 16)
+    d_opp = out[16 * L : cam_base]
+    d_cam = torch.cat([out[cam_base:], torch.zeros(1, dtype=torch.float32, device=dev)])
+    return d_lp, d_opp, d_cam
+
+
+compact_bwd.launches = 0
+
+
 def reset_launch_counts():
     bwd.launches = 0
+    compact_bwd.launches = 0
 
 
 # --------------------------------------------------------------------------
@@ -282,9 +416,12 @@ class _FusedRender(torch.autograd.Function):
     def forward(ctx, lp, opp, cam, fr):
         rp = fr.prepass
         scene, cam_d, bound = rp.scene_args(types.SimpleNamespace(leaf_params=lp, op_param=opp), cam)
-        pre = coarse(scene, cam_d, bound, rp.params)
-        img, t, hit = fine_res(scene, cam_d, bound, rp.params, *pre)
+        coarse_cull, fine_cull = rp.cull_args(scene, cam_d)
+        pre = coarse(scene, cam_d, bound, rp.params, coarse_cull)
+        img, t, hit = fine_res(scene, cam_d, bound, rp.params, *pre, cull=fine_cull)
         ctx.fr = fr
+        # The backward reads, for each ray, the fine list its forward used.
+        ctx.fine_cull = fine_cull
         ctx.save_for_backward(scene.leaf_params, scene.op_param, cam_d, t, hit)
         return img
 
@@ -294,9 +431,17 @@ class _FusedRender(torch.autograd.Function):
         fr = ctx.fr
         rp = fr.prepass
         scene = SceneBuffers(fr.spec, rp.topology[0], rp.topology[1], lp, opp)
-        d_lp, d_opp, d_cam = bwd(
-            scene, cam, rp.params, fr.layout, t, hit, g_img.contiguous()
-        )
+        if fr.compact_bwd:
+            d_lp, d_opp, d_cam = compact_bwd(
+                scene, ctx.fine_cull, cam, rp.params, fr.layout.grad_denom_clamp, t, hit,
+                g_img.contiguous(),
+            )
+        else:
+            # The legacy backward runs ungated after a culled forward, as in
+            # the reference (pallas_grad.py:1423-1429).
+            d_lp, d_opp, d_cam = bwd(
+                scene, cam, rp.params, fr.layout, t, hit, g_img.contiguous()
+            )
         return d_lp, d_opp, d_cam, None
 
 
@@ -308,12 +453,34 @@ def _param_tensor(name, x, device):
     return torch.as_tensor(x, dtype=torch.float32, device=device)
 
 
+def compact_bwd_reason(spec: TapeSpec, cfg: RenderConfig):
+    """Why the compact O(active) backward is not taken, or None when it is:
+    the eligibility chain of pallas_grad.py:1279-1298 with the reference's
+    reason strings. Two of its gates do not apply to the port: the 64-item
+    history cap of the TPU's VMEM (the port sizes history to the plan's
+    span, ROADMAP §3.1) and the AA-packed layout (always available)."""
+    plan = build_compact_plan(spec) if cfg.leaf_cull else None
+    if not cfg.leaf_cull:
+        return "leaf_cull disabled"
+    if plan is None:
+        return "scene has no compact plan (not foldable)"
+    if plan["residual_ops"]:
+        return "plan has residual (unrolled) subtrees"
+    if spec.has_materials and (plan["seg1"] is not None or plan["stream"]):
+        return "painted materials on smooth/ordered segments"
+    return None
+
+
 class FusedRenderer:
     """`render(arrays, cam_vec f32[8]) -> image f32[H, W, 3]` on one device,
     differentiable with respect to `arrays.leaf_params`, `arrays.op_param`
     and `cam_vec` (tensors; numpy parameters are uploaded and are not
     differentiated). `cam_vec[7]` is the band's first row and gets a zero
-    gradient."""
+    gradient.
+
+    With `cfg.leaf_cull` the forward is culled (the coarse and fine kernels
+    read per-tile item lists or masks); a pool-only compact plan then takes
+    the compact backward K9 (`compact_bwd`), any other scene the legacy K8."""
 
     def __init__(self, spec: TapeSpec, cfg: RenderConfig, width: int, height: int, device):
         self.spec = spec
@@ -322,13 +489,15 @@ class FusedRenderer:
         self.prepass = make_pallas_image_render_aa(spec, cfg, width, height, device=device)
         self.params = self.prepass.params
         self.layout = GradLayout.of(spec, cfg)
+        reason = compact_bwd_reason(spec, cfg)
+        self.compact_bwd = reason is None
         # The keys and strings of the reference (pallas_grad.py:1887-1895).
         # The port always keeps a pixel's AA samples in adjacent lanes (the
         # packed layout) and has no row-block size.
         self.backward_info = {
-            "kind": "pallas_legacy_unrolled",
-            "compact": False,
-            "reason": "leaf_cull disabled",
+            "kind": "pallas_compact" if self.compact_bwd else "pallas_legacy_unrolled",
+            "compact": self.compact_bwd,
+            "reason": reason,
             "aa_packed": True,
             "bm": None,
             "soft": False,
@@ -356,17 +525,28 @@ def make_fused_render_vjp(
     """The port's counterpart of `raymarch_tpu.ops.pallas_grad.
     make_fused_render_vjp`, cached per (spec, cfg, width, height, device).
 
-    Serves the legacy backward of a static, material-free tape with
-    leaf_cull off, prepass_block=1 and the packed layout; every other option
-    raises NotImplementedError naming its ROADMAP item.
+    Serves a static, material-free tape with prepass_block=1 and the packed
+    layout: without `cfg.leaf_cull` the legacy backward (K8); with it the
+    culled forward, then the compact backward (K9) for a pool-only plan and
+    K8 for a plan with residual subtrees or no plan, as the reference
+    dispatches (`backward_info`). A seg1 or stream plan, which the
+    reference sends to branches of the compact backward not ported yet,
+    raises, as does every other option, with its ROADMAP item.
     """
     if spec.static_tape is None:
         _not_ported("fused-VJP rendering of a dynamic tape (compile_scene(static=True) is required)",
                     "§1.12 dynamic tape, tiered runtime and viewer")
     if soft:
         _not_ported("soft", "§1.10 many-primitive backward and soft coverage")
-    if cfg.leaf_cull:
-        _not_ported("leaf_cull (the compact backward, K9)", "§1.9/§1.10 many-primitive forward and backward")
+    if compact_bwd_reason(spec, cfg) is None:
+        plan = build_compact_plan(spec)
+        if plan["seg1"] is not None or plan["stream"]:
+            kind = "seg1" if plan["seg1"] is not None else "stream"
+            _not_ported(f"the compact backward of a {kind} plan (K9's ordered-fold branches)",
+                        "§1.10 many-primitive backward and soft coverage")
+        if spec.has_materials:
+            _not_ported("the compact backward of painted materials (K9's winner albedo routing)",
+                        "§1.10 many-primitive backward and soft coverage")
     if spec.has_materials:
         _not_ported("materials", "§1.8 forward variants on the main kernels")
     if band_rows is not None:

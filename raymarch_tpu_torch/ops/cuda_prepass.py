@@ -32,11 +32,15 @@ import numpy as np
 import torch
 
 from ..config import RenderConfig
+from . import opcodes as oc
 from .cuda_march import (
     SceneBuffers,
+    build_compact_plan,
     compute_bound,
     compute_bound_torch,
+    plan_program,
     scene_buffers,
+    scene_compact_plain,
     scene_plain,
     scene_topology,
     sqrt_rn,
@@ -100,6 +104,8 @@ class PrepassParams:
     floor_checker: float
     ambient: float
     inv_s: float
+    relax: float
+    relax_back: float
 
     @staticmethod
     def make(cfg: RenderConfig, width: int, height: int, no_prepass: bool = False):
@@ -130,6 +136,8 @@ class PrepassParams:
             floor_checker=_f32(cfg.floor_checker),
             ambient=_f32(cfg.ambient),
             inv_s=_f32(1.0 / (naa * naa)),
+            relax=_f32(max(cfg.relax, 1.0)),
+            relax_back=_f32(1.0 - cfg.relax),
         )
 
 
@@ -160,6 +168,8 @@ class _CParams(ctypes.Structure):
         ("floor_checker", ctypes.c_float),
         ("ambient", ctypes.c_float),
         ("inv_s", ctypes.c_float),
+        ("relax", ctypes.c_float),
+        ("relax_back", ctypes.c_float),
     ]
 
     @staticmethod
@@ -172,6 +182,85 @@ class _CParams(ctypes.Structure):
             else:
                 setattr(c, name, v)
         return c
+
+
+# Side, in pixels, of the square tiles that carry one culling mask and one
+# compacted item list each: the coarse kernel's tiles and the fine kernel's
+# (and the backward's, which reads the fine lists). The reference sizes its
+# list tiles to the TPU's 1 MB of scalar memory; here lists live in device
+# memory, so both are small squares: 1080p has 68 x 120 of them.
+COARSE_TILE = 16
+FINE_TILE = 16
+
+
+@dataclasses.dataclass(frozen=True)
+class TileCull:
+    """One frame's leaf culling on one kernel's tile grid, on the device.
+
+    masks:  i32[T, ceil(L/32)], the packed active-leaf bits of each tile
+            (culling.tile_leaf_masks), T = n_ty * n_tx.
+    lists, counts: the compact plan's per-tile item lists and active counts
+            (culling.compact_plan_rows), or None: then the kernels run the
+            gated tape, the run-time tape with FAR for each culled leaf.
+    prog:   the plan's groups in evaluation order (cuda_march.plan_program),
+            or None with the gated tape.
+    """
+
+    tile: int
+    n_tx: int
+    masks: torch.Tensor
+    lists: torch.Tensor | None = None
+    counts: torch.Tensor | None = None
+    prog: torch.Tensor | None = None
+
+    @property
+    def compact(self) -> bool:
+        return self.lists is not None
+
+    def tile_index(self, i, j):
+        """Tile of (band row i, column j) tensors, as csrc tile_of."""
+        return torch.div(i, self.tile, rounding_mode="floor") * self.n_tx + torch.div(
+            j, self.tile, rounding_mode="floor"
+        )
+
+
+class _CCull(ctypes.Structure):
+    """ctypes mirror of `CullView` in csrc/scene_eval.cuh, field by field."""
+
+    _fields_ = [
+        ("lists", ctypes.c_void_p),
+        ("counts", ctypes.c_void_p),
+        ("masks", ctypes.c_void_p),
+        ("prog", ctypes.c_void_p),
+        ("mode", ctypes.c_int32),
+        ("tile", ctypes.c_int32),
+        ("n_tx", ctypes.c_int32),
+        ("n_items", ctypes.c_int32),
+        ("n_counts", ctypes.c_int32),
+        ("n_words", ctypes.c_int32),
+        ("n_prog", ctypes.c_int32),
+    ]
+
+    @staticmethod
+    def of(c: TileCull | None) -> "_CCull":
+        v = _CCull()
+        if c is None:
+            return v  # mode 0: no culling
+        v.masks = c.masks.data_ptr()
+        v.n_words = c.masks.shape[1]
+        v.tile = c.tile
+        v.n_tx = c.n_tx
+        if c.compact:
+            v.mode = 1
+            v.lists = c.lists.data_ptr()
+            v.counts = c.counts.data_ptr()
+            v.prog = c.prog.data_ptr()
+            v.n_items = c.lists.shape[1]
+            v.n_counts = c.counts.shape[1]
+            v.n_prog = c.prog.shape[0]
+        else:
+            v.mode = 2
+        return v
 
 
 # --------------------------------------------------------------------------
@@ -231,8 +320,73 @@ def div_rn(x: torch.Tensor, d) -> torch.Tensor:
     return x / torch.full((), d, dtype=x.dtype, device=x.device)
 
 
-def coarse_plain(scene: SceneBuffers, cam, bound, p: PrepassParams):
-    """Plain version of the coarse kernel -> (t0, status) f32[rows, W]."""
+def scene_fn_plain(scene: SceneBuffers, max_dist: float, cull: TileCull | None, tid=None):
+    """The plain scene function of one pass -> f(px, py, pz). Without
+    `cull` it is `scene_plain`. With it, `tid` holds each point's tile
+    (broadcasting against the points) and the leaf rows of that tile's mask
+    are active: a compact plan folds them in plan order
+    (`scene_compact_plain`), else the gated tape substitutes FAR for the
+    others (`sdf._apply_static_tape` with `cull`)."""
+    if cull is None:
+        return lambda px, py, pz: scene_plain(scene, max_dist, px, py, pz)
+    from .culling import _active_from_mask
+
+    act_cols = _active_from_mask(scene.spec, cull.masks).T.contiguous()  # [L, T]
+    memo = {}
+
+    def active(row):
+        if row not in memo:
+            memo[row] = act_cols[row][tid]
+        return memo[row]
+
+    if cull.compact:
+        plan = build_compact_plan(scene.spec)
+        return lambda px, py, pz: scene_compact_plain(scene, plan, active, px, py, pz)
+    return lambda px, py, pz: scene_plain(scene, max_dist, px, py, pz, cull=active)
+
+
+@dataclasses.dataclass
+class WorkCount:
+    """The work of one pass as its plain version counts it, for a roofline
+    bound: scene evaluations at points (march steps of live rays, the normal
+    taps of hit rays), the leaf evaluations they take (per point, the
+    leaves its tile keeps; every pushed leaf unculled) and the hit rays.
+    Sums are 0-d tensors on the pass's device (no host sync per step)."""
+
+    points: torch.Tensor | float = 0.0
+    leaf_evals: torch.Tensor | float = 0.0
+    hits: torch.Tensor | float = 0.0
+
+    def add(self, live, leaves, points_per=1):
+        self.points = self.points + points_per * live.sum()
+        self.leaf_evals = self.leaf_evals + points_per * (live * leaves).sum()
+
+
+def leaves_per_point(scene: SceneBuffers, cull: TileCull | None, tid=None):
+    """Leaves one scene evaluation takes at a point of tile `tid`: the
+    tile's list counts (compact), its active pushed leaves (gated tape), or
+    every pushed leaf (unculled)."""
+    if cull is None:
+        return sum(1 for c, _a, _s in scene.spec.static_tape if c == oc.COP_PUSH)
+    if cull.compact:
+        return cull.counts.sum(dim=1)[tid].to(torch.float32)
+    from .culling import _active_from_mask
+
+    return _active_from_mask(scene.spec, cull.masks).sum(dim=1)[tid].to(torch.float32)
+
+
+def _band_ij(p: PrepassParams, dev, naa_axis: bool):
+    i = torch.arange(p.rows, device=dev)[:, None]
+    j = torch.arange(p.width, device=dev)[None, :]
+    if naa_axis:
+        return i[:, :, None], j[:, :, None]
+    return i, j
+
+
+def coarse_plain(scene: SceneBuffers, cam, bound, p: PrepassParams, cull: TileCull | None = None,
+                 work: WorkCount | None = None):
+    """Plain version of the coarse kernel -> (t0, status) f32[rows, W].
+    `work`, when given, counts the pass's scene and leaf evaluations."""
     dev = cam.device
     i = torch.arange(p.rows, device=dev, dtype=torch.float32)[:, None]
     j = torch.arange(p.width, device=dev, dtype=torch.float32)[None, :]
@@ -241,6 +395,8 @@ def coarse_plain(scene: SceneBuffers, cam, bound, p: PrepassParams):
     x, y = (v.contiguous() for v in torch.broadcast_tensors(x, y))
     dx, dy, dz = _view_dirs(x, y, cam, p)
     ox, oy, oz = _origin(cam, dx)
+    tid = cull.tile_index(*_band_ij(p, dev, False)) if cull is not None else None
+    scene_fn = scene_fn_plain(scene, p.max_dist, cull, tid)
 
     zero = torch.zeros_like(dx)
     t = zero
@@ -251,10 +407,13 @@ def coarse_plain(scene: SceneBuffers, cam, bound, p: PrepassParams):
             bound, ox, oy, oz, dx, dy, dz, live, t, t_cap, p.min_dist
         )
     near = zero
+    leaves = leaves_per_point(scene, cull, tid) if work is not None else None
     for _ in range(p.max_iter):
         if not bool(live.any()):
             break
-        d = scene_plain(scene, p.max_dist, ox + dx * t, oy + dy * t, oz + dz * t)
+        if work is not None:
+            work.add(live, leaves)
+        d = scene_fn(ox + dx * t, oy + dy * t, oz + dz * t)
         slack = d - p.omega * t
         near_now = torch.where(slack < p.min_dist, live, 0.0)
         escaped = torch.where((d > p.max_dist) | (t > t_cap), live, 0.0)
@@ -287,12 +446,17 @@ def aa_screen(p: PrepassParams, cam, i0: int = 0, n_rows: int | None = None):
     return tuple(v.contiguous() for v in torch.broadcast_tensors(x, y))
 
 
-def fine_res_plain(scene: SceneBuffers, cam, bound, p: PrepassParams, t0=None, status=None):
+def fine_res_plain(scene: SceneBuffers, cam, bound, p: PrepassParams, t0=None, status=None,
+                   cull: TileCull | None = None, work: WorkCount | None = None):
     """Plain version of the fine kernel with residuals -> (image f32[rows,
-    W, 3], t, hit f32[rows, W, S]): each AA ray's march end and hit flag."""
+    W, 3], t, hit f32[rows, W, S]): each AA ray's march end and hit flag.
+    `cull` is the fine grid's TileCull of a culled frame; `work`, when
+    given, counts the pass's scene and leaf evaluations."""
     x, y = aa_screen(p, cam)
     dx, dy, dz = _view_dirs(x, y, cam, p)
     ox, oy, oz = _origin(cam, dx)
+    tid = cull.tile_index(*_band_ij(p, cam.device, True)) if cull is not None else None
+    scene_fn = scene_fn_plain(scene, p.max_dist, cull, tid)
 
     zero = torch.zeros_like(dx)
     if p.no_prepass:
@@ -306,35 +470,78 @@ def fine_res_plain(scene: SceneBuffers, cam, bound, p: PrepassParams, t0=None, s
         _, _, t_cap = _bound_clip(
             bound, ox, oy, oz, dx, dy, dz, live, t, t_cap, p.min_dist
         )
-    hit = zero
-    for _ in range(p.max_iter):
-        if not bool(live.any()):
-            break
-        d = scene_plain(scene, p.max_dist, ox + dx * t, oy + dy * t, oz + dz * t)
-        hit_now = torch.where(d < p.min_dist, live, 0.0)
-        escaped = torch.where((d > p.max_dist) | (t > t_cap), live, 0.0)
-        escaped = escaped - escaped * hit_now
-        advance = live - hit_now - escaped
-        t = t + d * advance
-        live = live - hit_now - escaped
-        hit = hit + hit_now
-    cols = shade_plain(scene, p, ox, oy, oz, dx, dy, dz, t, hit)
+    leaves = leaves_per_point(scene, cull, tid) if work is not None else None
+    if p.relax > 1.0:
+        t, hit = _relaxed_march_plain(scene_fn, p, ox, oy, oz, dx, dy, dz, t, live, t_cap,
+                                      work, leaves)
+    else:
+        hit = zero
+        for _ in range(p.max_iter):
+            if not bool(live.any()):
+                break
+            if work is not None:
+                work.add(live, leaves)
+            d = scene_fn(ox + dx * t, oy + dy * t, oz + dz * t)
+            hit_now = torch.where(d < p.min_dist, live, 0.0)
+            escaped = torch.where((d > p.max_dist) | (t > t_cap), live, 0.0)
+            escaped = escaped - escaped * hit_now
+            advance = live - hit_now - escaped
+            t = t + d * advance
+            live = live - hit_now - escaped
+            hit = hit + hit_now
+    if work is not None:
+        work.add(hit, leaves, points_per=4)  # the normal taps of hit rays
+        work.hits = work.hits + hit.sum()
+    cols = shade_plain(scene, p, ox, oy, oz, dx, dy, dz, t, hit, scene_fn)
     img = torch.stack([torch.sum(c, dim=-1) * p.inv_s for c in cols], dim=-1)
     return img, t, hit
 
 
-def shade_plain(scene: SceneBuffers, p: PrepassParams, ox, oy, oz, dx, dy, dz, t, hit):
+def _relaxed_march_plain(scene_fn, p: PrepassParams, ox, oy, oz, dx, dy, dz, t, live, t_cap,
+                         work=None, leaves=None):
+    """The relax > 1 branch of the fine march (pallas_prepass.py:491-525):
+    step omega*d; when consecutive safe spheres stop overlapping (d +
+    prev_r < step) the relaxed step overshot, so step back by (1 - relax)
+    * step and drop that ray to omega = 1. Hit and escape are tested only
+    at samples that did not overshoot; exit_check_every does not apply."""
+    zero = torch.zeros_like(t)
+    prev_r = zero
+    step_len = zero
+    omega = zero + p.relax
+    hit = zero
+    for _ in range(p.max_iter):
+        if not bool(live.any()):
+            break
+        if work is not None:
+            work.add(live, leaves)
+        d = scene_fn(ox + dx * t, oy + dy * t, oz + dz * t)
+        fail = torch.where((omega > 1.0) & (d + prev_r < step_len), live, 0.0)
+        ok = live - fail
+        new_step = torch.where(fail > 0.0, p.relax_back * step_len, omega * d)
+        omega = torch.where(fail > 0.0, 1.0, omega)
+        hit_now = torch.where(d < p.min_dist, ok, 0.0)
+        escaped = torch.where((d > p.max_dist) | (t > t_cap), ok, 0.0)
+        escaped = escaped - escaped * hit_now
+        live = live - hit_now - escaped
+        t = t + new_step * live
+        prev_r = d
+        step_len = new_step
+        hit = hit + hit_now
+    return t, hit
+
+
+def shade_plain(scene: SceneBuffers, p: PrepassParams, ox, oy, oz, dx, dy, dz, t, hit, scene_fn=None):
     """Per-ray gamma-corrected colour (r, g, b) of the fine pass at the
     march result (t, hit): tetrahedron normal, Lambert against the point
     light, the checker floor on a miss (pallas_grad.py:1600-1651 is the same
-    chain). Differentiable in the scene, the ray and t."""
+    chain). Differentiable in the scene, the ray and t. `scene_fn` is the
+    pass's scene function (default: the whole tape, `scene_plain`)."""
+    if scene_fn is None:
+        scene_fn = scene_fn_plain(scene, p.max_dist, None)
     px = ox + dx * t * hit
     py = oy + dy * t * hit
     pz = oz + dz * t * hit
-    nx, ny, nz = tet_taps_plain(
-        lambda qx, qy, qz: scene_plain(scene, p.max_dist, qx, qy, qz),
-        px, py, pz, p.eps,
-    )
+    nx, ny, nz = tet_taps_plain(scene_fn, px, py, pz, p.eps)
     ninv = 1.0 / sqrt_rn(nx * nx + ny * ny + nz * nz + 1e-20)
     tlx = px - p.light[0]
     tly = py - p.light[1]
@@ -364,9 +571,10 @@ def shade_plain(scene: SceneBuffers, p: PrepassParams, ox, oy, oz, dx, dy, dz, t
     return cols
 
 
-def fine_plain(scene: SceneBuffers, cam, bound, p: PrepassParams, t0=None, status=None):
+def fine_plain(scene: SceneBuffers, cam, bound, p: PrepassParams, t0=None, status=None,
+               cull: TileCull | None = None, work: WorkCount | None = None):
     """Plain version of the fine kernel -> image f32[rows, W, 3]."""
-    return fine_res_plain(scene, cam, bound, p, t0, status)[0]
+    return fine_res_plain(scene, cam, bound, p, t0, status, cull, work)[0]
 
 
 # --------------------------------------------------------------------------
@@ -424,22 +632,42 @@ def _raise_on(err: int, what: str):
         raise RuntimeError(f"{what} launch failed: cudaError_t {err}")
 
 
-def coarse(scene: SceneBuffers, cam, bound, p: PrepassParams):
-    """Coarse pass -> (t0, status) f32[rows, W] on the inputs' device."""
+def _check_cull(cull: TileCull | None, spec: TapeSpec, p: PrepassParams, dev):
+    if cull is None:
+        return
+    n_ty = -(-p.rows // cull.tile)
+    n_tx = -(-p.width // cull.tile)
+    if cull.n_tx != n_tx:
+        raise ValueError(f"cull grid has {cull.n_tx} tiles per row, expected {n_tx}")
+    _check("masks", cull.masks, torch.int32, (n_ty * n_tx, (spec.n_leaves + 31) // 32), dev)
+    if cull.compact:
+        plan = build_compact_plan(spec)
+        if plan is None or plan["residual_ops"]:
+            raise ValueError("item lists given for a scene that takes the gated tape")
+        _check("lists", cull.lists, torch.int32, (n_ty * n_tx, plan["n_items"]), dev)
+        _check("counts", cull.counts, torch.int32, (n_ty * n_tx, plan["n_counts"]), dev)
+        _check("prog", cull.prog, torch.int32, None, dev)
+
+
+def coarse(scene: SceneBuffers, cam, bound, p: PrepassParams, cull: TileCull | None = None):
+    """Coarse pass -> (t0, status) f32[rows, W] on the inputs' device.
+    `cull` is the coarse grid's TileCull of a culled frame."""
     dev = _check_scene(scene, cam, bound, p)
+    _check_cull(cull, scene.spec, p, dev)
     if dev.type == "cpu":
-        return coarse_plain(scene, cam, bound, p)
+        return coarse_plain(scene, cam, bound, p, cull)
     from .. import _build
 
     lib = _build.load()
     t0 = torch.empty((p.rows, p.width), dtype=torch.float32, device=dev)
     status = torch.empty_like(t0)
     cp = _CParams.of(p)
+    cc = _CCull.of(cull)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.rmt_coarse_launch(
             *_scene_ptrs(scene), cam.data_ptr(), bound.data_ptr(),
-            ctypes.addressof(cp), t0.data_ptr(), status.data_ptr(), stream,
+            ctypes.addressof(cp), ctypes.addressof(cc), t0.data_ptr(), status.data_ptr(), stream,
         )
     _raise_on(err, "coarse_kernel")
     coarse.launches += 1
@@ -449,13 +677,14 @@ def coarse(scene: SceneBuffers, cam, bound, p: PrepassParams):
 coarse.launches = 0
 
 
-def _fine_launch(scene: SceneBuffers, cam, bound, p: PrepassParams, t0, status, residuals: bool):
+def _fine_launch(scene: SceneBuffers, cam, bound, p: PrepassParams, t0, status, residuals: bool, cull):
     dev = _check_scene(scene, cam, bound, p)
+    _check_cull(cull, scene.spec, p, dev)
     if not p.no_prepass:
         _check("t0", t0, torch.float32, (p.rows, p.width), dev)
         _check("status", status, torch.float32, (p.rows, p.width), dev)
     if dev.type == "cpu":
-        out = fine_res_plain(scene, cam, bound, p, t0, status)
+        out = fine_res_plain(scene, cam, bound, p, t0, status, cull)
         return out if residuals else out[0]
     from .. import _build
 
@@ -466,11 +695,12 @@ def _fine_launch(scene: SceneBuffers, cam, bound, p: PrepassParams, t0, status, 
         t = torch.empty((p.rows, p.width, p.naa * p.naa), dtype=torch.float32, device=dev)
         hit = torch.empty_like(t)
     cp = _CParams.of(p)
+    cc = _CCull.of(cull)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.rmt_fine_launch(
             *_scene_ptrs(scene), cam.data_ptr(), bound.data_ptr(),
-            ctypes.addressof(cp),
+            ctypes.addressof(cp), ctypes.addressof(cc),
             None if p.no_prepass else t0.data_ptr(),
             None if p.no_prepass else status.data_ptr(),
             img.data_ptr(),
@@ -486,19 +716,22 @@ def _fine_launch(scene: SceneBuffers, cam, bound, p: PrepassParams, t0, status, 
     return img
 
 
-def fine(scene: SceneBuffers, cam, bound, p: PrepassParams, t0=None, status=None):
+def fine(scene: SceneBuffers, cam, bound, p: PrepassParams, t0=None, status=None,
+         cull: TileCull | None = None):
     """Fine pass -> image f32[rows, W, 3] on the inputs' device. `t0` and
-    `status` are the coarse planes (None with `p.no_prepass`)."""
-    return _fine_launch(scene, cam, bound, p, t0, status, residuals=False)
+    `status` are the coarse planes (None with `p.no_prepass`); `cull` is the
+    fine grid's TileCull of a culled frame."""
+    return _fine_launch(scene, cam, bound, p, t0, status, False, cull)
 
 
-def fine_res(scene: SceneBuffers, cam, bound, p: PrepassParams, t0=None, status=None):
+def fine_res(scene: SceneBuffers, cam, bound, p: PrepassParams, t0=None, status=None,
+             cull: TileCull | None = None):
     """Fine pass that also keeps its residuals -> (image f32[rows, W, 3], t,
     hit f32[rows, W, S]), the counterpart of the Pallas fine kernel with
     `emit_th=True` (pallas_prepass.py:1850-1862). The image is the one
     `fine` gives; t and hit are each AA ray's march end and hit flag, in
     the lane order of the kernel (pixel-major, sample fastest)."""
-    return _fine_launch(scene, cam, bound, p, t0, status, residuals=True)
+    return _fine_launch(scene, cam, bound, p, t0, status, True, cull)
 
 
 fine.launches = 0
@@ -520,7 +753,9 @@ class PrepassRenderer:
 
     Built once per (spec, cfg, width, height, device, no_prepass); a scene
     edit that keeps the TapeSpec uploads new arrays and reuses it. The tape
-    topology is uploaded once, at construction.
+    topology (and with `cfg.leaf_cull` the compact plan) is uploaded once,
+    at construction; the culling masks and lists are built on the device
+    once per frame (`cull_args`) and shared by both kernels.
     """
 
     def __init__(self, spec, cfg, width, height, device, no_prepass):
@@ -529,6 +764,13 @@ class PrepassRenderer:
         self.device = device
         self.params = PrepassParams.make(cfg, width, height, no_prepass)
         self.topology = scene_topology(spec, device)
+        plan = build_compact_plan(spec) if cfg.leaf_cull else None
+        # A plan with residual subtrees takes the gated tape (culling.py's
+        # lemma makes the FAR substitution exact), as does a scene with no
+        # plan; the reference unrolls the residual tree around its lists.
+        self.compact = plan is not None and not plan["residual_ops"]
+        self.plan = plan
+        self.prog = plan_program(spec, device) if self.compact else None
 
     def scene_args(self, arrays: TapeArrays, cam_vec):
         """(SceneBuffers, cam f32[8], bound f32[8]) for one frame, all on
@@ -550,24 +792,53 @@ class PrepassRenderer:
             raise ValueError(f"cam_vec is on {cam.device}, expected {self.device}")
         return scene, cam, bound
 
+    def _grid_cull(self, bounds, cam, tile: int, extra_angle: float) -> TileCull:
+        from .culling import compact_plan_rows, tile_leaf_masks
+
+        p = self.params
+        n_ty, n_tx = -(-p.rows // tile), -(-p.width // tile)
+        masks = tile_leaf_masks(bounds, cam, self.cfg, p.width, p.height, n_ty, n_tx,
+                                float(tile), float(tile), extra_angle=extra_angle)
+        if not self.compact:
+            return TileCull(tile, n_tx, masks)
+        lists, counts = compact_plan_rows(self.spec, self.plan, masks)
+        return TileCull(tile, n_tx, masks, lists, counts, self.prog)
+
+    def cull_args(self, scene: SceneBuffers, cam):
+        """(coarse TileCull or None, fine TileCull) of one frame, or (None,
+        None) without `cfg.leaf_cull`. The coarse tiles' cones widen by the
+        prepass cone angle omega, so that they hold every centre ray's cone
+        (pallas_prepass.py:1308-1314, 1343-1347)."""
+        if not self.cfg.leaf_cull:
+            return None, None
+        from .culling import leaf_bound_spheres
+
+        p = self.params
+        omega = cone_omega(self.cfg, p.width, p.height, 1)
+        bounds = leaf_bound_spheres(self.spec, scene, self.cfg)
+        coarse_cull = None if p.no_prepass else self._grid_cull(bounds, cam, COARSE_TILE, omega)
+        return coarse_cull, self._grid_cull(bounds, cam, FINE_TILE, 0.0)
+
     def coarse(self, arrays, cam_vec):
         scene, cam, bound = self.scene_args(arrays, cam_vec)
-        return coarse(scene, cam, bound, self.params)
+        return coarse(scene, cam, bound, self.params, self.cull_args(scene, cam)[0])
 
     def fine(self, arrays, cam_vec, pre):
         scene, cam, bound = self.scene_args(arrays, cam_vec)
-        return fine(scene, cam, bound, self.params, *pre)
+        return fine(scene, cam, bound, self.params, *pre, cull=self.cull_args(scene, cam)[1])
 
     def __call__(self, arrays: TapeArrays, cam_vec):
         scene, cam, bound = self.scene_args(arrays, cam_vec)
-        pre = () if self.params.no_prepass else coarse(scene, cam, bound, self.params)
-        return fine(scene, cam, bound, self.params, *pre)
+        cc, fc = self.cull_args(scene, cam)
+        pre = () if self.params.no_prepass else coarse(scene, cam, bound, self.params, cc)
+        return fine(scene, cam, bound, self.params, *pre, cull=fc)
 
     def render_plain(self, arrays: TapeArrays, cam_vec):
         """The same frame through the plain versions, on this device."""
         scene, cam, bound = self.scene_args(arrays, cam_vec)
-        pre = () if self.params.no_prepass else coarse_plain(scene, cam, bound, self.params)
-        return fine_plain(scene, cam, bound, self.params, *pre)
+        cc, fc = self.cull_args(scene, cam)
+        pre = () if self.params.no_prepass else coarse_plain(scene, cam, bound, self.params, cc)
+        return fine_plain(scene, cam, bound, self.params, *pre, cull=fc)
 
 
 def _not_ported(option: str, item: str):
@@ -610,8 +881,10 @@ def make_pallas_image_render_aa(
     `raymarch_tpu.ops.pallas_prepass.make_pallas_image_render_aa`), cached
     per (spec, cfg, width, height, device, no_prepass).
 
-    Takes the main path's options only: prepass_block=1, aa_packed=True, a
-    static tape with no materials, leaf_cull=False, relax=1, n_intervals=0;
+    Takes the main path's options: prepass_block=1, aa_packed=True, a
+    static tape with no materials, n_intervals=0, with or without
+    `cfg.leaf_cull` (per-tile culling: compacted item lists for a compact
+    plan, else the gated tape) and `cfg.relax > 1` (relaxed fine march);
     and `no_prepass=True`, the strict-reference path (every AA ray marches
     from t=0). Every other option raises NotImplementedError naming its
     ROADMAP item.
@@ -624,8 +897,6 @@ def make_pallas_image_render_aa(
         _not_ported("band_rows", "§1.11 multi-device")
     if n_intervals:
         _not_ported("n_intervals", "§1.8 forward variants on the main kernels")
-    if cfg.relax > 1.0:
-        _not_ported("relax > 1", "§1.8 forward variants on the main kernels")
     if spec.has_materials:
         _not_ported("materials", "§1.8 forward variants on the main kernels")
     if soft:
@@ -634,8 +905,6 @@ def make_pallas_image_render_aa(
         _not_ported("march_only", "§1.13 remaining surfaces")
     if not aa_packed or cfg.aa_shared_normals:
         _not_ported("the unpacked fine pass (aa_shared_normals)", "§1.13 remaining surfaces, K4 fine_kernel")
-    if cfg.leaf_cull:
-        _not_ported("leaf_cull", "§1.9 many-primitive forward")
     if spec.static_tape is None:
         _not_ported("a dynamic tape", "§1.12 dynamic tape, tiered runtime and viewer")
     return _cached_renderer(spec, cfg, int(width), int(height), resolve_device(device), bool(no_prepass))

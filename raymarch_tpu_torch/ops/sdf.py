@@ -4,8 +4,8 @@ Leaf SDFs over struct-of-arrays parameter rows (`TapeArrays.leaf_params`),
 quaternion rotation, the smooth blends, and the unrolled combine phase over a
 static tape (`TapeSpec.static_tape`). Formulas and f32 op order follow the JAX
 package (which follows the reference kernels, wgsl:229-252, and their
-standard extensions). The per-tile cull hook of the JAX version belongs to the
-culling path and is not ported yet.
+standard extensions). `_apply_static_tape` takes the per-tile cull hook of the
+JAX version (sdf.py:212-275) per leaf: a culled leaf's distance is `FAR`.
 """
 
 from __future__ import annotations
@@ -148,19 +148,19 @@ def _single_leaf_distance(points, row_params, ltype, rotated):
 
 def _static_tree(spec: TapeSpec):
     """Static tape (RPN) -> expression tree. Node = (cop_or_"leaf",
-    instr_index, payload); payload is the leaf row for leaves, else the
-    child tuple. Returns None for the empty tape."""
+    instr_index, payload, leaf_row_frozenset); payload is the leaf row for
+    leaves, else the child tuple. Returns None for the empty tape."""
     stack: list = []
     for i, (cop, arg, _slot) in enumerate(spec.static_tape):
         if cop == oc.COP_PUSH:
-            stack.append(("leaf", i, arg))
+            stack.append(("leaf", i, arg, frozenset((arg,))))
         elif cop in (oc.COP_ROUND, oc.COP_ONION):
             a = stack.pop()
-            stack.append((cop, i, (a,)))
+            stack.append((cop, i, (a,), a[3]))
         else:
             b = stack.pop()
             a = stack.pop()
-            stack.append((cop, i, (a, b)))
+            stack.append((cop, i, (a, b), a[3] | b[3]))
     return stack[0] if stack else None
 
 
@@ -180,19 +180,32 @@ def _combine_static(cop, a, b, kp):
     raise ValueError(f"bad static op {cop}")
 
 
-def _apply_static_tape(spec: TapeSpec, op_param, leaf_fn, max_dist, like):
+def _apply_static_tape(spec: TapeSpec, op_param, leaf_fn, max_dist, like, cull=None):
     """Unrolled combine phase over the static tape. `leaf_fn(row)` yields a
     leaf-distance tensor; `like` gives shape/dtype/device for the empty
     scene, which is `max_dist` everywhere. Blend radii come from the dynamic
     `op_param` (indexed by instruction), so parameter edits need no
-    rebuild."""
+    rebuild.
+
+    `cull(row)`, when given, is a bool tensor that broadcasts against the
+    points: True where the leaf is active for the point's tile. Elsewhere
+    the leaf's distance is `culling.FAR`. The JAX version gates whole
+    subtrees behind scalar branches; per leaf, a fully culled subtree folds
+    to FAR less at most the sum of its |op_param| instead of FAR, which is
+    above max_dist all the same, so hits, shading and the escape test are those of the gated
+    tape (the lemma of culling.py). This is the plain version of the
+    kernels' masked `scene_distance`."""
+    from .culling import FAR
+
     root = _static_tree(spec)
     if root is None:
         return like * 0.0 + max_dist
 
     def eval_node(node):
-        kind, i, payload = node
+        kind, i, payload, _rows = node
         if kind == "leaf":
+            if cull is not None:
+                return torch.where(cull(payload), leaf_fn(payload), FAR)
             return leaf_fn(payload)
         kp = op_param[i]
         if kind == oc.COP_ROUND:

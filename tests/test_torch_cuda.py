@@ -212,3 +212,133 @@ def test_fused_renderer_backpropagates_on_card(dev):
     torch.mean(img ** 2).backward()
     assert img.device == dev and lp.grad.device == dev
     assert float(lp.grad.abs().max()) > 0 and float(pos.grad.abs().max()) > 0
+
+
+def _spheres(m, n=24):
+    """bench.py:357-368's random spheres (seed 7), the first n."""
+    rng = np.random.default_rng(7)
+    parts = []
+    for _ in range(n):
+        c = rng.uniform(-3, 3, 3)
+        c[1] = rng.uniform(-1.0, 1.5)
+        parts.append(m.sphere(center=tuple(c), radius=float(rng.uniform(0.15, 0.5))))
+    scene = parts[0]
+    for p in parts[1:]:
+        scene = scene | p
+    return scene
+
+
+def _rotated_mixed(m):
+    """tests/test_pallas_grad.py:362-376: a rotated pool of mixed types."""
+    return (
+        m.sphere(center=(-1.0, 0.1, 0.0), radius=0.6)
+        | m.box(center=(0.9, 0.0, -0.1), half_extents=(0.45, 0.35, 0.4),
+                rotation=(0.9238795, 0.0, 0.3826834, 0.0))
+        | m.torus(center=(0.0, 0.8, 0.1), major_radius=0.55, minor_radius=0.18,
+                  rotation=(0.9689124, 0.2474040, 0.0, 0.0))
+        | m.capsule(center=(1.6, 0.4, 0.6), radius=0.22, half_height=0.45)
+    )
+
+
+def _clusters(m, n_clusters=6, seed=13):
+    """tests/test_compact.py:346-372: a hard union of smooth clusters (base
+    sphere, smooth-union blob, smooth-subtract dent): a stream plan."""
+    rng = np.random.default_rng(seed)
+    clusters = []
+    for _ in range(n_clusters):
+        c = rng.uniform(-2.5, 2.5, 3)
+        c[1] = rng.uniform(-0.5, 1.0)
+        base = m.sphere(center=tuple(c), radius=float(rng.uniform(0.3, 0.5)))
+        off = rng.uniform(-0.4, 0.4, 3)
+        blob = m.sphere(center=tuple(c + off), radius=float(rng.uniform(0.15, 0.3)))
+        dent = m.sphere(center=tuple(c - off), radius=float(rng.uniform(0.15, 0.3)))
+        clusters.append(base.union(blob, k=float(rng.uniform(0.1, 0.25))).subtract(
+            dent, k=float(rng.uniform(0.1, 0.2))))
+    scene = clusters[0]
+    for cl in clusters[1:]:
+        scene = scene | cl
+    return scene
+
+
+# scene -> (scene function, camera position); plans: pool, pool, seg1, stream,
+# residual (the gated tape).
+CULL_SCENES = {
+    "spheres": (_spheres, (0.0, 2.5, 9.0)),
+    "rotated_mixed": (_rotated_mixed, (0.3, 1.8, 5.0)),
+    "config2": (_config2, (0.0, 2.6, 4.2)),
+    "clusters": (_clusters, (0.0, 2.0, 7.0)),
+    "rich": (_rich, (0.0, 2.6, 4.2)),
+}
+CFG64 = dataclasses.replace(CFG, relax=1.6, leaf_cull=True)
+
+
+def _cull_args(name, dev):
+    build, pos = CULL_SCENES[name]
+    spec, arrays = rt.compile_scene(build(rt), static=True)
+    rp = cp.make_pallas_image_render_aa(spec, CFG64, W, H, device=dev)
+    cam_vec = rt.cam_vec(rt.Camera.looking_at(position=pos, target=(0.0, 0.0, 0.0)), device=dev)
+    sc, cam, bound = rp.scene_args(arrays, cam_vec)
+    return spec, arrays, rp, sc, cam, bound, rp.cull_args(sc, cam), cam_vec
+
+
+@pytest.mark.parametrize("name", sorted(CULL_SCENES))
+def test_culled_kernels_match_plain(dev, name):
+    """The coarse and fine kernels with per-tile lists (pool, seg1 and
+    stream plans) or masks (the gated tape of `rich`), and the relaxed
+    march, against their plain versions on the same lists."""
+    _, _, rp, sc, cam, bound, (cc, fc), _ = _cull_args(name, dev)
+    assert fc.compact == (name != "rich")
+    p = rp.params
+    launches = (cp.coarse.launches, cp.fine_res.launches)
+    t0k, stk = cp.coarse(sc, cam, bound, p, cc)
+    t0p, stp = cp.coarse_plain(sc, cam, bound, p, cc)
+    assert float((stk == stp).float().mean()) >= 0.999
+    both = (stk == 1) & (stp == 1)
+    assert int(both.sum()) > 0
+    # A centre ray whose slack lands within rounding of min_dist takes one
+    # step of ~min_dist more or less in one of the two (1 pixel of 1075 on
+    # the rotated pool): t0 agrees within rtol 1e-4 on all but 0.5%.
+    rel0 = (t0k[both] - t0p[both]).abs() / t0p[both].abs()
+    assert float((rel0 > 1e-4).float().mean()) < 5e-3 and float(rel0.max()) < 1e-2
+    img, t, hit = cp.fine_res(sc, cam, bound, p, t0k, stk, cull=fc)
+    img_p, t_p, hit_p = cp.fine_res_plain(sc, cam, bound, p, t0k, stk, cull=fc)
+    assert (cp.coarse.launches, cp.fine_res.launches) == (launches[0] + 1, launches[1] + 1)
+    assert torch.equal(img, cp.fine(sc, cam, bound, p, t0k, stk, cull=fc))
+    assert float((hit == hit_p).float().mean()) >= 0.999
+    assert float((img - img_p).abs().mean()) < 5e-4
+    assert _neigh_frac(img, img_p) < 0.008
+
+
+@pytest.mark.parametrize("name", ["spheres", "rotated_mixed"])
+def test_compact_bwd_kernel_matches_plain(dev, name):
+    spec, _, rp, sc, cam, bound, (cc, fc), _ = _cull_args(name, dev)
+    fr = cg.make_fused_render_vjp(spec, CFG64, W, H, device=dev)
+    assert fr.backward_info["kind"] == "pallas_compact"
+    pre = cp.coarse(sc, cam, bound, rp.params, cc)
+    _, t, hit = cp.fine_res(sc, cam, bound, rp.params, *pre, cull=fc)
+    g = torch.tensor(np.random.default_rng(7).uniform(-1, 1, (H, W, 3)).astype(np.float32), device=dev)
+    clamp = fr.layout.grad_denom_clamp
+    before = cg.compact_bwd.launches
+    got = cg.compact_bwd(sc, fc, cam, rp.params, clamp, t, hit, g)
+    ref = cg.compact_bwd_plain(sc, fc, cam, rp.params, clamp, t, hit, g)
+    assert cg.compact_bwd.launches == before + 1
+    scale = float(ref[0].abs().max())
+    assert scale > 0
+    torch.testing.assert_close(got[0], ref[0], rtol=0.0, atol=0.01 * scale)
+    assert float(got[1].abs().max()) == 0.0
+    torch.testing.assert_close(got[2], ref[2], rtol=0.0, atol=0.02 * float(ref[2].abs().max()))
+    assert float(got[2][7]) == 0.0
+
+
+def test_culled_fused_renderer_on_card(dev):
+    spec, arrays, *_, cam_vec = _cull_args("spheres", dev)
+    render = rt.make_renderer(spec, W, H, CFG64, mode="implicit", backend="pallas_fused", device="cuda")
+    assert render.backward_info["kind"] == "pallas_compact"
+    lp = torch.tensor(arrays.leaf_params, device=dev, requires_grad=True)
+    cv = cam_vec.clone().requires_grad_(True)
+    before = cg.compact_bwd.launches
+    img = render.renderer(dataclasses.replace(arrays, leaf_params=lp), cv)
+    torch.mean(img**2).backward()
+    assert cg.compact_bwd.launches == before + 1
+    assert bool(torch.isfinite(lp.grad).all()) and float(lp.grad.abs().max()) > 0
+    assert float(cv.grad[:7].abs().max()) > 0 and float(cv.grad[7]) == 0.0
