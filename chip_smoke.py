@@ -129,7 +129,7 @@ def scene_rotated_mixed(m):
 
 
 # --- the roofline bound -------------------------------------------------------
-# An H100 SXM's published peaks (the on-chip-measurement guide's table): f32
+# An H100 SXM's published peaks (NVIDIA's H100 datasheet): f32
 # outside the tensor cores, and HBM. Operation counts come from this run's
 # inputs: the plain versions count the scene and leaf evaluations each pass
 # needs (`cuda_prepass.WorkCount`), the residuals count the hit rays, and the
