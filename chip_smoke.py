@@ -35,11 +35,14 @@ Run from the repository root: `python3 chip_smoke.py`. It
    1920x1080 with 4x4 AA the fwd+bwd step of mean(img^2) through
    `make_renderer(..., backend="pallas_fused")` (CUDA events, launch counts,
    device idle share, mean active leaves per fine tile, hit fraction), its
-   kernels alone against their plain versions, the culled frames of the
+   kernels alone against their plain versions, the device operations of
+   the per-frame masks and lists (and of their pairwise path loop), the
+   culled frames of the
    64-sphere scene and config 2 against the un-culled plain path, the
    64-leaf forward frame ("cull + relax, no intervals") and a 5-step fit;
 10. prints one JSON line of per-kernel records (time, plain time, launches,
-   the roofline bound from this run's counted work), then, last,
+   the roofline bound from this run's counted work) for the headline builds
+   and the culled builds of the 64-leaf path, then, last,
    {"ok": true, "device": {...}}.
 
 Any failed check raises, so the script exits non-zero and prints no result.
@@ -146,6 +149,12 @@ RAY_OPS = 60  # screen coordinates, the view ray, the bound clip
 SHADE_OPS = 60  # normal, light, Lambert, gamma of a hit ray (fine kernel)
 FLOOR_OPS = 40  # the checker floor and gamma of every ray
 ADJ_RAY_OPS = 230  # the shading adjoint and the camera adjoint of a hit ray
+# The reverse of a formula whose forward values are at hand: ~2x its
+# operations. A backward needs, per hit ray, the scene at the 4 taps and the
+# hit point once each and the reverse of those 5 evaluations (the one at the
+# hit point gives grad_x F and, scaled by w, dF/dtheta); the kernels' extra
+# forward replays and their sixth reverse pass are their own redundant work.
+ADJ_FACTOR = 2
 
 
 def scene_cost(spec):
@@ -352,6 +361,54 @@ def device_idle_share(fn, steps):
     return max(0.0, 1.0 - busy / wall_us)
 
 
+def device_ops(fn):
+    """Operations (kernels, copies, fills) that torch.profiler sees on the
+    card in one synchronised run of `fn`."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA)
+
+
+def cull_ops(rp, sc, cam):
+    """(device operations of one frame's masks and lists, of the
+    pairwise path loop `culling._pairwise_path_ksum` within them)."""
+    from raymarch_tpu_torch.ops import culling
+
+    orig = culling._pairwise_path_ksum
+    args = []
+
+    def spy(*a):
+        args.append(a)
+        return orig(*a)
+
+    culling._pairwise_path_ksum = spy
+    try:
+        n_all = device_ops(lambda: rp.cull_args(sc, cam))
+    finally:
+        culling._pairwise_path_ksum = orig
+    return n_all, device_ops(lambda: orig(*args[0]))
+
+
+def culling_depth(spec):
+    """The longest root path of the scene's tree: the pairwise path loop's
+    trip count."""
+    from raymarch_tpu_torch.ops import culling
+
+    pd = culling._leaf_path_data(spec)
+    return None if pd is None else pd["path_op"].shape[1]
+
+
+def hit_pixels(hit):
+    """Pixels with at least one AA ray that hit: the backward reads their
+    cotangent, and no other's."""
+    return float((hit.amax(-1) > 0).sum())
+
+
 def many_leaf(rt, cp, cg, dev, smi, cfg, gcam_pos):
     """Phase 9: the culled forward, the compact backward and the 64-leaf
     training step (see the module docstring). Returns the kernel records
@@ -483,6 +540,9 @@ def many_leaf(rt, cp, cg, dev, smi, cfg, gcam_pos):
     cull_ms = cuda_ms(lambda: rp64.cull_args(sc, cam), KERNEL_REPS)
     log(f"64-leaf kernels alone: coarse {coarse_ms:.4f} ms, fine with residuals {fine_res_ms:.4f} ms, "
         f"compact_bwd {cbwd_ms:.4f} ms; per-frame masks and lists (torch ops) {cull_ms:.4f} ms ({smi})")
+    n_cull, n_ksum = cull_ops(rp64, sc, cam)
+    log(f"64-leaf masks and lists: {n_cull} device operations per frame (torch.profiler), of which the "
+        f"pairwise path loop (_pairwise_path_ksum, path depth {culling_depth(spec64)}) {n_ksum}")
 
     got = cg.compact_bwd(sc, fc, cam, p64, clamp, t_k, hit_k, g_img)
     torch.cuda.synchronize()
@@ -495,15 +555,21 @@ def many_leaf(rt, cp, cg, dev, smi, cfg, gcam_pos):
     grad_class("64-leaf training-path gradients vs compact_bwd_plain", grads64, ref)
     del ref
     work_c = cp.WorkCount()
+    e0.record()
     pre_p = cp.coarse_plain(sc, cam, bnd, p64, cc, work=work_c)
-    coarse_agreement("full-size culled coarse kernel vs coarse_plain, 64 leaves", pre_k, pre_p, strict=False)
+    e1.record()
+    torch.cuda.synchronize()
+    coarse_plain_ms = e0.elapsed_time(e1)
+    coarse_err = coarse_agreement("full-size culled coarse kernel vs coarse_plain, 64 leaves", pre_k, pre_p,
+                                  strict=False)
     work_f = cp.WorkCount()
     e0.record()
     img_p, t_p, hit_p = cp.fine_res_plain(sc, cam, bnd, p64, *pre_k, cull=fc, work=work_f)
     e1.record()
     torch.cuda.synchronize()
     fine_res_plain_ms = e0.elapsed_time(e1)
-    image_class("full-size culled fine kernel with residuals vs fine_res_plain, 64 leaves", img_r, img_p)
+    fine_err = image_class("full-size culled fine kernel with residuals vs fine_res_plain, 64 leaves", img_r,
+                           img_p)
     residual_agreement("full-size culled residuals vs fine_res_plain, 64 leaves", (t_k, hit_k), (t_p, hit_p),
                        strict=False)
     del img_p, t_p, hit_p
@@ -516,15 +582,20 @@ def many_leaf(rt, cp, cg, dev, smi, cfg, gcam_pos):
     n_hits = float(hit_k.sum())
     _, leaf_ops, _ = scene_cost(spec64)
     list_bytes = 4 * (fc.lists.numel() + fc.counts.numel())
-    cbwd_flops = 5 * pool_items * (leaf_ops + 2) + n_hits * (6 * 3 * leaf_ops + ADJ_RAY_OPS)
-    cbwd_bound = roofline(cbwd_flops, n_rays * 8 + n_px * 12 + list_bytes + 4 * (16 * spec64.n_leaves + spec64.n_instr + 7))
+    # The 5 list folds of each hit ray, then 5 winner-leaf adjoints; hit
+    # read for every ray, t for the hit rays, the cotangent of their pixels.
+    cbwd_flops = 5 * pool_items * (leaf_ops + 2) + n_hits * (5 * ADJ_FACTOR * leaf_ops + ADJ_RAY_OPS)
+    cbwd_bytes = (n_rays * 4 + n_hits * 4 + hit_pixels(hit_k) * 12 + list_bytes
+                  + 4 * (16 * spec64.n_leaves + spec64.n_instr + 7))
+    cbwd_bound = roofline(cbwd_flops, cbwd_bytes)
     coarse_bound = roofline(march_flops(work_c, n_px, spec64, True), n_px * 8 + 4 * (cc.lists.numel() + cc.counts.numel()))
     fine_bound = roofline(march_flops(work_f, n_rays, spec64, True, float(work_f.hits), fine=True),
                        n_px * 20 + n_rays * 8 + list_bytes)
     log(f"64-leaf counted work: coarse {float(work_c.leaf_evals):.6e} leaf evaluations, fine "
         f"{float(work_f.leaf_evals):.6e}, compact_bwd {pool_items:.6e} list leaves at 5 points of "
-        f"{n_hits:.0f} hit rays; bounds coarse {coarse_bound[0]:.4f} ms, fine with residuals "
-        f"{fine_bound[0]:.4f} ms, compact_bwd {cbwd_bound[0]:.4f} ms ({cbwd_bound[1]})")
+        f"{n_hits:.0f} hit rays ({cbwd_flops:.6e} operations, {cbwd_bytes:.6e} bytes); bounds coarse "
+        f"{coarse_bound[0]:.4f} ms, fine with residuals {fine_bound[0]:.4f} ms, compact_bwd "
+        f"{cbwd_bound[0]:.4f} ms ({cbwd_bound[1]})")
 
     # -- 9c. full-size culled frames against the un-culled plain path -------
     render_f64 = rt.make_renderer(spec64, WIDTH, HEIGHT, cfg64, mode="forward", backend="pallas_prepass", device=dev)
@@ -580,14 +651,25 @@ def many_leaf(rt, cp, cg, dev, smi, cfg, gcam_pos):
     if not (res.losses[-1] < res.losses[0] and abs(cx - truth[row, 4]) < abs(start[row, 4] - truth[row, 4])):
         raise AssertionError("the 64-leaf fit did not move toward the truth")
 
-    record = dict(name="compact_bwd_kernel", route="cuda", source="raymarch_tpu_torch/csrc/compact_bwd.cu",
-                  replaces="raymarch_tpu/ops/pallas_grad.py:256", launches=launches["compact_bwd_kernel"],
-                  max_abs_err=cbwd_err, ms=cbwd_ms, plain_ms=cbwd_plain_ms, bound_ms=cbwd_bound[0],
-                  bound_by=cbwd_bound[1], library_ms=None)
-    summary = dict(step_ms=step_ms, fwd64_ms=fwd64_ms, coarse_ms=coarse_ms, fine_res_ms=fine_res_ms,
-                   coarse_bound=coarse_bound, fine_bound=fine_bound, fine_res_plain_ms=fine_res_plain_ms,
-                   idle=idle, active_mean=active_mean, hit_frac=hit_frac)
-    return record, summary
+    # The culled builds' records: launches of the 64-leaf training run,
+    # times and errors of the full-size checks above.
+    records = [
+        dict(name="coarse_kernel (culled lists)", route="cuda", source="raymarch_tpu_torch/csrc/prepass.cu",
+             replaces="raymarch_tpu/ops/pallas_prepass.py:885", launches=launches["coarse_kernel"],
+             max_abs_err=coarse_err, ms=coarse_ms, plain_ms=coarse_plain_ms, bound_ms=coarse_bound[0],
+             bound_by=coarse_bound[1], library_ms=None),
+        dict(name="fine_kernel (culled, relax, residuals)", route="cuda",
+             source="raymarch_tpu_torch/csrc/prepass.cu", replaces="raymarch_tpu/ops/pallas_prepass.py:1521",
+             launches=launches["fine_kernel_residuals"], max_abs_err=fine_err, ms=fine_res_ms,
+             plain_ms=fine_res_plain_ms, bound_ms=fine_bound[0], bound_by=fine_bound[1], library_ms=None),
+        dict(name="compact_bwd_kernel", route="cuda", source="raymarch_tpu_torch/csrc/compact_bwd.cu",
+             replaces="raymarch_tpu/ops/pallas_grad.py:256", launches=launches["compact_bwd_kernel"],
+             max_abs_err=cbwd_err, ms=cbwd_ms, plain_ms=cbwd_plain_ms, bound_ms=cbwd_bound[0],
+             bound_by=cbwd_bound[1], library_ms=None),
+    ]
+    summary = dict(step_ms=step_ms, fwd64_ms=fwd64_ms, idle=idle, active_mean=active_mean, hit_frac=hit_frac,
+                   cull_ms=cull_ms, n_cull=n_cull, n_ksum=n_ksum)
+    return records, summary
 
 
 def main() -> int:
@@ -847,15 +929,18 @@ def main() -> int:
                       n_px * 20 + n_rays * 8)
     n_push, leaf_ops, comb = scene_cost(spec)
     tape_ops = n_push * leaf_ops + comb
-    # Per hit ray: 4 tap evaluations, 6 taped sweeps (a forward replay and a
-    # reverse pass of ~3x the leaf work and ~4 ops per combine), the adjoint.
-    k8_flops = n_hits * (4 * tape_ops + 6 * (tape_ops + 3 * n_push * leaf_ops + 4 * len(spec.static_tape))
+    # Per hit ray: the tape at 5 points, the reverse of those 5 evaluations
+    # (ADJ_FACTOR x the leaf work, ~4 ops per instruction), the ray's
+    # adjoint; hit read for every ray, t for the hit rays, the cotangent of
+    # their pixels.
+    k8_flops = n_hits * (5 * tape_ops + 5 * (ADJ_FACTOR * n_push * leaf_ops + 4 * len(spec.static_tape))
                          + ADJ_RAY_OPS)
-    bwd_bound = roofline(k8_flops, n_rays * 8 + n_px * 12 + fr.layout.nscal * 4)
+    bwd_bound = roofline(k8_flops, n_rays * 4 + n_hits * 4 + hit_pixels(hit_k) * 12 + fr.layout.nscal * 4)
     log(f"kernels alone: fine with residuals {fine_res_ms:.4f} ms, fused_bwd {bwd_ms:.4f} ms "
         f"({hit_share:.4f} of the {n_rays} AA rays hit); plain on the card: fine_res_plain "
         f"{fine_res_plain_ms:.2f} ms, bwd_plain {bwd_plain_ms:.2f} ms in {cg.PLAIN_BAND_ROWS}-row bands "
-        f"(peak {bwd_plain_gib:.2f} GiB) ({smi})")
+        f"(peak {bwd_plain_gib:.2f} GiB) ({smi}); bounds fine with residuals {res_bound[0]:.4f} ms "
+        f"({res_bound[1]}), fused_bwd {bwd_bound[0]:.4f} ms ({bwd_bound[1]}, {k8_flops:.6e} operations)")
     del t_k, hit_k, ref
 
     # -- 8. fits: the headline at full size, BASELINE config 3 at 48x48 ------
@@ -917,7 +1002,7 @@ def main() -> int:
         raise AssertionError("the config 3 fit did not move toward the truth")
 
     # -- 9. many-primitive training ---------------------------------------
-    cbwd_record, s64 = many_leaf(rt, cp, cg, dev, smi, cfg, (0.0, 2.6, 4.2))
+    culled_records, s64 = many_leaf(rt, cp, cg, dev, smi, cfg, (0.0, 2.6, 4.2))
 
     log(f"card: {smi}")
     kernels = [
@@ -942,12 +1027,11 @@ def main() -> int:
              launches=launches_f["fused_bwd_kernel"], max_abs_err=bwd_err,
              ms=bwd_ms, plain_ms=bwd_plain_ms, bound_ms=bwd_bound[0],
              bound_by=bwd_bound[1], library_ms=None),
-        cbwd_record,
+        *culled_records,
     ]
-    log(f"64-leaf summary: step {s64['step_ms']:.4f} ms, forward frame {s64['fwd64_ms']:.4f} ms, culled coarse "
-        f"{s64['coarse_ms']:.4f} ms (bound {s64['coarse_bound'][0]:.4f}), culled fine with residuals "
-        f"{s64['fine_res_ms']:.4f} ms (bound {s64['fine_bound'][0]:.4f}, plain {s64['fine_res_plain_ms']:.2f}) "
-        f"({smi})")
+    log(f"64-leaf summary: step {s64['step_ms']:.4f} ms, forward frame {s64['fwd64_ms']:.4f} ms, idle share "
+        f"{s64['idle']}, masks and lists {s64['cull_ms']:.4f} ms in {s64['n_cull']} device operations "
+        f"({s64['n_ksum']} in the pairwise path loop) ({smi})")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -328,13 +328,8 @@ def _check_compact_bwd(scene: SceneBuffers, cull: TileCull, cam, p: PrepassParam
     dev = cam.device
     S = p.naa * p.naa
     spec = scene.spec
-    plan = build_compact_plan(spec)
-    if plan is None or plan["residual_ops"] or plan["seg1"] is not None or plan["stream"]:
-        raise NotImplementedError(
-            "the compact backward takes pool-only plans; seg1, stream and "
-            "residual plans are not ported yet (ROADMAP: §1.10 many-primitive "
-            "backward and soft coverage)"
-        )
+    if plan_kind(spec) != "pool":
+        raise ValueError("the compact backward takes pool-only plans (see backward_route)")
     _check("cam", cam, torch.float32, (8,), dev)
     _check("tape", scene.tape, torch.int32, (3, max(scene.n_instr, 1)), dev)
     _check("row_kind", scene.row_kind, torch.int32, (spec.n_leaves,), dev)
@@ -453,22 +448,37 @@ def _param_tensor(name, x, device):
     return torch.as_tensor(x, dtype=torch.float32, device=device)
 
 
-def compact_bwd_reason(spec: TapeSpec, cfg: RenderConfig):
-    """Why the compact O(active) backward is not taken, or None when it is:
-    the eligibility chain of pallas_grad.py:1279-1298 with the reference's
-    reason strings. Two of its gates do not apply to the port: the 64-item
-    history cap of the TPU's VMEM (the port sizes history to the plan's
-    span, ROADMAP §3.1) and the AA-packed layout (always available)."""
-    plan = build_compact_plan(spec) if cfg.leaf_cull else None
-    if not cfg.leaf_cull:
-        return "leaf_cull disabled"
+def plan_kind(spec: TapeSpec):
+    """The kind of `spec`'s compact plan: None (no plan), "residual" (it
+    has residual subtrees), else its ordered source "seg1" or "stream", or
+    "pool" when the free pool is its only source."""
+    plan = build_compact_plan(spec)
     if plan is None:
-        return "scene has no compact plan (not foldable)"
+        return None
     if plan["residual_ops"]:
-        return "plan has residual (unrolled) subtrees"
-    if spec.has_materials and (plan["seg1"] is not None or plan["stream"]):
-        return "painted materials on smooth/ordered segments"
-    return None
+        return "residual"
+    if plan["seg1"] is not None:
+        return "seg1"
+    return "stream" if plan["stream"] else "pool"
+
+
+def backward_route(spec: TapeSpec, cfg: RenderConfig):
+    """(plan kind, reason): why the compact O(active) backward is not taken,
+    or reason None when it is, by the eligibility chain of
+    pallas_grad.py:1279-1298 with the reference's reason strings. Two of its
+    gates do not apply to the port: the 64-item history cap of the TPU's
+    VMEM (the port sizes history to the plan's span, ROADMAP §3.1) and the
+    AA-packed layout (always available)."""
+    if not cfg.leaf_cull:
+        return None, "leaf_cull disabled"
+    kind = plan_kind(spec)
+    if kind is None:
+        return kind, "scene has no compact plan (not foldable)"
+    if kind == "residual":
+        return kind, "plan has residual (unrolled) subtrees"
+    if spec.has_materials and kind != "pool":
+        return kind, "painted materials on smooth/ordered segments"
+    return kind, None
 
 
 class FusedRenderer:
@@ -482,14 +492,15 @@ class FusedRenderer:
     read per-tile item lists or masks); a pool-only compact plan then takes
     the compact backward K9 (`compact_bwd`), any other scene the legacy K8."""
 
-    def __init__(self, spec: TapeSpec, cfg: RenderConfig, width: int, height: int, device):
+    def __init__(self, spec: TapeSpec, cfg: RenderConfig, width: int, height: int, device, reason):
         self.spec = spec
         self.cfg = cfg
         self.device = device
         self.prepass = make_pallas_image_render_aa(spec, cfg, width, height, device=device)
         self.params = self.prepass.params
         self.layout = GradLayout.of(spec, cfg)
-        reason = compact_bwd_reason(spec, cfg)
+        # `reason` is backward_route's; make_fused_render_vjp has refused
+        # the compact plans whose backward is not ported.
         self.compact_bwd = reason is None
         # The keys and strings of the reference (pallas_grad.py:1887-1895).
         # The port always keeps a pixel's AA samples in adjacent lanes (the
@@ -538,15 +549,13 @@ def make_fused_render_vjp(
                     "§1.12 dynamic tape, tiered runtime and viewer")
     if soft:
         _not_ported("soft", "§1.10 many-primitive backward and soft coverage")
-    if compact_bwd_reason(spec, cfg) is None:
-        plan = build_compact_plan(spec)
-        if plan["seg1"] is not None or plan["stream"]:
-            kind = "seg1" if plan["seg1"] is not None else "stream"
-            _not_ported(f"the compact backward of a {kind} plan (K9's ordered-fold branches)",
-                        "§1.10 many-primitive backward and soft coverage")
-        if spec.has_materials:
-            _not_ported("the compact backward of painted materials (K9's winner albedo routing)",
-                        "§1.10 many-primitive backward and soft coverage")
+    kind, reason = backward_route(spec, cfg)
+    if reason is None and kind != "pool":
+        _not_ported(f"the compact backward of a {kind} plan (K9's ordered-fold branches)",
+                    "§1.10 many-primitive backward and soft coverage")
+    if reason is None and spec.has_materials:
+        _not_ported("the compact backward of painted materials (K9's winner albedo routing)",
+                    "§1.10 many-primitive backward and soft coverage")
     if spec.has_materials:
         _not_ported("materials", "§1.8 forward variants on the main kernels")
     if band_rows is not None:
@@ -555,9 +564,9 @@ def make_fused_render_vjp(
         _not_ported("prepass_block > 1", "§1.9 many-primitive forward")
     if aa_packed is False:
         _not_ported("the unpacked layout", "§1.13 remaining surfaces, K4 fine_kernel")
-    return _cached_fused(spec, cfg, int(width), int(height), resolve_device(device))
+    return _cached_fused(spec, cfg, int(width), int(height), resolve_device(device), reason)
 
 
 @functools.lru_cache(maxsize=None)
-def _cached_fused(spec, cfg, width, height, device):
-    return FusedRenderer(spec, cfg, width, height, device)
+def _cached_fused(spec, cfg, width, height, device, reason):
+    return FusedRenderer(spec, cfg, width, height, device, reason)
