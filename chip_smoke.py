@@ -40,9 +40,21 @@ Run from the repository root: `python3 chip_smoke.py`. It
    culled frames of the
    64-sphere scene and config 2 against the un-culled plain path, the
    64-leaf forward frame ("cull + relax, no intervals") and a 5-step fit;
-10. prints one JSON line of per-kernel records (time, plain time, launches,
-   the roofline bound from this run's counted work) for the headline builds
-   and the culled builds of the 64-leaf path, then, last,
+10. training of scenes with smooth blends, subtractions and painted
+   materials (bench.py's 64-leaf smooth chain, a seg1 plan; the cluster
+   scene of `fwdbwd_64leaf_cluster`, a stream plan in two groups; the
+   painted spheres of `fwdbwd_64leaf_painted`, a painted pool): gates at
+   256x144 of the fine kernel with materials (culled and un-culled) and of
+   the compact backward for config 2 culled (seg1) and the three scenes,
+   each against its plain version; then for each scene the 1080p fwd+bwd
+   step (CUDA events, launches, idle share, the kernels alone, the device
+   operations of the masks and lists), the compact backward against its
+   plain version at full size with its bound; the painted forward frame
+   against the un-culled plain path; a 5-step fit of the cluster scene;
+11. prints one JSON line of per-kernel records (time, plain time, launches,
+   the roofline bound from this run's counted work) for the headline
+   builds, the culled builds of the 64-leaf path, the compact backward per
+   plan kind and the fine kernel with materials, then, last,
    {"ok": true, "device": {...}}.
 
 Any failed check raises, so the script exits non-zero and prints no result.
@@ -113,6 +125,74 @@ def scene_spheres(m, n=64):
         c = rng.uniform(-3, 3, 3)
         c[1] = rng.uniform(-1.0, 1.5)
         parts.append(m.sphere(center=tuple(c), radius=float(rng.uniform(0.15, 0.5))))
+    scene = parts[0]
+    for p in parts[1:]:
+        scene = scene | p
+    return scene
+
+
+def scenes_bench64(m):
+    """bench.py:357-480's 64-leaf scenes, drawn in bench.py's order from its
+    one generator (seed 7): (the 64 spheres, the smooth chain of
+    `64leaf_smooth_chain`: 48 spheres, 8 smooth unions, 4 subtractions and
+    4 smooth subtractions; the cluster scene of `fwdbwd_64leaf_cluster`: 16
+    clusters of a base sphere, a smooth-union blob and a smooth-subtract
+    dent, and 16 bare spheres)."""
+    import numpy as np
+
+    rng = np.random.default_rng(7)
+
+    def union_all(parts):
+        scene = parts[0]
+        for p in parts[1:]:
+            scene = scene | p
+        return scene
+
+    def centre(lo, hi, ylo, yhi):
+        c = rng.uniform(lo, hi, 3)
+        c[1] = rng.uniform(ylo, yhi)
+        return tuple(c)
+
+    spheres = union_all([m.sphere(center=centre(-3, 3, -1.0, 1.5), radius=float(rng.uniform(0.15, 0.5)))
+                         for _ in range(64)])
+    chain = union_all([m.sphere(center=centre(-3, 3, -1.0, 1.5), radius=float(rng.uniform(0.15, 0.5)))
+                       for _ in range(48)])
+    for _ in range(8):
+        c = centre(-2.5, 2.5, -0.8, 1.2)
+        chain = chain.union(m.sphere(center=c, radius=float(rng.uniform(0.2, 0.45))),
+                            k=float(rng.uniform(0.1, 0.3)))
+    for _ in range(4):
+        chain = chain - m.sphere(center=centre(-2.5, 2.5, -0.8, 1.2), radius=float(rng.uniform(0.3, 0.6)))
+    for _ in range(4):
+        c = centre(-2.5, 2.5, -0.8, 1.2)
+        chain = chain.subtract(m.sphere(center=c, radius=float(rng.uniform(0.3, 0.6))),
+                               k=float(rng.uniform(0.1, 0.25)))
+    parts = []
+    for _ in range(16):
+        c = np.asarray(centre(-3, 3, -1.0, 1.5))
+        base = m.sphere(center=tuple(c), radius=float(rng.uniform(0.25, 0.5)))
+        off = rng.uniform(-0.35, 0.35, 3)
+        blob = m.sphere(center=tuple(c + off), radius=float(rng.uniform(0.15, 0.3)))
+        dent = m.sphere(center=tuple(c - off), radius=float(rng.uniform(0.15, 0.3)))
+        parts.append(base.union(blob, k=float(rng.uniform(0.1, 0.25))).subtract(
+            dent, k=float(rng.uniform(0.1, 0.2))))
+    for _ in range(16):
+        parts.append(m.sphere(center=centre(-3, 3, -1.0, 1.5), radius=float(rng.uniform(0.15, 0.5))))
+    return spheres, chain, union_all(parts)
+
+
+def scene_painted(m, n=64):
+    """bench.py:805-820: n painted random spheres (seed 17) in one hard
+    union, the scene of `fwdbwd_64leaf_painted`."""
+    import numpy as np
+
+    rng = np.random.default_rng(17)
+    parts = []
+    for _ in range(n):
+        c = rng.uniform(-3, 3, 3)
+        c[1] = rng.uniform(-1.0, 1.5)
+        parts.append(m.sphere(center=tuple(c), radius=float(rng.uniform(0.15, 0.5)),
+                              material=tuple(rng.uniform(0.1, 0.9, 3))))
     scene = parts[0]
     for p in parts[1:]:
         scene = scene | p
@@ -672,6 +752,353 @@ def many_leaf(rt, cp, cg, dev, smi, cfg, gcam_pos):
     return records, summary
 
 
+FOLD_OPS = 12  # one ordered fold step of a smooth item (scene_eval.cuh fold_step)
+POOL_OPS = 2  # one pool item: compare and select
+COLOR_OPS = 20  # a leaf's colour in the colour pass: the flag mix and the select
+
+
+def winner_work(sc, cull, p, cam, t, hit, band_rows=64):
+    """Per hit AA ray, the list items that the scene at its hit point takes
+    (pool and ordered) and the leaf evaluations of its winning source there
+    (pool: 1; the seg1 chain: its active items; a stream group: the active
+    items of the winning segment), summed over the frame: (pool items,
+    ordered items, winner items, winner items that are ordered). A
+    backward needs the scene at 5 points and the reverse of the winning
+    source at each; the 4 taps lie within eps of the hit point and are
+    counted as the hit point."""
+    import torch
+
+    from raymarch_tpu_torch.ops import cuda_march as cm
+    from raymarch_tpu_torch.ops import cuda_prepass as cp
+    from raymarch_tpu_torch.ops.culling import FAR
+
+    spec = sc.spec
+    plan = cm.build_compact_plan(spec)
+    groups = plan["groups"]
+    rows = {r: (ty, rot) for r, ty, rot in cm._leaf_static_rows(spec)}
+    src = {gi: s for s, gis in ((0, plan["pool"]), (1, plan["seg1"] or ()), (2, plan["stream"])) for gi in gis}
+    cnt = cull.counts.to(torch.float32)
+    pool_t = sum(cnt[:, groups[gi]["count_idx"]] for gi, s in src.items() if s == 0) + 0.0 * cnt[:, 0]
+    ord_t = sum(cnt[:, groups[gi]["count_idx"]] for gi, s in src.items() if s > 0) + 0.0 * cnt[:, 0]
+    tot = torch.zeros(4, dtype=torch.float64, device=cam.device)
+    for i0 in range(0, p.rows, band_rows):
+        n = min(band_rows, p.rows - i0)
+        h = hit[i0:i0 + n] > 0
+        if not bool(h.any()):
+            continue
+        x, y = cp.aa_screen(p, cam, i0, n)
+        dx, dy, dz = cp._view_dirs(x, y, cam, p)
+        tt = t[i0:i0 + n]
+        px, py, pz = (cam[0] + dx * tt)[h], (cam[1] + dy * tt)[h], (cam[2] + dz * tt)[h]
+        i = torch.arange(i0, i0 + n, device=cam.device)[:, None, None]
+        j = torch.arange(p.width, device=cam.device)[None, :, None]
+        tid = cull.tile_index(i, j).expand(h.shape)[h]
+        active = cp.tile_active(spec, cull, tid)
+
+        def leaf(row):
+            ty, rot = rows[row]
+            return cm._leaf_distance_plain(sc.leaf_params[row], ty, rot, px, py, pz)
+
+        far = px * 0.0 + FAR
+        d, work = far, torch.zeros_like(px)
+        for gi in plan["pool"]:
+            for row in groups[gi]["rows"]:
+                d = torch.where(active(row) & (leaf(row) < d), leaf(row), d)
+        work = torch.where(d < far, 1.0, 0.0)
+        ordered = torch.zeros_like(px)
+        if plan["seg1"] is not None:
+            acc, n_chain = far, torch.zeros_like(px)
+            for gi in plan["seg1"]:
+                for e in groups[gi]["entries"]:
+                    a = active(e & 1023)
+                    step = (cm.fold_step_plain(sc.op_param, acc, e, leaf(e & 1023)) if groups[gi]["ordered"]
+                            else torch.minimum(acc, leaf(e & 1023)))
+                    acc = torch.where(a, step, acc)
+                    n_chain = n_chain + a.float()
+            win = acc < d
+            d, work, ordered = torch.where(win, acc, d), torch.where(win, n_chain, work), torch.where(win, 1.0, ordered)
+        for gi in plan["stream"]:
+            best, best_n, acc, seg_n = far, torch.zeros_like(px), far, torch.zeros_like(px)
+            prev = torch.full(px.shape, -1, dtype=torch.int32, device=px.device)
+            for e in groups[gi]["entries"]:
+                row, sid = e & 1023, (e >> 15) & 7
+                a = active(row)
+                new = a & (prev != sid)
+                flush = new & (acc < best)
+                best, best_n = torch.where(flush, acc, best), torch.where(flush, seg_n, best_n)
+                acc, seg_n = torch.where(new, far, acc), torch.where(new, 0.0, seg_n)
+                acc = torch.where(a, cm.fold_step_plain(sc.op_param, acc, e, leaf(row)), acc)
+                seg_n = seg_n + a.float()
+                prev = torch.where(a, sid, prev)
+            flush = acc < best
+            best, best_n = torch.where(flush, acc, best), torch.where(flush, seg_n, best_n)
+            win = best < d
+            d, work, ordered = torch.where(win, best, d), torch.where(win, best_n, work), torch.where(win, 1.0, ordered)
+        tot += torch.stack([pool_t[tid].sum(), ord_t[tid].sum(), work.sum(), (work * ordered).sum()]).double()
+    return [float(v) for v in tot]
+
+
+def k9_bound(sc, cull, p, cam, t, hit, n_rays):
+    """(bound_ms, bound_by, operations, bytes) of the compact backward on
+    this run's residuals, counting the function's need: the scene at the 4
+    taps and the hit point once each (each list item priced at its leaf's
+    operations plus a pool compare or a fold step), the reverse of the
+    winning source at those 5 points at ADJ_FACTOR x its forward
+    operations, the ray's shading and camera adjoint, and on a painted
+    scene the winner's albedo; hit read for every AA ray, t for the hit
+    rays, the cotangent of their pixels, the lists once, one gradient row
+    written. The kernel's replays are its own redundant work."""
+    spec = sc.spec
+    _, leaf_ops, _ = scene_cost(spec)
+    pool_items, ord_items, win_items, win_ord = winner_work(sc, cull, p, cam, t, hit)
+    n_hits = float(hit.sum())
+    fwd = pool_items * (leaf_ops + POOL_OPS) + ord_items * (leaf_ops + FOLD_OPS)
+    rev = ADJ_FACTOR * (win_items * leaf_ops + win_ord * FOLD_OPS)
+    flops = 5 * (fwd + rev) + n_hits * (ADJ_RAY_OPS + (COLOR_OPS if spec.has_materials else 0))
+    nbytes = (n_rays * 4 + n_hits * 4 + hit_pixels(hit) * 12 + 4 * (cull.lists.numel() + cull.counts.numel())
+              + 4 * (16 * spec.n_leaves + spec.n_instr + 7))
+    ms, by = roofline(flops, nbytes)
+    return ms, by, flops, nbytes
+
+
+def blends(rt, cp, cg, dev, smi, cfg, gcam_pos):
+    """Phase 10: training of many-primitive scenes with smooth blends,
+    subtractions and painted materials (see the module docstring). Returns
+    the kernel records of K9 per plan kind and of K2 with materials, and
+    the numbers the summary prints."""
+    import numpy as np
+    import torch
+
+    cfg64 = dataclasses.replace(cfg, relax=1.6, leaf_cull=True)
+    clamp = float(cfg64.grad_denom_clamp)
+    _, scene_chain, scene_cl = scenes_bench64(rt)
+    camera64 = rt.Camera.looking_at(position=(0.0, 2.5, 9.0), target=(0.0, 0.0, 0.0))
+    cv64 = rt.cam_vec(camera64, device=dev)
+    built = {name: rt.compile_scene(s, static=True)
+             for name, s in (("cluster", scene_cl), ("chain", scene_chain), ("painted", scene_painted(rt)))}
+
+    # -- 10a. gates at 256x144 --------------------------------------------
+    gates = (
+        ("config2", *rt.compile_scene(scene_config2(rt), static=True), gcam_pos, "seg1"),
+        ("chain", *built["chain"], (0.0, 2.5, 9.0), "seg1"),
+        ("cluster", *built["cluster"], (0.0, 2.5, 9.0), "stream"),
+        ("painted", *built["painted"], (0.0, 2.5, 9.0), "pool"),
+    )
+    for gname, spec_g, arrays_g, pos, kind in gates:
+        cv_g = rt.cam_vec(rt.Camera.looking_at(position=pos, target=(0, 0, 0)), device=dev)
+        if spec_g.has_materials:
+            for cull in (False, True):
+                rp = cp.make_pallas_image_render_aa(spec_g, dataclasses.replace(cfg64, leaf_cull=cull), GATE_W,
+                                                    GATE_H, device=dev)
+                sc, cam, bnd = rp.scene_args(arrays_g, cv_g)
+                cc, fc = rp.cull_args(sc, cam)
+                pre_k = cp.coarse(sc, cam, bnd, rp.params, cc)
+                how = "culled lists" if cull else "un-culled"
+                image_class(f"gate fine kernel with materials vs fine_plain, {gname} ({how})",
+                            cp.fine(sc, cam, bnd, rp.params, *pre_k, cull=fc),
+                            cp.fine_plain(sc, cam, bnd, rp.params, *pre_k, cull=fc))
+        rp = cp.make_pallas_image_render_aa(spec_g, cfg64, GATE_W, GATE_H, device=dev)
+        sc, cam, bnd = rp.scene_args(arrays_g, cv_g)
+        cc, fc = rp.cull_args(sc, cam)
+        pre_k = cp.coarse(sc, cam, bnd, rp.params, cc)
+        _, t_k, hit_k = cp.fine_res(sc, cam, bnd, rp.params, *pre_k, cull=fc)
+        fr = cg.make_fused_render_vjp(spec_g, cfg64, GATE_W, GATE_H, device=dev)
+        info = (fr.backward_info["kind"], fr.backward_info["reason"])
+        if info != ("pallas_compact", None) or cg.plan_kind(spec_g) != kind:
+            raise AssertionError(f"{gname} should take K9 as a {kind} plan: {fr.backward_info}")
+        g_img = seeded_cotangent(GATE_H, GATE_W, dev, 11)
+        got = cg.compact_bwd(sc, fc, cam, rp.params, clamp, t_k, hit_k, g_img)
+        ref = cg.compact_bwd_plain(sc, fc, cam, rp.params, clamp, t_k, hit_k, g_img)
+        grad_class(f"gate compact_bwd kernel vs compact_bwd_plain, {gname} ({kind} plan, history "
+                   f"{cg.history_layout(spec_g)[1]} items, {int(hit_k.sum())} hit rays)", got, ref)
+        if gname in ("chain", "cluster") and not float(got[1].abs().max()) > 0:
+            raise AssertionError(f"{gname}: the blend radii got no gradient")
+        if gname == "painted" and not float(got[0][:, 12:16].abs().max()) > 0:
+            raise AssertionError("painted: the albedo and flag words got no gradient")
+    torch.cuda.synchronize()
+
+    # -- 10b. the 1080p fwd+bwd steps ---------------------------------------
+    n_rays = WIDTH * HEIGHT * cfg64.aa_samples ** 2
+    n_px = WIDTH * HEIGHT
+    steps, records = {}, []
+    labels = {"cluster": "fwdbwd_64leaf_cluster", "painted": "fwdbwd_64leaf_painted",
+              "chain": "64leaf_smooth_chain scene, trained; no reference row"}
+    for name in ("cluster", "painted", "chain"):
+        spec_s, arrays_s = built[name]
+        render = rt.make_renderer(spec_s, WIDTH, HEIGHT, cfg64, mode="implicit", backend="pallas_fused",
+                                  device=dev)
+        if (render.backward_info["kind"], render.backward_info["reason"]) != ("pallas_compact", None):
+            raise AssertionError(f"{name} must take the compact backward: {render.backward_info}")
+        lp_s = torch.tensor(arrays_s.leaf_params, device=dev)
+        op_s = torch.tensor(arrays_s.op_param, device=dev)
+
+        def fwd_bwd(render=render, arrays_s=arrays_s, lp_s=lp_s, op_s=op_s):
+            lp = lp_s.clone().requires_grad_(True)
+            opp = op_s.clone().requires_grad_(True)
+            cv = cv64.clone().requires_grad_(True)
+            img = render.renderer(dataclasses.replace(arrays_s, leaf_params=lp, op_param=opp), cv)
+            torch.mean(img * img).backward()
+            return lp.grad, opp.grad, cv.grad
+
+        cp.reset_launch_counts()
+        cg.reset_launch_counts()
+        for _ in range(BWD_WARMUP):
+            fwd_bwd()
+        torch.cuda.synchronize()
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        h0 = time.perf_counter()
+        e0.record()
+        for _ in range(BWD_STEPS):
+            grads = fwd_bwd()
+        e1.record()
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - h0) * 1e3 / BWD_STEPS
+        step_ms = e0.elapsed_time(e1) / BWD_STEPS
+        launches = {"coarse_kernel": cp.coarse.launches, "fine_kernel_residuals": cp.fine_res.launches,
+                    "compact_bwd_kernel": cg.compact_bwd.launches, "fused_bwd_kernel": cg.bwd.launches}
+        log(f"{labels[name]} training step (cull + relax, no intervals) {WIDTH}x{HEIGHT} x16 AA, fwd+bwd of "
+            f"mean(img^2): {step_ms:.4f} ms/step (CUDA events, {BWD_STEPS} steps after {BWD_WARMUP} warm-up; "
+            f"host clock {host_ms:.4f} ms), {n_rays / (step_ms * 1e-3) / 1e9:.4f} Grays/s on {smi}")
+        log(f"launches in the {name} training run: {launches}")
+        if min(launches[k] for k in ("coarse_kernel", "fine_kernel_residuals", "compact_bwd_kernel")) <= 0:
+            raise AssertionError(f"a kernel of the {name} training path never launched: {launches}")
+        if launches["fused_bwd_kernel"] != 0:
+            raise AssertionError(f"the {name} step ran the legacy backward")
+        if not all(bool(torch.isfinite(g).all()) for g in grads) or float(grads[0].abs().max()) <= 0:
+            raise AssertionError(f"the {name} gradients are not finite or all zero")
+        idle = device_idle_share(fwd_bwd, 3)
+
+        fr = render.renderer
+        rp, p = fr.prepass, fr.prepass.params
+        sc, cam, bnd = rp.scene_args(arrays_s, cv64)
+        cc, fc = rp.cull_args(sc, cam)
+        pre_k = cp.coarse(sc, cam, bnd, p, cc)
+        img_r, t_k, hit_k = cp.fine_res(sc, cam, bnd, p, *pre_k, cull=fc)
+        g_img = 2.0 * img_r / img_r.numel()  # the cotangent of mean(img^2)
+        coarse_ms = cuda_ms(lambda: cp.coarse(sc, cam, bnd, p, cc), KERNEL_REPS)
+        fine_ms = cuda_ms(lambda: cp.fine_res(sc, cam, bnd, p, *pre_k, cull=fc), KERNEL_REPS)
+        cbwd_ms = cuda_ms(lambda: cg.compact_bwd(sc, fc, cam, p, clamp, t_k, hit_k, g_img), KERNEL_REPS)
+        cull_ms = cuda_ms(lambda: rp.cull_args(sc, cam), KERNEL_REPS)
+        n_cull, n_ksum = cull_ops(rp, sc, cam)
+        log(f"{name} step: device idle share {'not measured' if idle is None else f'{idle:.4f}'} (torch.profiler, "
+            f"3 steps); kernels alone: coarse {coarse_ms:.4f} ms, fine with residuals {fine_ms:.4f} ms, "
+            f"compact_bwd {cbwd_ms:.4f} ms; masks and lists {cull_ms:.4f} ms in {n_cull} device operations "
+            f"({n_ksum} in the pairwise path loop, path depth {culling_depth(spec_s)}); mean "
+            f"{float(fc.counts.sum(1).float().mean()):.4f} active items per fine tile (max "
+            f"{int(fc.counts.sum(1).max())}); hit fraction {float(hit_k.mean()):.4f}; history "
+            f"{cg.history_layout(spec_s)[1]} items ({smi})")
+
+        # K9 against its plain version at full size, and its bound.
+        got = cg.compact_bwd(sc, fc, cam, p, clamp, t_k, hit_k, g_img)
+        torch.cuda.synchronize()
+        e0.record()
+        ref = cg.compact_bwd_plain(sc, fc, cam, p, clamp, t_k, hit_k, g_img,
+                                   band_rows=16 if name == "chain" else 32)
+        e1.record()
+        torch.cuda.synchronize()
+        plain_ms = e0.elapsed_time(e1)
+        err = grad_class(f"full-size compact_bwd kernel vs compact_bwd_plain, {name}", got, ref)
+        grad_class(f"{name} training-path gradients vs compact_bwd_plain", grads, ref)
+        del ref
+        b_ms, b_by, b_ops, b_bytes = k9_bound(sc, fc, p, cam, t_k, hit_k, n_rays)
+        log(f"{name} compact_bwd bound {b_ms:.4f} ms ({b_by}; {b_ops:.6e} operations, {b_bytes:.6e} bytes); "
+            f"plain {plain_ms:.2f} ms")
+        kind = cg.plan_kind(spec_s)
+        records.append(dict(
+            name=f"compact_bwd_kernel ({kind} plan: {labels[name].split(' ')[0]})", route="cuda",
+            source="raymarch_tpu_torch/csrc/compact_bwd.cu", replaces="raymarch_tpu/ops/pallas_grad.py:256",
+            launches=launches["compact_bwd_kernel"], max_abs_err=err, ms=cbwd_ms, plain_ms=plain_ms,
+            bound_ms=b_ms, bound_by=b_by, library_ms=None))
+        if name == "painted":
+            # K2 with materials: the culled fine kernel with residuals.
+            work_f = cp.WorkCount()
+            e0.record()
+            img_p, t_p, hit_p = cp.fine_res_plain(sc, cam, bnd, p, *pre_k, cull=fc, work=work_f)
+            e1.record()
+            torch.cuda.synchronize()
+            fine_plain_ms = e0.elapsed_time(e1)
+            fine_err = image_class("full-size fine kernel with materials (culled, relax, residuals) vs "
+                                   "fine_res_plain, painted", img_r, img_p)
+            residual_agreement("full-size painted residuals vs fine_res_plain", (t_k, hit_k), (t_p, hit_p),
+                               strict=False)
+            del img_p, t_p, hit_p
+            _, leaf_ops, _ = scene_cost(spec_s)
+            hit_tiles = cp.leaves_per_point(sc, fc, fc.tile_index(
+                torch.arange(HEIGHT, device=dev)[:, None, None], torch.arange(WIDTH, device=dev)[None, :, None]))
+            color_flops = float((hit_k * hit_tiles).sum()) * (leaf_ops + COLOR_OPS)
+            f_ms, f_by = roofline(march_flops(work_f, n_rays, spec_s, True, float(work_f.hits), fine=True)
+                                  + color_flops, n_px * 20 + n_rays * 8 + 4 * (fc.lists.numel() + fc.counts.numel()))
+            log(f"painted fine kernel with materials: {fine_ms:.4f} ms alone, plain {fine_plain_ms:.2f} ms, bound "
+                f"{f_ms:.4f} ms ({f_by})")
+            records.append(dict(
+                name="fine_kernel (materials, culled, relax, residuals)", route="cuda",
+                source="raymarch_tpu_torch/csrc/prepass.cu", replaces="raymarch_tpu/ops/pallas_prepass.py:1521",
+                launches=launches["fine_kernel_residuals"], max_abs_err=fine_err, ms=fine_ms,
+                plain_ms=fine_plain_ms, bound_ms=f_ms, bound_by=f_by, library_ms=None))
+        steps[name] = dict(step_ms=step_ms, idle=idle, cull_ms=cull_ms, n_cull=n_cull, cbwd_ms=cbwd_ms)
+        del t_k, hit_k, img_r, g_img
+    torch.cuda.synchronize()
+
+    # -- 10c. the painted forward frame ---------------------------------------
+    spec_p, arrays_p = built["painted"]
+    render_p = rt.make_renderer(spec_p, WIDTH, HEIGHT, cfg64, mode="forward", backend="pallas_prepass", device=dev)
+    cp.reset_launch_counts()
+    for _ in range(WARMUP):
+        frame_p = render_p(arrays_p, camera64)
+    torch.cuda.synchronize()
+    e0.record()
+    for _ in range(FRAMES):
+        frame_p = render_p(arrays_p, camera64)
+    e1.record()
+    torch.cuda.synchronize()
+    fwd_p_ms = e0.elapsed_time(e1) / FRAMES
+    launches_p = {"coarse_kernel": cp.coarse.launches, "fine_kernel": cp.fine.launches}
+    log(f"painted forward frame (fwdbwd_64leaf_painted's scene; cull + relax, no intervals) {WIDTH}x{HEIGHT} x16 "
+        f"AA through make_renderer(backend='pallas_prepass'): {fwd_p_ms:.4f} ms/frame, "
+        f"{n_rays / (fwd_p_ms * 1e-3) / 1e9:.4f} Grays/s, launches {launches_p} on {smi}")
+    if min(launches_p.values()) <= 0:
+        raise AssertionError(f"a kernel of the painted forward never launched: {launches_p}")
+    off = cp.make_pallas_image_render_aa(spec_p, dataclasses.replace(cfg64, leaf_cull=False), WIDTH, HEIGHT,
+                                         device=dev)
+    image_class("full-size painted frame vs the un-culled plain path", frame_p, off.render_plain(arrays_p, cv64))
+    torch.cuda.synchronize()
+
+    # -- 10d. a 5-step 1080p fit on the cluster scene -------------------------
+    spec_c, arrays_c = built["cluster"]
+    truth = arrays_c.leaf_params
+    row = int(np.argmax(truth[:, 7]))  # the largest sphere
+    start = truth.copy()
+    start[row, 4] -= 0.12
+    k_idx = np.nonzero(arrays_c.op_param)[0]  # the blend radii
+    op_start = arrays_c.op_param.copy()
+    op_start[k_idx] *= 0.7
+    m_leaf = np.zeros_like(truth)
+    m_leaf[row, 4] = 1.0
+    m_op = np.zeros_like(op_start)
+    m_op[k_idx] = 1.0
+    target = rt.make_renderer(spec_c, WIDTH, HEIGHT, cfg64, mode="forward", backend="pallas_prepass",
+                              device=dev)(arrays_c, camera64)
+    fit_kw = dict(width=WIDTH, height=HEIGHT, cfg=cfg64, learning_rate=1e-2, leaf_mask=m_leaf, op_mask=m_op,
+                  backend="pallas_fused", device=dev, log_fn=lambda m: None)
+    start_arrays = dataclasses.replace(arrays_c, leaf_params=start, op_param=op_start)
+    rt.fit_scene(spec_c, start_arrays, camera64, target, steps=1, **fit_kw)
+    res = rt.fit_scene(spec_c, start_arrays, camera64, target, steps=FIT_STEPS, **fit_kw)
+    k_err = (float(np.abs(op_start[k_idx] - arrays_c.op_param[k_idx]).mean()),
+             float(np.abs(res.arrays.op_param.detach().cpu().numpy()[k_idx] - arrays_c.op_param[k_idx]).mean()))
+    log(f"cluster fit at {WIDTH}x{HEIGHT} ({FIT_STEPS} Adam steps, lr 1e-2; sphere row {row}'s centre x and the "
+        f"{len(k_idx)} blend radii): loss {res.losses[0]:.6e} -> {res.losses[-1]:.6e}; cx {start[row, 4]:+.4f} -> "
+        f"{float(res.arrays.leaf_params[row, 4]):+.4f} (truth {truth[row, 4]:+.4f}); mean |k - truth| "
+        f"{k_err[0]:.4f} -> {k_err[1]:.4f}; {1.0 / res.steps_per_sec:.4f} s/step; backward {res.backward_info} "
+        f"({smi})")
+    if (res.backward_info["kind"], res.backward_info["reason"]) != ("pallas_compact", None):
+        raise AssertionError("the cluster fit did not train through the compact backward")
+    if not res.losses[-1] < res.losses[0]:
+        raise AssertionError("the cluster fit did not lower the loss")
+    summary = dict(steps=steps, fwd_p_ms=fwd_p_ms, fit_s=1.0 / res.steps_per_sec)
+    return records, summary
+
+
 def main() -> int:
     import torch
 
@@ -1004,6 +1431,9 @@ def main() -> int:
     # -- 9. many-primitive training ---------------------------------------
     culled_records, s64 = many_leaf(rt, cp, cg, dev, smi, cfg, (0.0, 2.6, 4.2))
 
+    # -- 10. blends, subtractions and painted materials ----------------------
+    blend_records, sb = blends(rt, cp, cg, dev, smi, cfg, (0.0, 2.6, 4.2))
+
     log(f"card: {smi}")
     kernels = [
         dict(name="coarse_kernel", route="cuda", source="raymarch_tpu_torch/csrc/prepass.cu",
@@ -1028,10 +1458,15 @@ def main() -> int:
              ms=bwd_ms, plain_ms=bwd_plain_ms, bound_ms=bwd_bound[0],
              bound_by=bwd_bound[1], library_ms=None),
         *culled_records,
+        *blend_records,
     ]
     log(f"64-leaf summary: step {s64['step_ms']:.4f} ms, forward frame {s64['fwd64_ms']:.4f} ms, idle share "
         f"{s64['idle']}, masks and lists {s64['cull_ms']:.4f} ms in {s64['n_cull']} device operations "
         f"({s64['n_ksum']} in the pairwise path loop) ({smi})")
+    for name, s in sb["steps"].items():
+        log(f"{name} summary: step {s['step_ms']:.4f} ms, compact_bwd {s['cbwd_ms']:.4f} ms, idle share "
+            f"{s['idle']}, masks and lists {s['cull_ms']:.4f} ms in {s['n_cull']} device operations ({smi})")
+    log(f"painted forward frame {sb['fwd_p_ms']:.4f} ms; cluster fit {sb['fit_s']:.4f} s/step ({smi})")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -37,8 +37,8 @@ _SIGNATURES = {
     # leaf_params, row_kind, tape, n_instr, op_param, cam, bound, params,
     # cull, t0_out, status_out, stream
     "rmt_coarse_launch": (_P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P),
-    # ... params, cull, t0_in, status_in, img, t_out, hit_out, stream
-    "rmt_fine_launch": (_P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P),
+    # ... params, cull, t0_in, status_in, img, t_out, hit_out, mats, stream
+    "rmt_fine_launch": (_P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P),
     # leaf_params, row_kind, tape, n_instr, op_param, push_slot, cam, params,
     # grad_denom_clamp, t, hit, g_img, nscal, op_base, cam_base, partials,
     # max_blocks, out, stream
@@ -47,11 +47,11 @@ _SIGNATURES = {
         _P, _I, _P, _P,
     ),
     # leaf_params, row_kind, tape, n_instr, op_param, cull, cam, params,
-    # grad_denom_clamp, t, hit, g_img, nscal, cam_base, partials, max_blocks,
-    # n_blocks (int*), stream
+    # grad_denom_clamp, t, hit, g_img, nscal, op_base, cam_base, mats, hist,
+    # hist_off, partials, max_blocks, n_blocks (int*), stream
     "rmt_compact_bwd_launch": (
         _P, _P, _P, _I, _P, _P, _P, _P, ctypes.c_float, _P, _P, _P, _I, _I,
-        _P, _I, _P, _P,
+        _I, _I, _P, _I, _P, _I, _P, _P,
     ),
     # partials, n_blocks, nscal, out, stream
     "rmt_bwd_finalize_launch": (_P, _I, _I, _P, _P),

@@ -22,7 +22,12 @@
 // the list of the tile whose cone holds it.
 // Given residual pointers it also writes each AA ray's march end t and hit
 // flag (emit_th=True, 1850-1862), which the fused backward replays; the
-// image does not depend on whether they are written.
+// image does not depend on whether they are written. A painted scene
+// (spec.has_materials) takes each hit ray's albedo from one more walk of
+// the static tape at its hit point (scene_color, pallas_prepass.py:
+// 1669-1681), gated by its tile's leaf mask under culling in either mode,
+// as the reference's colour pass is; a material-free build carries none of
+// it (the MATS template flag).
 //
 // What bounds them on an H100: neither reads or writes much memory (the
 // fine kernel writes 12 bytes per pixel, the coarse kernel 8), so both are
@@ -116,8 +121,9 @@ __global__ void coarse_kernel(SceneView sc, const float* __restrict__ cam,
 // q = j * S + s, so a pixel's S samples sit in S adjacent lanes of one warp
 // (S divides 32; the wrapper checks). Writes the image f32[rows, width, 3]
 // and, when t_out is not null, the residuals t and hit f32[rows, width, S].
-// MODE is the culling mode, RELAX whether cfg.relax > 1.
-template <int MODE, bool RELAX>
+// MODE is the culling mode, RELAX whether cfg.relax > 1, MATS whether the
+// scene carries materials.
+template <int MODE, bool RELAX, bool MATS>
 __global__ void fine_kernel(SceneView sc, const float* __restrict__ cam,
                             const float* __restrict__ bound, RenderParams p,
                             CullView cv, const float* __restrict__ t0_in,
@@ -208,6 +214,7 @@ __global__ void fine_kernel(SceneView sc, const float* __restrict__ cam,
 
     // A miss takes diff = 0 and the default albedo (shade_miss, 1683-1694).
     float diff = 0.0f;
+    float alb[3] = {p.albedo[0], p.albedo[1], p.albedo[2]};
     if (hit > 0.0f) {
       const float px = r.ox + r.dx * t;
       const float py = r.oy + r.dy * t;
@@ -231,6 +238,11 @@ __global__ void fine_kernel(SceneView sc, const float* __restrict__ cam,
           1.0f / sqrtf(tlx * tlx + tly * tly + tlz * tlz + 1e-20f);
       diff = (nx * tlx + ny * tly + nz * tlz) * (ninv * linv);
       diff = fmaxf(diff, p.ambient);
+      if constexpr (MATS) {
+        scene_color(sc, px, py, pz, p.albedo, alb,
+                    MODE != 0 ? cv.masks + (size_t)tile * cv.n_words
+                              : nullptr);
+      }
     }
 
     // Analytic checkerboard floor on a miss (wgsl:117-128).
@@ -247,9 +259,9 @@ __global__ void fine_kernel(SceneView sc, const float* __restrict__ cam,
     const float fr = (p.floor_base[0] + p.floor_checker * parity) * on_floor;
     const float fg = (p.floor_base[1] + p.floor_checker * parity) * on_floor;
     const float fbl = (p.floor_base[2] + p.floor_checker * parity) * on_floor;
-    cr = sqrtf(fmaxf(hit * (p.albedo[0] * diff) + miss * fr, 0.0f) + 1e-12f);
-    cg = sqrtf(fmaxf(hit * (p.albedo[1] * diff) + miss * fg, 0.0f) + 1e-12f);
-    cb = sqrtf(fmaxf(hit * (p.albedo[2] * diff) + miss * fbl, 0.0f) + 1e-12f);
+    cr = sqrtf(fmaxf(hit * (alb[0] * diff) + miss * fr, 0.0f) + 1e-12f);
+    cg = sqrtf(fmaxf(hit * (alb[1] * diff) + miss * fg, 0.0f) + 1e-12f);
+    cb = sqrtf(fmaxf(hit * (alb[2] * diff) + miss * fbl, 0.0f) + 1e-12f);
   }
 
   // AA mean over the pixel's S adjacent lanes, in registers.
@@ -274,7 +286,8 @@ constexpr int FINE_THREADS = 128;
 extern "C" {
 
 // Both launchers return the cudaError_t of the launch (0 = success). t_out
-// and hit_out may be null (no residuals); cull->mode 0 renders unculled.
+// and hit_out may be null (no residuals); cull->mode 0 renders unculled;
+// mats != 0 shades with the scene's materials.
 int rmt_coarse_launch(const float* leaf_params, const int* row_kind,
                       const int* tape, int n_instr, const float* op_param,
                       const float* cam, const float* bound,
@@ -313,7 +326,7 @@ int rmt_fine_launch(const float* leaf_params, const int* row_kind,
                     const rmt::RenderParams* params,
                     const rmt::CullView* cull, const float* t0_in,
                     const float* status_in, float* img, float* t_out,
-                    float* hit_out, void* stream) {
+                    float* hit_out, int mats, void* stream) {
   const rmt::RenderParams p = *params;
   const rmt::SceneView sc = rmt::make_scene(leaf_params, row_kind, tape,
                                             n_instr, op_param, p.max_dist);
@@ -323,16 +336,22 @@ int rmt_fine_launch(const float* leaf_params, const int* row_kind,
                   p.rows);
   cudaStream_t st = (cudaStream_t)stream;
   const bool relax = p.relax > 1.0f;
-#define RMT_FINE(MODE, RELAX)                                              \
-  rmt::fine_kernel<MODE, RELAX><<<grid, block, 0, st>>>(                   \
+#define RMT_FINE(MODE, RELAX, MATS)                                        \
+  rmt::fine_kernel<MODE, RELAX, MATS><<<grid, block, 0, st>>>(             \
       sc, cam, bound, p, *cull, t0_in, status_in, img, t_out, hit_out)
-  switch (cull->mode * 2 + (relax ? 1 : 0)) {
-    case 0: RMT_FINE(0, false); break;
-    case 1: RMT_FINE(0, true); break;
-    case 2: RMT_FINE(1, false); break;
-    case 3: RMT_FINE(1, true); break;
-    case 4: RMT_FINE(2, false); break;
-    case 5: RMT_FINE(2, true); break;
+  switch ((cull->mode * 2 + (relax ? 1 : 0)) * 2 + (mats ? 1 : 0)) {
+    case 0: RMT_FINE(0, false, false); break;
+    case 1: RMT_FINE(0, false, true); break;
+    case 2: RMT_FINE(0, true, false); break;
+    case 3: RMT_FINE(0, true, true); break;
+    case 4: RMT_FINE(1, false, false); break;
+    case 5: RMT_FINE(1, false, true); break;
+    case 6: RMT_FINE(1, true, false); break;
+    case 7: RMT_FINE(1, true, true); break;
+    case 8: RMT_FINE(2, false, false); break;
+    case 9: RMT_FINE(2, false, true); break;
+    case 10: RMT_FINE(2, true, false); break;
+    case 11: RMT_FINE(2, true, true); break;
     default:
       return (int)cudaErrorInvalidValue;
   }

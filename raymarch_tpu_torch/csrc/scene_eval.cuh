@@ -214,6 +214,107 @@ __device__ __forceinline__ float scene_distance(const SceneView& sc, float px,
   return stk[0];
 }
 
+// Leaf-row words of the material (ops/opcodes.py LEAF_ALBEDO, LEAF_MAT_FLAG).
+constexpr int LEAF_ALBEDO = 12;
+constexpr int LEAF_MAT_FLAG = 15;
+
+// Winner weight of operand a in a smooth blend (sdf._mat_weight_smooth):
+// the material field is continuous exactly where the distance blend is.
+__device__ __forceinline__ float mat_weight_smooth(float da, float db,
+                                                  float k) {
+  k = fmaxf(k, 1e-8f);
+  return fminf(fmaxf(0.5f + 0.5f * (db - da) / k, 0.0f), 1.0f);
+}
+
+// The scene distance at p, and in rgb the albedo the static tape carries to
+// it: the static branch of pallas_march.py:_make_scene_color_eval (893-909,
+// sdf._apply_static_tape_color). A leaf's colour is its own albedo where its
+// material flag is set, else def (the config albedo); hard ops take the
+// winner's colour by the tie rule of oracle.eval_tape_color (union a <= b,
+// intersection a >= b, subtraction a >= -b), smooth ops blend the two by
+// mat_weight_smooth, round and onion keep their operand's. With a tile mask
+// a culled leaf reads CULL_FAR with the default colour (the gated tape of
+// scene_distance). The kernels call it once per hit ray, not per march step.
+__device__ __forceinline__ float scene_color(const SceneView& sc, float px,
+                                            float py, float pz,
+                                            const float* def, float rgb[3],
+                                            const int* mask = nullptr) {
+  if (sc.n_instr == 0) {
+    rgb[0] = def[0];
+    rgb[1] = def[1];
+    rgb[2] = def[2];
+    return sc.max_dist;
+  }
+  float stk[MAX_STACK], cr[MAX_STACK], cg[MAX_STACK], cb[MAX_STACK];
+  for (int i = 0; i < sc.n_instr; ++i) {
+    const int op = __ldg(sc.tape_ops + i);
+    const int s = __ldg(sc.out_slot + i);
+    if (op == COP_PUSH) {
+      const int row = __ldg(sc.tape_arg + i);
+      const float* P = sc.leaf_params + row * LEAF_PARAM_WIDTH;
+      if (mask != nullptr && !mask_bit(mask, row)) {
+        stk[s] = CULL_FAR;
+        cr[s] = def[0];
+        cg[s] = def[1];
+        cb[s] = def[2];
+      } else {
+        stk[s] = leaf_distance(P, __ldg(sc.row_kind + row), px, py, pz);
+        const float fl = __ldg(P + LEAF_MAT_FLAG);
+        cr[s] = fl * __ldg(P + LEAF_ALBEDO + 0) + (1.0f - fl) * def[0];
+        cg[s] = fl * __ldg(P + LEAF_ALBEDO + 1) + (1.0f - fl) * def[1];
+        cb[s] = fl * __ldg(P + LEAF_ALBEDO + 2) + (1.0f - fl) * def[2];
+      }
+      continue;
+    }
+    const float k = __ldg(sc.op_param + i);
+    const float a = stk[s];
+    if (op == COP_ROUND || op == COP_ONION) {
+      stk[s] = (op == COP_ROUND ? a : fabsf(a)) - k;
+      continue;
+    }
+    const float b = stk[s + 1];
+    float r, w;
+    switch (op) {
+      case COP_UNION:
+        r = fminf(a, b);
+        w = a <= b ? 1.0f : 0.0f;
+        break;
+      case COP_INTERSECTION:
+        r = fmaxf(a, b);
+        w = a >= b ? 1.0f : 0.0f;
+        break;
+      case COP_SUBTRACTION:
+        r = fmaxf(a, -b);
+        w = a >= -b ? 1.0f : 0.0f;
+        break;
+      case COP_SMOOTH_UNION:
+        r = smooth_min(a, b, k);
+        w = mat_weight_smooth(a, b, k);
+        break;
+      case COP_SMOOTH_INTERSECTION:
+        r = -smooth_min(-a, -b, k);
+        w = mat_weight_smooth(b, a, k);
+        break;
+      case COP_SMOOTH_SUBTRACTION:
+        r = -smooth_min(-a, b, k);
+        w = mat_weight_smooth(-b, a, k);
+        break;
+      default:  // COP_NOP never appears in the real-instruction prefix
+        r = a;
+        w = 1.0f;
+        break;
+    }
+    stk[s] = r;
+    cr[s] = w * cr[s] + (1.0f - w) * cr[s + 1];
+    cg[s] = w * cg[s] + (1.0f - w) * cg[s + 1];
+    cb[s] = w * cb[s] + (1.0f - w) * cb[s + 1];
+  }
+  rgb[0] = cr[0];
+  rgb[1] = cg[0];
+  rgb[2] = cb[0];
+  return stk[0];
+}
+
 // Per-tile culling of one kernel's tile grid (ops/cuda_prepass.py:TileCull,
 // mirrored field by field by _CCull). mode 0: no culling; 1: the compact
 // plan's per-tile item lists; 2: the gated tape (per-tile leaf masks).

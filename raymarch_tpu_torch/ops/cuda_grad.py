@@ -3,8 +3,9 @@ residuals, and a CUDA backward kernel.
 
 Port of `raymarch_tpu/ops/pallas_grad.py:make_fused_render_vjp` (1221):
 the legacy backward (`backward_info["kind"] == "pallas_legacy_unrolled"`),
-and with `cfg.leaf_cull` the compact backward of pool-only plans
-(`"pallas_compact"`).
+and with `cfg.leaf_cull` the compact backward of every compact plan
+without residual subtrees (`"pallas_compact"`): pool, seg1 chain and
+stream plans, and painted pools.
 
 - Forward: the coarse kernel, then the fine kernel with residuals
   (`cuda_prepass.fine_res`, the counterpart of the Pallas fine kernel with
@@ -12,9 +13,11 @@ and with `cfg.leaf_cull` the compact backward of pool-only plans
   culled per tile with `cfg.leaf_cull`.
 - Compact backward (`compact_bwd`; kernel `compact_bwd_kernel` in
   csrc/compact_bwd.cu, replacing `_make_compact_bwd.bwd_kernel`,
-  pallas_grad.py:256): for a pool-only compact plan, the same gradient with
-  every scene evaluation folded over the ray's fine-tile list and each
-  point's cotangent pushed through the winning leaf's adjoint alone.
+  pallas_grad.py:256): the same gradient with every scene evaluation
+  folded over the ray's fine-tile lists and each point's cotangent pushed
+  through its winning source alone: the pool's winning leaf, or the
+  reverse sweep of the seg1 chain's or a stream segment's ordered fold
+  (blend radii included); on a painted pool also the winner's albedo.
   `compact_bwd_plain` is its autograd replay.
 - Backward (`bwd`; kernel `fused_bwd_kernel` in csrc/fused_bwd.cu,
   replacing `bwd_kernel`, pallas_grad.py:1432): per hit ray, the adjoint of
@@ -42,7 +45,7 @@ import torch
 
 from ..config import RenderConfig
 from . import opcodes as oc
-from .cuda_march import SceneBuffers, build_compact_plan, pool_fold_plain, scene_plain
+from .cuda_march import SceneBuffers, build_compact_plan, pool_fold_plain, scene_compact_plain, scene_plain
 from .cuda_prepass import (
     PrepassParams,
     TileCull,
@@ -61,6 +64,7 @@ from .cuda_prepass import (
     make_pallas_image_render_aa,
     resolve_device,
     shade_plain,
+    tile_active,
 )
 from .tape import TapeArrays, TapeSpec
 
@@ -68,6 +72,9 @@ MAX_BWD_INSTR = 64  # csrc/scene_grad.cuh MAX_BWD_INSTR
 BWD_THREADS = 64  # csrc/fused_bwd.cu BWD_THREADS
 CBWD_THREADS = 128  # csrc/compact_bwd.cu CBWD_THREADS
 SMEM_PER_BLOCK = 232448  # an H100 block's shared memory, bytes
+# Device memory the compact backward's fold history may take: the launch
+# grid shrinks until every thread's slice of hist_len floats fits.
+HIST_BUDGET = 256 << 20
 PLAIN_BAND_ROWS = 64  # rows per autograd graph in bwd_plain
 
 
@@ -138,11 +145,12 @@ def _device_index(rows: tuple, device: torch.device) -> torch.Tensor:
 
 
 def _bwd_plain_band(scene: SceneBuffers, cam, p: PrepassParams, clamp: float, t, hit, g_img, i0,
-                    scene_fn_of=None):
+                    scene_fn_of=None, albedo_fn_of=None):
     """Gradient of one band of rows [i0, i0 + len(t)) -> (d_lp, d_opp,
     d_cam7), the replay of pallas_grad.py:1600-1699 by autograd.
     `scene_fn_of(sc)` gives the scene function of the scene buffers `sc`
-    (default: the whole tape, `scene_plain`)."""
+    (default: the whole tape, `scene_plain`), `albedo_fn_of(sc)` the
+    albedo function of a painted scene (default: cfg.albedo)."""
     if scene_fn_of is None:
         def scene_fn_of(sc):
             return lambda px, py, pz: scene_plain(sc, p.max_dist, px, py, pz)
@@ -164,7 +172,8 @@ def _bwd_plain_band(scene: SceneBuffers, cam, p: PrepassParams, clamp: float, t,
 
         # Explicit shading path: dL/d(theta, cam, t) (shade_loss).
         tt = t.detach().clone().requires_grad_(True)
-        cols = shade_plain(sc, p, *rays(cam_g), tt, hit, scene_fn_of(sc))
+        cols = shade_plain(sc, p, *rays(cam_g), tt, hit, scene_fn_of(sc),
+                           None if albedo_fn_of is None else albedo_fn_of(sc))
         loss = sum(torch.sum(col * gc) for col, gc in zip(cols, g))
         g1 = torch.autograd.grad(loss, (lp, opp, cam7, tt), allow_unused=True)
         gt = g1[3] if g1[3] is not None else torch.zeros_like(t)
@@ -216,16 +225,17 @@ def bwd_plain(scene: SceneBuffers, cam, p: PrepassParams, lay: GradLayout, t, hi
 
 def compact_bwd_plain(scene: SceneBuffers, cull: TileCull, cam, p: PrepassParams, clamp: float,
                       t, hit, g_img, band_rows: int = PLAIN_BAND_ROWS):
-    """Plain version of the compact backward of a pool-only plan -> (d_lp
-    f32[n_leaves, 16], d_opp f32[n_instr], d_cam f32[8]): `bwd_plain`'s
-    autograd replay in row bands, with every scene evaluation the pool fold
-    of the ray's fine tile (`pool_fold_plain`), so each point's cotangent
-    reaches its winner leaf only. `cull` is the fine grid's TileCull of the
-    forward that wrote the residuals (t, hit)."""
-    from .culling import _active_from_mask
-
-    plan = build_compact_plan(scene.spec)
-    act_cols = _active_from_mask(scene.spec, cull.masks).T.contiguous()  # [L, T]
+    """Plain version of the compact backward -> (d_lp f32[n_leaves, 16],
+    d_opp f32[n_instr], d_cam f32[8]): `bwd_plain`'s autograd replay in row
+    bands, with every scene evaluation the ray's fine-tile compact scene
+    (`scene_compact_plain`: pool, seg1 chain and stream folds, each winner
+    chosen by an explicit strict `<`), so each point's cotangent reaches its
+    winning source alone; on a painted scene the shading reads the albedo
+    of the hit point's pool winner (`pool_fold_plain` with colours). `cull`
+    is the fine grid's TileCull of the forward that wrote the residuals (t,
+    hit)."""
+    spec = scene.spec
+    plan = build_compact_plan(spec)
     d_lp = torch.zeros_like(scene.leaf_params)
     d_opp = torch.zeros_like(scene.op_param)
     d_cam7 = torch.zeros(7, dtype=torch.float32, device=cam.device)
@@ -233,19 +243,16 @@ def compact_bwd_plain(scene: SceneBuffers, cull: TileCull, cam, p: PrepassParams
         i1 = min(i0 + band_rows, p.rows)
         i = torch.arange(i0, i1, device=cam.device)[:, None, None]
         j = torch.arange(p.width, device=cam.device)[None, :, None]
-        tid = cull.tile_index(i, j)
-        memo = {}
-
-        def active(row, tid=tid, memo=memo):
-            if row not in memo:
-                memo[row] = act_cols[row][tid]
-            return memo[row]
+        active = tile_active(spec, cull, cull.tile_index(i, j))
 
         def scene_fn_of(sc, active=active):
-            return lambda px, py, pz: pool_fold_plain(sc, plan, active, px, py, pz)
+            return lambda px, py, pz: scene_compact_plain(sc, plan, active, px, py, pz)
+
+        def albedo_fn_of(sc, active=active):
+            return lambda px, py, pz: pool_fold_plain(sc, plan, active, px, py, pz, p.albedo)
 
         a, b, c = _bwd_plain_band(scene, cam, p, clamp, t[i0:i1], hit[i0:i1], g_img[i0:i1], i0,
-                                  scene_fn_of)
+                                  scene_fn_of, albedo_fn_of if spec.has_materials else None)
         d_lp += a
         d_opp += b
         d_cam7 += c
@@ -325,11 +332,12 @@ bwd.launches = 0
 
 
 def _check_compact_bwd(scene: SceneBuffers, cull: TileCull, cam, p: PrepassParams, t, hit, g_img):
+    """The compact backward's argument checks. Which scenes take it is
+    `backward_route`'s decision, made once per renderer; this checks only
+    the tensors."""
     dev = cam.device
     S = p.naa * p.naa
     spec = scene.spec
-    if plan_kind(spec) != "pool":
-        raise ValueError("the compact backward takes pool-only plans (see backward_route)")
     _check("cam", cam, torch.float32, (8,), dev)
     _check("tape", scene.tape, torch.int32, (3, max(scene.n_instr, 1)), dev)
     _check("row_kind", scene.row_kind, torch.int32, (spec.n_leaves,), dev)
@@ -358,11 +366,32 @@ def _max_compact_blocks(device: torch.device) -> int:
     return n_sm * (2048 // CBWD_THREADS)
 
 
+@functools.lru_cache(maxsize=None)
+def history_layout(spec: TapeSpec):
+    """(hist_off, hist_len) of the compact backward's fold history: the
+    list column of the plan's first ordered item, and the plan's total
+    ordered span, every seg1 and stream group's items (0 for a pool-only
+    plan). The ordered groups sit after the pool in one run of list
+    columns, each at its own base. The reference sizes its history to the
+    largest single group instead, though it lays the groups out one after
+    another (ROADMAP §3.1)."""
+    plan = build_compact_plan(spec)
+    groups = plan["groups"]
+    gis = list(plan["seg1"] or ()) + list(plan["stream"])
+    if not gis:
+        return 0, 0
+    off = min(groups[g]["offset"] for g in gis)
+    span = sum(len(groups[g]["rows"]) for g in gis)
+    if max(groups[g]["offset"] + len(groups[g]["rows"]) for g in gis) != off + span:
+        raise ValueError("the plan's ordered groups do not share one run of list columns")
+    return off, span
+
+
 def compact_bwd(scene: SceneBuffers, cull: TileCull, cam, p: PrepassParams, clamp: float, t, hit, g_img):
-    """Compact backward of a pool-only plan -> (d_lp f32[n_leaves, 16],
-    d_opp f32[n_instr], d_cam f32[8]) on the inputs' device; see
-    `compact_bwd_plain` for the arguments. On CUDA: `compact_bwd_kernel`
-    (csrc/compact_bwd.cu), then `bwd_finalize_kernel` over its block rows."""
+    """Compact backward -> (d_lp f32[n_leaves, 16], d_opp f32[n_instr], d_cam
+    f32[8]) on the inputs' device; see `compact_bwd_plain` for the
+    arguments. On CUDA: `compact_bwd_kernel` (csrc/compact_bwd.cu), then
+    `bwd_finalize_kernel` over its block rows."""
     dev, nscal = _check_compact_bwd(scene, cull, cam, p, t, hit, g_img)
     if dev.type == "cpu":
         return compact_bwd_plain(scene, cull, cam, p, clamp, t, hit, g_img)
@@ -370,8 +399,13 @@ def compact_bwd(scene: SceneBuffers, cull: TileCull, cam, p: PrepassParams, clam
 
     lib = _build.load()
     L, n_instr = scene.spec.n_leaves, scene.spec.n_instr
-    cam_base = 16 * L + n_instr
+    op_base = 16 * L
+    cam_base = op_base + n_instr
+    hist_off, hist_len = history_layout(scene.spec)
     max_blocks = _max_compact_blocks(dev)
+    if hist_len:
+        max_blocks = max(1, min(max_blocks, HIST_BUDGET // (4 * hist_len * CBWD_THREADS)))
+    hist = torch.empty(max_blocks * CBWD_THREADS * hist_len, dtype=torch.float32, device=dev)
     partials = torch.empty(max_blocks * nscal, dtype=torch.float32, device=dev)
     out = torch.empty(nscal, dtype=torch.float32, device=dev)
     n_blocks = ctypes.c_int(0)
@@ -382,7 +416,9 @@ def compact_bwd(scene: SceneBuffers, cull: TileCull, cam, p: PrepassParams, clam
         err = lib.rmt_compact_bwd_launch(
             *_scene_ptrs(scene), ctypes.addressof(cc), cam.data_ptr(),
             ctypes.addressof(cp), clamp, t.data_ptr(), hit.data_ptr(), g_img.data_ptr(),
-            nscal, cam_base, partials.data_ptr(), max_blocks, ctypes.byref(n_blocks), stream,
+            nscal, op_base, cam_base, int(scene.spec.has_materials),
+            hist.data_ptr() if hist_len else None, hist_off,
+            partials.data_ptr(), max_blocks, ctypes.byref(n_blocks), stream,
         )
         _raise_on(err, "compact_bwd_kernel")
         compact_bwd.launches += 1
@@ -462,13 +498,25 @@ def plan_kind(spec: TapeSpec):
     return "stream" if plan["stream"] else "pool"
 
 
+# The reference's legacy backward with albedo words, which painted scenes
+# off the compact backward need.
+ALBEDO_WORDS_ITEM = "§2.4 K8's albedo words (the legacy backward with materials)"
+
+
 def backward_route(spec: TapeSpec, cfg: RenderConfig):
     """(plan kind, reason): why the compact O(active) backward is not taken,
     or reason None when it is, by the eligibility chain of
-    pallas_grad.py:1279-1298 with the reference's reason strings. Two of its
-    gates do not apply to the port: the 64-item history cap of the TPU's
-    VMEM (the port sizes history to the plan's span, ROADMAP §3.1) and the
-    AA-packed layout (always available)."""
+    pallas_grad.py:1279-1298 with the reference's reason strings. This is
+    the one place that decides; every compact plan without residual
+    subtrees takes K9 (pool, seg1 and stream plans, painted pools).
+
+    Two of the reference's gates do not apply to the port. The AA-packed
+    layout is always available. The 64-item history cap of the TPU's VMEM
+    (1278, 1292) is not carried: the port sizes the history to the plan's
+    total ordered span (`history_layout`, ROADMAP §3.1), so a seg1 chain or
+    stream group of more than 64 items takes K9 here where the reference
+    takes its legacy backward with the reason "ordered fold history exceeds
+    the VMEM budget (64)"."""
     if not cfg.leaf_cull:
         return None, "leaf_cull disabled"
     kind = plan_kind(spec)
@@ -489,8 +537,9 @@ class FusedRenderer:
     gradient.
 
     With `cfg.leaf_cull` the forward is culled (the coarse and fine kernels
-    read per-tile item lists or masks); a pool-only compact plan then takes
-    the compact backward K9 (`compact_bwd`), any other scene the legacy K8."""
+    read per-tile item lists or masks); a compact plan without residual
+    subtrees then takes the compact backward K9 (`compact_bwd`), any other
+    scene the legacy K8 (`backward_route`)."""
 
     def __init__(self, spec: TapeSpec, cfg: RenderConfig, width: int, height: int, device, reason):
         self.spec = spec
@@ -500,7 +549,7 @@ class FusedRenderer:
         self.params = self.prepass.params
         self.layout = GradLayout.of(spec, cfg)
         # `reason` is backward_route's; make_fused_render_vjp has refused
-        # the compact plans whose backward is not ported.
+        # the painted scenes that it sends to the legacy backward.
         self.compact_bwd = reason is None
         # The keys and strings of the reference (pallas_grad.py:1887-1895).
         # The port always keeps a pixel's AA samples in adjacent lanes (the
@@ -536,13 +585,14 @@ def make_fused_render_vjp(
     """The port's counterpart of `raymarch_tpu.ops.pallas_grad.
     make_fused_render_vjp`, cached per (spec, cfg, width, height, device).
 
-    Serves a static, material-free tape with prepass_block=1 and the packed
-    layout: without `cfg.leaf_cull` the legacy backward (K8); with it the
-    culled forward, then the compact backward (K9) for a pool-only plan and
-    K8 for a plan with residual subtrees or no plan, as the reference
-    dispatches (`backward_info`). A seg1 or stream plan, which the
-    reference sends to branches of the compact backward not ported yet,
-    raises, as does every other option, with its ROADMAP item.
+    Serves a static tape with prepass_block=1 and the packed layout:
+    without `cfg.leaf_cull` the legacy backward (K8); with it the culled
+    forward, then the compact backward (K9) for every compact plan without
+    residual subtrees (pool, seg1 chain, streams; painted pools) and K8 for
+    a plan with residual subtrees or no plan, as the reference dispatches
+    (`backward_route`, `backward_info`). A painted scene that the reference
+    sends to its legacy backward with albedo words raises, as does every
+    other option not ported, with its ROADMAP item.
     """
     if spec.static_tape is None:
         _not_ported("fused-VJP rendering of a dynamic tape (compile_scene(static=True) is required)",
@@ -550,14 +600,8 @@ def make_fused_render_vjp(
     if soft:
         _not_ported("soft", "§1.10 many-primitive backward and soft coverage")
     kind, reason = backward_route(spec, cfg)
-    if reason is None and kind != "pool":
-        _not_ported(f"the compact backward of a {kind} plan (K9's ordered-fold branches)",
-                    "§1.10 many-primitive backward and soft coverage")
-    if reason is None and spec.has_materials:
-        _not_ported("the compact backward of painted materials (K9's winner albedo routing)",
-                    "§1.10 many-primitive backward and soft coverage")
-    if spec.has_materials:
-        _not_ported("materials", "§1.8 forward variants on the main kernels")
+    if spec.has_materials and reason is not None:
+        _not_ported(f"the legacy backward of a painted scene ({reason})", ALBEDO_WORDS_ITEM)
     if band_rows is not None:
         _not_ported("band_rows", "§1.11 multi-device")
     if prepass_block != 1:

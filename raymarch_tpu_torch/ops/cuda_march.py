@@ -667,23 +667,55 @@ def fold_step_plain(opp, acc, e: int, dv):
     return hard + corr if is_sub else hard - corr
 
 
-def pool_fold_plain(scene: SceneBuffers, plan, active, px, py, pz):
+def leaf_rgb_plain(P, default_rgb):
+    """A leaf's albedo: its own where its material flag is set, else the
+    config default (pallas_march.py:886-891)."""
+    fl = P[oc.LEAF_MAT_FLAG]
+    return tuple(fl * P[oc.LEAF_ALBEDO + c] + (1.0 - fl) * default_rgb[c] for c in range(3))
+
+
+def scene_color_plain(scene: SceneBuffers, max_dist: float, default_rgb, px, py, pz, cull=None):
+    """(distance, (r, g, b)) at points (px, py, pz) through the whole static
+    tape with materials: the plain version of `scene_color` in
+    csrc/scene_eval.cuh (`sdf._apply_static_tape_color`, gated per leaf by
+    `cull(row)` as `scene_plain` is)."""
+    from .sdf import _apply_static_tape_color
+
+    row_types = {r: (t, rot) for r, t, rot in _leaf_static_rows(scene.spec)}
+    lp = scene.leaf_params
+
+    def leaf_fn(row):
+        t, rot = row_types[row]
+        return _leaf_distance_plain(lp[row], t, rot, px, py, pz), leaf_rgb_plain(lp[row], default_rgb)
+
+    d, rgb = _apply_static_tape_color(scene.spec, scene.op_param, leaf_fn, max_dist, px, default_rgb,
+                                      cull=cull)
+    return d, tuple(px * 0.0 + c for c in rgb)
+
+
+def pool_fold_plain(scene: SceneBuffers, plan, active, px, py, pz, default_rgb=None):
     """The pool fold of a compact plan with its winner chosen explicitly:
     items in list order, each taking the running value only when it is
     active and strictly below it (pallas_grad.py:391-420). The value is the
     min over the point's active pool items (FAR when none); under autograd
     its gradient reaches the winner leaf alone, which is the compact
-    backward's winner-masked transpose."""
+    backward's winner-masked transpose. With `default_rgb` it returns the
+    winner's albedo instead (the default where no item is active)."""
     from .culling import FAR
 
     row_types = {r: (t, rot) for r, t, rot in _leaf_static_rows(scene.spec)}
     acc = px * 0.0 + FAR
+    rgb = None if default_rgb is None else tuple(px * 0.0 + c for c in default_rgb)
     for gi in plan["pool"]:
         for row in plan["groups"][gi]["rows"]:
             t, rot = row_types[row]
-            dv = _leaf_distance_plain(scene.leaf_params[row], t, rot, px, py, pz)
-            acc = torch.where(active(row) & (dv < acc), dv, acc)
-    return acc
+            P = scene.leaf_params[row]
+            dv = _leaf_distance_plain(P, t, rot, px, py, pz)
+            win = active(row) & (dv < acc)
+            acc = torch.where(win, dv, acc)
+            if rgb is not None:
+                rgb = tuple(torch.where(win, c, r) for c, r in zip(leaf_rgb_plain(P, default_rgb), rgb))
+    return acc if rgb is None else rgb
 
 
 def scene_compact_plain(scene: SceneBuffers, plan, active, px, py, pz):
@@ -693,7 +725,14 @@ def scene_compact_plain(scene: SceneBuffers, plan, active, px, py, pz):
     against the points: True where the leaf is in the point's tile list.
     Items are visited in plan order and a culled item is skipped, which is
     what the kernel's loop over the tile's stable-compacted list does. A
-    plan with residual subtrees takes the gated tape instead."""
+    plan with residual subtrees takes the gated tape instead.
+
+    Every choice between values is an explicit strict `<` in order (the
+    compact backward's tie rule, pallas_grad.py:491-505, 683-712): the pool
+    winner in list order, a stream group's winning segment in segment
+    order, and the winning source in the order pool, seg1 chain, stream
+    groups. The values are those of the kernel's min folds; under autograd
+    each point's gradient reaches its winning source alone."""
     from .culling import FAR
 
     if plan["residual_ops"]:
@@ -716,17 +755,18 @@ def scene_compact_plain(scene: SceneBuffers, plan, active, px, py, pz):
                 row = e & 1023
                 step = fold_step_plain(opp, acc, e, leaf(row)) if g["ordered"] else torch.minimum(acc, leaf(row))
                 acc = torch.where(active(row), step, acc)
-        d = torch.minimum(d, acc)
+        d = torch.where(acc < d, acc, d)
     for gi in plan["stream"]:
-        acc_out, acc_seg = d, far
+        best, acc_seg = far, far
         prev = torch.full(px.shape, -1, dtype=torch.int32, device=px.device)
         for e in groups[gi]["entries"]:
             row, sid = e & 1023, (e >> 15) & 7
             a = active(row)
             new_seg = a & (prev != sid)
-            acc_out = torch.where(new_seg, torch.minimum(acc_out, acc_seg), acc_out)
+            best = torch.where(new_seg & (acc_seg < best), acc_seg, best)
             acc_seg = torch.where(new_seg, far, acc_seg)
             acc_seg = torch.where(a, fold_step_plain(opp, acc_seg, e, leaf(row)), acc_seg)
             prev = torch.where(a, sid, prev)
-        d = torch.minimum(acc_out, acc_seg)
+        best = torch.where(acc_seg < best, acc_seg, best)
+        d = torch.where(best < d, best, d)
     return d

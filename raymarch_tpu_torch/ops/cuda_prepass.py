@@ -12,8 +12,9 @@ Port of the main path of `raymarch_tpu/ops/pallas_prepass.py`
 2. **Fine pass** (`fine`; kernel `fine_kernel`, replacing
    `fine_packed_kernel`, pallas_prepass.py:1521). Every AA ray sphere-traces
    from its pixel's t0, hit rays take tetrahedron normals and Lambert
-   shading, misses the analytic checker floor, then sqrt gamma and the AA
-   mean: f32[rows, W, 3].
+   shading (with the albedo the static tape carries to the hit point on a
+   painted scene), misses the analytic checker floor, then sqrt gamma and
+   the AA mean: f32[rows, W, 3].
 
 Each wrapper takes tensors on one device. On the CPU it runs its plain
 version (`coarse_plain`, `fine_plain`: vectorised torch over all rays, a
@@ -40,6 +41,7 @@ from .cuda_march import (
     compute_bound_torch,
     plan_program,
     scene_buffers,
+    scene_color_plain,
     scene_compact_plain,
     scene_plain,
     scene_topology,
@@ -320,6 +322,22 @@ def div_rn(x: torch.Tensor, d) -> torch.Tensor:
     return x / torch.full((), d, dtype=x.dtype, device=x.device)
 
 
+def tile_active(spec: TapeSpec, cull: TileCull, tid):
+    """`active(row)` -> bool tensor like `tid` (each point's tile): True
+    where bit `row` of the tile's leaf mask is set. Memoised per row."""
+    from .culling import _active_from_mask
+
+    act_cols = _active_from_mask(spec, cull.masks).T.contiguous()  # [L, T]
+    memo = {}
+
+    def active(row):
+        if row not in memo:
+            memo[row] = act_cols[row][tid]
+        return memo[row]
+
+    return active
+
+
 def scene_fn_plain(scene: SceneBuffers, max_dist: float, cull: TileCull | None, tid=None):
     """The plain scene function of one pass -> f(px, py, pz). Without
     `cull` it is `scene_plain`. With it, `tid` holds each point's tile
@@ -329,20 +347,23 @@ def scene_fn_plain(scene: SceneBuffers, max_dist: float, cull: TileCull | None, 
     others (`sdf._apply_static_tape` with `cull`)."""
     if cull is None:
         return lambda px, py, pz: scene_plain(scene, max_dist, px, py, pz)
-    from .culling import _active_from_mask
-
-    act_cols = _active_from_mask(scene.spec, cull.masks).T.contiguous()  # [L, T]
-    memo = {}
-
-    def active(row):
-        if row not in memo:
-            memo[row] = act_cols[row][tid]
-        return memo[row]
-
+    active = tile_active(scene.spec, cull, tid)
     if cull.compact:
         plan = build_compact_plan(scene.spec)
         return lambda px, py, pz: scene_compact_plain(scene, plan, active, px, py, pz)
     return lambda px, py, pz: scene_plain(scene, max_dist, px, py, pz, cull=active)
+
+
+def albedo_fn_plain(scene: SceneBuffers, p: PrepassParams, cull: TileCull | None, tid=None):
+    """The fine pass's albedo at hit points -> f(px, py, pz) -> (r, g, b),
+    or None for a material-free scene (every hit shades with cfg.albedo).
+    The static tape with materials (`scene_color_plain`), gated by the
+    tile's leaf mask under culling in either mode, as the fine kernel's
+    `scene_color` is."""
+    if not scene.spec.has_materials:
+        return None
+    active = None if cull is None else tile_active(scene.spec, cull, tid)
+    return lambda px, py, pz: scene_color_plain(scene, p.max_dist, p.albedo, px, py, pz, cull=active)[1]
 
 
 @dataclasses.dataclass
@@ -492,7 +513,7 @@ def fine_res_plain(scene: SceneBuffers, cam, bound, p: PrepassParams, t0=None, s
     if work is not None:
         work.add(hit, leaves, points_per=4)  # the normal taps of hit rays
         work.hits = work.hits + hit.sum()
-    cols = shade_plain(scene, p, ox, oy, oz, dx, dy, dz, t, hit, scene_fn)
+    cols = shade_plain(scene, p, ox, oy, oz, dx, dy, dz, t, hit, scene_fn, albedo_fn_plain(scene, p, cull, tid))
     img = torch.stack([torch.sum(c, dim=-1) * p.inv_s for c in cols], dim=-1)
     return img, t, hit
 
@@ -530,12 +551,15 @@ def _relaxed_march_plain(scene_fn, p: PrepassParams, ox, oy, oz, dx, dy, dz, t, 
     return t, hit
 
 
-def shade_plain(scene: SceneBuffers, p: PrepassParams, ox, oy, oz, dx, dy, dz, t, hit, scene_fn=None):
+def shade_plain(scene: SceneBuffers, p: PrepassParams, ox, oy, oz, dx, dy, dz, t, hit, scene_fn=None,
+                albedo_fn=None):
     """Per-ray gamma-corrected colour (r, g, b) of the fine pass at the
     march result (t, hit): tetrahedron normal, Lambert against the point
     light, the checker floor on a miss (pallas_grad.py:1600-1651 is the same
     chain). Differentiable in the scene, the ray and t. `scene_fn` is the
-    pass's scene function (default: the whole tape, `scene_plain`)."""
+    pass's scene function (default: the whole tape, `scene_plain`);
+    `albedo_fn(px, py, pz)` gives the albedo at the hit points of a
+    painted scene (default: cfg.albedo everywhere)."""
     if scene_fn is None:
         scene_fn = scene_fn_plain(scene, p.max_dist, None)
     px = ox + dx * t * hit
@@ -551,6 +575,7 @@ def shade_plain(scene: SceneBuffers, p: PrepassParams, ox, oy, oz, dx, dy, dz, t
     diff = torch.clamp_min(diff, p.ambient)
     # A miss takes diff = 0 (shade_miss): select, never multiply by hit = 0.
     diff = torch.where(hit > 0.0, diff, 0.0)
+    alb = p.albedo if albedo_fn is None else albedo_fn(px, py, pz)
 
     dy_ok = torch.where(torch.abs(dy) > 1e-8, 1.0, 0.0)
     dy_safe = torch.where(torch.abs(dy) > 1e-8, dy, 1e-8)
@@ -566,7 +591,7 @@ def shade_plain(scene: SceneBuffers, p: PrepassParams, ox, oy, oz, dx, dy, dz, t
     for c in range(3):
         fcol = (p.floor_base[c] + p.floor_checker * parity) * on_floor
         cols.append(
-            sqrt_rn(torch.clamp_min(hit * (p.albedo[c] * diff) + miss * fcol, 0.0) + 1e-12)
+            sqrt_rn(torch.clamp_min(hit * (alb[c] * diff) + miss * fcol, 0.0) + 1e-12)
         )
     return cols
 
@@ -706,6 +731,7 @@ def _fine_launch(scene: SceneBuffers, cam, bound, p: PrepassParams, t0, status, 
             img.data_ptr(),
             t.data_ptr() if residuals else None,
             hit.data_ptr() if residuals else None,
+            int(scene.spec.has_materials),
             stream,
         )
     _raise_on(err, "fine_kernel")
@@ -882,7 +908,7 @@ def make_pallas_image_render_aa(
     per (spec, cfg, width, height, device, no_prepass).
 
     Takes the main path's options: prepass_block=1, aa_packed=True, a
-    static tape with no materials, n_intervals=0, with or without
+    static tape (painted or not), n_intervals=0, with or without
     `cfg.leaf_cull` (per-tile culling: compacted item lists for a compact
     plan, else the gated tape) and `cfg.relax > 1` (relaxed fine march);
     and `no_prepass=True`, the strict-reference path (every AA ray marches
@@ -897,8 +923,6 @@ def make_pallas_image_render_aa(
         _not_ported("band_rows", "§1.11 multi-device")
     if n_intervals:
         _not_ported("n_intervals", "§1.8 forward variants on the main kernels")
-    if spec.has_materials:
-        _not_ported("materials", "§1.8 forward variants on the main kernels")
     if soft:
         _not_ported("soft", "§1.10 many-primitive backward and soft coverage")
     if march_only:

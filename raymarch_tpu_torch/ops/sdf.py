@@ -219,6 +219,65 @@ def _apply_static_tape(spec: TapeSpec, op_param, leaf_fn, max_dist, like, cull=N
     return eval_node(root)
 
 
+def _mat_weight_smooth(da, db, k):
+    """Winner weight of operand a for smooth blends (sdf.py:272): the
+    material field is continuous exactly where the distance blend is."""
+    k = torch.clamp_min(k, 1e-8) if torch.is_tensor(k) else max(k, 1e-8)
+    return torch.clamp(0.5 + 0.5 * (db - da) / k, 0.0, 1.0)
+
+
+def _apply_static_tape_color(spec: TapeSpec, op_param, leaf_fn, max_dist, like, default_rgb, cull=None):
+    """Unrolled combine phase propagating (distance, albedo) (sdf.py:279).
+    `leaf_fn(row)` yields (d, (r, g, b)) with r/g/b broadcastable against d.
+    Hard ops take the winning operand's colour by the tie rule of
+    `oracle.eval_tape_color` (union: a <= b; intersection: a >= b;
+    subtraction: a >= -b), smooth ops blend by `_mat_weight_smooth`.
+    `cull(row)` gates leaves as in `_apply_static_tape`: a culled leaf reads
+    `culling.FAR` with `default_rgb`, which loses every selection that a
+    shaded point can see."""
+    from .culling import FAR
+
+    def sel(w, ca, cb):
+        return tuple(w * x + (1.0 - w) * y for x, y in zip(ca, cb))
+
+    root = _static_tree(spec)
+    if root is None:
+        return like * 0.0 + max_dist, default_rgb
+
+    def eval_node(node):
+        kind, i, payload, _rows = node
+        if kind == "leaf":
+            d, rgb = leaf_fn(payload)
+            if cull is not None:
+                on = cull(payload)
+                d = torch.where(on, d, FAR)
+                rgb = tuple(torch.where(on, c, dc) for c, dc in zip(rgb, default_rgb))
+            return d, rgb
+        kp = op_param[i]
+        if kind in (oc.COP_ROUND, oc.COP_ONION):
+            a, ca = eval_node(payload[0])
+            return (a - kp if kind == oc.COP_ROUND else torch.abs(a) - kp), ca
+        a, ca = eval_node(payload[0])
+        b, cb = eval_node(payload[1])
+        if kind == oc.COP_UNION:
+            w = torch.where(a <= b, 1.0, 0.0)
+        elif kind == oc.COP_INTERSECTION:
+            w = torch.where(a >= b, 1.0, 0.0)
+        elif kind == oc.COP_SUBTRACTION:
+            w = torch.where(a >= -b, 1.0, 0.0)
+        elif kind == oc.COP_SMOOTH_UNION:
+            w = _mat_weight_smooth(a, b, kp)
+        elif kind == oc.COP_SMOOTH_INTERSECTION:
+            w = _mat_weight_smooth(b, a, kp)
+        elif kind == oc.COP_SMOOTH_SUBTRACTION:
+            w = _mat_weight_smooth(-b, a, kp)
+        else:
+            raise ValueError(f"bad static op {kind}")
+        return _combine_static(kind, a, b, kp), sel(w, ca, cb)
+
+    return eval_node(root)
+
+
 def scene_distance(spec: TapeSpec, leaf_params, op_param, points, max_dist):
     """Static-tape scene SDF at points[N,3] -> d[N] (the bank-row form of
     `_apply_static_tape`, as the JAX package evaluates it on jnp arrays)."""

@@ -233,37 +233,31 @@ def _painted_pool(m):
         ("residual_ops", lambda m: SCENES["ops"](m), ("pallas_legacy_unrolled", "plan has residual (unrolled) subtrees")),
         ("no_plan", lambda m: m.sphere(radius=0.5) & m.box(), ("pallas_legacy_unrolled",
                                                               "scene has no compact plan (not foldable)")),
-        ("seg1", lambda m: SCENES["config2"](m), NotImplementedError),
-        ("seg1_plane", _gated_plane_scene, NotImplementedError),
-        ("stream", lambda m: _cluster_scene(), NotImplementedError),
-        ("painted", _painted_pool, NotImplementedError),
-        ("painted_seg1", _painted_smooth, "§1.8"),
+        ("seg1", lambda m: SCENES["config2"](m), ("pallas_compact", None)),
+        ("seg1_plane", _gated_plane_scene, ("pallas_compact", None)),
+        ("stream", lambda m: _cluster_scene(), ("pallas_compact", None)),
+        ("painted", _painted_pool, ("pallas_compact", None)),
+        ("painted_seg1", _painted_smooth, "albedo words"),
     ],
     ids=lambda v: v if isinstance(v, str) else "",
 )
 def test_backward_dispatch_mirrors_the_reference(name, build, expect):
     """backward_info's kind and reason for leaf_cull=True, as the
-    reference's eligibility chain gives them; the plans the reference sends
-    to K9's ordered-fold or material branches raise here, naming ROADMAP
-    §1.10, and never take the legacy backward."""
+    reference's eligibility chain gives them. A painted scene that the
+    reference sends to its legacy backward with albedo words raises here,
+    naming that ROADMAP item, and never takes K8 without them."""
     cfg_j = dataclasses.replace(CFG_J, leaf_cull=True)
     spec_j, arrays_j = rm.compile_scene(build(rm), static=True)
     spec, _ = from_reference(spec_j, arrays_j)
     cfg = rt.RenderConfig(**dataclasses.asdict(cfg_j))
     info_j = fused_vjp_j(spec_j, cfg_j, 32, 24, interpret=True, bm=8).backward_info
-    if expect == "§1.8":
-        # The reference's legacy backward with albedo words; the port has
-        # no materials yet, on either backward.
+    if expect == "albedo words":
         assert info_j["kind"] == "pallas_legacy_unrolled" and "materials" in info_j["reason"]
-        with pytest.raises(NotImplementedError, match="§1.8"):
-            cg.make_fused_render_vjp(spec, cfg, 32, 24, device="cpu")
-        return
-    if expect is NotImplementedError:
-        assert info_j["kind"] == "pallas_compact"  # the reference's K9 branch
-        with pytest.raises(NotImplementedError, match="§1.10"):
-            cg.make_fused_render_vjp(spec, cfg, 32, 24, device="cpu")
-        with pytest.raises(NotImplementedError, match="§1.10"):
-            rt.make_renderer(spec, 32, 24, cfg, mode="implicit", backend="pallas_fused", device="cpu")
+        for make in (lambda: cg.make_fused_render_vjp(spec, cfg, 32, 24, device="cpu"),
+                     lambda: rt.make_renderer(spec, 32, 24, cfg, mode="implicit", backend="pallas_fused",
+                                              device="cpu")):
+            with pytest.raises(NotImplementedError, match=r"§2\.4 K8's albedo words"):
+                make()
         return
     fr = cg.make_fused_render_vjp(spec, cfg, 32, 24, device="cpu")
     assert (fr.backward_info["kind"], fr.backward_info["reason"]) == expect

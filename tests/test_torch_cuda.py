@@ -260,15 +260,60 @@ def _clusters(m, n_clusters=6, seed=13):
     return scene
 
 
+def _painted(m, n=24):
+    """bench.py:805-819's painted random spheres (seed 17), the first n: a
+    painted pool."""
+    rng = np.random.default_rng(17)
+    parts = []
+    for _ in range(n):
+        c = rng.uniform(-3, 3, 3)
+        c[1] = rng.uniform(-1.0, 1.5)
+        parts.append(m.sphere(center=tuple(c), radius=float(rng.uniform(0.15, 0.5)),
+                              material=tuple(rng.uniform(0.1, 0.9, 3))))
+    scene = parts[0]
+    for p in parts[1:]:
+        scene = scene | p
+    return scene
+
+
+def _painted_blends(m):
+    """Painted leaves under hard and smooth ops (the gated tape carries the
+    colours; no compact plan)."""
+    a = m.sphere(center=(-0.5, 0.0, 0.0), radius=0.7, material=(0.8, 0.2, 0.1))
+    b = m.box(center=(0.4, 0.1, 0.0), half_extents=(0.5, 0.4, 0.5), rotation=Q, material=(0.1, 0.7, 0.3))
+    c = m.torus(center=(0.0, 0.5, 0.0), major_radius=0.6, minor_radius=0.2, material=(0.2, 0.3, 0.9))
+    return a.union(b, k=0.3).subtract(c, k=0.15) | (a & b) - c.onion(0.03)
+
+
+def _chain(m):
+    """tests/test_pallas_grad.py:394-417: a hard-union bulk with a smooth
+    union, a subtraction and a smooth subtraction: one seg1 chain."""
+    rng = np.random.default_rng(11)
+    parts = [m.sphere(center=tuple(rng.uniform(-1.5, 1.5, 3) * [1, 0.5, 1]), radius=float(rng.uniform(0.3, 0.6)))
+             for _ in range(5)]
+    scene = parts[0]
+    for p in parts[1:]:
+        scene = scene | p
+    scene = scene.union(m.sphere(center=(0.4, 0.3, 0.5), radius=0.45), k=0.25)
+    scene = scene - m.sphere(center=(-0.3, 0.4, 0.6), radius=0.35)
+    return scene.subtract(m.sphere(center=(0.8, -0.2, 0.4), radius=0.3), k=0.18)
+
+
 # scene -> (scene function, camera position); plans: pool, pool, seg1, stream,
-# residual (the gated tape).
+# residual (the gated tape), seg1, stream in two groups, painted pool, and a
+# painted gated tape.
 CULL_SCENES = {
     "spheres": (_spheres, (0.0, 2.5, 9.0)),
     "rotated_mixed": (_rotated_mixed, (0.3, 1.8, 5.0)),
     "config2": (_config2, (0.0, 2.6, 4.2)),
     "clusters": (_clusters, (0.0, 2.0, 7.0)),
     "rich": (_rich, (0.0, 2.6, 4.2)),
+    "chain": (_chain, (0.3, 1.8, 5.0)),
+    "clusters9": (functools.partial(_clusters, n_clusters=9), (0.0, 2.5, 8.0)),
+    "painted": (_painted, (0.0, 2.5, 9.0)),
+    "painted_blends": (_painted_blends, (0.0, 1.6, 4.2)),
 }
+GATED = ("rich", "painted_blends")
 CFG64 = dataclasses.replace(CFG, relax=1.6, leaf_cull=True)
 
 
@@ -287,7 +332,7 @@ def test_culled_kernels_match_plain(dev, name):
     stream plans) or masks (the gated tape of `rich`), and the relaxed
     march, against their plain versions on the same lists."""
     _, _, rp, sc, cam, bound, (cc, fc), _ = _cull_args(name, dev)
-    assert fc.compact == (name != "rich")
+    assert fc.compact == (name not in GATED)
     p = rp.params
     launches = (cp.coarse.launches, cp.fine_res.launches)
     t0k, stk = cp.coarse(sc, cam, bound, p, cc)
@@ -309,11 +354,16 @@ def test_culled_kernels_match_plain(dev, name):
     assert _neigh_frac(img, img_p) < 0.008
 
 
-@pytest.mark.parametrize("name", ["spheres", "rotated_mixed"])
+@pytest.mark.parametrize("name", ["spheres", "rotated_mixed", "config2", "chain", "clusters", "clusters9",
+                                  "painted"])
 def test_compact_bwd_kernel_matches_plain(dev, name):
+    """K9 for pool, seg1 and stream plans (one and two groups) and a
+    painted pool; blend radii carry gradient on the ordered plans."""
     spec, _, rp, sc, cam, bound, (cc, fc), _ = _cull_args(name, dev)
     fr = cg.make_fused_render_vjp(spec, CFG64, W, H, device=dev)
     assert fr.backward_info["kind"] == "pallas_compact"
+    kind = cg.plan_kind(spec)
+    assert kind == {"config2": "seg1", "chain": "seg1", "clusters": "stream", "clusters9": "stream"}.get(name, "pool")
     pre = cp.coarse(sc, cam, bound, rp.params, cc)
     _, t, hit = cp.fine_res(sc, cam, bound, rp.params, *pre, cull=fc)
     g = torch.tensor(np.random.default_rng(7).uniform(-1, 1, (H, W, 3)).astype(np.float32), device=dev)
@@ -325,13 +375,20 @@ def test_compact_bwd_kernel_matches_plain(dev, name):
     scale = float(ref[0].abs().max())
     assert scale > 0
     torch.testing.assert_close(got[0], ref[0], rtol=0.0, atol=0.01 * scale)
-    assert float(got[1].abs().max()) == 0.0
+    torch.testing.assert_close(got[1], ref[1], rtol=0.0, atol=0.01 * scale)
+    if name in ("chain", "clusters", "clusters9"):
+        assert float(got[1].abs().max()) > 0.0
+    elif kind == "pool":
+        assert float(got[1].abs().max()) == 0.0
+    if name == "painted":
+        assert float(got[0][:, 12:16].abs().max()) > 0.0
     torch.testing.assert_close(got[2], ref[2], rtol=0.0, atol=0.02 * float(ref[2].abs().max()))
     assert float(got[2][7]) == 0.0
 
 
-def test_culled_fused_renderer_on_card(dev):
-    spec, arrays, *_, cam_vec = _cull_args("spheres", dev)
+@pytest.mark.parametrize("name", ["spheres", "clusters9", "painted"])
+def test_culled_fused_renderer_on_card(dev, name):
+    spec, arrays, *_, cam_vec = _cull_args(name, dev)
     render = rt.make_renderer(spec, W, H, CFG64, mode="implicit", backend="pallas_fused", device="cuda")
     assert render.backward_info["kind"] == "pallas_compact"
     lp = torch.tensor(arrays.leaf_params, device=dev, requires_grad=True)
@@ -342,3 +399,27 @@ def test_culled_fused_renderer_on_card(dev):
     assert cg.compact_bwd.launches == before + 1
     assert bool(torch.isfinite(lp.grad).all()) and float(lp.grad.abs().max()) > 0
     assert float(cv.grad[:7].abs().max()) > 0 and float(cv.grad[7]) == 0.0
+
+
+@pytest.mark.parametrize("cull", [False, True])
+@pytest.mark.parametrize("name", ["painted", "painted_blends"])
+def test_painted_fine_kernel_matches_plain(dev, name, cull):
+    """K2 with materials, culled (lists or masks) and un-culled, against
+    fine_plain on the same planes; the albedo reaches the image."""
+    build, pos = CULL_SCENES[name]
+    spec, arrays = rt.compile_scene(build(rt), static=True)
+    assert spec.has_materials
+    cfg = dataclasses.replace(CFG64, leaf_cull=cull)
+    rp = cp.make_pallas_image_render_aa(spec, cfg, W, H, device=dev)
+    cam_vec = rt.cam_vec(rt.Camera.looking_at(position=pos, target=(0.0, 0.0, 0.0)), device=dev)
+    sc, cam, bound = rp.scene_args(arrays, cam_vec)
+    cc, fc = rp.cull_args(sc, cam) if cull else (None, None)
+    pre = cp.coarse(sc, cam, bound, rp.params, cc)
+    img = cp.fine(sc, cam, bound, rp.params, *pre, cull=fc)
+    img_p = cp.fine_plain(sc, cam, bound, rp.params, *pre, cull=fc)
+    assert float((img - img_p).abs().mean()) < 5e-4
+    assert _neigh_frac(img, img_p) < 0.008
+    plain = dataclasses.replace(arrays, leaf_params=arrays.leaf_params.copy())
+    plain.leaf_params[:, 15] = 0.0
+    sc0, _, _ = rp.scene_args(plain, cam_vec)
+    assert float((cp.fine(sc0, cam, bound, rp.params, *pre, cull=fc) - img).abs().max()) > 0.05

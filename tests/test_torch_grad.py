@@ -227,7 +227,10 @@ def test_backward_info_is_the_references(small):
     "kw,cfg_kw,what",
     [
         (dict(soft=True), {}, None),
-        ({}, dict(leaf_cull=True), None),
+        # Pool, seg1, stream and painted-pool plans take K9
+        # (tests/test_torch_blend.py); under leaf_cull, paint on smooth
+        # segments still needs K8's albedo words.
+        ({}, dict(leaf_cull=True), "painted_smooth"),
         (dict(band_rows=8), {}, None),
         (dict(prepass_block=4), {}, None),
         (dict(aa_packed=False), {}, None),
@@ -237,7 +240,11 @@ def test_backward_info_is_the_references(small):
     ids=["soft", "leaf_cull", "band_rows", "block4", "unpacked", "dynamic", "materials"],
 )
 def test_unported_options_raise(kw, cfg_kw, what):
-    scene = SCENES["painted_transformed" if what == "materials" else "config2"](rt)
+    if what == "painted_smooth":
+        scene = rt.sphere(center=(-0.5, 0, 0), radius=0.7, material=(0.8, 0.2, 0.1)).union(
+            rt.sphere(center=(0.5, 0, 0), radius=0.6), k=0.2) | rt.sphere(center=(0.0, 1.0, 0.0), radius=0.3)
+    else:
+        scene = SCENES["painted_transformed" if what == "materials" else "config2"](rt)
     spec, _ = rt.compile_scene(scene, static=what != "dynamic")
     cfg = dataclasses.replace(_cfg_t(CFG), **cfg_kw)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
