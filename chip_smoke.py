@@ -237,13 +237,16 @@ ADJ_RAY_OPS = 230  # the shading adjoint and the camera adjoint of a hit ray
 ADJ_FACTOR = 2
 
 
+def row_ops(spec):
+    """{leaf row: ops of one evaluation of that leaf} of a static spec."""
+    return {r: LEAF_OPS[t] + (ROT_OPS if spec.rotated_types[t] else 0)
+            for t, start, stop in spec.type_slices for r in range(start, stop)}
+
+
 def scene_cost(spec):
     """(pushed leaves, mean ops of one leaf evaluation, ops of the combine
     instructions of one tape evaluation) of a static spec."""
-    rows = {}
-    for t, start, stop in spec.type_slices:
-        for r in range(start, stop):
-            rows[r] = LEAF_OPS[t] + (ROT_OPS if spec.rotated_types[t] else 0)
+    rows = row_ops(spec)
     pushed = [a for c, a, _ in spec.static_tape if c == 1]
     comb = sum(COMBINE_OPS.get(c, 0) for c, _, _ in spec.static_tape if c != 1)
     return len(pushed), sum(rows[a] for a in pushed) / max(len(pushed), 1), comb
@@ -656,24 +659,14 @@ def many_leaf(rt, cp, cg, dev, smi, cfg, gcam_pos):
 
     # Bounds of the 64-leaf kernels from this run's counted work.
     n_px = WIDTH * HEIGHT
-    hit_tiles = cp.leaves_per_point(sc, fc, fc.tile_index(
-        torch.arange(HEIGHT, device=dev)[:, None, None], torch.arange(WIDTH, device=dev)[None, :, None]))
-    pool_items = float((hit_k * hit_tiles).sum())  # leaves in the tiles of the hit rays
-    n_hits = float(hit_k.sum())
-    _, leaf_ops, _ = scene_cost(spec64)
     list_bytes = 4 * (fc.lists.numel() + fc.counts.numel())
-    # The 5 list folds of each hit ray, then 5 winner-leaf adjoints; hit
-    # read for every ray, t for the hit rays, the cotangent of their pixels.
-    cbwd_flops = 5 * pool_items * (leaf_ops + 2) + n_hits * (5 * ADJ_FACTOR * leaf_ops + ADJ_RAY_OPS)
-    cbwd_bytes = (n_rays * 4 + n_hits * 4 + hit_pixels(hit_k) * 12 + list_bytes
-                  + 4 * (16 * spec64.n_leaves + spec64.n_instr + 7))
-    cbwd_bound = roofline(cbwd_flops, cbwd_bytes)
+    *cbwd_bound, cbwd_flops, cbwd_bytes = k9_bound(sc, fc, p64, cam, t_k, hit_k, n_rays)
     coarse_bound = roofline(march_flops(work_c, n_px, spec64, True), n_px * 8 + 4 * (cc.lists.numel() + cc.counts.numel()))
     fine_bound = roofline(march_flops(work_f, n_rays, spec64, True, float(work_f.hits), fine=True),
                        n_px * 20 + n_rays * 8 + list_bytes)
     log(f"64-leaf counted work: coarse {float(work_c.leaf_evals):.6e} leaf evaluations, fine "
-        f"{float(work_f.leaf_evals):.6e}, compact_bwd {pool_items:.6e} list leaves at 5 points of "
-        f"{n_hits:.0f} hit rays ({cbwd_flops:.6e} operations, {cbwd_bytes:.6e} bytes); bounds coarse "
+        f"{float(work_f.leaf_evals):.6e}, compact_bwd {cbwd_flops:.6e} operations, {cbwd_bytes:.6e} bytes "
+        f"at 5 points of {float(hit_k.sum()):.0f} hit rays; bounds coarse "
         f"{coarse_bound[0]:.4f} ms, fine with residuals {fine_bound[0]:.4f} ms, compact_bwd "
         f"{cbwd_bound[0]:.4f} ms ({cbwd_bound[1]})")
 
@@ -753,34 +746,26 @@ def many_leaf(rt, cp, cg, dev, smi, cfg, gcam_pos):
 
 
 FOLD_OPS = 12  # one ordered fold step of a smooth item (scene_eval.cuh fold_step)
-POOL_OPS = 2  # one pool item: compare and select
+SELECT_OPS = 2  # a pool or free item, or a hard ordered step: compare and select (a min or max)
 COLOR_OPS = 20  # a leaf's colour in the colour pass: the flag mix and the select
 
 
-def winner_work(sc, cull, p, cam, t, hit, band_rows=64):
-    """Per hit AA ray, the list items that the scene at its hit point takes
-    (pool and ordered) and the leaf evaluations of its winning source there
-    (pool: 1; the seg1 chain: its active items; a stream group: the active
-    items of the winning segment), summed over the frame: (pool items,
-    ordered items, winner items, winner items that are ordered). A
-    backward needs the scene at 5 points and the reverse of the winning
-    source at each; the 4 taps lie within eps of the hit point and are
-    counted as the hit point."""
+def k9_work(sc, cull, p, cam, t, hit, band_rows=64):
+    """(forward, reverse) operations of the compact scene at the hit point of
+    every hit AA ray, summed over the frame, as `scene_compact_plain` itself
+    records its items (cuda_march.FoldWork). Forward: each active list item
+    at its leaf's operations plus a select or a smooth fold step. Reverse:
+    ADJ_FACTOR x the same for each item whose leaf value the distance's
+    cotangent reaches (the pool's or a free prefix's winner, and the items
+    of the winning ordered source that its steps pass it to)."""
     import torch
 
     from raymarch_tpu_torch.ops import cuda_march as cm
     from raymarch_tpu_torch.ops import cuda_prepass as cp
-    from raymarch_tpu_torch.ops.culling import FAR
 
-    spec = sc.spec
-    plan = cm.build_compact_plan(spec)
-    groups = plan["groups"]
-    rows = {r: (ty, rot) for r, ty, rot in cm._leaf_static_rows(spec)}
-    src = {gi: s for s, gis in ((0, plan["pool"]), (1, plan["seg1"] or ()), (2, plan["stream"])) for gi in gis}
-    cnt = cull.counts.to(torch.float32)
-    pool_t = sum(cnt[:, groups[gi]["count_idx"]] for gi, s in src.items() if s == 0) + 0.0 * cnt[:, 0]
-    ord_t = sum(cnt[:, groups[gi]["count_idx"]] for gi, s in src.items() if s > 0) + 0.0 * cnt[:, 0]
-    tot = torch.zeros(4, dtype=torch.float64, device=cam.device)
+    ops = row_ops(sc.spec)
+    plan = cm.build_compact_plan(sc.spec)
+    fwd = rev = torch.zeros((), dtype=torch.float64, device=cam.device)
     for i0 in range(0, p.rows, band_rows):
         n = min(band_rows, p.rows - i0)
         h = hit[i0:i0 + n] > 0
@@ -793,67 +778,26 @@ def winner_work(sc, cull, p, cam, t, hit, band_rows=64):
         i = torch.arange(i0, i0 + n, device=cam.device)[:, None, None]
         j = torch.arange(p.width, device=cam.device)[None, :, None]
         tid = cull.tile_index(i, j).expand(h.shape)[h]
-        active = cp.tile_active(spec, cull, tid)
-
-        def leaf(row):
-            ty, rot = rows[row]
-            return cm._leaf_distance_plain(sc.leaf_params[row], ty, rot, px, py, pz)
-
-        far = px * 0.0 + FAR
-        d, work = far, torch.zeros_like(px)
-        for gi in plan["pool"]:
-            for row in groups[gi]["rows"]:
-                d = torch.where(active(row) & (leaf(row) < d), leaf(row), d)
-        work = torch.where(d < far, 1.0, 0.0)
-        ordered = torch.zeros_like(px)
-        if plan["seg1"] is not None:
-            acc, n_chain = far, torch.zeros_like(px)
-            for gi in plan["seg1"]:
-                for e in groups[gi]["entries"]:
-                    a = active(e & 1023)
-                    step = (cm.fold_step_plain(sc.op_param, acc, e, leaf(e & 1023)) if groups[gi]["ordered"]
-                            else torch.minimum(acc, leaf(e & 1023)))
-                    acc = torch.where(a, step, acc)
-                    n_chain = n_chain + a.float()
-            win = acc < d
-            d, work, ordered = torch.where(win, acc, d), torch.where(win, n_chain, work), torch.where(win, 1.0, ordered)
-        for gi in plan["stream"]:
-            best, best_n, acc, seg_n = far, torch.zeros_like(px), far, torch.zeros_like(px)
-            prev = torch.full(px.shape, -1, dtype=torch.int32, device=px.device)
-            for e in groups[gi]["entries"]:
-                row, sid = e & 1023, (e >> 15) & 7
-                a = active(row)
-                new = a & (prev != sid)
-                flush = new & (acc < best)
-                best, best_n = torch.where(flush, acc, best), torch.where(flush, seg_n, best_n)
-                acc, seg_n = torch.where(new, far, acc), torch.where(new, 0.0, seg_n)
-                acc = torch.where(a, cm.fold_step_plain(sc.op_param, acc, e, leaf(row)), acc)
-                seg_n = seg_n + a.float()
-                prev = torch.where(a, sid, prev)
-            flush = acc < best
-            best, best_n = torch.where(flush, acc, best), torch.where(flush, seg_n, best_n)
-            win = best < d
-            d, work, ordered = torch.where(win, best, d), torch.where(win, best_n, work), torch.where(win, 1.0, ordered)
-        tot += torch.stack([pool_t[tid].sum(), ord_t[tid].sum(), work.sum(), (work * ordered).sum()]).double()
-    return [float(v) for v in tot]
+        work = cm.FoldWork()
+        d = cm.scene_compact_plain(sc, plan, cp.tile_active(sc.spec, cull, tid), px, py, pz, work=work)
+        for (row, smooth, active, _), reached in zip(work.items, work.reached(d)):
+            cost = ops[row] + (FOLD_OPS if smooth else SELECT_OPS)
+            fwd = fwd + cost * active.sum()
+            rev = rev + ADJ_FACTOR * cost * reached.sum()
+    return float(fwd), float(rev)
 
 
 def k9_bound(sc, cull, p, cam, t, hit, n_rays):
     """(bound_ms, bound_by, operations, bytes) of the compact backward on
     this run's residuals, counting the function's need: the scene at the 4
-    taps and the hit point once each (each list item priced at its leaf's
-    operations plus a pool compare or a fold step), the reverse of the
-    winning source at those 5 points at ADJ_FACTOR x its forward
-    operations, the ray's shading and camera adjoint, and on a painted
-    scene the winner's albedo; hit read for every AA ray, t for the hit
-    rays, the cotangent of their pixels, the lists once, one gradient row
-    written. The kernel's replays are its own redundant work."""
+    taps and the hit point once each and the reverse of the winning source
+    at those 5 points (`k9_work`), the ray's shading and camera adjoint, and
+    on a painted scene the winner's albedo; hit read for every AA ray, t for
+    the hit rays, the cotangent of their pixels, the lists once, one
+    gradient row written. The kernel's replays are its own redundant work."""
     spec = sc.spec
-    _, leaf_ops, _ = scene_cost(spec)
-    pool_items, ord_items, win_items, win_ord = winner_work(sc, cull, p, cam, t, hit)
+    fwd, rev = k9_work(sc, cull, p, cam, t, hit)
     n_hits = float(hit.sum())
-    fwd = pool_items * (leaf_ops + POOL_OPS) + ord_items * (leaf_ops + FOLD_OPS)
-    rev = ADJ_FACTOR * (win_items * leaf_ops + win_ord * FOLD_OPS)
     flops = 5 * (fwd + rev) + n_hits * (ADJ_RAY_OPS + (COLOR_OPS if spec.has_materials else 0))
     nbytes = (n_rays * 4 + n_hits * 4 + hit_pixels(hit) * 12 + 4 * (cull.lists.numel() + cull.counts.numel())
               + 4 * (16 * spec.n_leaves + spec.n_instr + 7))

@@ -45,7 +45,7 @@ import torch
 
 from ..config import RenderConfig
 from . import opcodes as oc
-from .cuda_march import SceneBuffers, build_compact_plan, pool_fold_plain, scene_compact_plain, scene_plain
+from .cuda_march import SceneBuffers, build_compact_plan, pool_albedo_plain, scene_compact_plain, scene_plain
 from .cuda_prepass import (
     PrepassParams,
     TileCull,
@@ -231,7 +231,7 @@ def compact_bwd_plain(scene: SceneBuffers, cull: TileCull, cam, p: PrepassParams
     (`scene_compact_plain`: pool, seg1 chain and stream folds, each winner
     chosen by an explicit strict `<`), so each point's cotangent reaches its
     winning source alone; on a painted scene the shading reads the albedo
-    of the hit point's pool winner (`pool_fold_plain` with colours). `cull`
+    of the hit point's pool winner (`pool_albedo_plain`). `cull`
     is the fine grid's TileCull of the forward that wrote the residuals (t,
     hit)."""
     spec = scene.spec
@@ -249,7 +249,7 @@ def compact_bwd_plain(scene: SceneBuffers, cull: TileCull, cam, p: PrepassParams
             return lambda px, py, pz: scene_compact_plain(sc, plan, active, px, py, pz)
 
         def albedo_fn_of(sc, active=active):
-            return lambda px, py, pz: pool_fold_plain(sc, plan, active, px, py, pz, p.albedo)
+            return lambda px, py, pz: pool_albedo_plain(sc, plan, active, p.albedo, px, py, pz)
 
         a, b, c = _bwd_plain_band(scene, cam, p, clamp, t[i0:i1], hit[i0:i1], g_img[i0:i1], i0,
                                   scene_fn_of, albedo_fn_of if spec.has_materials else None)

@@ -693,32 +693,80 @@ def scene_color_plain(scene: SceneBuffers, max_dist: float, default_rgb, px, py,
     return d, tuple(px * 0.0 + c for c in rgb)
 
 
-def pool_fold_plain(scene: SceneBuffers, plan, active, px, py, pz, default_rgb=None):
+def _fold_smooth(e: int) -> bool:
+    """True when ordered entry `e` folds by a smooth step (fold_step_plain)."""
+    return ((e >> 13) & 3) in (_SEG_SMOOTH, _SEG_SSUB)
+
+
+@dataclasses.dataclass
+class FoldWork:
+    """The list items of one `scene_compact_plain` evaluation, for a roofline
+    count of the compact backward: per item its leaf row, whether it folds by
+    a smooth step, where it is active, and its leaf value. The fold reads each
+    leaf value as a leaf of autograd, so `reached` can tell which of them the
+    distance's cotangent reaches: the pool's or a free prefix's winner, and
+    the items of the winning ordered source that its steps pass it to."""
+
+    items: list = dataclasses.field(default_factory=list)
+
+    def leaf(self, row: int, smooth: bool, active, dv):
+        dv = dv.detach().requires_grad_(True)
+        self.items.append((row, smooth, active, dv))
+        return dv
+
+    def reached(self, d):
+        """Per item, a bool tensor like the points: True where the cotangent
+        of the distance `d` reaches the item's leaf value."""
+        if not self.items:
+            return []
+        gs = torch.autograd.grad(d.sum(), [it[3] for it in self.items], allow_unused=True)
+        return [torch.zeros(it[3].shape, dtype=torch.bool, device=it[3].device) if g is None else g != 0
+                for it, g in zip(self.items, gs)]
+
+
+def _pool_leaves(scene: SceneBuffers, plan, px, py, pz):
+    """(row, leaf params, distance) of each pool item in list order."""
+    row_types = {r: (t, rot) for r, t, rot in _leaf_static_rows(scene.spec)}
+    for gi in plan["pool"]:
+        for row in plan["groups"][gi]["rows"]:
+            t, rot = row_types[row]
+            P = scene.leaf_params[row]
+            yield row, P, _leaf_distance_plain(P, t, rot, px, py, pz)
+
+
+def pool_fold_plain(scene: SceneBuffers, plan, active, px, py, pz, work: FoldWork | None = None):
     """The pool fold of a compact plan with its winner chosen explicitly:
     items in list order, each taking the running value only when it is
     active and strictly below it (pallas_grad.py:391-420). The value is the
     min over the point's active pool items (FAR when none); under autograd
     its gradient reaches the winner leaf alone, which is the compact
-    backward's winner-masked transpose. With `default_rgb` it returns the
-    winner's albedo instead (the default where no item is active)."""
+    backward's winner-masked transpose. `work`, when given, records the
+    items."""
     from .culling import FAR
 
-    row_types = {r: (t, rot) for r, t, rot in _leaf_static_rows(scene.spec)}
     acc = px * 0.0 + FAR
-    rgb = None if default_rgb is None else tuple(px * 0.0 + c for c in default_rgb)
-    for gi in plan["pool"]:
-        for row in plan["groups"][gi]["rows"]:
-            t, rot = row_types[row]
-            P = scene.leaf_params[row]
-            dv = _leaf_distance_plain(P, t, rot, px, py, pz)
-            win = active(row) & (dv < acc)
-            acc = torch.where(win, dv, acc)
-            if rgb is not None:
-                rgb = tuple(torch.where(win, c, r) for c, r in zip(leaf_rgb_plain(P, default_rgb), rgb))
-    return acc if rgb is None else rgb
+    for row, _P, dv in _pool_leaves(scene, plan, px, py, pz):
+        if work is not None:
+            dv = work.leaf(row, False, active(row), dv)
+        acc = torch.where(active(row) & (dv < acc), dv, acc)
+    return acc
 
 
-def scene_compact_plain(scene: SceneBuffers, plan, active, px, py, pz):
+def pool_albedo_plain(scene: SceneBuffers, plan, active, default_rgb, px, py, pz):
+    """(r, g, b) of the winner of `pool_fold_plain` at each point: its
+    albedo (`leaf_rgb_plain`), the default where no item is active."""
+    from .culling import FAR
+
+    acc = px * 0.0 + FAR
+    rgb = tuple(px * 0.0 + c for c in default_rgb)
+    for row, P, dv in _pool_leaves(scene, plan, px, py, pz):
+        win = active(row) & (dv < acc)
+        acc = torch.where(win, dv, acc)
+        rgb = tuple(torch.where(win, c, r) for c, r in zip(leaf_rgb_plain(P, default_rgb), rgb))
+    return rgb
+
+
+def scene_compact_plain(scene: SceneBuffers, plan, active, px, py, pz, work: FoldWork | None = None):
     """Scene distance through a compact plan with per-point active sets, in
     plain torch: the plain version of `scene_distance_compact`
     (csrc/scene_eval.cuh). `active(row)` is a bool tensor that broadcasts
@@ -732,7 +780,8 @@ def scene_compact_plain(scene: SceneBuffers, plan, active, px, py, pz):
     winner in list order, a stream group's winning segment in segment
     order, and the winning source in the order pool, seg1 chain, stream
     groups. The values are those of the kernel's min folds; under autograd
-    each point's gradient reaches its winning source alone."""
+    each point's gradient reaches its winning source alone. `work`, when
+    given, records the items (FoldWork)."""
     from .culling import FAR
 
     if plan["residual_ops"]:
@@ -741,19 +790,23 @@ def scene_compact_plain(scene: SceneBuffers, plan, active, px, py, pz):
     lp, opp = scene.leaf_params, scene.op_param
     groups = plan["groups"]
 
-    def leaf(row):
+    def leaf(row, smooth):
         t, rot = row_types[row]
-        return _leaf_distance_plain(lp[row], t, rot, px, py, pz)
+        dv = _leaf_distance_plain(lp[row], t, rot, px, py, pz)
+        return dv if work is None else work.leaf(row, smooth, active(row), dv)
 
     far = px * 0.0 + FAR
-    d = pool_fold_plain(scene, plan, active, px, py, pz)
+    d = pool_fold_plain(scene, plan, active, px, py, pz, work)
     if plan["seg1"] is not None:
         acc = far
         for gi in plan["seg1"]:
             g = groups[gi]
             for e in g["entries"]:
                 row = e & 1023
-                step = fold_step_plain(opp, acc, e, leaf(row)) if g["ordered"] else torch.minimum(acc, leaf(row))
+                if g["ordered"]:
+                    step = fold_step_plain(opp, acc, e, leaf(row, _fold_smooth(e)))
+                else:
+                    step = torch.minimum(acc, leaf(row, False))
                 acc = torch.where(active(row), step, acc)
         d = torch.where(acc < d, acc, d)
     for gi in plan["stream"]:
@@ -765,7 +818,7 @@ def scene_compact_plain(scene: SceneBuffers, plan, active, px, py, pz):
             new_seg = a & (prev != sid)
             best = torch.where(new_seg & (acc_seg < best), acc_seg, best)
             acc_seg = torch.where(new_seg, far, acc_seg)
-            acc_seg = torch.where(a, fold_step_plain(opp, acc_seg, e, leaf(row)), acc_seg)
+            acc_seg = torch.where(a, fold_step_plain(opp, acc_seg, e, leaf(row, _fold_smooth(e))), acc_seg)
             prev = torch.where(a, sid, prev)
         best = torch.where(acc_seg < best, acc_seg, best)
         d = torch.where(best < d, best, d)

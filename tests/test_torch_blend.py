@@ -21,6 +21,8 @@ branches), and the painted forward (K2 with materials), on the CPU.
   - random hard/smooth mixes (tests/test_pallas_grad.py:749-806) against
     the port's un-culled backward;
 - `fit_scene` trains a culled cluster scene.
+- `cuda_march.FoldWork`, the item record that chip_smoke.py's compact
+  backward bound reads, on pool, hard, smooth and stream folds.
 The CUDA kernels are held to these plain versions on the card by
 chip_smoke.py and tests/test_torch_cuda.py.
 """
@@ -43,7 +45,8 @@ from raymarch_tpu.ops.pallas_prepass import make_pallas_image_render_aa as rende
 from raymarch_tpu.ops.sdf import _apply_static_tape_color as color_j
 from raymarch_tpu.ops.sdf import _single_leaf_distance as leaf_j
 from raymarch_tpu_torch.ops import cuda_grad as cg
-from raymarch_tpu_torch.ops.cuda_march import build_compact_plan
+from raymarch_tpu_torch.ops.culling import FAR
+from raymarch_tpu_torch.ops.cuda_march import FoldWork, build_compact_plan, scene_buffers, scene_compact_plain
 from raymarch_tpu_torch.ops.sdf import _apply_static_tape_color, _leaf_row_types, _single_leaf_distance
 from raymarch_tpu_torch.ops.tape import from_reference
 
@@ -463,6 +466,43 @@ def test_fit_scene_trains_a_culled_cluster_scene():
                        backend="pallas_fused", device="cpu", log_fn=lambda s: None)
     assert res.backward_info["kind"] == "pallas_compact" and res.backward_info["reason"] is None
     assert res.losses[-1] < res.losses[0]
+
+
+def _hard_seg1(m):
+    """Sphere and box, minus a torus (BASELINE config 2's topology): a seg1
+    chain of hard steps."""
+    return (m.sphere(center=(-0.5, 0.0, 0.0), radius=0.7)
+            | m.box(center=(0.5, 0.0, 0.0), half_extents=(0.5, 0.4, 0.4))) - m.torus(
+        center=(0.0, 0.0, 0.3), major_radius=0.6, minor_radius=0.2)
+
+
+@pytest.mark.parametrize("name", ["pool", "hard_seg1", "seg1", "stream"])
+def test_fold_work_records_what_the_reverse_reaches(name):
+    """Recording leaves the distance unchanged and records every list item
+    once; the distance's cotangent reaches no leaf where no item is active,
+    exactly one (the winner) on hard folds, and more than one where a smooth
+    step blends."""
+    build = {"pool": _painted_pool, "hard_seg1": _hard_seg1, "seg1": _seg1_mixed, "stream": _stream3}[name]
+    spec, arrays = rt.compile_scene(build(rt), static=True)
+    assert _kind(spec) == name.split("_")[-1]
+    sc = scene_buffers(spec, arrays, "cpu")
+    plan = build_compact_plan(spec)
+    rng = np.random.default_rng(5)
+    px, py, pz = (torch.tensor(rng.uniform(-2.0, 2.0, 4096), dtype=torch.float32) for _ in range(3))
+    act = {r: torch.tensor(rng.uniform(size=4096) < 0.7) for g in plan["groups"] for r in g["rows"]}
+    d0 = scene_compact_plain(sc, plan, act.__getitem__, px, py, pz)
+    work = FoldWork()
+    d = scene_compact_plain(sc, plan, act.__getitem__, px, py, pz, work=work)
+    assert torch.equal(d.detach(), d0)
+    assert sorted(it[0] for it in work.items) == sorted(act)
+    assert all(a is act[row] for row, _s, a, _d in work.items)
+    n_reached = sum(r.long() for r in work.reached(d))
+    live = d0 < FAR
+    assert bool(live.any()) and bool((n_reached[~live] == 0).all()) and bool((n_reached[live] >= 1).all())
+    if name in ("pool", "hard_seg1"):
+        assert bool((n_reached[live] == 1).all())
+    else:
+        assert bool((n_reached > 1).any())
 
 
 def _clusters_t(n_clusters=4, seed=13):
