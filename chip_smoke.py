@@ -51,10 +51,24 @@ Run from the repository root: `python3 chip_smoke.py`. It
    operations of the masks and lists), the compact backward against its
    plain version at full size with its bound; the painted forward frame
    against the un-culled plain path; a 5-step fit of the cluster scene;
-11. prints one JSON line of per-kernel records (time, plain time, launches,
+11. the many-primitive forward as bench.py configures it: gates at 256x144
+   of the interval scan of the coarse kernel (ni = 1, 2, 3), the coarse
+   kernel at B = 4, the chained pixel kernel K3, the fine kernel on block
+   planes and through intervals (plain and relaxed), and the culled
+   interval kernels of the 64-sphere, chain, cluster and 256-leaf scenes,
+   each against its plain version; then, under bench.py's row names, the
+   1080p/16 AA frames of `interval_relax_static`, `64leaf_cull_intervals`,
+   `64leaf_smooth_chain`, `64leaf_mixed_cluster`, `256leaf_compact` and
+   `1024leaf_compact` (B = 4) and the 3840x2160 frame of `64leaf_4k_3band`
+   as three 720-row bands (frame ms, Grays/s, launches, idle share,
+   `cull_args` alone, active items per fine tile, the kernels alone and
+   against their plain versions, at full size or on one 64-row band), and
+   K3 timed at 1080p on config 2 with B = 4;
+12. prints one JSON line of per-kernel records (time, plain time, launches,
    the roofline bound from this run's counted work) for the headline
    builds, the culled builds of the 64-leaf path, the compact backward per
-   plan kind and the fine kernel with materials, then, last,
+   plan kind, the fine kernel with materials, the interval and block
+   builds of the coarse and fine kernels and K3, then, last,
    {"ok": true, "device": {...}}.
 
 Any failed check raises, so the script exits non-zero and prints no result.
@@ -74,6 +88,7 @@ WARMUP, FRAMES = 3, 20
 KERNEL_REPS = 10
 BWD_WARMUP, BWD_STEPS = 2, 10
 FIT_STEPS = 5
+PLAIN_BAND = 64  # rows of the band on which the 256/1024-leaf and 4K plain versions run
 DEVICE = "cuda"
 Q = (0.9, 0.2, -0.3, 0.25)
 
@@ -179,6 +194,32 @@ def scenes_bench64(m):
     for _ in range(16):
         parts.append(m.sphere(center=centre(-3, 3, -1.0, 1.5), radius=float(rng.uniform(0.15, 0.5))))
     return spheres, chain, union_all(parts)
+
+
+def scene_balanced(m, n, seed, span, y_hi):
+    """n random spheres in a balanced binary tree of hard unions, as
+    bench.py builds its 256- and 1024-leaf scenes."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    parts = []
+    for _ in range(n):
+        c = rng.uniform(-span, span, 3)
+        c[1] = rng.uniform(-1.0, y_hi)
+        parts.append(m.sphere(center=tuple(c), radius=float(rng.uniform(0.15, 0.45))))
+    while len(parts) > 1:
+        parts = [parts[i] | parts[i + 1] if i + 1 < len(parts) else parts[i] for i in range(0, len(parts), 2)]
+    return parts[0]
+
+
+def scene_bench256(m):
+    """bench.py:499-512, the scene of `256leaf_compact` (seed 21)."""
+    return scene_balanced(m, 256, 21, 6, 2.0)
+
+
+def scene_bench1024(m):
+    """bench.py:541-554, the scene of `1024leaf_compact` (seed 33)."""
+    return scene_balanced(m, 1024, 33, 12, 2.5)
 
 
 def scene_painted(m, n=64):
@@ -334,6 +375,30 @@ def coarse_agreement(name, k, p, strict):
     log(f"{name}: status agree={agree:.6f} (need >=0.999) t0 max rel={rel_max:.3e} "
         f"share rel>1e-4={off:.3e} max|d|={mx:.3e} over {n} px (need {need}) "
         f"{'PASS' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{name} outside its tolerance")
+    return mx
+
+
+def interval_agreement(name, k, p):
+    """Interval planes of kernel vs plain (starts then ends, 3.0e38 for "no
+    interval"): each plane's finite pattern agrees on >= 99.9% of blocks,
+    and where both are finite the values agree within rtol 1e-4 on all but
+    0.1% of them, as `coarse_agreement` holds t0. Returns max |diff| there."""
+    agree, n, off, mx = 1.0, 0, 0, 0.0
+    for a, b in zip(k, p):
+        fa, fb = a < 9e37, b < 9e37
+        agree = min(agree, float((fa == fb).float().mean()))
+        both = fa & fb
+        n += int(both.sum())
+        if bool(both.any()):
+            d = (a - b).abs()[both]
+            off += int((d / b.abs()[both].clamp_min(1e-30) > 1e-4).sum())
+            mx = max(mx, float(d.max()))
+    share = off / max(n, 1)
+    ok = len(k) == len(p) and agree >= 0.999 and n > 0 and share < 1e-3
+    log(f"{name}: {len(k)} planes, pattern agree={agree:.6f} (need >=0.999) share rel>1e-4={share:.3e} "
+        f"max|d|={mx:.3e} over {n} finite values (need share < 1e-3) {'PASS' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError(f"{name} outside its tolerance")
     return mx
@@ -1043,6 +1108,247 @@ def blends(rt, cp, cg, dev, smi, cfg, gcam_pos):
     return records, summary
 
 
+def launch_counts(cp):
+    return {"coarse_kernel": cp.coarse.launches, "coarse_kernel_intervals": cp.coarse.interval_launches,
+            "coarse_px_kernel": cp.coarse_px.launches, "fine_kernel": cp.fine.launches,
+            "fine_kernel_intervals": cp.fine.interval_launches}
+
+
+def timed_frames(cp, fn):
+    """(ms per frame by CUDA events over FRAMES after WARMUP, host ms, the
+    launches of that run): the counts are set to 0 just before the run and
+    read just after."""
+    import torch
+
+    cp.reset_launch_counts()
+    for _ in range(WARMUP):
+        fn()
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    h0 = time.perf_counter()
+    e0.record()
+    for _ in range(FRAMES):
+        fn()
+    e1.record()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - h0) * 1e3 / FRAMES
+    return e0.elapsed_time(e1) / FRAMES, host_ms, launch_counts(cp)
+
+
+def plain_ms(fn):
+    """(result, device ms) of one run of a plain version."""
+    import torch
+
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    out = fn()
+    e1.record()
+    torch.cuda.synchronize()
+    return out, e0.elapsed_time(e1)
+
+
+def forward_rows(rt, cp, dev, smi, cfg, gcam_pos):
+    """Phase 11: the many-primitive forward as bench.py configures it (see
+    the module docstring). Returns the kernel records of the interval and
+    block builds of K1/K2 and of K3, and the rows' numbers."""
+    import torch
+
+    cfg_ir = dataclasses.replace(cfg, relax=1.6)
+    cfg64 = dataclasses.replace(cfg, relax=1.6, leaf_cull=True)
+    spheres, chain, cluster = scenes_bench64(rt)
+    built = {name: rt.compile_scene(s, static=True) for name, s in (
+        ("config2", scene_config2(rt)), ("spheres", spheres), ("chain", chain), ("cluster", cluster),
+        ("256", scene_bench256(rt)), ("1024", scene_bench1024(rt)))}
+    cam_of = {"config2": (0.0, 1.6, 4.2), "256": (0.0, 4.0, 16.0), "1024": (0.0, 6.0, 30.0)}
+
+    def camera(name, row=0.0):
+        pos = cam_of.get(name, (0.0, 2.5, 9.0))
+        return rt.cam_vec(rt.Camera.looking_at(position=pos, target=(0.0, 0.0, 0.0)), row, device=dev)
+
+    # -- 11a. gates at 256x144 ------------------------------------------------
+    spec2, arrays2 = built["config2"]
+    gcv = rt.cam_vec(rt.Camera.looking_at(position=gcam_pos, target=(0, 0, 0)), device=dev)
+    for ni in (1, 2, 3):
+        rp = cp.make_pallas_image_render_aa(spec2, cfg, GATE_W, GATE_H, device=dev, n_intervals=ni)
+        sc, cam, bnd = rp.scene_args(arrays2, gcv)
+        interval_agreement(f"gate interval coarse kernel vs coarse_plain, config 2, ni={ni}",
+                           cp.coarse(sc, cam, bnd, rp.params), cp.coarse_plain(sc, cam, bnd, rp.params))
+    for relax in (1.0, 1.6):
+        rp = cp.make_pallas_image_render_aa(spec2, dataclasses.replace(cfg, relax=relax), GATE_W, GATE_H,
+                                            device=dev, n_intervals=2)
+        sc, cam, bnd = rp.scene_args(arrays2, gcv)
+        pre = cp.coarse(sc, cam, bnd, rp.params)
+        image_class(f"gate interval fine kernel vs fine_plain, config 2, relax {relax}",
+                    cp.fine(sc, cam, bnd, rp.params, *pre), cp.fine_plain(sc, cam, bnd, rp.params, *pre))
+    rp = cp.make_pallas_image_render_aa(spec2, cfg, GATE_W, GATE_H, device=dev, prepass_block=4,
+                                        prepass_chain=True)
+    sc, cam, bnd = rp.scene_args(arrays2, gcv)
+    blk = cp.coarse(sc, cam, bnd, rp.params)
+    coarse_agreement("gate B=4 block coarse kernel vs coarse_plain, config 2", blk,
+                     cp.coarse_plain(sc, cam, bnd, rp.params), strict=False)
+    px = cp.coarse_px(sc, cam, bnd, rp.params, *blk)
+    coarse_agreement("gate coarse_px_kernel (K3) vs coarse_px_plain, config 2", px,
+                     cp.coarse_px_plain(sc, cam, bnd, rp.params, *blk), strict=False)
+    image_class("gate fine kernel on K3's planes vs fine_plain", cp.fine(sc, cam, bnd, rp.params, *px),
+                cp.fine_plain(sc, cam, bnd, rp.params, *px))
+    rp = cp.make_pallas_image_render_aa(spec2, cfg, GATE_W, GATE_H, device=dev, prepass_block=4)
+    sc, cam, bnd = rp.scene_args(arrays2, gcv)
+    blk = cp.coarse(sc, cam, bnd, rp.params)
+    image_class("gate fine kernel on B=4 block planes vs fine_plain", cp.fine(sc, cam, bnd, rp.params, *blk),
+                cp.fine_plain(sc, cam, bnd, rp.params, *blk))
+    for name, block in (("spheres", 1), ("chain", 1), ("cluster", 1), ("256", 4)):
+        spec_g, arrays_g = built[name]
+        rp = cp.make_pallas_image_render_aa(spec_g, cfg64, GATE_W, GATE_H, device=dev, prepass_block=block,
+                                            n_intervals=2)
+        sc, cam, bnd = rp.scene_args(arrays_g, camera(name))
+        cc, fc = rp.cull_args(sc, cam)
+        pre = cp.coarse(sc, cam, bnd, rp.params, cc)
+        interval_agreement(f"gate culled interval coarse kernel (B={block}) vs coarse_plain, {name}", pre,
+                           cp.coarse_plain(sc, cam, bnd, rp.params, cc))
+        image_class(f"gate culled interval fine kernel (relax) vs fine_plain, {name}",
+                    cp.fine(sc, cam, bnd, rp.params, *pre, cull=fc),
+                    cp.fine_plain(sc, cam, bnd, rp.params, *pre, cull=fc))
+    torch.cuda.synchronize()
+
+    # -- 11b. the rows at full size -------------------------------------------
+    rows = (
+        ("interval_relax_static", "config2", cfg_ir, 1, WIDTH, HEIGHT, None),
+        ("64leaf_cull_intervals", "spheres", cfg64, 1, WIDTH, HEIGHT, None),
+        ("64leaf_smooth_chain", "chain", cfg64, 1, WIDTH, HEIGHT, None),
+        ("64leaf_mixed_cluster", "cluster", cfg64, 1, WIDTH, HEIGHT, None),
+        ("256leaf_compact", "256", cfg64, 4, WIDTH, HEIGHT, None),
+        ("1024leaf_compact", "1024", cfg64, 4, WIDTH, HEIGHT, None),
+        ("64leaf_4k_3band", "spheres", cfg64, 1, 2 * WIDTH, 2 * HEIGHT, 2 * HEIGHT // 3),
+    )
+    out, records = {}, []
+    for row, name, cfg_r, block, w, h, band in rows:
+        spec_r, arrays_r = built[name]
+        rp = cp.make_pallas_image_render_aa(spec_r, cfg_r, w, h, device=dev, prepass_block=block, n_intervals=2,
+                                            band_rows=band)
+        cvs = [camera(name, float(r0)) for r0 in (range(0, h, band) if band else (0,))]
+
+        def frame(rp=rp, arrays_r=arrays_r, cvs=cvs):
+            return [rp(arrays_r, cv) for cv in cvs]
+
+        frame_ms, host_ms, launches = timed_frames(cp, frame)
+        n_rays = w * h * cfg_r.aa_samples ** 2
+        if min(launches["coarse_kernel_intervals"], launches["fine_kernel_intervals"]) <= 0:
+            raise AssertionError(f"a kernel of {row} never launched: {launches}")
+        if launches["coarse_kernel"] or launches["fine_kernel"]:
+            raise AssertionError(f"{row} ran the legacy prepass builds: {launches}")
+        idle = device_idle_share(frame, 3)
+        img = frame()
+        if not all(bool(torch.isfinite(v).all()) and v.shape == (band or h, w, 3) for v in img):
+            raise AssertionError(f"{row}: bad frame")
+        sc, cam, bnd = rp.scene_args(arrays_r, cvs[len(cvs) // 2])
+        cull_ms = cuda_ms(lambda: rp.cull_args(sc, cam), KERNEL_REPS)
+        cc, fc = rp.cull_args(sc, cam)
+        pre = cp.coarse(sc, cam, bnd, rp.params, cc)
+        coarse_ms = cuda_ms(lambda: cp.coarse(sc, cam, bnd, rp.params, cc), KERNEL_REPS)
+        fine_ms = cuda_ms(lambda: cp.fine(sc, cam, bnd, rp.params, *pre, cull=fc), KERNEL_REPS)
+        active = None if fc is None else float(fc.counts.sum(1).float().mean())
+        log(f"{row} ({name}, {w}x{h}{f' as {len(cvs)} bands of {band} rows' if band else ''}, B={block}, ni=2, "
+            f"relax {cfg_r.relax}, leaf_cull {cfg_r.leaf_cull}) x16 AA: {frame_ms:.4f} ms/frame (CUDA events, "
+            f"{FRAMES} frames after {WARMUP} warm-up; host clock {host_ms:.4f} ms), "
+            f"{n_rays / (frame_ms * 1e-3) / 1e9:.4f} Grays/s; launches {launches}; device idle share "
+            f"{'not measured' if idle is None else f'{idle:.4f}'} (3 frames); cull_args alone "
+            f"{cull_ms:.4f} ms{'' if not band else ' per band'}; mean active items per fine tile "
+            f"{'-' if active is None else f'{active:.4f}'}; kernels alone{' (one band)' if band else ''}: "
+            f"coarse {coarse_ms:.4f} ms, fine {fine_ms:.4f} ms ({smi})")
+
+        # The kernels against their plain versions: at full size, or on one
+        # 64-row band, the coarse pass of the 1024-leaf scene and of the 4K
+        # frame and the fine pass of the 256/1024-leaf scenes and the 4K
+        # frame (the plain fold takes O(plan items) torch operations a step).
+        full = {"coarse": name != "1024" and not band, "fine": name not in ("256", "1024") and not band}
+        args = {k: (sc, cam, bnd, rp.params, cc, fc, pre, "full size") for k, v in full.items() if v}
+        if not all(full.values()):
+            rb = cp.make_pallas_image_render_aa(spec_r, cfg_r, w, h, device=dev, prepass_block=block,
+                                                n_intervals=2, band_rows=PLAIN_BAND)
+            r0 = (h - PLAIN_BAND) // 2
+            sc_b, cam_b, bnd_b = rb.scene_args(arrays_r, camera(name, float(r0)))
+            cc_b, fc_b = rb.cull_args(sc_b, cam_b)
+            pre_b = cp.coarse(sc_b, cam_b, bnd_b, rb.params, cc_b)
+            for k, v in full.items():
+                if not v:
+                    args[k] = (sc_b, cam_b, bnd_b, rb.params, cc_b, fc_b, pre_b,
+                               f"one {PLAIN_BAND}-row band at row {r0}")
+        work_c, work_f = cp.WorkCount(), cp.WorkCount()
+        sc_p, cam_p, bnd_p, p_c, cc_p, _, pre_k, where_c = args["coarse"]
+        pre_p, c_plain_ms = plain_ms(lambda: cp.coarse_plain(sc_p, cam_p, bnd_p, p_c, cc_p, work=work_c))
+        c_err = interval_agreement(f"{row}: interval coarse kernel vs coarse_plain, {where_c}", pre_k, pre_p)
+        del pre_p
+        sc_p, cam_p, bnd_p, p_f, _, fc_p, pre_k, where_f = args["fine"]
+        img_k = cp.fine(sc_p, cam_p, bnd_p, p_f, *pre_k, cull=fc_p)
+        img_p, f_plain_ms = plain_ms(lambda: cp.fine_plain(sc_p, cam_p, bnd_p, p_f, *pre_k, cull=fc_p, work=work_f))
+        f_err = image_class(f"{row}: interval fine kernel vs fine_plain (same planes), {where_f}", img_k, img_p)
+        del img_k, img_p, args
+        log(f"{row}: plain on the card: coarse_plain {c_plain_ms:.2f} ms ({where_c}), fine_plain "
+            f"{f_plain_ms:.2f} ms ({where_f})")
+        compact = fc is not None and fc.compact
+        lists = (lambda c: 0 if c is None or not c.compact else 4 * (c.lists.numel() + c.counts.numel()))
+        n_blk = p_c.brows * p_c.bcols
+        n_px = p_f.rows * p_f.width
+        c_bound = roofline(march_flops(work_c, n_blk, spec_r, compact), n_blk * 16 + lists(cc_p))
+        f_bound = roofline(march_flops(work_f, n_px * cfg_r.aa_samples ** 2, spec_r, compact, float(work_f.hits),
+                                       fine=True), n_px * 12 + p_f.brows * p_f.bcols * 16 + lists(fc_p))
+        log(f"{row}: counted work: coarse ({where_c}) {float(work_c.points):.6e} points, "
+            f"{float(work_c.leaf_evals):.6e} leaf evaluations, bound {c_bound[0]:.4f} ms ({c_bound[1]}); fine "
+            f"({where_f}) {float(work_f.points):.6e} points, {float(work_f.leaf_evals):.6e} leaf evaluations, "
+            f"{float(work_f.hits):.0f} hit rays, bound {f_bound[0]:.4f} ms ({f_bound[1]})")
+        out[row] = dict(frame_ms=frame_ms, grays=n_rays / (frame_ms * 1e-3) / 1e9, idle=idle, cull_ms=cull_ms,
+                        active=active, coarse_ms=coarse_ms, fine_ms=fine_ms, launches=launches)
+        if row in ("interval_relax_static", "64leaf_cull_intervals", "256leaf_compact"):
+            how = {"interval_relax_static": "intervals", "64leaf_cull_intervals": "intervals, culled lists",
+                   "256leaf_compact": "B=4 blocks, intervals, culled lists"}[row]
+            records.append(dict(
+                name=f"coarse_kernel ({how}: {row})", route="cuda", source="raymarch_tpu_torch/csrc/prepass.cu",
+                replaces="raymarch_tpu/ops/pallas_prepass.py:885", launches=launches["coarse_kernel_intervals"],
+                max_abs_err=c_err, ms=coarse_ms, plain_ms=c_plain_ms, bound_ms=c_bound[0], bound_by=c_bound[1],
+                library_ms=None))
+            if where_f == "full size":
+                records.append(dict(
+                    name=f"fine_kernel ({how}, relax: {row})", route="cuda",
+                    source="raymarch_tpu_torch/csrc/prepass.cu", replaces="raymarch_tpu/ops/pallas_prepass.py:1521",
+                    launches=launches["fine_kernel_intervals"], max_abs_err=f_err, ms=fine_ms, plain_ms=f_plain_ms,
+                    bound_ms=f_bound[0], bound_by=f_bound[1], library_ms=None))
+        del pre, pre_k, img, rp
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+
+    # -- 11c. K3 at 1080p: config 2, B=4, prepass_chain -----------------------
+    rp = cp.make_pallas_image_render_aa(spec2, cfg, WIDTH, HEIGHT, device=dev, prepass_block=4, prepass_chain=True)
+    cv2 = camera("config2")
+    chain_ms, chain_host_ms, launches = timed_frames(cp, lambda: rp(arrays2, cv2))
+    if min(launches["coarse_kernel"], launches["coarse_px_kernel"], launches["fine_kernel"]) <= 0:
+        raise AssertionError(f"a kernel of the chained frame never launched: {launches}")
+    sc, cam, bnd = rp.scene_args(arrays2, cv2)
+    blk = cp.coarse(sc, cam, bnd, rp.params)
+    k3_ms = cuda_ms(lambda: cp.coarse_px(sc, cam, bnd, rp.params, *blk), KERNEL_REPS)
+    blk_ms = cuda_ms(lambda: cp.coarse(sc, cam, bnd, rp.params), KERNEL_REPS)
+    work = cp.WorkCount()
+    px_p, k3_plain_ms = plain_ms(lambda: cp.coarse_px_plain(sc, cam, bnd, rp.params, *blk, work=work))
+    k3_err = coarse_agreement("full-size coarse_px_kernel (K3) vs coarse_px_plain, config 2, B=4",
+                              cp.coarse_px(sc, cam, bnd, rp.params, *blk), px_p, strict=False)
+    n_px = WIDTH * HEIGHT
+    k3_bound = roofline(march_flops(work, n_px, spec2, False), n_px * 16)
+    image_class("full-size chained frame vs the plain path", rp(arrays2, cv2), rp.render_plain(arrays2, cv2))
+    log(f"chained prepass (config 2, B=4, prepass_chain) {WIDTH}x{HEIGHT} x16 AA: {chain_ms:.4f} ms/frame "
+        f"(host clock {chain_host_ms:.4f} ms), launches {launches}; K3 alone {k3_ms:.4f} ms (its block pass "
+        f"{blk_ms:.4f} ms), coarse_px_plain {k3_plain_ms:.2f} ms, bound {k3_bound[0]:.4f} ms ({k3_bound[1]}; "
+        f"{float(work.points):.6e} points) ({smi})")
+    records.append(dict(
+        name="coarse_px_kernel (K3: config 2, B=4)", route="cuda", source="raymarch_tpu_torch/csrc/prepass.cu",
+        replaces="raymarch_tpu/ops/pallas_prepass.py:969", launches=launches["coarse_px_kernel"],
+        max_abs_err=k3_err, ms=k3_ms, plain_ms=k3_plain_ms, bound_ms=k3_bound[0], bound_by=k3_bound[1],
+        library_ms=None))
+    out["chain"] = dict(frame_ms=chain_ms, k3_ms=k3_ms, blk_ms=blk_ms)
+    return records, out
+
+
 def main() -> int:
     import torch
 
@@ -1378,6 +1684,9 @@ def main() -> int:
     # -- 10. blends, subtractions and painted materials ----------------------
     blend_records, sb = blends(rt, cp, cg, dev, smi, cfg, (0.0, 2.6, 4.2))
 
+    # -- 11. the many-primitive forward rows of bench.py ----------------------
+    row_records, rows = forward_rows(rt, cp, dev, smi, cfg, (0.0, 2.6, 4.2))
+
     log(f"card: {smi}")
     kernels = [
         dict(name="coarse_kernel", route="cuda", source="raymarch_tpu_torch/csrc/prepass.cu",
@@ -1403,6 +1712,7 @@ def main() -> int:
              bound_by=bwd_bound[1], library_ms=None),
         *culled_records,
         *blend_records,
+        *row_records,
     ]
     log(f"64-leaf summary: step {s64['step_ms']:.4f} ms, forward frame {s64['fwd64_ms']:.4f} ms, idle share "
         f"{s64['idle']}, masks and lists {s64['cull_ms']:.4f} ms in {s64['n_cull']} device operations "
@@ -1411,6 +1721,12 @@ def main() -> int:
         log(f"{name} summary: step {s['step_ms']:.4f} ms, compact_bwd {s['cbwd_ms']:.4f} ms, idle share "
             f"{s['idle']}, masks and lists {s['cull_ms']:.4f} ms in {s['n_cull']} device operations ({smi})")
     log(f"painted forward frame {sb['fwd_p_ms']:.4f} ms; cluster fit {sb['fit_s']:.4f} s/step ({smi})")
+    for row, r in rows.items():
+        if row == "chain":
+            log(f"chained prepass frame {r['frame_ms']:.4f} ms, K3 {r['k3_ms']:.4f} ms ({smi})")
+            continue
+        log(f"{row} summary: frame {r['frame_ms']:.4f} ms, {r['grays']:.4f} Grays/s, idle share {r['idle']}, "
+            f"cull_args {r['cull_ms']:.4f} ms, coarse {r['coarse_ms']:.4f} ms, fine {r['fine_ms']:.4f} ms ({smi})")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)

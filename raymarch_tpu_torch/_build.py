@@ -35,10 +35,14 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     # leaf_params, row_kind, tape, n_instr, op_param, cam, bound, params,
-    # cull, t0_out, status_out, stream
-    "rmt_coarse_launch": (_P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P),
-    # ... params, cull, t0_in, status_in, img, t_out, hit_out, mats, stream
-    "rmt_fine_launch": (_P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P),
+    # cull, t0_out, status_out, block_params, stream
+    "rmt_coarse_launch": (_P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P),
+    # leaf_params, row_kind, tape, n_instr, op_param, cam, bound, params,
+    # t_blk, status_blk, t0_out, status_out, block_params, stream
+    "rmt_coarse_px_launch": (_P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P),
+    # ... params, cull, t0_in, status_in, img, t_out, hit_out, mats,
+    # block_params, stream
+    "rmt_fine_launch": (_P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P),
     # leaf_params, row_kind, tape, n_instr, op_param, push_slot, cam, params,
     # grad_denom_clamp, t, hit, g_img, nscal, op_base, cam_base, partials,
     # max_blocks, out, stream

@@ -22,7 +22,7 @@ struct RenderParams {
   int32_t no_prepass;  // fine pass: t0 = 0, every ray live
   float min_dist;
   float max_dist;
-  float omega;       // cone half-angle bound (cone_omega, block 1)
+  float omega;       // coarse cone half-angle bound (cone_omega, block B)
   float inv1w;       // f32(1 / (1 + omega))
   float tan_aspect;  // f32(tan(fovy/2) * W/H)
   float tanf;        // f32(tan(fovy/2))
@@ -38,6 +38,21 @@ struct RenderParams {
   float inv_s;  // f32(1 / S)
   float relax;       // f32(cfg.relax); > 1 takes the relaxed fine march
   float relax_back;  // f32(1 - cfg.relax): the step back after an overshoot
+};
+
+// The prepass geometry beyond the per-pixel first-near prepass, the last
+// argument of the prepass kernels. It is kept out of RenderParams, the
+// argument of every kernel (the backward ones too): ptxas allocated 5 fewer
+// or 2 more registers in untouched builds when that struct grew. Mirrored
+// by cuda_prepass.py:_CBlockParams.
+struct BlockParams {
+  int32_t block;   // B: the coarse pass marches one cone per B x B block
+  int32_t ni;      // near intervals per block (0: the first-near prepass)
+  int32_t chain;   // the chained pixel pass refines the block planes
+  int32_t brows;   // ceil(rows / B): the block grid of the coarse planes
+  int32_t bcols;   // ceil(width / B)
+  float omega_px;  // the pixel cone's half-angle (cone_omega, block 1)
+  float inv1w_px;  // f32(1 / (1 + omega_px))
 };
 
 struct Ray {

@@ -348,7 +348,7 @@ def _check_compact_bwd(scene: SceneBuffers, cull: TileCull, cam, p: PrepassParam
     _check("g_img", g_img, torch.float32, (p.rows, p.width, 3), dev)
     if cull is None or not cull.compact:
         raise ValueError("the compact backward needs the fine grid's item lists")
-    _check_cull(cull, spec, p, dev)
+    _check_cull(cull, spec, (p.rows, p.width), dev)
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {dev}")
     nscal = 16 * spec.n_leaves + spec.n_instr + 7

@@ -1,25 +1,37 @@
-"""Cone-prepass forward renderer: two CUDA kernels and their plain versions.
+"""Cone-prepass forward renderer: three CUDA kernels and their plain versions.
 
-Port of the main path of `raymarch_tpu/ops/pallas_prepass.py`
-(`make_pallas_image_render_aa` with prepass_block=1, aa_packed=True):
+Port of `raymarch_tpu/ops/pallas_prepass.py:make_pallas_image_render_aa`
+with aa_packed=True, for a band of `rows` image rows starting at cam[7]:
 
 1. **Coarse pass** (`coarse`; kernel `coarse_kernel` in csrc/prepass.cu,
    replacing the Pallas `coarse_kernel`, pallas_prepass.py:885). One cone
-   ray per pixel centre, stopped at `d < min_dist + omega*t` and stepped by
-   `(d - omega*t)/(1+omega)`: every AA ray of the pixel is un-crossed up to
-   the stop distance, so it becomes the pixel's safe start `t0`; `status` is
-   1 where the cone stopped near a surface, 0 where it escaped (a miss).
-2. **Fine pass** (`fine`; kernel `fine_kernel`, replacing
+   ray per B x B pixel block (B = prepass_block; its centre at pixel
+   coordinate (b + 0.5) * B), stopped at `d < min_dist + omega*t` and
+   stepped by `(d - omega*t)/(1+omega)`, omega the block's cone angle:
+   every AA ray of the block is un-crossed up to the stop distance, so it
+   becomes the block's safe start `t0`; `status` is 1 where the cone
+   stopped near a surface, 0 where it escaped (a miss). With n_intervals
+   = ni > 0 the centre ray scans the whole scene instead and records up to
+   ni near intervals (`coarse_interval_plain`): 2*ni planes, starts then
+   ends, 3.0e38 for "no interval".
+2. **Chained pixel pass** (`coarse_px`; kernel `coarse_px_kernel`,
+   replacing `coarse_px_kernel`, pallas_prepass.py:969), with
+   prepass_chain=True and B > 1: one cone ray per pixel at the pixel cone
+   angle, started at its block's t0 (dead where the block's cone missed),
+   over the whole tape (un-culled, as the reference's).
+3. **Fine pass** (`fine`; kernel `fine_kernel`, replacing
    `fine_packed_kernel`, pallas_prepass.py:1521). Every AA ray sphere-traces
-   from its pixel's t0, hit rays take tetrahedron normals and Lambert
-   shading (with the albedo the static tape carries to the hit point on a
-   painted scene), misses the analytic checker floor, then sqrt gamma and
-   the AA mean: f32[rows, W, 3].
+   from its pixel's t0 (read at block (i // B, j // B) of block planes), or
+   through its block's near intervals, jumping the gaps between them; hit
+   rays take tetrahedron normals and Lambert shading (with the albedo the
+   static tape carries to the hit point on a painted scene), misses the
+   analytic checker floor, then sqrt gamma and the AA mean: f32[rows, W, 3].
 
 Each wrapper takes tensors on one device. On the CPU it runs its plain
-version (`coarse_plain`, `fine_plain`: vectorised torch over all rays, a
-masked loop of at most max_iter steps, the same formulas); on a CUDA device
-it launches the kernel, or raises. It never falls back from one to the other.
+version (`coarse_plain`, `coarse_px_plain`, `fine_plain`: vectorised torch
+over all rays, a masked loop of at most the kernel's step budget, the same
+formulas); on a CUDA device it launches the kernel, or raises. It never
+falls back from one to the other.
 """
 
 from __future__ import annotations
@@ -50,7 +62,12 @@ from .cuda_march import (
 )
 from .tape import TapeArrays, TapeSpec
 
+# The reference's "+inf" (pallas_prepass.py:188): a finite f32, compared with
+# `< 9.0e37`, so that planes multiplied by 0/1 masks stay finite.
 _INF_CAP = 3.0e38
+_INF_TEST = 9.0e37
+# Most near intervals a kernel build keeps in registers (csrc MAX_NI).
+MAX_NI = 4
 
 
 def cone_omega(cfg: RenderConfig, width: int, height: int, block: int = 1) -> float:
@@ -108,16 +125,36 @@ class PrepassParams:
     inv_s: float
     relax: float
     relax_back: float
+    block: int
+    ni: int
+    chain: int
+    brows: int
+    bcols: int
+    omega_px: float
+    inv1w_px: float
+
+    @property
+    def plane_block(self) -> int:
+        """Pixel size of the prepass planes the fine pass reads: B for the
+        coarse kernel's block planes, 1 after the chained pixel pass."""
+        return 1 if self.chain else self.block
+
+    @property
+    def plane_shape(self) -> tuple:
+        return (self.rows, self.width) if self.chain else (self.brows, self.bcols)
 
     @staticmethod
-    def make(cfg: RenderConfig, width: int, height: int, no_prepass: bool = False):
+    def make(cfg: RenderConfig, width: int, height: int, no_prepass: bool = False, block: int = 1,
+             n_intervals: int = 0, chain: bool = False, band_rows: int | None = None):
         tanf = math.tan(cfg.fovy / 2.0)
-        omega = cone_omega(cfg, width, height, 1)
+        omega = cone_omega(cfg, width, height, block)
+        omega_px = cone_omega(cfg, width, height, 1)
         naa = cfg.aa_samples
+        rows = height if band_rows is None else band_rows
         return PrepassParams(
             width=width,
             height=height,
-            rows=height,
+            rows=rows,
             naa=naa,
             max_iter=int(cfg.max_iter),
             use_bound=bool(cfg.bound_accel),
@@ -140,6 +177,13 @@ class PrepassParams:
             inv_s=_f32(1.0 / (naa * naa)),
             relax=_f32(max(cfg.relax, 1.0)),
             relax_back=_f32(1.0 - cfg.relax),
+            block=block,
+            ni=n_intervals,
+            chain=int(chain and block > 1),
+            brows=-(-rows // block),
+            bcols=-(-width // block),
+            omega_px=_f32(omega_px),
+            inv1w_px=_f32(1.0 / (1.0 + omega_px)),
         )
 
 
@@ -174,16 +218,33 @@ class _CParams(ctypes.Structure):
         ("relax_back", ctypes.c_float),
     ]
 
-    @staticmethod
-    def of(p: PrepassParams) -> "_CParams":
-        c = _CParams()
-        for name, _ in _CParams._fields_:
+    @classmethod
+    def of(cls, p: PrepassParams):
+        c = cls()
+        for name, _ in cls._fields_:
             v = getattr(p, name)
             if isinstance(v, tuple):
                 getattr(c, name)[:] = v
             else:
                 setattr(c, name, v)
         return c
+
+
+class _CBlockParams(ctypes.Structure):
+    """ctypes mirror of `BlockParams` in csrc/render_common.cuh, the
+    PrepassParams fields after `relax_back`."""
+
+    _fields_ = [
+        ("block", ctypes.c_int32),
+        ("ni", ctypes.c_int32),
+        ("chain", ctypes.c_int32),
+        ("brows", ctypes.c_int32),
+        ("bcols", ctypes.c_int32),
+        ("omega_px", ctypes.c_float),
+        ("inv1w_px", ctypes.c_float),
+    ]
+
+    of = classmethod(_CParams.of.__func__)
 
 
 # Side, in pixels, of the square tiles that carry one culling mask and one
@@ -396,18 +457,144 @@ def leaves_per_point(scene: SceneBuffers, cull: TileCull | None, tid=None):
     return _active_from_mask(scene.spec, cull.masks).sum(dim=1)[tid].to(torch.float32)
 
 
-def _band_ij(p: PrepassParams, dev, naa_axis: bool):
-    i = torch.arange(p.rows, device=dev)[:, None]
-    j = torch.arange(p.width, device=dev)[None, :]
-    if naa_axis:
-        return i[:, :, None], j[:, :, None]
-    return i, j
+def _band_ij(p: PrepassParams, dev):
+    """Band row and column indices, shaped to broadcast against [rows, W, S]."""
+    return torch.arange(p.rows, device=dev)[:, None, None], torch.arange(p.width, device=dev)[None, :, None]
+
+
+def _cone_march_plain(scene_fn, p: PrepassParams, omega: float, inv1w: float, ox, oy, oz, dx, dy, dz, t,
+                      live, t_cap, work=None, leaves=None):
+    """The cone march of centre rays from (t, live) -> (t0, status)
+    (pallas_prepass._cone_march_tile, 130-185)."""
+    near = torch.zeros_like(t)
+    for _ in range(p.max_iter):
+        if not bool(live.any()):
+            break
+        if work is not None:
+            work.add(live, leaves)
+        d = scene_fn(ox + dx * t, oy + dy * t, oz + dz * t)
+        slack = d - omega * t
+        near_now = torch.where(slack < p.min_dist, live, 0.0)
+        escaped = torch.where((d > p.max_dist) | (t > t_cap), live, 0.0)
+        escaped = escaped - escaped * near_now
+        advance = live - near_now - escaped
+        t = t + slack * inv1w * advance
+        live = live - near_now - escaped
+        near = near + near_now
+    return t, near
+
+
+def _interval_scan_plain(scene_fn, p: PrepassParams, ox, oy, oz, dx, dy, dz, t, live, t_cap, work=None,
+                         leaves=None):
+    """The centre ray's scan of the whole scene for up to p.ni near
+    intervals -> [s_0 .. s_{ni-1}, e_0 .. e_{ni-1}]
+    (pallas_prepass._cone_interval_march_tile, 191-293): plain sphere steps
+    inside a near zone, cone steps outside, for at most 2 * max_iter steps.
+    A zone's end reverts to +inf (fine rays then march plainly from its
+    start) when the centre ray hits inside it, when it is open at the end
+    of the budget, and, for the last zone, when one more zone would open
+    (the ray then stops). The zone index is the count of closed zones."""
+    ni = p.ni
+    zero = torch.zeros_like(t)
+    starts = [zero + _INF_CAP for _ in range(ni)]
+    ends = [zero + _INF_CAP for _ in range(ni)]
+    was_near = zero
+    idx = zero
+    for _ in range(2 * p.max_iter):
+        if not bool(live.any()):
+            break
+        if work is not None:
+            work.add(live, leaves)
+        d = scene_fn(ox + dx * t, oy + dy * t, oz + dz * t)
+        slack = d - p.omega * t
+        near = torch.where(slack < p.min_dist, live, 0.0)
+        hit_c = torch.where(d < p.min_dist, near, 0.0)
+        esc = torch.where((d > p.max_dist) | (t > t_cap), live, 0.0)
+        esc = esc - esc * hit_c
+        opening = near * (1.0 - was_near)
+        closing = torch.where(was_near > 0.0, (1.0 - near) + esc, 0.0)
+        closing = torch.clamp_max(closing, 1.0) * live
+        overflow = torch.where(idx > ni - 0.5, opening, 0.0)
+        opening = opening - overflow
+        for j in range(ni):
+            at = (idx - j).abs() < 0.5
+            starts[j] = torch.where(at & (opening > 0.0), t, starts[j])
+            e = torch.where(at & (closing > 0.0), t, ends[j])
+            e = torch.where(at & (hit_c > 0.0), _INF_CAP, e)
+            if j == ni - 1:
+                e = torch.where(overflow > 0.0, _INF_CAP, e)
+            ends[j] = e
+        idx = idx + closing
+        live2 = torch.clamp_min(live - hit_c - esc - overflow * live, 0.0)
+        stp = torch.where(near > 0.0, d, slack * p.inv1w)
+        t = t + stp * live2
+        was_near = near * live2
+        live = live2
+    for j in range(ni):
+        ends[j] = torch.where((was_near > 0.0) & ((idx - j).abs() < 0.5), _INF_CAP, ends[j])
+    return starts + ends
+
+
+def _block_rays(p: PrepassParams, cam):
+    """Centre rays of the band's B x B blocks, f32[brows, bcols] each: the
+    screen point of pixel coordinate (b + 0.5) * B in the f32 op order of
+    pallas_prepass.py:910-911 (an edge block's centre may lie outside the
+    image; it is marched all the same)."""
+    dev = cam.device
+    i = torch.arange(p.brows, device=dev, dtype=torch.float32)[:, None]
+    j = torch.arange(p.bcols, device=dev, dtype=torch.float32)[None, :]
+    x = div_rn(2.0 * ((j + 0.5) * p.block), p.width) - 1.0
+    y = 1.0 - div_rn(2.0 * ((i + 0.5) * p.block + cam[7]), p.height)
+    x, y = (v.contiguous() for v in torch.broadcast_tensors(x, y))
+    dx, dy, dz = _view_dirs(x, y, cam, p)
+    return (*_origin(cam, dx), dx, dy, dz)
+
+
+def _clipped_start(p: PrepassParams, bound, ox, oy, oz, dx, dy, dz):
+    """(t, live, t_cap) of rays from the camera, clipped by the scene's
+    bounding sphere under bound_accel."""
+    zero = torch.zeros_like(dx)
+    t, live, t_cap = zero, zero + 1.0, zero + _INF_CAP
+    if p.use_bound:
+        live, t, t_cap = _bound_clip(bound, ox, oy, oz, dx, dy, dz, live, t, t_cap, p.min_dist)
+    return t, live, t_cap
 
 
 def coarse_plain(scene: SceneBuffers, cam, bound, p: PrepassParams, cull: TileCull | None = None,
                  work: WorkCount | None = None):
-    """Plain version of the coarse kernel -> (t0, status) f32[rows, W].
-    `work`, when given, counts the pass's scene and leaf evaluations."""
+    """Plain version of the coarse kernel -> (t0, status) f32[brows, bcols],
+    or with p.ni the 2*ni interval planes (`coarse_interval_plain`). `cull`
+    is the coarse grid's TileCull (tiles of whole blocks); `work`, when
+    given, counts the pass's scene and leaf evaluations."""
+    if p.ni:
+        return coarse_interval_plain(scene, cam, bound, p, cull, work)
+    ox, oy, oz, dx, dy, dz = _block_rays(p, cam)
+    tid = cull.tile_index(*_block_ij(p, cam.device)) if cull is not None else None
+    t, live, t_cap = _clipped_start(p, bound, ox, oy, oz, dx, dy, dz)
+    leaves = leaves_per_point(scene, cull, tid) if work is not None else None
+    return _cone_march_plain(scene_fn_plain(scene, p.max_dist, cull, tid), p, p.omega, p.inv1w, ox, oy, oz,
+                             dx, dy, dz, t, live, t_cap, work, leaves)
+
+
+def coarse_interval_plain(scene: SceneBuffers, cam, bound, p: PrepassParams, cull: TileCull | None = None,
+                          work: WorkCount | None = None):
+    """Plain version of the coarse kernel's interval scan -> 2*ni planes
+    f32[brows, bcols]: the starts s_0 .. s_{ni-1}, then the ends; 3.0e38
+    where the block has no such interval."""
+    ox, oy, oz, dx, dy, dz = _block_rays(p, cam)
+    tid = cull.tile_index(*_block_ij(p, cam.device)) if cull is not None else None
+    t, live, t_cap = _clipped_start(p, bound, ox, oy, oz, dx, dy, dz)
+    leaves = leaves_per_point(scene, cull, tid) if work is not None else None
+    return tuple(_interval_scan_plain(scene_fn_plain(scene, p.max_dist, cull, tid), p, ox, oy, oz, dx, dy, dz,
+                                      t, live, t_cap, work, leaves))
+
+
+def coarse_px_plain(scene: SceneBuffers, cam, bound, p: PrepassParams, t_blk, status_blk,
+                    work: WorkCount | None = None):
+    """Plain version of the chained pixel pass (K3) -> (t0, status)
+    f32[rows, W]: each pixel's cone ray at the pixel cone angle, over the
+    whole tape, from max(its bound-clip start, its block's t0), dead where
+    its block's status is 0 (pallas_prepass.py:969-1005, 152-154)."""
     dev = cam.device
     i = torch.arange(p.rows, device=dev, dtype=torch.float32)[:, None]
     j = torch.arange(p.width, device=dev, dtype=torch.float32)[None, :]
@@ -416,34 +603,29 @@ def coarse_plain(scene: SceneBuffers, cam, bound, p: PrepassParams, cull: TileCu
     x, y = (v.contiguous() for v in torch.broadcast_tensors(x, y))
     dx, dy, dz = _view_dirs(x, y, cam, p)
     ox, oy, oz = _origin(cam, dx)
-    tid = cull.tile_index(*_band_ij(p, dev, False)) if cull is not None else None
-    scene_fn = scene_fn_plain(scene, p.max_dist, cull, tid)
+    t, live, t_cap = _clipped_start(p, bound, ox, oy, oz, dx, dy, dz)
+    t_in, live_in = (expand_plane(v, p.block, p.rows, p.width) for v in (t_blk, status_blk))
+    live = live * live_in
+    t = torch.maximum(t, t_in) * live_in
+    leaves = leaves_per_point(scene, None) if work is not None else None
+    return _cone_march_plain(scene_fn_plain(scene, p.max_dist, None), p, p.omega_px, p.inv1w_px, ox, oy, oz,
+                             dx, dy, dz, t, live, t_cap, work, leaves)
 
-    zero = torch.zeros_like(dx)
-    t = zero
-    live = zero + 1.0
-    t_cap = zero + _INF_CAP
-    if p.use_bound:
-        live, t, t_cap = _bound_clip(
-            bound, ox, oy, oz, dx, dy, dz, live, t, t_cap, p.min_dist
-        )
-    near = zero
-    leaves = leaves_per_point(scene, cull, tid) if work is not None else None
-    for _ in range(p.max_iter):
-        if not bool(live.any()):
-            break
-        if work is not None:
-            work.add(live, leaves)
-        d = scene_fn(ox + dx * t, oy + dy * t, oz + dz * t)
-        slack = d - p.omega * t
-        near_now = torch.where(slack < p.min_dist, live, 0.0)
-        escaped = torch.where((d > p.max_dist) | (t > t_cap), live, 0.0)
-        escaped = escaped - escaped * near_now
-        advance = live - near_now - escaped
-        t = t + slack * p.inv1w * advance
-        live = live - near_now - escaped
-        near = near + near_now
-    return t, near
+
+def _block_ij(p: PrepassParams, dev):
+    return torch.arange(p.brows, device=dev)[:, None], torch.arange(p.bcols, device=dev)[None, :]
+
+
+def expand_plane(v, block: int, rows: int, width: int):
+    """A prepass plane at B x B block resolution -> f32[rows, W]: pixel (i,
+    j) reads block (i // B, j // B), the reference's repeat-and-crop
+    (pallas_prepass.py:1397-1406) as an index map."""
+    if block == 1:
+        return v
+    dev = v.device
+    ii = torch.div(torch.arange(rows, device=dev), block, rounding_mode="floor")
+    jj = torch.div(torch.arange(width, device=dev), block, rounding_mode="floor")
+    return v.index_select(0, ii).index_select(1, jj)
 
 
 def aa_screen(p: PrepassParams, cam, i0: int = 0, n_rows: int | None = None):
@@ -467,32 +649,44 @@ def aa_screen(p: PrepassParams, cam, i0: int = 0, n_rows: int | None = None):
     return tuple(v.contiguous() for v in torch.broadcast_tensors(x, y))
 
 
-def fine_res_plain(scene: SceneBuffers, cam, bound, p: PrepassParams, t0=None, status=None,
-                   cull: TileCull | None = None, work: WorkCount | None = None):
+def fine_res_plain(scene: SceneBuffers, cam, bound, p: PrepassParams, *pre, cull: TileCull | None = None,
+                   work: WorkCount | None = None):
     """Plain version of the fine kernel with residuals -> (image f32[rows,
     W, 3], t, hit f32[rows, W, S]): each AA ray's march end and hit flag.
-    `cull` is the fine grid's TileCull of a culled frame; `work`, when
-    given, counts the pass's scene and leaf evaluations."""
+    `pre` holds the prepass planes at `p.plane_shape`: (t0, status), or
+    with p.ni the 2*ni interval planes (none with `p.no_prepass`). `cull`
+    is the fine grid's TileCull of a culled frame; `work`, when given,
+    counts the pass's scene and leaf evaluations."""
     x, y = aa_screen(p, cam)
     dx, dy, dz = _view_dirs(x, y, cam, p)
     ox, oy, oz = _origin(cam, dx)
-    tid = cull.tile_index(*_band_ij(p, cam.device, True)) if cull is not None else None
+    tid = cull.tile_index(*_band_ij(p, cam.device)) if cull is not None else None
     scene_fn = scene_fn_plain(scene, p.max_dist, cull, tid)
 
     zero = torch.zeros_like(dx)
+    pre = [expand_plane(v, p.plane_block, p.rows, p.width)[:, :, None] for v in pre]
     if p.no_prepass:
         t = zero
         live = zero + 1.0
+    elif p.ni:
+        # A ray lives iff its block has a first interval, and starts there
+        # (pallas_prepass.py:1604-1608).
+        live = torch.where(zero + pre[0] < _INF_TEST, 1.0, 0.0)
+        t = torch.where(live > 0.0, zero + pre[0], 0.0)
     else:
-        t = zero + t0[:, :, None]
-        live = zero + status[:, :, None]
+        t = zero + pre[0]
+        live = zero + pre[1]
     t_cap = zero + _INF_CAP
     if p.use_bound:
         _, _, t_cap = _bound_clip(
             bound, ox, oy, oz, dx, dy, dz, live, t, t_cap, p.min_dist
         )
     leaves = leaves_per_point(scene, cull, tid) if work is not None else None
-    if p.relax > 1.0:
+    if p.ni and not p.no_prepass:
+        t, hit = _interval_march_plain(scene_fn, p, ox, oy, oz, dx, dy, dz, t, live, t_cap,
+                                       [zero + v for v in pre[: p.ni]], [zero + v for v in pre[p.ni:]],
+                                       work, leaves)
+    elif p.relax > 1.0:
         t, hit = _relaxed_march_plain(scene_fn, p, ox, oy, oz, dx, dy, dz, t, live, t_cap,
                                       work, leaves)
     else:
@@ -551,6 +745,63 @@ def _relaxed_march_plain(scene_fn, p: PrepassParams, ox, oy, oz, dx, dy, dz, t, 
     return t, hit
 
 
+def _interval_march_plain(scene_fn, p: PrepassParams, ox, oy, oz, dx, dy, dz, t, live, t_cap, starts, ends,
+                          work=None, leaves=None):
+    """The fine march through near intervals (pallas_prepass.
+    _fine_march_interval_tile, 296-377): plain steps, or with relax > 1 the
+    over-relaxed steps and their fallback, inside interval idx; a step past
+    its end e_idx jumps to max(t, s_{idx+1}) with omega, step and previous
+    radius reset, or, with no next interval, is a miss. Hit and escape are
+    tested only at samples that did not overshoot."""
+    ni = p.ni
+    zero = torch.zeros_like(t)
+    idx = zero
+    prev_r = zero
+    step_len = zero
+    omega = zero + p.relax
+    hit = zero
+
+    def cur_end(idx):
+        e = ends[ni - 1]
+        for j in range(ni - 2, -1, -1):
+            e = torch.where(idx < j + 0.5, ends[j], e)
+        return e
+
+    def next_start(idx):
+        s = zero + _INF_CAP
+        for j in range(ni - 1, 0, -1):
+            s = torch.where(idx < j - 0.5, starts[j], s)
+        return s
+
+    for _ in range(p.max_iter):
+        if not bool(live.any()):
+            break
+        if work is not None:
+            work.add(live, leaves)
+        d = scene_fn(ox + dx * t, oy + dy * t, oz + dz * t)
+        fail = torch.where((omega > 1.0) & (d + prev_r < step_len), live, 0.0)
+        ok = live - fail
+        hit_now = torch.where(d < p.min_dist, ok, 0.0)
+        escaped = torch.where((d > p.max_dist) | (t > t_cap), ok, 0.0)
+        escaped = escaped - escaped * hit_now
+        new_step = torch.where(fail > 0.0, p.relax_back * step_len, omega * d)
+        omega2 = torch.where(fail > 0.0, 1.0, omega)
+        live2 = live - hit_now - escaped
+        t2 = t + new_step * live2
+        crossed = torch.where(t2 > cur_end(idx), live2, 0.0)
+        ns = next_start(idx)
+        no_more = torch.where(ns > _INF_TEST, crossed, 0.0)
+        jump = crossed - no_more
+        t = torch.where(jump > 0.0, torch.maximum(t2, ns), t2)
+        idx = idx + jump
+        omega = torch.where(jump > 0.0, p.relax, omega2)
+        step_len = torch.where(jump > 0.0, 0.0, new_step)
+        prev_r = torch.where(jump > 0.0, 0.0, d)
+        live = live2 - no_more
+        hit = hit + hit_now
+    return t, hit
+
+
 def shade_plain(scene: SceneBuffers, p: PrepassParams, ox, oy, oz, dx, dy, dz, t, hit, scene_fn=None,
                 albedo_fn=None):
     """Per-ray gamma-corrected colour (r, g, b) of the fine pass at the
@@ -596,10 +847,10 @@ def shade_plain(scene: SceneBuffers, p: PrepassParams, ox, oy, oz, dx, dy, dz, t
     return cols
 
 
-def fine_plain(scene: SceneBuffers, cam, bound, p: PrepassParams, t0=None, status=None,
-               cull: TileCull | None = None, work: WorkCount | None = None):
+def fine_plain(scene: SceneBuffers, cam, bound, p: PrepassParams, *pre, cull: TileCull | None = None,
+               work: WorkCount | None = None):
     """Plain version of the fine kernel -> image f32[rows, W, 3]."""
-    return fine_res_plain(scene, cam, bound, p, t0, status, cull, work)[0]
+    return fine_res_plain(scene, cam, bound, p, *pre, cull=cull, work=work)[0]
 
 
 # --------------------------------------------------------------------------
@@ -657,11 +908,13 @@ def _raise_on(err: int, what: str):
         raise RuntimeError(f"{what} launch failed: cudaError_t {err}")
 
 
-def _check_cull(cull: TileCull | None, spec: TapeSpec, p: PrepassParams, dev):
+def _check_cull(cull: TileCull | None, spec: TapeSpec, grid: tuple, dev):
+    """`cull` fits a kernel whose threads cover a `grid` = (rows, columns)
+    of pixels or blocks."""
     if cull is None:
         return
-    n_ty = -(-p.rows // cull.tile)
-    n_tx = -(-p.width // cull.tile)
+    n_ty = -(-grid[0] // cull.tile)
+    n_tx = -(-grid[1] // cull.tile)
     if cull.n_tx != n_tx:
         raise ValueError(f"cull grid has {cull.n_tx} tiles per row, expected {n_tx}")
     _check("masks", cull.masks, torch.int32, (n_ty * n_tx, (spec.n_leaves + 31) // 32), dev)
@@ -675,45 +928,98 @@ def _check_cull(cull: TileCull | None, spec: TapeSpec, p: PrepassParams, dev):
 
 
 def coarse(scene: SceneBuffers, cam, bound, p: PrepassParams, cull: TileCull | None = None):
-    """Coarse pass -> (t0, status) f32[rows, W] on the inputs' device.
-    `cull` is the coarse grid's TileCull of a culled frame."""
+    """Coarse pass -> (t0, status) f32[brows, bcols] on the inputs' device,
+    or with p.ni the 2*ni interval planes (views of one [2*ni, brows,
+    bcols] tensor). `cull` is the coarse grid's TileCull of a culled frame
+    (tiles of whole blocks)."""
     dev = _check_scene(scene, cam, bound, p)
-    _check_cull(cull, scene.spec, p, dev)
+    _check_cull(cull, scene.spec, (p.brows, p.bcols), dev)
+    if p.no_prepass:
+        raise ValueError("a no_prepass renderer has no coarse pass")
     if dev.type == "cpu":
         return coarse_plain(scene, cam, bound, p, cull)
     from .. import _build
 
     lib = _build.load()
-    t0 = torch.empty((p.rows, p.width), dtype=torch.float32, device=dev)
-    status = torch.empty_like(t0)
+    planes = torch.empty((2 * p.ni if p.ni else 2, p.brows, p.bcols), dtype=torch.float32, device=dev)
     cp = _CParams.of(p)
     cc = _CCull.of(cull)
+    cb = _CBlockParams.of(p)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.rmt_coarse_launch(
             *_scene_ptrs(scene), cam.data_ptr(), bound.data_ptr(),
-            ctypes.addressof(cp), ctypes.addressof(cc), t0.data_ptr(), status.data_ptr(), stream,
+            ctypes.addressof(cp), ctypes.addressof(cc), planes.data_ptr(),
+            None if p.ni else planes[1].data_ptr(), ctypes.addressof(cb), stream,
         )
     _raise_on(err, "coarse_kernel")
-    coarse.launches += 1
-    return t0, status
+    if p.ni:
+        coarse.interval_launches += 1
+    else:
+        coarse.launches += 1
+    return planes.unbind(0)
 
 
-coarse.launches = 0
+coarse.launches = 0  # the legacy planes (t0, status)
+coarse.interval_launches = 0  # the interval scan
 
 
-def _fine_launch(scene: SceneBuffers, cam, bound, p: PrepassParams, t0, status, residuals: bool, cull):
+def coarse_px(scene: SceneBuffers, cam, bound, p: PrepassParams, t_blk, status_blk):
+    """Chained pixel pass (prepass_chain, B > 1) -> (t0, status) f32[rows,
+    W] on the inputs' device, from the coarse pass's block planes."""
     dev = _check_scene(scene, cam, bound, p)
-    _check_cull(cull, scene.spec, p, dev)
-    if not p.no_prepass:
-        _check("t0", t0, torch.float32, (p.rows, p.width), dev)
-        _check("status", status, torch.float32, (p.rows, p.width), dev)
+    if not p.chain:
+        raise ValueError("the chained pixel pass needs prepass_chain=True and prepass_block > 1")
+    _check("t_blk", t_blk, torch.float32, (p.brows, p.bcols), dev)
+    _check("status_blk", status_blk, torch.float32, (p.brows, p.bcols), dev)
     if dev.type == "cpu":
-        out = fine_res_plain(scene, cam, bound, p, t0, status, cull)
+        return coarse_px_plain(scene, cam, bound, p, t_blk, status_blk)
+    from .. import _build
+
+    lib = _build.load()
+    planes = torch.empty((2, p.rows, p.width), dtype=torch.float32, device=dev)
+    cp = _CParams.of(p)
+    cb = _CBlockParams.of(p)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.rmt_coarse_px_launch(
+            *_scene_ptrs(scene), cam.data_ptr(), bound.data_ptr(), ctypes.addressof(cp),
+            t_blk.data_ptr(), status_blk.data_ptr(), planes.data_ptr(), planes[1].data_ptr(),
+            ctypes.addressof(cb), stream,
+        )
+    _raise_on(err, "coarse_px_kernel")
+    coarse_px.launches += 1
+    return planes.unbind(0)
+
+
+coarse_px.launches = 0
+
+
+def _one_buffer(pre, p: PrepassParams):
+    """The 2*ni interval planes as one [2*ni, brows, bcols] buffer: the
+    coarse pass's views of one tensor as they lie, other planes stacked."""
+    n = p.brows * p.bcols * 4
+    base = pre[0].data_ptr()
+    if all(v.data_ptr() == base + k * n for k, v in enumerate(pre)):
+        return pre[0]
+    return torch.stack(pre)
+
+
+def _fine_launch(scene: SceneBuffers, cam, bound, p: PrepassParams, pre, residuals: bool, cull):
+    dev = _check_scene(scene, cam, bound, p)
+    _check_cull(cull, scene.spec, (p.rows, p.width), dev)
+    n_pre = 0 if p.no_prepass else (2 * p.ni if p.ni else 2)
+    if len(pre) != n_pre:
+        raise ValueError(f"the fine pass takes {n_pre} prepass planes, got {len(pre)}")
+    for k, v in enumerate(pre):
+        _check(f"prepass plane {k}", v, torch.float32, p.plane_shape, dev)
+    if dev.type == "cpu":
+        out = fine_res_plain(scene, cam, bound, p, *pre, cull=cull)
         return out if residuals else out[0]
     from .. import _build
 
     lib = _build.load()
+    planes = _one_buffer(pre, p) if p.ni else None  # held until the launch is queued
     img = torch.empty((p.rows, p.width, 3), dtype=torch.float32, device=dev)
     t = hit = None
     if residuals:
@@ -721,52 +1027,60 @@ def _fine_launch(scene: SceneBuffers, cam, bound, p: PrepassParams, t0, status, 
         hit = torch.empty_like(t)
     cp = _CParams.of(p)
     cc = _CCull.of(cull)
+    cb = _CBlockParams.of(p)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.rmt_fine_launch(
             *_scene_ptrs(scene), cam.data_ptr(), bound.data_ptr(),
             ctypes.addressof(cp), ctypes.addressof(cc),
-            None if p.no_prepass else t0.data_ptr(),
-            None if p.no_prepass else status.data_ptr(),
+            planes.data_ptr() if p.ni else (pre[0].data_ptr() if pre else None),
+            pre[1].data_ptr() if pre and not p.ni else None,
             img.data_ptr(),
             t.data_ptr() if residuals else None,
             hit.data_ptr() if residuals else None,
             int(scene.spec.has_materials),
+            ctypes.addressof(cb),
             stream,
         )
     _raise_on(err, "fine_kernel")
     if residuals:
         fine_res.launches += 1
         return img, t, hit
-    fine.launches += 1
+    if p.ni:
+        fine.interval_launches += 1
+    else:
+        fine.launches += 1
     return img
 
 
-def fine(scene: SceneBuffers, cam, bound, p: PrepassParams, t0=None, status=None,
-         cull: TileCull | None = None):
-    """Fine pass -> image f32[rows, W, 3] on the inputs' device. `t0` and
-    `status` are the coarse planes (None with `p.no_prepass`); `cull` is the
-    fine grid's TileCull of a culled frame."""
-    return _fine_launch(scene, cam, bound, p, t0, status, False, cull)
+def fine(scene: SceneBuffers, cam, bound, p: PrepassParams, *pre, cull: TileCull | None = None):
+    """Fine pass -> image f32[rows, W, 3] on the inputs' device. `pre` are
+    the prepass planes at `p.plane_shape` (none with `p.no_prepass`): (t0,
+    status), or with p.ni the 2*ni interval planes; `cull` is the fine
+    grid's TileCull of a culled frame."""
+    return _fine_launch(scene, cam, bound, p, pre, False, cull)
 
 
-def fine_res(scene: SceneBuffers, cam, bound, p: PrepassParams, t0=None, status=None,
-             cull: TileCull | None = None):
+def fine_res(scene: SceneBuffers, cam, bound, p: PrepassParams, *pre, cull: TileCull | None = None):
     """Fine pass that also keeps its residuals -> (image f32[rows, W, 3], t,
     hit f32[rows, W, S]), the counterpart of the Pallas fine kernel with
     `emit_th=True` (pallas_prepass.py:1850-1862). The image is the one
     `fine` gives; t and hit are each AA ray's march end and hit flag, in
     the lane order of the kernel (pixel-major, sample fastest)."""
-    return _fine_launch(scene, cam, bound, p, t0, status, True, cull)
+    return _fine_launch(scene, cam, bound, p, pre, True, cull)
 
 
-fine.launches = 0
+fine.launches = 0  # legacy planes (t0, status) or no prepass
+fine.interval_launches = 0  # the march through near intervals
 fine_res.launches = 0
 
 
 def reset_launch_counts():
     coarse.launches = 0
+    coarse.interval_launches = 0
+    coarse_px.launches = 0
     fine.launches = 0
+    fine.interval_launches = 0
     fine_res.launches = 0
 
 
@@ -775,20 +1089,23 @@ def reset_launch_counts():
 
 
 class PrepassRenderer:
-    """`renderer(arrays, cam_vec) -> image f32[H, W, 3]` on one device.
+    """`renderer(arrays, cam_vec) -> image f32[rows, W, 3]` on one device:
+    the band of `rows` image rows (all H without band_rows) that starts at
+    image row cam_vec[7].
 
-    Built once per (spec, cfg, width, height, device, no_prepass); a scene
+    Built once per (spec, cfg, width, height, device, options); a scene
     edit that keeps the TapeSpec uploads new arrays and reuses it. The tape
     topology (and with `cfg.leaf_cull` the compact plan) is uploaded once,
     at construction; the culling masks and lists are built on the device
     once per frame (`cull_args`) and shared by both kernels.
     """
 
-    def __init__(self, spec, cfg, width, height, device, no_prepass):
+    def __init__(self, spec, cfg, width, height, device, no_prepass, block=1, n_intervals=0, chain=False,
+                 band_rows=None):
         self.spec = spec
         self.cfg = cfg
         self.device = device
-        self.params = PrepassParams.make(cfg, width, height, no_prepass)
+        self.params = PrepassParams.make(cfg, width, height, no_prepass, block, n_intervals, chain, band_rows)
         self.topology = scene_topology(spec, device)
         plan = build_compact_plan(spec) if cfg.leaf_cull else None
         # A plan with residual subtrees takes the gated tape (culling.py's
@@ -818,13 +1135,16 @@ class PrepassRenderer:
             raise ValueError(f"cam_vec is on {cam.device}, expected {self.device}")
         return scene, cam, bound
 
-    def _grid_cull(self, bounds, cam, tile: int, extra_angle: float) -> TileCull:
+    def _grid_cull(self, bounds, cam, grid: tuple, tile: int, tile_px: int, extra_angle: float) -> TileCull:
+        """The TileCull of a kernel whose threads cover `grid` = (rows,
+        columns) of pixels or blocks, in tiles of `tile` x `tile` of them
+        (`tile_px` pixels a side)."""
         from .culling import compact_plan_rows, tile_leaf_masks
 
         p = self.params
-        n_ty, n_tx = -(-p.rows // tile), -(-p.width // tile)
+        n_ty, n_tx = -(-grid[0] // tile), -(-grid[1] // tile)
         masks = tile_leaf_masks(bounds, cam, self.cfg, p.width, p.height, n_ty, n_tx,
-                                float(tile), float(tile), extra_angle=extra_angle)
+                                float(tile_px), float(tile_px), extra_angle=extra_angle)
         if not self.compact:
             return TileCull(tile, n_tx, masks)
         lists, counts = compact_plan_rows(self.spec, self.plan, masks)
@@ -832,22 +1152,39 @@ class PrepassRenderer:
 
     def cull_args(self, scene: SceneBuffers, cam):
         """(coarse TileCull or None, fine TileCull) of one frame, or (None,
-        None) without `cfg.leaf_cull`. The coarse tiles' cones widen by the
-        prepass cone angle omega, so that they hold every centre ray's cone
-        (pallas_prepass.py:1308-1314, 1343-1347)."""
+        None) without `cfg.leaf_cull`. The coarse tiles are squares of whole
+        B x B blocks, COARSE_TILE pixels a side rounded up to a multiple of
+        B, and their cones widen by the block cone angle omega, so that they
+        hold every block ray's cone (pallas_prepass.py:1308-1314,
+        1343-1347). Both grids cover the band."""
         if not self.cfg.leaf_cull:
             return None, None
         from .culling import leaf_bound_spheres
 
         p = self.params
-        omega = cone_omega(self.cfg, p.width, p.height, 1)
         bounds = leaf_bound_spheres(self.spec, scene, self.cfg)
-        coarse_cull = None if p.no_prepass else self._grid_cull(bounds, cam, COARSE_TILE, omega)
-        return coarse_cull, self._grid_cull(bounds, cam, FINE_TILE, 0.0)
+        coarse_cull = None
+        if not p.no_prepass:
+            tb = -(-COARSE_TILE // p.block)
+            omega = cone_omega(self.cfg, p.width, p.height, p.block)
+            coarse_cull = self._grid_cull(bounds, cam, (p.brows, p.bcols), tb, tb * p.block, omega)
+        return coarse_cull, self._grid_cull(bounds, cam, (p.rows, p.width), FINE_TILE, FINE_TILE, 0.0)
+
+    def prepass(self, scene: SceneBuffers, cam, bound, coarse_cull, plain: bool = False):
+        """The prepass planes the fine pass reads: the coarse pass's, then,
+        chained, the pixel pass's; () with no_prepass. `plain` runs the
+        plain versions."""
+        p = self.params
+        if p.no_prepass:
+            return ()
+        pre = (coarse_plain if plain else coarse)(scene, cam, bound, p, coarse_cull)
+        if p.chain:
+            pre = (coarse_px_plain if plain else coarse_px)(scene, cam, bound, p, *pre)
+        return pre
 
     def coarse(self, arrays, cam_vec):
         scene, cam, bound = self.scene_args(arrays, cam_vec)
-        return coarse(scene, cam, bound, self.params, self.cull_args(scene, cam)[0])
+        return self.prepass(scene, cam, bound, self.cull_args(scene, cam)[0])
 
     def fine(self, arrays, cam_vec, pre):
         scene, cam, bound = self.scene_args(arrays, cam_vec)
@@ -856,15 +1193,14 @@ class PrepassRenderer:
     def __call__(self, arrays: TapeArrays, cam_vec):
         scene, cam, bound = self.scene_args(arrays, cam_vec)
         cc, fc = self.cull_args(scene, cam)
-        pre = () if self.params.no_prepass else coarse(scene, cam, bound, self.params, cc)
-        return fine(scene, cam, bound, self.params, *pre, cull=fc)
+        return fine(scene, cam, bound, self.params, *self.prepass(scene, cam, bound, cc), cull=fc)
 
     def render_plain(self, arrays: TapeArrays, cam_vec):
         """The same frame through the plain versions, on this device."""
         scene, cam, bound = self.scene_args(arrays, cam_vec)
         cc, fc = self.cull_args(scene, cam)
-        pre = () if self.params.no_prepass else coarse_plain(scene, cam, bound, self.params, cc)
-        return fine_plain(scene, cam, bound, self.params, *pre, cull=fc)
+        return fine_plain(scene, cam, bound, self.params, *self.prepass(scene, cam, bound, cc, plain=True),
+                          cull=fc)
 
 
 def _not_ported(option: str, item: str):
@@ -905,24 +1241,38 @@ def make_pallas_image_render_aa(
 ) -> PrepassRenderer:
     """Cone-prepass forward renderer (the port's counterpart of
     `raymarch_tpu.ops.pallas_prepass.make_pallas_image_render_aa`), cached
-    per (spec, cfg, width, height, device, no_prepass).
+    per (spec, cfg, width, height, device and the options below).
 
-    Takes the main path's options: prepass_block=1, aa_packed=True, a
-    static tape (painted or not), n_intervals=0, with or without
-    `cfg.leaf_cull` (per-tile culling: compacted item lists for a compact
-    plan, else the gated tape) and `cfg.relax > 1` (relaxed fine march);
-    and `no_prepass=True`, the strict-reference path (every AA ray marches
-    from t=0). Every other option raises NotImplementedError naming its
-    ROADMAP item.
+    Takes a static tape (painted or not) with aa_packed=True, with or
+    without `cfg.leaf_cull` (per-tile culling: compacted item lists for a
+    compact plan, else the gated tape) and `cfg.relax > 1` (relaxed fine
+    march), and:
+    - `prepass_block` = B >= 1: one coarse cone per B x B pixel block
+      (values below 1 read as 1, as the reference's);
+    - `n_intervals` = ni in 0..MAX_NI: the near-interval prepass (0: the
+      first-near prepass);
+    - `prepass_chain`: the chained pixel pass after a B > 1 block pass (a
+      no-op at B = 1, as the reference's);
+    - `band_rows`: render the band of that many rows starting at image row
+      cam_vec[7];
+    - `no_prepass=True`, the strict-reference path (every AA ray marches
+      from t=0).
+    It raises the reference's ValueErrors for prepass_chain with intervals
+    and for no_prepass with either. soft, march_only, the unpacked fine pass
+    and a dynamic tape raise NotImplementedError naming their ROADMAP item.
     """
-    if prepass_block != 1:
-        _not_ported("prepass_block > 1", "§1.9 many-primitive forward")
-    if prepass_chain:
-        _not_ported("prepass_chain", "§1.13 remaining surfaces, K3 coarse_px_kernel")
-    if band_rows is not None:
-        _not_ported("band_rows", "§1.11 multi-device")
-    if n_intervals:
-        _not_ported("n_intervals", "§1.8 forward variants on the main kernels")
+    ni = max(0, int(n_intervals))
+    if ni and prepass_chain:
+        raise ValueError("prepass_chain is a legacy-prepass feature")
+    if no_prepass and (ni or prepass_chain):
+        raise ValueError("no_prepass excludes interval/chained prepasses")
+    if ni > MAX_NI:
+        raise NotImplementedError(
+            f"n_intervals={ni} exceeds the kernels' MAX_NI={MAX_NI} (ROADMAP: §1.8 forward variants, "
+            "port limit MAX_NI)"
+        )
+    if band_rows is not None and int(band_rows) < 1:
+        raise ValueError(f"band_rows must be at least 1, got {band_rows}")
     if soft:
         _not_ported("soft", "§1.10 many-primitive backward and soft coverage")
     if march_only:
@@ -931,9 +1281,13 @@ def make_pallas_image_render_aa(
         _not_ported("the unpacked fine pass (aa_shared_normals)", "§1.13 remaining surfaces, K4 fine_kernel")
     if spec.static_tape is None:
         _not_ported("a dynamic tape", "§1.12 dynamic tape, tiered runtime and viewer")
-    return _cached_renderer(spec, cfg, int(width), int(height), resolve_device(device), bool(no_prepass))
+    block = max(1, int(prepass_block))
+    return _cached_renderer(spec, cfg, int(width), int(height), resolve_device(device), bool(no_prepass), block,
+                            ni, bool(prepass_chain) and block > 1,
+                            None if band_rows is None else int(band_rows))
 
 
 @functools.lru_cache(maxsize=None)
-def _cached_renderer(spec, cfg, width, height, device, no_prepass):
-    return PrepassRenderer(spec, cfg, width, height, device, no_prepass)
+def _cached_renderer(spec, cfg, width, height, device, no_prepass, block=1, n_intervals=0, chain=False,
+                     band_rows=None):
+    return PrepassRenderer(spec, cfg, width, height, device, no_prepass, block, n_intervals, chain, band_rows)

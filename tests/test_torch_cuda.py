@@ -423,3 +423,76 @@ def test_painted_fine_kernel_matches_plain(dev, name, cull):
     plain.leaf_params[:, 15] = 0.0
     sc0, _, _ = rp.scene_args(plain, cam_vec)
     assert float((cp.fine(sc0, cam, bound, rp.params, *pre, cull=fc) - img).abs().max()) > 0.05
+
+
+def _interval_agreement(got, ref):
+    """Interval planes of kernel vs plain: the finite/+inf pattern of each
+    plane agrees on >= 99.9% of blocks, and where both are finite the
+    values agree within rtol 1e-4 on all but 0.5% (a centre ray whose slack
+    lands within rounding of min_dist moves one step)."""
+    assert len(got) == len(ref)
+    n_fin = 0
+    for k, p in zip(got, ref):
+        fk, fp = k < 9e37, p < 9e37
+        assert float((fk == fp).float().mean()) >= 0.999
+        both = fk & fp
+        n_fin += int(both.sum())
+        if bool(both.any()):
+            rel = (k[both] - p[both]).abs() / p[both].abs().clamp_min(1e-30)
+            assert float((rel > 1e-4).float().mean()) < 5e-3
+    assert n_fin > 0
+
+
+@pytest.mark.parametrize("ni", [1, 2, 3])
+def test_interval_coarse_kernel_matches_plain(dev, ni):
+    spec, arrays = rt.compile_scene(_config2(rt), static=True)
+    rp = cp.make_pallas_image_render_aa(spec, CFG, W, H, device=dev, n_intervals=ni)
+    sc, cam, bound = rp.scene_args(arrays, rt.cam_vec(CAM, device=dev))
+    before = cp.coarse.interval_launches
+    got = cp.coarse(sc, cam, bound, rp.params)
+    assert cp.coarse.interval_launches == before + 1 and len(got) == 2 * ni
+    _interval_agreement(got, cp.coarse_plain(sc, cam, bound, rp.params))
+
+
+@pytest.mark.parametrize("relax", [1.0, 1.6])
+def test_interval_fine_kernel_matches_plain(dev, relax):
+    spec, arrays = rt.compile_scene(_config2(rt), static=True)
+    cfg = dataclasses.replace(CFG, relax=relax)
+    rp = cp.make_pallas_image_render_aa(spec, cfg, W, H, device=dev, n_intervals=2)
+    sc, cam, bound = rp.scene_args(arrays, rt.cam_vec(CAM, device=dev))
+    pre = cp.coarse(sc, cam, bound, rp.params)
+    before = cp.fine.interval_launches
+    img = cp.fine(sc, cam, bound, rp.params, *pre)
+    assert cp.fine.interval_launches == before + 1
+    img_p = cp.fine_plain(sc, cam, bound, rp.params, *pre)
+    assert float((img - img_p).abs().mean()) < 5e-4
+    assert _neigh_frac(img, img_p) < 0.008
+
+
+@pytest.mark.parametrize("kw", [dict(prepass_block=4), dict(prepass_block=4, n_intervals=2),
+                                dict(prepass_block=4, prepass_chain=True), dict(band_rows=24)],
+                         ids=["block4", "block4_intervals", "chain", "band"])
+def test_block_and_chained_frames_match_plain(dev, kw):
+    spec, arrays = rt.compile_scene(_config2(rt), static=True)
+    rp = cp.make_pallas_image_render_aa(spec, CFG, W, H, device=dev, **kw)
+    cam_vec = rt.cam_vec(CAM, 20.0 if "band_rows" in kw else 0.0, device=dev)
+    cp.reset_launch_counts()
+    img = rp(arrays, cam_vec)
+    chain = kw.get("prepass_chain", False)
+    ni = kw.get("n_intervals", 0)
+    assert (cp.coarse.launches, cp.coarse.interval_launches, cp.coarse_px.launches) == (
+        int(not ni), int(bool(ni)), int(chain))
+    assert (cp.fine.launches, cp.fine.interval_launches) == (int(not ni), int(bool(ni)))
+    assert img.shape == (kw.get("band_rows", H), W, 3)
+    ref = rp.render_plain(arrays, cam_vec)
+    assert float((img - ref).abs().mean()) < 5e-4
+    assert _neigh_frac(img, ref) < 0.008
+    if chain:
+        sc, cam, bound = rp.scene_args(arrays, cam_vec)
+        blk = cp.coarse(sc, cam, bound, rp.params)
+        got = cp.coarse_px(sc, cam, bound, rp.params, *blk)
+        t0p, stp = cp.coarse_px_plain(sc, cam, bound, rp.params, *blk)
+        assert float((got[1] == stp).float().mean()) >= 0.999
+        both = (got[1] == 1) & (stp == 1)
+        rel = (got[0][both] - t0p[both]).abs() / t0p[both].abs()
+        assert int(both.sum()) > 0 and float((rel > 1e-4).float().mean()) < 5e-3

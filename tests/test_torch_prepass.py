@@ -186,18 +186,22 @@ def test_compute_bound_matches_jax(name):
 
 
 def test_params_layout_matches_cuda_struct():
-    """The ctypes mirror, the Python params and the C struct list the same
-    fields in the same order, all 4 bytes wide (no padding)."""
+    """The ctypes mirrors, the Python params and the C structs list the same
+    fields in the same order, all 4 bytes wide (no padding): RenderParams,
+    then BlockParams."""
     src = (Path(cp.__file__).parent.parent / "csrc" / "render_common.cuh").read_text()
-    body = re.search(r"struct RenderParams \{(.*?)\};", src, re.S).group(1)
-    c_fields = re.findall(r"^\s*(?:int32_t|float)\s+(\w+)", body, re.M)
-    ct_fields = [name for name, _ in cp._CParams._fields_]
-    assert c_fields == ct_fields
-    assert ct_fields == [f.name for f in dataclasses.fields(cp.PrepassParams)]
-    n_words = sum(
-        3 if name in ("light", "albedo", "floor_base") else 1 for name in ct_fields
-    )
-    assert ctypes.sizeof(cp._CParams) == 4 * n_words
+    all_ct = []
+    for struct, mirror in (("RenderParams", cp._CParams), ("BlockParams", cp._CBlockParams)):
+        body = re.search(rf"struct {struct} \{{(.*?)\}};", src, re.S).group(1)
+        c_fields = re.findall(r"^\s*(?:int32_t|float)\s+(\w+)", body, re.M)
+        ct_fields = [name for name, _ in mirror._fields_]
+        assert c_fields == ct_fields
+        n_words = sum(
+            3 if name in ("light", "albedo", "floor_base") else 1 for name in ct_fields
+        )
+        assert ctypes.sizeof(mirror) == 4 * n_words
+        all_ct += ct_fields
+    assert all_ct == [f.name for f in dataclasses.fields(cp.PrepassParams)]
     p = cp.PrepassParams.make(_cfg_t(CFG), W, H)
     c = cp._CParams.of(p)
     assert c.width == W and c.naa == 2 and tuple(c.light) == p.light

@@ -121,28 +121,31 @@ def test_prepass_backend_is_forward_only(frame):
 
 
 @pytest.mark.parametrize(
-    "kw,cfg_kw",
+    "kw,cfg_kw,exc",
     [
-        (dict(prepass_block=4), {}),
-        (dict(prepass_chain=True), {}),
-        (dict(n_intervals=2), {}),
-        (dict(soft=True), {}),
-        (dict(march_only=True), {}),
-        (dict(band_rows=16), {}),
-        (dict(aa_packed=False), {}),
-        # relax > 1 and leaf_cull are ported (tests/test_torch_cull.py); what
-        # stays unported of them is the relaxed march inside near intervals
-        # and soft culling.
-        (dict(n_intervals=2), dict(relax=1.6)),
-        (dict(soft=True), dict(leaf_cull=True)),
-        ({}, dict(aa_shared_normals=True)),
+        # prepass_block, prepass_chain, n_intervals, band_rows and relax > 1
+        # are ported (tests/test_torch_interval.py); these cases keep their
+        # ids and take the combinations that still raise: the reference's
+        # ValueErrors (pallas_prepass.py:638-641), a band of no rows and
+        # more intervals than the kernels keep.
+        (dict(prepass_block=4, prepass_chain=True, n_intervals=2), {}, ValueError),
+        (dict(prepass_chain=True, no_prepass=True), {}, ValueError),
+        (dict(n_intervals=2, no_prepass=True), {}, ValueError),
+        (dict(soft=True), {}, NotImplementedError),
+        (dict(march_only=True), {}, NotImplementedError),
+        (dict(band_rows=0), {}, ValueError),
+        (dict(aa_packed=False), {}, NotImplementedError),
+        (dict(n_intervals=cp.MAX_NI + 1), dict(relax=1.6), NotImplementedError),
+        # leaf_cull is ported (tests/test_torch_cull.py); soft culling is not.
+        (dict(soft=True), dict(leaf_cull=True), NotImplementedError),
+        ({}, dict(aa_shared_normals=True), NotImplementedError),
     ],
     ids=["block4", "chain", "intervals", "soft", "march_only", "band_rows",
          "unpacked", "relax", "leaf_cull", "shared_normals"],
 )
-def test_unported_options_raise(frame, kw, cfg_kw):
+def test_unported_options_raise(frame, kw, cfg_kw, exc):
     cfg = dataclasses.replace(CFG, **cfg_kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(exc, match="ROADMAP" if exc is NotImplementedError else None):
         cp.make_pallas_image_render_aa(frame[0], cfg, W, H, device="cpu", **kw)
 
 
