@@ -62,7 +62,9 @@ Run from the repository root: `python3 chip_smoke.py`. It
    `1024leaf_compact` (B = 4) and the 3840x2160 frame of `64leaf_4k_3band`
    as three 720-row bands (frame ms, Grays/s, launches, idle share,
    `cull_args` alone, active items per fine tile, the kernels alone and
-   against their plain versions, at full size or on one 64-row band), and
+   against their plain versions: at full size, the 4K row on its middle
+   720-row band, the 256/1024-leaf scenes' costliest passes on one 64-row
+   band), and
    K3 timed at 1080p on config 2 with B = 4;
 12. prints one JSON line of per-kernel records (time, plain time, launches,
    the roofline bound from this run's counted work) for the headline
@@ -88,7 +90,8 @@ WARMUP, FRAMES = 3, 20
 KERNEL_REPS = 10
 BWD_WARMUP, BWD_STEPS = 2, 10
 FIT_STEPS = 5
-PLAIN_BAND = 64  # rows of the band on which the 256/1024-leaf and 4K plain versions run
+PLAIN_BAND = 64  # rows of the band on which the 256/1024-leaf plain versions run
+IDLE_PAUSE_S = 0.25  # the pause between the profiled warm-up run and the measured runs
 DEVICE = "cuda"
 Q = (0.9, 0.2, -0.3, 0.25)
 
@@ -313,6 +316,17 @@ def march_flops(work, rays, spec, compact, hit_rays=0.0, fine=False):
     return flops + hit_rays * SHADE_OPS
 
 
+def card_clocks() -> str:
+    """The card's SM and memory clocks, their maxima, temperature and power
+    draw now, as nvidia-smi reads them (logged beside the headline times)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,clocks.mem,clocks.max.mem,temperature.gpu,power.draw",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+    )
+    return out.stdout.strip() if out.returncode == 0 else f"not read ({out.stderr.strip()})"
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -478,26 +492,41 @@ def cuda_ms(fn, reps):
     return e0.elapsed_time(e1) / reps
 
 
-def device_idle_share(fn, steps):
-    """Share of the wall time of `steps` synchronised runs of `fn` in which
-    the card ran no kernel (torch.profiler's device events, intervals
-    merged), or None when the profiler saw no device time."""
+def device_idle_share(fn, steps, step_ms):
+    """(idle share, device ms per run) of `fn`, or (None, None) when the
+    profiler saw no device time. One torch.profiler session runs `fn`
+    once, pauses IDLE_PAUSE_S, then runs it `steps` times: the profiler
+    can lose device events, a session's first run's among them, so every
+    event before the pause is dropped (callers check the device time
+    against the kernels alone). The device time is that of the device
+    events (kernels, copies, fills; no user annotations) of the `steps`
+    runs, intervals merged; the share is 1 - that time / `step_ms`, the
+    CUDA-event time of one run in the timed loop (the profiler stretches
+    its own runs' wall time)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        h0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        time.sleep(IDLE_PAUSE_S)
         for _ in range(steps):
             fn()
         torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - h0) * 1e6
     spans = sorted(
         (e.time_range.start, e.time_range.end) for e in prof.events()
-        if e.device_type == torch.autograd.DeviceType.CUDA and e.time_range.end > e.time_range.start
+        if e.device_type == torch.autograd.DeviceType.CUDA and not getattr(e, "is_user_annotation", False)
+        and e.time_range.end > e.time_range.start
     )
+    end = None
+    for k, (a, b) in enumerate(spans):
+        if end is not None and a - end > 0.8 * IDLE_PAUSE_S * 1e6:
+            spans = spans[k:]
+            break
+        end = b if end is None else max(end, b)
     if not spans:
-        return None
+        return None, None
     busy, cur_s, cur_e = 0.0, spans[0][0], spans[0][1]
     for a, b in spans[1:]:
         if a > cur_e:
@@ -506,7 +535,8 @@ def device_idle_share(fn, steps):
         else:
             cur_e = max(cur_e, b)
     busy += cur_e - cur_s
-    return max(0.0, 1.0 - busy / wall_us)
+    busy_ms = busy / steps / 1e3
+    return max(0.0, 1.0 - busy_ms / step_ms), busy_ms
 
 
 def device_ops(fn):
@@ -665,9 +695,10 @@ def many_leaf(rt, cp, cg, dev, smi, cfg, gcam_pos):
         raise AssertionError("the 64-leaf step ran the legacy backward")
     if not all(bool(torch.isfinite(g).all()) for g in grads64) or float(grads64[0].abs().max()) <= 0:
         raise AssertionError("the 64-leaf gradients are not finite or all zero")
-    idle = device_idle_share(fwd_bwd, 3)
-    log(f"64-leaf step device idle share (torch.profiler, 3 steps): "
-        f"{'not measured (no device events)' if idle is None else f'{idle:.4f}'} ({smi})")
+    idle, busy = device_idle_share(fwd_bwd, 3, step_ms)
+    log(f"64-leaf step device idle share (device time of 3 profiled steps against the timed step): "
+        f"{'not measured (no device events)' if idle is None else f'{idle:.4f} ({busy:.4f} ms busy a step)'} "
+        f"({smi})")
 
     fr64 = render64.renderer
     rp64 = fr64.prepass
@@ -976,7 +1007,7 @@ def blends(rt, cp, cg, dev, smi, cfg, gcam_pos):
             raise AssertionError(f"the {name} step ran the legacy backward")
         if not all(bool(torch.isfinite(g).all()) for g in grads) or float(grads[0].abs().max()) <= 0:
             raise AssertionError(f"the {name} gradients are not finite or all zero")
-        idle = device_idle_share(fwd_bwd, 3)
+        idle, busy = device_idle_share(fwd_bwd, 3, step_ms)
 
         fr = render.renderer
         rp, p = fr.prepass, fr.prepass.params
@@ -990,9 +1021,10 @@ def blends(rt, cp, cg, dev, smi, cfg, gcam_pos):
         cbwd_ms = cuda_ms(lambda: cg.compact_bwd(sc, fc, cam, p, clamp, t_k, hit_k, g_img), KERNEL_REPS)
         cull_ms = cuda_ms(lambda: rp.cull_args(sc, cam), KERNEL_REPS)
         n_cull, n_ksum = cull_ops(rp, sc, cam)
-        log(f"{name} step: device idle share {'not measured' if idle is None else f'{idle:.4f}'} (torch.profiler, "
-            f"3 steps); kernels alone: coarse {coarse_ms:.4f} ms, fine with residuals {fine_ms:.4f} ms, "
-            f"compact_bwd {cbwd_ms:.4f} ms; masks and lists {cull_ms:.4f} ms in {n_cull} device operations "
+        log(f"{name} step: device idle share {'not measured' if idle is None else f'{idle:.4f}'} (device time of 3 "
+            f"profiled steps against the timed step; {'-' if busy is None else f'{busy:.4f}'} ms busy a step); "
+            f"kernels alone: coarse {coarse_ms:.4f} ms, fine with residuals {fine_ms:.4f} ms, compact_bwd "
+            f"{cbwd_ms:.4f} ms; masks and lists {cull_ms:.4f} ms in {n_cull} device operations "
             f"({n_ksum} in the pairwise path loop, path depth {culling_depth(spec_s)}); mean "
             f"{float(fc.counts.sum(1).float().mean()):.4f} active items per fine tile (max "
             f"{int(fc.counts.sum(1).max())}); hit fraction {float(hit_k.mean()):.4f}; history "
@@ -1239,7 +1271,7 @@ def forward_rows(rt, cp, dev, smi, cfg, gcam_pos):
             raise AssertionError(f"a kernel of {row} never launched: {launches}")
         if launches["coarse_kernel"] or launches["fine_kernel"]:
             raise AssertionError(f"{row} ran the legacy prepass builds: {launches}")
-        idle = device_idle_share(frame, 3)
+        idle, busy = device_idle_share(frame, 3, frame_ms)
         img = frame()
         if not all(bool(torch.isfinite(v).all()) and v.shape == (band or h, w, 3) for v in img):
             raise AssertionError(f"{row}: bad frame")
@@ -1250,21 +1282,25 @@ def forward_rows(rt, cp, dev, smi, cfg, gcam_pos):
         coarse_ms = cuda_ms(lambda: cp.coarse(sc, cam, bnd, rp.params, cc), KERNEL_REPS)
         fine_ms = cuda_ms(lambda: cp.fine(sc, cam, bnd, rp.params, *pre, cull=fc), KERNEL_REPS)
         active = None if fc is None else float(fc.counts.sum(1).float().mean())
+        if idle is not None and not band and busy < 0.95 * (coarse_ms + fine_ms):
+            idle = None  # the profiler lost device events: a frame holds at least its kernels
         log(f"{row} ({name}, {w}x{h}{f' as {len(cvs)} bands of {band} rows' if band else ''}, B={block}, ni=2, "
             f"relax {cfg_r.relax}, leaf_cull {cfg_r.leaf_cull}) x16 AA: {frame_ms:.4f} ms/frame (CUDA events, "
             f"{FRAMES} frames after {WARMUP} warm-up; host clock {host_ms:.4f} ms), "
             f"{n_rays / (frame_ms * 1e-3) / 1e9:.4f} Grays/s; launches {launches}; device idle share "
-            f"{'not measured' if idle is None else f'{idle:.4f}'} (3 frames); cull_args alone "
+            f"{'not measured' if idle is None else f'{idle:.4f}'} (device time of 3 profiled frames against the "
+            f"timed frame; {'-' if busy is None else f'{busy:.4f}'} ms busy a frame); cull_args alone "
             f"{cull_ms:.4f} ms{'' if not band else ' per band'}; mean active items per fine tile "
             f"{'-' if active is None else f'{active:.4f}'}; kernels alone{' (one band)' if band else ''}: "
             f"coarse {coarse_ms:.4f} ms, fine {fine_ms:.4f} ms ({smi})")
 
-        # The kernels against their plain versions: at full size, or on one
-        # 64-row band, the coarse pass of the 1024-leaf scene and of the 4K
-        # frame and the fine pass of the 256/1024-leaf scenes and the 4K
-        # frame (the plain fold takes O(plan items) torch operations a step).
-        full = {"coarse": name != "1024" and not band, "fine": name not in ("256", "1024") and not band}
-        args = {k: (sc, cam, bnd, rp.params, cc, fc, pre, "full size") for k, v in full.items() if v}
+        # The kernels against their plain versions on the row's own inputs
+        # (the 4K row's middle band), or on one 64-row band: the coarse pass
+        # of the 1024-leaf scene and the fine pass of the 256/1024-leaf
+        # scenes (the plain fold takes O(plan items) torch operations a step).
+        full = {"coarse": name != "1024", "fine": name not in ("256", "1024")}
+        own = f"its {band}-row band at row {len(cvs) // 2 * band}" if band else "full size"
+        args = {k: (sc, cam, bnd, rp.params, cc, fc, pre, own) for k, v in full.items() if v}
         if not all(full.values()):
             rb = cp.make_pallas_image_render_aa(spec_r, cfg_r, w, h, device=dev, prepass_block=block,
                                                 n_intervals=2, band_rows=PLAIN_BAND)
@@ -1277,6 +1313,7 @@ def forward_rows(rt, cp, dev, smi, cfg, gcam_pos):
                     args[k] = (sc_b, cam_b, bnd_b, rb.params, cc_b, fc_b, pre_b,
                                f"one {PLAIN_BAND}-row band at row {r0}")
         work_c, work_f = cp.WorkCount(), cp.WorkCount()
+        torch.cuda.reset_peak_memory_stats()
         sc_p, cam_p, bnd_p, p_c, cc_p, _, pre_k, where_c = args["coarse"]
         pre_p, c_plain_ms = plain_ms(lambda: cp.coarse_plain(sc_p, cam_p, bnd_p, p_c, cc_p, work=work_c))
         c_err = interval_agreement(f"{row}: interval coarse kernel vs coarse_plain, {where_c}", pre_k, pre_p)
@@ -1287,7 +1324,7 @@ def forward_rows(rt, cp, dev, smi, cfg, gcam_pos):
         f_err = image_class(f"{row}: interval fine kernel vs fine_plain (same planes), {where_f}", img_k, img_p)
         del img_k, img_p, args
         log(f"{row}: plain on the card: coarse_plain {c_plain_ms:.2f} ms ({where_c}), fine_plain "
-            f"{f_plain_ms:.2f} ms ({where_f})")
+            f"{f_plain_ms:.2f} ms ({where_f}); peak {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
         compact = fc is not None and fc.compact
         lists = (lambda c: 0 if c is None or not c.compact else 4 * (c.lists.numel() + c.counts.numel()))
         n_blk = p_c.brows * p_c.bcols
@@ -1309,7 +1346,7 @@ def forward_rows(rt, cp, dev, smi, cfg, gcam_pos):
                 replaces="raymarch_tpu/ops/pallas_prepass.py:885", launches=launches["coarse_kernel_intervals"],
                 max_abs_err=c_err, ms=coarse_ms, plain_ms=c_plain_ms, bound_ms=c_bound[0], bound_by=c_bound[1],
                 library_ms=None))
-            if where_f == "full size":
+            if where_f == own:
                 records.append(dict(
                     name=f"fine_kernel ({how}, relax: {row})", route="cuda",
                     source="raymarch_tpu_torch/csrc/prepass.cu", replaces="raymarch_tpu/ops/pallas_prepass.py:1521",
@@ -1334,7 +1371,8 @@ def forward_rows(rt, cp, dev, smi, cfg, gcam_pos):
     k3_err = coarse_agreement("full-size coarse_px_kernel (K3) vs coarse_px_plain, config 2, B=4",
                               cp.coarse_px(sc, cam, bnd, rp.params, *blk), px_p, strict=False)
     n_px = WIDTH * HEIGHT
-    k3_bound = roofline(march_flops(work, n_px, spec2, False), n_px * 16)
+    # K3 reads the block planes (t0, status) and writes the pixel planes.
+    k3_bound = roofline(march_flops(work, n_px, spec2, False), n_px * 8 + rp.params.brows * rp.params.bcols * 8)
     image_class("full-size chained frame vs the plain path", rp(arrays2, cv2), rp.render_plain(arrays2, cv2))
     log(f"chained prepass (config 2, B=4, prepass_chain) {WIDTH}x{HEIGHT} x16 AA: {chain_ms:.4f} ms/frame "
         f"(host clock {chain_host_ms:.4f} ms), launches {launches}; K3 alone {k3_ms:.4f} ms (its block pass "
@@ -1476,6 +1514,7 @@ def main() -> int:
     pre_k = cp.coarse(sc, cam, bound, p)
     coarse_ms = cuda_ms(lambda: cp.coarse(sc, cam, bound, p), KERNEL_REPS)
     fine_ms = cuda_ms(lambda: cp.fine(sc, cam, bound, p, *pre_k), KERNEL_REPS)
+    log(f"card after the headline kernels (sm, max sm, mem, max mem clocks; temperature; power): {card_clocks()}")
     work_c = cp.WorkCount()
     pre_p = cp.coarse_plain(sc, cam, bound, p, work=work_c)
     coarse_plain_ms = cuda_ms(lambda: cp.coarse_plain(sc, cam, bound, p), 1)

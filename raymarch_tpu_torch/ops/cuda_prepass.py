@@ -929,9 +929,8 @@ def _check_cull(cull: TileCull | None, spec: TapeSpec, grid: tuple, dev):
 
 def coarse(scene: SceneBuffers, cam, bound, p: PrepassParams, cull: TileCull | None = None):
     """Coarse pass -> (t0, status) f32[brows, bcols] on the inputs' device,
-    or with p.ni the 2*ni interval planes (views of one [2*ni, brows,
-    bcols] tensor). `cull` is the coarse grid's TileCull of a culled frame
-    (tiles of whole blocks)."""
+    or with p.ni the 2*ni interval planes, starts then ends. `cull` is the
+    coarse grid's TileCull of a culled frame (tiles of whole blocks)."""
     dev = _check_scene(scene, cam, bound, p)
     _check_cull(cull, scene.spec, (p.brows, p.bcols), dev)
     if p.no_prepass:
@@ -995,16 +994,6 @@ def coarse_px(scene: SceneBuffers, cam, bound, p: PrepassParams, t_blk, status_b
 coarse_px.launches = 0
 
 
-def _one_buffer(pre, p: PrepassParams):
-    """The 2*ni interval planes as one [2*ni, brows, bcols] buffer: the
-    coarse pass's views of one tensor as they lie, other planes stacked."""
-    n = p.brows * p.bcols * 4
-    base = pre[0].data_ptr()
-    if all(v.data_ptr() == base + k * n for k, v in enumerate(pre)):
-        return pre[0]
-    return torch.stack(pre)
-
-
 def _fine_launch(scene: SceneBuffers, cam, bound, p: PrepassParams, pre, residuals: bool, cull):
     dev = _check_scene(scene, cam, bound, p)
     _check_cull(cull, scene.spec, (p.rows, p.width), dev)
@@ -1019,7 +1008,7 @@ def _fine_launch(scene: SceneBuffers, cam, bound, p: PrepassParams, pre, residua
     from .. import _build
 
     lib = _build.load()
-    planes = _one_buffer(pre, p) if p.ni else None  # held until the launch is queued
+    planes = torch.stack(pre) if p.ni else None  # held until the launch is queued
     img = torch.empty((p.rows, p.width, 3), dtype=torch.float32, device=dev)
     t = hit = None
     if residuals:
