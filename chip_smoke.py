@@ -66,11 +66,26 @@ Run from the repository root: `python3 chip_smoke.py`. It
    720-row band, the 256/1024-leaf scenes' costliest passes on one 64-row
    band), and
    K3 timed at 1080p on config 2 with B = 4;
-12. prints one JSON line of per-kernel records (time, plain time, launches,
+12. the legacy backward (K8) of every static scene the reference sends to
+   it, at 1920x1080 with 16 AA rays per pixel: (a) the 64 painted spheres
+   of `fwdbwd_64leaf_painted` without culling and (b) bench.py's smooth
+   chain with every sphere painted (seed 19), both through K8's long build
+   with the albedo words; (c) the 64 spheres intersected with a box (129
+   instructions, 1,176 gradient words: the long build); (d) config 2 at
+   `prepass_block=4` (the fine kernel with residuals on block planes, then
+   the headline build); (e) 16 painted spheres (the per-thread build with
+   the albedo words): for each the fwd+bwd step of mean(img^2) (CUDA
+   events, launches), the reference's backward_info, K8 alone, K8 against
+   `bwd_plain` on the whole frame (the albedo and flag words of (a), (b),
+   (e) non-zero and inside the tolerance) and its bound; a 5-step 1080p
+   fit of (a)'s albedos; an `aa_samples=8` frame of config 2 against its
+   plain path;
+13. prints one JSON line of per-kernel records (time, plain time, launches,
    the roofline bound from this run's counted work) for the headline
    builds, the culled builds of the 64-leaf path, the compact backward per
    plan kind, the fine kernel with materials, the interval and block
-   builds of the coarse and fine kernels and K3, then, last,
+   builds of the coarse and fine kernels and K3, K8's builds of phase 12,
+   the fine kernel at B = 4 with residuals and at aa = 8, then, last,
    {"ok": true, "device": {...}}.
 
 Any failed check raises, so the script exits non-zero and prints no result.
@@ -149,16 +164,21 @@ def scene_spheres(m, n=64):
     return scene
 
 
-def scenes_bench64(m):
+def scenes_bench64(m, chain_rgb=None):
     """bench.py:357-480's 64-leaf scenes, drawn in bench.py's order from its
     one generator (seed 7): (the 64 spheres, the smooth chain of
     `64leaf_smooth_chain`: 48 spheres, 8 smooth unions, 4 subtractions and
     4 smooth subtractions; the cluster scene of `fwdbwd_64leaf_cluster`: 16
     clusters of a base sphere, a smooth-union blob and a smooth-subtract
-    dent, and 16 bare spheres)."""
+    dent, and 16 bare spheres). With `chain_rgb` (a numpy generator) every
+    sphere of the chain is painted `chain_rgb.uniform(0.1, 0.9, 3)` in build
+    order; the geometry stays bench.py's."""
     import numpy as np
 
     rng = np.random.default_rng(7)
+
+    def mat():
+        return None if chain_rgb is None else tuple(chain_rgb.uniform(0.1, 0.9, 3))
 
     def union_all(parts):
         scene = parts[0]
@@ -173,17 +193,19 @@ def scenes_bench64(m):
 
     spheres = union_all([m.sphere(center=centre(-3, 3, -1.0, 1.5), radius=float(rng.uniform(0.15, 0.5)))
                          for _ in range(64)])
-    chain = union_all([m.sphere(center=centre(-3, 3, -1.0, 1.5), radius=float(rng.uniform(0.15, 0.5)))
+    chain = union_all([m.sphere(center=centre(-3, 3, -1.0, 1.5), radius=float(rng.uniform(0.15, 0.5)),
+                                material=mat())
                        for _ in range(48)])
     for _ in range(8):
         c = centre(-2.5, 2.5, -0.8, 1.2)
-        chain = chain.union(m.sphere(center=c, radius=float(rng.uniform(0.2, 0.45))),
+        chain = chain.union(m.sphere(center=c, radius=float(rng.uniform(0.2, 0.45)), material=mat()),
                             k=float(rng.uniform(0.1, 0.3)))
     for _ in range(4):
-        chain = chain - m.sphere(center=centre(-2.5, 2.5, -0.8, 1.2), radius=float(rng.uniform(0.3, 0.6)))
+        chain = chain - m.sphere(center=centre(-2.5, 2.5, -0.8, 1.2), radius=float(rng.uniform(0.3, 0.6)),
+                                 material=mat())
     for _ in range(4):
         c = centre(-2.5, 2.5, -0.8, 1.2)
-        chain = chain.subtract(m.sphere(center=c, radius=float(rng.uniform(0.3, 0.6))),
+        chain = chain.subtract(m.sphere(center=c, radius=float(rng.uniform(0.3, 0.6)), material=mat()),
                                k=float(rng.uniform(0.1, 0.25)))
     parts = []
     for _ in range(16):
@@ -1140,6 +1162,293 @@ def blends(rt, cp, cg, dev, smi, cfg, gcam_pos):
     return records, summary
 
 
+COLOR_ADJ_OPS = 16  # a binary instruction of the colour walk's reverse: the blend of 3 channels and the weight
+
+
+def k8_reached(sc, p, cam, t, hit, band_rows=64):
+    """Leaves that the distance's cotangent reaches at the hit points,
+    summed over the hit rays: the leaves whose distance has a non-zero
+    derivative of the scene's there (autograd through the plain tape with
+    the leaf distances as its inputs; one leaf under a hard union, more
+    where a smooth blend mixes them)."""
+    import torch
+    from raymarch_tpu_torch.ops import cuda_march as cm
+    from raymarch_tpu_torch.ops import cuda_prepass as cp
+    from raymarch_tpu_torch.ops import sdf
+
+    spec = sc.spec
+    row_types = {r: (ty, rot) for r, ty, rot in cm._leaf_static_rows(spec)}
+    pushed = sorted({a for c, a, _ in spec.static_tape if c == 1})
+    total = 0.0
+    for i0 in range(0, p.rows, band_rows):
+        i1 = min(i0 + band_rows, p.rows)
+        keep = hit[i0:i1] > 0
+        if not bool(keep.any()):
+            continue
+        x, y = cp.aa_screen(p, cam, i0, i1 - i0)
+        dx, dy, dz = cp._view_dirs(x, y, cam, p)
+        ox, oy, oz = cp._origin(cam, dx)
+        tt = t[i0:i1]
+        px, py, pz = ((o + d * tt)[keep] for o, d in ((ox, dx), (oy, dy), (oz, dz)))
+        with torch.enable_grad():
+            dist = {r: cm._leaf_distance_plain(sc.leaf_params[r], *row_types[r], px, py, pz).detach()
+                    .requires_grad_(True) for r in pushed}
+            f = sdf._apply_static_tape(spec, sc.op_param, lambda r: dist[r], p.max_dist, px)
+            grads = torch.autograd.grad(f.sum(), [dist[r] for r in pushed], allow_unused=True)
+        total += sum(float((g != 0).sum()) for g in grads if g is not None)
+    return total
+
+
+def k8_bound(sc, p, cam, t, hit, lay, n_rays):
+    """(bound_ms, bound_by, operations, bytes) of the legacy backward on
+    these residuals. Per hit ray: the tape at the 4 taps and the hit point
+    once each, the reverse of those 5 evaluations (4 operations per
+    instruction, and ADJ_FACTOR x the leaf work of the leaves the cotangent
+    reaches, counted at the hit point by `k8_reached`), the ray's adjoint;
+    on a painted scene one colour walk of the tape and its reverse over the
+    same leaves. Bytes: hit for every ray, t for the hit rays, the cotangent
+    of their pixels, the gradient row."""
+    spec = sc.spec
+    n_push, leaf_ops, comb = scene_cost(spec)
+    tape_ops = n_push * leaf_ops + comb
+    n_real = len(spec.static_tape)
+    n_hits = float(hit.sum())
+    reached = k8_reached(sc, p, cam, t, hit)
+    flops = n_hits * (5 * tape_ops + 5 * 4 * n_real + ADJ_RAY_OPS) + 5 * ADJ_FACTOR * leaf_ops * reached
+    if spec.has_materials:
+        flops += (n_hits * (tape_ops + n_push * COLOR_OPS + COLOR_ADJ_OPS * n_real)
+                  + ADJ_FACTOR * (leaf_ops + COLOR_OPS) * reached)
+    nbytes = n_rays * 4 + n_hits * 4 + hit_pixels(hit) * 12 + lay.nscal * 4
+    ms, by = roofline(flops, nbytes)
+    return ms, by, flops, nbytes, reached / max(n_hits, 1.0)
+
+
+def legacy(rt, cp, cg, dev, smi, cfg):
+    """Phase 12: the legacy backward (K8) of every static scene the
+    reference sends to it, at 1920x1080 with 16 AA rays per pixel (see the
+    module docstring). Returns the kernel records of K8's builds, of the
+    fine kernel at B = 4 with residuals and at aa_samples = 8, and the
+    numbers the summary prints."""
+    import numpy as np
+    import torch
+
+    cfg64 = dataclasses.replace(cfg, relax=1.6, leaf_cull=True)
+    nocull = dataclasses.replace(cfg64, leaf_cull=False)
+    camera64 = rt.Camera.looking_at(position=(0.0, 2.5, 9.0), target=(0.0, 0.0, 0.0))
+    camera_h = rt.Camera.looking_at(position=(0.0, 1.6, 4.2), target=(0.0, 0.0, 0.0))
+    _, chain_painted, _ = scenes_bench64(rt, chain_rgb=np.random.default_rng(19))
+    # name, what, scene, config, camera, make_fused_render_vjp keywords, the
+    # reference's reason, (long build, albedo words)
+    paths = (
+        ("a", "64 painted spheres of fwdbwd_64leaf_painted, leaf_cull=False", scene_painted(rt), nocull,
+         camera64, {}, "leaf_cull disabled", (True, True)),
+        ("b", "the 64leaf_smooth_chain scene, every sphere painted, cfg64", chain_painted, cfg64, camera64, {},
+         "painted materials on smooth/ordered segments", (True, True)),
+        ("c", "64 spheres & box(3.2, 1.2, 3.2), cfg64", scene_spheres(rt) & rt.box(half_extents=(3.2, 1.2, 3.2)),
+         cfg64, camera64, {}, "plan has residual (unrolled) subtrees", (True, False)),
+        ("d", "config 2 at prepass_block=4, headline camera", scene_config2(rt), cfg, camera_h,
+         dict(prepass_block=4), "leaf_cull disabled", (False, False)),
+        ("e", "16 painted spheres, leaf_cull=False", scene_painted(rt, 16), nocull, camera64, {},
+         "leaf_cull disabled", (False, True)),
+    )
+    n_rays = WIDTH * HEIGHT * cfg.aa_samples ** 2
+    records, steps = [], {}
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    for name, what, scene, cfg_p, camera, kw, reason, build in paths:
+        spec_p, arrays_p = rt.compile_scene(scene, static=True)
+        cv = rt.cam_vec(camera, device=dev)
+        if kw:
+            # The reference's make_renderer takes no prepass_block; its fused
+            # VJP does (pallas_grad.py:1228).
+            fr = cg.make_fused_render_vjp(spec_p, cfg_p, WIDTH, HEIGHT, device=dev, **kw)
+        else:
+            fr = rt.make_renderer(spec_p, WIDTH, HEIGHT, cfg_p, mode="implicit", backend="pallas_fused",
+                                  device=dev).renderer
+        lay = fr.layout
+        info = (fr.backward_info["kind"], fr.backward_info["reason"])
+        if info != ("pallas_legacy_unrolled", reason) or (lay.long, spec_p.has_materials) != build:
+            raise AssertionError(f"path ({name}) routes to {info}, long={lay.long}: expected {reason}, {build}")
+        kname = ("fused_bwd_long_kernel" if lay.long else "fused_bwd_kernel") + (
+            " (albedo words)" if spec_p.has_materials else "")
+        lp0 = torch.tensor(arrays_p.leaf_params, device=dev)
+        op0 = torch.tensor(arrays_p.op_param, device=dev)
+
+        def fwd_bwd(fr=fr, arrays_p=arrays_p, lp0=lp0, op0=op0, cv=cv):
+            lp = lp0.clone().requires_grad_(True)
+            opp = op0.clone().requires_grad_(True)
+            c = cv.clone().requires_grad_(True)
+            img = fr(dataclasses.replace(arrays_p, leaf_params=lp, op_param=opp), c)
+            torch.mean(img * img).backward()
+            return lp.grad, opp.grad, c.grad
+
+        cp.reset_launch_counts()
+        cg.reset_launch_counts()
+        for _ in range(BWD_WARMUP):
+            fwd_bwd()
+        torch.cuda.synchronize()
+        e0.record()
+        for _ in range(BWD_STEPS):
+            grads = fwd_bwd()
+        e1.record()
+        torch.cuda.synchronize()
+        step_ms = e0.elapsed_time(e1) / BWD_STEPS
+        launches = {"coarse_kernel": cp.coarse.launches, "fine_kernel_residuals": cp.fine_res.launches,
+                    kname: cg.bwd.launches, "compact_bwd_kernel": cg.compact_bwd.launches}
+        log(f"({name}) {what}: training step {WIDTH}x{HEIGHT} x16 AA, fwd+bwd of mean(img^2) through "
+            f"{'make_fused_render_vjp' if kw else 'make_renderer'}(backend 'pallas_fused'): {step_ms:.4f} ms/step "
+            f"(CUDA events, {BWD_STEPS} steps after {BWD_WARMUP} warm-up), backward {info}, "
+            f"{lay.n_real} instructions, {lay.nscal} gradient words; launches {launches} on {smi}")
+        if min(launches[k] for k in ("coarse_kernel", "fine_kernel_residuals", kname)) <= 0:
+            raise AssertionError(f"a kernel of path ({name}) never launched: {launches}")
+        if launches["compact_bwd_kernel"] != 0:
+            raise AssertionError(f"path ({name}) ran the compact backward")
+        if not all(bool(torch.isfinite(g).all()) for g in grads) or float(grads[0].abs().max()) <= 0:
+            raise AssertionError(f"path ({name}): the gradients are not finite or all zero")
+
+        # K8 alone, and against bwd_plain on the whole frame.
+        rp, p = fr.prepass, fr.params
+        sc, cam, bnd = rp.scene_args(arrays_p, cv)
+        cc, fc = rp.cull_args(sc, cam)
+        pre_k = cp.coarse(sc, cam, bnd, p, cc)
+        img_r, t_k, hit_k = cp.fine_res(sc, cam, bnd, p, *pre_k, cull=fc)
+        g_img = 2.0 * img_r / img_r.numel()  # the cotangent of mean(img^2)
+        k8_ms = cuda_ms(lambda: cg.bwd(sc, cam, p, lay, t_k, hit_k, g_img), KERNEL_REPS)
+        got = cg.bwd(sc, cam, p, lay, t_k, hit_k, g_img)
+        band = 16 if lay.long else cg.PLAIN_BAND_ROWS
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        e0.record()
+        ref = cg.bwd_plain(sc, cam, p, lay, t_k, hit_k, g_img, band_rows=band)
+        e1.record()
+        torch.cuda.synchronize()
+        plain_ms = e0.elapsed_time(e1)
+        err = grad_class(f"({name}) full-size {kname} vs bwd_plain (whole frame, {band}-row bands, peak "
+                         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB)", got, ref)
+        grad_class(f"({name}) training-path gradients vs bwd_plain", grads, ref)
+        if spec_p.has_materials:
+            words = ref[0][:, 12:16]
+            e_alb = float((got[0][:, 12:16] - words).abs().max())
+            scale = float(ref[0].abs().max())
+            log(f"({name}) albedo and flag words: max|g| {float(words.abs().max()):.4e}, max|d| {e_alb:.3e} "
+                f"= {e_alb / scale:.3e} of max|g| (need <= 0.01, non-zero)")
+            if not (float(words.abs().max()) > 0 and float(got[0][:, 12:16].abs().max()) > 0
+                    and e_alb <= 0.01 * scale):
+                raise AssertionError(f"path ({name}): the albedo and flag words are zero or outside the tolerance")
+        del ref
+        b_ms, b_by, b_ops, b_bytes, reached = k8_bound(sc, p, cam, t_k, hit_k, lay, n_rays)
+        log(f"({name}) {kname}: {k8_ms:.4f} ms alone, plain {plain_ms:.2f} ms, bound {b_ms:.4f} ms ({b_by}; "
+            f"{b_ops:.6e} operations, {b_bytes:.6e} bytes; {reached:.4f} leaves reached per hit point; hit "
+            f"fraction {float(hit_k.mean()):.4f}) ({smi})")
+        records.append(dict(
+            name=f"{kname}: ({name}) {what}", route="cuda", source="raymarch_tpu_torch/csrc/fused_bwd.cu",
+            replaces="raymarch_tpu/ops/pallas_grad.py:1432", launches=launches[kname], max_abs_err=err,
+            ms=k8_ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None))
+        if name == "d":
+            # The fine kernel with residuals on block planes (PRE 1).
+            fine_ms = cuda_ms(lambda: cp.fine_res(sc, cam, bnd, p, *pre_k), KERNEL_REPS)
+            work_f = cp.WorkCount()
+            e0.record()
+            img_p, t_p, hit_p = cp.fine_res_plain(sc, cam, bnd, p, *pre_k, work=work_f)
+            e1.record()
+            torch.cuda.synchronize()
+            fine_plain_ms = e0.elapsed_time(e1)
+            fine_err = image_class("(d) full-size fine kernel with residuals on B = 4 planes vs fine_res_plain",
+                                   img_r, img_p)
+            residual_agreement("(d) residuals vs fine_res_plain", (t_k, hit_k), (t_p, hit_p), strict=False)
+            del img_p, t_p, hit_p
+            n_px = WIDTH * HEIGHT
+            f_ms, f_by = roofline(march_flops(work_f, n_rays, spec_p, False, float(work_f.hits), fine=True),
+                                  n_px * 12 + n_rays * 8 + p.brows * p.bcols * 8)
+            log(f"(d) fine kernel with residuals on block planes: {fine_ms:.4f} ms alone, plain "
+                f"{fine_plain_ms:.2f} ms, bound {f_ms:.4f} ms ({f_by}) ({smi})")
+            records.append(dict(
+                name="fine_kernel (residuals, B = 4 block planes)", route="cuda",
+                source="raymarch_tpu_torch/csrc/prepass.cu", replaces="raymarch_tpu/ops/pallas_prepass.py:1521",
+                launches=launches["fine_kernel_residuals"], max_abs_err=fine_err, ms=fine_ms,
+                plain_ms=fine_plain_ms, bound_ms=f_ms, bound_by=f_by, library_ms=None))
+        steps[name] = dict(step_ms=step_ms, k8_ms=k8_ms, bound_ms=b_ms, plain_ms=plain_ms,
+                           launches=launches[kname], kname=kname)
+        del t_k, hit_k, img_r, g_img, got, grads
+        torch.cuda.synchronize()
+
+    # -- 12b. a 1080p fit of path (a)'s albedos -----------------------------
+    spec_a, arrays_a = rt.compile_scene(scene_painted(rt), static=True)
+    truth = arrays_a.leaf_params
+    painted = np.nonzero(truth[:, 15] > 0)[0]
+    start = truth.copy()
+    start[painted, 12:15] = np.clip(truth[painted, 12:15]
+                                    + np.random.default_rng(5).uniform(-0.2, 0.2, (len(painted), 3)), 0.05, 0.95)
+    m_leaf = np.zeros_like(truth)
+    m_leaf[painted, 12:15] = 1.0
+    target = rt.make_renderer(spec_a, WIDTH, HEIGHT, nocull, mode="forward", backend="pallas_prepass",
+                              device=dev)(arrays_a, camera64)
+    fit_kw = dict(width=WIDTH, height=HEIGHT, cfg=nocull, learning_rate=2e-2, leaf_mask=m_leaf,
+                  backend="pallas_fused", device=dev, log_fn=lambda m: None)
+    start_arrays = dataclasses.replace(arrays_a, leaf_params=start)
+    rt.fit_scene(spec_a, start_arrays, camera64, target, steps=1, **fit_kw)
+    res = rt.fit_scene(spec_a, start_arrays, camera64, target, steps=FIT_STEPS, **fit_kw)
+    got = res.arrays.leaf_params.detach().cpu().numpy()
+    err0 = float(np.abs(start[painted, 12:15] - truth[painted, 12:15]).mean())
+    err1 = float(np.abs(got[painted, 12:15] - truth[painted, 12:15]).mean())
+    fit_s = 1.0 / res.steps_per_sec
+    log(f"(a) albedo fit at {WIDTH}x{HEIGHT} ({FIT_STEPS} Adam steps, lr 2e-2, the {len(painted)} painted "
+        f"leaves' albedos): loss {res.losses[0]:.6e} -> {res.losses[-1]:.6e}; mean |albedo - truth| {err0:.4f} "
+        f"-> {err1:.4f}; {fit_s:.4f} s/step; backward {res.backward_info} ({smi})")
+    if res.backward_info["reason"] != "leaf_cull disabled" or not (res.losses[-1] < res.losses[0] and err1 < err0):
+        raise AssertionError("the albedo fit did not move toward the truth")
+
+    # -- 12c. an aa_samples = 8 frame of config 2 ----------------------------
+    cfg8 = dataclasses.replace(cfg, aa_samples=8)
+    spec2, arrays2 = rt.compile_scene(scene_config2(rt), static=True)
+    render8 = rt.make_renderer(spec2, WIDTH, HEIGHT, cfg8, mode="forward", backend="pallas_prepass", device=dev)
+    cp.reset_launch_counts()
+    for _ in range(WARMUP):
+        frame8 = render8(arrays2, camera_h)
+    torch.cuda.synchronize()
+    e0.record()
+    for _ in range(FRAMES):
+        frame8 = render8(arrays2, camera_h)
+    e1.record()
+    torch.cuda.synchronize()
+    frame8_ms = e0.elapsed_time(e1) / FRAMES
+    launches8 = {"coarse_kernel": cp.coarse.launches, "fine_kernel": cp.fine.launches}
+    n_rays8 = WIDTH * HEIGHT * 64
+    log(f"aa_samples=8 frame of config 2, {WIDTH}x{HEIGHT} x64 AA through make_renderer(backend="
+        f"'pallas_prepass'): {frame8_ms:.4f} ms/frame, {n_rays8 / (frame8_ms * 1e-3) / 1e9:.4f} Grays/s, "
+        f"launches {launches8} on {smi}")
+    if min(launches8.values()) <= 0:
+        raise AssertionError(f"a kernel of the aa = 8 frame never launched: {launches8}")
+    rp8 = render8.renderer
+    sc, cam, bnd = rp8.scene_args(arrays2, rt.cam_vec(camera_h, device=dev))
+    pre_k = cp.coarse(sc, cam, bnd, rp8.params)
+    fine8_ms = cuda_ms(lambda: cp.fine(sc, cam, bnd, rp8.params, *pre_k), KERNEL_REPS)
+    work_f = cp.WorkCount()
+    e0.record()
+    img_p = cp.fine_plain(sc, cam, bnd, rp8.params, *pre_k, work=work_f)
+    e1.record()
+    torch.cuda.synchronize()
+    fine8_plain_ms = e0.elapsed_time(e1)
+    fine8_err = image_class("full-size fine kernel at aa = 8 vs fine_plain (same planes)",
+                            cp.fine(sc, cam, bnd, rp8.params, *pre_k), img_p)
+    # The frame through make_renderer against the same plain pass (a second
+    # plain pass of 133 M rays, render_plain's, does not fit beside it).
+    image_class("full-size aa = 8 frame through make_renderer vs fine_plain", frame8, img_p)
+    del img_p
+    torch.cuda.empty_cache()
+    f8_ms, f8_by = roofline(march_flops(work_f, n_rays8, spec2, False, float(work_f.hits), fine=True),
+                            WIDTH * HEIGHT * 20)
+    log(f"fine kernel at aa = 8: {fine8_ms:.4f} ms alone, plain {fine8_plain_ms:.2f} ms, bound {f8_ms:.4f} ms "
+        f"({f8_by}) ({smi})")
+    records.append(dict(
+        name="fine_kernel (aa_samples = 8: a pixel over two warps)", route="cuda",
+        source="raymarch_tpu_torch/csrc/prepass.cu", replaces="raymarch_tpu/ops/pallas_prepass.py:1521",
+        launches=launches8["fine_kernel"], max_abs_err=fine8_err, ms=fine8_ms, plain_ms=fine8_plain_ms,
+        bound_ms=f8_ms, bound_by=f8_by, library_ms=None))
+    summary = dict(steps=steps, fit_s=fit_s, frame8_ms=frame8_ms, fine8_ms=fine8_ms)
+    return records, summary
+
+
 def launch_counts(cp):
     return {"coarse_kernel": cp.coarse.launches, "coarse_kernel_intervals": cp.coarse.interval_launches,
             "coarse_px_kernel": cp.coarse_px.launches, "fine_kernel": cp.fine.launches,
@@ -1640,23 +1949,15 @@ def main() -> int:
     bwd_err = grad_class("full-size fused_bwd kernel vs bwd_plain", got, ref)
     grad_class("training-path gradients vs bwd_plain", (grads_f[0], grads_f[1], grads_f[2]), ref)
     hit_share = float(hit_k.mean())
-    n_hits = float(hit_k.sum())
     res_bound = roofline(march_flops(work_r, n_rays, spec, False, float(work_r.hits), fine=True),
                       n_px * 20 + n_rays * 8)
-    n_push, leaf_ops, comb = scene_cost(spec)
-    tape_ops = n_push * leaf_ops + comb
-    # Per hit ray: the tape at 5 points, the reverse of those 5 evaluations
-    # (ADJ_FACTOR x the leaf work, ~4 ops per instruction), the ray's
-    # adjoint; hit read for every ray, t for the hit rays, the cotangent of
-    # their pixels.
-    k8_flops = n_hits * (5 * tape_ops + 5 * (ADJ_FACTOR * n_push * leaf_ops + 4 * len(spec.static_tape))
-                         + ADJ_RAY_OPS)
-    bwd_bound = roofline(k8_flops, n_rays * 4 + n_hits * 4 + hit_pixels(hit_k) * 12 + fr.layout.nscal * 4)
+    *bwd_bound, k8_flops, _, k8_reach = k8_bound(sc, fr.params, cam, t_k, hit_k, fr.layout, n_rays)
     log(f"kernels alone: fine with residuals {fine_res_ms:.4f} ms, fused_bwd {bwd_ms:.4f} ms "
         f"({hit_share:.4f} of the {n_rays} AA rays hit); plain on the card: fine_res_plain "
         f"{fine_res_plain_ms:.2f} ms, bwd_plain {bwd_plain_ms:.2f} ms in {cg.PLAIN_BAND_ROWS}-row bands "
         f"(peak {bwd_plain_gib:.2f} GiB) ({smi}); bounds fine with residuals {res_bound[0]:.4f} ms "
-        f"({res_bound[1]}), fused_bwd {bwd_bound[0]:.4f} ms ({bwd_bound[1]}, {k8_flops:.6e} operations)")
+        f"({res_bound[1]}), fused_bwd {bwd_bound[0]:.4f} ms ({bwd_bound[1]}, {k8_flops:.6e} operations, "
+        f"{k8_reach:.4f} leaves reached per hit point)")
     del t_k, hit_k, ref
 
     # -- 8. fits: the headline at full size, BASELINE config 3 at 48x48 ------
@@ -1726,6 +2027,9 @@ def main() -> int:
     # -- 11. the many-primitive forward rows of bench.py ----------------------
     row_records, rows = forward_rows(rt, cp, dev, smi, cfg, (0.0, 2.6, 4.2))
 
+    # -- 12. the legacy backward of every static scene ------------------------
+    legacy_records, sl = legacy(rt, cp, cg, dev, smi, cfg)
+
     log(f"card: {smi}")
     kernels = [
         dict(name="coarse_kernel", route="cuda", source="raymarch_tpu_torch/csrc/prepass.cu",
@@ -1752,6 +2056,7 @@ def main() -> int:
         *culled_records,
         *blend_records,
         *row_records,
+        *legacy_records,
     ]
     log(f"64-leaf summary: step {s64['step_ms']:.4f} ms, forward frame {s64['fwd64_ms']:.4f} ms, idle share "
         f"{s64['idle']}, masks and lists {s64['cull_ms']:.4f} ms in {s64['n_cull']} device operations "
@@ -1766,6 +2071,11 @@ def main() -> int:
             continue
         log(f"{row} summary: frame {r['frame_ms']:.4f} ms, {r['grays']:.4f} Grays/s, idle share {r['idle']}, "
             f"cull_args {r['cull_ms']:.4f} ms, coarse {r['coarse_ms']:.4f} ms, fine {r['fine_ms']:.4f} ms ({smi})")
+    for name, r in sl["steps"].items():
+        log(f"legacy path ({name}) summary: step {r['step_ms']:.4f} ms, {r['kname']} {r['k8_ms']:.4f} ms "
+            f"({r['launches']} launches; bound {r['bound_ms']:.4f} ms, plain {r['plain_ms']:.2f} ms) ({smi})")
+    log(f"albedo fit {sl['fit_s']:.4f} s/step; aa = 8 frame {sl['frame8_ms']:.4f} ms, fine kernel "
+        f"{sl['fine8_ms']:.4f} ms ({smi})")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)

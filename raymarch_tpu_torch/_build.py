@@ -44,11 +44,11 @@ _SIGNATURES = {
     # block_params, stream
     "rmt_fine_launch": (_P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P),
     # leaf_params, row_kind, tape, n_instr, op_param, push_slot, cam, params,
-    # grad_denom_clamp, t, hit, g_img, nscal, op_base, cam_base, partials,
-    # max_blocks, out, stream
+    # grad_denom_clamp, t, hit, g_img, nscal, op_base, cam_base, mats, hist,
+    # partials, max_blocks, out, stream
     "rmt_fused_bwd_launch": (
         _P, _P, _P, _I, _P, _P, _P, _P, ctypes.c_float, _P, _P, _P, _I, _I, _I,
-        _P, _I, _P, _P,
+        _I, _P, _P, _I, _P, _P,
     ),
     # leaf_params, row_kind, tape, n_instr, op_param, cull, cam, params,
     # grad_denom_clamp, t, hit, g_img, nscal, op_base, cam_base, mats, hist,

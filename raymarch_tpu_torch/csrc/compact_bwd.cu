@@ -86,24 +86,6 @@ namespace rmt {
 
 constexpr int CBWD_THREADS = 128;
 
-// Adds to the block's partial row in shared memory.
-struct BlockAcc {
-  float* row;
-  __device__ __forceinline__ void operator()(int k, float v) const {
-    atomicAdd(row + k, v);
-  }
-};
-
-// One thread's fold history: the value recorded for list column col.
-struct History {
-  float* base;             // hist + the thread's global index
-  long long stride;        // threads of the launch
-  int off;                 // list column of the first ordered item
-  __device__ __forceinline__ float& at(int col) const {
-    return base[(long long)(col - off) * stride];
-  }
-};
-
 // A tile's group g of the plan program: list column, active count, source
 // (0 pool, 1 seg1 chain, 2 stream) and ordered flag.
 struct Group {
@@ -536,31 +518,14 @@ cudaError_t launch_compact_bwd(const SceneView& sc, const CullView& cv,
                                float* hist, int hist_off, float* partials,
                                int max_blocks, int* n_blocks,
                                cudaStream_t stream) {
-  const auto kernel = compact_bwd_kernel<ORDERED, MATS>;
-  const int threads = CBWD_THREADS;
-  const size_t smem = (size_t)nscal * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  int dev = 0, n_sm = 0, per_sm = 0;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
-  if ((err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount,
-                                    dev)) != cudaSuccess)
-    return err;
-  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-           &per_sm, kernel, threads, smem)) != cudaSuccess)
-    return err;
-  const long long total = (long long)p.width * p.naa * p.naa * p.rows;
-  const long long chunks = (total + threads - 1) / threads;
-  long long grid = (long long)n_sm * (per_sm > 0 ? per_sm : 1);
-  if (grid > max_blocks) grid = max_blocks;
-  if (grid > chunks) grid = chunks;
-  if (grid < 1) grid = 1;
-  compact_bwd_kernel<ORDERED, MATS><<<(unsigned)grid, threads, smem, stream>>>(
-      sc, cv, cam, p, clamp, t_in, hit_in, g_img, nscal, op_base, cam_base,
-      hist, hist_off, partials);
+  long long grid = 0;
+  const cudaError_t err = launch_resident(
+      compact_bwd_kernel<ORDERED, MATS>, CBWD_THREADS,
+      (size_t)nscal * sizeof(float), p, max_blocks, stream, &grid, sc, cv, cam,
+      p, clamp, t_in, hit_in, g_img, nscal, op_base, cam_base, hist, hist_off,
+      partials);
   *n_blocks = (int)grid;
-  return cudaGetLastError();
+  return err;
 }
 
 }  // namespace rmt

@@ -2,17 +2,21 @@
 // respect to the leaf bank, the op words and the camera, from the forward's
 // per-ray residuals (t, hit). Plain C interface for ctypes.
 //
-// fused_bwd_kernel replaces raymarch_tpu/ops/pallas_grad.py:
-// make_fused_render_vjp.bwd_kernel (1432, launched at 1809) in its legacy
-// (unrolled, hard, material-free) form. Per AA ray that hit, with g the
-// pixel's cotangent over S:
+// fused_bwd_kernel and fused_bwd_long_kernel replace raymarch_tpu/ops/
+// pallas_grad.py: make_fused_render_vjp.bwd_kernel (1432, launched at 1809)
+// in its legacy (unrolled, hard) form, for any static tape, painted or not.
+// Per AA ray that hit, with g the pixel's cotangent over S:
 //   1. replay raygen from cam[0:7] (the raw quaternion, 1404-1421), the hit
 //      point p = o + d t, the 4 tetrahedron taps, the normal and Lambert
-//      term, c = sqrt(albedo * diff + 1e-12) (shade_loss, 1600-1651);
+//      term, c = sqrt(albedo * diff + 1e-12) (shade_loss, 1600-1651); on a
+//      painted scene (MATS) the albedo is the colour walk's at p
+//      (_albedo_tile, 1386-1402);
 //   2. run its adjoint: g_c -> g_diff -> g_n; tap k's value gets k . g_n
 //      and goes through the scene adjoint at p + eps k; the light vector
-//      adds g_p directly; g_t = g_p . d; the camera gets g_p through o and
-//      through d t;
+//      adds g_p directly; with MATS the albedo's cotangent goes through the
+//      colour walk's adjoint to the albedo and flag words and, through the
+//      smooth blend weights, to the geometry, the blend radii and g_p;
+//      g_t = g_p . d; the camera gets g_p through o and through d t;
 //   3. the implicit-function term (1662-1696): fdot = grad_x F(p) . d, its
 //      denominator clamped to +-grad_denom_clamp, w = -g_t / denom, and one
 //      more scene adjoint at p with seed w feeds theta and the camera.
@@ -21,16 +25,28 @@
 // once; the Pallas kernel's per-tile skip is a coarser form of the same.
 //
 // The gradient is a sum over 33 M rays of NSCAL = 16 n_rows + n_real + 7
-// words. Each thread keeps its own running sum of every word in shared
-// memory (word k of thread t at k * (blockDim + 1) + t: no bank conflicts,
-// no atomics) while a grid-stride loop hands it rays; at the end the block
-// sums its threads into one partial row, and bwd_finalize_kernel sums the
-// partial rows in a fixed order.
+// words, in one of two builds (ops/cuda_grad.py GradLayout.long chooses):
+// - fused_bwd_kernel (tapes of at most MAX_BWD_INSTR instructions whose
+//   rows fit): each thread keeps its own running sum of every word in
+//   shared memory (word k of thread t at k * (blockDim + 1) + t: no bank
+//   conflicts, no atomics) and its reverse records in local arrays; the
+//   headline build (MATS false) is the parent's code, 90 registers;
+// - fused_bwd_long_kernel (any length; nscal up to a block's shared
+//   memory, ~58k words): the reverse records sit in the thread's slice of a
+//   device-memory History, the sums in one shared row per block filled with
+//   atomics, and the sweeps skip every leaf and op whose cotangent is
+//   exactly zero (the losers of hard unions).
+// At the end each block writes one partial row, and bwd_finalize_kernel
+// sums the partial rows in a fixed order.
 //
 // What bounds it on an H100: instruction issue in the interpreted tape,
-// run 4 + 2 times forward and backward per hit ray, and the per-thread
-// local records of the reverse sweep; it reads 8 bytes of residuals and 12
-// of cotangent per ray and writes nothing per ray.
+// run 4 + 6 times forward and 6 times backward per hit ray (the colour walk
+// once more on a painted scene), and the reverse records: local memory in
+// the per-thread build; in the long build 8 bytes per instruction per
+// sweep written to device memory (6 KB per hit ray at 127 instructions, 8.6
+// KB with the colour walk's 20), read back only where the cotangent is not
+// zero; it reads 8 bytes of residuals and 12 of cotangent per ray and
+// writes nothing per ray.
 #include <cuda_runtime.h>
 
 #include "render_common.cuh"
@@ -39,6 +55,7 @@
 namespace rmt {
 
 constexpr int BWD_THREADS = 64;
+constexpr int BWD_LONG_THREADS = 128;
 
 // Adds to a thread's running sums in shared memory.
 struct SharedAcc {
@@ -51,7 +68,8 @@ struct SharedAcc {
 
 // Grid-stride over the AA rays of the band, in the fine kernel's lane order
 // (row i, then q = j * S + s). Writes one partial row of nscal words per
-// block.
+// block. MATS: the scene is painted (the albedo words).
+template <bool MATS>
 __global__ void fused_bwd_kernel(SceneView sc, const int* __restrict__ push_slot,
                                  const float* __restrict__ cam, RenderParams p,
                                  float clamp, const float* __restrict__ t_in,
@@ -64,6 +82,7 @@ __global__ void fused_bwd_kernel(SceneView sc, const int* __restrict__ push_slot
   const int stride = blockDim.x + 1;
   for (int k = 0; k < nscal; ++k) acc_s[k * stride + tid] = 0.0f;
   SharedAcc acc{acc_s + tid, stride};
+  const History none{nullptr, 0, 0};
 
   const int S = p.naa * p.naa;
   const long long row_lanes = (long long)p.width * S;
@@ -77,9 +96,10 @@ __global__ void fused_bwd_kernel(SceneView sc, const int* __restrict__ push_slot
     const int j = q / S;
     const int s = q - j * S;
     const float* gi = g_img + ((size_t)i * p.width + j) * 3;
-    ray_backward(sc, push_slot, cam, p, clamp, op_base, cam_base, i, j, s,
-                 __ldg(t_in + g), __ldg(gi + 0) * p.inv_s,
-                 __ldg(gi + 1) * p.inv_s, __ldg(gi + 2) * p.inv_s, acc);
+    ray_backward<false, MATS>(sc, push_slot, cam, p, clamp, op_base, cam_base,
+                              i, j, s, __ldg(t_in + g),
+                              __ldg(gi + 0) * p.inv_s, __ldg(gi + 1) * p.inv_s,
+                              __ldg(gi + 2) * p.inv_s, none, acc);
   }
   __syncthreads();
   for (int k = tid; k < nscal; k += blockDim.x) {
@@ -87,6 +107,50 @@ __global__ void fused_bwd_kernel(SceneView sc, const int* __restrict__ push_slot
     for (int m = 0; m < blockDim.x; ++m) sum += acc_s[k * stride + m];
     partials[(size_t)blockIdx.x * nscal + k] = sum;
   }
+}
+
+// The long form: the same rays, the reverse records in the thread's slice
+// of hist (hist_len floats: item h at hist[h * n_threads + thread]), and
+// one partial row of nscal words per block, filled with shared-memory
+// atomics (compact_bwd.cu's scheme), so neither the tape's length nor
+// nscal meets the per-thread caps of fused_bwd_kernel.
+template <bool MATS>
+__global__ void fused_bwd_long_kernel(SceneView sc,
+                                      const int* __restrict__ push_slot,
+                                      const float* __restrict__ cam,
+                                      RenderParams p, float clamp,
+                                      const float* __restrict__ t_in,
+                                      const float* __restrict__ hit_in,
+                                      const float* __restrict__ g_img,
+                                      int nscal, int op_base, int cam_base,
+                                      float* __restrict__ hist,
+                                      float* __restrict__ partials) {
+  extern __shared__ float acc_s[];
+  for (int k = threadIdx.x; k < nscal; k += blockDim.x) acc_s[k] = 0.0f;
+  __syncthreads();
+  BlockAcc acc{acc_s};
+
+  const long long step = (long long)gridDim.x * blockDim.x;
+  const long long me = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const History h{hist + me, step, 0};
+  const int S = p.naa * p.naa;
+  const long long row_lanes = (long long)p.width * S;
+  const long long total = row_lanes * p.rows;
+  for (long long g = me; g < total; g += step) {
+    if (!(__ldg(hit_in + g) > 0.0f)) continue;
+    const int i = (int)(g / row_lanes);
+    const int q = (int)(g - (long long)i * row_lanes);
+    const int j = q / S;
+    const int s = q - j * S;
+    const float* gi = g_img + ((size_t)i * p.width + j) * 3;
+    ray_backward<true, MATS>(sc, push_slot, cam, p, clamp, op_base, cam_base,
+                             i, j, s, __ldg(t_in + g),
+                             __ldg(gi + 0) * p.inv_s, __ldg(gi + 1) * p.inv_s,
+                             __ldg(gi + 2) * p.inv_s, h, acc);
+  }
+  __syncthreads();
+  for (int k = threadIdx.x; k < nscal; k += blockDim.x)
+    partials[(size_t)blockIdx.x * nscal + k] = acc_s[k];
 }
 
 // out[k] = sum over blocks of partials[b, k], in block order.
@@ -104,47 +168,49 @@ __global__ void bwd_finalize_kernel(const float* __restrict__ partials,
 
 extern "C" {
 
-// Launches fused_bwd_kernel, then bwd_finalize_kernel into out f32[nscal].
-// partials must hold max_blocks * nscal floats. Returns the first failing
-// cudaError_t (0 = success).
+// Launches the legacy backward, then bwd_finalize_kernel into out
+// f32[nscal]. hist null: fused_bwd_kernel (BWD_THREADS threads, a shared
+// row of nscal words per thread, the tape within MAX_BWD_INSTR); else
+// fused_bwd_long_kernel (BWD_LONG_THREADS threads, hist_len floats of hist
+// per thread, hist holding max_blocks * BWD_LONG_THREADS * hist_len).
+// mats != 0 routes the albedo words of a painted scene. partials must hold
+// max_blocks * nscal floats. Returns the first failing cudaError_t (0 =
+// success).
 int rmt_fused_bwd_launch(const float* leaf_params, const int* row_kind,
                          const int* tape, int n_instr, const float* op_param,
                          const int* push_slot, const float* cam,
                          const rmt::RenderParams* params, float clamp,
                          const float* t_in, const float* hit_in,
                          const float* g_img, int nscal, int op_base,
-                         int cam_base, float* partials, int max_blocks,
-                         float* out, void* stream) {
+                         int cam_base, int mats, float* hist, float* partials,
+                         int max_blocks, float* out, void* stream) {
   const rmt::RenderParams p = *params;
   const rmt::SceneView sc = rmt::make_scene(leaf_params, row_kind, tape,
                                             n_instr, op_param, p.max_dist);
-  const int threads = rmt::BWD_THREADS;
-  const size_t smem = (size_t)nscal * (threads + 1) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      rmt::fused_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+  cudaStream_t st = (cudaStream_t)stream;
+  long long grid = 0;
+  cudaError_t err;
+  if (hist == nullptr) {
+    const int threads = rmt::BWD_THREADS;
+    const size_t smem = (size_t)nscal * (threads + 1) * sizeof(float);
+    const auto kernel = mats ? rmt::fused_bwd_kernel<true>
+                             : rmt::fused_bwd_kernel<false>;
+    err = rmt::launch_resident(kernel, threads, smem, p, max_blocks, st, &grid,
+                               sc, push_slot, cam, p, clamp, t_in, hit_in,
+                               g_img, nscal, op_base, cam_base, partials);
+  } else {
+    const int threads = rmt::BWD_LONG_THREADS;
+    const size_t smem = (size_t)nscal * sizeof(float);
+    const auto kernel = mats ? rmt::fused_bwd_long_kernel<true>
+                             : rmt::fused_bwd_long_kernel<false>;
+    err = rmt::launch_resident(kernel, threads, smem, p, max_blocks, st, &grid,
+                               sc, push_slot, cam, p, clamp, t_in, hit_in,
+                               g_img, nscal, op_base, cam_base, hist,
+                               partials);
+  }
   if (err != cudaSuccess) return (int)err;
-  int dev = 0, n_sm = 0, per_sm = 0;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
-  if ((err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount,
-                                    dev)) != cudaSuccess)
-    return (int)err;
-  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-           &per_sm, rmt::fused_bwd_kernel, threads, smem)) != cudaSuccess)
-    return (int)err;
-  const long long total = (long long)p.width * p.naa * p.naa * p.rows;
-  const long long chunks = (total + threads - 1) / threads;
-  long long grid = (long long)n_sm * (per_sm > 0 ? per_sm : 1);
-  if (grid > max_blocks) grid = max_blocks;
-  if (grid > chunks) grid = chunks;
-  if (grid < 1) grid = 1;
-  rmt::fused_bwd_kernel<<<(unsigned)grid, threads, smem, (cudaStream_t)stream>>>(
-      sc, push_slot, cam, p, clamp, t_in, hit_in, g_img, nscal, op_base,
-      cam_base, partials);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  rmt::bwd_finalize_kernel<<<(nscal + 127) / 128, 128, 0,
-                             (cudaStream_t)stream>>>(partials, (int)grid,
-                                                     nscal, out);
+  rmt::bwd_finalize_kernel<<<(nscal + 127) / 128, 128, 0, st>>>(
+      partials, (int)grid, nscal, out);
   return (int)cudaGetLastError();
 }
 

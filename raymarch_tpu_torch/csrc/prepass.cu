@@ -53,7 +53,9 @@
 // every step with `k < max_iter` (the interval scan runs 2 * max_iter
 // steps unblocked), so a per-thread loop that stops when its ray stops
 // gives the same (t, hit, status) and the same intervals. The AA mean is reduced in
-// registers with warp shuffles; nothing per-sample reaches device memory.
+// registers with warp shuffles (S = 64, aa_samples = 8: one shuffle tree
+// per warp, then the two warps' sums through shared memory); nothing
+// per-sample reaches device memory.
 //
 // Rounding notes: 1.0f / sqrtf(x) stands in for jax.lax.rsqrt (the
 // correctly-rounded quotient of a correctly-rounded root, closer to the
@@ -96,6 +98,9 @@ __device__ __forceinline__ void bound_clip(const float* __restrict__ bound,
 
 constexpr int MAX_NI = 4;          // near intervals a build keeps in registers
 constexpr float FAR_T = 3.0e38f;   // "no interval" (pallas_prepass.py:188)
+constexpr int COARSE_THREADS = 128;
+// A multiple of 64: a pixel's 64 samples (aa_samples = 8) share a block.
+constexpr int FINE_THREADS = 128;
 constexpr float FAR_TEST = 9.0e37f;
 
 // The cone march of one centre ray from (t, live) at cone angle omega
@@ -349,7 +354,7 @@ __device__ __forceinline__ float interval_march(const SceneView& sc,
 
 // One thread per AA ray. Lane q of a row is (pixel j, sample s) with
 // q = j * S + s, so a pixel's S samples sit in S adjacent lanes of one warp
-// (S divides 32; the wrapper checks). Writes the image f32[rows, width, 3]
+// (S divides 32, or is 64 and fills two warps; the wrapper checks). Writes the image f32[rows, width, 3]
 // and, when t_out is not null, the residuals t and hit f32[rows, width, S].
 // MODE is the culling mode, RELAX whether cfg.relax > 1, MATS whether the
 // scene carries materials, PRE the prepass planes: 0 t0_in and status_in
@@ -519,11 +524,28 @@ __global__ void fine_kernel(SceneView sc, const float* __restrict__ cam,
     cb = sqrtf(fmaxf(hit * (alb[2] * diff) + miss * fbl, 0.0f) + 1e-12f);
   }
 
-  // AA mean over the pixel's S adjacent lanes, in registers.
-  for (int off = S >> 1; off > 0; off >>= 1) {
+  // AA mean over the pixel's S adjacent lanes, in registers: within the
+  // warp, and for S = 64 (a pixel over two warps of one block) the second
+  // warp's sum joins the first's through shared memory.
+  for (int off = (S < 32 ? S : 32) >> 1; off > 0; off >>= 1) {
     cr += __shfl_xor_sync(0xffffffffu, cr, off);
     cg += __shfl_xor_sync(0xffffffffu, cg, off);
     cb += __shfl_xor_sync(0xffffffffu, cb, off);
+  }
+  if (S > 32) {
+    __shared__ float wsum[FINE_THREADS / 32][3];
+    const int warp = threadIdx.x >> 5;
+    if ((threadIdx.x & 31) == 0) {
+      wsum[warp][0] = cr;
+      wsum[warp][1] = cg;
+      wsum[warp][2] = cb;
+    }
+    __syncthreads();
+    if (s == 0) {
+      cr += wsum[warp + 1][0];
+      cg += wsum[warp + 1][1];
+      cb += wsum[warp + 1][2];
+    }
   }
   if (valid && s == 0) {
     float* out = img + ((size_t)i * p.width + j) * 3;
@@ -532,9 +554,6 @@ __global__ void fine_kernel(SceneView sc, const float* __restrict__ cam,
     out[2] = cb * p.inv_s;
   }
 }
-
-constexpr int COARSE_THREADS = 128;
-constexpr int FINE_THREADS = 128;
 
 // The fine kernel's launch, dispatched to its build by template flags.
 struct FineLaunch {

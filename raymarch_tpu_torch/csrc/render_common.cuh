@@ -102,4 +102,35 @@ inline SceneView make_scene(const float* leaf_params, const int* row_kind,
   return sc;
 }
 
+// Launches `kernel` (a grid-stride loop over the AA rays of the band of p)
+// with `threads` threads and `smem` bytes of dynamic shared memory on as
+// many blocks as the card keeps resident (at most max_blocks, at most one
+// per `threads` rays); the grid goes to *grid. The backward kernels' launch.
+template <class Kernel, class... Args>
+cudaError_t launch_resident(Kernel kernel, int threads, size_t smem,
+                            const RenderParams& p, int max_blocks,
+                            cudaStream_t stream, long long* grid,
+                            Args... args) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  int dev = 0, n_sm = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+  if ((err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount,
+                                    dev)) != cudaSuccess)
+    return err;
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &per_sm, kernel, threads, smem)) != cudaSuccess)
+    return err;
+  const long long total = (long long)p.width * p.naa * p.naa * p.rows;
+  const long long chunks = (total + threads - 1) / threads;
+  long long g = (long long)n_sm * (per_sm > 0 ? per_sm : 1);
+  if (g > max_blocks) g = max_blocks;
+  if (g > chunks) g = chunks;
+  if (g < 1) g = 1;
+  kernel<<<(unsigned)g, threads, smem, stream>>>(args...);
+  *grid = g;
+  return cudaGetLastError();
+}
+
 }  // namespace rmt

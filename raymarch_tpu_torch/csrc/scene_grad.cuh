@@ -13,7 +13,18 @@
 // interpreter keeps only its value stack), then walks the tape backwards
 // with a cotangent stack: every leaf adds seed * dF/dparam to its 16-word
 // bank row, every round/onion/smooth op adds seed * dF/dk to its op word,
-// and the function returns seed * dF/dp.
+// and the function returns seed * dF/dp. It keeps the records in local
+// arrays of MAX_BWD_INSTR; scene_adjoint_hist keeps them in a History in
+// device memory, for tapes of any length, and skips every leaf and op
+// whose cotangent is exactly zero (the losers of hard unions).
+//
+// color_adjoint is the reverse of scene_color (scene_eval.cuh) for a
+// painted scene: the albedo cotangent reaches each contributing leaf's
+// albedo and flag words and, through the smooth blend weights
+// (mat_weight_smooth), both operand distances and the blend radius; those
+// distance cotangents go through the leaf adjoints to the leaf rows and to
+// the point. Hard ops pick their colour by a comparison whose derivative is
+// zero.
 //
 // Ties follow JAX: a max/min whose two inputs are equal splits the
 // cotangent in half, and |x| has derivative 0 at 0. Ties are measure-zero;
@@ -28,9 +39,30 @@
 
 namespace rmt {
 
-// Largest tape the backward takes: each thread keeps two floats per
-// instruction. The Python wrapper raises, with the count, above it.
+// Largest tape whose reverse records sit in a thread's local arrays (two
+// floats per instruction, five with the colour walk): the headline build.
+// Longer tapes take the History form (ops/cuda_grad.py chooses).
 constexpr int MAX_BWD_INSTR = 64;
+
+// Adds to a block's one partial row in shared memory (the long form of the
+// legacy backward and the compact backward).
+struct BlockAcc {
+  float* row;
+  __device__ __forceinline__ void operator()(int k, float v) const {
+    atomicAdd(row + k, v);
+  }
+};
+
+// One thread's records in device memory: slot h at hist[(h - off) *
+// n_threads + thread], so a warp's records of one slot are adjacent.
+struct History {
+  float* base;       // hist + the thread's global index
+  long long stride;  // threads of the launch
+  int off;           // slot of the first record
+  __device__ __forceinline__ float& at(int col) const {
+    return base[(long long)(col - off) * stride];
+  }
+};
 
 struct V3 {
   float x, y, z;
@@ -116,6 +148,57 @@ __device__ __forceinline__ void smooth_min_adj(float a, float b, float k,
   float gk_, unused2;
   max_adj(k, 1e-8f, gkc, gk_, unused2);
   gk = gk_;
+}
+
+// Cotangents of a combine instruction's operands a, b and op word k from
+// that of its result, g (round and onion read a alone; gb is then 0).
+__device__ __forceinline__ void op_adjoint(int op, float a, float b, float k,
+                                           float g, float& ga, float& gb,
+                                           float& gk) {
+  ga = 0.0f;
+  gb = 0.0f;
+  gk = 0.0f;
+  switch (op) {
+    case COP_ROUND:
+      ga = g;
+      gk = -g;
+      break;
+    case COP_ONION:
+      ga = g * sgn(a);
+      gk = -g;
+      break;
+    case COP_UNION:
+      min_adj(a, b, g, ga, gb);
+      break;
+    case COP_INTERSECTION:
+      max_adj(a, b, g, ga, gb);
+      break;
+    case COP_SUBTRACTION: {
+      float gnb;
+      max_adj(a, -b, g, ga, gnb);
+      gb = -gnb;
+      break;
+    }
+    case COP_SMOOTH_UNION:
+      smooth_min_adj(a, b, k, g, ga, gb, gk);
+      break;
+    case COP_SMOOTH_INTERSECTION: {
+      float gna, gnb;
+      smooth_min_adj(-a, -b, k, -g, gna, gnb, gk);
+      ga = -gna;
+      gb = -gnb;
+      break;
+    }
+    case COP_SMOOTH_SUBTRACTION: {
+      float gna;
+      smooth_min_adj(-a, b, k, -g, gna, gb, gk);
+      ga = -gna;
+      break;
+    }
+    default:
+      ga = g;
+      break;
+  }
 }
 
 // Reverse mode of leaf_distance for the leaf bank row P at point p: adds
@@ -349,6 +432,31 @@ __device__ __forceinline__ V3 leaf_adjoint(const float* __restrict__ P,
   return gv;
 }
 
+// The result of combine instruction op on operands a, b (round and onion
+// read a alone) and op word k, in scene_distance's operation order.
+__device__ __forceinline__ float combine(int op, float a, float b, float k) {
+  switch (op) {
+    case COP_ROUND:
+      return a - k;
+    case COP_ONION:
+      return fabsf(a) - k;
+    case COP_UNION:
+      return fminf(a, b);
+    case COP_INTERSECTION:
+      return fmaxf(a, b);
+    case COP_SUBTRACTION:
+      return fmaxf(a, -b);
+    case COP_SMOOTH_UNION:
+      return smooth_min(a, b, k);
+    case COP_SMOOTH_INTERSECTION:
+      return -smooth_min(-a, -b, k);
+    case COP_SMOOTH_SUBTRACTION:
+      return -smooth_min(-a, b, k);
+    default:
+      return a;
+  }
+}
+
 // The scene distance at p, as scene_distance computes it, keeping each
 // combine instruction's inputs in (ra, rb).
 __device__ __forceinline__ float scene_forward_rec(const SceneView& sc, V3 p,
@@ -406,7 +514,10 @@ __device__ __forceinline__ float scene_forward_rec(const SceneView& sc, V3 p,
 
 // seed * dF/dp at p; with ACC, also adds seed * dF/dtheta to the leaf rows
 // (slot base push_slot[i] for the PUSH at instruction i) and to the op
-// words (slot op_base + i).
+// words (slot op_base + i). Records in local arrays. This and
+// scene_forward_rec keep their own switches rather than share combine and
+// op_adjoint: the headline build's register allocation (ptxas: 90) moved
+// to 87 when they did.
 template <bool ACC, class Acc>
 __device__ V3 scene_adjoint(const SceneView& sc,
                             const int* __restrict__ push_slot, int op_base,
@@ -479,17 +590,290 @@ __device__ V3 scene_adjoint(const SceneView& sc,
   return gp;
 }
 
-// The gradient of one hit ray (the per-ray body of fused_bwd_kernel, see
+// scene_forward_rec with the operands of instruction i in slots 2i and
+// 2i + 1 of the thread's History: any tape length.
+__device__ __forceinline__ float scene_forward_hist(const SceneView& sc, V3 p,
+                                                    const History& h) {
+  float stk[MAX_STACK];
+  for (int i = 0; i < sc.n_instr; ++i) {
+    const int op = __ldg(sc.tape_ops + i);
+    const int s = __ldg(sc.out_slot + i);
+    if (op == COP_PUSH) {
+      const int row = __ldg(sc.tape_arg + i);
+      stk[s] = leaf_distance(sc.leaf_params + row * LEAF_PARAM_WIDTH,
+                             __ldg(sc.row_kind + row), p.x, p.y, p.z);
+      continue;
+    }
+    const float a = stk[s];
+    const float b = (op == COP_ROUND || op == COP_ONION) ? 0.0f : stk[s + 1];
+    h.at(2 * i) = a;
+    h.at(2 * i + 1) = b;
+    stk[s] = combine(op, a, b, __ldg(sc.op_param + i));
+  }
+  return stk[0];
+}
+
+// scene_adjoint with the records in the thread's History: any tape length.
+// It skips every leaf and op whose cotangent is exactly zero (the losers of
+// hard unions, and their subtrees), and every zero op word.
+template <bool ACC, class Acc>
+__device__ V3 scene_adjoint_hist(const SceneView& sc, const History& h,
+                                 const int* __restrict__ push_slot,
+                                 int op_base, V3 p, float seed, Acc& acc) {
+  V3 gp = v3(0.0f, 0.0f, 0.0f);
+  if (sc.n_instr == 0) return gp;  // the empty scene is a constant
+  scene_forward_hist(sc, p, h);
+  float gs[MAX_STACK];
+  gs[0] = seed;
+  for (int i = sc.n_instr - 1; i >= 0; --i) {
+    const int op = __ldg(sc.tape_ops + i);
+    const int s = __ldg(sc.out_slot + i);
+    const float g = gs[s];
+    if (op == COP_PUSH) {
+      if (g == 0.0f) continue;
+      const int row = __ldg(sc.tape_arg + i);
+      gp = add(gp, leaf_adjoint<ACC>(sc.leaf_params + row * LEAF_PARAM_WIDTH,
+                                     __ldg(sc.row_kind + row), p, g,
+                                     __ldg(push_slot + i), acc));
+      continue;
+    }
+    const bool unary = op == COP_ROUND || op == COP_ONION;
+    if (g == 0.0f) {
+      if (!unary) gs[s + 1] = 0.0f;
+      continue;
+    }
+    float ga, gb, gk;
+    op_adjoint(op, h.at(2 * i), h.at(2 * i + 1), __ldg(sc.op_param + i), g, ga,
+               gb, gk);
+    gs[s] = ga;
+    if (!unary) gs[s + 1] = gb;
+    if (ACC && gk != 0.0f) acc(op_base + i, gk);
+  }
+  return gp;
+}
+
+// Cotangents of mat_weight_smooth(u, v, k) (scene_eval.cuh) from gw, with
+// the derivative rules of its plain version (sdf._mat_weight_smooth under
+// torch autograd): the clip passes the cotangent on [0, 1], ends included,
+// and the floor of k passes it where k >= 1e-8.
+__device__ __forceinline__ void mat_weight_adj(float u, float v, float k,
+                                               float gw, float& gu, float& gv,
+                                               float& gk) {
+  const float kc = fmaxf(k, 1e-8f);
+  const float q = 0.5f * (v - u);
+  const float x = 0.5f + q / kc;
+  gu = 0.0f;
+  gv = 0.0f;
+  gk = 0.0f;
+  if (!(x >= 0.0f && x <= 1.0f)) return;
+  const float gq = gw / kc;
+  gu = -0.5f * gq;
+  gv = 0.5f * gq;
+  if (k >= 1e-8f) gk = -gw * q / (kc * kc);
+}
+
+// Weight of operand a in combine instruction op's colour, as scene_color
+// takes it: the winner of a hard op by its tie rule, mat_weight_smooth for
+// a smooth one.
+__device__ __forceinline__ float color_weight(int op, float a, float b,
+                                              float k) {
+  switch (op) {
+    case COP_UNION:
+      return a <= b ? 1.0f : 0.0f;
+    case COP_INTERSECTION:
+      return a >= b ? 1.0f : 0.0f;
+    case COP_SUBTRACTION:
+      return a >= -b ? 1.0f : 0.0f;
+    case COP_SMOOTH_UNION:
+      return mat_weight_smooth(a, b, k);
+    case COP_SMOOTH_INTERSECTION:
+      return mat_weight_smooth(b, a, k);
+    case COP_SMOOTH_SUBTRACTION:
+      return mat_weight_smooth(-b, a, k);
+    default:
+      return 1.0f;
+  }
+}
+
+// The colour walk's records in a thread's local array (slot k at v[k]).
+struct LocalBuf {
+  float* v;
+  __device__ __forceinline__ float& at(int k) const { return v[k]; }
+};
+
+// The colour walk of scene_color (no tile mask) at p, recording for each
+// combine instruction i its operand distances and, for a binary one, the
+// difference of its operands' colours, in slots 5i .. 5i + 4 of rec. Writes
+// the albedo at p to rgb.
+template <class Rec>
+__device__ __forceinline__ void color_forward_rec(const SceneView& sc, V3 p,
+                                                  const float* def,
+                                                  float rgb[3],
+                                                  const Rec& rec) {
+  if (sc.n_instr == 0) {
+    rgb[0] = def[0];
+    rgb[1] = def[1];
+    rgb[2] = def[2];
+    return;
+  }
+  float stk[MAX_STACK], cr[MAX_STACK], cg[MAX_STACK], cb[MAX_STACK];
+  for (int i = 0; i < sc.n_instr; ++i) {
+    const int op = __ldg(sc.tape_ops + i);
+    const int s = __ldg(sc.out_slot + i);
+    if (op == COP_PUSH) {
+      const int row = __ldg(sc.tape_arg + i);
+      const float* P = sc.leaf_params + row * LEAF_PARAM_WIDTH;
+      stk[s] = leaf_distance(P, __ldg(sc.row_kind + row), p.x, p.y, p.z);
+      const float fl = __ldg(P + LEAF_MAT_FLAG);
+      cr[s] = fl * __ldg(P + LEAF_ALBEDO + 0) + (1.0f - fl) * def[0];
+      cg[s] = fl * __ldg(P + LEAF_ALBEDO + 1) + (1.0f - fl) * def[1];
+      cb[s] = fl * __ldg(P + LEAF_ALBEDO + 2) + (1.0f - fl) * def[2];
+      continue;
+    }
+    const float k = __ldg(sc.op_param + i);
+    const float a = stk[s];
+    rec.at(5 * i) = a;
+    if (op == COP_ROUND || op == COP_ONION) {
+      stk[s] = combine(op, a, 0.0f, k);
+      continue;
+    }
+    const float b = stk[s + 1];
+    rec.at(5 * i + 1) = b;
+    rec.at(5 * i + 2) = cr[s] - cr[s + 1];
+    rec.at(5 * i + 3) = cg[s] - cg[s + 1];
+    rec.at(5 * i + 4) = cb[s] - cb[s + 1];
+    const float w = color_weight(op, a, b, k);
+    stk[s] = combine(op, a, b, k);
+    cr[s] = w * cr[s] + (1.0f - w) * cr[s + 1];
+    cg[s] = w * cg[s] + (1.0f - w) * cg[s + 1];
+    cb[s] = w * cb[s] + (1.0f - w) * cb[s + 1];
+  }
+  rgb[0] = cr[0];
+  rgb[1] = cg[0];
+  rgb[2] = cb[0];
+}
+
+// The reverse of color_forward_rec's walk at p for the albedo cotangent
+// grgb (ACC throughout): adds each contributing leaf's albedo and flag
+// words (a leaf's colour is flag * albedo + (1 - flag) * def), the blend
+// radii's words of the smooth weights, and the leaf adjoints of the
+// weights' distance cotangents; returns the position cotangent. A slot
+// whose colour and distance cotangents are both exactly zero (the far side
+// of a hard op) costs no leaf work or accumulation.
+template <class Rec, class Acc>
+__device__ V3 color_adjoint(const SceneView& sc, const Rec& rec,
+                            const int* __restrict__ push_slot, int op_base,
+                            V3 p, const float* def, const float grgb[3],
+                            Acc& acc) {
+  V3 gp = v3(0.0f, 0.0f, 0.0f);
+  if (sc.n_instr == 0) return gp;
+  float gd[MAX_STACK], gr[MAX_STACK], gg[MAX_STACK], gb[MAX_STACK];
+  gd[0] = 0.0f;
+  gr[0] = grgb[0];
+  gg[0] = grgb[1];
+  gb[0] = grgb[2];
+  for (int i = sc.n_instr - 1; i >= 0; --i) {
+    const int op = __ldg(sc.tape_ops + i);
+    const int s = __ldg(sc.out_slot + i);
+    const float g = gd[s], cR = gr[s], cG = gg[s], cB = gb[s];
+    const bool colour = cR != 0.0f || cG != 0.0f || cB != 0.0f;
+    if (op == COP_PUSH) {
+      const int row = __ldg(sc.tape_arg + i);
+      const float* P = sc.leaf_params + row * LEAF_PARAM_WIDTH;
+      const int base = __ldg(push_slot + i);
+      if (colour) {
+        const float fl = __ldg(P + LEAF_MAT_FLAG);
+        acc(base + LEAF_ALBEDO + 0, fl * cR);
+        acc(base + LEAF_ALBEDO + 1, fl * cG);
+        acc(base + LEAF_ALBEDO + 2, fl * cB);
+        acc(base + LEAF_MAT_FLAG, (__ldg(P + LEAF_ALBEDO + 0) - def[0]) * cR +
+                                      (__ldg(P + LEAF_ALBEDO + 1) - def[1]) * cG +
+                                      (__ldg(P + LEAF_ALBEDO + 2) - def[2]) * cB);
+      }
+      if (g != 0.0f)
+        gp = add(gp, leaf_adjoint<true>(P, __ldg(sc.row_kind + row), p, g,
+                                        base, acc));
+      continue;
+    }
+    const bool unary = op == COP_ROUND || op == COP_ONION;
+    if (g == 0.0f && !colour) {
+      if (!unary) {
+        gd[s + 1] = 0.0f;
+        gr[s + 1] = 0.0f;
+        gg[s + 1] = 0.0f;
+        gb[s + 1] = 0.0f;
+      }
+      continue;
+    }
+    const float k = __ldg(sc.op_param + i);
+    const float a = rec.at(5 * i);
+    if (unary) {  // the colour passes through unchanged
+      float ga, unused, gk;
+      op_adjoint(op, a, 0.0f, k, g, ga, unused, gk);
+      gd[s] = ga;
+      if (gk != 0.0f) acc(op_base + i, gk);
+      continue;
+    }
+    const float b = rec.at(5 * i + 1);
+    float ga, gbd, gk;
+    op_adjoint(op, a, b, k, g, ga, gbd, gk);
+    const float w = color_weight(op, a, b, k);
+    const float gw = cR * rec.at(5 * i + 2) + cG * rec.at(5 * i + 3) +
+                     cB * rec.at(5 * i + 4);
+    if (gw != 0.0f) {
+      float gu, gv, gkw;
+      switch (op) {
+        case COP_SMOOTH_UNION:  // w = W(a, b, k)
+          mat_weight_adj(a, b, k, gw, gu, gv, gkw);
+          ga += gu;
+          gbd += gv;
+          gk += gkw;
+          break;
+        case COP_SMOOTH_INTERSECTION:  // w = W(b, a, k)
+          mat_weight_adj(b, a, k, gw, gu, gv, gkw);
+          gbd += gu;
+          ga += gv;
+          gk += gkw;
+          break;
+        case COP_SMOOTH_SUBTRACTION:  // w = W(-b, a, k)
+          mat_weight_adj(-b, a, k, gw, gu, gv, gkw);
+          gbd -= gu;
+          ga += gv;
+          gk += gkw;
+          break;
+        default:  // a hard op's weight is piecewise constant
+          break;
+      }
+    }
+    gd[s] = ga;
+    gd[s + 1] = gbd;
+    gr[s] = w * cR;
+    gg[s] = w * cG;
+    gb[s] = w * cB;
+    gr[s + 1] = (1.0f - w) * cR;
+    gg[s + 1] = (1.0f - w) * cG;
+    gb[s + 1] = (1.0f - w) * cB;
+    if (gk != 0.0f) acc(op_base + i, gk);
+  }
+  return gp;
+}
+
+// The gradient of one hit ray (the per-ray body of the legacy backward, see
 // fused_bwd.cu): adds its leaf, op and camera words to acc. (i, j, s) are
 // the band row, the pixel column and the AA sample, t the march end, and
-// (gr, gg, gb) the pixel's cotangent over S.
-template <class Acc>
+// (gr, gg, gb) the pixel's cotangent over S. LONG keeps the reverse records
+// in the thread's History h (any tape length) instead of local arrays;
+// MATS shades with the albedo of the colour walk at the hit point and runs
+// its adjoint (color_adjoint) before g_t is formed, so that the albedo's
+// dependence on the hit point enters the implicit-function term too.
+template <bool LONG, bool MATS, class Acc>
 __device__ void ray_backward(const SceneView& sc,
                              const int* __restrict__ push_slot,
                              const float* __restrict__ cam,
                              const RenderParams& p, float clamp, int op_base,
                              int cam_base, int i, int j, int s, float t,
-                             float gr, float gg, float gb, Acc& acc) {
+                             float gr, float gg, float gb, const History& h,
+                             Acc& acc) {
   const int a_ = s / p.naa;
   const int b_ = s - a_ * p.naa;
   const float fa = ((float)a_ + 0.5f) / (float)p.naa - 0.5f;
@@ -531,12 +915,39 @@ __device__ void ray_backward(const SceneView& sc,
   // --- adjoint of the shading ----------------------------------------------
   const float gcol[3] = {gr, gg, gb};
   float gdiff = 0.0f;
-  for (int c = 0; c < 3; ++c) {
-    const float v = p.albedo[c] * diff;
-    const float col = sqrtf(fmaxf(v, 0.0f) + 1e-12f);
-    float gv, unused;
-    max_adj(v, 0.0f, gcol[c] * 0.5f / col, gv, unused);
-    gdiff += gv * p.albedo[c];
+  V3 gp_alb = v3(0.0f, 0.0f, 0.0f);  // through the painted albedo
+  if constexpr (MATS) {
+    // The albedo at the hit point (the forward's scene_color, un-gated as
+    // the reference's backward is), and its adjoint at once: the colour
+    // records then free the History for the sweeps below.
+    float lbuf[LONG ? 1 : 5 * MAX_BWD_INSTR];
+    float alb[3], galb[3];
+    const auto sweep = [&](const auto& rec) {
+      color_forward_rec(sc, pt, p.albedo, alb, rec);
+      for (int c = 0; c < 3; ++c) {
+        const float v = alb[c] * diff;
+        const float col = sqrtf(fmaxf(v, 0.0f) + 1e-12f);
+        float gv, unused;
+        max_adj(v, 0.0f, gcol[c] * 0.5f / col, gv, unused);
+        gdiff += gv * alb[c];
+        galb[c] = gv * diff;
+      }
+      gp_alb = color_adjoint(sc, rec, push_slot, op_base, pt, p.albedo, galb,
+                             acc);
+    };
+    if constexpr (LONG) {
+      sweep(h);
+    } else {
+      sweep(LocalBuf{lbuf});
+    }
+  } else {
+    for (int c = 0; c < 3; ++c) {
+      const float v = p.albedo[c] * diff;
+      const float col = sqrtf(fmaxf(v, 0.0f) + 1e-12f);
+      float gv, unused;
+      max_adj(v, 0.0f, gcol[c] * 0.5f / col, gv, unused);
+      gdiff += gv * p.albedo[c];
+    }
   }
   float gdiff0, gamb;
   max_adj(diff0, p.ambient, gdiff, gdiff0, gamb);
@@ -546,23 +957,38 @@ __device__ void ray_backward(const SceneView& sc,
   const float gL2 = -0.5f * linv * linv * linv * (gsn * ninv);
   const V3 gn = add(scale(tl, gdot), scale(n, 2.0f * gN2));
   V3 gp = add(scale(n, gdot), scale(tl, 2.0f * gL2));  // through the light
+  if constexpr (MATS) gp = add(gp, gp_alb);
   for (int k = 0; k < 4; ++k) {
     const V3 q = v3(pt.x + taps[k].x * e, pt.y + taps[k].y * e,
                     pt.z + taps[k].z * e);
-    gp = add(gp, scene_adjoint<true>(sc, push_slot, op_base, q,
-                                     dot(taps[k], gn), acc));
+    if constexpr (LONG) {
+      gp = add(gp, scene_adjoint_hist<true>(sc, h, push_slot, op_base, q,
+                                            dot(taps[k], gn), acc));
+    } else {
+      gp = add(gp, scene_adjoint<true>(sc, push_slot, op_base, q,
+                                       dot(taps[k], gn), acc));
+    }
   }
   const float gt = dot(gp, d);
   V3 go = gp;
   V3 gd = scale(gp, t);
 
   // --- implicit-function term ----------------------------------------------
-  const V3 gradF = scene_adjoint<false>(sc, push_slot, op_base, pt, 1.0f, acc);
+  V3 gradF, gq;
+  if constexpr (LONG) {
+    gradF = scene_adjoint_hist<false>(sc, h, push_slot, op_base, pt, 1.0f, acc);
+  } else {
+    gradF = scene_adjoint<false>(sc, push_slot, op_base, pt, 1.0f, acc);
+  }
   const float fdot = dot(gradF, d);
   const float denom =
       fabsf(fdot) > clamp ? fdot : (fdot >= 0.0f ? clamp : -clamp);
   const float w = -gt / denom;
-  const V3 gq = scene_adjoint<true>(sc, push_slot, op_base, pt, w, acc);
+  if constexpr (LONG) {
+    gq = scene_adjoint_hist<true>(sc, h, push_slot, op_base, pt, w, acc);
+  } else {
+    gq = scene_adjoint<true>(sc, push_slot, op_base, pt, w, acc);
+  }
   go = add(go, gq);
   gd = add(gd, scale(gq, t));
 

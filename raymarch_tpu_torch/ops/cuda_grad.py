@@ -2,12 +2,14 @@
 residuals, and a CUDA backward kernel.
 
 Port of `raymarch_tpu/ops/pallas_grad.py:make_fused_render_vjp` (1221):
-the legacy backward (`backward_info["kind"] == "pallas_legacy_unrolled"`),
-and with `cfg.leaf_cull` the compact backward of every compact plan
-without residual subtrees (`"pallas_compact"`): pool, seg1 chain and
-stream plans, and painted pools.
+the legacy backward (`backward_info["kind"] == "pallas_legacy_unrolled"`)
+of every static tape, painted or not, of any length, and with
+`cfg.leaf_cull` the compact backward of every compact plan without
+residual subtrees (`"pallas_compact"`): pool, seg1 chain and stream plans,
+and painted pools.
 
-- Forward: the coarse kernel, then the fine kernel with residuals
+- Forward: the coarse kernel (per pixel, or per B x B block with
+  `prepass_block`), then the fine kernel with residuals
   (`cuda_prepass.fine_res`, the counterpart of the Pallas fine kernel with
   `emit_th=True`): the image, and each AA ray's march end t and hit flag;
   culled per tile with `cfg.leaf_cull`.
@@ -19,11 +21,19 @@ stream plans, and painted pools.
   reverse sweep of the seg1 chain's or a stream segment's ordered fold
   (blend radii included); on a painted pool also the winner's albedo.
   `compact_bwd_plain` is its autograd replay.
-- Backward (`bwd`; kernel `fused_bwd_kernel` in csrc/fused_bwd.cu,
-  replacing `bwd_kernel`, pallas_grad.py:1432): per hit ray, the adjoint of
-  the shading chain plus the implicit-function term, summed over rays into
-  one flat vector of `16 * n_rows + n_real + 7` words (pallas_grad.py:
-  1653-1699, unpacked as `_run_bwd` does at 1830-1840).
+- Backward (`bwd`; kernels `fused_bwd_kernel` and `fused_bwd_long_kernel`
+  in csrc/fused_bwd.cu, replacing `bwd_kernel`, pallas_grad.py:1432): per
+  hit ray, the adjoint of the shading chain plus the implicit-function
+  term, summed over rays into one flat vector of `16 * n_rows + n_real + 7`
+  words (pallas_grad.py:1653-1699, unpacked as `_run_bwd` does at
+  1830-1840). On a painted scene the shading reads the albedo of the colour
+  walk at the hit point, and its cotangent reaches the leaves' albedo and
+  flag words and, through the smooth blend weights, the geometry, the blend
+  radii and the hit point (`_albedo_tile`, 1386-1402). A tape of at most
+  MAX_BWD_INSTR instructions whose gradient row fits each thread's share of
+  shared memory takes the per-thread build; any other the long build, which
+  keeps the reverse records in device memory and one gradient row per
+  block (`GradLayout.long`).
 
 `bwd_plain` is the same gradient by torch autograd through a replay of
 `shade_loss` and `implicit_loss` (1600-1699) from the residuals, in row
@@ -45,7 +55,14 @@ import torch
 
 from ..config import RenderConfig
 from . import opcodes as oc
-from .cuda_march import SceneBuffers, build_compact_plan, pool_albedo_plain, scene_compact_plain, scene_plain
+from .cuda_march import (
+    SceneBuffers,
+    build_compact_plan,
+    pool_albedo_plain,
+    scene_color_plain,
+    scene_compact_plain,
+    scene_plain,
+)
 from .cuda_prepass import (
     PrepassParams,
     TileCull,
@@ -70,11 +87,20 @@ from .tape import TapeArrays, TapeSpec
 
 MAX_BWD_INSTR = 64  # csrc/scene_grad.cuh MAX_BWD_INSTR
 BWD_THREADS = 64  # csrc/fused_bwd.cu BWD_THREADS
+BWD_LONG_THREADS = 128  # csrc/fused_bwd.cu BWD_LONG_THREADS
 CBWD_THREADS = 128  # csrc/compact_bwd.cu CBWD_THREADS
 SMEM_PER_BLOCK = 232448  # an H100 block's shared memory, bytes
-# Device memory the compact backward's fold history may take: the launch
-# grid shrinks until every thread's slice of hist_len floats fits.
+# Device memory the backwards' per-thread records may take (the compact
+# backward's fold history, the long legacy backward's reverse records): the
+# launch grid shrinks until every thread's slice of hist_len floats fits.
 HIST_BUDGET = 256 << 20
+# Records per instruction of the long legacy backward: the operands (a, b)
+# of the distance sweeps, and on a painted scene (a, b) and the operands'
+# colour difference of the colour walk (csrc/scene_grad.cuh).
+REC_PER_INSTR = 2
+REC_PER_INSTR_MATS = 5
+# Where a limit of the legacy backward stands in ROADMAP.md.
+BWD_LIMIT_ITEM = "§3 fault 10, the backwards' gradient row in shared memory"
 PLAIN_BAND_ROWS = 64  # rows per autograd graph in bwd_plain
 
 
@@ -116,6 +142,17 @@ class GradLayout:
     @property
     def nscal(self) -> int:
         return self.cam_base + 7
+
+    @property
+    def long(self) -> bool:
+        """True when the backward takes its long build: the tape exceeds
+        the reverse records a thread keeps in local arrays, or the gradient
+        row exceeds a thread's share of shared memory."""
+        return self.n_real > MAX_BWD_INSTR or self.nscal * (BWD_THREADS + 1) * 4 > SMEM_PER_BLOCK
+
+    def hist_len(self, mats: bool) -> int:
+        """Floats of reverse records per thread of the long build."""
+        return (REC_PER_INSTR_MATS if mats else REC_PER_INSTR) * self.n_real
 
     def unpack(self, flat: torch.Tensor):
         """Flat f32[nscal] -> (d_lp f32[n_leaves, 16], d_opp f32[n_instr],
@@ -205,14 +242,21 @@ def bwd_plain(scene: SceneBuffers, cam, p: PrepassParams, lay: GradLayout, t, hi
     """Plain version of the fused backward -> (d_lp f32[n_leaves, 16], d_opp
     f32[n_instr], d_cam f32[8]) on the inputs' device, from the residuals
     (t, hit f32[rows, W, S]) and the image cotangent g_img f32[rows, W, 3].
-    The gradient is a sum over rays, so it runs `band_rows` rows at a time
-    and adds the bands' gradients."""
+    A painted scene shades with the albedo of the whole tape's colour walk
+    at the hit point (`scene_color_plain`, un-gated as the reference's
+    `_albedo_tile` is in this backward). The gradient is a sum over rays, so
+    it runs `band_rows` rows at a time and adds the bands' gradients."""
+    albedo_fn_of = None
+    if scene.spec.has_materials:
+        def albedo_fn_of(sc):
+            return lambda px, py, pz: scene_color_plain(sc, p.max_dist, p.albedo, px, py, pz)[1]
     d_lp = torch.zeros_like(scene.leaf_params)
     d_opp = torch.zeros_like(scene.op_param)
     d_cam7 = torch.zeros(7, dtype=torch.float32, device=cam.device)
     for i0 in range(0, p.rows, band_rows):
         i1 = min(i0 + band_rows, p.rows)
-        a, b, c = _bwd_plain_band(scene, cam, p, lay.grad_denom_clamp, t[i0:i1], hit[i0:i1], g_img[i0:i1], i0)
+        a, b, c = _bwd_plain_band(scene, cam, p, lay.grad_denom_clamp, t[i0:i1], hit[i0:i1], g_img[i0:i1], i0,
+                                  albedo_fn_of=albedo_fn_of)
         d_lp += a
         d_opp += b
         d_cam7 += c
@@ -277,42 +321,52 @@ def _check_bwd(scene: SceneBuffers, cam, p: PrepassParams, lay: GradLayout, t, h
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {dev}")
     if dev.type == "cuda":
-        if lay.n_real > MAX_BWD_INSTR:
+        if lay.nscal * 4 > SMEM_PER_BLOCK:
             raise NotImplementedError(
-                f"the backward kernel takes tapes of at most {MAX_BWD_INSTR} "
-                f"instructions; this one has {lay.n_real} (ROADMAP §1.10 "
-                "many-primitive backward)"
+                f"the backward kernel keeps one row of gradient words per block in "
+                f"shared memory: {lay.nscal} words need {lay.nscal * 4} bytes, more than "
+                f"{SMEM_PER_BLOCK} (ROADMAP: {BWD_LIMIT_ITEM})"
             )
-        smem = lay.nscal * (BWD_THREADS + 1) * 4
-        if smem > SMEM_PER_BLOCK:
+        rec = 4 * lay.hist_len(scene.spec.has_materials) * BWD_LONG_THREADS
+        if lay.long and rec > HIST_BUDGET:
             raise NotImplementedError(
-                f"{lay.nscal} gradient words need {smem} bytes of shared memory "
-                f"per block, more than {SMEM_PER_BLOCK} (ROADMAP §1.10 "
-                "many-primitive backward)"
+                f"the backward kernel's reverse records of {lay.n_real} instructions "
+                f"take {rec} bytes per block, more than {HIST_BUDGET} (ROADMAP: {BWD_LIMIT_ITEM})"
             )
     return dev
 
 
 @functools.lru_cache(maxsize=None)
-def _device_consts(lay: GradLayout, device: torch.device):
-    """(push_slot i32[n_real] on device, max grid size) for the launcher."""
+def _device_consts(lay: GradLayout, mats: bool, device: torch.device):
+    """(push_slot i32[n_real] on device, max grid size, floats of reverse
+    records per thread: 0 for the per-thread build) for the launcher."""
     slots = torch.as_tensor(lay.push_slot or (0,), dtype=torch.int32, device=device)
     n_sm = torch.cuda.get_device_properties(device).multi_processor_count
-    return slots, n_sm * (2048 // BWD_THREADS)
+    if not lay.long:
+        return slots, n_sm * (2048 // BWD_THREADS), 0
+    hist_len = lay.hist_len(mats)
+    max_blocks = max(1, min(n_sm * (2048 // BWD_LONG_THREADS), HIST_BUDGET // (4 * hist_len * BWD_LONG_THREADS)))
+    return slots, max_blocks, hist_len
 
 
 def bwd(scene: SceneBuffers, cam, p: PrepassParams, lay: GradLayout, t, hit, g_img):
     """Fused backward -> (d_lp f32[n_leaves, 16], d_opp f32[n_instr], d_cam
-    f32[8]) on the inputs' device; see `bwd_plain` for the arguments."""
+    f32[8]) on the inputs' device; see `bwd_plain` for the arguments. On
+    CUDA: `fused_bwd_kernel` or, when `lay.long`, `fused_bwd_long_kernel`
+    (csrc/fused_bwd.cu), each with the albedo words on a painted scene, then
+    `bwd_finalize_kernel` over its block rows."""
     dev = _check_bwd(scene, cam, p, lay, t, hit, g_img)
     if dev.type == "cpu":
         return bwd_plain(scene, cam, p, lay, t, hit, g_img)
     from .. import _build
 
     lib = _build.load()
-    slots, max_blocks = _device_consts(lay, dev)
+    mats = scene.spec.has_materials
+    slots, max_blocks, hist_len = _device_consts(lay, mats, dev)
     out = torch.empty(lay.nscal, dtype=torch.float32, device=dev)
     partials = torch.empty(max_blocks * lay.nscal, dtype=torch.float32, device=dev)
+    hist = (torch.empty(max_blocks * BWD_LONG_THREADS * hist_len, dtype=torch.float32, device=dev)
+            if hist_len else None)
     cp = _CParams.of(p)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -320,10 +374,11 @@ def bwd(scene: SceneBuffers, cam, p: PrepassParams, lay: GradLayout, t, hit, g_i
             *_scene_ptrs(scene), slots.data_ptr(), cam.data_ptr(),
             ctypes.addressof(cp), lay.grad_denom_clamp,
             t.data_ptr(), hit.data_ptr(), g_img.data_ptr(),
-            lay.nscal, lay.op_base, lay.cam_base,
+            lay.nscal, lay.op_base, lay.cam_base, int(mats),
+            None if hist is None else hist.data_ptr(),
             partials.data_ptr(), max_blocks, out.data_ptr(), stream,
         )
-    _raise_on(err, "fused_bwd_kernel")
+    _raise_on(err, "fused_bwd_long_kernel" if hist_len else "fused_bwd_kernel")
     bwd.launches += 1
     return lay.unpack(out)
 
@@ -355,7 +410,7 @@ def _check_compact_bwd(scene: SceneBuffers, cull: TileCull, cam, p: PrepassParam
     if dev.type == "cuda" and nscal * 4 > SMEM_PER_BLOCK:
         raise NotImplementedError(
             f"{nscal} gradient words need {nscal * 4} bytes of shared memory per "
-            f"block, more than {SMEM_PER_BLOCK} (ROADMAP §1.10 many-primitive backward)"
+            f"block, more than {SMEM_PER_BLOCK} (ROADMAP: {BWD_LIMIT_ITEM})"
         )
     return dev, nscal
 
@@ -498,11 +553,6 @@ def plan_kind(spec: TapeSpec):
     return "stream" if plan["stream"] else "pool"
 
 
-# The reference's legacy backward with albedo words, which painted scenes
-# off the compact backward need.
-ALBEDO_WORDS_ITEM = "§2.4 K8's albedo words (the legacy backward with materials)"
-
-
 def backward_route(spec: TapeSpec, cfg: RenderConfig):
     """(plan kind, reason): why the compact O(active) backward is not taken,
     or reason None when it is, by the eligibility chain of
@@ -539,17 +589,21 @@ class FusedRenderer:
     With `cfg.leaf_cull` the forward is culled (the coarse and fine kernels
     read per-tile item lists or masks); a compact plan without residual
     subtrees then takes the compact backward K9 (`compact_bwd`), any other
-    scene the legacy K8 (`backward_route`)."""
+    scene the legacy K8 (`backward_route`), painted or not. `prepass_block`
+    = B runs the coarse pass per B x B block and the fine pass on its block
+    planes, as the reference's fused forward does (pallas_grad.py:1340-1346).
+    """
 
-    def __init__(self, spec: TapeSpec, cfg: RenderConfig, width: int, height: int, device, reason):
+    def __init__(self, spec: TapeSpec, cfg: RenderConfig, width: int, height: int, device, reason,
+                 prepass_block: int = 1):
         self.spec = spec
         self.cfg = cfg
         self.device = device
-        self.prepass = make_pallas_image_render_aa(spec, cfg, width, height, device=device)
+        self.prepass = make_pallas_image_render_aa(spec, cfg, width, height, device=device,
+                                                   prepass_block=prepass_block)
         self.params = self.prepass.params
         self.layout = GradLayout.of(spec, cfg)
-        # `reason` is backward_route's; make_fused_render_vjp has refused
-        # the painted scenes that it sends to the legacy backward.
+        # `reason` is backward_route's: None takes the compact backward.
         self.compact_bwd = reason is None
         # The keys and strings of the reference (pallas_grad.py:1887-1895).
         # The port always keeps a pixel's AA samples in adjacent lanes (the
@@ -575,42 +629,48 @@ def make_fused_render_vjp(
     cfg: RenderConfig,
     width: int,
     height: int,
-    *,
-    device,
+    interpret: bool = False,
+    bm=None,
     prepass_block: int = 1,
     band_rows=None,
     aa_packed=None,
     soft: bool = False,
+    *,
+    device,
 ) -> FusedRenderer:
     """The port's counterpart of `raymarch_tpu.ops.pallas_grad.
-    make_fused_render_vjp`, cached per (spec, cfg, width, height, device).
+    make_fused_render_vjp`, with the reference's arguments in its order,
+    cached per (spec, cfg, width, height, prepass_block, device).
 
-    Serves a static tape with prepass_block=1 and the packed layout:
-    without `cfg.leaf_cull` the legacy backward (K8); with it the culled
-    forward, then the compact backward (K9) for every compact plan without
-    residual subtrees (pool, seg1 chain, streams; painted pools) and K8 for
-    a plan with residual subtrees or no plan, as the reference dispatches
-    (`backward_route`, `backward_info`). A painted scene that the reference
-    sends to its legacy backward with albedo words raises, as does every
-    other option not ported, with its ROADMAP item.
+    Serves every static tape with the packed layout: without `cfg.leaf_cull`
+    the legacy backward (K8); with it the culled forward, then the compact
+    backward (K9) for every compact plan without residual subtrees (pool,
+    seg1 chain, streams; painted pools) and K8 for any other scene, as the
+    reference dispatches (`backward_route`, `backward_info`). K8 takes
+    painted scenes (the albedo words) and tapes of any length.
+    `prepass_block` = B >= 1 runs the block prepass (values below 1 read as
+    1, as the reference's).
+
+    `interpret` and `bm` set the TPU kernels' layout in the reference (the
+    Pallas interpreter; the backward's row-block size) and have no effect
+    here. `band_rows`, `aa_packed=False` and `soft` raise
+    NotImplementedError naming their ROADMAP item, as does a dynamic tape.
     """
+    del interpret, bm  # TPU layout only
     if spec.static_tape is None:
         _not_ported("fused-VJP rendering of a dynamic tape (compile_scene(static=True) is required)",
-                    "§1.12 dynamic tape, tiered runtime and viewer")
+                    "§1 item 4, dynamic tape, tiered runtime and viewer")
     if soft:
-        _not_ported("soft", "§1.10 many-primitive backward and soft coverage")
-    kind, reason = backward_route(spec, cfg)
-    if spec.has_materials and reason is not None:
-        _not_ported(f"the legacy backward of a painted scene ({reason})", ALBEDO_WORDS_ITEM)
+        _not_ported("soft", "§1 item 2, soft coverage")
     if band_rows is not None:
-        _not_ported("band_rows", "§1.11 multi-device")
-    if prepass_block != 1:
-        _not_ported("prepass_block > 1", "§1.9 many-primitive forward")
+        _not_ported("band_rows", "§1 item 7, multi-device")
     if aa_packed is False:
-        _not_ported("the unpacked layout", "§1.13 remaining surfaces, K4 fine_kernel")
-    return _cached_fused(spec, cfg, int(width), int(height), resolve_device(device), reason)
+        _not_ported("the unpacked layout", "§1 item 5 and §2 item 5, K4 fine_kernel")
+    _, reason = backward_route(spec, cfg)
+    return _cached_fused(spec, cfg, int(width), int(height), resolve_device(device), reason,
+                         max(1, int(prepass_block)))
 
 
 @functools.lru_cache(maxsize=None)
-def _cached_fused(spec, cfg, width, height, device, reason):
-    return FusedRenderer(spec, cfg, width, height, device, reason)
+def _cached_fused(spec, cfg, width, height, device, reason, prepass_block):
+    return FusedRenderer(spec, cfg, width, height, device, reason, prepass_block)

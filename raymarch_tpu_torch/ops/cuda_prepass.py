@@ -883,10 +883,12 @@ def _check_scene(scene: SceneBuffers, cam, bound, p: PrepassParams):
         raise ValueError(f"unsupported device {dev}")
     if dev.type == "cuda":
         S = p.naa * p.naa
-        if 32 % S:
+        if 32 % S and S != 64:
             raise NotImplementedError(
-                f"the fine kernel reduces the AA mean within a warp: "
-                f"aa_samples^2 = {S} must divide 32"
+                f"the fine kernel reduces the AA mean within a warp, or over "
+                f"two (aa_samples = 8): aa_samples^2 = {S} must divide 32 or be 64; "
+                "other counts take the unpacked fine pass, which is not ported yet "
+                "(ROADMAP: §2 item 5, K4 fine_kernel)"
             )
         if p.rows > 65535:
             raise ValueError(f"{p.rows} rows exceed the launch grid")
@@ -1257,19 +1259,19 @@ def make_pallas_image_render_aa(
         raise ValueError("no_prepass excludes interval/chained prepasses")
     if ni > MAX_NI:
         raise NotImplementedError(
-            f"n_intervals={ni} exceeds the kernels' MAX_NI={MAX_NI} (ROADMAP: §1.8 forward variants, "
+            f"n_intervals={ni} exceeds the kernels' MAX_NI={MAX_NI} (ROADMAP: §3 fault 7, "
             "port limit MAX_NI)"
         )
     if band_rows is not None and int(band_rows) < 1:
         raise ValueError(f"band_rows must be at least 1, got {band_rows}")
     if soft:
-        _not_ported("soft", "§1.10 many-primitive backward and soft coverage")
+        _not_ported("soft", "§1 item 2, soft coverage")
     if march_only:
-        _not_ported("march_only", "§1.13 remaining surfaces")
+        _not_ported("march_only", "§1 item 5, the remaining render surfaces")
     if not aa_packed or cfg.aa_shared_normals:
-        _not_ported("the unpacked fine pass (aa_shared_normals)", "§1.13 remaining surfaces, K4 fine_kernel")
+        _not_ported("the unpacked fine pass (aa_shared_normals)", "§1 item 5 and §2 item 5, K4 fine_kernel")
     if spec.static_tape is None:
-        _not_ported("a dynamic tape", "§1.12 dynamic tape, tiered runtime and viewer")
+        _not_ported("a dynamic tape", "§1 item 4, dynamic tape, tiered runtime and viewer")
     block = max(1, int(prepass_block))
     return _cached_renderer(spec, cfg, int(width), int(height), resolve_device(device), bool(no_prepass), block,
                             ni, bool(prepass_chain) and block > 1,

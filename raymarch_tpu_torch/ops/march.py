@@ -4,7 +4,8 @@ Ported so far: the forward cone-prepass backend (`backend="pallas_prepass"`,
 `mode="forward"`, march.py:439-461 of the JAX package) and the fused
 forward+backward backend (`backend="pallas_fused"`, `mode="implicit"`,
 462-487); the other backend strings and modes raise NotImplementedError
-naming their ROADMAP item.
+naming their ROADMAP item. `make_renderer` takes the reference's arguments
+in the reference's order (384-393), plus the keyword-only `device`.
 """
 
 from __future__ import annotations
@@ -18,10 +19,10 @@ from .cuda_prepass import make_pallas_image_render_aa
 from .tape import TapeArrays, TapeSpec
 
 _NOT_PORTED = {
-    "jnp": "§1.4 torch reference renderer",
-    "pallas": "§1.13 remaining surfaces, K5",
-    "pallas_image": "§1.13 remaining surfaces, K6",
-    "pallas_full": "§1.13 remaining surfaces, K7",
+    "jnp": "§1 item 3, the torch reference renderer",
+    "pallas": "§1 item 5, the remaining render surfaces, K5",
+    "pallas_image": "§1 item 5, the remaining render surfaces, K6",
+    "pallas_full": "§1 item 5, the remaining render surfaces, K7",
 }
 
 
@@ -31,7 +32,9 @@ def make_renderer(
     height: int,
     cfg: RenderConfig = DEFAULT_CONFIG,
     mode: str = "implicit",
+    chunk=None,
     backend: str = "jnp",
+    interpret: bool = False,
     *,
     device,
 ):
@@ -41,15 +44,18 @@ def make_renderer(
     plain versions run, on CUDA the kernels; asking for CUDA without a GPU
     raises. The renderer is cached per (spec, cfg, width, height, device), so
     a numeric scene edit that keeps the TapeSpec gets the same renderer back
-    and rebuilds nothing.
+    and rebuilds nothing. `chunk` (the ray chunk of the reference's "jnp"
+    march) and `interpret` (the Pallas interpreter) have no effect on the
+    ported backends, which render the whole frame in their kernels.
     """
+    del chunk, interpret  # the reference's layout only
     if backend == "pallas_fused":
         # Fused forward + backward: differentiable with respect to
         # arrays.leaf_params, arrays.op_param and the camera (tensors).
         if mode == "soft":
             raise NotImplementedError(
                 "mode 'soft' of backend 'pallas_fused' is not ported yet "
-                "(ROADMAP: §1.10 many-primitive backward and soft coverage)"
+                "(ROADMAP: §1 item 2, soft coverage)"
             )
         if mode != "implicit":
             raise ValueError("pallas_fused backend supports 'implicit'/'soft'")

@@ -4,7 +4,9 @@ Port of `raymarch_tpu/parallel/render.py:make_fit_step` (208-371) at world
 size 1: the image is one band (rows [0, H), so `cam_vec[7] = 0`, as
 `_band_cam_vec` (47) builds it for device 0), and no gradient crosses
 devices. Row-sharded training over several devices, `row_interleave` and
-`band_rows` come with ROADMAP §1.11.
+`band_rows` come with ROADMAP §1 item 7. `make_fit_step` takes the
+reference's arguments in its order (208-222), plus the keyword-only
+`device`; `interpret` (the Pallas interpreter) has no effect here.
 
 Optimizers are torch's: `optimizer` and `camera_optimizer` are callables
 that build a `torch.optim.Optimizer` over a list of tensors, e.g.
@@ -30,10 +32,10 @@ from ..ops.tape import TapeArrays, TapeSpec
 from ..utils.camera import Camera, cam_vec
 
 _NOT_PORTED = {
-    "jnp": "§1.4 torch reference renderer",
-    "pallas": "§1.13 remaining surfaces, K5",
-    "pallas_image": "§1.13 remaining surfaces, K6",
-    "pallas_full": "§1.13 remaining surfaces, K7",
+    "jnp": "§1 item 3, the torch reference renderer",
+    "pallas": "§1 item 5, the remaining render surfaces, K5",
+    "pallas_image": "§1 item 5, the remaining render surfaces, K6",
+    "pallas_full": "§1 item 5, the remaining render surfaces, K7",
 }
 
 
@@ -72,13 +74,13 @@ def _on(x, device) -> torch.Tensor:
 
 
 def _one_device(mesh):
-    """`mesh` may be None or hold one device; more is §1.11."""
+    """`mesh` may be None or hold one device; more is ROADMAP §1 item 7."""
     if mesh is None:
         return
     n = len(mesh) if hasattr(mesh, "__len__") else getattr(mesh, "size", 1)
     if n != 1:
         raise NotImplementedError(
-            f"a fit over {n} devices is not ported yet (ROADMAP: §1.11 multi-device)"
+            f"a fit over {n} devices is not ported yet (ROADMAP: §1 item 7, multi-device)"
         )
 
 
@@ -93,6 +95,7 @@ def make_fit_step(
     backend: str = "jnp",
     fit_camera: bool = False,
     grad_mask=None,
+    interpret: bool = False,
     camera_optimizer=None,
     row_interleave: int = 1,
     *,
@@ -112,10 +115,11 @@ def make_fit_step(
     after each update; `init_opt_state` then takes the camera too. The
     returned arrays and camera hold tensors on the device.
     """
+    del interpret  # the Pallas interpreter: no effect on the ported kernels
     _one_device(mesh)
     if int(row_interleave) != 1:
         raise NotImplementedError(
-            "row_interleave is not ported yet (ROADMAP: §1.11 multi-device)"
+            "row_interleave is not ported yet (ROADMAP: §1 item 7, multi-device)"
         )
     if backend != "pallas_fused":
         item = _NOT_PORTED.get(backend)
@@ -124,8 +128,7 @@ def make_fit_step(
         raise NotImplementedError(f"backend {backend!r} is not ported yet (ROADMAP: {item})")
     if mode == "soft":
         raise NotImplementedError(
-            "mode 'soft' is not ported yet (ROADMAP: §1.10 many-primitive "
-            "backward and soft coverage)"
+            "mode 'soft' is not ported yet (ROADMAP: §1 item 2, soft coverage)"
         )
     if mode != "implicit":
         raise ValueError("pallas_fused backend supports 'implicit'/'soft'")

@@ -237,28 +237,23 @@ def _painted_pool(m):
         ("seg1_plane", _gated_plane_scene, ("pallas_compact", None)),
         ("stream", lambda m: _cluster_scene(), ("pallas_compact", None)),
         ("painted", _painted_pool, ("pallas_compact", None)),
-        ("painted_seg1", _painted_smooth, "albedo words"),
+        # K8 with its albedo words (the id kept from when this case raised).
+        pytest.param("painted_seg1", _painted_smooth,
+                     ("pallas_legacy_unrolled", "painted materials on smooth/ordered segments"),
+                     id="painted_seg1--albedo words"),
     ],
     ids=lambda v: v if isinstance(v, str) else "",
 )
 def test_backward_dispatch_mirrors_the_reference(name, build, expect):
     """backward_info's kind and reason for leaf_cull=True, as the
     reference's eligibility chain gives them. A painted scene that the
-    reference sends to its legacy backward with albedo words raises here,
-    naming that ROADMAP item, and never takes K8 without them."""
+    reference sends to its legacy backward takes K8 with its albedo words
+    (tests/test_torch_legacy.py)."""
     cfg_j = dataclasses.replace(CFG_J, leaf_cull=True)
     spec_j, arrays_j = rm.compile_scene(build(rm), static=True)
     spec, _ = from_reference(spec_j, arrays_j)
     cfg = rt.RenderConfig(**dataclasses.asdict(cfg_j))
     info_j = fused_vjp_j(spec_j, cfg_j, 32, 24, interpret=True, bm=8).backward_info
-    if expect == "albedo words":
-        assert info_j["kind"] == "pallas_legacy_unrolled" and "materials" in info_j["reason"]
-        for make in (lambda: cg.make_fused_render_vjp(spec, cfg, 32, 24, device="cpu"),
-                     lambda: rt.make_renderer(spec, 32, 24, cfg, mode="implicit", backend="pallas_fused",
-                                              device="cpu")):
-            with pytest.raises(NotImplementedError, match=r"§2\.4 K8's albedo words"):
-                make()
-        return
     fr = cg.make_fused_render_vjp(spec, cfg, 32, 24, device="cpu")
     assert (fr.backward_info["kind"], fr.backward_info["reason"]) == expect
     # aa_packed is left out: the port always packs a pixel's samples, where

@@ -496,3 +496,119 @@ def test_block_and_chained_frames_match_plain(dev, kw):
         both = (got[1] == 1) & (stp == 1)
         rel = (got[0][both] - t0p[both]).abs() / t0p[both].abs()
         assert int(both.sum()) > 0 and float((rel > 1e-4).float().mean()) < 5e-3
+
+
+def _long_tape(m, n=64):
+    """bench.py's random spheres (seed 7), the first n, intersected at the
+    root with a box: a plan with residual subtrees; n = 64 gives 129
+    instructions and 1,176 gradient words, past both caps of K8's
+    per-thread build."""
+    return _spheres(m, n) & m.box(half_extents=(3.2, 1.2, 3.2))
+
+
+def _painted_chain(m):
+    """_chain with every sphere painted its own colour (seed 19): a painted
+    seg1 chain, which takes the legacy backward under leaf_cull."""
+    rng = np.random.default_rng(19)
+
+    def paint(node):
+        return node.paint(tuple(rng.uniform(0.1, 0.9, 3)))
+
+    scene = functools.reduce(lambda a, b: a | b, [
+        paint(m.sphere(center=(-1.0 + 0.5 * k, 0.1 * k, 0.2 * (k % 2)), radius=0.45)) for k in range(5)])
+    scene = scene.union(paint(m.sphere(center=(0.4, 0.3, 0.5), radius=0.45)), k=0.25)
+    scene = scene - m.sphere(center=(-0.3, 0.4, 0.6), radius=0.35)
+    return scene.subtract(m.sphere(center=(0.8, -0.2, 0.4), radius=0.3), k=0.18)
+
+
+# scene -> (scene function, config, camera position, K8's long build):
+# painted scenes (the albedo words) and long tapes through the legacy
+# backward, after a culled forward where cfg64 culls.
+LEGACY_SCENES = {
+    "painted_blends": (_painted_blends, CFG, (0.0, 1.6, 4.2), False),
+    "painted": (_painted, CFG, (0.0, 2.5, 9.0), False),
+    "painted33": (functools.partial(_painted, n=33), CFG, (0.0, 2.5, 9.0), True),
+    "painted_chain": (_painted_chain, CFG64, (0.3, 1.8, 5.0), False),
+    "long_tape": (_long_tape, CFG64, (0.0, 2.5, 9.0), True),
+}
+
+
+@pytest.mark.parametrize("name", sorted(LEGACY_SCENES))
+def test_legacy_kernel_matches_plain(dev, name):
+    """K8 with albedo words and on long tapes against bwd_plain, from the
+    fused forward's residuals, and through the fused renderer."""
+    build, cfg, pos, long_build = LEGACY_SCENES[name]
+    spec, arrays = rt.compile_scene(build(rt), static=True)
+    fr = cg.make_fused_render_vjp(spec, cfg, W, H, device=dev)
+    assert fr.backward_info["kind"] == "pallas_legacy_unrolled"
+    assert fr.layout.long == long_build
+    if name == "long_tape":
+        assert fr.layout.n_real > cg.MAX_BWD_INSTR and fr.layout.nscal * (cg.BWD_THREADS + 1) * 4 > cg.SMEM_PER_BLOCK
+    cam_vec = rt.cam_vec(rt.Camera.looking_at(position=pos, target=(0.0, 0.0, 0.0)), device=dev)
+    rp = fr.prepass
+    sc, cam, bound = rp.scene_args(arrays, cam_vec)
+    cc, fc = rp.cull_args(sc, cam)
+    pre = cp.coarse(sc, cam, bound, fr.params, cc)
+    _, t, hit = cp.fine_res(sc, cam, bound, fr.params, *pre, cull=fc)
+    g = torch.tensor(np.random.default_rng(7).uniform(-1, 1, (H, W, 3)).astype(np.float32), device=dev)
+    before = cg.bwd.launches
+    got = cg.bwd(sc, cam, fr.params, fr.layout, t, hit, g)
+    assert cg.bwd.launches == before + 1
+    ref = cg.bwd_plain(sc, cam, fr.params, fr.layout, t, hit, g, band_rows=16)
+    scale = float(ref[0].abs().max())
+    assert scale > 0
+    torch.testing.assert_close(got[0], ref[0], rtol=0.0, atol=0.01 * scale)
+    torch.testing.assert_close(got[1], ref[1], rtol=0.0, atol=0.01 * scale)
+    torch.testing.assert_close(got[2], ref[2], rtol=0.0, atol=0.02 * float(ref[2].abs().max()))
+    if spec.has_materials:
+        assert float(got[0][:, 12:16].abs().max()) > 0
+    lp = torch.tensor(arrays.leaf_params, device=dev, requires_grad=True)
+    img = fr(dataclasses.replace(arrays, leaf_params=lp), cam_vec)
+    torch.mean(img**2).backward()
+    assert cg.bwd.launches == before + 2
+    assert bool(torch.isfinite(lp.grad).all()) and float(lp.grad.abs().max()) > 0
+
+
+def test_block_vjp_matches_plain(dev):
+    """The fused VJP at prepass_block = 4: the fine kernel with residuals
+    reads the block planes, and K8 runs on its residuals."""
+    spec, arrays = rt.compile_scene(_config2(rt), static=True)
+    fr = cg.make_fused_render_vjp(spec, CFG, W, H, device=dev, prepass_block=4)
+    p = fr.params
+    assert p.block == 4 and p.plane_shape == (H // 4, W // 4)
+    sc, cam, bound = fr.prepass.scene_args(arrays, rt.cam_vec(CAM, device=dev))
+    pre = cp.coarse(sc, cam, bound, p)
+    img, t, hit = cp.fine_res(sc, cam, bound, p, *pre)
+    img_p, t_p, hit_p = cp.fine_res_plain(sc, cam, bound, p, *pre)
+    assert float((img - img_p).abs().mean()) < 5e-4
+    assert float((hit == hit_p).float().mean()) >= 0.999
+    g = torch.tensor(np.random.default_rng(5).uniform(-1, 1, (H, W, 3)).astype(np.float32), device=dev)
+    got = cg.bwd(sc, cam, p, fr.layout, t, hit, g)
+    ref = cg.bwd_plain(sc, cam, p, fr.layout, t, hit, g)
+    scale = float(ref[0].abs().max())
+    torch.testing.assert_close(got[0], ref[0], rtol=0.0, atol=0.01 * scale)
+    torch.testing.assert_close(got[2], ref[2], rtol=0.0, atol=0.02 * float(ref[2].abs().max()))
+    cp.reset_launch_counts()
+    lp = torch.tensor(arrays.leaf_params, device=dev, requires_grad=True)
+    out = fr(dataclasses.replace(arrays, leaf_params=lp), rt.cam_vec(CAM, device=dev))
+    torch.mean(out**2).backward()
+    assert (cp.coarse.launches, cp.fine_res.launches) == (1, 1)
+    assert float(lp.grad.abs().max()) > 0
+
+
+def test_aa8_frame_matches_plain(dev):
+    """aa_samples = 8: a pixel's 64 samples span two warps, reduced within
+    each and joined through shared memory; residuals keep their lane order."""
+    spec, arrays = rt.compile_scene(_config2(rt), static=True)
+    cfg = dataclasses.replace(CFG, aa_samples=8)
+    render = rt.make_renderer(spec, W, H, cfg, mode="forward", backend="pallas_prepass", device="cuda")
+    img = render(arrays, CAM)
+    ref = render.renderer.render_plain(arrays, rt.cam_vec(CAM, device=dev))
+    assert float((img - ref).abs().mean()) < 5e-4
+    assert _neigh_frac(img, ref) < 0.008
+    sc, cam, bound, p = _args(spec, arrays, cfg, dev)
+    pre = cp.coarse(sc, cam, bound, p)
+    img_r, t, hit = cp.fine_res(sc, cam, bound, p, *pre)
+    assert torch.equal(img_r, cp.fine(sc, cam, bound, p, *pre))
+    _, t_p, hit_p = cp.fine_res_plain(sc, cam, bound, p, *pre)
+    assert t.shape == (H, W, 64) and float((hit == hit_p).float().mean()) >= 0.999

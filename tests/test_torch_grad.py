@@ -227,24 +227,16 @@ def test_backward_info_is_the_references(small):
     "kw,cfg_kw,what",
     [
         (dict(soft=True), {}, None),
-        # Pool, seg1, stream and painted-pool plans take K9
-        # (tests/test_torch_blend.py); under leaf_cull, paint on smooth
-        # segments still needs K8's albedo words.
-        ({}, dict(leaf_cull=True), "painted_smooth"),
+        # leaf_cull, prepass_block and painted scenes are ported
+        # (tests/test_torch_legacy.py); these cases raise as before.
         (dict(band_rows=8), {}, None),
-        (dict(prepass_block=4), {}, None),
         (dict(aa_packed=False), {}, None),
         ({}, {}, "dynamic"),
-        ({}, {}, "materials"),
     ],
-    ids=["soft", "leaf_cull", "band_rows", "block4", "unpacked", "dynamic", "materials"],
+    ids=["soft", "band_rows", "unpacked", "dynamic"],
 )
 def test_unported_options_raise(kw, cfg_kw, what):
-    if what == "painted_smooth":
-        scene = rt.sphere(center=(-0.5, 0, 0), radius=0.7, material=(0.8, 0.2, 0.1)).union(
-            rt.sphere(center=(0.5, 0, 0), radius=0.6), k=0.2) | rt.sphere(center=(0.0, 1.0, 0.0), radius=0.3)
-    else:
-        scene = SCENES["painted_transformed" if what == "materials" else "config2"](rt)
+    scene = SCENES["config2"](rt)
     spec, _ = rt.compile_scene(scene, static=what != "dynamic")
     cfg = dataclasses.replace(_cfg_t(CFG), **cfg_kw)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -285,8 +277,10 @@ def test_bound_torch_form_equals_numpy(name):
 
 
 def test_kernel_constants_match_cuda_sources():
-    """The wrapper's limits are the kernel's: the largest tape the reverse
-    sweep records, and the block size behind the shared-memory check."""
+    """The wrapper's limits are the kernel's: the largest tape whose reverse
+    records sit in local arrays, and the block sizes behind the
+    shared-memory and record-budget checks."""
     csrc = Path(cg.__file__).parent.parent / "csrc"
     assert f"constexpr int MAX_BWD_INSTR = {cg.MAX_BWD_INSTR};" in (csrc / "scene_grad.cuh").read_text()
     assert f"constexpr int BWD_THREADS = {cg.BWD_THREADS};" in (csrc / "fused_bwd.cu").read_text()
+    assert f"constexpr int BWD_LONG_THREADS = {cg.BWD_LONG_THREADS};" in (csrc / "fused_bwd.cu").read_text()

@@ -156,15 +156,16 @@ def test_unported_scenes_raise(what):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             rt.make_renderer(spec, W, H, CFG, mode="forward", backend="pallas_prepass", device="cpu")
         return
-    # The painted forward is ported (tests/test_torch_blend.py); what stays
-    # unported is the legacy backward's albedo words, which a painted scene
-    # without leaf_cull needs.
+    # The painted forward is ported (tests/test_torch_blend.py), and so is
+    # the legacy backward's albedo words, which a painted scene without
+    # leaf_cull takes (tests/test_torch_legacy.py).
     spec, arrays = rt.compile_scene(SCENES["painted_transformed"](rt), static=True)
     img = rt.make_renderer(spec, W, H, CFG, mode="forward", backend="pallas_prepass", device="cpu")(
         arrays, rt.Camera.looking_at(position=POS, target=TARGET))
     assert img.shape == (H, W, 3) and bool(torch.isfinite(img).all())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        rt.make_renderer(spec, W, H, CFG, mode="implicit", backend="pallas_fused", device="cpu")
+    fused = rt.make_renderer(spec, W, H, CFG, mode="implicit", backend="pallas_fused", device="cpu")
+    assert (fused.backward_info["kind"], fused.backward_info["reason"]) == (
+        "pallas_legacy_unrolled", "leaf_cull disabled")
 
 
 def test_cuda_device_raises_without_gpu(frame):
