@@ -77,7 +77,8 @@ Run from the repository root: `python3 chip_smoke.py`. It
    the albedo words): for each the fwd+bwd step of mean(img^2) (CUDA
    events, launches), the reference's backward_info, K8 alone, K8 against
    `bwd_plain` on the whole frame (the albedo and flag words of (a), (b),
-   (e) non-zero and inside the tolerance) and its bound; a 5-step 1080p
+   (e), and the op words of (b), non-zero and within 0.01 of their own
+   class's largest word) and its bound; a 5-step 1080p
    fit of (a)'s albedos; an `aa_samples=8` frame of config 2 against its
    plain path;
 13. prints one JSON line of per-kernel records (time, plain time, launches,
@@ -1199,6 +1200,21 @@ def k8_reached(sc, p, cam, t, hit, band_rows=64):
     return total
 
 
+def word_class(name, what, got, ref, geo):
+    """One class of K8's gradient words against bwd_plain at 0.01 times the
+    class's own largest word (a class far below the geometry words would
+    pass grad_class's overall scale whatever it held); the class must be
+    non-zero in both. `geo` is the largest geometry word, printed beside."""
+    scale = float(ref.abs().max())
+    err = float((got - ref).abs().max())
+    ok = scale > 0 and float(got.abs().max()) > 0 and err <= 0.01 * scale
+    log(f"({name}) {what}: max|g| {scale:.4e} (= {scale / geo:.3e} of the largest geometry word {geo:.4e}), "
+        f"max|d| {err:.3e} = {err / max(scale, 1e-30):.3e} of the class's max|g| (need <= 0.01, non-zero) "
+        f"{'PASS' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"path ({name}): the {what} are zero or outside the tolerance")
+
+
 def k8_bound(sc, p, cam, t, hit, lay, n_rays):
     """(bound_ms, bound_by, operations, bytes) of the legacy backward on
     these residuals. Per hit ray: the tape at the 4 taps and the hit point
@@ -1327,14 +1343,10 @@ def legacy(rt, cp, cg, dev, smi, cfg):
                          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB)", got, ref)
         grad_class(f"({name}) training-path gradients vs bwd_plain", grads, ref)
         if spec_p.has_materials:
-            words = ref[0][:, 12:16]
-            e_alb = float((got[0][:, 12:16] - words).abs().max())
-            scale = float(ref[0].abs().max())
-            log(f"({name}) albedo and flag words: max|g| {float(words.abs().max()):.4e}, max|d| {e_alb:.3e} "
-                f"= {e_alb / scale:.3e} of max|g| (need <= 0.01, non-zero)")
-            if not (float(words.abs().max()) > 0 and float(got[0][:, 12:16].abs().max()) > 0
-                    and e_alb <= 0.01 * scale):
-                raise AssertionError(f"path ({name}): the albedo and flag words are zero or outside the tolerance")
+            word_class(name, "albedo and flag words", got[0][:, 12:16], ref[0][:, 12:16],
+                       float(ref[0][:, :12].abs().max()))
+            if name == "b":  # the blend radii, reached through the smooth weights too
+                word_class(name, "op words", got[1], ref[1], float(ref[0][:, :12].abs().max()))
         del ref
         b_ms, b_by, b_ops, b_bytes, reached = k8_bound(sc, p, cam, t_k, hit_k, lay, n_rays)
         log(f"({name}) {kname}: {k8_ms:.4f} ms alone, plain {plain_ms:.2f} ms, bound {b_ms:.4f} ms ({b_by}; "

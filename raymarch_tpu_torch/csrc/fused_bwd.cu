@@ -29,13 +29,13 @@
 // - fused_bwd_kernel (tapes of at most MAX_BWD_INSTR instructions whose
 //   rows fit): each thread keeps its own running sum of every word in
 //   shared memory (word k of thread t at k * (blockDim + 1) + t: no bank
-//   conflicts, no atomics) and its reverse records in local arrays; the
-//   headline build (MATS false) is the parent's code, 90 registers;
+//   conflicts, no atomics) and its reverse records in a local array;
 // - fused_bwd_long_kernel (any length; nscal up to a block's shared
 //   memory, ~58k words): the reverse records sit in the thread's slice of a
 //   device-memory History, the sums in one shared row per block filled with
-//   atomics, and the sweeps skip every leaf and op whose cotangent is
-//   exactly zero (the losers of hard unions).
+//   atomics.
+// Both run one body (ray_backward, scene_grad.cuh), whose sweeps skip every
+// leaf and op whose cotangent is exactly zero (the losers of hard unions).
 // At the end each block writes one partial row, and bwd_finalize_kernel
 // sums the partial rows in a fixed order.
 //
@@ -82,7 +82,8 @@ __global__ void fused_bwd_kernel(SceneView sc, const int* __restrict__ push_slot
   const int stride = blockDim.x + 1;
   for (int k = 0; k < nscal; ++k) acc_s[k * stride + tid] = 0.0f;
   SharedAcc acc{acc_s + tid, stride};
-  const History none{nullptr, 0, 0};
+  float rec_v[(MATS ? REC_PER_INSTR_MATS : REC_PER_INSTR) * MAX_BWD_INSTR];
+  const LocalBuf rec{rec_v};
 
   const int S = p.naa * p.naa;
   const long long row_lanes = (long long)p.width * S;
@@ -96,10 +97,10 @@ __global__ void fused_bwd_kernel(SceneView sc, const int* __restrict__ push_slot
     const int j = q / S;
     const int s = q - j * S;
     const float* gi = g_img + ((size_t)i * p.width + j) * 3;
-    ray_backward<false, MATS>(sc, push_slot, cam, p, clamp, op_base, cam_base,
-                              i, j, s, __ldg(t_in + g),
-                              __ldg(gi + 0) * p.inv_s, __ldg(gi + 1) * p.inv_s,
-                              __ldg(gi + 2) * p.inv_s, none, acc);
+    ray_backward<MATS>(sc, push_slot, cam, p, clamp, op_base, cam_base, i, j,
+                       s, __ldg(t_in + g), __ldg(gi + 0) * p.inv_s,
+                       __ldg(gi + 1) * p.inv_s, __ldg(gi + 2) * p.inv_s, rec,
+                       acc);
   }
   __syncthreads();
   for (int k = tid; k < nscal; k += blockDim.x) {
@@ -143,10 +144,10 @@ __global__ void fused_bwd_long_kernel(SceneView sc,
     const int j = q / S;
     const int s = q - j * S;
     const float* gi = g_img + ((size_t)i * p.width + j) * 3;
-    ray_backward<true, MATS>(sc, push_slot, cam, p, clamp, op_base, cam_base,
-                             i, j, s, __ldg(t_in + g),
-                             __ldg(gi + 0) * p.inv_s, __ldg(gi + 1) * p.inv_s,
-                             __ldg(gi + 2) * p.inv_s, h, acc);
+    ray_backward<MATS>(sc, push_slot, cam, p, clamp, op_base, cam_base, i, j,
+                       s, __ldg(t_in + g), __ldg(gi + 0) * p.inv_s,
+                       __ldg(gi + 1) * p.inv_s, __ldg(gi + 2) * p.inv_s, h,
+                       acc);
   }
   __syncthreads();
   for (int k = threadIdx.x; k < nscal; k += blockDim.x)

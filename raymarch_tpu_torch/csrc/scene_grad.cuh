@@ -13,10 +13,11 @@
 // interpreter keeps only its value stack), then walks the tape backwards
 // with a cotangent stack: every leaf adds seed * dF/dparam to its 16-word
 // bank row, every round/onion/smooth op adds seed * dF/dk to its op word,
-// and the function returns seed * dF/dp. It keeps the records in local
-// arrays of MAX_BWD_INSTR; scene_adjoint_hist keeps them in a History in
-// device memory, for tapes of any length, and skips every leaf and op
-// whose cotangent is exactly zero (the losers of hard unions).
+// and the function returns seed * dF/dp. It skips every leaf and op whose
+// cotangent is exactly zero (the losers of hard unions). The records sit
+// in a LocalBuf (a thread's local array of MAX_BWD_INSTR instructions: the
+// per-thread build) or in a History in device memory (any tape length: the
+// long build); one body serves both.
 //
 // color_adjoint is the reverse of scene_color (scene_eval.cuh) for a
 // painted scene: the albedo cotangent reaches each contributing leaf's
@@ -43,6 +44,10 @@ namespace rmt {
 // floats per instruction, five with the colour walk): the headline build.
 // Longer tapes take the History form (ops/cuda_grad.py chooses).
 constexpr int MAX_BWD_INSTR = 64;
+// Record slots per instruction: the operands (a, b) of a distance sweep;
+// the colour walk's (a, b) and its operands' colour difference.
+constexpr int REC_PER_INSTR = 2;
+constexpr int REC_PER_INSTR_MATS = 5;
 
 // Adds to a block's one partial row in shared memory (the long form of the
 // legacy backward and the compact backward).
@@ -457,143 +462,19 @@ __device__ __forceinline__ float combine(int op, float a, float b, float k) {
   }
 }
 
-// The scene distance at p, as scene_distance computes it, keeping each
-// combine instruction's inputs in (ra, rb).
+// The records of a reverse sweep in a thread's local array (slot k at
+// v[k]): the per-thread build of the legacy backward.
+struct LocalBuf {
+  float* v;
+  __device__ __forceinline__ float& at(int k) const { return v[k]; }
+};
+
+// The scene distance at p, as scene_distance computes it, keeping the
+// operands of combine instruction i in slots 2i and 2i + 1 of rec (a
+// LocalBuf or a History).
+template <class Rec>
 __device__ __forceinline__ float scene_forward_rec(const SceneView& sc, V3 p,
-                                                   float* ra, float* rb) {
-  float stk[MAX_STACK];
-  for (int i = 0; i < sc.n_instr; ++i) {
-    const int op = __ldg(sc.tape_ops + i);
-    const int s = __ldg(sc.out_slot + i);
-    if (op == COP_PUSH) {
-      const int row = __ldg(sc.tape_arg + i);
-      stk[s] = leaf_distance(sc.leaf_params + row * LEAF_PARAM_WIDTH,
-                             __ldg(sc.row_kind + row), p.x, p.y, p.z);
-      continue;
-    }
-    const float k = __ldg(sc.op_param + i);
-    const float a = stk[s];
-    const bool unary = op == COP_ROUND || op == COP_ONION;
-    const float b = unary ? 0.0f : stk[s + 1];
-    ra[i] = a;
-    rb[i] = b;
-    float r;
-    switch (op) {
-      case COP_ROUND:
-        r = a - k;
-        break;
-      case COP_ONION:
-        r = fabsf(a) - k;
-        break;
-      case COP_UNION:
-        r = fminf(a, b);
-        break;
-      case COP_INTERSECTION:
-        r = fmaxf(a, b);
-        break;
-      case COP_SUBTRACTION:
-        r = fmaxf(a, -b);
-        break;
-      case COP_SMOOTH_UNION:
-        r = smooth_min(a, b, k);
-        break;
-      case COP_SMOOTH_INTERSECTION:
-        r = -smooth_min(-a, -b, k);
-        break;
-      case COP_SMOOTH_SUBTRACTION:
-        r = -smooth_min(-a, b, k);
-        break;
-      default:
-        r = a;
-        break;
-    }
-    stk[s] = r;
-  }
-  return stk[0];
-}
-
-// seed * dF/dp at p; with ACC, also adds seed * dF/dtheta to the leaf rows
-// (slot base push_slot[i] for the PUSH at instruction i) and to the op
-// words (slot op_base + i). Records in local arrays. This and
-// scene_forward_rec keep their own switches rather than share combine and
-// op_adjoint: the headline build's register allocation (ptxas: 90) moved
-// to 87 when they did.
-template <bool ACC, class Acc>
-__device__ V3 scene_adjoint(const SceneView& sc,
-                            const int* __restrict__ push_slot, int op_base,
-                            V3 p, float seed, Acc& acc) {
-  V3 gp = v3(0.0f, 0.0f, 0.0f);
-  if (sc.n_instr == 0) return gp;  // the empty scene is a constant
-  float ra[MAX_BWD_INSTR], rb[MAX_BWD_INSTR];
-  scene_forward_rec(sc, p, ra, rb);
-  float gs[MAX_STACK];
-  gs[0] = seed;
-  for (int i = sc.n_instr - 1; i >= 0; --i) {
-    const int op = __ldg(sc.tape_ops + i);
-    const int s = __ldg(sc.out_slot + i);
-    const float g = gs[s];
-    if (op == COP_PUSH) {
-      const int row = __ldg(sc.tape_arg + i);
-      gp = add(gp, leaf_adjoint<ACC>(sc.leaf_params + row * LEAF_PARAM_WIDTH,
-                                     __ldg(sc.row_kind + row), p, g,
-                                     __ldg(push_slot + i), acc));
-      continue;
-    }
-    const float a = ra[i], b = rb[i];
-    const float k = __ldg(sc.op_param + i);
-    float ga = 0.0f, gb = 0.0f, gk = 0.0f;
-    switch (op) {
-      case COP_ROUND:
-        ga = g;
-        gk = -g;
-        break;
-      case COP_ONION:
-        ga = g * sgn(a);
-        gk = -g;
-        break;
-      case COP_UNION:
-        min_adj(a, b, g, ga, gb);
-        break;
-      case COP_INTERSECTION:
-        max_adj(a, b, g, ga, gb);
-        break;
-      case COP_SUBTRACTION: {
-        float gnb;
-        max_adj(a, -b, g, ga, gnb);
-        gb = -gnb;
-        break;
-      }
-      case COP_SMOOTH_UNION:
-        smooth_min_adj(a, b, k, g, ga, gb, gk);
-        break;
-      case COP_SMOOTH_INTERSECTION: {
-        float gna, gnb;
-        smooth_min_adj(-a, -b, k, -g, gna, gnb, gk);
-        ga = -gna;
-        gb = -gnb;
-        break;
-      }
-      case COP_SMOOTH_SUBTRACTION: {
-        float gna;
-        smooth_min_adj(-a, b, k, -g, gna, gb, gk);
-        ga = -gna;
-        break;
-      }
-      default:
-        ga = g;
-        break;
-    }
-    gs[s] = ga;
-    if (op != COP_ROUND && op != COP_ONION) gs[s + 1] = gb;
-    if (ACC) acc(op_base + i, gk);
-  }
-  return gp;
-}
-
-// scene_forward_rec with the operands of instruction i in slots 2i and
-// 2i + 1 of the thread's History: any tape length.
-__device__ __forceinline__ float scene_forward_hist(const SceneView& sc, V3 p,
-                                                    const History& h) {
+                                                   const Rec& rec) {
   float stk[MAX_STACK];
   for (int i = 0; i < sc.n_instr; ++i) {
     const int op = __ldg(sc.tape_ops + i);
@@ -606,23 +487,26 @@ __device__ __forceinline__ float scene_forward_hist(const SceneView& sc, V3 p,
     }
     const float a = stk[s];
     const float b = (op == COP_ROUND || op == COP_ONION) ? 0.0f : stk[s + 1];
-    h.at(2 * i) = a;
-    h.at(2 * i + 1) = b;
+    rec.at(2 * i) = a;
+    rec.at(2 * i + 1) = b;
     stk[s] = combine(op, a, b, __ldg(sc.op_param + i));
   }
   return stk[0];
 }
 
-// scene_adjoint with the records in the thread's History: any tape length.
-// It skips every leaf and op whose cotangent is exactly zero (the losers of
-// hard unions, and their subtrees), and every zero op word.
-template <bool ACC, class Acc>
-__device__ V3 scene_adjoint_hist(const SceneView& sc, const History& h,
-                                 const int* __restrict__ push_slot,
-                                 int op_base, V3 p, float seed, Acc& acc) {
+// seed * dF/dp at p; with ACC, also adds seed * dF/dtheta to the leaf rows
+// (slot base push_slot[i] for the PUSH at instruction i) and to the op
+// words (slot op_base + i). The forward's records go to rec (slots 2i,
+// 2i + 1 per instruction). It skips every leaf and op whose cotangent is
+// exactly zero (the losers of hard unions, and their subtrees), and every
+// zero op word.
+template <bool ACC, class Rec, class Acc>
+__device__ V3 scene_adjoint(const SceneView& sc, const Rec& rec,
+                            const int* __restrict__ push_slot, int op_base,
+                            V3 p, float seed, Acc& acc) {
   V3 gp = v3(0.0f, 0.0f, 0.0f);
   if (sc.n_instr == 0) return gp;  // the empty scene is a constant
-  scene_forward_hist(sc, p, h);
+  scene_forward_rec(sc, p, rec);
   float gs[MAX_STACK];
   gs[0] = seed;
   for (int i = sc.n_instr - 1; i >= 0; --i) {
@@ -643,8 +527,8 @@ __device__ V3 scene_adjoint_hist(const SceneView& sc, const History& h,
       continue;
     }
     float ga, gb, gk;
-    op_adjoint(op, h.at(2 * i), h.at(2 * i + 1), __ldg(sc.op_param + i), g, ga,
-               gb, gk);
+    op_adjoint(op, rec.at(2 * i), rec.at(2 * i + 1), __ldg(sc.op_param + i), g,
+               ga, gb, gk);
     gs[s] = ga;
     if (!unary) gs[s + 1] = gb;
     if (ACC && gk != 0.0f) acc(op_base + i, gk);
@@ -694,12 +578,6 @@ __device__ __forceinline__ float color_weight(int op, float a, float b,
       return 1.0f;
   }
 }
-
-// The colour walk's records in a thread's local array (slot k at v[k]).
-struct LocalBuf {
-  float* v;
-  __device__ __forceinline__ float& at(int k) const { return v[k]; }
-};
 
 // The colour walk of scene_color (no tile mask) at p, recording for each
 // combine instruction i its operand distances and, for a binary one, the
@@ -861,18 +739,19 @@ __device__ V3 color_adjoint(const SceneView& sc, const Rec& rec,
 // The gradient of one hit ray (the per-ray body of the legacy backward, see
 // fused_bwd.cu): adds its leaf, op and camera words to acc. (i, j, s) are
 // the band row, the pixel column and the AA sample, t the march end, and
-// (gr, gg, gb) the pixel's cotangent over S. LONG keeps the reverse records
-// in the thread's History h (any tape length) instead of local arrays;
-// MATS shades with the albedo of the colour walk at the hit point and runs
-// its adjoint (color_adjoint) before g_t is formed, so that the albedo's
-// dependence on the hit point enters the implicit-function term too.
-template <bool LONG, bool MATS, class Acc>
+// (gr, gg, gb) the pixel's cotangent over S. rec holds the reverse records
+// of each sweep in turn (a LocalBuf or a History: 2 slots per instruction,
+// 5 for the colour walk). MATS shades with the albedo of the colour walk at
+// the hit point and runs its adjoint (color_adjoint) before g_t is formed,
+// so that the albedo's dependence on the hit point enters the
+// implicit-function term too.
+template <bool MATS, class Rec, class Acc>
 __device__ void ray_backward(const SceneView& sc,
                              const int* __restrict__ push_slot,
                              const float* __restrict__ cam,
                              const RenderParams& p, float clamp, int op_base,
                              int cam_base, int i, int j, int s, float t,
-                             float gr, float gg, float gb, const History& h,
+                             float gr, float gg, float gb, const Rec& rec,
                              Acc& acc) {
   const int a_ = s / p.naa;
   const int b_ = s - a_ * p.naa;
@@ -915,40 +794,24 @@ __device__ void ray_backward(const SceneView& sc,
   // --- adjoint of the shading ----------------------------------------------
   const float gcol[3] = {gr, gg, gb};
   float gdiff = 0.0f;
-  V3 gp_alb = v3(0.0f, 0.0f, 0.0f);  // through the painted albedo
-  if constexpr (MATS) {
-    // The albedo at the hit point (the forward's scene_color, un-gated as
-    // the reference's backward is), and its adjoint at once: the colour
-    // records then free the History for the sweeps below.
-    float lbuf[LONG ? 1 : 5 * MAX_BWD_INSTR];
-    float alb[3], galb[3];
-    const auto sweep = [&](const auto& rec) {
-      color_forward_rec(sc, pt, p.albedo, alb, rec);
-      for (int c = 0; c < 3; ++c) {
-        const float v = alb[c] * diff;
-        const float col = sqrtf(fmaxf(v, 0.0f) + 1e-12f);
-        float gv, unused;
-        max_adj(v, 0.0f, gcol[c] * 0.5f / col, gv, unused);
-        gdiff += gv * alb[c];
-        galb[c] = gv * diff;
-      }
-      gp_alb = color_adjoint(sc, rec, push_slot, op_base, pt, p.albedo, galb,
-                             acc);
-    };
-    if constexpr (LONG) {
-      sweep(h);
-    } else {
-      sweep(LocalBuf{lbuf});
-    }
-  } else {
-    for (int c = 0; c < 3; ++c) {
-      const float v = p.albedo[c] * diff;
-      const float col = sqrtf(fmaxf(v, 0.0f) + 1e-12f);
-      float gv, unused;
-      max_adj(v, 0.0f, gcol[c] * 0.5f / col, gv, unused);
-      gdiff += gv * p.albedo[c];
-    }
+  float alb[3] = {p.albedo[0], p.albedo[1], p.albedo[2]};
+  float galb[3];
+  // The albedo at the hit point (the forward's scene_color, un-gated as the
+  // reference's backward is); its adjoint runs at once below, so that the
+  // colour records free rec for the sweeps after it.
+  if constexpr (MATS) color_forward_rec(sc, pt, p.albedo, alb, rec);
+  for (int c = 0; c < 3; ++c) {
+    const float v = alb[c] * diff;
+    const float col = sqrtf(fmaxf(v, 0.0f) + 1e-12f);
+    float gv, unused;
+    max_adj(v, 0.0f, gcol[c] * 0.5f / col, gv, unused);
+    gdiff += gv * alb[c];
+    galb[c] = gv * diff;
   }
+  V3 gp_alb = v3(0.0f, 0.0f, 0.0f);  // through the painted albedo
+  if constexpr (MATS)
+    gp_alb = color_adjoint(sc, rec, push_slot, op_base, pt, p.albedo, galb,
+                           acc);
   float gdiff0, gamb;
   max_adj(diff0, p.ambient, gdiff, gdiff0, gamb);
   const float gdot = gdiff0 * sn;
@@ -961,34 +824,21 @@ __device__ void ray_backward(const SceneView& sc,
   for (int k = 0; k < 4; ++k) {
     const V3 q = v3(pt.x + taps[k].x * e, pt.y + taps[k].y * e,
                     pt.z + taps[k].z * e);
-    if constexpr (LONG) {
-      gp = add(gp, scene_adjoint_hist<true>(sc, h, push_slot, op_base, q,
-                                            dot(taps[k], gn), acc));
-    } else {
-      gp = add(gp, scene_adjoint<true>(sc, push_slot, op_base, q,
-                                       dot(taps[k], gn), acc));
-    }
+    gp = add(gp, scene_adjoint<true>(sc, rec, push_slot, op_base, q,
+                                     dot(taps[k], gn), acc));
   }
   const float gt = dot(gp, d);
   V3 go = gp;
   V3 gd = scale(gp, t);
 
   // --- implicit-function term ----------------------------------------------
-  V3 gradF, gq;
-  if constexpr (LONG) {
-    gradF = scene_adjoint_hist<false>(sc, h, push_slot, op_base, pt, 1.0f, acc);
-  } else {
-    gradF = scene_adjoint<false>(sc, push_slot, op_base, pt, 1.0f, acc);
-  }
+  const V3 gradF =
+      scene_adjoint<false>(sc, rec, push_slot, op_base, pt, 1.0f, acc);
   const float fdot = dot(gradF, d);
   const float denom =
       fabsf(fdot) > clamp ? fdot : (fdot >= 0.0f ? clamp : -clamp);
   const float w = -gt / denom;
-  if constexpr (LONG) {
-    gq = scene_adjoint_hist<true>(sc, h, push_slot, op_base, pt, w, acc);
-  } else {
-    gq = scene_adjoint<true>(sc, push_slot, op_base, pt, w, acc);
-  }
+  const V3 gq = scene_adjoint<true>(sc, rec, push_slot, op_base, pt, w, acc);
   go = add(go, gq);
   gd = add(gd, scale(gq, t));
 

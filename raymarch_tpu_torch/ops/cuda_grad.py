@@ -94,9 +94,10 @@ SMEM_PER_BLOCK = 232448  # an H100 block's shared memory, bytes
 # backward's fold history, the long legacy backward's reverse records): the
 # launch grid shrinks until every thread's slice of hist_len floats fits.
 HIST_BUDGET = 256 << 20
-# Records per instruction of the long legacy backward: the operands (a, b)
-# of the distance sweeps, and on a painted scene (a, b) and the operands'
-# colour difference of the colour walk (csrc/scene_grad.cuh).
+# Records per instruction of the legacy backward's sweeps: the operands
+# (a, b) of the distance sweeps, and on a painted scene (a, b) and the
+# operands' colour difference of the colour walk (csrc/scene_grad.cuh
+# REC_PER_INSTR, REC_PER_INSTR_MATS).
 REC_PER_INSTR = 2
 REC_PER_INSTR_MATS = 5
 # Where a limit of the legacy backward stands in ROADMAP.md.

@@ -569,6 +569,35 @@ def test_legacy_kernel_matches_plain(dev, name):
     assert bool(torch.isfinite(lp.grad).all()) and float(lp.grad.abs().max()) > 0
 
 
+@pytest.mark.parametrize("name", ["painted_blends", "painted"])
+def test_long_build_matches_per_thread_build(dev, name):
+    """On a tape that fits the per-thread build, the long build sent the
+    same residuals gives the same gradients: both builds run one
+    interpreter, only the record store and the accumulator differ."""
+    build, cfg, pos, _ = LEGACY_SCENES[name]
+    spec, arrays = rt.compile_scene(build(rt), static=True)
+    fr = cg.make_fused_render_vjp(spec, cfg, W, H, device=dev)
+    lay = fr.layout
+
+    class LongLayout(cg.GradLayout):
+        long = True
+
+    lay_l = LongLayout(**{f.name: getattr(lay, f.name) for f in dataclasses.fields(lay)})
+    assert not lay.long and lay_l.long
+    sc, cam, bound = fr.prepass.scene_args(arrays, rt.cam_vec(rt.Camera.looking_at(position=pos, target=(0.0, 0.0, 0.0)),
+                                                              device=dev))
+    pre = cp.coarse(sc, cam, bound, fr.params)
+    _, t, hit = cp.fine_res(sc, cam, bound, fr.params, *pre)
+    g = torch.tensor(np.random.default_rng(3).uniform(-1, 1, (H, W, 3)).astype(np.float32), device=dev)
+    got = cg.bwd(sc, cam, fr.params, lay_l, t, hit, g)
+    ref = cg.bwd(sc, cam, fr.params, lay, t, hit, g)
+    scale = float(ref[0].abs().max())
+    assert scale > 0
+    torch.testing.assert_close(got[0], ref[0], rtol=0.0, atol=1e-3 * scale)
+    torch.testing.assert_close(got[1], ref[1], rtol=0.0, atol=1e-3 * scale)
+    torch.testing.assert_close(got[2], ref[2], rtol=0.0, atol=1e-3 * float(ref[2].abs().max()))
+
+
 def test_block_vjp_matches_plain(dev):
     """The fused VJP at prepass_block = 4: the fine kernel with residuals
     reads the block planes, and K8 runs on its residuals."""

@@ -278,9 +278,11 @@ def test_bound_torch_form_equals_numpy(name):
 
 def test_kernel_constants_match_cuda_sources():
     """The wrapper's limits are the kernel's: the largest tape whose reverse
-    records sit in local arrays, and the block sizes behind the
-    shared-memory and record-budget checks."""
+    records sit in local arrays, the record slots per instruction, and the
+    block sizes behind the shared-memory and record-budget checks."""
     csrc = Path(cg.__file__).parent.parent / "csrc"
     assert f"constexpr int MAX_BWD_INSTR = {cg.MAX_BWD_INSTR};" in (csrc / "scene_grad.cuh").read_text()
     assert f"constexpr int BWD_THREADS = {cg.BWD_THREADS};" in (csrc / "fused_bwd.cu").read_text()
     assert f"constexpr int BWD_LONG_THREADS = {cg.BWD_LONG_THREADS};" in (csrc / "fused_bwd.cu").read_text()
+    assert f"constexpr int REC_PER_INSTR = {cg.REC_PER_INSTR};" in (csrc / "scene_grad.cuh").read_text()
+    assert f"constexpr int REC_PER_INSTR_MATS = {cg.REC_PER_INSTR_MATS};" in (csrc / "scene_grad.cuh").read_text()

@@ -81,9 +81,9 @@ CASES = {
     "painted_transformed": (SCENES["painted_transformed"], {}, {}, (0.0, 1.6, 4.2), "leaf_cull disabled"),
     "painted_smooth": (_painted_smooth, dict(leaf_cull=True), {}, (0.0, 1.6, 4.2),
                        "painted materials on smooth/ordered segments"),
-    # max_iter 80: the f64 oracle's march walks the 67-instruction tape per
-    # step in numpy (43 s at 300 steps).
-    "long_tape": (_long_tape, dict(leaf_cull=True, relax=1.6, max_iter=80), {}, (0.0, 2.5, 9.0),
+    # max_iter 80 and one ray per pixel: the f64 oracle's march walks the
+    # 67-instruction tape per step in numpy (43 s at 300 steps and 2x2 AA).
+    "long_tape": (_long_tape, dict(leaf_cull=True, relax=1.6, max_iter=80, aa_samples=1), {}, (0.0, 2.5, 9.0),
                   "plan has residual (unrolled) subtrees"),
     "block4": (SCENES["config2"], {}, dict(prepass_block=4), (0.0, 1.6, 4.2), "leaf_cull disabled"),
 }
