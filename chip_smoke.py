@@ -81,13 +81,27 @@ Run from the repository root: `python3 chip_smoke.py`. It
    class's largest word) and its bound; a 5-step 1080p
    fit of (a)'s albedos; an `aa_samples=8` frame of config 2 against its
    plain path;
-13. prints one JSON line of per-kernel records (time, plain time, launches,
+13. soft coverage (silhouette gradients): gates at 256x144 of the fine
+   kernel's soft build (un-culled, lists, gated tape; with materials) and
+   of the soft builds of K8 (per thread and long, with and without the
+   albedo words) and K9 (pool, seg1 chain, stream in two groups), each
+   against its plain version, with a camera that shows no horizon; then
+   bench.py's three soft rows at 1920x1080 with 16 AA rays per pixel
+   through `make_renderer(mode="soft", backend="pallas_fused")`:
+   `fwdbwd_soft` (config 2, K8), `fwdbwd_64leaf_soft` and
+   `fwdbwd_64leaf_soft_la24` (64 spheres culled, K9): the step (CUDA
+   events, launches of the soft builds and of nothing else, the
+   reference's backward_info, idle share), the soft fine kernel and the
+   soft backward alone, against their plain versions (the frame; K9's on
+   one 64-row band) with their bounds; a 5-step soft pose fit of the
+   64-sphere row;
+14. prints one JSON line of per-kernel records (time, plain time, launches,
    the roofline bound from this run's counted work) for the headline
    builds, the culled builds of the 64-leaf path, the compact backward per
    plan kind, the fine kernel with materials, the interval and block
    builds of the coarse and fine kernels and K3, K8's builds of phase 12,
-   the fine kernel at B = 4 with residuals and at aa = 8, then, last,
-   {"ok": true, "device": {...}}.
+   the fine kernel at B = 4 with residuals and at aa = 8, the soft builds
+   of phase 13, then, last, {"ok": true, "device": {...}}.
 
 Any failed check raises, so the script exits non-zero and prints no result.
 """
@@ -95,6 +109,7 @@ Any failed check raises, so the script exits non-zero and prints no result.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import subprocess
 import sys
@@ -870,9 +885,10 @@ COLOR_OPS = 20  # a leaf's colour in the colour pass: the flag mix and the selec
 
 
 def k9_work(sc, cull, p, cam, t, hit, band_rows=64):
-    """(forward, reverse) operations of the compact scene at the hit point of
-    every hit AA ray, summed over the frame, as `scene_compact_plain` itself
-    records its items (cuda_march.FoldWork). Forward: each active list item
+    """(forward, reverse) operations of the compact scene at the point o +
+    d t of every AA ray where `hit` > 0 (the hit rays; in soft mode any ray
+    mask and point parameter), summed over the frame, as
+    `scene_compact_plain` itself records its items (cuda_march.FoldWork). Forward: each active list item
     at its leaf's operations plus a select or a smooth fold step. Reverse:
     ADJ_FACTOR x the same for each item whose leaf value the distance's
     cotangent reaches (the pool's or a free prefix's winner, and the items
@@ -1167,11 +1183,12 @@ COLOR_ADJ_OPS = 16  # a binary instruction of the colour walk's reverse: the ble
 
 
 def k8_reached(sc, p, cam, t, hit, band_rows=64):
-    """Leaves that the distance's cotangent reaches at the hit points,
-    summed over the hit rays: the leaves whose distance has a non-zero
-    derivative of the scene's there (autograd through the plain tape with
-    the leaf distances as its inputs; one leaf under a hard union, more
-    where a smooth blend mixes them)."""
+    """Leaves that the distance's cotangent reaches at the points o + d t of
+    the rays where `hit` > 0 (the hit points; in soft mode any ray mask and
+    point parameter), summed over those rays: the leaves whose distance has
+    a non-zero derivative of the scene's there (autograd through the plain
+    tape with the leaf distances as its inputs; one leaf under a hard
+    union, more where a smooth blend mixes them)."""
     import torch
     from raymarch_tpu_torch.ops import cuda_march as cm
     from raymarch_tpu_torch.ops import cuda_prepass as cp
@@ -1708,6 +1725,364 @@ def forward_rows(rt, cp, dev, smi, cfg, gcam_pos):
     return records, out
 
 
+# --- phase 13: soft coverage ----------------------------------------------------
+SOFT_ADJ_OPS = FLOOR_OPS + 20  # a soft ray's coverage, floor colour and blend, and their adjoint
+SOFT_GATE_POS = (0.0, 5.5, 8.0)  # a gate camera 34 degrees down: no horizon in the frame
+
+
+def soft_rays(cp, p, res):
+    """A soft backward's rays from the soft forward's residuals (t, hit,
+    s_min, t_min): (work, hit, envelope masks, the surface point's t). Work:
+    the ray hit or its coverage passes the gate (scene_grad.cuh soft_work);
+    envelope: a working ray whose s_min exceeds min_dist (alpha's derivative
+    is not zero); the surface at t on a hit, t_min on a miss, the origin
+    (t = 0) where alpha <= 1e-4."""
+    import torch
+
+    t, hit, s_min, t_min = res
+    alpha = cp.soft_alpha(p, s_min)
+    work = (hit > 0) | (alpha > p.soft_gate)
+    t_s = torch.where(alpha > 1e-4, torch.where(hit > 0.5, t, t_min), torch.zeros_like(t))
+    return work, work & (hit > 0), work & (s_min > p.min_dist), t_s
+
+
+def soft_residual_agreement(name, cp, p, k, ref):
+    """Soft residuals (t, hit, s_min, t_min) of the kernel vs the plain
+    version: hit agrees on >= 99.9% of the AA rays; on all but 0.1% of the
+    rays with coverage (alpha > 0) s_min agrees within 1e-4 |s_min| + 1e-5
+    (a hit ray's s_min is its last sample's distance, under min_dist, which
+    an ulp of the position moves by ~5e-7) and t_min within rtol 1e-4 (the
+    sampled argmin of a grazing ray can move by a step); t within rtol 1e-4
+    on all but 0.1% of the rays that hit in both. Returns max |s_min diff|
+    there."""
+    (tk, hk, sk, mk), (tp, hp, sp, mp) = k, ref
+    agree = float((hk == hp).float().mean())
+    cov = cp.soft_alpha(p, sp) > 0.0
+    both = (hk == 1) & (hp == 1)
+    off_s = float(((sk - sp).abs() > 1e-4 * sp.abs() + 1e-5)[cov].float().mean())
+    off_m = float(((mk - mp).abs() > 1e-4 * mp.abs())[cov].float().mean())
+    off_t = float(((tk - tp).abs() > 1e-4 * tp.abs())[both].float().mean()) if bool(both.any()) else 0.0
+    mx = float((sk - sp).abs()[cov].max())
+    ok = agree >= 0.999 and bool(cov.any()) and max(off_s, off_m, off_t) < 1e-3
+    log(f"{name}: hit agree={agree:.6f} (need >=0.999); over {int(cov.sum())} covered rays s_min off "
+        f"{off_s:.3e}, t_min off {off_m:.3e}; t off {off_t:.3e} over {int(both.sum())} hit rays; max|d s_min| "
+        f"{mx:.3e} (need each share < 1e-3) {'PASS' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{name} outside its tolerance")
+    return mx
+
+
+def image_max(name, img, ref):
+    """Exact-semantics class (bench.py:243-247): max |d| < 1e-3."""
+    mx = float((img - ref).abs().max())
+    ok = mx < 1e-3
+    log(f"{name}: max|d|={mx:.3e} mean|d|={float((img - ref).abs().mean()):.3e} (need max<1e-3) "
+        f"{'PASS' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{name} outside its tolerance")
+    return mx
+
+
+def k8_soft_bound(cp, sc, p, cam, res, lay, n_rays):
+    """(bound_ms, bound_by, operations, bytes) of the soft legacy backward
+    on these residuals. Per working ray: the tape at the 4 taps of its
+    surface point, the coverage and floor and the shading adjoint; per hit
+    ray the tape at the hit point (the implicit term), per envelope ray at
+    o + d t_min; the reverse of each evaluation (4 operations per
+    instruction, ADJ_FACTOR x the leaf work of the leaves the cotangent
+    reaches, `k8_reached` at each point); on a painted scene one colour walk
+    at the surface point and its reverse. Bytes: hit and s_min for every
+    ray, t and t_min for the working rays, the cotangent of their pixels,
+    the gradient row."""
+    t, hit, s_min, t_min = res
+    spec = sc.spec
+    n_push, leaf_ops, comb = scene_cost(spec)
+    tape_ops = n_push * leaf_ops + comb
+    n_real = len(spec.static_tape)
+    work, hits, env, t_s = soft_rays(cp, p, res)
+    n_work, n_hit, n_env = (float(m.sum()) for m in (work, hits, env))
+    r_s = k8_reached(sc, p, cam, t_s, work)
+    reached = 4 * r_s + k8_reached(sc, p, cam, t, hits) + k8_reached(sc, p, cam, t_min, env)
+    evals = 4 * n_work + n_hit + n_env
+    flops = (evals * (tape_ops + 4 * n_real) + n_work * (ADJ_RAY_OPS + SOFT_ADJ_OPS)
+             + ADJ_FACTOR * leaf_ops * reached)
+    if spec.has_materials:
+        flops += (n_work * (tape_ops + n_push * COLOR_OPS + COLOR_ADJ_OPS * n_real)
+                  + ADJ_FACTOR * (leaf_ops + COLOR_OPS) * r_s)
+    nbytes = n_rays * 8 + n_work * 8 + hit_pixels(work.float()) * 12 + lay.nscal * 4
+    ms, by = roofline(flops, nbytes)
+    return ms, by, flops, nbytes
+
+
+def k9_soft_bound(cp, sc, cull, p, cam, res, n_rays):
+    """(bound_ms, bound_by, operations, bytes) of the soft compact backward
+    on these residuals: the compact scene and the reverse of its winning
+    source (`k9_work`) at the 4 taps of each working ray's surface point,
+    at each hit ray's hit point and at each envelope ray's o + d t_min, the
+    coverage and shading adjoints; hit and s_min for every ray, t and t_min
+    for the working rays, the cotangent of their pixels, the lists once,
+    one gradient row."""
+    spec = sc.spec
+    t, hit, s_min, t_min = res
+    work, hits, env, t_s = soft_rays(cp, p, res)
+    f_s, r_s = k9_work(sc, cull, p, cam, t_s, work)
+    f_h, r_h = k9_work(sc, cull, p, cam, t, hits)
+    f_e, r_e = k9_work(sc, cull, p, cam, t_min, env)
+    n_work = float(work.sum())
+    flops = 4 * (f_s + r_s) + f_h + r_h + f_e + r_e + n_work * (ADJ_RAY_OPS + SOFT_ADJ_OPS)
+    nbytes = (n_rays * 8 + n_work * 8 + hit_pixels(work.float()) * 12 + 4 * (cull.lists.numel() + cull.counts.numel())
+              + 4 * (16 * spec.n_leaves + spec.n_instr + 7))
+    ms, by = roofline(flops, nbytes)
+    return ms, by, flops, nbytes
+
+
+def soft(rt, cp, cg, dev, smi, cfg):
+    """Phase 13: soft coverage (see the module docstring). Gates of every
+    soft build at 256x144, then bench.py's three soft training rows at
+    1920x1080 with 16 AA rays per pixel and a 5-step soft pose fit. Returns
+    the kernel records of the rows' soft builds and their numbers."""
+    import numpy as np
+    import torch
+
+    cfg64 = dataclasses.replace(cfg, leaf_cull=True)  # bench.py:855-860: relax 1
+    nocull = cfg
+    spheres, chain, cluster = scenes_bench64(rt)
+    camera_h = rt.Camera.looking_at(position=(0.0, 1.6, 4.2), target=(0.0, 0.0, 0.0))
+    camera64 = rt.Camera.looking_at(position=(0.0, 2.5, 9.0), target=(0.0, 0.0, 0.0))
+
+    # -- 13a. every soft build against its plain version at 256x144 ----------
+    # name, scene, config, gate camera, (backward kind, reason), K8's long build
+    gates = (
+        ("config2", scene_config2(rt), nocull, (0.0, 2.6, 4.2), ("pallas_legacy_unrolled", "leaf_cull disabled"),
+         False),
+        ("16 painted spheres", scene_painted(rt, 16), nocull, SOFT_GATE_POS,
+         ("pallas_legacy_unrolled", "painted materials in soft mode"), False),
+        ("64 painted spheres", scene_painted(rt), nocull, SOFT_GATE_POS,
+         ("pallas_legacy_unrolled", "painted materials in soft mode"), True),
+        ("64 spheres & box", scene_spheres(rt) & rt.box(half_extents=(3.2, 1.2, 3.2)), cfg64, SOFT_GATE_POS,
+         ("pallas_legacy_unrolled", "plan has residual (unrolled) subtrees"), True),
+        ("64 spheres (pool)", spheres, cfg64, SOFT_GATE_POS, ("pallas_compact", None), False),
+        ("smooth chain (seg1)", chain, cfg64, SOFT_GATE_POS, ("pallas_compact", None), False),
+        ("cluster scene (stream, 2 groups)", cluster, cfg64, SOFT_GATE_POS, ("pallas_compact", None), False),
+    )
+    for name, scene, cfg_g, pos, route, long_build in gates:
+        spec_g, arrays_g = rt.compile_scene(scene, static=True)
+        fr = cg.make_fused_render_vjp(spec_g, cfg_g, GATE_W, GATE_H, soft=True, device=dev)
+        info = (fr.backward_info["kind"], fr.backward_info["reason"])
+        if info != route or not fr.backward_info["soft"] or (not fr.compact_bwd and fr.layout.long != long_build):
+            raise AssertionError(f"soft gate {name} routes to {fr.backward_info}, long {fr.layout.long}")
+        if name.startswith("cluster") and len(cg.build_compact_plan(spec_g)["stream"]) != 2:
+            raise AssertionError("the cluster scene's plan lost its two stream groups")
+        p = fr.params
+        cv = rt.cam_vec(rt.Camera.looking_at(position=pos, target=(0.0, 0.0, 0.0)), device=dev)
+        sc, cam, bnd = fr.prepass.scene_args(arrays_g, cv)
+        _, fc = fr.prepass.cull_args(sc, cam)
+        img_k, *res_k = cp.fine_res(sc, cam, bnd, p, cull=fc)
+        img_p, *res_p = cp.fine_res_plain(sc, cam, bnd, p, cull=fc)
+        mode = "un-culled" if fc is None else ("lists" if fc.compact else "gated tape")
+        image_max(f"gate soft fine kernel vs fine_res_plain, {name} ({mode})", img_k, img_p)
+        soft_residual_agreement(f"gate soft residuals, {name}", cp, p, res_k, res_p)
+        g_img = seeded_cotangent(GATE_H, GATE_W, dev, 11)
+        t, hit, s_min, t_min = res_k
+        if fr.compact_bwd:
+            what = f"compact_bwd_kernel soft ({cg.plan_kind(spec_g)})"
+            clamp = fr.layout.grad_denom_clamp
+            got = cg.compact_bwd(sc, fc, cam, p, clamp, t, hit, g_img, soft=(s_min, t_min))
+            ref = cg.compact_bwd_plain(sc, fc, cam, p, clamp, t, hit, g_img, band_rows=16, soft=(s_min, t_min))
+        else:
+            what = ("fused_bwd_long_kernel" if fr.layout.long else "fused_bwd_kernel") + " soft" + (
+                " (albedo words)" if spec_g.has_materials else "")
+            got = cg.bwd(sc, cam, p, fr.layout, t, hit, g_img, soft=(s_min, t_min))
+            ref = cg.bwd_plain(sc, cam, p, fr.layout, t, hit, g_img, band_rows=16, soft=(s_min, t_min))
+        work = soft_rays(cp, p, res_k)[0]
+        grad_class(f"gate {what} vs its plain version, {name} ({int(work.sum())} working rays of "
+                   f"{work.numel()}, {int(hit.sum())} hit)", got, ref)
+        if spec_g.has_materials:
+            word_class(f"soft gate, {name}", "albedo and flag words", got[0][:, 12:16], ref[0][:, 12:16],
+                       float(ref[0][:, :12].abs().max()))
+        del img_k, img_p, res_k, res_p, got, ref
+    torch.cuda.synchronize()
+
+    # -- 13b. bench.py's soft rows at 1080p ----------------------------------
+    # row, scene, config, camera, the reference's backward_info (kind,
+    # compact, reason, soft), rows of the plain passes (None: the frame)
+    spec_s, arrays_s = rt.compile_scene(scene_config2(rt), static=True)
+    spec64, arrays64 = rt.compile_scene(spheres, static=True)
+    rows = (
+        ("fwdbwd_soft", spec_s, arrays_s, nocull, camera_h,
+         ("pallas_legacy_unrolled", False, "leaf_cull disabled", True), None),
+        ("fwdbwd_64leaf_soft", spec64, arrays64, cfg64, camera64, ("pallas_compact", True, None, True), PLAIN_BAND),
+        ("fwdbwd_64leaf_soft_la24", spec64, arrays64, dataclasses.replace(cfg64, soft_cull_log_alpha=24.0),
+         camera64, ("pallas_compact", True, None, True), PLAIN_BAND),
+    )
+    n_rays = WIDTH * HEIGHT * cfg.aa_samples ** 2
+    n_px = WIDTH * HEIGHT
+    records, out = [], {}
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    for row, spec_r, arrays_r, cfg_r, camera, info_ref, band in rows:
+        render = rt.make_renderer(spec_r, WIDTH, HEIGHT, cfg_r, mode="soft", backend="pallas_fused", device=dev)
+        bi = render.backward_info
+        if (bi["kind"], bi["compact"], bi["reason"], bi["soft"]) != info_ref:
+            raise AssertionError(f"{row} routes to {bi}, the reference's is {info_ref}")
+        fr = render.renderer
+        cv = rt.cam_vec(camera, device=dev)
+        lp0 = torch.tensor(arrays_r.leaf_params, device=dev)
+        op0 = torch.tensor(arrays_r.op_param, device=dev)
+
+        def fwd_bwd(fr=fr, arrays_r=arrays_r, lp0=lp0, op0=op0, cv=cv):
+            lp = lp0.clone().requires_grad_(True)
+            opp = op0.clone().requires_grad_(True)
+            c = cv.clone().requires_grad_(True)
+            img = fr(dataclasses.replace(arrays_r, leaf_params=lp, op_param=opp), c)
+            torch.mean(img * img).backward()
+            return img, (lp.grad, opp.grad, c.grad)
+
+        for _ in range(BWD_WARMUP):
+            fwd_bwd()
+        torch.cuda.synchronize()
+        cp.reset_launch_counts()
+        cg.reset_launch_counts()
+        e0.record()
+        for _ in range(BWD_STEPS):
+            img, grads = fwd_bwd()
+        e1.record()
+        torch.cuda.synchronize()
+        step_ms = e0.elapsed_time(e1) / BWD_STEPS
+        kname = "compact_bwd_kernel" if fr.compact_bwd else "fused_bwd_kernel"
+        launches = {"fine_kernel_soft_residuals": cp.fine_res.soft_launches,
+                    f"{kname} (soft)": (cg.compact_bwd if fr.compact_bwd else cg.bwd).soft_launches,
+                    "coarse_kernel": cp.coarse.launches + cp.coarse.interval_launches,
+                    "fine_kernel_residuals": cp.fine_res.launches, "fused_bwd_kernel": cg.bwd.launches,
+                    "compact_bwd_kernel": cg.compact_bwd.launches}
+        log(f"{row}: soft training step {WIDTH}x{HEIGHT} x16 AA, fwd+bwd of mean(img^2) through make_renderer("
+            f"mode 'soft', backend 'pallas_fused'): {step_ms:.4f} ms/step (CUDA events, {BWD_STEPS} steps after "
+            f"{BWD_WARMUP} warm-up), {n_rays / (step_ms * 1e-3) / 1e9:.4f} Grays/s; backward_info {bi}; "
+            f"launches {launches} on {smi}")
+        soft_k = launches[f"{kname} (soft)"]
+        if min(launches["fine_kernel_soft_residuals"], soft_k) < BWD_STEPS or any(
+                launches[k] for k in ("coarse_kernel", "fine_kernel_residuals", "fused_bwd_kernel",
+                                      "compact_bwd_kernel")):
+            raise AssertionError(f"{row} did not run its soft kernels alone: {launches}")
+        if not all(bool(torch.isfinite(g).all()) for g in grads) or float(grads[0].abs().max()) <= 0:
+            raise AssertionError(f"{row}: the gradients are not finite or all zero")
+        idle, busy = device_idle_share(fwd_bwd, 3, step_ms)
+
+        # The kernels alone on the frame, and against their plain versions.
+        rp, p = fr.prepass, fr.params
+        sc, cam, bnd = rp.scene_args(arrays_r, cv)
+        cull_ms = cuda_ms(lambda: rp.cull_args(sc, cam), KERNEL_REPS) if cfg_r.leaf_cull else 0.0
+        _, fc = rp.cull_args(sc, cam)
+        active = None if fc is None else float(fc.counts.sum(1).float().mean())
+        img_r, *res = cp.fine_res(sc, cam, bnd, p, cull=fc)
+        image_class(f"{row}: training-path image vs the soft fine kernel's", img.detach(), img_r)
+        g_img = 2.0 * img_r / img_r.numel()  # the cotangent of mean(img^2)
+        t, hit, s_min, t_min = res
+        k2_ms = cuda_ms(lambda: cp.fine_res(sc, cam, bnd, p, cull=fc), KERNEL_REPS)
+        if fr.compact_bwd:
+            bwd_k = lambda: cg.compact_bwd(sc, fc, cam, p, fr.layout.grad_denom_clamp, t, hit, g_img,  # noqa: E731
+                                           soft=(s_min, t_min))
+        else:
+            bwd_k = lambda: cg.bwd(sc, cam, p, fr.layout, t, hit, g_img, soft=(s_min, t_min))  # noqa: E731
+        bwd_ms = cuda_ms(bwd_k, KERNEL_REPS)
+        got = bwd_k()
+        grad_class(f"{row}: training-path gradients vs the soft backward kernel's", grads, got)
+        work, _, env, _ = soft_rays(cp, p, res)
+        n_work, n_hit, n_env = float(work.sum()), float(hit.sum()), float(env.sum())
+        work_f = cp.WorkCount()
+        torch.cuda.reset_peak_memory_stats()
+        (img_p, *res_p), k2_plain_ms = plain_ms(lambda: cp.fine_res_plain(sc, cam, bnd, p, cull=fc, work=work_f))
+        k2_err = image_class(f"{row}: full-size soft fine kernel vs fine_res_plain", img_r, img_p)
+        soft_residual_agreement(f"{row}: full-size soft residuals", cp, p, res, res_p)
+        del img_p, res_p
+        lists = 0 if fc is None else 4 * (fc.lists.numel() + fc.counts.numel())
+        k2_bound = roofline(march_flops(work_f, n_rays, spec_r, fc is not None and fc.compact, float(work_f.hits),
+                                        fine=True), n_px * 12 + n_rays * 16 + lists)
+        if (band is None) == fr.compact_bwd:
+            raise AssertionError(f"{row}: the plain K8 runs on the frame, the plain K9 on a band")
+        if band is None:
+            where = "the whole frame"
+            e0.record()
+            ref = cg.bwd_plain(sc, cam, p, fr.layout, t, hit, g_img, soft=(s_min, t_min))
+            e1.record()
+            torch.cuda.synchronize()
+            bwd_plain_ms = e0.elapsed_time(e1)
+            bwd_err = grad_class(f"{row}: full-size {kname} soft vs bwd_plain ({where})", got, ref)
+        else:
+            # The plain compact fold over this frame's long soft lists: one
+            # band in the middle of the frame, its forward, lists and
+            # residuals from a band renderer (cam[7] = its first row).
+            r0 = (HEIGHT - band) // 2
+            where = f"one {band}-row band at row {r0}"
+            rb = cp.make_pallas_image_render_aa(spec_r, cfg_r, WIDTH, HEIGHT, device=dev, no_prepass=True, soft=True,
+                                                band_rows=band)
+            sc_b, cam_b, bnd_b = rb.scene_args(arrays_r, rt.cam_vec(camera, float(r0), device=dev))
+            _, fc_b = rb.cull_args(sc_b, cam_b)
+            img_b, t_b, hit_b, s_b, m_b = cp.fine_res(sc_b, cam_b, bnd_b, rb.params, cull=fc_b)
+            g_b = 2.0 * img_b / img_r.numel()
+            got_b = cg.compact_bwd(sc_b, fc_b, cam_b, rb.params, fr.layout.grad_denom_clamp, t_b, hit_b, g_b,
+                                   soft=(s_b, m_b))
+            e0.record()
+            ref = cg.compact_bwd_plain(sc_b, fc_b, cam_b, rb.params, fr.layout.grad_denom_clamp, t_b, hit_b, g_b,
+                                       soft=(s_b, m_b))
+            e1.record()
+            torch.cuda.synchronize()
+            bwd_plain_ms = e0.elapsed_time(e1)
+            bwd_err = grad_class(f"{row}: {kname} soft vs its plain version ({where})", got_b, ref)
+            del img_b, t_b, hit_b, s_b, m_b, got_b
+        if fr.compact_bwd:
+            b_ms, b_by, b_ops, b_bytes = k9_soft_bound(cp, sc, fc, p, cam, res, n_rays)
+        else:
+            b_ms, b_by, b_ops, b_bytes = k8_soft_bound(cp, sc, p, cam, res, fr.layout, n_rays)
+        log(f"{row}: kernels alone: soft fine kernel {k2_ms:.4f} ms (plain {k2_plain_ms:.2f} ms on the frame, "
+            f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; bound {k2_bound[0]:.4f} ms, {k2_bound[1]}; "
+            f"{float(work_f.points):.6e} march points, {float(work_f.hits):.0f} rays shaded), {kname} soft "
+            f"{bwd_ms:.4f} ms (plain {bwd_plain_ms:.2f} ms on {where}; bound {b_ms:.4f} ms, {b_by}; "
+            f"{b_ops:.6e} operations, {b_bytes:.6e} bytes); rays: {n_hit:.0f} hit, {n_work:.0f} working, "
+            f"{n_env:.0f} envelope of {n_rays}; cull_args {cull_ms:.4f} ms, mean active items per fine tile "
+            f"{'-' if active is None else f'{active:.4f}'}; device idle share "
+            f"{'not measured' if idle is None else f'{idle:.4f} ({busy:.4f} ms busy a step)'} ({smi})")
+        how = "un-culled" if fc is None else "culled lists"
+        records.append(dict(
+            name=f"fine_kernel (soft, {how}, residuals t, hit, s_min, t_min: {row})", route="cuda",
+            source="raymarch_tpu_torch/csrc/prepass.cu", replaces="raymarch_tpu/ops/pallas_prepass.py:1521",
+            launches=launches["fine_kernel_soft_residuals"], max_abs_err=k2_err, ms=k2_ms, plain_ms=k2_plain_ms,
+            bound_ms=k2_bound[0], bound_by=k2_bound[1], library_ms=None))
+        records.append(dict(
+            name=f"{kname} (soft{', pool' if fr.compact_bwd else ''}: {row}; plain on {where})", route="cuda",
+            source=f"raymarch_tpu_torch/csrc/{'compact_bwd' if fr.compact_bwd else 'fused_bwd'}.cu",
+            replaces=f"raymarch_tpu/ops/pallas_grad.py:{256 if fr.compact_bwd else 1432}", launches=soft_k,
+            max_abs_err=bwd_err, ms=bwd_ms, plain_ms=bwd_plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None))
+        out[row] = dict(step_ms=step_ms, k2_ms=k2_ms, bwd_ms=bwd_ms, kname=kname, idle=idle, cull_ms=cull_ms,
+                        active=active, k2_bound=k2_bound[0], bwd_bound=b_ms, k2_plain_ms=k2_plain_ms,
+                        bwd_plain_ms=bwd_plain_ms, where=where, launches=launches)
+        del res, t, hit, s_min, t_min, got, ref, img, img_r, grads, g_img
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+
+    # -- 13c. a 5-step soft pose fit of fwdbwd_64leaf_soft --------------------
+    target = rt.make_renderer(spec64, WIDTH, HEIGHT, cfg64, mode="soft", backend="pallas_fused",
+                              device=dev)(arrays64, camera64).detach()
+    d = np.asarray([0.08, -0.05, 0.06, 0.01, -0.01, 0.01, 0.0], np.float32)
+    start = rt.Camera(np.asarray(camera64.position) + d[:3], np.asarray(camera64.rotation) + d[3:])
+    fit_kw = dict(width=WIDTH, height=HEIGHT, cfg=cfg64, optimizer=functools.partial(torch.optim.SGD, lr=0.0),
+                  fit_camera=True, camera_optimizer=functools.partial(torch.optim.Adam, lr=1e-2), mode="soft",
+                  backend="pallas_fused", device=dev, log_fn=lambda m: None)
+    rt.fit_scene(spec64, arrays64, start, target, steps=1, **fit_kw)
+    res = rt.fit_scene(spec64, arrays64, start, target, steps=FIT_STEPS, **fit_kw)
+    pos = res.camera.position.detach().cpu().numpy()
+    err0 = float(np.abs(d[:3]).max())
+    err1 = float(np.abs(pos - np.asarray(camera64.position)).max())
+    fit_s = 1.0 / res.steps_per_sec
+    log(f"soft pose fit of fwdbwd_64leaf_soft at {WIDTH}x{HEIGHT} ({FIT_STEPS} Adam steps, lr 1e-2, the pose "
+        f"only): loss {res.losses[0]:.6e} -> {res.losses[-1]:.6e}; max |position - truth| {err0:.4f} -> "
+        f"{err1:.4f}; {fit_s:.4f} s/step; backward {res.backward_info} ({smi})")
+    if not (res.backward_info["soft"] and res.losses[-1] < res.losses[0]):
+        raise AssertionError("the soft pose fit did not lower the loss")
+    return records, dict(rows=out, fit_s=fit_s)
+
+
+
 def main() -> int:
     import torch
 
@@ -2042,6 +2417,9 @@ def main() -> int:
     # -- 12. the legacy backward of every static scene ------------------------
     legacy_records, sl = legacy(rt, cp, cg, dev, smi, cfg)
 
+    # -- 13. soft coverage ---------------------------------------------------
+    soft_records, ss = soft(rt, cp, cg, dev, smi, cfg)
+
     log(f"card: {smi}")
     kernels = [
         dict(name="coarse_kernel", route="cuda", source="raymarch_tpu_torch/csrc/prepass.cu",
@@ -2069,6 +2447,7 @@ def main() -> int:
         *blend_records,
         *row_records,
         *legacy_records,
+        *soft_records,
     ]
     log(f"64-leaf summary: step {s64['step_ms']:.4f} ms, forward frame {s64['fwd64_ms']:.4f} ms, idle share "
         f"{s64['idle']}, masks and lists {s64['cull_ms']:.4f} ms in {s64['n_cull']} device operations "
@@ -2088,6 +2467,12 @@ def main() -> int:
             f"({r['launches']} launches; bound {r['bound_ms']:.4f} ms, plain {r['plain_ms']:.2f} ms) ({smi})")
     log(f"albedo fit {sl['fit_s']:.4f} s/step; aa = 8 frame {sl['frame8_ms']:.4f} ms, fine kernel "
         f"{sl['fine8_ms']:.4f} ms ({smi})")
+    for row, r in ss["rows"].items():
+        log(f"{row} summary: step {r['step_ms']:.4f} ms, soft fine kernel {r['k2_ms']:.4f} ms (bound "
+            f"{r['k2_bound']:.4f}, plain {r['k2_plain_ms']:.2f} ms), {r['kname']} soft {r['bwd_ms']:.4f} ms (bound "
+            f"{r['bwd_bound']:.4f}, plain {r['bwd_plain_ms']:.2f} ms on {r['where']}), launches {r['launches']}, "
+            f"idle share {r['idle']} ({smi})")
+    log(f"soft pose fit {ss['fit_s']:.4f} s/step ({smi})")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -26,7 +26,8 @@ ROUNDS = 3
 
 
 def k8_registers(ptxas: str) -> dict:
-    """{"fused_bwd_kernel<false>": registers, ...} from ptxas -v's report."""
+    """{"fused_bwd_kernel<false, false>": registers, ...} (the MATS and
+    SOFT flags) from ptxas -v's report."""
     regs, entry = {}, None
     for line in ptxas.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
@@ -35,9 +36,10 @@ def k8_registers(ptxas: str) -> dict:
             continue
         m = re.search(r"Used (\d+) registers", line)
         if m and entry:
-            k = re.search(r"(fused_bwd(?:_long)?_kernel)ILb([01])E", entry)
+            k = re.search(r"(fused_bwd(?:_long)?_kernel)ILb([01])ELb([01])E", entry)
             if k:
-                regs[f"{k.group(1)}<{'true' if k.group(2) == '1' else 'false'}>"] = int(m.group(1))
+                flags = ", ".join("true" if f == "1" else "false" for f in k.group(2, 3))
+                regs[f"{k.group(1)}<{flags}>"] = int(m.group(1))
             entry = None
     return regs
 
@@ -52,6 +54,7 @@ def main() -> int:
     import raymarch_tpu_torch as rt
     from raymarch_tpu_torch import _build
     from raymarch_tpu_torch.ops import cuda_grad as cg
+    from raymarch_tpu_torch.ops import cuda_prepass as cp
 
     class LongLayout(cg.GradLayout):
         """The same gradient layout, sent to the long build."""
@@ -77,8 +80,7 @@ def main() -> int:
         lay_l = LongLayout(**{f.name: getattr(lay, f.name) for f in dataclasses.fields(lay)})
         sc, cam, bnd = rp.scene_args(arrays, cv)
         cc, fc = rp.cull_args(sc, cam)
-        pre = cg.coarse(sc, cam, bnd, p, cc)
-        img, t, hit = cg.fine_res(sc, cam, bnd, p, *pre, cull=fc)
+        img, t, hit = cp.fine_res(sc, cam, bnd, p, *rp.prepass(sc, cam, bnd, cc), cull=fc)
         g_img = 2.0 * img / img.numel()  # the cotangent of mean(img^2)
         per_thread, long_ms = [], []
         for _ in range(ROUNDS):

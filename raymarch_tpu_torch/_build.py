@@ -28,8 +28,11 @@ NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"
 # straddle a CSG crease, grazing rays near the IFT clamp, with per-ray
 # gradients 100x the typical one): without FMA contraction its f32 ops round
 # as its plain torch version's do, op for op, and the two agree to the
-# rounding of the gradient sums instead of to the placement of FMAs.
-SOURCE_FLAGS = {"fused_bwd.cu": ("-fmad=false",), "compact_bwd.cu": ("-fmad=false",)}
+# rounding of the gradient sums instead of to the placement of FMAs. The
+# soft fine builds likewise: their closest approach is an argmin over a
+# grazing ray's samples, which an FMA's rounding moves by a whole step.
+SOURCE_FLAGS = {"fused_bwd.cu": ("-fmad=false",), "compact_bwd.cu": ("-fmad=false",),
+                "fine_soft.cu": ("-fmad=false",)}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -41,21 +44,21 @@ _SIGNATURES = {
     # t_blk, status_blk, t0_out, status_out, block_params, stream
     "rmt_coarse_px_launch": (_P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P),
     # ... params, cull, t0_in, status_in, img, t_out, hit_out, mats,
-    # block_params, stream
-    "rmt_fine_launch": (_P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P),
+    # block_params, soft, soft_params, stream
+    "rmt_fine_launch": (_P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _P, _P),
     # leaf_params, row_kind, tape, n_instr, op_param, push_slot, cam, params,
-    # grad_denom_clamp, t, hit, g_img, nscal, op_base, cam_base, mats, hist,
-    # partials, max_blocks, out, stream
+    # grad_denom_clamp, t, hit, g_img, nscal, op_base, cam_base, mats, soft,
+    # hist, partials, max_blocks, out, stream
     "rmt_fused_bwd_launch": (
         _P, _P, _P, _I, _P, _P, _P, _P, ctypes.c_float, _P, _P, _P, _I, _I, _I,
-        _I, _P, _P, _I, _P, _P,
+        _I, _P, _P, _P, _I, _P, _P,
     ),
     # leaf_params, row_kind, tape, n_instr, op_param, cull, cam, params,
-    # grad_denom_clamp, t, hit, g_img, nscal, op_base, cam_base, mats, hist,
-    # hist_off, partials, max_blocks, n_blocks (int*), stream
+    # grad_denom_clamp, t, hit, g_img, nscal, op_base, cam_base, mats, soft,
+    # hist, hist_off, partials, max_blocks, n_blocks (int*), stream
     "rmt_compact_bwd_launch": (
         _P, _P, _P, _I, _P, _P, _P, _P, ctypes.c_float, _P, _P, _P, _I, _I,
-        _I, _I, _P, _I, _P, _I, _P, _P,
+        _I, _I, _P, _P, _I, _P, _I, _P, _P,
     ),
     # partials, n_blocks, nscal, out, stream
     "rmt_bwd_finalize_launch": (_P, _I, _I, _P, _P),

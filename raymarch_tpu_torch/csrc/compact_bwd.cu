@@ -41,6 +41,17 @@
 // source gating (gated3, 849) is per thread here: a ray records and sweeps
 // only its own winning source.
 //
+// The SOFT builds (soft-coverage mode, 256-330, 509-571, 1043-1130) read
+// the closest-approach residuals (s_min, t_min) too and run every ray that
+// hit or whose coverage exceeds 1e-4 * min(1, beta) (soft_work,
+// scene_grad.cuh): the taps sit at the hit point, at o + d t_min on a miss
+// or at the origin where alpha <= 1e-4, the coverage blend's adjoint gives
+// the cotangent g_s of s_min, the implicit term runs on hit rays only, and
+// the envelope sweep evaluates the sources at a sixth point, o + d t_min,
+// and pushes g_s through its winning source (pool leaf, re-recorded chain
+// or stream group), its position cotangent reaching o and, times t_min, d.
+// Soft mode never takes a painted plan (the dispatch sends it to K8).
+//
 // History: recorded, never recomputed. Each thread owns a slice of a
 // device-memory scratch of hist_len floats, hist_len = the plan's total
 // ordered span (every seg1 and stream group's items, each group at its own
@@ -51,13 +62,14 @@
 // budget (the grid-stride loop covers every ray at any grid size). The
 // history never enters the register file.
 //
-// The kernel is built once per (ORDERED, MATS): a pool-only plan runs the
-// build without the replays and sweeps (as fast as the pool-only kernel
-// before the ordered branches were added), a painted pool the one with the
-// albedo routing. ptxas (sm_90a, -O3, -fmad=false; the report _build.py
-// keeps and chip_smoke.py prints): 76 registers (pool), 78 (painted pool),
-// 92 (ordered), 94 (ordered, painted); a 144-byte stack frame and 0 bytes
-// of spill stores and loads in each.
+// The kernel is built once per (ORDERED, MATS, SOFT), SOFT without MATS: a
+// pool-only plan runs the build without the replays and sweeps (as fast as
+// the pool-only kernel before the ordered branches were added), a painted
+// pool the one with the albedo routing. ptxas (sm_90a, -O3, -fmad=false;
+// the report _build.py keeps and chip_smoke.py prints): 76 registers
+// (pool), 78 (painted pool), 92 (ordered), 94 (ordered, painted), 81 (pool,
+// soft), 96 (ordered, soft); a 144-byte stack frame and 0 bytes of spill
+// stores and loads in each.
 //
 // The fold replay repeats scene_distance_compact's operation order
 // (fold_step, the min folds, strict < at each segment flush), so the
@@ -342,8 +354,8 @@ __device__ V3 source_adjoint(const SceneView& sc, const CullView& cv,
 // (row i, then q = j * S + s). Writes one partial row of nscal words per
 // block. ORDERED: the plan has a seg1 chain or stream groups (else the pool
 // is its only source, and the build carries no replay or sweep); MATS: the
-// scene is painted.
-template <bool ORDERED, bool MATS>
+// scene is painted; SOFT: soft coverage, with the residuals at soft.
+template <bool ORDERED, bool MATS, bool SOFT>
 __global__ void compact_bwd_kernel(SceneView sc, CullView cv,
                                    const float* __restrict__ cam,
                                    RenderParams p, float clamp,
@@ -352,7 +364,7 @@ __global__ void compact_bwd_kernel(SceneView sc, CullView cv,
                                    const float* __restrict__ g_img, int nscal,
                                    int op_base, int cam_base,
                                    float* __restrict__ hist, int hist_off,
-                                   float* __restrict__ partials) {
+                                   float* __restrict__ partials, SoftRes soft) {
   extern __shared__ float acc_s[];
   for (int k = threadIdx.x; k < nscal; k += blockDim.x) acc_s[k] = 0.0f;
   __syncthreads();
@@ -365,7 +377,16 @@ __global__ void compact_bwd_kernel(SceneView sc, CullView cv,
   const long long row_lanes = (long long)p.width * S;
   const long long total = row_lanes * p.rows;
   for (long long gl = me; gl < total; gl += step) {
-    if (!(__ldg(hit_in + gl) > 0.0f)) continue;
+    const float hit = __ldg(hit_in + gl);
+    float s_min = 0.0f, t_min = 0.0f, alpha = 1.0f;
+    if constexpr (SOFT) {
+      s_min = __ldg(soft.s_min + gl);
+      t_min = __ldg(soft.t_min + gl);
+      alpha = soft_alpha(s_min, p.min_dist, soft.beta_inv);
+      if (!soft_work(hit, alpha, soft.gate)) continue;
+    } else if (!(hit > 0.0f)) {
+      continue;
+    }
     const int i = (int)(gl / row_lanes);
     const int qi = (int)(gl - (long long)i * row_lanes);
     const int j = qi / S;
@@ -377,15 +398,8 @@ __global__ void compact_bwd_kernel(SceneView sc, CullView cv,
                            __ldg(gi + 2) * p.inv_s};
 
     // --- ray: the fine kernel's raygen -------------------------------------
-    const int a_ = s / p.naa;
-    const int b_ = s - a_ * p.naa;
-    const float fa = ((float)a_ + 0.5f) / (float)p.naa - 0.5f;
-    const float fb = ((float)b_ + 0.5f) / (float)p.naa - 0.5f;
-    const float x =
-        2.0f * ((float)j + 0.5f) / (float)p.width - 1.0f + fa * p.c2w;
-    const float y =
-        1.0f - 2.0f * ((float)i + 0.5f + __ldg(cam + 7)) / (float)p.height +
-        fb * p.c2h;
+    float x, y;
+    aa_screen_xy(cam, p, i, j, s, x, y);
     float vx = x * p.tan_aspect;
     float vy = y * p.tanf;
     float vz = -1.0f;
@@ -393,7 +407,14 @@ __global__ void compact_bwd_kernel(SceneView sc, CullView cv,
     const V3 vn = v3(vx * inv_norm, vy * inv_norm, vz * inv_norm);
     const Ray r = view_ray(cam, p, x, y);
     const V3 d = v3(r.dx, r.dy, r.dz);
-    const V3 pt = v3(r.ox + r.dx * t, r.oy + r.dy * t, r.oz + r.dz * t);
+    // The surface point: o + d t on a hit; soft, o + d t_min on a miss and
+    // o where alpha <= 1e-4 (shade_soft's guard).
+    const bool live = !SOFT || alpha > 1e-4f;
+    const float te = (!SOFT || hit > 0.5f) ? t : t_min;
+    V3 pt = v3(r.ox, r.oy, r.oz);
+    if (live) pt = v3(r.ox + r.dx * te, r.oy + r.dy * te, r.oz + r.dz * te);
+    // The implicit term runs at the hit point of a hit ray (pt then).
+    const bool implicit = !SOFT || hit > 0.0f;
 
     // --- pass 1: every source at the taps and the hit point ----------------
     const float e = p.eps;
@@ -408,7 +429,8 @@ __global__ void compact_bwd_kernel(SceneView sc, CullView cv,
       ek[k] = eval_point<ORDERED>(sc, cv, tile, qk[k], h);
       n = add(n, scale(taps[k], ek[k].d));
     }
-    const PointEval eh = eval_point<ORDERED>(sc, cv, tile, pt, h);
+    PointEval eh{CULL_FAR, 0, -1};
+    if (implicit) eh = eval_point<ORDERED>(sc, cv, tile, pt, h);
 
     // --- primal shading: normal, Lambert, the hit point's albedo -----------
     const float ninv =
@@ -432,14 +454,13 @@ __global__ void compact_bwd_kernel(SceneView sc, CullView cv,
     // --- adjoint of the shading --------------------------------------------
     float gdiff = 0.0f;
     float galb[3];
-    for (int c = 0; c < 3; ++c) {
-      const float v = alb[c] * diff;
-      const float col = sqrtf(fmaxf(v, 0.0f) + 1e-12f);
-      float gv, unused;
-      max_adj(v, 0.0f, gcol[c] * 0.5f / col, gv, unused);
-      gdiff += gv * alb[c];
-      galb[c] = gv * diff;
-    }
+    float fc[3] = {0.0f, 0.0f, 0.0f};
+    if constexpr (SOFT) floor_colour(r, p, fc);
+    const float galpha =
+        colour_adj<SOFT>(gcol, alb, diff, alpha, fc, gdiff, galb);
+    float gsm = 0.0f;  // the cotangent of s_min
+    if constexpr (SOFT)
+      gsm = alpha_adj(s_min, p.min_dist, soft.beta_inv, alpha, galpha);
     float gdiff0, gamb;
     max_adj(diff0, p.ambient, gdiff, gdiff0, gamb);
     const float gdot = gdiff0 * sn;
@@ -458,22 +479,40 @@ __global__ void compact_bwd_kernel(SceneView sc, CullView cv,
     }
     const float gt = dot(gp, d);
     V3 go = gp;
-    V3 gd = scale(gp, t);
+    V3 gd = live ? scale(gp, te) : v3(0.0f, 0.0f, 0.0f);
 
     // --- implicit-function term at the hit point ---------------------------
-    const int bsid_h = ORDERED && eh.src > 0
-                           ? record_source(sc, cv, tile, eh.src, pt, h)
-                           : -1;
-    const V3 gradF = source_adjoint<false, ORDERED>(sc, cv, tile, eh, bsid_h,
-                                                    pt, 1.0f, h, op_base, acc);
-    const float fdot = dot(gradF, d);
-    const float denom =
-        fabsf(fdot) > clamp ? fdot : (fdot >= 0.0f ? clamp : -clamp);
-    const float w = -gt / denom;
-    const V3 gq = source_adjoint<true, ORDERED>(sc, cv, tile, eh, bsid_h, pt,
-                                                w, h, op_base, acc);
-    go = add(go, gq);
-    gd = add(gd, scale(gq, t));
+    if (implicit) {
+      const int bsid_h = ORDERED && eh.src > 0
+                             ? record_source(sc, cv, tile, eh.src, pt, h)
+                             : -1;
+      const V3 gradF = source_adjoint<false, ORDERED>(
+          sc, cv, tile, eh, bsid_h, pt, 1.0f, h, op_base, acc);
+      const float fdot = dot(gradF, d);
+      const float denom =
+          fabsf(fdot) > clamp ? fdot : (fdot >= 0.0f ? clamp : -clamp);
+      const float w = -gt / denom;
+      const V3 gq = source_adjoint<true, ORDERED>(sc, cv, tile, eh, bsid_h,
+                                                  pt, w, h, op_base, acc);
+      go = add(go, gq);
+      gd = add(gd, scale(gq, t));
+    }
+
+    // --- envelope sweep at the frozen closest approach (soft) --------------
+    if constexpr (SOFT) {
+      if (gsm != 0.0f) {
+        const V3 pe = v3(r.ox + r.dx * t_min, r.oy + r.dy * t_min,
+                         r.oz + r.dz * t_min);
+        const PointEval ee = eval_point<ORDERED>(sc, cv, tile, pe, h);
+        const int bsid_e = ORDERED && ee.src > 0
+                               ? record_source(sc, cv, tile, ee.src, pe, h)
+                               : -1;
+        const V3 gq = source_adjoint<true, ORDERED>(sc, cv, tile, ee, bsid_e,
+                                                    pe, gsm, h, op_base, acc);
+        go = add(go, gq);
+        gd = add(gd, scale(gq, t_min));
+      }
+    }
 
     // --- the winner's albedo and flag words (painted pools) ----------------
     if (painted) {
@@ -509,7 +548,7 @@ __global__ void compact_bwd_kernel(SceneView sc, CullView cv,
 
 // Launches one instantiation of compact_bwd_kernel on as many blocks as
 // the card keeps resident (at most max_blocks, at most one per 128 rays).
-template <bool ORDERED, bool MATS>
+template <bool ORDERED, bool MATS, bool SOFT>
 cudaError_t launch_compact_bwd(const SceneView& sc, const CullView& cv,
                                const float* cam, const RenderParams& p,
                                float clamp, const float* t_in,
@@ -517,13 +556,13 @@ cudaError_t launch_compact_bwd(const SceneView& sc, const CullView& cv,
                                int nscal, int op_base, int cam_base,
                                float* hist, int hist_off, float* partials,
                                int max_blocks, int* n_blocks,
-                               cudaStream_t stream) {
+                               const SoftRes& soft, cudaStream_t stream) {
   long long grid = 0;
   const cudaError_t err = launch_resident(
-      compact_bwd_kernel<ORDERED, MATS>, CBWD_THREADS,
+      compact_bwd_kernel<ORDERED, MATS, SOFT>, CBWD_THREADS,
       (size_t)nscal * sizeof(float), p, max_blocks, stream, &grid, sc, cv, cam,
       p, clamp, t_in, hit_in, g_img, nscal, op_base, cam_base, hist, hist_off,
-      partials);
+      partials, soft);
   *n_blocks = (int)grid;
   return err;
 }
@@ -537,31 +576,38 @@ extern "C" {
 // rows with rmt_bwd_finalize_launch. hist holds max_blocks * CBWD_THREADS *
 // hist_len floats, and is null exactly when hist_len is 0 (a pool-only plan:
 // the build without the ordered sources). mats != 0 routes the albedo of a
-// painted pool. Returns the first failing cudaError_t (0 = success).
+// painted pool; a soft argument with non-null residuals (s_min, t_min) runs
+// the soft build (never with mats). Returns the first failing cudaError_t
+// (0 = success).
 int rmt_compact_bwd_launch(const float* leaf_params, const int* row_kind,
                            const int* tape, int n_instr, const float* op_param,
                            const rmt::CullView* cull, const float* cam,
                            const rmt::RenderParams* params, float clamp,
                            const float* t_in, const float* hit_in,
                            const float* g_img, int nscal, int op_base,
-                           int cam_base, int mats, float* hist, int hist_off,
-                           float* partials, int max_blocks, int* n_blocks,
-                           void* stream) {
+                           int cam_base, int mats, const rmt::SoftRes* soft,
+                           float* hist, int hist_off, float* partials,
+                           int max_blocks, int* n_blocks, void* stream) {
   const rmt::RenderParams p = *params;
   const rmt::SceneView sc = rmt::make_scene(leaf_params, row_kind, tape,
                                             n_instr, op_param, p.max_dist);
   cudaStream_t st = (cudaStream_t)stream;
-#define RMT_CBWD(ORDERED, MATS)                                               \
-  rmt::launch_compact_bwd<ORDERED, MATS>(sc, *cull, cam, p, clamp, t_in,     \
-                                         hit_in, g_img, nscal, op_base,      \
-                                         cam_base, hist, hist_off, partials, \
-                                         max_blocks, n_blocks, st)
+  const rmt::SoftRes sr = *soft;
+  const bool is_soft = sr.s_min != nullptr;
+  if (is_soft != (sr.t_min != nullptr) || (is_soft && mats != 0))
+    return (int)cudaErrorInvalidValue;
+#define RMT_CBWD(ORDERED, MATS, SOFT)                                        \
+  rmt::launch_compact_bwd<ORDERED, MATS, SOFT>(                              \
+      sc, *cull, cam, p, clamp, t_in, hit_in, g_img, nscal, op_base,         \
+      cam_base, hist, hist_off, partials, max_blocks, n_blocks, sr, st)
   cudaError_t err;
-  switch ((hist != nullptr ? 2 : 0) + (mats != 0 ? 1 : 0)) {
-    case 0: err = RMT_CBWD(false, false); break;
-    case 1: err = RMT_CBWD(false, true); break;
-    case 2: err = RMT_CBWD(true, false); break;
-    default: err = RMT_CBWD(true, true); break;
+  switch ((is_soft ? 4 : 0) + (hist != nullptr ? 2 : 0) + (mats != 0 ? 1 : 0)) {
+    case 0: err = RMT_CBWD(false, false, false); break;
+    case 1: err = RMT_CBWD(false, true, false); break;
+    case 2: err = RMT_CBWD(true, false, false); break;
+    case 3: err = RMT_CBWD(true, true, false); break;
+    case 4: err = RMT_CBWD(false, false, true); break;
+    default: err = RMT_CBWD(true, false, true); break;
   }
 #undef RMT_CBWD
   return (int)err;

@@ -24,6 +24,13 @@
 // floor, piecewise constant in the camera (1701-1730), so it returns at
 // once; the Pallas kernel's per-tile skip is a coarser form of the same.
 //
+// The SOFT builds (soft-coverage mode, pallas_grad.py:1510-1597, 1683-1743)
+// read the closest-approach residuals (s_min, t_min) too and run every ray
+// that hit or whose coverage exceeds 1e-4 * min(1, beta) (soft_work, a
+// per-ray form of the reference's per-tile gate): the coverage blend's
+// adjoint, the implicit term on hit rays and the envelope term at o + d
+// t_min, one more scene adjoint per ray (ray_backward, scene_grad.cuh).
+//
 // The gradient is a sum over 33 M rays of NSCAL = 16 n_rows + n_real + 7
 // words, in one of two builds (ops/cuda_grad.py GradLayout.long chooses):
 // - fused_bwd_kernel (tapes of at most MAX_BWD_INSTR instructions whose
@@ -66,17 +73,42 @@ struct SharedAcc {
   }
 };
 
+// What ray_backward reads of a ray beyond t: nothing (hard), or its soft
+// residuals.
+template <bool SOFT>
+using RayIn = std::conditional_t<SOFT, SoftRay, NoSoft>;
+
+// Reads ray g's residuals beyond t; false when the ray does no work (a
+// miss; soft: soft_work fails).
+__device__ __forceinline__ bool ray_residuals(const float* __restrict__ hit_in,
+                                              const SoftRes&,
+                                              const RenderParams&, long long g,
+                                              NoSoft&) {
+  return __ldg(hit_in + g) > 0.0f;
+}
+__device__ __forceinline__ bool ray_residuals(const float* __restrict__ hit_in,
+                                              const SoftRes& sr,
+                                              const RenderParams& p,
+                                              long long g, SoftRay& ray) {
+  ray.hit = __ldg(hit_in + g);
+  ray.s_min = __ldg(sr.s_min + g);
+  ray.t_min = __ldg(sr.t_min + g);
+  ray.beta_inv = sr.beta_inv;
+  return soft_work(ray.hit, soft_alpha(ray.s_min, p.min_dist, sr.beta_inv),
+                   sr.gate);
+}
+
 // Grid-stride over the AA rays of the band, in the fine kernel's lane order
 // (row i, then q = j * S + s). Writes one partial row of nscal words per
-// block. MATS: the scene is painted (the albedo words).
-template <bool MATS>
+// block. MATS: the scene is painted (the albedo words); SOFT: soft coverage.
+template <bool MATS, bool SOFT>
 __global__ void fused_bwd_kernel(SceneView sc, const int* __restrict__ push_slot,
                                  const float* __restrict__ cam, RenderParams p,
                                  float clamp, const float* __restrict__ t_in,
                                  const float* __restrict__ hit_in,
                                  const float* __restrict__ g_img, int nscal,
                                  int op_base, int cam_base,
-                                 float* __restrict__ partials) {
+                                 float* __restrict__ partials, SoftRes soft) {
   extern __shared__ float acc_s[];
   const int tid = threadIdx.x;
   const int stride = blockDim.x + 1;
@@ -91,16 +123,17 @@ __global__ void fused_bwd_kernel(SceneView sc, const int* __restrict__ push_slot
   const long long step = (long long)gridDim.x * blockDim.x;
   for (long long g = (long long)blockIdx.x * blockDim.x + tid; g < total;
        g += step) {
-    if (!(__ldg(hit_in + g) > 0.0f)) continue;
+    RayIn<SOFT> ray;
+    if (!ray_residuals(hit_in, soft, p, g, ray)) continue;
     const int i = (int)(g / row_lanes);
     const int q = (int)(g - (long long)i * row_lanes);
     const int j = q / S;
     const int s = q - j * S;
     const float* gi = g_img + ((size_t)i * p.width + j) * 3;
-    ray_backward<MATS>(sc, push_slot, cam, p, clamp, op_base, cam_base, i, j,
-                       s, __ldg(t_in + g), __ldg(gi + 0) * p.inv_s,
-                       __ldg(gi + 1) * p.inv_s, __ldg(gi + 2) * p.inv_s, rec,
-                       acc);
+    ray_backward<MATS>(sc, push_slot, cam, p, clamp, op_base, cam_base,
+                             i, j, s, __ldg(t_in + g), ray,
+                             __ldg(gi + 0) * p.inv_s, __ldg(gi + 1) * p.inv_s,
+                             __ldg(gi + 2) * p.inv_s, rec, acc);
   }
   __syncthreads();
   for (int k = tid; k < nscal; k += blockDim.x) {
@@ -115,7 +148,7 @@ __global__ void fused_bwd_kernel(SceneView sc, const int* __restrict__ push_slot
 // one partial row of nscal words per block, filled with shared-memory
 // atomics (compact_bwd.cu's scheme), so neither the tape's length nor
 // nscal meets the per-thread caps of fused_bwd_kernel.
-template <bool MATS>
+template <bool MATS, bool SOFT>
 __global__ void fused_bwd_long_kernel(SceneView sc,
                                       const int* __restrict__ push_slot,
                                       const float* __restrict__ cam,
@@ -125,7 +158,8 @@ __global__ void fused_bwd_long_kernel(SceneView sc,
                                       const float* __restrict__ g_img,
                                       int nscal, int op_base, int cam_base,
                                       float* __restrict__ hist,
-                                      float* __restrict__ partials) {
+                                      float* __restrict__ partials,
+                                      SoftRes soft) {
   extern __shared__ float acc_s[];
   for (int k = threadIdx.x; k < nscal; k += blockDim.x) acc_s[k] = 0.0f;
   __syncthreads();
@@ -138,16 +172,17 @@ __global__ void fused_bwd_long_kernel(SceneView sc,
   const long long row_lanes = (long long)p.width * S;
   const long long total = row_lanes * p.rows;
   for (long long g = me; g < total; g += step) {
-    if (!(__ldg(hit_in + g) > 0.0f)) continue;
+    RayIn<SOFT> ray;
+    if (!ray_residuals(hit_in, soft, p, g, ray)) continue;
     const int i = (int)(g / row_lanes);
     const int q = (int)(g - (long long)i * row_lanes);
     const int j = q / S;
     const int s = q - j * S;
     const float* gi = g_img + ((size_t)i * p.width + j) * 3;
-    ray_backward<MATS>(sc, push_slot, cam, p, clamp, op_base, cam_base, i, j,
-                       s, __ldg(t_in + g), __ldg(gi + 0) * p.inv_s,
-                       __ldg(gi + 1) * p.inv_s, __ldg(gi + 2) * p.inv_s, h,
-                       acc);
+    ray_backward<MATS>(sc, push_slot, cam, p, clamp, op_base, cam_base,
+                             i, j, s, __ldg(t_in + g), ray,
+                             __ldg(gi + 0) * p.inv_s, __ldg(gi + 1) * p.inv_s,
+                             __ldg(gi + 2) * p.inv_s, h, acc);
   }
   __syncthreads();
   for (int k = threadIdx.x; k < nscal; k += blockDim.x)
@@ -174,40 +209,51 @@ extern "C" {
 // row of nscal words per thread, the tape within MAX_BWD_INSTR); else
 // fused_bwd_long_kernel (BWD_LONG_THREADS threads, hist_len floats of hist
 // per thread, hist holding max_blocks * BWD_LONG_THREADS * hist_len).
-// mats != 0 routes the albedo words of a painted scene. partials must hold
-// max_blocks * nscal floats. Returns the first failing cudaError_t (0 =
-// success).
+// mats != 0 routes the albedo words of a painted scene; a soft argument
+// with non-null residuals (s_min, t_min) runs the soft builds. partials
+// must hold max_blocks * nscal floats. Returns the first failing
+// cudaError_t (0 = success).
 int rmt_fused_bwd_launch(const float* leaf_params, const int* row_kind,
                          const int* tape, int n_instr, const float* op_param,
                          const int* push_slot, const float* cam,
                          const rmt::RenderParams* params, float clamp,
                          const float* t_in, const float* hit_in,
                          const float* g_img, int nscal, int op_base,
-                         int cam_base, int mats, float* hist, float* partials,
-                         int max_blocks, float* out, void* stream) {
+                         int cam_base, int mats, const rmt::SoftRes* soft,
+                         float* hist, float* partials, int max_blocks,
+                         float* out, void* stream) {
   const rmt::RenderParams p = *params;
   const rmt::SceneView sc = rmt::make_scene(leaf_params, row_kind, tape,
                                             n_instr, op_param, p.max_dist);
   cudaStream_t st = (cudaStream_t)stream;
+  const rmt::SoftRes sr = *soft;
+  const bool is_soft = sr.s_min != nullptr;
+  if (is_soft != (sr.t_min != nullptr)) return (int)cudaErrorInvalidValue;
   long long grid = 0;
   cudaError_t err;
   if (hist == nullptr) {
     const int threads = rmt::BWD_THREADS;
     const size_t smem = (size_t)nscal * (threads + 1) * sizeof(float);
-    const auto kernel = mats ? rmt::fused_bwd_kernel<true>
-                             : rmt::fused_bwd_kernel<false>;
+    const auto kernel =
+        is_soft ? (mats ? rmt::fused_bwd_kernel<true, true>
+                        : rmt::fused_bwd_kernel<false, true>)
+                : (mats ? rmt::fused_bwd_kernel<true, false>
+                        : rmt::fused_bwd_kernel<false, false>);
     err = rmt::launch_resident(kernel, threads, smem, p, max_blocks, st, &grid,
                                sc, push_slot, cam, p, clamp, t_in, hit_in,
-                               g_img, nscal, op_base, cam_base, partials);
+                               g_img, nscal, op_base, cam_base, partials, sr);
   } else {
     const int threads = rmt::BWD_LONG_THREADS;
     const size_t smem = (size_t)nscal * sizeof(float);
-    const auto kernel = mats ? rmt::fused_bwd_long_kernel<true>
-                             : rmt::fused_bwd_long_kernel<false>;
+    const auto kernel =
+        is_soft ? (mats ? rmt::fused_bwd_long_kernel<true, true>
+                        : rmt::fused_bwd_long_kernel<false, true>)
+                : (mats ? rmt::fused_bwd_long_kernel<true, false>
+                        : rmt::fused_bwd_long_kernel<false, false>);
     err = rmt::launch_resident(kernel, threads, smem, p, max_blocks, st, &grid,
                                sc, push_slot, cam, p, clamp, t_in, hit_in,
                                g_img, nscal, op_base, cam_base, hist,
-                               partials);
+                               partials, sr);
   }
   if (err != cudaSuccess) return (int)err;
   rmt::bwd_finalize_kernel<<<(nscal + 127) / 128, 128, 0, st>>>(

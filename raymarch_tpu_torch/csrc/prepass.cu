@@ -16,16 +16,25 @@
 // stop distance (_cone_march_tile with t_in/live_in, 152-154), through the
 // whole tape: un-culled, as the reference's.
 //
-// fine_kernel replaces fine_packed_kernel (1521) in its hard forward form
-// (no soft mode, no march_only): every AA ray sphere-
+// fine_kernel replaces fine_packed_kernel (1521) in its forward forms, hard
+// and soft (no march_only): every AA ray sphere-
 // traces from its pixel's t0 (_fine_march_tile 477, plain or, with
 // relax > 1, over-relaxed), or (PRE 2) through its block's near intervals,
 // jumping the gaps (_fine_march_interval_tile 296); hit rays
 // take 4-tap tetrahedron normals (pallas_march._tet_taps 1049), Lambert
 // shading, the analytic checker floor on a miss, sqrt gamma, and the AA mean.
+// PRE 3 is the soft-coverage build (no prepass, relax 1): each ray marches
+// from t = 0 keeping its closest approach (s_min, t_min)
+// (_fine_march_tile_soft 380), and the coverage alpha =
+// exp(-max(s_min - min_dist, 0) / beta) takes the place of the hit mask: the
+// surface term sits at the march end on a hit, at t_min on a miss, at the
+// ray's origin where alpha <= 1e-4, and the floor is blended by 1 - alpha
+// (1696-1760). A ray of alpha exactly 0 skips the taps, exactly: its
+// surface term enters multiplied by alpha.
 // Block planes (PRE 1 and 2) are read at block (i / B, j / B): the
 // reference's repeat of the planes to pixel resolution (1397-1406) as an
-// index map.
+// index map. fine_kernel's body is in fine.cuh: this file instantiates its
+// hard builds, fine_soft.cu (compiled with -fmad=false) the soft ones.
 //
 // With leaf culling (cfg.leaf_cull) both kernels evaluate the scene of a
 // point through its pixel's tile (scene_distance_tile): the compact plan's
@@ -61,47 +70,21 @@
 // correctly-rounded quotient of a correctly-rounded root, closer to the
 // reference's f32 result than the approximate rsqrtf). The checker floor
 // rounds half to even with rintf, as jnp.round does. nvcc's default FMA
-// contraction is left on. "No interval" is the reference's finite 3.0e38,
+// contraction is left on in the march of the hard builds; the ray setup
+// rounds every operation (render_common.cuh), and so does all of the soft
+// builds (fine.cuh). "No interval" is the reference's finite 3.0e38,
 // tested with < 9.0e37, never INFINITY.
 #include <cstdint>
 
 #include <cuda_runtime.h>
 
+#include "fine.cuh"
 #include "render_common.cuh"
 #include "scene_eval.cuh"
 
 namespace rmt {
 
-// Scene bounding-sphere clip (_bound_clip, 107-127). bound = (c3, R, valid).
-// Updates live / t0 / t_cap only when the bound is valid.
-__device__ __forceinline__ void bound_clip(const float* __restrict__ bound,
-                                           const Ray& r, float min_dist,
-                                           float& live, float& t0,
-                                           float& t_cap) {
-  const float bcx = __ldg(bound + 0), bcy = __ldg(bound + 1),
-              bcz = __ldg(bound + 2), br = __ldg(bound + 3);
-  if (!(__ldg(bound + 4) > 0.0f)) return;
-  const float ocx = r.ox - bcx;
-  const float ocy = r.oy - bcy;
-  const float ocz = r.oz - bcz;
-  const float bq = r.dx * ocx + r.dy * ocy + r.dz * ocz;
-  const float c2 = ocx * ocx + ocy * ocy + ocz * ocz - br * br;
-  const float disc = bq * bq - c2;
-  const float sq = sqrtf(fmaxf(disc, 0.0f));
-  const float t_enter = -bq - sq;
-  const float t_exit = -bq + sq;
-  const float hit_bound = (disc > 0.0f && t_exit > 0.0f) ? live : 0.0f;
-  live = hit_bound;
-  t0 = fmaxf(t_enter, 0.0f) * hit_bound;
-  t_cap = t_exit + min_dist;
-}
-
-constexpr int MAX_NI = 4;          // near intervals a build keeps in registers
-constexpr float FAR_T = 3.0e38f;   // "no interval" (pallas_prepass.py:188)
 constexpr int COARSE_THREADS = 128;
-// A multiple of 64: a pixel's 64 samples (aa_samples = 8) share a block.
-constexpr int FINE_THREADS = 128;
-constexpr float FAR_TEST = 9.0e37f;
 
 // The cone march of one centre ray from (t, live) at cone angle omega
 // (_cone_march_tile, 157-174) -> status; t ends at the stop distance.
@@ -288,308 +271,6 @@ __global__ void coarse_px_kernel(SceneView sc, const float* __restrict__ cam,
   status_out[o] = near;
 }
 
-// The fine march of one AA ray through its block's near intervals
-// (_fine_march_interval_tile, 327-362) -> hit; t ends where the ray does.
-// Plain steps inside interval idx (RELAX: over-relaxed, with the fallback
-// of the legacy march); a step past e_idx jumps to max(t, s_{idx+1}) with
-// omega, step and previous radius reset, or is a miss when no interval is
-// left. Hit and escape are tested only at samples that did not overshoot.
-template <int MODE, bool RELAX>
-__device__ __forceinline__ float interval_march(const SceneView& sc,
-                                                const CullView& cv, int tile,
-                                                const Ray& r,
-                                                const RenderParams& p,
-                                                const float (&st)[MAX_NI],
-                                                const float (&en)[MAX_NI],
-                                                float live, float& t,
-                                                float t_cap) {
-  float hit = 0.0f;
-  float prev_r = 0.0f, step_len = 0.0f, omega = p.relax;
-  int idx = 0;
-  for (int k = 0; k < p.max_iter && live > 0.0f; ++k) {
-    const float d = scene_distance_tile<MODE>(
-        sc, cv, tile, r.ox + r.dx * t, r.oy + r.dy * t, r.oz + r.dz * t);
-    float new_step = d;
-    bool fail = false;
-    if constexpr (RELAX) {
-      fail = omega > 1.0f && d + prev_r < step_len;
-      new_step = fail ? p.relax_back * step_len : omega * d;
-      if (fail) omega = 1.0f;
-    }
-    if (!fail) {
-      if (d < p.min_dist) {
-        hit = 1.0f;
-        live = 0.0f;
-      } else if (d > p.max_dist || t > t_cap) {
-        live = 0.0f;
-      }
-    }
-    if (live > 0.0f) {
-      const float t2 = t + new_step;
-      float e = FAR_T, ns = FAR_T;  // e_idx, and s_{idx+1} (FAR_T past the last)
-#pragma unroll
-      for (int q = 0; q < MAX_NI; ++q) {
-        if (q == idx) e = en[q];
-        if (q == idx + 1) ns = st[q];
-      }
-      if (t2 > e && ns > FAR_TEST) {
-        t = t2;
-        live = 0.0f;  // no interval left: a miss
-      } else if (t2 > e) {
-        t = fmaxf(t2, ns);
-        ++idx;
-        omega = p.relax;
-        step_len = 0.0f;
-        prev_r = 0.0f;
-        continue;
-      } else {
-        t = t2;
-      }
-    }
-    prev_r = d;
-    step_len = new_step;
-  }
-  return hit;
-}
-
-// One thread per AA ray. Lane q of a row is (pixel j, sample s) with
-// q = j * S + s, so a pixel's S samples sit in S adjacent lanes of one warp
-// (S divides 32, or is 64 and fills two warps; the wrapper checks). Writes the image f32[rows, width, 3]
-// and, when t_out is not null, the residuals t and hit f32[rows, width, S].
-// MODE is the culling mode, RELAX whether cfg.relax > 1, MATS whether the
-// scene carries materials, PRE the prepass planes: 0 t0_in and status_in
-// f32[rows, width] (or none with no_prepass), 1 the same at block
-// resolution f32[brows, bcols], 2 the 2*ni interval planes f32[2*ni, brows,
-// bcols] at t0_in.
-template <int MODE, bool RELAX, bool MATS, int PRE>
-__global__ void fine_kernel(SceneView sc, const float* __restrict__ cam,
-                            const float* __restrict__ bound, RenderParams p,
-                            CullView cv, const float* __restrict__ t0_in,
-                            const float* __restrict__ status_in,
-                            float* __restrict__ img,
-                            float* __restrict__ t_out,
-                            float* __restrict__ hit_out, BlockParams bp) {
-  const int S = p.naa * p.naa;
-  const int q = blockIdx.x * blockDim.x + threadIdx.x;
-  const int i = blockIdx.y;
-  const int j = q / S;
-  const int s = q - j * S;
-  // Threads past the row's end still run the shuffles below, with zeros.
-  const bool valid = j < p.width && i < p.rows;
-  float cr = 0.0f, cg = 0.0f, cb = 0.0f;
-  if (valid) {
-    const int a = s / p.naa;
-    const int b = s - a * p.naa;
-    const float fa = ((float)a + 0.5f) / (float)p.naa - 0.5f;
-    const float fb = ((float)b + 0.5f) / (float)p.naa - 0.5f;
-    // Screen coordinates, f32 op order of pallas_prepass.py:1553-1562.
-    const float x =
-        2.0f * ((float)j + 0.5f) / (float)p.width - 1.0f + fa * p.c2w;
-    const float y =
-        1.0f - 2.0f * ((float)i + 0.5f + __ldg(cam + 7)) / (float)p.height +
-        fb * p.c2h;
-    const Ray r = view_ray(cam, p, x, y);
-    const size_t o = (size_t)i * p.width + j;
-
-    float t, live;
-    if constexpr (PRE == 2) {
-      // A ray lives iff its block has a first interval, and starts there
-      // (pallas_prepass.py:1604-1608).
-      const float s0 = t0_in[(size_t)(i / bp.block) * bp.bcols + j / bp.block];
-      live = s0 < FAR_TEST ? 1.0f : 0.0f;
-      t = live > 0.0f ? s0 : 0.0f;
-    } else if (p.no_prepass) {
-      t = 0.0f;
-      live = 1.0f;
-    } else if constexpr (PRE == 1) {
-      const size_t po = (size_t)(i / bp.block) * bp.bcols + j / bp.block;
-      t = t0_in[po];
-      live = status_in[po];
-    } else {
-      t = t0_in[o];
-      live = status_in[o];
-    }
-    float t_cap = 3.0e38f;
-    if (p.use_bound) {
-      // Only the exit cap matters: the start comes from the prepass.
-      float l = live, t_unused = t;
-      bound_clip(bound, r, p.min_dist, l, t_unused, t_cap);
-    }
-    const int tile = MODE != 0 ? tile_of(cv, i, j) : 0;
-    float hit = 0.0f;
-    if constexpr (PRE == 2) {
-      // The block's intervals, FAR_T past the last.
-      const size_t po = (size_t)(i / bp.block) * bp.bcols + j / bp.block;
-      const size_t plane = (size_t)bp.brows * bp.bcols;
-      float st[MAX_NI], en[MAX_NI];
-#pragma unroll
-      for (int n = 0; n < MAX_NI; ++n) {
-        st[n] = n < bp.ni ? t0_in[n * plane + po] : FAR_T;
-        en[n] = n < bp.ni ? t0_in[(bp.ni + n) * plane + po] : FAR_T;
-      }
-      hit = interval_march<MODE, RELAX>(sc, cv, tile, r, p, st, en, live, t,
-                                        t_cap);
-    } else if constexpr (RELAX) {
-      // Over-relaxed stepping (_fine_march_tile 491-525): step omega*d;
-      // when consecutive safe spheres stop overlapping the step overshot,
-      // so step back by (1 - relax)*step and drop the ray to omega = 1. Hit
-      // and escape are tested only at samples that did not overshoot.
-      float prev_r = 0.0f, step_len = 0.0f, omega = p.relax;
-      for (int k = 0; k < p.max_iter && live > 0.0f; ++k) {
-        const float d = scene_distance_tile<MODE>(
-            sc, cv, tile, r.ox + r.dx * t, r.oy + r.dy * t, r.oz + r.dz * t);
-        const bool fail = omega > 1.0f && d + prev_r < step_len;
-        const float new_step = fail ? p.relax_back * step_len : omega * d;
-        if (fail) {
-          omega = 1.0f;
-        } else if (d < p.min_dist) {
-          hit = 1.0f;
-          live = 0.0f;
-        } else if (d > p.max_dist || t > t_cap) {
-          live = 0.0f;
-        }
-        if (live > 0.0f) t = t + new_step;
-        prev_r = d;
-        step_len = new_step;
-      }
-    } else {
-      for (int k = 0; k < p.max_iter && live > 0.0f; ++k) {
-        const float d = scene_distance_tile<MODE>(
-            sc, cv, tile, r.ox + r.dx * t, r.oy + r.dy * t, r.oz + r.dz * t);
-        if (d < p.min_dist) {
-          hit = 1.0f;
-          live = 0.0f;
-        } else if (d > p.max_dist || t > t_cap) {
-          live = 0.0f;
-        } else {
-          t = t + d;
-        }
-      }
-    }
-    if (t_out != nullptr) {
-      const size_t ri = ((size_t)i * p.width + j) * S + s;
-      t_out[ri] = t;
-      hit_out[ri] = hit;
-    }
-
-    // A miss takes diff = 0 and the default albedo (shade_miss, 1683-1694).
-    float diff = 0.0f;
-    float alb[3] = {p.albedo[0], p.albedo[1], p.albedo[2]};
-    if (hit > 0.0f) {
-      const float px = r.ox + r.dx * t;
-      const float py = r.oy + r.dy * t;
-      const float pz = r.oz + r.dz * t;
-      // Tetrahedron taps: k in {(+,-,-), (-,-,+), (-,+,-), (+,+,+)}.
-      const float e = p.eps;
-      const float d0 = scene_distance_tile<MODE>(sc, cv, tile, px + e, py - e, pz - e);
-      const float d1 = scene_distance_tile<MODE>(sc, cv, tile, px - e, py - e, pz + e);
-      const float d2 = scene_distance_tile<MODE>(sc, cv, tile, px - e, py + e, pz - e);
-      const float d3 = scene_distance_tile<MODE>(sc, cv, tile, px + e, py + e, pz + e);
-      float nx = 0.0f, ny = 0.0f, nz = 0.0f;
-      nx = nx + d0; ny = ny - d0; nz = nz - d0;
-      nx = nx - d1; ny = ny - d1; nz = nz + d1;
-      nx = nx - d2; ny = ny + d2; nz = nz - d2;
-      nx = nx + d3; ny = ny + d3; nz = nz + d3;
-      const float ninv = 1.0f / sqrtf(nx * nx + ny * ny + nz * nz + 1e-20f);
-      const float tlx = px - p.light[0];
-      const float tly = py - p.light[1];
-      const float tlz = pz - p.light[2];
-      const float linv =
-          1.0f / sqrtf(tlx * tlx + tly * tly + tlz * tlz + 1e-20f);
-      diff = (nx * tlx + ny * tly + nz * tlz) * (ninv * linv);
-      diff = fmaxf(diff, p.ambient);
-      if constexpr (MATS) {
-        scene_color(sc, px, py, pz, p.albedo, alb,
-                    MODE != 0 ? cv.masks + (size_t)tile * cv.n_words
-                              : nullptr);
-      }
-    }
-
-    // Analytic checkerboard floor on a miss (wgsl:117-128).
-    const bool dy_ok = fabsf(r.dy) > 1e-8f;
-    const float dy_safe = dy_ok ? r.dy : 1e-8f;
-    const float ft = (p.floor_y - r.oy) / dy_safe;
-    const float fx = fminf(fmaxf(r.ox + r.dx * ft, -1e7f), 1e7f);
-    const float fz = fminf(fmaxf(r.oz + r.dz * ft, -1e7f), 1e7f);
-    const int ipx = (int)rintf(fx + 0.5f);
-    const int ipz = (int)rintf(fz + 0.5f);
-    const float parity = (float)((ipx ^ ipz) & 1);
-    const float on_floor = (ft > 0.0f && dy_ok) ? 1.0f : 0.0f;
-    const float miss = 1.0f - hit;
-    const float fr = (p.floor_base[0] + p.floor_checker * parity) * on_floor;
-    const float fg = (p.floor_base[1] + p.floor_checker * parity) * on_floor;
-    const float fbl = (p.floor_base[2] + p.floor_checker * parity) * on_floor;
-    cr = sqrtf(fmaxf(hit * (alb[0] * diff) + miss * fr, 0.0f) + 1e-12f);
-    cg = sqrtf(fmaxf(hit * (alb[1] * diff) + miss * fg, 0.0f) + 1e-12f);
-    cb = sqrtf(fmaxf(hit * (alb[2] * diff) + miss * fbl, 0.0f) + 1e-12f);
-  }
-
-  // AA mean over the pixel's S adjacent lanes, in registers: within the
-  // warp, and for S = 64 (a pixel over two warps of one block) the second
-  // warp's sum joins the first's through shared memory.
-  for (int off = (S < 32 ? S : 32) >> 1; off > 0; off >>= 1) {
-    cr += __shfl_xor_sync(0xffffffffu, cr, off);
-    cg += __shfl_xor_sync(0xffffffffu, cg, off);
-    cb += __shfl_xor_sync(0xffffffffu, cb, off);
-  }
-  if (S > 32) {
-    __shared__ float wsum[FINE_THREADS / 32][3];
-    const int warp = threadIdx.x >> 5;
-    if ((threadIdx.x & 31) == 0) {
-      wsum[warp][0] = cr;
-      wsum[warp][1] = cg;
-      wsum[warp][2] = cb;
-    }
-    __syncthreads();
-    if (s == 0) {
-      cr += wsum[warp + 1][0];
-      cg += wsum[warp + 1][1];
-      cb += wsum[warp + 1][2];
-    }
-  }
-  if (valid && s == 0) {
-    float* out = img + ((size_t)i * p.width + j) * 3;
-    out[0] = cr * p.inv_s;
-    out[1] = cg * p.inv_s;
-    out[2] = cb * p.inv_s;
-  }
-}
-
-// The fine kernel's launch, dispatched to its build by template flags.
-struct FineLaunch {
-  dim3 grid, block;
-  cudaStream_t st;
-  SceneView sc;
-  const float *cam, *bound;
-  RenderParams p;
-  CullView cv;
-  const float *t0_in, *status_in;
-  float *img, *t_out, *hit_out;
-  BlockParams bp;
-
-  template <int MODE, bool RELAX, bool MATS, int PRE>
-  void go() const {
-    fine_kernel<MODE, RELAX, MATS, PRE><<<grid, block, 0, st>>>(
-        sc, cam, bound, p, cv, t0_in, status_in, img, t_out, hit_out, bp);
-  }
-  template <int MODE, bool RELAX, bool MATS>
-  void pre(int kind) const {
-    if (kind == 2) go<MODE, RELAX, MATS, 2>();
-    else if (kind == 1) go<MODE, RELAX, MATS, 1>();
-    else go<MODE, RELAX, MATS, 0>();
-  }
-  template <int MODE>
-  void flags(bool relax, bool mats, int kind) const {
-    if (relax) {
-      if (mats) pre<MODE, true, true>(kind);
-      else pre<MODE, true, false>(kind);
-    } else {
-      if (mats) pre<MODE, false, true>(kind);
-      else pre<MODE, false, false>(kind);
-    }
-  }
-};
-
 }  // namespace rmt
 
 extern "C" {
@@ -598,7 +279,8 @@ extern "C" {
 // and hit_out may be null (no residuals); cull->mode 0 renders unculled;
 // mats != 0 shades with the scene's materials. With block->ni > 0 the
 // coarse pass writes, and the fine pass reads, the 2*ni interval planes at
-// t0 (status null).
+// t0 (status null). soft != 0 runs the soft build (no prepass, relax 1),
+// which also writes s_min and t_min where soft_params gives them.
 int rmt_coarse_launch(const float* leaf_params, const int* row_kind,
                       const int* tape, int n_instr, const float* op_param,
                       const float* cam, const float* bound,
@@ -664,7 +346,8 @@ int rmt_fine_launch(const float* leaf_params, const int* row_kind,
                     const rmt::CullView* cull, const float* t0_in,
                     const float* status_in, float* img, float* t_out,
                     float* hit_out, int mats,
-                    const rmt::BlockParams* block_params, void* stream) {
+                    const rmt::BlockParams* block_params, int soft,
+                    const rmt::SoftParams* soft_params, void* stream) {
   const rmt::RenderParams p = *params;
   const rmt::BlockParams bp = *block_params;
   if (bp.ni > rmt::MAX_NI) return (int)cudaErrorInvalidValue;
@@ -686,11 +369,17 @@ int rmt_fine_launch(const float* leaf_params, const int* row_kind,
   L.t_out = t_out;
   L.hit_out = hit_out;
   L.bp = bp;
+  L.sp = *soft_params;
+  const bool relax = p.relax > 1.0f;
+  if (soft && (relax || !p.no_prepass ||
+               (t_out != nullptr && (L.sp.s_min_out == nullptr ||
+                                     L.sp.t_min_out == nullptr))))
+    return (int)cudaErrorInvalidValue;
+  if (soft) return (int)rmt::launch_fine_soft(L, cull->mode, mats != 0);
   const int kind = p.no_prepass ? 0
                    : bp.ni > 0   ? 2
                    : (bp.block > 1 && !bp.chain) ? 1
                                                 : 0;
-  const bool relax = p.relax > 1.0f;
   switch (cull->mode) {
     case 0: L.flags<0>(relax, mats != 0, kind); break;
     case 1: L.flags<1>(relax, mats != 0, kind); break;

@@ -59,6 +59,12 @@ struct Ray {
   float ox, oy, oz, dx, dy, dz;
 };
 
+// The ray setup below rounds every product and sum on its own
+// (__fmul_rn/__fadd_rn never contract into an FMA), as the plain torch
+// versions do: a ray direction or a floor point one ulp off flips the
+// checker's parity near its edges (0.23 of a sample's colour) and moves a
+// grazing ray's march. The march itself may contract.
+
 // Screen point (x, y) -> world ray from the camera (pallas_prepass.py
 // _view_dirs, 696-711). cam = (pos3, quat wxyz, row_offset).
 __device__ __forceinline__ Ray view_ray(const float* __restrict__ cam,
@@ -67,23 +73,74 @@ __device__ __forceinline__ Ray view_ray(const float* __restrict__ cam,
   float vx = x * p.tan_aspect;
   float vy = y * p.tanf;
   float vz = -1.0f;
-  const float inv_norm = 1.0f / sqrtf(vx * vx + vy * vy + vz * vz);
+  const float inv_norm =
+      1.0f / sqrtf(__fadd_rn(__fadd_rn(__fmul_rn(vx, vx), __fmul_rn(vy, vy)),
+                             __fmul_rn(vz, vz)));
   vx = vx * inv_norm;
   vy = vy * inv_norm;
   vz = vz * inv_norm;
   const float qw = __ldg(cam + 3), qx = __ldg(cam + 4), qy = __ldg(cam + 5),
               qz = __ldg(cam + 6);
-  const float tx = 2.0f * (qy * vz - qz * vy);
-  const float ty = 2.0f * (qz * vx - qx * vz);
-  const float tz = 2.0f * (qx * vy - qy * vx);
+  const float tx = 2.0f * __fsub_rn(__fmul_rn(qy, vz), __fmul_rn(qz, vy));
+  const float ty = 2.0f * __fsub_rn(__fmul_rn(qz, vx), __fmul_rn(qx, vz));
+  const float tz = 2.0f * __fsub_rn(__fmul_rn(qx, vy), __fmul_rn(qy, vx));
   Ray r;
-  r.dx = vx + qw * tx + (qy * tz - qz * ty);
-  r.dy = vy + qw * ty + (qz * tx - qx * tz);
-  r.dz = vz + qw * tz + (qx * ty - qy * tx);
+  r.dx = __fadd_rn(__fadd_rn(vx, __fmul_rn(qw, tx)),
+                   __fsub_rn(__fmul_rn(qy, tz), __fmul_rn(qz, ty)));
+  r.dy = __fadd_rn(__fadd_rn(vy, __fmul_rn(qw, ty)),
+                   __fsub_rn(__fmul_rn(qz, tx), __fmul_rn(qx, tz)));
+  r.dz = __fadd_rn(__fadd_rn(vz, __fmul_rn(qw, tz)),
+                   __fsub_rn(__fmul_rn(qx, ty), __fmul_rn(qy, tx)));
   r.ox = __ldg(cam + 0);
   r.oy = __ldg(cam + 1);
   r.oz = __ldg(cam + 2);
   return r;
+}
+
+// Screen coordinates (x, y) of AA sample s of pixel (band row i, column j),
+// in the f32 op order of pallas_prepass.py:1553-1562 (cuda_prepass.
+// aa_screen): the fine kernel's and the backwards' rays.
+__device__ __forceinline__ void aa_screen_xy(const float* __restrict__ cam,
+                                             const RenderParams& p, int i,
+                                             int j, int s, float& x,
+                                             float& y) {
+  const int a = s / p.naa;
+  const int b = s - a * p.naa;
+  const float fa = ((float)a + 0.5f) / (float)p.naa - 0.5f;
+  const float fb = ((float)b + 0.5f) / (float)p.naa - 0.5f;
+  x = __fadd_rn(2.0f * ((float)j + 0.5f) / (float)p.width - 1.0f,
+                __fmul_rn(fa, p.c2w));
+  y = __fadd_rn(
+      1.0f - 2.0f * ((float)i + 0.5f + __ldg(cam + 7)) / (float)p.height,
+      __fmul_rn(fb, p.c2h));
+}
+
+// The analytic checkerboard floor's colour of ray r (wgsl:117-128,
+// pallas_prepass.py:1729-1742): the base colour plus the checker where the
+// ray meets the plane y = floor_y ahead of it, else black. The checker
+// rounds half to even with rintf, as jnp.round does. Piecewise constant in
+// the camera: its derivative is zero.
+__device__ __forceinline__ void floor_colour(const Ray& r, const RenderParams& p,
+                                             float fc[3]) {
+  const bool dy_ok = fabsf(r.dy) > 1e-8f;
+  const float dy_safe = dy_ok ? r.dy : 1e-8f;
+  const float ft = (p.floor_y - r.oy) / dy_safe;
+  const float fx = fminf(fmaxf(__fadd_rn(r.ox, __fmul_rn(r.dx, ft)), -1e7f), 1e7f);
+  const float fz = fminf(fmaxf(__fadd_rn(r.oz, __fmul_rn(r.dz, ft)), -1e7f), 1e7f);
+  const int ipx = (int)rintf(fx + 0.5f);
+  const int ipz = (int)rintf(fz + 0.5f);
+  const float parity = (float)((ipx ^ ipz) & 1);
+  const float on_floor = (ft > 0.0f && dy_ok) ? 1.0f : 0.0f;
+  for (int c = 0; c < 3; ++c)
+    fc[c] = (p.floor_base[c] + p.floor_checker * parity) * on_floor;
+}
+
+// The coverage of a soft-mode ray (shade_soft, march.py:250):
+// exp(-max(s_min - min_dist, 0) / beta), 1 on a hit, 0.0 in f32 past ~104
+// beta.
+__device__ __forceinline__ float soft_alpha(float s_min, float min_dist,
+                                            float beta_inv) {
+  return expf(-fmaxf(s_min - min_dist, 0.0f) * beta_inv);
 }
 
 inline SceneView make_scene(const float* leaf_params, const int* row_kind,

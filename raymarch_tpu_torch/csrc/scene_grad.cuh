@@ -35,6 +35,8 @@
 
 #include <cuda_runtime.h>
 
+#include <type_traits>
+
 #include "render_common.cuh"
 #include "scene_eval.cuh"
 
@@ -736,31 +738,103 @@ __device__ V3 color_adjoint(const SceneView& sc, const Rec& rec,
   return gp;
 }
 
-// The gradient of one hit ray (the per-ray body of the legacy backward, see
+// The soft forward's residuals beside (t, hit), and the soft backward's
+// constants: the backwards' soft argument (null pointers in a hard run).
+struct SoftRes {
+  const float* s_min;  // f32[rows, width, S]: each ray's closest approach
+  const float* t_min;  // its parameter (frozen: no cotangent)
+  float beta_inv;      // f32(1 / coverage_beta)
+  float gate;          // f32(1e-4 * min(1, coverage_beta))
+};
+
+// The adjoint of a ray's gamma-corrected colour c = sqrt(max(v, 0) + 1e-12)
+// for the colour cotangent gcol: hard, v = alb * diff (a hit ray); SOFT, the
+// coverage blend v = alpha * (alb * diff) + (1 - alpha) * fc over the floor
+// colour fc. Adds d/d diff to gdiff, writes d/d alb to galb and returns d/d
+// alpha (0 when hard). The backwards' shared shading adjoint.
+template <bool SOFT>
+__device__ __forceinline__ float colour_adj(const float gcol[3],
+                                            const float alb[3], float diff,
+                                            float alpha, const float fc[3],
+                                            float& gdiff, float galb[3]) {
+  float galpha = 0.0f;
+  for (int c = 0; c < 3; ++c) {
+    const float v =
+        SOFT ? alpha * (alb[c] * diff) + (1.0f - alpha) * fc[c] : alb[c] * diff;
+    const float col = sqrtf(fmaxf(v, 0.0f) + 1e-12f);
+    float gv, unused;
+    max_adj(v, 0.0f, gcol[c] * 0.5f / col, gv, unused);
+    if constexpr (SOFT) {
+      const float ga = gv * alpha;
+      gdiff += ga * alb[c];
+      galb[c] = ga * diff;
+      galpha += gv * (alb[c] * diff - fc[c]);
+    } else {
+      gdiff += gv * alb[c];
+      galb[c] = gv * diff;
+    }
+  }
+  return galpha;
+}
+
+// The cotangent of s_min from that of alpha = exp(-max(s_min - min_dist, 0)
+// * beta_inv): -alpha * beta_inv where s_min > min_dist (a tie of the max
+// splits in half, as JAX's), else 0.
+__device__ __forceinline__ float alpha_adj(float s_min, float min_dist,
+                                           float beta_inv, float alpha,
+                                           float galpha) {
+  const float m = s_min - min_dist;
+  const float gm = galpha * alpha * -beta_inv;
+  return m > 0.0f ? gm : (m == 0.0f ? 0.5f * gm : 0.0f);
+}
+
+// One soft ray's residuals, as ray_backward reads them; a hard ray passes
+// the empty NoSoft, so that the hard builds carry nothing of soft mode.
+struct SoftRay {
+  float hit, s_min, t_min, beta_inv;
+};
+struct NoSoft {};
+
+// The per-ray work gate of the soft backwards: a ray that hit, or whose
+// coverage exceeds 1e-4 * min(1, beta). The reference gates per 128-lane
+// tile (pallas_grad.py:1730-1743); per ray the bound is the same: a skipped
+// ray's dropped coverage gradient, alpha / beta times its colour
+// cotangent, is at most 1e-4 of that cotangent.
+__device__ __forceinline__ bool soft_work(float hit, float alpha, float gate) {
+  return hit > 0.0f || alpha > gate;
+}
+
+// The gradient of one ray (the per-ray body of the legacy backward, see
 // fused_bwd.cu): adds its leaf, op and camera words to acc. (i, j, s) are
 // the band row, the pixel column and the AA sample, t the march end, and
 // (gr, gg, gb) the pixel's cotangent over S. rec holds the reverse records
 // of each sweep in turn (a LocalBuf or a History: 2 slots per instruction,
 // 5 for the colour walk). MATS shades with the albedo of the colour walk at
-// the hit point and runs its adjoint (color_adjoint) before g_t is formed,
-// so that the albedo's dependence on the hit point enters the
+// the surface point and runs its adjoint (color_adjoint) before g_t is
+// formed, so that the albedo's dependence on the hit point enters the
 // implicit-function term too.
-template <bool MATS, class Rec, class Acc>
+//
+// SOFT (shade_loss_soft and the envelope term, pallas_grad.py:1536-1597,
+// 1683-1696; the jnp twin march.py:209-232): the coverage alpha of the
+// ray's closest approach takes the place of the hit mask; the surface term
+// sits at the hit point, at o + d t_min on a miss, or at the origin where
+// alpha <= 1e-4; the floor is blended by 1 - alpha. Its adjoint adds
+// d alpha / d s_min = -alpha / beta where s_min > min_dist, and the
+// envelope (Danskin) term: the cotangent g_s of s_min times F_theta at the
+// frozen point o + d t_min, one more scene adjoint, whose position
+// cotangent reaches o and, times t_min, d. t_min itself takes no
+// cotangent, and the implicit term stays on hit rays.
+template <bool MATS, class Soft, class Rec, class Acc>
 __device__ void ray_backward(const SceneView& sc,
                              const int* __restrict__ push_slot,
                              const float* __restrict__ cam,
                              const RenderParams& p, float clamp, int op_base,
                              int cam_base, int i, int j, int s, float t,
-                             float gr, float gg, float gb, const Rec& rec,
-                             Acc& acc) {
-  const int a_ = s / p.naa;
-  const int b_ = s - a_ * p.naa;
-  const float fa = ((float)a_ + 0.5f) / (float)p.naa - 0.5f;
-  const float fb = ((float)b_ + 0.5f) / (float)p.naa - 0.5f;
-  const float x = 2.0f * ((float)j + 0.5f) / (float)p.width - 1.0f + fa * p.c2w;
-  const float y =
-      1.0f - 2.0f * ((float)i + 0.5f + __ldg(cam + 7)) / (float)p.height +
-      fb * p.c2h;
+                             const Soft sr, float gr, float gg, float gb,
+                             const Rec& rec, Acc& acc) {
+  constexpr bool SOFT = std::is_same<Soft, SoftRay>::value;
+  float x, y;
+  aa_screen_xy(cam, p, i, j, s, x, y);
   // The unrotated view direction, then the ray (view_ray).
   float vx = x * p.tan_aspect;
   float vy = y * p.tanf;
@@ -769,7 +843,17 @@ __device__ void ray_backward(const SceneView& sc,
   const V3 vn = v3(vx * inv_norm, vy * inv_norm, vz * inv_norm);
   const Ray r = view_ray(cam, p, x, y);
   const V3 d = v3(r.dx, r.dy, r.dz);
-  const V3 pt = v3(r.ox + r.dx * t, r.oy + r.dy * t, r.oz + r.dz * t);
+  // The surface point: o + d t on a hit; soft, o + d t_min on a miss and o
+  // where alpha <= 1e-4 (shade_soft's guard).
+  float alpha = 1.0f, te = t;
+  bool live = true;
+  if constexpr (SOFT) {
+    alpha = soft_alpha(sr.s_min, p.min_dist, sr.beta_inv);
+    live = alpha > 1e-4f;
+    te = sr.hit > 0.5f ? t : sr.t_min;
+  }
+  V3 pt = v3(r.ox, r.oy, r.oz);
+  if (live) pt = v3(r.ox + r.dx * te, r.oy + r.dy * te, r.oz + r.dz * te);
 
   // --- primal: taps, normal, Lambert ---------------------------------------
   const float e = p.eps;
@@ -796,18 +880,16 @@ __device__ void ray_backward(const SceneView& sc,
   float gdiff = 0.0f;
   float alb[3] = {p.albedo[0], p.albedo[1], p.albedo[2]};
   float galb[3];
-  // The albedo at the hit point (the forward's scene_color, un-gated as the
-  // reference's backward is); its adjoint runs at once below, so that the
-  // colour records free rec for the sweeps after it.
+  // The albedo at the surface point (the forward's scene_color, un-gated as
+  // the reference's backward is); its adjoint runs at once below, so that
+  // the colour records free rec for the sweeps after it.
   if constexpr (MATS) color_forward_rec(sc, pt, p.albedo, alb, rec);
-  for (int c = 0; c < 3; ++c) {
-    const float v = alb[c] * diff;
-    const float col = sqrtf(fmaxf(v, 0.0f) + 1e-12f);
-    float gv, unused;
-    max_adj(v, 0.0f, gcol[c] * 0.5f / col, gv, unused);
-    gdiff += gv * alb[c];
-    galb[c] = gv * diff;
-  }
+  float fc[3] = {0.0f, 0.0f, 0.0f};
+  if constexpr (SOFT) floor_colour(r, p, fc);
+  const float galpha = colour_adj<SOFT>(gcol, alb, diff, alpha, fc, gdiff, galb);
+  float gsm = 0.0f;  // the cotangent of s_min
+  if constexpr (SOFT)
+    gsm = alpha_adj(sr.s_min, p.min_dist, sr.beta_inv, alpha, galpha);
   V3 gp_alb = v3(0.0f, 0.0f, 0.0f);  // through the painted albedo
   if constexpr (MATS)
     gp_alb = color_adjoint(sc, rec, push_slot, op_base, pt, p.albedo, galb,
@@ -829,18 +911,34 @@ __device__ void ray_backward(const SceneView& sc,
   }
   const float gt = dot(gp, d);
   V3 go = gp;
-  V3 gd = scale(gp, t);
+  V3 gd = live ? scale(gp, te) : v3(0.0f, 0.0f, 0.0f);
 
-  // --- implicit-function term ----------------------------------------------
-  const V3 gradF =
-      scene_adjoint<false>(sc, rec, push_slot, op_base, pt, 1.0f, acc);
-  const float fdot = dot(gradF, d);
-  const float denom =
-      fabsf(fdot) > clamp ? fdot : (fdot >= 0.0f ? clamp : -clamp);
-  const float w = -gt / denom;
-  const V3 gq = scene_adjoint<true>(sc, rec, push_slot, op_base, pt, w, acc);
-  go = add(go, gq);
-  gd = add(gd, scale(gq, t));
+  // --- implicit-function term (hit rays; their surface point is o + d t) ---
+  bool implicit = true;
+  if constexpr (SOFT) implicit = sr.hit > 0.0f;
+  if (implicit) {
+    const V3 gradF =
+        scene_adjoint<false>(sc, rec, push_slot, op_base, pt, 1.0f, acc);
+    const float fdot = dot(gradF, d);
+    const float denom =
+        fabsf(fdot) > clamp ? fdot : (fdot >= 0.0f ? clamp : -clamp);
+    const float w = -gt / denom;
+    const V3 gq = scene_adjoint<true>(sc, rec, push_slot, op_base, pt, w, acc);
+    go = add(go, gq);
+    gd = add(gd, scale(gq, t));
+  }
+
+  // --- envelope term at the frozen closest approach (soft) ----------------
+  if constexpr (SOFT) {
+    if (gsm != 0.0f) {
+      const V3 pe = v3(r.ox + r.dx * sr.t_min, r.oy + r.dy * sr.t_min,
+                       r.oz + r.dz * sr.t_min);
+      const V3 gq =
+          scene_adjoint<true>(sc, rec, push_slot, op_base, pe, gsm, acc);
+      go = add(go, gq);
+      gd = add(gd, scale(gq, sr.t_min));
+    }
+  }
 
   // --- camera: o = cam[0:3], d = rotate(cam[3:7], vn) ----------------------
   const float qw = __ldg(cam + 3);

@@ -7,10 +7,11 @@ image via pixel-loss gradients". Wraps the fit step
 checkpoints, a stall watchdog and a loop with per-step logging.
 
 Gradient model: mode="implicit" differentiates interior signal only
-(implicit-function VJP at hit points plus shading). Silhouette (soft
-coverage) gradients are not ported yet (ROADMAP §1.10). Mask the fit to the
-parameters you mean to move: adaptive optimizers otherwise follow noise
-directions of untouched parameters.
+(implicit-function VJP at hit points plus shading); mode="soft" adds the
+silhouette (soft coverage) gradients: each ray's coverage follows its
+closest approach, with the envelope-theorem VJP at the frozen argmin. Mask
+the fit to the parameters you mean to move: adaptive optimizers otherwise
+follow noise directions of untouched parameters.
 """
 
 from __future__ import annotations
@@ -64,16 +65,17 @@ def fit_scene(
     resume: bool = True,
     stall_timeout: Optional[float] = None,
     stall_exit_code: Optional[int] = None,
-    device,
+    device="cuda",
 ) -> FitResult:
-    """Gradient-descend scene parameters toward a target image on `device`.
+    """Gradient-descend scene parameters toward a target image on `device`
+    (default "cuda"; "cpu" runs the plain versions).
 
     `optimizer` builds a torch optimizer over a list of tensors (default
     `torch.optim.Adam` at `learning_rate`). `leaf_mask` / `op_mask` (same
     shapes as the parameter arrays, 1.0 = trainable) restrict the fit; None
     trains everything of that group. `backend` must be "pallas_fused", the
-    one differentiable backend ported so far. `mesh` may be None or hold
-    one device (more: ROADMAP §1.11).
+    one differentiable backend ported so far, in mode "implicit" or "soft".
+    `mesh` may be None or hold one device (more: ROADMAP §1 item 7).
 
     `checkpoint_dir` writes an atomic checkpoint of the whole fit state every
     `checkpoint_every` steps; with `resume` a restarted job continues from

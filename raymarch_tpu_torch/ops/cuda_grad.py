@@ -40,8 +40,18 @@ and painted pools.
 bands so that no graph spans the whole frame. On CPU tensors `bwd` runs
 it; on a CUDA device `bwd` launches the kernel, or raises.
 
+Soft coverage (`soft=True`, silhouette gradients, pallas_grad.py:1243-1249,
+1510-1597, 1683-1743): the forward is the fine kernel's soft build with no
+prepass, which also keeps each ray's closest approach (s_min, t_min); both
+backwards take their soft builds, which replay `shade_loss_soft` (the
+coverage alpha in the place of the hit mask) and add the envelope term at
+the frozen point o + d t_min, for every ray that hit or whose coverage
+exceeds 1e-4 * min(1, beta). A painted scene takes K8 in soft mode, as in
+the reference.
+
 Both the residuals (8 bytes per AA ray: 265 MB at 1920x1080 with 16 AA
-rays per pixel) and the saved parameters live until the backward runs.
+rays per pixel; 16 bytes, 531 MB, in soft mode) and the saved parameters
+live until the backward runs.
 """
 
 from __future__ import annotations
@@ -76,11 +86,12 @@ from .cuda_prepass import (
     _scene_ptrs,
     _view_dirs,
     aa_screen,
-    coarse,
     fine_res,
     make_pallas_image_render_aa,
     resolve_device,
     shade_plain,
+    shade_soft_plain,
+    soft_alpha,
     tile_active,
 )
 from .tape import TapeArrays, TapeSpec
@@ -183,12 +194,16 @@ def _device_index(rows: tuple, device: torch.device) -> torch.Tensor:
 
 
 def _bwd_plain_band(scene: SceneBuffers, cam, p: PrepassParams, clamp: float, t, hit, g_img, i0,
-                    scene_fn_of=None, albedo_fn_of=None):
+                    scene_fn_of=None, albedo_fn_of=None, soft=None):
     """Gradient of one band of rows [i0, i0 + len(t)) -> (d_lp, d_opp,
     d_cam7), the replay of pallas_grad.py:1600-1699 by autograd.
     `scene_fn_of(sc)` gives the scene function of the scene buffers `sc`
     (default: the whole tape, `scene_plain`), `albedo_fn_of(sc)` the
-    albedo function of a painted scene (default: cfg.albedo)."""
+    albedo function of a painted scene (default: cfg.albedo). `soft` =
+    (s_min, t_min) of the band replays the soft shading instead
+    (`shade_soft_plain`, differentiated in s_min too) over the rays that
+    pass the soft work gate, and adds the envelope term: the cotangent of
+    s_min times the scene at the frozen point o + d t_min (1683-1696)."""
     if scene_fn_of is None:
         def scene_fn_of(sc):
             return lambda px, py, pz: scene_plain(sc, p.max_dist, px, py, pz)
@@ -203,17 +218,30 @@ def _bwd_plain_band(scene: SceneBuffers, cam, p: PrepassParams, clamp: float, t,
         sc = dataclasses.replace(scene, leaf_params=lp, op_param=opp)
         x, y = aa_screen(p, cam.detach(), i0, n)
         g = [g_img[:, :, c : c + 1] * p.inv_s for c in range(3)]
+        if soft is not None:
+            s_min, t_min = soft
+            # The per-ray work gate of the soft kernels (scene_grad.cuh
+            # soft_work): a skipped ray contributes nothing.
+            work = ((hit > 0.0) | (soft_alpha(p, s_min) > p.soft_gate)).to(torch.float32)
+            g = [gc * work for gc in g]
 
         def rays(c):
             dx, dy, dz = _view_dirs(x, y, c, p)
             return _origin(c, dx) + (dx, dy, dz)
 
-        # Explicit shading path: dL/d(theta, cam, t) (shade_loss).
+        # Explicit shading path: dL/d(theta, cam, t[, s_min]) (shade_loss,
+        # shade_loss_soft).
         tt = t.detach().clone().requires_grad_(True)
-        cols = shade_plain(sc, p, *rays(cam_g), tt, hit, scene_fn_of(sc),
-                           None if albedo_fn_of is None else albedo_fn_of(sc))
+        albedo_fn = None if albedo_fn_of is None else albedo_fn_of(sc)
+        if soft is None:
+            cols = shade_plain(sc, p, *rays(cam_g), tt, hit, scene_fn_of(sc), albedo_fn)
+            wrt = (lp, opp, cam7, tt)
+        else:
+            sm = s_min.detach().clone().requires_grad_(True)
+            cols = shade_soft_plain(sc, p, *rays(cam_g), tt, hit, sm, t_min, scene_fn_of(sc), albedo_fn)
+            wrt = (lp, opp, cam7, tt, sm)
         loss = sum(torch.sum(col * gc) for col, gc in zip(cols, g))
-        g1 = torch.autograd.grad(loss, (lp, opp, cam7, tt), allow_unused=True)
+        g1 = torch.autograd.grad(loss, wrt, allow_unused=True)
         gt = g1[3] if g1[3] is not None else torch.zeros_like(t)
 
         # Implicit term: dt/dtheta through the hit constraint F(o + d t) = 0.
@@ -227,7 +255,13 @@ def _bwd_plain_band(scene: SceneBuffers, cam, p: PrepassParams, clamp: float, t,
         w = (-gt * hit / denom).detach()
         qx, qy, qz, ex, ey, ez = rays(cam_g)
         f = scene_fn_of(sc)(qx + ex * t * hit, qy + ey * t * hit, qz + ez * t * hit)
-        g2 = torch.autograd.grad(torch.sum(w * f), (lp, opp, cam7), allow_unused=True)
+        total = torch.sum(w * f)
+        if soft is not None and g1[4] is not None:
+            # Envelope (Danskin) term at the frozen closest approach.
+            tm = t_min.detach()
+            f_env = scene_fn_of(sc)(qx + ex * tm, qy + ey * tm, qz + ez * tm)
+            total = total + torch.sum(g1[4].detach() * f_env)
+        g2 = torch.autograd.grad(total, (lp, opp, cam7), allow_unused=True)
 
     out = []
     for a, b, like in zip(g1[:3], g2, (lp, opp, cam7)):
@@ -239,14 +273,17 @@ def _bwd_plain_band(scene: SceneBuffers, cam, p: PrepassParams, clamp: float, t,
     return out
 
 
-def bwd_plain(scene: SceneBuffers, cam, p: PrepassParams, lay: GradLayout, t, hit, g_img, band_rows: int = PLAIN_BAND_ROWS):
+def bwd_plain(scene: SceneBuffers, cam, p: PrepassParams, lay: GradLayout, t, hit, g_img,
+              band_rows: int = PLAIN_BAND_ROWS, soft=None):
     """Plain version of the fused backward -> (d_lp f32[n_leaves, 16], d_opp
     f32[n_instr], d_cam f32[8]) on the inputs' device, from the residuals
     (t, hit f32[rows, W, S]) and the image cotangent g_img f32[rows, W, 3].
     A painted scene shades with the albedo of the whole tape's colour walk
     at the hit point (`scene_color_plain`, un-gated as the reference's
-    `_albedo_tile` is in this backward). The gradient is a sum over rays, so
-    it runs `band_rows` rows at a time and adds the bands' gradients."""
+    `_albedo_tile` is in this backward). `soft` = (s_min, t_min) f32[rows,
+    W, S] takes the soft backward (`_bwd_plain_band`). The gradient is a sum
+    over rays, so it runs `band_rows` rows at a time and adds the bands'
+    gradients."""
     albedo_fn_of = None
     if scene.spec.has_materials:
         def albedo_fn_of(sc):
@@ -257,7 +294,7 @@ def bwd_plain(scene: SceneBuffers, cam, p: PrepassParams, lay: GradLayout, t, hi
     for i0 in range(0, p.rows, band_rows):
         i1 = min(i0 + band_rows, p.rows)
         a, b, c = _bwd_plain_band(scene, cam, p, lay.grad_denom_clamp, t[i0:i1], hit[i0:i1], g_img[i0:i1], i0,
-                                  albedo_fn_of=albedo_fn_of)
+                                  albedo_fn_of=albedo_fn_of, soft=_band(soft, i0, i1))
         d_lp += a
         d_opp += b
         d_cam7 += c
@@ -268,8 +305,12 @@ def bwd_plain(scene: SceneBuffers, cam, p: PrepassParams, lay: GradLayout, t, hi
     return d_lp, d_opp, torch.cat([d_cam7, torch.zeros(1, dtype=torch.float32, device=cam.device)])
 
 
+def _band(soft, i0, i1):
+    return None if soft is None else tuple(v[i0:i1] for v in soft)
+
+
 def compact_bwd_plain(scene: SceneBuffers, cull: TileCull, cam, p: PrepassParams, clamp: float,
-                      t, hit, g_img, band_rows: int = PLAIN_BAND_ROWS):
+                      t, hit, g_img, band_rows: int = PLAIN_BAND_ROWS, soft=None):
     """Plain version of the compact backward -> (d_lp f32[n_leaves, 16],
     d_opp f32[n_instr], d_cam f32[8]): `bwd_plain`'s autograd replay in row
     bands, with every scene evaluation the ray's fine-tile compact scene
@@ -278,7 +319,8 @@ def compact_bwd_plain(scene: SceneBuffers, cull: TileCull, cam, p: PrepassParams
     winning source alone; on a painted scene the shading reads the albedo
     of the hit point's pool winner (`pool_albedo_plain`). `cull`
     is the fine grid's TileCull of the forward that wrote the residuals (t,
-    hit)."""
+    hit); `soft` = (s_min, t_min) takes the soft backward, whose envelope
+    point's cotangent reaches its own winning source."""
     spec = scene.spec
     plan = build_compact_plan(spec)
     d_lp = torch.zeros_like(scene.leaf_params)
@@ -297,7 +339,8 @@ def compact_bwd_plain(scene: SceneBuffers, cull: TileCull, cam, p: PrepassParams
             return lambda px, py, pz: pool_albedo_plain(sc, plan, active, p.albedo, px, py, pz)
 
         a, b, c = _bwd_plain_band(scene, cam, p, clamp, t[i0:i1], hit[i0:i1], g_img[i0:i1], i0,
-                                  scene_fn_of, albedo_fn_of if spec.has_materials else None)
+                                  scene_fn_of, albedo_fn_of if spec.has_materials else None,
+                                  _band(soft, i0, i1))
         d_lp += a
         d_opp += b
         d_cam7 += c
@@ -308,7 +351,40 @@ def compact_bwd_plain(scene: SceneBuffers, cull: TileCull, cam, p: PrepassParams
 # Wrappers: plain on the CPU, the CUDA kernel on a CUDA device
 
 
-def _check_bwd(scene: SceneBuffers, cam, p: PrepassParams, lay: GradLayout, t, hit, g_img):
+class _CSoftRes(ctypes.Structure):
+    """ctypes mirror of `SoftRes` in csrc/scene_grad.cuh: the soft
+    residuals (null pointers: a hard backward) and constants."""
+
+    _fields_ = [
+        ("s_min", ctypes.c_void_p),
+        ("t_min", ctypes.c_void_p),
+        ("beta_inv", ctypes.c_float),
+        ("gate", ctypes.c_float),
+    ]
+
+    @staticmethod
+    def of(p: PrepassParams, soft) -> "_CSoftRes":
+        v = _CSoftRes()
+        if soft is not None:
+            v.s_min = soft[0].data_ptr()
+            v.t_min = soft[1].data_ptr()
+            v.beta_inv = p.beta_inv
+            v.gate = p.soft_gate
+        return v
+
+
+def _check_soft(p: PrepassParams, soft, dev):
+    """`soft` = (s_min, t_min) residuals of a soft forward, or None."""
+    if soft is None:
+        return
+    S = p.naa * p.naa
+    if len(soft) != 2:
+        raise ValueError("soft takes the residuals (s_min, t_min)")
+    for name, v in zip(("s_min", "t_min"), soft):
+        _check(name, v, torch.float32, (p.rows, p.width, S), dev)
+
+
+def _check_bwd(scene: SceneBuffers, cam, p: PrepassParams, lay: GradLayout, t, hit, g_img, soft=None):
     dev = cam.device
     S = p.naa * p.naa
     _check("cam", cam, torch.float32, (8,), dev)
@@ -319,6 +395,7 @@ def _check_bwd(scene: SceneBuffers, cam, p: PrepassParams, lay: GradLayout, t, h
     _check("t", t, torch.float32, (p.rows, p.width, S), dev)
     _check("hit", hit, torch.float32, (p.rows, p.width, S), dev)
     _check("g_img", g_img, torch.float32, (p.rows, p.width, 3), dev)
+    _check_soft(p, soft, dev)
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {dev}")
     if dev.type == "cuda":
@@ -350,15 +427,16 @@ def _device_consts(lay: GradLayout, mats: bool, device: torch.device):
     return slots, max_blocks, hist_len
 
 
-def bwd(scene: SceneBuffers, cam, p: PrepassParams, lay: GradLayout, t, hit, g_img):
+def bwd(scene: SceneBuffers, cam, p: PrepassParams, lay: GradLayout, t, hit, g_img, soft=None):
     """Fused backward -> (d_lp f32[n_leaves, 16], d_opp f32[n_instr], d_cam
     f32[8]) on the inputs' device; see `bwd_plain` for the arguments. On
     CUDA: `fused_bwd_kernel` or, when `lay.long`, `fused_bwd_long_kernel`
-    (csrc/fused_bwd.cu), each with the albedo words on a painted scene, then
+    (csrc/fused_bwd.cu), each with the albedo words on a painted scene and
+    in its soft build when `soft` = (s_min, t_min) is given, then
     `bwd_finalize_kernel` over its block rows."""
-    dev = _check_bwd(scene, cam, p, lay, t, hit, g_img)
+    dev = _check_bwd(scene, cam, p, lay, t, hit, g_img, soft)
     if dev.type == "cpu":
-        return bwd_plain(scene, cam, p, lay, t, hit, g_img)
+        return bwd_plain(scene, cam, p, lay, t, hit, g_img, soft=soft)
     from .. import _build
 
     lib = _build.load()
@@ -369,25 +447,30 @@ def bwd(scene: SceneBuffers, cam, p: PrepassParams, lay: GradLayout, t, hit, g_i
     hist = (torch.empty(max_blocks * BWD_LONG_THREADS * hist_len, dtype=torch.float32, device=dev)
             if hist_len else None)
     cp = _CParams.of(p)
+    cs = _CSoftRes.of(p, soft)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.rmt_fused_bwd_launch(
             *_scene_ptrs(scene), slots.data_ptr(), cam.data_ptr(),
             ctypes.addressof(cp), lay.grad_denom_clamp,
             t.data_ptr(), hit.data_ptr(), g_img.data_ptr(),
-            lay.nscal, lay.op_base, lay.cam_base, int(mats),
+            lay.nscal, lay.op_base, lay.cam_base, int(mats), ctypes.addressof(cs),
             None if hist is None else hist.data_ptr(),
             partials.data_ptr(), max_blocks, out.data_ptr(), stream,
         )
     _raise_on(err, "fused_bwd_long_kernel" if hist_len else "fused_bwd_kernel")
-    bwd.launches += 1
+    if soft is None:
+        bwd.launches += 1
+    else:
+        bwd.soft_launches += 1
     return lay.unpack(out)
 
 
 bwd.launches = 0
+bwd.soft_launches = 0
 
 
-def _check_compact_bwd(scene: SceneBuffers, cull: TileCull, cam, p: PrepassParams, t, hit, g_img):
+def _check_compact_bwd(scene: SceneBuffers, cull: TileCull, cam, p: PrepassParams, t, hit, g_img, soft=None):
     """The compact backward's argument checks. Which scenes take it is
     `backward_route`'s decision, made once per renderer; this checks only
     the tensors."""
@@ -402,6 +485,9 @@ def _check_compact_bwd(scene: SceneBuffers, cull: TileCull, cam, p: PrepassParam
     _check("t", t, torch.float32, (p.rows, p.width, S), dev)
     _check("hit", hit, torch.float32, (p.rows, p.width, S), dev)
     _check("g_img", g_img, torch.float32, (p.rows, p.width, 3), dev)
+    _check_soft(p, soft, dev)
+    if soft is not None and spec.has_materials:
+        raise ValueError("a painted scene takes the legacy backward in soft mode")
     if cull is None or not cull.compact:
         raise ValueError("the compact backward needs the fine grid's item lists")
     _check_cull(cull, spec, (p.rows, p.width), dev)
@@ -443,14 +529,16 @@ def history_layout(spec: TapeSpec):
     return off, span
 
 
-def compact_bwd(scene: SceneBuffers, cull: TileCull, cam, p: PrepassParams, clamp: float, t, hit, g_img):
+def compact_bwd(scene: SceneBuffers, cull: TileCull, cam, p: PrepassParams, clamp: float, t, hit, g_img,
+                soft=None):
     """Compact backward -> (d_lp f32[n_leaves, 16], d_opp f32[n_instr], d_cam
     f32[8]) on the inputs' device; see `compact_bwd_plain` for the
-    arguments. On CUDA: `compact_bwd_kernel` (csrc/compact_bwd.cu), then
+    arguments. On CUDA: `compact_bwd_kernel` (csrc/compact_bwd.cu), in its
+    soft build when `soft` = (s_min, t_min) is given, then
     `bwd_finalize_kernel` over its block rows."""
-    dev, nscal = _check_compact_bwd(scene, cull, cam, p, t, hit, g_img)
+    dev, nscal = _check_compact_bwd(scene, cull, cam, p, t, hit, g_img, soft)
     if dev.type == "cpu":
-        return compact_bwd_plain(scene, cull, cam, p, clamp, t, hit, g_img)
+        return compact_bwd_plain(scene, cull, cam, p, clamp, t, hit, g_img, soft=soft)
     from .. import _build
 
     lib = _build.load()
@@ -467,17 +555,21 @@ def compact_bwd(scene: SceneBuffers, cull: TileCull, cam, p: PrepassParams, clam
     n_blocks = ctypes.c_int(0)
     cp = _CParams.of(p)
     cc = _CCull.of(cull)
+    cs = _CSoftRes.of(p, soft)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.rmt_compact_bwd_launch(
             *_scene_ptrs(scene), ctypes.addressof(cc), cam.data_ptr(),
             ctypes.addressof(cp), clamp, t.data_ptr(), hit.data_ptr(), g_img.data_ptr(),
-            nscal, op_base, cam_base, int(scene.spec.has_materials),
+            nscal, op_base, cam_base, int(scene.spec.has_materials), ctypes.addressof(cs),
             hist.data_ptr() if hist_len else None, hist_off,
             partials.data_ptr(), max_blocks, ctypes.byref(n_blocks), stream,
         )
         _raise_on(err, "compact_bwd_kernel")
-        compact_bwd.launches += 1
+        if soft is None:
+            compact_bwd.launches += 1
+        else:
+            compact_bwd.soft_launches += 1
         err = lib.rmt_bwd_finalize_launch(partials.data_ptr(), n_blocks.value, nscal, out.data_ptr(), stream)
     _raise_on(err, "bwd_finalize_kernel")
     d_lp = out[: 16 * L].view(L, 16)
@@ -487,11 +579,14 @@ def compact_bwd(scene: SceneBuffers, cull: TileCull, cam, p: PrepassParams, clam
 
 
 compact_bwd.launches = 0
+compact_bwd.soft_launches = 0
 
 
 def reset_launch_counts():
     bwd.launches = 0
+    bwd.soft_launches = 0
     compact_bwd.launches = 0
+    compact_bwd.soft_launches = 0
 
 
 # --------------------------------------------------------------------------
@@ -504,30 +599,32 @@ class _FusedRender(torch.autograd.Function):
         rp = fr.prepass
         scene, cam_d, bound = rp.scene_args(types.SimpleNamespace(leaf_params=lp, op_param=opp), cam)
         coarse_cull, fine_cull = rp.cull_args(scene, cam_d)
-        pre = coarse(scene, cam_d, bound, rp.params, coarse_cull)
-        img, t, hit = fine_res(scene, cam_d, bound, rp.params, *pre, cull=fine_cull)
+        # Soft mode runs no coarse pass (pallas_grad.py:1863-1868).
+        pre = rp.prepass(scene, cam_d, bound, coarse_cull)
+        img, *res = fine_res(scene, cam_d, bound, rp.params, *pre, cull=fine_cull)
         ctx.fr = fr
         # The backward reads, for each ray, the fine list its forward used.
         ctx.fine_cull = fine_cull
-        ctx.save_for_backward(scene.leaf_params, scene.op_param, cam_d, t, hit)
+        ctx.save_for_backward(scene.leaf_params, scene.op_param, cam_d, *res)
         return img
 
     @staticmethod
     def backward(ctx, g_img):
-        lp, opp, cam, t, hit = ctx.saved_tensors
+        lp, opp, cam, t, hit, *soft = ctx.saved_tensors
+        soft = tuple(soft) or None  # (s_min, t_min) in soft mode
         fr = ctx.fr
         rp = fr.prepass
         scene = SceneBuffers(fr.spec, rp.topology[0], rp.topology[1], lp, opp)
         if fr.compact_bwd:
             d_lp, d_opp, d_cam = compact_bwd(
                 scene, ctx.fine_cull, cam, rp.params, fr.layout.grad_denom_clamp, t, hit,
-                g_img.contiguous(),
+                g_img.contiguous(), soft=soft,
             )
         else:
             # The legacy backward runs ungated after a culled forward, as in
             # the reference (pallas_grad.py:1423-1429).
             d_lp, d_opp, d_cam = bwd(
-                scene, cam, rp.params, fr.layout, t, hit, g_img.contiguous()
+                scene, cam, rp.params, fr.layout, t, hit, g_img.contiguous(), soft=soft
             )
         return d_lp, d_opp, d_cam, None
 
@@ -554,12 +651,14 @@ def plan_kind(spec: TapeSpec):
     return "stream" if plan["stream"] else "pool"
 
 
-def backward_route(spec: TapeSpec, cfg: RenderConfig):
+def backward_route(spec: TapeSpec, cfg: RenderConfig, soft: bool = False):
     """(plan kind, reason): why the compact O(active) backward is not taken,
     or reason None when it is, by the eligibility chain of
     pallas_grad.py:1279-1298 with the reference's reason strings. This is
     the one place that decides; every compact plan without residual
-    subtrees takes K9 (pool, seg1 and stream plans, painted pools).
+    subtrees takes K9 (pool, seg1 and stream plans, painted pools), but in
+    soft mode a painted scene takes K8 ("painted materials in soft mode",
+    first in the reference's chain).
 
     Two of the reference's gates do not apply to the port. The AA-packed
     layout is always available. The 64-item history cap of the TPU's VMEM
@@ -568,6 +667,8 @@ def backward_route(spec: TapeSpec, cfg: RenderConfig):
     stream group of more than 64 items takes K9 here where the reference
     takes its legacy backward with the reason "ordered fold history exceeds
     the VMEM budget (64)"."""
+    if soft and spec.has_materials:
+        return (plan_kind(spec) if cfg.leaf_cull else None), "painted materials in soft mode"
     if not cfg.leaf_cull:
         return None, "leaf_cull disabled"
     kind = plan_kind(spec)
@@ -593,15 +694,17 @@ class FusedRenderer:
     scene the legacy K8 (`backward_route`), painted or not. `prepass_block`
     = B runs the coarse pass per B x B block and the fine pass on its block
     planes, as the reference's fused forward does (pallas_grad.py:1340-1346).
+    `soft` renders soft coverage: no prepass (`prepass_block` then has no
+    effect), the soft fine build, the soft backwards.
     """
 
     def __init__(self, spec: TapeSpec, cfg: RenderConfig, width: int, height: int, device, reason,
-                 prepass_block: int = 1):
+                 prepass_block: int = 1, soft: bool = False):
         self.spec = spec
         self.cfg = cfg
         self.device = device
         self.prepass = make_pallas_image_render_aa(spec, cfg, width, height, device=device,
-                                                   prepass_block=prepass_block)
+                                                   prepass_block=prepass_block, no_prepass=soft, soft=soft)
         self.params = self.prepass.params
         self.layout = GradLayout.of(spec, cfg)
         # `reason` is backward_route's: None takes the compact backward.
@@ -615,7 +718,7 @@ class FusedRenderer:
             "reason": reason,
             "aa_packed": True,
             "bm": None,
-            "soft": False,
+            "soft": soft,
         }
 
     def __call__(self, arrays: TapeArrays, cam_vec):
@@ -637,11 +740,12 @@ def make_fused_render_vjp(
     aa_packed=None,
     soft: bool = False,
     *,
-    device,
+    device="cuda",
 ) -> FusedRenderer:
     """The port's counterpart of `raymarch_tpu.ops.pallas_grad.
     make_fused_render_vjp`, with the reference's arguments in its order,
-    cached per (spec, cfg, width, height, prepass_block, device).
+    cached per (spec, cfg, width, height, prepass_block, soft, device);
+    `device` defaults to the card ("cuda"), "cpu" runs the plain versions.
 
     Serves every static tape with the packed layout: without `cfg.leaf_cull`
     the legacy backward (K8); with it the culled forward, then the compact
@@ -652,26 +756,35 @@ def make_fused_render_vjp(
     `prepass_block` = B >= 1 runs the block prepass (values below 1 read as
     1, as the reference's).
 
+    `soft=True` renders soft coverage (silhouette gradients): the packed
+    no-prepass forward that keeps (s_min, t_min), then the soft backward;
+    like the reference it needs aa_samples^2 dividing 128 (ValueError),
+    takes the packed layout whatever `aa_packed` says, and runs no coarse
+    pass. A painted scene takes K8 in soft mode.
+
     `interpret` and `bm` set the TPU kernels' layout in the reference (the
     Pallas interpreter; the backward's row-block size) and have no effect
-    here. `band_rows`, `aa_packed=False` and `soft` raise
-    NotImplementedError naming their ROADMAP item, as does a dynamic tape.
+    here. `band_rows` and `aa_packed=False` raise NotImplementedError
+    naming their ROADMAP item, as does a dynamic tape.
     """
     del interpret, bm  # TPU layout only
     if spec.static_tape is None:
         _not_ported("fused-VJP rendering of a dynamic tape (compile_scene(static=True) is required)",
                     "§1 item 4, dynamic tape, tiered runtime and viewer")
     if soft:
-        _not_ported("soft", "§1 item 2, soft coverage")
+        S = cfg.aa_samples ** 2
+        if S and 128 % S:
+            raise ValueError("soft VJP needs aa_samples^2 dividing 128")
+        aa_packed = True  # pallas_grad.py:1243-1249
     if band_rows is not None:
         _not_ported("band_rows", "§1 item 7, multi-device")
     if aa_packed is False:
         _not_ported("the unpacked layout", "§1 item 5 and §2 item 5, K4 fine_kernel")
-    _, reason = backward_route(spec, cfg)
+    _, reason = backward_route(spec, cfg, soft)
     return _cached_fused(spec, cfg, int(width), int(height), resolve_device(device), reason,
-                         max(1, int(prepass_block)))
+                         1 if soft else max(1, int(prepass_block)), bool(soft))
 
 
 @functools.lru_cache(maxsize=None)
-def _cached_fused(spec, cfg, width, height, device, reason, prepass_block):
-    return FusedRenderer(spec, cfg, width, height, device, reason, prepass_block)
+def _cached_fused(spec, cfg, width, height, device, reason, prepass_block, soft=False):
+    return FusedRenderer(spec, cfg, width, height, device, reason, prepass_block, soft)

@@ -26,6 +26,13 @@ with aa_packed=True, for a band of `rows` image rows starting at cam[7]:
    rays take tetrahedron normals and Lambert shading (with the albedo the
    static tape carries to the hit point on a painted scene), misses the
    analytic checker floor, then sqrt gamma and the AA mean: f32[rows, W, 3].
+   In soft-coverage mode (`soft=True`, no prepass) every AA ray marches
+   from t = 0 and also keeps its closest approach (s_min, t_min); the hit
+   mask becomes the coverage alpha = exp(-max(s_min - min_dist, 0) / beta),
+   and a ray that missed shades the surface term at its closest approach
+   (`_fine_march_tile_soft` and the soft branch of `fine_packed_kernel`,
+   pallas_prepass.py:380-476, 1696-1760). Its builds (csrc/fine_soft.cu)
+   round like `fine_res_plain`, with no FMA contraction.
 
 Each wrapper takes tensors on one device. On the CPU it runs its plain
 version (`coarse_plain`, `coarse_px_plain`, `fine_plain`: vectorised torch
@@ -132,6 +139,10 @@ class PrepassParams:
     bcols: int
     omega_px: float
     inv1w_px: float
+    soft: bool
+    beta_inv: float  # f32(1 / coverage_beta)
+    soft_infl: float  # f32(min_dist + soft_cull_log_alpha * coverage_beta): the soft bound's inflation
+    soft_gate: float  # f32(1e-4 * min(1, coverage_beta)): the soft backward's per-ray work gate
 
     @property
     def plane_block(self) -> int:
@@ -145,7 +156,7 @@ class PrepassParams:
 
     @staticmethod
     def make(cfg: RenderConfig, width: int, height: int, no_prepass: bool = False, block: int = 1,
-             n_intervals: int = 0, chain: bool = False, band_rows: int | None = None):
+             n_intervals: int = 0, chain: bool = False, band_rows: int | None = None, soft: bool = False):
         tanf = math.tan(cfg.fovy / 2.0)
         omega = cone_omega(cfg, width, height, block)
         omega_px = cone_omega(cfg, width, height, 1)
@@ -184,11 +195,15 @@ class PrepassParams:
             bcols=-(-width // block),
             omega_px=_f32(omega_px),
             inv1w_px=_f32(1.0 / (1.0 + omega_px)),
+            soft=bool(soft),
+            beta_inv=_f32(1.0 / cfg.coverage_beta),
+            soft_infl=_f32(cfg.min_dist + cfg.soft_cull_log_alpha * cfg.coverage_beta),
+            soft_gate=_f32(1e-4 * min(1.0, float(cfg.coverage_beta))),
         )
 
 
 class _CParams(ctypes.Structure):
-    """ctypes mirror of `RenderParams` in csrc/prepass.cu, field by field."""
+    """ctypes mirror of `RenderParams` in csrc/render_common.cuh, field by field."""
 
     _fields_ = [
         ("width", ctypes.c_int32),
@@ -245,6 +260,18 @@ class _CBlockParams(ctypes.Structure):
     ]
 
     of = classmethod(_CParams.of.__func__)
+
+
+class _CSoftParams(ctypes.Structure):
+    """ctypes mirror of `SoftParams` in csrc/fine.cuh: the soft fine
+    pass's closest-approach outputs (null: not kept) and its constants."""
+
+    _fields_ = [
+        ("s_min_out", ctypes.c_void_p),
+        ("t_min_out", ctypes.c_void_p),
+        ("beta_inv", ctypes.c_float),
+        ("infl", ctypes.c_float),
+    ]
 
 
 # Side, in pixels, of the square tiles that carry one culling mask and one
@@ -652,16 +679,30 @@ def aa_screen(p: PrepassParams, cam, i0: int = 0, n_rows: int | None = None):
 def fine_res_plain(scene: SceneBuffers, cam, bound, p: PrepassParams, *pre, cull: TileCull | None = None,
                    work: WorkCount | None = None):
     """Plain version of the fine kernel with residuals -> (image f32[rows,
-    W, 3], t, hit f32[rows, W, S]): each AA ray's march end and hit flag.
-    `pre` holds the prepass planes at `p.plane_shape`: (t0, status), or
-    with p.ni the 2*ni interval planes (none with `p.no_prepass`). `cull`
-    is the fine grid's TileCull of a culled frame; `work`, when given,
-    counts the pass's scene and leaf evaluations."""
+    W, 3], t, hit f32[rows, W, S]): each AA ray's march end and hit flag;
+    in soft mode (p.soft) also s_min, t_min f32[rows, W, S], each ray's
+    closest approach and its parameter. `pre` holds the prepass planes at
+    `p.plane_shape`: (t0, status), or with p.ni the 2*ni interval planes
+    (none with `p.no_prepass`). `cull` is the fine grid's TileCull of a
+    culled frame; `work`, when given, counts the pass's scene and leaf
+    evaluations (in soft mode its `hits` counts the rays that take the
+    surface term, alpha > 0)."""
     x, y = aa_screen(p, cam)
     dx, dy, dz = _view_dirs(x, y, cam, p)
     ox, oy, oz = _origin(cam, dx)
     tid = cull.tile_index(*_band_ij(p, cam.device)) if cull is not None else None
     scene_fn = scene_fn_plain(scene, p.max_dist, cull, tid)
+    leaves = leaves_per_point(scene, cull, tid) if work is not None else None
+    albedo_fn = albedo_fn_plain(scene, p, cull, tid)
+    if p.soft:
+        t, hit, s_min, t_min = _soft_march_plain(scene_fn, p, bound, ox, oy, oz, dx, dy, dz, work, leaves)
+        cols = shade_soft_plain(scene, p, ox, oy, oz, dx, dy, dz, t, hit, s_min, t_min, scene_fn, albedo_fn)
+        if work is not None:
+            shaded = (soft_alpha(p, s_min) > 0.0).to(torch.float32)
+            work.add(shaded, leaves, points_per=4)  # the normal taps
+            work.hits = work.hits + shaded.sum()
+        img = torch.stack([torch.sum(c, dim=-1) * p.inv_s for c in cols], dim=-1)
+        return img, t, hit, s_min, t_min
 
     zero = torch.zeros_like(dx)
     pre = [expand_plane(v, p.plane_block, p.rows, p.width)[:, :, None] for v in pre]
@@ -681,7 +722,6 @@ def fine_res_plain(scene: SceneBuffers, cam, bound, p: PrepassParams, *pre, cull
         _, _, t_cap = _bound_clip(
             bound, ox, oy, oz, dx, dy, dz, live, t, t_cap, p.min_dist
         )
-    leaves = leaves_per_point(scene, cull, tid) if work is not None else None
     if p.ni and not p.no_prepass:
         t, hit = _interval_march_plain(scene_fn, p, ox, oy, oz, dx, dy, dz, t, live, t_cap,
                                        [zero + v for v in pre[: p.ni]], [zero + v for v in pre[p.ni:]],
@@ -707,9 +747,66 @@ def fine_res_plain(scene: SceneBuffers, cam, bound, p: PrepassParams, *pre, cull
     if work is not None:
         work.add(hit, leaves, points_per=4)  # the normal taps of hit rays
         work.hits = work.hits + hit.sum()
-    cols = shade_plain(scene, p, ox, oy, oz, dx, dy, dz, t, hit, scene_fn, albedo_fn_plain(scene, p, cull, tid))
+    cols = shade_plain(scene, p, ox, oy, oz, dx, dy, dz, t, hit, scene_fn, albedo_fn)
     img = torch.stack([torch.sum(c, dim=-1) * p.inv_s for c in cols], dim=-1)
     return img, t, hit
+
+
+def _soft_march_plain(scene_fn, p: PrepassParams, bound, ox, oy, oz, dx, dy, dz, work=None, leaves=None):
+    """The soft fine march (pallas_prepass._fine_march_tile_soft, 380-476)
+    -> (t, hit, s_min, t_min): plain steps from t = 0 that also keep the
+    smallest scene distance met at a live sample (strict <) and its t. With
+    bound_accel the scene's bounding sphere, inflated by min_dist +
+    soft_cull_log_alpha * beta, clips the rays, caps t at -bq + R + min_dist
+    and ends a ray past the sphere's centre once |p - c| - R exceeds its
+    s_min: no later sample could lower s_min or hit. At most max_iter
+    samples count (exit_check_every only blocks the exit test)."""
+    zero = torch.zeros_like(dx)
+    live = zero + 1.0
+    t_cap = zero + _INF_CAP
+    t_mid = zero + _INF_CAP
+    if p.use_bound:
+        bcx, bcy, bcz, bvalid = bound[0], bound[1], bound[2], bound[4]
+        br = bound[3] + p.soft_infl
+        ocx = ox - bcx
+        ocy = oy - bcy
+        ocz = oz - bcz
+        bq = dx * ocx + dy * ocy + dz * ocz
+        c2 = ocx * ocx + ocy * ocy + ocz * ocz - br * br
+        disc = bq * bq - c2
+        t_exit = -bq + sqrt_rn(torch.clamp_min(disc, 0.0))
+        use = bvalid > 0.0
+        live = torch.where(use, torch.where((disc > 0.0) & (t_exit > 0.0), live, 0.0), live)
+        t_cap = torch.where(use, -bq + br + p.min_dist, t_cap)
+        t_mid = torch.where(use, -bq, t_mid)
+    t = zero
+    hit = zero
+    s_min = zero + _INF_CAP
+    t_min = zero
+    for _ in range(p.max_iter):
+        if not bool(live.any()):
+            break
+        if work is not None:
+            work.add(live, leaves)
+        px = ox + dx * t
+        py = oy + dy * t
+        pz = oz + dz * t
+        d = scene_fn(px, py, pz)
+        better = (live > 0.0) & (d < s_min)
+        s_min = torch.where(better, d, s_min)
+        t_min = torch.where(better, t, t_min)
+        hit_now = torch.where(d < p.min_dist, live, 0.0)
+        esc = (d > p.max_dist) | (t > t_cap)
+        if p.use_bound:
+            pc = sqrt_rn((px - bcx) * (px - bcx) + (py - bcy) * (py - bcy) + (pz - bcz) * (pz - bcz) + 1e-20)
+            esc = esc | ((t > t_mid) & (pc - br > s_min))
+        escaped = torch.where(esc, live, 0.0)
+        escaped = escaped - escaped * hit_now
+        advance = live - hit_now - escaped
+        t = t + d * advance
+        live = live - hit_now - escaped
+        hit = hit + hit_now
+    return t, hit, s_min, t_min
 
 
 def _relaxed_march_plain(scene_fn, p: PrepassParams, ox, oy, oz, dx, dy, dz, t, live, t_cap,
@@ -811,11 +908,44 @@ def shade_plain(scene: SceneBuffers, p: PrepassParams, ox, oy, oz, dx, dy, dz, t
     pass's scene function (default: the whole tape, `scene_plain`);
     `albedo_fn(px, py, pz)` gives the albedo at the hit points of a
     painted scene (default: cfg.albedo everywhere)."""
-    if scene_fn is None:
-        scene_fn = scene_fn_plain(scene, p.max_dist, None)
     px = ox + dx * t * hit
     py = oy + dy * t * hit
     pz = oz + dz * t * hit
+    return _shade_at(scene, p, ox, oy, oz, dx, dy, dz, px, py, pz, hit, scene_fn, albedo_fn)
+
+
+def soft_alpha(p: PrepassParams, s_min):
+    """The coverage of a soft ray, exp(-max(s_min - min_dist, 0) / beta)
+    (shade_soft, march.py:250): 1 on a hit, 0.0 in f32 past ~104 beta."""
+    return torch.exp(-torch.clamp_min(s_min - p.min_dist, 0.0) * p.beta_inv)
+
+
+def shade_soft_plain(scene: SceneBuffers, p: PrepassParams, ox, oy, oz, dx, dy, dz, t, hit, s_min, t_min,
+                     scene_fn=None, albedo_fn=None):
+    """Per-ray colour of the soft fine pass (pallas_prepass.py:1709-1760,
+    ops.march.shade_soft): the coverage alpha (`soft_alpha`) takes the place
+    of the hit mask; the surface term sits at the march end on a hit, at
+    the closest approach t_min on a miss, and at the ray's origin where
+    alpha <= 1e-4 (the reference's NaN guard); the floor is blended by 1 -
+    alpha. Differentiable in the scene, the ray, t and s_min; t_min is
+    frozen. Rays of alpha exactly 0 take no surface term, which is exact:
+    it enters the colour multiplied by alpha."""
+    alpha = soft_alpha(p, s_min)
+    t_eff = torch.where(hit > 0.5, t, t_min.detach())
+    live = alpha > 1e-4
+    px = torch.where(live, ox + dx * t_eff, ox)
+    py = torch.where(live, oy + dy * t_eff, oy)
+    pz = torch.where(live, oz + dz * t_eff, oz)
+    return _shade_at(scene, p, ox, oy, oz, dx, dy, dz, px, py, pz, alpha, scene_fn, albedo_fn)
+
+
+def _shade_at(scene: SceneBuffers, p: PrepassParams, ox, oy, oz, dx, dy, dz, px, py, pz, cover, scene_fn,
+              albedo_fn):
+    """The colour of rays whose surface term sits at (px, py, pz) with
+    coverage `cover` (the hit mask, or the soft alpha): cover * albedo *
+    Lambert + (1 - cover) * the checker floor, then sqrt gamma."""
+    if scene_fn is None:
+        scene_fn = scene_fn_plain(scene, p.max_dist, None)
     nx, ny, nz = tet_taps_plain(scene_fn, px, py, pz, p.eps)
     ninv = 1.0 / sqrt_rn(nx * nx + ny * ny + nz * nz + 1e-20)
     tlx = px - p.light[0]
@@ -825,7 +955,7 @@ def shade_plain(scene: SceneBuffers, p: PrepassParams, ox, oy, oz, dx, dy, dz, t
     diff = (nx * tlx + ny * tly + nz * tlz) * (ninv * linv)
     diff = torch.clamp_min(diff, p.ambient)
     # A miss takes diff = 0 (shade_miss): select, never multiply by hit = 0.
-    diff = torch.where(hit > 0.0, diff, 0.0)
+    diff = torch.where(cover > 0.0, diff, 0.0)
     alb = p.albedo if albedo_fn is None else albedo_fn(px, py, pz)
 
     dy_ok = torch.where(torch.abs(dy) > 1e-8, 1.0, 0.0)
@@ -837,12 +967,12 @@ def shade_plain(scene: SceneBuffers, p: PrepassParams, ox, oy, oz, dx, dy, dz, t
     ipz = torch.round(fz + 0.5).to(torch.int32)
     parity = torch.bitwise_and(torch.bitwise_xor(ipx, ipz), 1).to(torch.float32)
     on_floor = torch.where(ft > 0.0, dy_ok, 0.0)
-    miss = 1.0 - hit
+    miss = 1.0 - cover
     cols = []
     for c in range(3):
         fcol = (p.floor_base[c] + p.floor_checker * parity) * on_floor
         cols.append(
-            sqrt_rn(torch.clamp_min(hit * (alb[c] * diff) + miss * fcol, 0.0) + 1e-12)
+            sqrt_rn(torch.clamp_min(cover * (alb[c] * diff) + miss * fcol, 0.0) + 1e-12)
         )
     return cols
 
@@ -1012,13 +1142,21 @@ def _fine_launch(scene: SceneBuffers, cam, bound, p: PrepassParams, pre, residua
     lib = _build.load()
     planes = torch.stack(pre) if p.ni else None  # held until the launch is queued
     img = torch.empty((p.rows, p.width, 3), dtype=torch.float32, device=dev)
-    t = hit = None
+    res = ()
     if residuals:
-        t = torch.empty((p.rows, p.width, p.naa * p.naa), dtype=torch.float32, device=dev)
-        hit = torch.empty_like(t)
+        res = tuple(torch.empty((p.rows, p.width, p.naa * p.naa), dtype=torch.float32, device=dev)
+                    for _ in range(4 if p.soft else 2))
+    t, hit = res[:2] if res else (None, None)
     cp = _CParams.of(p)
     cc = _CCull.of(cull)
     cb = _CBlockParams.of(p)
+    cs = _CSoftParams()  # soft: no prepass; residuals s_min, t_min when kept
+    if p.soft:
+        cs.beta_inv = p.beta_inv
+        cs.infl = p.soft_infl
+        if residuals:
+            cs.s_min_out = res[2].data_ptr()
+            cs.t_min_out = res[3].data_ptr()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.rmt_fine_launch(
@@ -1031,13 +1169,20 @@ def _fine_launch(scene: SceneBuffers, cam, bound, p: PrepassParams, pre, residua
             hit.data_ptr() if residuals else None,
             int(scene.spec.has_materials),
             ctypes.addressof(cb),
+            int(p.soft),
+            ctypes.addressof(cs),
             stream,
         )
     _raise_on(err, "fine_kernel")
     if residuals:
-        fine_res.launches += 1
-        return img, t, hit
-    if p.ni:
+        if p.soft:
+            fine_res.soft_launches += 1
+        else:
+            fine_res.launches += 1
+        return (img, *res)
+    if p.soft:
+        fine.soft_launches += 1
+    elif p.ni:
         fine.interval_launches += 1
     else:
         fine.launches += 1
@@ -1057,13 +1202,17 @@ def fine_res(scene: SceneBuffers, cam, bound, p: PrepassParams, *pre, cull: Tile
     hit f32[rows, W, S]), the counterpart of the Pallas fine kernel with
     `emit_th=True` (pallas_prepass.py:1850-1862). The image is the one
     `fine` gives; t and hit are each AA ray's march end and hit flag, in
-    the lane order of the kernel (pixel-major, sample fastest)."""
+    the lane order of the kernel (pixel-major, sample fastest). In soft
+    mode it returns (image, t, hit, s_min, t_min): also each ray's closest
+    approach and its parameter, the soft backward's residuals (1856)."""
     return _fine_launch(scene, cam, bound, p, pre, True, cull)
 
 
 fine.launches = 0  # legacy planes (t0, status) or no prepass
 fine.interval_launches = 0  # the march through near intervals
+fine.soft_launches = 0  # the soft-coverage march
 fine_res.launches = 0
+fine_res.soft_launches = 0
 
 
 def reset_launch_counts():
@@ -1072,7 +1221,9 @@ def reset_launch_counts():
     coarse_px.launches = 0
     fine.launches = 0
     fine.interval_launches = 0
+    fine.soft_launches = 0
     fine_res.launches = 0
+    fine_res.soft_launches = 0
 
 
 # --------------------------------------------------------------------------
@@ -1092,11 +1243,12 @@ class PrepassRenderer:
     """
 
     def __init__(self, spec, cfg, width, height, device, no_prepass, block=1, n_intervals=0, chain=False,
-                 band_rows=None):
+                 band_rows=None, soft=False):
         self.spec = spec
         self.cfg = cfg
         self.device = device
-        self.params = PrepassParams.make(cfg, width, height, no_prepass, block, n_intervals, chain, band_rows)
+        self.params = PrepassParams.make(cfg, width, height, no_prepass, block, n_intervals, chain, band_rows,
+                                         soft)
         self.topology = scene_topology(spec, device)
         plan = build_compact_plan(spec) if cfg.leaf_cull else None
         # A plan with residual subtrees takes the gated tape (culling.py's
@@ -1147,13 +1299,14 @@ class PrepassRenderer:
         B x B blocks, COARSE_TILE pixels a side rounded up to a multiple of
         B, and their cones widen by the block cone angle omega, so that they
         hold every block ray's cone (pallas_prepass.py:1308-1314,
-        1343-1347). Both grids cover the band."""
+        1343-1347). Both grids cover the band. In soft mode the leaf bounds
+        take the soft inflation (1307, 1332, 1342)."""
         if not self.cfg.leaf_cull:
             return None, None
         from .culling import leaf_bound_spheres
 
         p = self.params
-        bounds = leaf_bound_spheres(self.spec, scene, self.cfg)
+        bounds = leaf_bound_spheres(self.spec, scene, self.cfg, soft=p.soft)
         coarse_cull = None
         if not p.no_prepass:
             tb = -(-COARSE_TILE // p.block)
@@ -1220,7 +1373,7 @@ def make_pallas_image_render_aa(
     width: int,
     height: int,
     *,
-    device,
+    device="cuda",
     prepass_block: int = 1,
     band_rows=None,
     prepass_chain: bool = False,
@@ -1247,11 +1400,20 @@ def make_pallas_image_render_aa(
     - `band_rows`: render the band of that many rows starting at image row
       cam_vec[7];
     - `no_prepass=True`, the strict-reference path (every AA ray marches
-      from t=0).
-    It raises the reference's ValueErrors for prepass_chain with intervals
-    and for no_prepass with either. soft, march_only, the unpacked fine pass
-    and a dynamic tape raise NotImplementedError naming their ROADMAP item.
+      from t=0);
+    - `soft=True` with `no_prepass=True`: soft-coverage rendering, whose
+      `fine_res` also keeps each ray's closest approach (s_min, t_min), the
+      soft fused VJP's forward; with `cfg.leaf_cull` the leaf bounds take
+      the soft inflation.
+    `device` defaults to the card ("cuda"); "cpu" runs the plain versions.
+    It raises the reference's ValueErrors for prepass_chain with intervals,
+    for no_prepass with either, for march_only with soft and for soft
+    without no_prepass and aa_packed or with relax > 1. march_only, the
+    unpacked fine pass and a dynamic tape raise NotImplementedError naming
+    their ROADMAP item.
     """
+    if march_only and (not aa_packed or soft):
+        raise ValueError("march_only requires aa_packed=True, soft=False")
     ni = max(0, int(n_intervals))
     if ni and prepass_chain:
         raise ValueError("prepass_chain is a legacy-prepass feature")
@@ -1265,7 +1427,13 @@ def make_pallas_image_render_aa(
     if band_rows is not None and int(band_rows) < 1:
         raise ValueError(f"band_rows must be at least 1, got {band_rows}")
     if soft:
-        _not_ported("soft", "§1 item 2, soft coverage")
+        # The closest approach can lie anywhere along the ray: a prepass
+        # would skip it and relaxed steps would move the sampled argmin
+        # (pallas_prepass.py:642-656).
+        if not (no_prepass and aa_packed):
+            raise ValueError("soft requires no_prepass=True, aa_packed=True")
+        if cfg.relax > 1.0:
+            raise ValueError("soft requires relax=1.0 (relaxed stepping changes the closest-approach sample)")
     if march_only:
         _not_ported("march_only", "§1 item 5, the remaining render surfaces")
     if not aa_packed or cfg.aa_shared_normals:
@@ -1275,10 +1443,11 @@ def make_pallas_image_render_aa(
     block = max(1, int(prepass_block))
     return _cached_renderer(spec, cfg, int(width), int(height), resolve_device(device), bool(no_prepass), block,
                             ni, bool(prepass_chain) and block > 1,
-                            None if band_rows is None else int(band_rows))
+                            None if band_rows is None else int(band_rows), bool(soft))
 
 
 @functools.lru_cache(maxsize=None)
 def _cached_renderer(spec, cfg, width, height, device, no_prepass, block=1, n_intervals=0, chain=False,
-                     band_rows=None):
-    return PrepassRenderer(spec, cfg, width, height, device, no_prepass, block, n_intervals, chain, band_rows)
+                     band_rows=None, soft=False):
+    return PrepassRenderer(spec, cfg, width, height, device, no_prepass, block, n_intervals, chain, band_rows,
+                           soft)

@@ -221,12 +221,15 @@ def leaf_bound_spheres(spec: TapeSpec, arrays: TapeArrays, cfg: RenderConfig, so
     per-type radii are those of `cuda_march.compute_bound`; the blend
     inflation is per leaf (`_pairwise_path_ksum`, else the path sum, else
     the global sum). `arrays.leaf_params` and `arrays.op_param` are tensors.
-    Soft-coverage inflation is not ported (ROADMAP §1.10)."""
-    if soft:
-        raise NotImplementedError(
-            "soft culling is not ported yet (ROADMAP: §1.10 many-primitive "
-            "backward and soft coverage)"
-        )
+
+    `soft=True` (coverage rendering) adds `soft_cull_log_alpha *
+    coverage_beta` to every leaf's expansion (reference culling.py:243-297):
+    a culled leaf then lies at least min_dist + log_alpha * beta from every
+    ray of its tile, so wherever dropping it could raise the scene min the
+    coverage alpha = exp(-(s_min - min_dist) / beta) is below exp(-log_alpha)
+    (at the default 104, an f32 zero). At beta = 0.02 the default adds 2.08
+    world units to each bound, so a soft frame culls far less than a hard
+    one."""
     lp = arrays.leaf_params.detach()
     opp = arrays.op_param.detach()
     types = _device_types(spec, lp.device)
@@ -252,6 +255,8 @@ def leaf_bound_spheres(spec: TapeSpec, arrays: TapeArrays, cfg: RenderConfig, so
         M = _leaf_op_incidence(spec)
         ksum = torch.sum(opp_abs) if M is None else torch.as_tensor(M, device=lp.device) @ opp_abs
     expand = ksum + cfg.min_dist + 8.0 * cfg.normal_eps + _RADIUS_MARGIN
+    if soft:
+        expand = expand + cfg.soft_cull_log_alpha * cfg.coverage_beta
     bounded = torch.where(types == oc.LEAF_PLANE, 0.0, 1.0)
     return torch.cat(
         [lp[:, 4:7], (torch.abs(radii) + expand)[:, None], bounded[:, None]], dim=-1

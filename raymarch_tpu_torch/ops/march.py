@@ -2,10 +2,11 @@
 
 Ported so far: the forward cone-prepass backend (`backend="pallas_prepass"`,
 `mode="forward"`, march.py:439-461 of the JAX package) and the fused
-forward+backward backend (`backend="pallas_fused"`, `mode="implicit"`,
-462-487); the other backend strings and modes raise NotImplementedError
-naming their ROADMAP item. `make_renderer` takes the reference's arguments
-in the reference's order (384-393), plus the keyword-only `device`.
+forward+backward backend (`backend="pallas_fused"`, modes "implicit" and
+"soft", 462-487); the other backend strings and modes raise
+NotImplementedError naming their ROADMAP item. `make_renderer` takes the
+reference's arguments in the reference's order (384-393), plus the
+keyword-only `device` (default "cuda").
 """
 
 from __future__ import annotations
@@ -36,15 +37,18 @@ def make_renderer(
     backend: str = "jnp",
     interpret: bool = False,
     *,
-    device,
+    device="cuda",
 ):
     """Build `render(arrays, camera) -> image f32[H, W, 3]` on `device`.
 
-    `device` is required ("cpu" or "cuda[:n]"): on the CPU the kernels'
-    plain versions run, on CUDA the kernels; asking for CUDA without a GPU
-    raises. The renderer is cached per (spec, cfg, width, height, device), so
-    a numeric scene edit that keeps the TapeSpec gets the same renderer back
-    and rebuilds nothing. `chunk` (the ray chunk of the reference's "jnp"
+    `device` is "cuda[:n]" (the default) or "cpu": on the CPU the kernels'
+    plain versions run, on CUDA the kernels; CUDA without a GPU raises, it
+    never falls back to the CPU. `backend="pallas_fused"` takes mode
+    "implicit" (interior gradients) or "soft" (soft coverage: silhouette
+    gradients through each ray's closest approach). The renderer is cached
+    per (spec, cfg, width, height, mode, device), so a numeric scene edit
+    that keeps the TapeSpec gets the same renderer back and rebuilds
+    nothing. `chunk` (the ray chunk of the reference's "jnp"
     march) and `interpret` (the Pallas interpreter) have no effect on the
     ported backends, which render the whole frame in their kernels.
     """
@@ -52,14 +56,9 @@ def make_renderer(
     if backend == "pallas_fused":
         # Fused forward + backward: differentiable with respect to
         # arrays.leaf_params, arrays.op_param and the camera (tensors).
-        if mode == "soft":
-            raise NotImplementedError(
-                "mode 'soft' of backend 'pallas_fused' is not ported yet "
-                "(ROADMAP: §1 item 2, soft coverage)"
-            )
-        if mode != "implicit":
+        if mode not in ("implicit", "soft"):
             raise ValueError("pallas_fused backend supports 'implicit'/'soft'")
-        rv = make_fused_render_vjp(spec, cfg, width, height, device=device)
+        rv = make_fused_render_vjp(spec, cfg, width, height, soft=mode == "soft", device=device)
         return _fused_render(rv)
     if backend != "pallas_prepass":
         item = _NOT_PORTED.get(backend)

@@ -6,7 +6,13 @@ size 1: the image is one band (rows [0, H), so `cam_vec[7] = 0`, as
 devices. Row-sharded training over several devices, `row_interleave` and
 `band_rows` come with ROADMAP §1 item 7. `make_fit_step` takes the
 reference's arguments in its order (208-222), plus the keyword-only
-`device`; `interpret` (the Pallas interpreter) has no effect here.
+`device` (default "cuda"); `interpret` (the Pallas interpreter) has no
+effect here.
+
+`mode="soft"` trains through the soft-coverage VJP (silhouette gradients).
+The reference's `pallas_fused` fit step builds its fused VJP without
+`soft` and so trains the implicit gradients whatever the mode (ROADMAP §3
+fault 11); the port passes the mode on.
 
 Optimizers are torch's: `optimizer` and `camera_optimizer` are callables
 that build a `torch.optim.Optimizer` over a list of tensors, e.g.
@@ -99,7 +105,7 @@ def make_fit_step(
     camera_optimizer=None,
     row_interleave: int = 1,
     *,
-    device,
+    device="cuda",
 ):
     """Build the training step of inverse rendering on `device`:
 
@@ -126,11 +132,7 @@ def make_fit_step(
         if item is None:
             raise ValueError(f"backend {backend!r} cannot be differentiated")
         raise NotImplementedError(f"backend {backend!r} is not ported yet (ROADMAP: {item})")
-    if mode == "soft":
-        raise NotImplementedError(
-            "mode 'soft' is not ported yet (ROADMAP: §1 item 2, soft coverage)"
-        )
-    if mode != "implicit":
+    if mode not in ("implicit", "soft"):
         raise ValueError("pallas_fused backend supports 'implicit'/'soft'")
     dev = resolve_device(device)
     if optimizer is None:
@@ -138,7 +140,7 @@ def make_fit_step(
                          "functools.partial(torch.optim.Adam, lr=1e-2)")
     if fit_camera and camera_optimizer is None:
         camera_optimizer = functools.partial(torch.optim.SGD, lr=1e-2)
-    render = make_fused_render_vjp(spec, cfg, width, height, device=dev)
+    render = make_fused_render_vjp(spec, cfg, width, height, soft=mode == "soft", device=dev)
     denom = float(height * width * 3)
     masks = None
     if grad_mask is not None:

@@ -641,3 +641,111 @@ def test_aa8_frame_matches_plain(dev):
     assert torch.equal(img_r, cp.fine(sc, cam, bound, p, *pre))
     _, t_p, hit_p = cp.fine_res_plain(sc, cam, bound, p, *pre)
     assert t.shape == (H, W, 64) and float((hit == hit_p).float().mean()) >= 0.999
+
+
+# Soft coverage: scene -> (scene function, config, camera position, the
+# backward it takes, K8's long build). Soft mode needs relax 1; CFG keeps
+# bound_accel and exit_check_every 4. Every camera looks down more steeply
+# than half the field of view (22.5 degrees), so no frame shows the horizon:
+# there the checker floor's parity is ulp-sensitive (fx runs to 1e7), and a
+# sample that flips it moves a pixel by 0.23 / S in hard and soft mode alike.
+SOFT_CFG64 = dataclasses.replace(CFG, leaf_cull=True)
+SOFT_SCENES = {
+    "config2": (_config2, CFG, (0.0, 2.6, 4.2), "pallas_legacy_unrolled", False),
+    "rich": (_rich, CFG, (0.0, 2.6, 4.2), "pallas_legacy_unrolled", False),
+    "painted_blends": (_painted_blends, CFG, (0.0, 2.6, 4.2), "pallas_legacy_unrolled", False),
+    "painted33": (functools.partial(_painted, n=33), SOFT_CFG64, (0.0, 5.5, 8.0), "pallas_legacy_unrolled", True),
+    "long_tape": (_long_tape, SOFT_CFG64, (0.0, 5.5, 8.0), "pallas_legacy_unrolled", True),
+    "spheres": (_spheres, SOFT_CFG64, (0.0, 5.5, 8.0), "pallas_compact", False),
+    "chain": (_chain, SOFT_CFG64, (0.3, 3.2, 4.5), "pallas_compact", False),
+    "clusters9": (functools.partial(_clusters, n_clusters=9), SOFT_CFG64, (0.0, 5.0, 7.0), "pallas_compact",
+                  False),
+}
+
+
+def _soft_args(name, dev):
+    build, cfg, pos, _, _ = SOFT_SCENES[name]
+    spec, arrays = rt.compile_scene(build(rt), static=True)
+    fr = cg.make_fused_render_vjp(spec, cfg, W, H, soft=True, device=dev)
+    cam_vec = rt.cam_vec(rt.Camera.looking_at(position=pos, target=(0.0, 0.0, 0.0)), device=dev)
+    sc, cam, bound = fr.prepass.scene_args(arrays, cam_vec)
+    _, fc = fr.prepass.cull_args(sc, cam)
+    return spec, arrays, fr, sc, cam, bound, fc, cam_vec
+
+
+@pytest.mark.parametrize("name", ["config2", "rich", "painted_blends", "spheres", "chain", "clusters9"])
+def test_soft_fine_kernel_matches_plain(dev, name):
+    """K2's soft build (un-culled, lists, masks; with materials) against
+    fine_res_plain: the image within 1e-3, hit on 99.9% of the rays, and on
+    99.9% of the covered rays (alpha > 0) s_min within 1e-4 |s_min| + 1e-5
+    (a hit ray's s_min is its last sample's distance, under min_dist, which
+    an ulp of the position moves by ~5e-7) and t_min within rtol 1e-4."""
+    _, _, fr, sc, cam, bound, fc, _ = _soft_args(name, dev)
+    p = fr.params
+    assert p.soft and p.no_prepass
+    before = cp.fine_res.soft_launches
+    img, t, hit, s_min, t_min = cp.fine_res(sc, cam, bound, p, cull=fc)
+    assert cp.fine_res.soft_launches == before + 1
+    assert torch.equal(img, cp.fine(sc, cam, bound, p, cull=fc))
+    img_p, t_p, hit_p, s_p, tm_p = cp.fine_res_plain(sc, cam, bound, p, cull=fc)
+    assert float((img - img_p).abs().max()) < 1e-3
+    assert float((hit == hit_p).float().mean()) >= 0.999
+    covered = cp.soft_alpha(p, s_p) > 0.0
+    assert int(covered.sum()) > 0 and int((hit_p == 0).logical_and(covered).sum()) > 0
+    for a, b, atol in ((s_min, s_p, 1e-5), (t_min, tm_p, 0.0)):
+        off = (a - b).abs()[covered] > 1e-4 * b.abs()[covered] + atol
+        assert float(off.float().mean()) < 1e-3
+
+
+@pytest.mark.parametrize("name", sorted(SOFT_SCENES))
+def test_soft_backward_kernels_match_plain(dev, name):
+    """K8's soft builds (per thread and long, with and without the albedo
+    words) and K9's (pool, seg1, stream in two groups) against their plain
+    versions on the soft forward's residuals, then through the renderer."""
+    _, _, _, kind, long_build = SOFT_SCENES[name]
+    spec, arrays, fr, sc, cam, bound, fc, cam_vec = _soft_args(name, dev)
+    assert fr.backward_info["kind"] == kind and fr.backward_info["soft"]
+    if spec.has_materials:
+        assert fr.backward_info["reason"] == "painted materials in soft mode"
+    assert fr.layout.long == long_build
+    p = fr.params
+    _, t, hit, s_min, t_min = cp.fine_res(sc, cam, bound, p, cull=fc)
+    g = torch.tensor(np.random.default_rng(7).uniform(-1, 1, (H, W, 3)).astype(np.float32), device=dev)
+    clamp = fr.layout.grad_denom_clamp
+    counter = cg.compact_bwd if fr.compact_bwd else cg.bwd
+    before = counter.soft_launches
+    if fr.compact_bwd:
+        got = cg.compact_bwd(sc, fc, cam, p, clamp, t, hit, g, soft=(s_min, t_min))
+        ref = cg.compact_bwd_plain(sc, fc, cam, p, clamp, t, hit, g, band_rows=16, soft=(s_min, t_min))
+    else:
+        got = cg.bwd(sc, cam, p, fr.layout, t, hit, g, soft=(s_min, t_min))
+        ref = cg.bwd_plain(sc, cam, p, fr.layout, t, hit, g, band_rows=16, soft=(s_min, t_min))
+    assert counter.soft_launches == before + 1
+    scale = float(ref[0].abs().max())
+    assert scale > 0
+    torch.testing.assert_close(got[0], ref[0], rtol=0.0, atol=0.01 * scale)
+    torch.testing.assert_close(got[1], ref[1], rtol=0.0, atol=0.01 * scale)
+    torch.testing.assert_close(got[2], ref[2], rtol=0.0, atol=0.02 * float(ref[2].abs().max()))
+    assert float(got[2][7]) == 0.0
+    lp = torch.tensor(arrays.leaf_params, device=dev, requires_grad=True)
+    cv = cam_vec.clone().requires_grad_(True)
+    img = fr(dataclasses.replace(arrays, leaf_params=lp), cv)
+    torch.mean(img**2).backward()
+    assert counter.soft_launches == before + 2
+    assert bool(torch.isfinite(lp.grad).all()) and float(lp.grad.abs().max()) > 0
+    assert float(cv.grad[:7].abs().max()) > 0
+
+
+def test_soft_renderer_defaults_to_the_card(dev):
+    """make_renderer without `device` runs on the card; mode "soft" gives a
+    pure translation's silhouette gradient (tests/test_soft_coverage.py)."""
+    cfg = dataclasses.replace(rt.DEFAULT_CONFIG, aa_samples=2, max_iter=60, ambient=1.0, coverage_beta=0.05)
+    cam = rt.Camera.looking_at(position=(0.0, -0.5, 4.0), target=(0.0, 0.2, 0.0))
+    spec, arrays_t = rt.compile_scene(rt.sphere(center=(0.0, 0.2, 0.0), radius=0.8), static=True)
+    render = rt.make_renderer(spec, 48, 48, cfg, mode="soft", backend="pallas_fused")
+    target = render(arrays_t, cam).detach()
+    assert target.device == dev
+    _, arrays0 = rt.compile_scene(rt.sphere(center=(0.15, 0.2, 0.0), radius=0.8), static=True)
+    lp = torch.tensor(arrays0.leaf_params, device=dev, requires_grad=True)
+    torch.mean((render(dataclasses.replace(arrays0, leaf_params=lp), cam) - target) ** 2).backward()
+    assert float(lp.grad[0, 4]) > 1e-7

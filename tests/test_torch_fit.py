@@ -161,7 +161,9 @@ def test_fit_scene_equals_step_loop(compiled):
     [
         (dict(backend="jnp"), NotImplementedError),
         (dict(backend="pallas_prepass"), ValueError),
-        (dict(mode="soft"), NotImplementedError),
+        # mode "soft" is ported (tests/test_torch_soft.py); it raises the
+        # reference's ValueError where aa_samples^2 does not divide 128.
+        (dict(mode="soft", cfg=dataclasses.replace(CFG_T, aa_samples=3)), ValueError),
         (dict(mesh=["cpu", "cpu"]), NotImplementedError),
         (dict(row_interleave=2), NotImplementedError),
     ],
@@ -169,10 +171,10 @@ def test_fit_scene_equals_step_loop(compiled):
 )
 def test_fit_step_unported_raise(compiled, kw, exc):
     _, (spec, _) = compiled
-    kw = {"backend": "pallas_fused", **kw}
+    kw = {"backend": "pallas_fused", "cfg": CFG_T, **kw}
     with pytest.raises(exc):
         rt.make_fit_step(spec, W, H, optimizer=functools.partial(torch.optim.Adam, lr=1e-2),
-                         cfg=CFG_T, device="cpu", **kw)
+                         device="cpu", **kw)
 
 
 class TestCheckpointer:

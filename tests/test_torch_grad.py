@@ -224,22 +224,24 @@ def test_backward_info_is_the_references(small):
 
 
 @pytest.mark.parametrize(
-    "kw,cfg_kw,what",
+    "kw,cfg_kw,what,exc",
     [
-        (dict(soft=True), {}, None),
+        # soft is ported (tests/test_torch_soft.py); it raises the
+        # reference's ValueError where aa_samples^2 does not divide 128.
+        (dict(soft=True), dict(aa_samples=3), None, ValueError),
         # leaf_cull, prepass_block and painted scenes are ported
         # (tests/test_torch_legacy.py); these cases raise as before.
-        (dict(band_rows=8), {}, None),
-        (dict(aa_packed=False), {}, None),
-        ({}, {}, "dynamic"),
+        (dict(band_rows=8), {}, None, NotImplementedError),
+        (dict(aa_packed=False), {}, None, NotImplementedError),
+        ({}, {}, "dynamic", NotImplementedError),
     ],
     ids=["soft", "band_rows", "unpacked", "dynamic"],
 )
-def test_unported_options_raise(kw, cfg_kw, what):
+def test_unported_options_raise(kw, cfg_kw, what, exc):
     scene = SCENES["config2"](rt)
     spec, _ = rt.compile_scene(scene, static=what != "dynamic")
     cfg = dataclasses.replace(_cfg_t(CFG), **cfg_kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(exc, match="ROADMAP" if exc is NotImplementedError else "128"):
         cg.make_fused_render_vjp(spec, cfg, W, H, device="cpu", **kw)
 
 
@@ -247,8 +249,12 @@ def test_fused_modes(small):
     spec = small[0]
     with pytest.raises(ValueError):
         rt.make_renderer(spec, W, H, _cfg_t(CFG), mode="forward", backend="pallas_fused", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        rt.make_renderer(spec, W, H, _cfg_t(CFG), mode="soft", backend="pallas_fused", device="cpu")
+    # Mode "soft" is ported (tests/test_torch_soft.py): its own renderer,
+    # with no prepass.
+    soft = rt.make_renderer(spec, W, H, _cfg_t(CFG), mode="soft", backend="pallas_fused", device="cpu")
+    hard = rt.make_renderer(spec, W, H, _cfg_t(CFG), mode="implicit", backend="pallas_fused", device="cpu")
+    assert soft.backward_info["soft"] and not hard.backward_info["soft"]
+    assert soft.renderer.params.no_prepass and soft.renderer is not hard.renderer
 
 
 def test_tensor_parameters_render_like_numpy(small):

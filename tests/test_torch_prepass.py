@@ -22,6 +22,7 @@ import raymarch_tpu_torch as rt
 from raymarch_tpu.ops.pallas_march import compute_bound as compute_bound_j
 from raymarch_tpu.ops.pallas_prepass import cone_omega as cone_omega_j
 from raymarch_tpu.ops.pallas_prepass import make_pallas_image_render_aa as render_aa_j
+from raymarch_tpu_torch.ops import cuda_grad as cg
 from raymarch_tpu_torch.ops import cuda_prepass as cp
 from raymarch_tpu_torch.ops.cuda_march import compute_bound, scene_buffers
 
@@ -188,8 +189,11 @@ def test_compute_bound_matches_jax(name):
 def test_params_layout_matches_cuda_struct():
     """The ctypes mirrors, the Python params and the C structs list the same
     fields in the same order, all 4 bytes wide (no padding): RenderParams,
-    then BlockParams."""
-    src = (Path(cp.__file__).parent.parent / "csrc" / "render_common.cuh").read_text()
+    then BlockParams, then the soft-mode constants that the soft builds
+    take in their own structs (SoftParams of the fine kernel, SoftRes of
+    the backwards: two pointers, then two floats)."""
+    csrc = Path(cp.__file__).parent.parent / "csrc"
+    src = (csrc / "render_common.cuh").read_text()
     all_ct = []
     for struct, mirror in (("RenderParams", cp._CParams), ("BlockParams", cp._CBlockParams)):
         body = re.search(rf"struct {struct} \{{(.*?)\}};", src, re.S).group(1)
@@ -201,7 +205,14 @@ def test_params_layout_matches_cuda_struct():
         )
         assert ctypes.sizeof(mirror) == 4 * n_words
         all_ct += ct_fields
-    assert all_ct == [f.name for f in dataclasses.fields(cp.PrepassParams)]
+    soft = ["soft", "beta_inv", "soft_infl", "soft_gate"]
+    assert all_ct + soft == [f.name for f in dataclasses.fields(cp.PrepassParams)]
+    for path, struct, mirror in (("fine.cuh", "SoftParams", cp._CSoftParams),
+                                 ("scene_grad.cuh", "SoftRes", cg._CSoftRes)):
+        body = re.search(rf"struct {struct} \{{(.*?)\}};", (csrc / path).read_text(), re.S).group(1)
+        c_fields = re.findall(r"^\s*(?:const )?float\*?\s+(\w+);", body, re.M)
+        assert c_fields == [name for name, _ in mirror._fields_]
+        assert ctypes.sizeof(mirror) == 2 * 8 + 2 * 4
     p = cp.PrepassParams.make(_cfg_t(CFG), W, H)
     c = cp._CParams.of(p)
     assert c.width == W and c.naa == 2 and tuple(c.light) == p.light

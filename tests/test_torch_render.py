@@ -20,6 +20,7 @@ import torch
 import raymarch_tpu as rm
 import raymarch_tpu_torch as rt
 from raymarch_tpu_torch import _build
+from raymarch_tpu_torch.ops import cuda_grad as cg
 from raymarch_tpu_torch.ops import cuda_prepass as cp
 
 from test_torch_tape import SCENES
@@ -131,13 +132,17 @@ def test_prepass_backend_is_forward_only(frame):
         (dict(prepass_block=4, prepass_chain=True, n_intervals=2), {}, ValueError),
         (dict(prepass_chain=True, no_prepass=True), {}, ValueError),
         (dict(n_intervals=2, no_prepass=True), {}, ValueError),
-        (dict(soft=True), {}, NotImplementedError),
+        # soft is ported (tests/test_torch_soft.py); without no_prepass it
+        # raises the reference's ValueError (pallas_prepass.py:642-656).
+        (dict(soft=True), {}, ValueError),
         (dict(march_only=True), {}, NotImplementedError),
         (dict(band_rows=0), {}, ValueError),
         (dict(aa_packed=False), {}, NotImplementedError),
         (dict(n_intervals=cp.MAX_NI + 1), dict(relax=1.6), NotImplementedError),
-        # leaf_cull is ported (tests/test_torch_cull.py); soft culling is not.
-        (dict(soft=True), dict(leaf_cull=True), NotImplementedError),
+        # leaf_cull and soft culling are ported (tests/test_torch_cull.py,
+        # tests/test_torch_soft.py); soft with relax > 1 raises the
+        # reference's ValueError.
+        (dict(soft=True, no_prepass=True), dict(leaf_cull=True, relax=1.6), ValueError),
         ({}, dict(aa_shared_normals=True), NotImplementedError),
     ],
     ids=["block4", "chain", "intervals", "soft", "march_only", "band_rows",
@@ -176,8 +181,24 @@ def test_cuda_device_raises_without_gpu(frame):
 
 
 def test_device_is_required(frame):
-    with pytest.raises(TypeError):
-        rt.make_renderer(frame[0], W, H, CFG, mode="forward", backend="pallas_prepass")
+    """`device` defaults to the card: without a GPU, leaving it out raises
+    naming CUDA, and never renders on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: this checks the machine without one")
+    spec = frame[0]
+    entry_points = (
+        lambda: rt.make_renderer(spec, W, H, CFG, mode="forward", backend="pallas_prepass"),
+        lambda: rt.make_renderer(spec, W, H, CFG, mode="soft", backend="pallas_fused"),
+        lambda: cp.make_pallas_image_render_aa(spec, CFG, W, H),
+        lambda: cg.make_fused_render_vjp(spec, CFG, W, H),
+        lambda: rt.make_fit_step(spec, W, H, optimizer=torch.optim.SGD, cfg=CFG, backend="pallas_fused"),
+        lambda: rt.fit_scene(spec, frame[1], rt.Camera.looking_at(position=POS, target=TARGET),
+                             np.zeros((H, W, 3), np.float32), width=W, height=H, cfg=CFG, steps=1,
+                             backend="pallas_fused"),
+    )
+    for call in entry_points:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
 
 
 def test_import_pulls_in_no_jax():
