@@ -95,13 +95,33 @@ Run from the repository root: `python3 chip_smoke.py`. It
    soft backward alone, against their plain versions (the frame; K9's on
    one 64-row band) with their bounds; a 5-step soft pose fit of the
    64-sphere row;
-14. prints one JSON line of per-kernel records (time, plain time, launches,
+14. the render surfaces of the reference's make_renderer: gates at 256x144
+   of the flat march kernels K5 (raygen_flat rays of the gate camera, a
+   count that is no multiple of 128), K6 and K7 (config 2 static and as
+   compile_scene's default dynamic tape, the empty dynamic scene, `rich`
+   and 16 painted spheres as dynamic tapes, config 2 at relax 1.6), each
+   against its plain version (hit and steps equal on every ray, t within
+   1e-5 on hits, images max|d| < 1e-3), of K2's march-only build (B = 1;
+   n_intervals=2 at relax 1.6) against fine_res_plain's (t, hit), and of
+   make_renderer(backend="pallas", mode="implicit")'s gradients against
+   backend "jnp"'s (gated without bound_accel, where both march the same
+   samples; the deviation with it is logged); then at 1920x1080 with 16 AA
+   rays per pixel bench.py's `march_only` (K6; static and dynamic tapes;
+   march_stats), `march_only_fast` (K1's interval scan and K2's march-only
+   build, relax 1.6), the `pallas_full` frame (K7; static and dynamic;
+   against its plain version and the no-prepass fine kernel's frame), the
+   make_renderer frames of backends "pallas" and "jnp" (dynamic tape) and
+   `fwdbwd_jnp` (backend "pallas", implicit, chunk 2^20: step, K5 launches,
+   peak memory), K5 alone on the frame's rays against its plain version,
+   each kernel's time alone, plain time and bound;
+15. prints one JSON line of per-kernel records (time, plain time, launches,
    the roofline bound from this run's counted work) for the headline
    builds, the culled builds of the 64-leaf path, the compact backward per
    plan kind, the fine kernel with materials, the interval and block
    builds of the coarse and fine kernels and K3, K8's builds of phase 12,
    the fine kernel at B = 4 with residuals and at aa = 8, the soft builds
-   of phase 13, then, last, {"ok": true, "device": {...}}.
+   of phase 13, K5, K6, K7 and K2's march-only build of phase 14, then,
+   last, {"ok": true, "device": {...}}.
 
 Any failed check raises, so the script exits non-zero and prints no result.
 """
@@ -2083,6 +2103,289 @@ def soft(rt, cp, cg, dev, smi, cfg):
 
 
 
+# --- phase 14: the render surfaces (K5, K6, K7, K2's march-only build) -------
+MARCH_STEPS_WARMUP, MARCH_STEPS = 1, 4  # fwdbwd_jnp steps (bench.py:928: 4 frames after 1)
+
+
+def march_agreement(name, k, p):
+    """K5/K6 (or the march-only build) against their plain versions: hit
+    (and steps where given) equal on every ray, t within 1e-5 on hits.
+    Returns max |t diff| on hits."""
+    import torch
+
+    (tk, hk, *sk), (tp, hp, *sp) = k, p
+    hit_eq = bool(torch.equal(hk, hp))
+    steps_eq = bool(torch.equal(sk[0], sp[0])) if sk else True
+    both = hp > 0.5
+    mx = float((tk - tp).abs()[both].max()) if bool(both.any()) else 0.0
+    ok = hit_eq and steps_eq and mx <= 1e-5
+    log(f"{name}: hit equal={hit_eq} steps equal={steps_eq if sk else 'n/a'} max|d t| on "
+        f"{int(both.sum())} hit rays={mx:.3e} (need equal, equal, <=1e-5) {'PASS' if ok else 'FAIL'}")
+    if not ok:
+        diff = (hk != hp) | ((sk[0] != sp[0]) if sk else False)
+        log(f"  {int(diff.sum())} rays differ, first at {diff.nonzero()[:5].flatten().tolist()}")
+        raise AssertionError(f"{name} outside its tolerance")
+    return mx
+
+
+def aa_mean(rgb, h, w):
+    import torch
+
+    return torch.stack(rgb, dim=-1).reshape(h, w, -1, 3).mean(dim=2)
+
+
+def surfaces(rt, cp, dev, smi, cfg, gcam_pos):
+    """Phase 14: the render surfaces of the reference's make_renderer (see
+    the module docstring). Returns the kernel records of K5, K6, K7 and K2's
+    march-only build, and the rows' numbers."""
+    import numpy as np
+    import torch
+
+    from raymarch_tpu_torch.ops import cuda_march as cm
+
+    cfg_ir = dataclasses.replace(cfg, relax=1.6)
+    gcv = rt.cam_vec(rt.Camera.looking_at(position=gcam_pos, target=(0, 0, 0)), device=dev)
+
+    # -- 14a. gates at 256x144 ------------------------------------------------
+    gates = (
+        ("config2 static", scene_config2(rt), True, cfg),
+        ("config2 dynamic", scene_config2(rt), False, cfg),
+        ("empty dynamic", None, False, cfg),
+        ("rich dynamic", scene_rich(rt), False, cfg),
+        ("painted spheres dynamic", scene_painted(rt, 16), False, cfg),
+        ("config2 relax 1.6", scene_config2(rt), True, cfg_ir),
+    )
+    for name, scene, static, cfg_g in gates:
+        spec_g, arrays_g = rt.compile_scene(scene, static=static)
+        fm = cm.FlatMarch(spec_g, cfg_g, GATE_W, GATE_H, dev)
+        sc, cam, bound = fm.scene_args(arrays_g, gcv)
+        march_agreement(f"gate K6 image_march vs image_march_plain, {name}", cm.image_march(sc, cam, bound, fm.params),
+                        cm.image_march_plain(sc, cam, bound, fm.params))
+        img_k = aa_mean(cm.image_render(sc, cam, bound, fm.params), GATE_H, GATE_W)
+        img_p = aa_mean(cm.image_render_plain(sc, cam, bound, fm.params), GATE_H, GATE_W)
+        image_max(f"gate K7 image_render vs image_render_plain, {name}", img_k, img_p)
+        if scene is None:
+            fl = float((img_k[..., 2] > img_k[..., 1]).float().mean())  # the floor's blue base
+            log(f"  empty scene: floor share {fl:.4f}, finite {bool(torch.isfinite(img_k).all())}")
+            if not fl > 0.1:
+                raise AssertionError("the empty scene shows no floor")
+    spec_s, arrays_s = rt.compile_scene(scene_config2(rt), static=True)
+    fm = cm.FlatMarch(spec_s, cfg, GATE_W, GATE_H, dev)
+    sc, cam, bound = fm.scene_args(arrays_s, gcv)
+    n5 = GATE_W * GATE_H * 16 - 77  # not a multiple of 128
+    gcam = rt.Camera.looking_at(position=gcam_pos, target=(0, 0, 0))
+    o, d = rt.raygen_flat(torch.arange(n5, device=dev), gcam.position, gcam.rotation, GATE_W, GATE_H, cfg)
+    o, d = o.contiguous(), d.contiguous()
+    march_agreement(f"gate K5 ray_march vs ray_march_plain ({n5} raygen_flat rays)", cm.ray_march(sc, bound, fm.params, o, d),
+                    cm.ray_march_plain(sc, bound, fm.params, o, d))
+    for kw, cfg_m in ((dict(prepass_block=1), cfg), (dict(prepass_block=1, n_intervals=2), cfg_ir)):
+        rp = cp.make_pallas_image_march_fast(spec_s, cfg_m, GATE_W, GATE_H, device=dev, **kw)
+        sc2, cam2, bound2 = rp.scene_args(arrays_s, gcv)
+        pre = rp.prepass(sc2, cam2, bound2, None)
+        got = cp.fine_march(sc2, cam2, bound2, rp.params, *pre)
+        _, t_p, h_p = cp.fine_res_plain(sc2, cam2, bound2, rp.params, *pre)
+        march_agreement(f"gate K2 march-only vs fine_res_plain's (t, hit), {kw}, relax {cfg_m.relax}", got,
+                        (t_p.reshape(-1), h_p.reshape(-1)))
+    # make_renderer(backend="pallas", mode="implicit") against backend "jnp".
+    # Gated without bound_accel, where both march the same samples from t =
+    # 0. With it, K5 starts at the bound's entry: its rays stop at other
+    # points within min_dist of the surface, where the shading's normal
+    # (taps 1e-4 apart near the box's and the torus's creases) and so the
+    # gradient move by more than the class; the JAX package's two backends
+    # differ there alike. That deviation is logged, not gated.
+    def pallas_vs_jnp(cfg_g):
+        grads = {}
+        for backend in ("pallas", "jnp"):
+            lp = torch.tensor(arrays_s.leaf_params, device=dev, requires_grad=True)
+            opp = torch.tensor(arrays_s.op_param, device=dev, requires_grad=True)
+            pos = torch.tensor(np.asarray(gcam.position, np.float32), device=dev, requires_grad=True)
+            rot = torch.tensor(np.asarray(gcam.rotation, np.float32), device=dev, requires_grad=True)
+            render = rt.make_renderer(spec_s, GATE_W, GATE_H, cfg_g, mode="implicit", backend=backend,
+                                      chunk=1 << 18, device=dev)
+            img = render(dataclasses.replace(arrays_s, leaf_params=lp, op_param=opp), rt.Camera(pos, rot))
+            torch.mean(img * img).backward()
+            grads[backend] = (lp.grad, opp.grad, torch.cat([pos.grad, rot.grad, pos.grad.new_zeros(1)]))
+        return grads
+
+    g = pallas_vs_jnp(dataclasses.replace(cfg, bound_accel=False))
+    grad_class("gate make_renderer(pallas, implicit) vs make_renderer(jnp, implicit) gradients, no bound_accel",
+               g["pallas"], g["jnp"])
+    g = pallas_vs_jnp(cfg)
+    dev_lp = float((g["pallas"][0] - g["jnp"][0]).abs().max()) / float(g["jnp"][0].abs().max())
+    dev_cam = float((g["pallas"][2] - g["jnp"][2]).abs().max()) / float(g["jnp"][2].abs().max())
+    log(f"gate pallas vs jnp gradients with bound_accel (not gated): max|d| / max|g| leaf {dev_lp:.4f}, camera "
+        f"{dev_cam:.4f}")
+    torch.cuda.synchronize()
+
+    # -- 14b. bench.py's rows at 1080p ------------------------------------------
+    camera = rt.Camera.looking_at(position=(0.0, 1.6, 4.2), target=(0.0, 0.0, 0.0))
+    cv = rt.cam_vec(camera, device=dev)
+    n_rays = WIDTH * HEIGHT * cfg.aa_samples ** 2
+    n_px = WIDTH * HEIGHT
+    spec_d, arrays_d = rt.compile_scene(scene_config2(rt))  # the reference's default: a dynamic tape
+    out, records = {}, []
+
+    def timed(fn, counter, frames=FRAMES, warmup=WARMUP):
+        counter.launches = 0
+        for _ in range(warmup):
+            fn()
+        torch.cuda.synchronize()
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        for _ in range(frames):
+            r = fn()
+        e1.record()
+        torch.cuda.synchronize()
+        return e0.elapsed_time(e1) / frames, counter.launches, r
+
+    def record(name, source, replaces, launches, err, ms, p_ms, bound):
+        records.append(dict(name=name, route="cuda", source=source, replaces=replaces, launches=launches,
+                            max_abs_err=err, ms=ms, plain_ms=p_ms, bound_ms=bound[0], bound_by=bound[1],
+                            library_ms=None))
+
+    # march_only: K6 (bench.py:657-674), static and dynamic tapes.
+    for tag, spec_m, arrays_m in (("static", spec_s, arrays_s), ("dynamic", spec_d, arrays_d)):
+        im = cm.make_pallas_image_march(spec_m, cfg, WIDTH, HEIGHT, device=dev)
+        ms, launches, (t_k, h_k, s_k) = timed(lambda: im(arrays_m, cv), cm.image_march)
+        st = rt.march_stats(s_k, h_k, 32)
+        sc, cam, bound = im.flat.scene_args(arrays_m, cv)
+        work = cp.WorkCount()
+        ref, p_ms = plain_ms(lambda: cm.image_march_plain(sc, cam, bound, im.flat.params, work=work))
+        err = march_agreement(f"march_only K6 ({tag} tape) vs image_march_plain at 1080p", (t_k, h_k, s_k), ref)
+        del ref
+        bnd = roofline(march_flops(work, n_rays, spec_s, False), n_rays * 12)
+        log(f"march_only ({tag} tape): {ms:.4f} ms/frame (CUDA events, {FRAMES} frames after {WARMUP}), "
+            f"{n_rays / (ms * 1e-3) / 1e9:.4f} Grays/s, launches {launches}; {st}; plain {p_ms:.2f} ms; "
+            f"bound {bnd[0]:.4f} ms ({bnd[1]}; {float(work.points):.6e} points) ({smi})")
+        out[f"march_only_{tag}"] = dict(ms=ms, grays=n_rays / (ms * 1e-3) / 1e9, stats=st, launches=launches,
+                                        plain_ms=p_ms, bound=bnd)
+        record("image_march_kernel (K6)" + ("" if tag == "static" else ", dynamic tape"),
+               "raymarch_tpu_torch/csrc/march.cu", "raymarch_tpu/ops/pallas_march.py:1390", launches, err, ms,
+               p_ms, bnd)
+        del t_k, h_k, s_k
+
+    # march_only_fast: K1's interval scan + K2's march-only build (bench.py:678-693).
+    imf = cp.make_pallas_image_march_fast(spec_s, cfg_ir, WIDTH, HEIGHT, device=dev, prepass_block=1,
+                                          n_intervals=2)
+    cp.reset_launch_counts()
+    ms_f, launches_f, (t_f, h_f) = timed(lambda: imf(arrays_s, cv), cp.fine_march)
+    coarse_launches = cp.coarse.interval_launches
+    sc, cam, bound = imf.scene_args(arrays_s, cv)
+    pre = imf.prepass(sc, cam, bound, None)
+    fm_ms = cuda_ms(lambda: cp.fine_march(sc, cam, bound, imf.params, *pre), KERNEL_REPS)
+    work = cp.WorkCount()
+    (_, t_p, h_p), p_ms = plain_ms(lambda: cp.fine_res_plain(sc, cam, bound, imf.params, *pre, work=work))
+    err_f = residual_agreement("march_only_fast K2 march-only vs fine_res_plain's (t, hit) at 1080p", (t_f, h_f),
+                               (t_p.reshape(-1), h_p.reshape(-1)), strict=False)
+    del t_p, h_p
+    n_push = scene_cost(spec_s)[0]
+    march_work = cp.WorkCount(points=float(work.points) - 4 * float(work.hits),
+                              leaf_evals=float(work.leaf_evals) - 4 * float(work.hits) * n_push)
+    bnd_f = roofline(march_flops(march_work, n_rays, spec_s, False), n_rays * 8 + 4 * n_px * 4)
+    log(f"march_only_fast: {ms_f:.4f} ms/frame, {n_rays / (ms_f * 1e-3) / 1e9:.4f} Grays/s, launches fine_march "
+        f"{launches_f}, coarse interval scan {coarse_launches}; hit rate {float(h_f.mean()):.4f}; march-only "
+        f"build alone {fm_ms:.4f} ms, bound {bnd_f[0]:.4f} ms ({bnd_f[1]}), plain (fine_res_plain) {p_ms:.2f} ms "
+        f"({smi})")
+    out["march_only_fast"] = dict(ms=ms_f, kernel_ms=fm_ms, launches=launches_f, coarse=coarse_launches)
+    record("fine_kernel (march only)", "raymarch_tpu_torch/csrc/fine_march.cu",
+           "raymarch_tpu/ops/pallas_prepass.py:1827", launches_f, err_f, fm_ms, p_ms, bnd_f)
+    del t_f, h_f
+
+    # pallas_full: K7 (march.py:488-507), static and dynamic tapes, held
+    # against its plain version in the exact class, and against the
+    # no-prepass fine kernel's image in the accelerated class: with
+    # bound_accel K7 starts each ray at the bound's entry, the fine kernel at
+    # t = 0, so their rays stop at other points within min_dist of the
+    # surface. Where such a point lies within min_dist of a CSG crease (the
+    # torus cut into the box) the normal's taps see the other face, and a
+    # whole pixel's shade moves by up to 0.71 at 1080p; a few thousand of
+    # the 33 M rays also flip between hit and miss. The largest |d| is
+    # logged.
+    rp0 = cp.make_pallas_image_render_aa(spec_s, cfg, WIDTH, HEIGHT, device=dev, no_prepass=True)
+    img_np = rp0(arrays_s, cv)
+    for tag, spec_m, arrays_m in (("static", spec_s, arrays_s), ("dynamic", spec_d, arrays_d)):
+        render = rt.make_renderer(spec_m, WIDTH, HEIGHT, cfg, mode="forward", backend="pallas_full", device=dev)
+        ms, launches, img = timed(lambda: render(arrays_m, camera), cm.image_render)
+        image_class(f"pallas_full K7 frame ({tag} tape) vs the no-prepass fine kernel's frame", img, img_np)
+        fm = render.renderer.flat
+        sc, cam, bound = fm.scene_args(arrays_m, cv)
+        k_ms = cuda_ms(lambda: cm.image_render(sc, cam, bound, fm.params), KERNEL_REPS)
+        work = cp.WorkCount()
+        rgb_p, p_ms = plain_ms(lambda: cm.image_render_plain(sc, cam, bound, fm.params, work=work))
+        err = image_max(f"pallas_full K7 ({tag} tape) vs image_render_plain at 1080p", img,
+                        aa_mean(rgb_p, HEIGHT, WIDTH))
+        del rgb_p
+        bnd = roofline(march_flops(work, n_rays, spec_s, False, float(work.hits), fine=True), n_rays * 12)
+        log(f"pallas_full ({tag} tape): frame {ms:.4f} ms, K7 alone {k_ms:.4f} ms, launches {launches}, plain "
+            f"{p_ms:.2f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}) ({smi})")
+        out[f"pallas_full_{tag}"] = dict(ms=ms, kernel_ms=k_ms, launches=launches, plain_ms=p_ms, bound=bnd)
+        record("image_render_kernel (K7)" + ("" if tag == "static" else ", dynamic tape"),
+               "raymarch_tpu_torch/csrc/march.cu", "raymarch_tpu/ops/pallas_march.py:1566", launches, err, k_ms,
+               p_ms, bnd)
+    img_full = img
+    # Where the two starts part: rays whose hit flag differs between K6 (from
+    # the bound's entry) and the no-prepass fine kernel (from t = 0), and
+    # rays that spend K6's whole step budget.
+    _, _, h_np = cp.fine_res(*rp0.scene_args(arrays_s, cv), rp0.params)
+    _, h6, s6 = cm.make_pallas_image_march(spec_s, cfg, WIDTH, HEIGHT, device=dev)(arrays_s, cv)
+    log(f"K6 (from the bound's entry) vs the no-prepass fine kernel (from t = 0): "
+        f"{int((h6 != h_np.reshape(-1)).sum())} of {n_rays} rays differ in hit; "
+        f"{int((s6 >= cfg.max_iter).sum())} rays spend the step budget")
+    del h_np, h6, s6
+
+    # make_renderer(backend="pallas" / "jnp", mode="forward") frames.
+    for backend in ("pallas", "jnp"):
+        render = rt.make_renderer(spec_d, WIDTH, HEIGHT, cfg, mode="forward", backend=backend, device=dev)
+        ms, launches, img = timed(lambda: render(arrays_d, camera), cm.ray_march, frames=3, warmup=1)
+        image_class(f"make_renderer({backend}, forward) frame vs the pallas_full frame", img, img_full)
+        log(f"make_renderer(backend={backend!r}, mode='forward') frame (dynamic tape): {ms:.4f} ms "
+            f"(CUDA events, 3 frames after 1), K5 launches {launches} ({smi})")
+        out[f"{backend}_forward"] = dict(ms=ms, launches=launches)
+    del img, img_full, img_np
+
+    # fwdbwd_jnp (bench.py:918-935): backend "pallas", implicit, chunk 1 << 20.
+    render = rt.make_renderer(spec_s, WIDTH, HEIGHT, cfg, mode="implicit", backend="pallas", chunk=1 << 20, device=dev)
+    lp0 = torch.tensor(arrays_s.leaf_params, device=dev)
+
+    def fwd_bwd():
+        lp = lp0.clone().requires_grad_(True)
+        pos = torch.tensor(np.asarray(camera.position, np.float32), device=dev, requires_grad=True)
+        rot = torch.tensor(np.asarray(camera.rotation, np.float32), device=dev, requires_grad=True)
+        img = render(dataclasses.replace(arrays_s, leaf_params=lp), rt.Camera(pos, rot))
+        torch.mean(img * img).backward()
+        return lp.grad, pos.grad, rot.grad
+
+    torch.cuda.reset_peak_memory_stats()
+    ms_b, launches_b, g = timed(fwd_bwd, cm.ray_march, frames=MARCH_STEPS, warmup=MARCH_STEPS_WARMUP)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if not all(bool(torch.isfinite(x).all()) for x in g) or float(g[0].abs().max()) <= 0:
+        raise AssertionError("fwdbwd_jnp's gradients are not finite or all zero")
+    log(f"fwdbwd_jnp: {ms_b:.4f} ms/step (CUDA events, {MARCH_STEPS} steps after {MARCH_STEPS_WARMUP}), "
+        f"{n_rays / (ms_b * 1e-3) / 1e9:.4f} Grays/s, K5 launches {launches_b} ({-(-n_rays // (1 << 20))} chunks "
+        f"a step), peak {peak:.2f} GiB; max|d_lp| {float(g[0].abs().max()):.4e} ({smi})")
+    out["fwdbwd_jnp"] = dict(ms=ms_b, launches=launches_b, peak=peak)
+    # K5 alone on the frame's rays, against its plain version.
+    idx = torch.arange(n_rays, device=dev)
+    o, d = rt.raygen_flat(idx, camera.position, camera.rotation, WIDTH, HEIGHT, cfg)
+    o, d = o.contiguous(), d.contiguous()
+    fm = cm.FlatMarch(spec_s, cfg, 1, 1, dev)
+    sc, _, bound = fm.scene_args(arrays_s)
+    k5 = cm.ray_march(sc, bound, fm.params, o, d)
+    k5_ms = cuda_ms(lambda: cm.ray_march(sc, bound, fm.params, o, d), KERNEL_REPS)
+    work = cp.WorkCount()
+    ref, p_ms = plain_ms(lambda: cm.ray_march_plain(sc, bound, fm.params, o, d, work=work))
+    err5 = march_agreement("K5 ray_march vs ray_march_plain on the 1080p frame's rays", k5, ref)
+    del ref, k5, o, d
+    bnd5 = roofline(march_flops(work, n_rays, spec_s, False), n_rays * (24 + 12))
+    log(f"K5 alone on {n_rays} rays: {k5_ms:.4f} ms, plain {p_ms:.2f} ms, bound {bnd5[0]:.4f} ms ({bnd5[1]}) ({smi})")
+    record("ray_march_kernel (K5)", "raymarch_tpu_torch/csrc/march.cu", "raymarch_tpu/ops/pallas_march.py:1297",
+           launches_b, err5, k5_ms, p_ms, bnd5)
+    out["k5_ms"] = k5_ms
+    torch.cuda.synchronize()
+    return records, out
+
+
 def main() -> int:
     import torch
 
@@ -2420,6 +2723,9 @@ def main() -> int:
     # -- 13. soft coverage ---------------------------------------------------
     soft_records, ss = soft(rt, cp, cg, dev, smi, cfg)
 
+    # -- 14. the render surfaces ---------------------------------------------
+    surface_records, su = surfaces(rt, cp, dev, smi, cfg, (0.0, 2.6, 4.2))
+
     log(f"card: {smi}")
     kernels = [
         dict(name="coarse_kernel", route="cuda", source="raymarch_tpu_torch/csrc/prepass.cu",
@@ -2448,6 +2754,7 @@ def main() -> int:
         *row_records,
         *legacy_records,
         *soft_records,
+        *surface_records,
     ]
     log(f"64-leaf summary: step {s64['step_ms']:.4f} ms, forward frame {s64['fwd64_ms']:.4f} ms, idle share "
         f"{s64['idle']}, masks and lists {s64['cull_ms']:.4f} ms in {s64['n_cull']} device operations "
@@ -2473,6 +2780,13 @@ def main() -> int:
             f"{r['bwd_bound']:.4f}, plain {r['bwd_plain_ms']:.2f} ms on {r['where']}), launches {r['launches']}, "
             f"idle share {r['idle']} ({smi})")
     log(f"soft pose fit {ss['fit_s']:.4f} s/step ({smi})")
+    for row in ("march_only_static", "march_only_dynamic", "march_only_fast", "pallas_full_static",
+                "pallas_full_dynamic", "pallas_forward", "jnp_forward", "fwdbwd_jnp"):
+        r = su[row]
+        log(f"{row} summary: {r['ms']:.4f} ms, launches {r['launches']}" +
+            (f", kernel alone {r['kernel_ms']:.4f} ms" if "kernel_ms" in r else "") +
+            (f", {r['stats']}" if "stats" in r else "") + (f", peak {r['peak']:.2f} GiB" if "peak" in r else "") +
+            f" ({smi})")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -30,9 +30,11 @@ NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"
 # as its plain torch version's do, op for op, and the two agree to the
 # rounding of the gradient sums instead of to the placement of FMAs. The
 # soft fine builds likewise: their closest approach is an argmin over a
-# grazing ray's samples, which an FMA's rounding moves by a whole step.
+# grazing ray's samples, which an FMA's rounding moves by a whole step. So
+# do the flat march kernels K5-K7, whose steps per ray are held equal to
+# their plain versions' on every ray.
 SOURCE_FLAGS = {"fused_bwd.cu": ("-fmad=false",), "compact_bwd.cu": ("-fmad=false",),
-                "fine_soft.cu": ("-fmad=false",)}
+                "fine_soft.cu": ("-fmad=false",), "march.cu": ("-fmad=false",)}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -62,6 +64,9 @@ _SIGNATURES = {
     ),
     # partials, n_blocks, nscal, out, stream
     "rmt_bwd_finalize_launch": (_P, _I, _I, _P, _P),
+    # leaf_params, row_kind, tape, n_instr, op_param, dyn, mats, origins,
+    # dirs, cam, bound, params, n, out, o0, o1, o2, steps, stream
+    "rmt_march_launch": (_P, _P, _P, _I, _P, _I, _I, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P),
 }
 
 _lib = None

@@ -194,8 +194,11 @@ __device__ __forceinline__ float interval_march(const SceneView& sc,
 // scene carries materials, PRE the prepass planes: 0 t0_in and status_in
 // f32[rows, width] (or none with no_prepass), 1 the same at block
 // resolution f32[brows, bcols], 2 the 2*ni interval planes f32[2*ni, brows,
-// bcols] at t0_in; 3 none: the soft build.
-template <int MODE, bool RELAX, bool MATS, int PRE>
+// bcols] at t0_in; 3 none: the soft build. MO is the march-only build
+// (pallas_prepass.py:1621-1640, launched at 1827): it writes t_out and
+// hit_out, flat in pixel-major AA-ray order, and skips the taps, the
+// shading and the image.
+template <int MODE, bool RELAX, bool MATS, int PRE, bool MO = false>
 __global__ void fine_kernel(SceneView sc, const float* __restrict__ cam,
                             const float* __restrict__ bound, RenderParams p,
                             CullView cv, const float* __restrict__ t0_in,
@@ -307,6 +310,7 @@ __global__ void fine_kernel(SceneView sc, const float* __restrict__ cam,
         sp.t_min_out[ri] = t_min;
       }
     }
+    if constexpr (MO) return;
 
     // The surface term's point and coverage: the hit point and the hit
     // mask; soft, the march end, the closest approach or the origin, and
@@ -363,6 +367,7 @@ __global__ void fine_kernel(SceneView sc, const float* __restrict__ cam,
     cb = sqrtf(fmaxf(cover * (alb[2] * diff) + miss * fc[2], 0.0f) + 1e-12f);
   }
 
+  if constexpr (MO) return;  // no image: the threads past the row's end
   // AA mean over the pixel's S adjacent lanes, in registers: within the
   // warp, and for S = 64 (a pixel over two warps of one block) the second
   // warp's sum joins the first's through shared memory.
@@ -428,9 +433,31 @@ struct FineLaunch {
       else pre<MODE, false, false>(kind);
     }
   }
+  // The march-only build (MO): no image, no materials.
+  template <int MODE, bool RELAX, int PRE>
+  void go_march() const {
+    fine_kernel<MODE, RELAX, false, PRE, true><<<grid, block, 0, st>>>(
+        sc, cam, bound, p, cv, t0_in, status_in, img, t_out, hit_out, bp, sp);
+  }
+  template <int MODE>
+  void march_flags(bool relax, int kind) const {
+    if (relax) {
+      if (kind == 2) go_march<MODE, true, 2>();
+      else if (kind == 1) go_march<MODE, true, 1>();
+      else go_march<MODE, true, 0>();
+    } else {
+      if (kind == 2) go_march<MODE, false, 2>();
+      else if (kind == 1) go_march<MODE, false, 1>();
+      else go_march<MODE, false, 0>();
+    }
+  }
 };
 
 // Launches the soft build (PRE 3) for cull->mode `mode` (fine_soft.cu).
 cudaError_t launch_fine_soft(const FineLaunch& L, int mode, bool mats);
+// Launches the march-only build for cull->mode `mode` and prepass planes
+// `kind` (fine_march.cu).
+cudaError_t launch_fine_march(const FineLaunch& L, int mode, bool relax,
+                              int kind);
 
 }  // namespace rmt

@@ -17,7 +17,7 @@
 // whole tape: un-culled, as the reference's.
 //
 // fine_kernel replaces fine_packed_kernel (1521) in its forward forms, hard
-// and soft (no march_only): every AA ray sphere-
+// and soft, and its march-only form (fine_march.cu): every AA ray sphere-
 // traces from its pixel's t0 (_fine_march_tile 477, plain or, with
 // relax > 1, over-relaxed), or (PRE 2) through its block's near intervals,
 // jumping the gaps (_fine_march_interval_tile 296); hit rays
@@ -280,7 +280,8 @@ extern "C" {
 // mats != 0 shades with the scene's materials. With block->ni > 0 the
 // coarse pass writes, and the fine pass reads, the 2*ni interval planes at
 // t0 (status null). soft != 0 runs the soft build (no prepass, relax 1),
-// which also writes s_min and t_min where soft_params gives them.
+// which also writes s_min and t_min where soft_params gives them. img null
+// runs the march-only build (fine_march.cu), which writes t and hit only.
 int rmt_coarse_launch(const float* leaf_params, const int* row_kind,
                       const int* tape, int n_instr, const float* op_param,
                       const float* cam, const float* bound,
@@ -380,6 +381,11 @@ int rmt_fine_launch(const float* leaf_params, const int* row_kind,
                    : bp.ni > 0   ? 2
                    : (bp.block > 1 && !bp.chain) ? 1
                                                 : 0;
+  if (img == nullptr) {
+    // The march-only build: t and hit only (fine_march.cu).
+    if (t_out == nullptr || hit_out == nullptr) return (int)cudaErrorInvalidValue;
+    return (int)rmt::launch_fine_march(L, cull->mode, relax, kind);
+  }
   switch (cull->mode) {
     case 0: L.flags<0>(relax, mats != 0, kind); break;
     case 1: L.flags<1>(relax, mats != 0, kind); break;

@@ -1,5 +1,6 @@
-// Scene distance on the device: a run-time interpreter of the static combine
-// tape over the leaf parameter bank.
+// Scene distance on the device: a run-time interpreter of the combine tape
+// (static, or with DYN the dynamic tape of the frame's arrays) over the leaf
+// parameter bank.
 //
 // Replaces the static branch of raymarch_tpu/ops/pallas_march.py:
 // _make_scene_eval (685-707), which unrolls sdf._apply_static_tape over
@@ -161,13 +162,25 @@ __device__ __forceinline__ bool mask_bit(const int* __restrict__ mask,
 // clear reads CULL_FAR instead of its distance: exact for hits, shading and
 // the escape test by the lemma of ops/culling.py. The plain version is
 // sdf._apply_static_tape with `cull`.
+//
+// DYN reads a dynamic tape (compile_scene(static=False)): the per-frame
+// tape of TapeArrays, NOP-padded to its bucket. As in the reference's
+// interpreter (sdf.py:523-527) the stack starts at max_dist, so that an
+// all-NOP tape is the empty scene, and a NOP is the identity. A template
+// flag, so that the static builds carry neither. The plain version is
+// sdf._apply_dynamic_tape.
+template <bool DYN = false>
 __device__ __forceinline__ float scene_distance(const SceneView& sc, float px,
                                                 float py, float pz,
                                                 const int* mask = nullptr) {
   if (sc.n_instr == 0) return sc.max_dist;
   float stk[MAX_STACK];
+  if constexpr (DYN) stk[0] = sc.max_dist;
   for (int i = 0; i < sc.n_instr; ++i) {
     const int op = __ldg(sc.tape_ops + i);
+    if constexpr (DYN) {
+      if (op == COP_NOP) continue;
+    }
     const int s = __ldg(sc.out_slot + i);
     if (op == COP_PUSH) {
       const int row = __ldg(sc.tape_arg + i);
@@ -235,6 +248,9 @@ __device__ __forceinline__ float mat_weight_smooth(float da, float db,
 // mat_weight_smooth, round and onion keep their operand's. With a tile mask
 // a culled leaf reads CULL_FAR with the default colour (the gated tape of
 // scene_distance). The kernels call it once per hit ray, not per march step.
+// DYN as in scene_distance: slot 0 starts at (max_dist, def) and a NOP is
+// the identity (sdf._apply_dynamic_tape_color).
+template <bool DYN = false>
 __device__ __forceinline__ float scene_color(const SceneView& sc, float px,
                                             float py, float pz,
                                             const float* def, float rgb[3],
@@ -246,8 +262,17 @@ __device__ __forceinline__ float scene_color(const SceneView& sc, float px,
     return sc.max_dist;
   }
   float stk[MAX_STACK], cr[MAX_STACK], cg[MAX_STACK], cb[MAX_STACK];
+  if constexpr (DYN) {
+    stk[0] = sc.max_dist;
+    cr[0] = def[0];
+    cg[0] = def[1];
+    cb[0] = def[2];
+  }
   for (int i = 0; i < sc.n_instr; ++i) {
     const int op = __ldg(sc.tape_ops + i);
+    if constexpr (DYN) {
+      if (op == COP_NOP) continue;
+    }
     const int s = __ldg(sc.out_slot + i);
     if (op == COP_PUSH) {
       const int row = __ldg(sc.tape_arg + i);

@@ -73,8 +73,9 @@ def fit_scene(
     `optimizer` builds a torch optimizer over a list of tensors (default
     `torch.optim.Adam` at `learning_rate`). `leaf_mask` / `op_mask` (same
     shapes as the parameter arrays, 1.0 = trainable) restrict the fit; None
-    trains everything of that group. `backend` must be "pallas_fused", the
-    one differentiable backend ported so far, in mode "implicit" or "soft".
+    trains everything of that group. `backend` is "pallas_fused" (mode
+    "implicit" or "soft"), "jnp" ("implicit", "unrolled" or "soft") or
+    "pallas" ("implicit": K5's forward, the implicit-function VJP).
     `mesh` may be None or hold one device (more: ROADMAP §1 item 7).
 
     `checkpoint_dir` writes an atomic checkpoint of the whole fit state every

@@ -4,13 +4,14 @@ The kernels' shared device function is `csrc/scene_eval.cuh`; this module
 holds what surrounds it:
 
 - `SceneBuffers` / `scene_buffers`: a scene's tape topology (fixed per
-  `TapeSpec`) and its numeric arrays (uploaded per frame), as tensors on one
-  device.
+  `TapeSpec`; a dynamic spec's tape comes with each frame's arrays) and its
+  numeric arrays (uploaded per frame), as tensors on one device.
 - `scene_plain`: the same distance in plain torch, per leaf in the f32 op
   order of `raymarch_tpu/ops/pallas_march.py:_leaf_distance_tile` (63-133),
   folded by `sdf._apply_static_tape` as the static branch of
-  `_make_scene_eval` (685-707) does. It is the plain version of the kernels'
-  scene function and is what the CPU path runs.
+  `_make_scene_eval` (685-707) does, or by the stack machine of
+  `sdf._apply_dynamic_tape` (a dynamic tape). It is the plain version of
+  the kernels' scene function and is what the CPU path runs.
 - `tet_taps_plain` (`_tet_taps`, 1049) and `compute_bound` /
   `compute_bound_torch` (1217), the scene bounding sphere behind
   `cfg.bound_accel`, computed in torch on the parameters' device.
@@ -19,10 +20,15 @@ holds what surrounds it:
   device form (`PlanBuffers`), and `scene_compact_plain`, the plain version
   of `scene_distance_compact` in csrc/scene_eval.cuh (the O(active)
   evaluator `_make_scene_eval_compact`, 493-660, over per-tile lists).
+- The flat march kernels K5, K6 and K7 (csrc/march.cu): their wrappers
+  (`ray_march`, `image_march`, `image_render`), plain versions and the
+  reference's factories (`make_pallas_ray_march`, `make_pallas_image_march`,
+  `make_march_pallas`, `make_pallas_image_render`).
 """
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import functools
 
@@ -30,7 +36,7 @@ import numpy as np
 import torch
 
 from . import opcodes as oc
-from .sdf import _apply_static_tape, _static_tree
+from .sdf import _apply_dynamic_tape, _apply_static_tape, _static_tree
 from .tape import TapeArrays, TapeSpec
 
 # Bit set in a row's kind when its leaf type carries rotations
@@ -52,8 +58,9 @@ def _leaf_static_rows(spec: TapeSpec):
 class SceneBuffers:
     """One scene on one device.
 
-    tape:        i32[3, n_instr]: opcodes, leaf rows, stack slots of the
-                 static tape (fixed per TapeSpec).
+    tape:        i32[3, n_instr]: opcodes, leaf rows, stack slots: of the
+                 static tape (fixed per TapeSpec), or of a dynamic spec the
+                 frame's `tape_ops`, `tape_arg`, `out_slot` (per frame).
     row_kind:    i32[n_leaves]: leaf type | ROTATED_BIT (fixed per TapeSpec).
     leaf_params: f32[n_leaves, 16] (per frame).
     op_param:    f32[TapeSpec.n_instr] (per frame).
@@ -66,32 +73,55 @@ class SceneBuffers:
     op_param: torch.Tensor
 
     @property
+    def dynamic(self) -> bool:
+        return self.spec.static_tape is None
+
+    @property
     def n_instr(self) -> int:
-        return len(self.spec.static_tape)
+        """Instructions the kernels run: the static tape's, or a dynamic
+        tape's whole bucket (NOP padding included)."""
+        return self.spec.n_instr if self.dynamic else len(self.spec.static_tape)
 
 
-def scene_topology(spec: TapeSpec, device) -> tuple[torch.Tensor, torch.Tensor]:
-    """(tape, row_kind) tensors of a static spec on `device`."""
-    if spec.static_tape is None:
-        raise NotImplementedError(
-            "dynamic tapes are not ported yet (ROADMAP §1.12 dynamic tape, "
-            "tiered runtime and viewer); compile with static=True"
-        )
+def scene_topology(spec: TapeSpec, device) -> tuple[torch.Tensor | None, torch.Tensor]:
+    """(tape, row_kind) tensors of a spec on `device`. A dynamic spec has no
+    fixed tape (None: it comes with each frame's arrays); its row kinds
+    cover every row of `spec.type_slices`, the bucket's padding rows too."""
     if spec.stack_depth > MAX_STACK:
         raise ValueError(
             f"stack depth {spec.stack_depth} exceeds the kernels' {MAX_STACK}"
         )
+    kind = np.zeros(spec.n_leaves, np.int32)
+    for r, t, rot in _leaf_static_rows(spec):
+        kind[r] = t | (ROTATED_BIT if rot else 0)
+    if spec.static_tape is None:
+        return None, torch.as_tensor(kind, device=device)
     n = len(spec.static_tape)
     tape = np.zeros((3, max(n, 1)), np.int32)
     if n:
         tape[:, :n] = np.asarray(spec.static_tape, np.int32).T
-    kind = np.zeros(spec.n_leaves, np.int32)
-    for r, t, rot in _leaf_static_rows(spec):
-        kind[r] = t | (ROTATED_BIT if rot else 0)
     return (
         torch.as_tensor(tape, device=device),
         torch.as_tensor(kind, device=device),
     )
+
+
+def _dynamic_tape(spec: TapeSpec, arrays: TapeArrays, device) -> torch.Tensor:
+    """The frame's dynamic tape i32[3, n_instr] (opcodes, leaf rows, stack
+    slots) on `device`: numpy arrays are stacked and uploaded at once;
+    tensors must lie on `device` already and are stacked there, with no host
+    read."""
+    cols = (arrays.tape_ops, arrays.tape_arg, arrays.out_slot)
+    if any(torch.is_tensor(c) for c in cols):
+        for c in cols:
+            if not torch.is_tensor(c) or c.device != device:
+                raise ValueError(f"the dynamic tape's arrays must all be tensors on {device}")
+        tape = torch.stack([c.to(torch.int32) for c in cols])
+    else:
+        tape = torch.as_tensor(np.stack([np.asarray(c, np.int32) for c in cols]), device=device)
+    if tuple(tape.shape) != (3, spec.n_instr):
+        raise ValueError(f"the dynamic tape has shape {tuple(tape.shape)}, expected (3, {spec.n_instr})")
+    return tape
 
 
 def _device_array(name: str, x, device) -> torch.Tensor:
@@ -113,6 +143,8 @@ def scene_buffers(spec: TapeSpec, arrays: TapeArrays, device, topology=None) -> 
     numpy arrays are uploaded; tensors must lie on `device` already."""
     device = torch.device(device)
     tape, row_kind = topology if topology is not None else scene_topology(spec, device)
+    if spec.static_tape is None:
+        tape = _dynamic_tape(spec, arrays, device)
     lp = _device_array("leaf_params", arrays.leaf_params, device)
     opp = _device_array("op_param", arrays.op_param, device)
     if tuple(lp.shape) != (spec.n_leaves, oc.LEAF_PARAM_WIDTH) or tuple(opp.shape) != (spec.n_instr,):
@@ -219,15 +251,28 @@ def scene_plain(scene: SceneBuffers, max_dist: float, px, py, pz, cull=None):
     """Scene distance at points (px, py, pz) of any one shape, in plain
     torch: the plain version of `scene_distance` in csrc/scene_eval.cuh.
     `cull(row)` (a bool tensor like the points) gates leaves as the tile
-    mask of the kernel's gated tape does (`sdf._apply_static_tape`)."""
+    mask of the kernel's gated tape does (`sdf._apply_static_tape`). A
+    dynamic scene runs its tape (read to the host) on the reference's stack
+    machine (`sdf._apply_dynamic_tape`), the plain version of the kernels'
+    DYN interpreter."""
     row_types = {r: (t, rot) for r, t, rot in _leaf_static_rows(scene.spec)}
     lp = scene.leaf_params
 
     def leaf_fn(row):
-        t, rot = row_types[row]
+        t, rot = row_types.get(row, (oc.LEAF_SPHERE, False))
         return _leaf_distance_plain(lp[row], t, rot, px, py, pz)
 
+    if scene.dynamic:
+        if cull is not None:
+            raise ValueError("a dynamic tape is never culled")
+        return _apply_dynamic_tape(_host_tape(scene), scene.op_param, leaf_fn, max_dist, px,
+                                   scene.spec.stack_depth)
     return _apply_static_tape(scene.spec, scene.op_param, leaf_fn, max_dist, px, cull=cull)
+
+
+def _host_tape(scene: SceneBuffers) -> list:
+    """A dynamic scene's tape as host tuples (op, arg, slot)."""
+    return [tuple(c) for c in scene.tape.T.tolist()]
 
 
 _TAPS = ((1.0, -1.0, -1.0), (-1.0, -1.0, 1.0), (-1.0, 1.0, -1.0), (1.0, 1.0, 1.0))
@@ -679,17 +724,23 @@ def scene_color_plain(scene: SceneBuffers, max_dist: float, default_rgb, px, py,
     tape with materials: the plain version of `scene_color` in
     csrc/scene_eval.cuh (`sdf._apply_static_tape_color`, gated per leaf by
     `cull(row)` as `scene_plain` is)."""
-    from .sdf import _apply_static_tape_color
+    from .sdf import _apply_dynamic_tape_color, _apply_static_tape_color
 
     row_types = {r: (t, rot) for r, t, rot in _leaf_static_rows(scene.spec)}
     lp = scene.leaf_params
 
     def leaf_fn(row):
-        t, rot = row_types[row]
+        t, rot = row_types.get(row, (oc.LEAF_SPHERE, False))
         return _leaf_distance_plain(lp[row], t, rot, px, py, pz), leaf_rgb_plain(lp[row], default_rgb)
 
-    d, rgb = _apply_static_tape_color(scene.spec, scene.op_param, leaf_fn, max_dist, px, default_rgb,
-                                      cull=cull)
+    if scene.dynamic:
+        if cull is not None:
+            raise ValueError("a dynamic tape is never culled")
+        d, rgb = _apply_dynamic_tape_color(_host_tape(scene), scene.op_param, leaf_fn, max_dist, px,
+                                           default_rgb, scene.spec.stack_depth)
+    else:
+        d, rgb = _apply_static_tape_color(scene.spec, scene.op_param, leaf_fn, max_dist, px, default_rgb,
+                                          cull=cull)
     return d, tuple(px * 0.0 + c for c in rgb)
 
 
@@ -823,3 +874,326 @@ def scene_compact_plain(scene: SceneBuffers, plan, active, px, py, pz, work: Fol
         best = torch.where(acc_seg < best, acc_seg, best)
         d = torch.where(best < d, best, d)
     return d
+
+
+# --- the flat march kernels K5, K6, K7 (csrc/march.cu) ----------------------
+#
+# `ray_march` (K5, pallas_march.py:1297), `image_march` (K6, 1390) and
+# `image_render` (K7, 1566) launch csrc/march.cu's one kernel template on a
+# CUDA tensor and run their plain versions on a CPU tensor; the factories
+# below (`make_pallas_ray_march`, `make_pallas_image_march`,
+# `make_march_pallas`, `make_pallas_image_render`) take the reference's
+# arguments and return its call forms. The host constants are those of the
+# prepass renderer (`cuda_prepass.PrepassParams`, no prepass).
+
+
+def march_tile_plain(scene_fn, p, bound, ox, oy, oz, dx, dy, dz, work=None, leaves=None):
+    """Exact sphere tracing of rays (ox.., dx..) -> (t, hit, steps), f32,
+    in plain torch: the Pallas `_march_tile` (pallas_march.py:1088-1214), the
+    plain version of march.cu's `march_ray`. With `p.use_bound` the scene's
+    bounding sphere sets t0 and the exit cap when it is valid; a ray escapes
+    on d > max_dist or t > t_cap, a hit wins on the boundary, and steps
+    counts the iterations in which the ray was live. With relax > 1 the
+    over-relaxed steps and their fallback (1133-1176): hit and escape are
+    tested only at samples that did not overshoot, and a stepped-back sample
+    counts. `work` counts the scene and leaf evaluations."""
+    from .cuda_prepass import _INF_CAP, _bound_clip
+
+    zero = dx * 0.0
+    t, live, t_cap = zero, zero + 1.0, zero + _INF_CAP
+    if p.use_bound:
+        live, t, t_cap = _bound_clip(bound, ox, oy, oz, dx, dy, dz, live, t, t_cap, p.min_dist)
+    relax = p.relax > 1.0
+    hit = steps = prev_r = step_len = zero
+    omega = zero + p.relax
+    for _ in range(p.max_iter):
+        if not bool(live.any()):
+            break
+        if work is not None:
+            work.add(live, leaves)
+        d = scene_fn(ox + dx * t, oy + dy * t, oz + dz * t)
+        ok, new_step = live, d
+        if relax:
+            fail = torch.where((omega > 1.0) & (d + prev_r < step_len), live, 0.0)
+            ok = live - fail
+            new_step = torch.where(fail > 0.0, p.relax_back * step_len, omega * d)
+            omega = torch.where(fail > 0.0, 1.0, omega)
+        hit_now = torch.where(d < p.min_dist, ok, 0.0)
+        escaped = torch.where((d > p.max_dist) | (t > t_cap), ok, 0.0)
+        escaped = escaped - escaped * hit_now
+        steps = steps + live
+        live = live - hit_now - escaped
+        t = t + new_step * live
+        prev_r, step_len = d, new_step
+        hit = hit + hit_now
+    return t, hit, steps
+
+
+def _flat_rays(p, cam):
+    """The AA rays of a p.rows x p.width image from `cam`, flat in pixel-major
+    order (r = (i * W + j) * S + s): the kernels' raygen (`aa_screen`, the
+    view ray of `_view_dirs`), which rounds like pallas_march.py:1408-1435."""
+    from .cuda_prepass import _origin, _view_dirs, aa_screen
+
+    x, y = (v.reshape(-1) for v in aa_screen(p, cam))
+    dx, dy, dz = _view_dirs(x, y, cam, p)
+    return (*_origin(cam, dx), dx, dy, dz)
+
+
+def _scene_fn(scene: SceneBuffers, p):
+    return lambda px, py, pz: scene_plain(scene, p.max_dist, px, py, pz)
+
+
+def _leaves(scene: SceneBuffers, work):
+    from .cuda_prepass import leaves_per_point
+
+    return leaves_per_point(scene, None) if work is not None else None
+
+
+def ray_march_plain(scene: SceneBuffers, bound, p, origins, dirs, work=None):
+    """Plain version of K5 -> (t, hit f32[N], steps i32[N])."""
+    o = origins.unbind(-1)
+    d = dirs.unbind(-1)
+    leaves = _leaves(scene, work)
+    t, hit, steps = march_tile_plain(_scene_fn(scene, p), p, bound, *o, *d, work, leaves)
+    return t, hit, steps.to(torch.int32)
+
+
+def image_march_plain(scene: SceneBuffers, cam, bound, p, work=None):
+    """Plain version of K6 -> (t, hit f32[N], steps i32[N]) over the N =
+    aa^2 * H * W AA rays of the image, in pixel-major order."""
+    leaves = _leaves(scene, work)
+    t, hit, steps = march_tile_plain(_scene_fn(scene, p), p, bound, *_flat_rays(p, cam), work, leaves)
+    return t, hit, steps.to(torch.int32)
+
+
+def image_render_plain(scene: SceneBuffers, cam, bound, p, work=None):
+    """Plain version of K7 -> (r, g, b) f32[N] per AA sample, gamma-
+    corrected, in the f32 op order of pallas_march.py:1617-1667: the march,
+    the surface point o + d * t * hit, 4-tap normals, Lambert against the
+    fixed light, the albedo (per hit on a painted scene), the floor on a
+    miss, sqrt gamma."""
+    from .cuda_prepass import floor_plain
+
+    ox, oy, oz, dx, dy, dz = _flat_rays(p, cam)
+    scene_fn = _scene_fn(scene, p)
+    leaves = _leaves(scene, work)
+    t, hit, _ = march_tile_plain(scene_fn, p, bound, ox, oy, oz, dx, dy, dz, work, leaves)
+    if work is not None:
+        work.add(hit, leaves, points_per=4)  # the normal taps of hit rays
+        work.hits = work.hits + hit.sum()
+    px = ox + dx * t * hit
+    py = oy + dy * t * hit
+    pz = oz + dz * t * hit
+    nx, ny, nz = tet_taps_plain(scene_fn, px, py, pz, p.eps)
+    ninv = 1.0 / sqrt_rn(nx * nx + ny * ny + nz * nz + 1e-20)
+    nx, ny, nz = nx * ninv, ny * ninv, nz * ninv
+    tlx = px - p.light[0]
+    tly = py - p.light[1]
+    tlz = pz - p.light[2]
+    linv = 1.0 / sqrt_rn(tlx * tlx + tly * tly + tlz * tlz + 1e-20)
+    diff = torch.clamp_min(nx * tlx * linv + ny * tly * linv + nz * tlz * linv, p.ambient)
+    alb = p.albedo
+    if scene.spec.has_materials:
+        alb = scene_color_plain(scene, p.max_dist, p.albedo, px, py, pz)[1]
+    fcol = floor_plain(p, ox, oy, oz, dx, dy, dz)
+    miss = 1.0 - hit
+    return tuple(sqrt_rn(torch.clamp_min(hit * (alb[c] * diff) + miss * fcol[c], 0.0) + 1e-12)
+                 for c in range(3))
+
+
+def _check_flat(scene: SceneBuffers, cam, bound, n: int):
+    from .cuda_prepass import _check
+
+    dev = bound.device
+    spec = scene.spec
+    _check("bound", bound, torch.float32, (8,), dev)
+    if cam is not None:
+        _check("cam", cam, torch.float32, (8,), dev)
+    _check("tape", scene.tape, torch.int32, (3, max(scene.n_instr, 1)), dev)
+    _check("row_kind", scene.row_kind, torch.int32, (spec.n_leaves,), dev)
+    _check("leaf_params", scene.leaf_params, torch.float32, (spec.n_leaves, oc.LEAF_PARAM_WIDTH), dev)
+    _check("op_param", scene.op_param, torch.float32, (spec.n_instr,), dev)
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {dev}")
+    if n >= 2**31:
+        raise ValueError(f"{n} rays exceed the launch's int32 count")
+    return dev
+
+
+def _march_launch(scene: SceneBuffers, cam, bound, p, origins, dirs, n: int, out: int):
+    """One launch of csrc/march.cu's kernel -> its outputs (t, hit, steps)
+    or (r, g, b)."""
+    from .. import _build
+    from .cuda_prepass import _CParams, _raise_on
+
+    dev = bound.device
+    lib = _build.load()
+    o = [torch.empty(n, dtype=torch.float32, device=dev) for _ in range(2 if out == 0 else 3)]
+    steps = torch.empty(n, dtype=torch.int32, device=dev) if out == 0 else None
+    cp_ = _CParams.of(p)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.rmt_march_launch(
+            scene.leaf_params.data_ptr(), scene.row_kind.data_ptr(), scene.tape.data_ptr(), scene.n_instr,
+            scene.op_param.data_ptr(), int(scene.dynamic), int(scene.spec.has_materials),
+            None if origins is None else origins.data_ptr(), None if dirs is None else dirs.data_ptr(),
+            None if cam is None else cam.data_ptr(), bound.data_ptr(), ctypes.addressof(cp_), n, out,
+            o[0].data_ptr(), o[1].data_ptr(), o[2].data_ptr() if out == 1 else None,
+            None if steps is None else steps.data_ptr(), stream,
+        )
+    _raise_on(err, "march_kernel")
+    return (o[0], o[1], steps) if out == 0 else tuple(o)
+
+
+def ray_march(scene: SceneBuffers, bound, p, origins, dirs):
+    """K5: march explicit rays origins, dirs f32[N, 3] -> (t, hit f32[N],
+    steps i32[N]) on the inputs' device."""
+    from .cuda_prepass import _check
+
+    n = origins.shape[0] if origins.dim() == 2 else -1
+    dev = _check_flat(scene, None, bound, max(n, 0))
+    _check("origins", origins, torch.float32, (n, 3), dev)
+    _check("dirs", dirs, torch.float32, (n, 3), dev)
+    if dev.type == "cpu":
+        return ray_march_plain(scene, bound, p, origins, dirs)
+    out = _march_launch(scene, None, bound, p, origins, dirs, n, 0)
+    ray_march.launches += 1
+    return out
+
+
+def image_march(scene: SceneBuffers, cam, bound, p):
+    """K6: march the N = aa^2 * H * W AA rays of the image from `cam` ->
+    (t, hit f32[N], steps i32[N]), pixel-major."""
+    n = p.naa * p.naa * p.rows * p.width
+    dev = _check_flat(scene, cam, bound, n)
+    if dev.type == "cpu":
+        return image_march_plain(scene, cam, bound, p)
+    out = _march_launch(scene, cam, bound, p, None, None, n, 0)
+    image_march.launches += 1
+    return out
+
+
+def image_render(scene: SceneBuffers, cam, bound, p):
+    """K7: render the N AA rays of the image from `cam` -> gamma-corrected
+    (r, g, b) f32[N], pixel-major; the caller takes the AA mean."""
+    n = p.naa * p.naa * p.rows * p.width
+    dev = _check_flat(scene, cam, bound, n)
+    if dev.type == "cpu":
+        return image_render_plain(scene, cam, bound, p)
+    out = _march_launch(scene, cam, bound, p, None, None, n, 1)
+    image_render.launches += 1
+    return out
+
+
+ray_march.launches = 0
+image_march.launches = 0
+image_render.launches = 0
+
+
+def reset_launch_counts():
+    ray_march.launches = 0
+    image_march.launches = 0
+    image_render.launches = 0
+
+
+class FlatMarch:
+    """The state of one flat-march factory: spec, constants and the tape
+    topology on one device (uploaded once), and `scene_args` per frame."""
+
+    def __init__(self, spec: TapeSpec, cfg, width: int, height: int, device):
+        from .cuda_prepass import PrepassParams
+
+        self.spec = spec
+        self.cfg = cfg
+        self.device = device
+        self.params = PrepassParams.make(cfg, width, height, no_prepass=True)
+        self.topology = scene_topology(spec, device)
+
+    def scene_args(self, arrays: TapeArrays, cam_vec=None):
+        from .cuda_prepass import frame_args
+
+        return frame_args(self.spec, self.params, self.topology, self.device, arrays, cam_vec)
+
+    def rays(self, x):
+        """Origins or dirs as a contiguous f32[N, 3] tensor on the device,
+        detached (numpy is uploaded)."""
+        if torch.is_tensor(x):
+            if x.device != self.device:
+                raise ValueError(f"rays are on {x.device}, expected {self.device}")
+            return x.detach().to(torch.float32).contiguous()
+        return torch.as_tensor(np.asarray(x, np.float32), device=self.device)
+
+
+@functools.lru_cache(maxsize=None)
+def _flat(spec, cfg, width, height, device):
+    return FlatMarch(spec, cfg, width, height, device)
+
+
+def make_pallas_ray_march(spec: TapeSpec, cfg, interpret: bool = False, bm=None, *, device="cuda"):
+    """March explicit rays (pallas_march.py:1276): `march(arrays,
+    origins[N,3], dirs[N,3]) -> (t[N], hit[N], steps i32[N])` through K5 on
+    `device` ("cuda" by default; "cpu" runs the plain version). Static and
+    dynamic tapes. `interpret` and `bm` have no effect."""
+    from .cuda_prepass import resolve_device
+
+    del interpret, bm
+    fm = _flat(spec, cfg, 1, 1, resolve_device(device))
+
+    def march(arrays: TapeArrays, origins, dirs):
+        scene, _, bound = fm.scene_args(arrays)
+        return ray_march(scene, bound, fm.params, fm.rays(origins), fm.rays(dirs))
+
+    march.flat = fm
+    return march
+
+
+def make_pallas_image_march(spec: TapeSpec, cfg, width: int, height: int, interpret: bool = False, bm=None,
+                            *, device="cuda"):
+    """March every AA ray of a width x height image with in-kernel raygen
+    (pallas_march.py:1369): `march_image(arrays, cam_vec f32[8]) -> (t[N],
+    hit[N], steps i32[N])`, N = aa^2 * H * W in pixel-major order, through
+    K6. Static and dynamic tapes. `interpret` and `bm` have no effect."""
+    from .cuda_prepass import resolve_device
+
+    del interpret, bm
+    fm = _flat(spec, cfg, int(width), int(height), resolve_device(device))
+
+    def march_image(arrays: TapeArrays, cam_vec):
+        scene, cam, bound = fm.scene_args(arrays, cam_vec)
+        return image_march(scene, cam, bound, fm.params)
+
+    march_image.flat = fm
+    return march_image
+
+
+def make_pallas_image_render(spec: TapeSpec, cfg, width: int, height: int, interpret: bool = False, bm=None,
+                             *, device="cuda"):
+    """The fused flat renderer (pallas_march.py:1528): `render_rgb(arrays,
+    cam_vec f32[8]) -> (r, g, b)` f32[N] per AA sample in pixel-major order,
+    through K7; the caller takes the AA mean. `interpret` and `bm` have no
+    effect."""
+    from .cuda_prepass import resolve_device
+
+    del interpret, bm
+    fm = _flat(spec, cfg, int(width), int(height), resolve_device(device))
+
+    def render_rgb(arrays: TapeArrays, cam_vec):
+        scene, cam, bound = fm.scene_args(arrays, cam_vec)
+        return image_render(scene, cam, bound, fm.params)
+
+    render_rgb.flat = fm
+    return render_rgb
+
+
+def make_march_pallas(spec: TapeSpec, cfg, interpret: bool = False, *, device="cuda"):
+    """The drop-in replacement of `march.make_march` with the K5 forward
+    (pallas_march.py:1495-1526): `march(origins, dirs, arrays) -> (t, hit,
+    steps)`, differentiable with respect to the rays, `arrays.leaf_params`
+    and `arrays.op_param` through the implicit-function VJP of
+    `march.make_march` over `sdf.make_scene_fn`'s scene at the hit points."""
+    from .march import implicit_march
+    from .sdf import make_scene_fn
+
+    raw = make_pallas_ray_march(spec, cfg, interpret, device=device)
+    return implicit_march(lambda o, d, a: raw(a, o, d), make_scene_fn(spec, cfg), cfg)

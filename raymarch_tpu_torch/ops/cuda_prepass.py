@@ -32,7 +32,10 @@ with aa_packed=True, for a band of `rows` image rows starting at cam[7]:
    and a ray that missed shades the surface term at its closest approach
    (`_fine_march_tile_soft` and the soft branch of `fine_packed_kernel`,
    pallas_prepass.py:380-476, 1696-1760). Its builds (csrc/fine_soft.cu)
-   round like `fine_res_plain`, with no FMA contraction.
+   round like `fine_res_plain`, with no FMA contraction. Its march-only
+   build (`fine_march`, csrc/fine_march.cu) writes each AA ray's (t, hit)
+   and nothing else: the reference's `march_only` launch (1827) behind
+   `make_pallas_image_march_fast`.
 
 Each wrapper takes tensors on one device. On the CPU it runs its plain
 version (`coarse_plain`, `coarse_px_plain`, `fine_plain`: vectorised torch
@@ -474,9 +477,10 @@ class WorkCount:
 def leaves_per_point(scene: SceneBuffers, cull: TileCull | None, tid=None):
     """Leaves one scene evaluation takes at a point of tile `tid`: the
     tile's list counts (compact), its active pushed leaves (gated tape), or
-    every pushed leaf (unculled)."""
+    every pushed leaf (unculled; a dynamic tape's read from its tape)."""
     if cull is None:
-        return sum(1 for c, _a, _s in scene.spec.static_tape if c == oc.COP_PUSH)
+        ops = scene.tape[0].tolist() if scene.dynamic else [c for c, _a, _s in scene.spec.static_tape]
+        return sum(1 for c in ops if c == oc.COP_PUSH)
     if cull.compact:
         return cull.counts.sum(dim=1)[tid].to(torch.float32)
     from .culling import _active_from_mask
@@ -957,7 +961,15 @@ def _shade_at(scene: SceneBuffers, p: PrepassParams, ox, oy, oz, dx, dy, dz, px,
     # A miss takes diff = 0 (shade_miss): select, never multiply by hit = 0.
     diff = torch.where(cover > 0.0, diff, 0.0)
     alb = p.albedo if albedo_fn is None else albedo_fn(px, py, pz)
+    fcol = floor_plain(p, ox, oy, oz, dx, dy, dz)
+    miss = 1.0 - cover
+    return [sqrt_rn(torch.clamp_min(cover * (alb[c] * diff) + miss * fcol[c], 0.0) + 1e-12) for c in range(3)]
 
+
+def floor_plain(p: PrepassParams, ox, oy, oz, dx, dy, dz):
+    """The analytic checker floor's colour (r, g, b) of each ray
+    (wgsl:117-128, render_common.cuh `floor_colour`): the base colour plus
+    the checker where the ray meets y = floor_y ahead of it, else black."""
     dy_ok = torch.where(torch.abs(dy) > 1e-8, 1.0, 0.0)
     dy_safe = torch.where(torch.abs(dy) > 1e-8, dy, 1e-8)
     ft = (p.floor_y - oy) / dy_safe
@@ -967,14 +979,7 @@ def _shade_at(scene: SceneBuffers, p: PrepassParams, ox, oy, oz, dx, dy, dz, px,
     ipz = torch.round(fz + 0.5).to(torch.int32)
     parity = torch.bitwise_and(torch.bitwise_xor(ipx, ipz), 1).to(torch.float32)
     on_floor = torch.where(ft > 0.0, dy_ok, 0.0)
-    miss = 1.0 - cover
-    cols = []
-    for c in range(3):
-        fcol = (p.floor_base[c] + p.floor_checker * parity) * on_floor
-        cols.append(
-            sqrt_rn(torch.clamp_min(cover * (alb[c] * diff) + miss * fcol, 0.0) + 1e-12)
-        )
-    return cols
+    return [(p.floor_base[c] + p.floor_checker * parity) * on_floor for c in range(3)]
 
 
 def fine_plain(scene: SceneBuffers, cam, bound, p: PrepassParams, *pre, cull: TileCull | None = None,
@@ -1208,11 +1213,55 @@ def fine_res(scene: SceneBuffers, cam, bound, p: PrepassParams, *pre, cull: Tile
     return _fine_launch(scene, cam, bound, p, pre, True, cull)
 
 
+def fine_march(scene: SceneBuffers, cam, bound, p: PrepassParams, *pre, cull: TileCull | None = None):
+    """The fine pass's march-only build -> (t, hit) f32[rows * W * S]: each
+    AA ray's march end and hit flag, flat in pixel-major AA-ray order (r =
+    (i * W + j) * S + s), with no taps, shading or image (the reference's
+    `march_only` launch of `fine_packed_kernel`, pallas_prepass.py:1813-1843).
+    Its plain version is `fine_res_plain`'s (t, hit). Takes every prepass
+    form of `fine`; no soft mode."""
+    if p.soft:
+        raise ValueError("march_only requires aa_packed=True, soft=False")
+    dev = _check_scene(scene, cam, bound, p)
+    _check_cull(cull, scene.spec, (p.rows, p.width), dev)
+    n_pre = 0 if p.no_prepass else (2 * p.ni if p.ni else 2)
+    if len(pre) != n_pre:
+        raise ValueError(f"the fine pass takes {n_pre} prepass planes, got {len(pre)}")
+    for k, v in enumerate(pre):
+        _check(f"prepass plane {k}", v, torch.float32, p.plane_shape, dev)
+    if dev.type == "cpu":
+        return tuple(v.reshape(-1) for v in fine_res_plain(scene, cam, bound, p, *pre, cull=cull)[1:3])
+    from .. import _build
+
+    lib = _build.load()
+    planes = torch.stack(pre) if p.ni else None  # held until the launch is queued
+    n = p.rows * p.width * p.naa * p.naa
+    t = torch.empty(n, dtype=torch.float32, device=dev)
+    hit = torch.empty(n, dtype=torch.float32, device=dev)
+    cp = _CParams.of(p)
+    cc = _CCull.of(cull)
+    cb = _CBlockParams.of(p)
+    cs = _CSoftParams()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.rmt_fine_launch(
+            *_scene_ptrs(scene), cam.data_ptr(), bound.data_ptr(),
+            ctypes.addressof(cp), ctypes.addressof(cc),
+            planes.data_ptr() if p.ni else (pre[0].data_ptr() if pre else None),
+            pre[1].data_ptr() if pre and not p.ni else None,
+            None, t.data_ptr(), hit.data_ptr(), 0, ctypes.addressof(cb), 0, ctypes.addressof(cs), stream,
+        )
+    _raise_on(err, "fine_kernel (march only)")
+    fine_march.launches += 1
+    return t, hit
+
+
 fine.launches = 0  # legacy planes (t0, status) or no prepass
 fine.interval_launches = 0  # the march through near intervals
 fine.soft_launches = 0  # the soft-coverage march
 fine_res.launches = 0
 fine_res.soft_launches = 0
+fine_march.launches = 0
 
 
 def reset_launch_counts():
@@ -1224,10 +1273,33 @@ def reset_launch_counts():
     fine.soft_launches = 0
     fine_res.launches = 0
     fine_res.soft_launches = 0
+    fine_march.launches = 0
 
 
 # --------------------------------------------------------------------------
 # Renderer
+
+
+def frame_args(spec: TapeSpec, p: PrepassParams, topology, device, arrays: TapeArrays, cam_vec):
+    """(SceneBuffers, cam f32[8] or None, bound f32[8]) for one frame, all
+    on `device`. Parameters and camera given as tensors must lie there
+    already and are used detached. The bound comes from the current
+    parameters: tensors get it computed on the device, with no host round
+    trip; numpy parameters get the numpy form (the same bits) and one small
+    upload, which costs the host less than the torch form's launches."""
+    scene = scene_buffers(spec, arrays, device, topology)
+    if not p.use_bound:
+        bound = torch.zeros(8, dtype=torch.float32, device=device)
+    elif torch.is_tensor(arrays.leaf_params) or torch.is_tensor(arrays.op_param):
+        bound = compute_bound_torch(spec, scene.leaf_params, scene.op_param)
+    else:
+        bound = torch.as_tensor(compute_bound(spec, arrays), device=device)
+    cam = None
+    if cam_vec is not None:
+        cam = torch.as_tensor(cam_vec, dtype=torch.float32).detach()
+        if cam.device != device:
+            raise ValueError(f"cam_vec is on {cam.device}, expected {device}")
+    return scene, cam, bound
 
 
 class PrepassRenderer:
@@ -1243,7 +1315,8 @@ class PrepassRenderer:
     """
 
     def __init__(self, spec, cfg, width, height, device, no_prepass, block=1, n_intervals=0, chain=False,
-                 band_rows=None, soft=False):
+                 band_rows=None, soft=False, march_only=False):
+        self.march_only = march_only
         self.spec = spec
         self.cfg = cfg
         self.device = device
@@ -1260,23 +1333,8 @@ class PrepassRenderer:
 
     def scene_args(self, arrays: TapeArrays, cam_vec):
         """(SceneBuffers, cam f32[8], bound f32[8]) for one frame, all on
-        this renderer's device. Parameters and camera given as tensors must
-        lie there already and are used detached. The bound comes from the
-        current parameters: tensors get it computed on the device, with no
-        host round trip; numpy parameters get the numpy form (the same
-        bits) and one small upload, which costs the host less than the
-        torch form's launches."""
-        scene = scene_buffers(self.spec, arrays, self.device, self.topology)
-        if not self.params.use_bound:
-            bound = torch.zeros(8, dtype=torch.float32, device=self.device)
-        elif torch.is_tensor(arrays.leaf_params) or torch.is_tensor(arrays.op_param):
-            bound = compute_bound_torch(self.spec, scene.leaf_params, scene.op_param)
-        else:
-            bound = torch.as_tensor(compute_bound(self.spec, arrays), device=self.device)
-        cam = torch.as_tensor(cam_vec, dtype=torch.float32).detach()
-        if cam.device != self.device:
-            raise ValueError(f"cam_vec is on {cam.device}, expected {self.device}")
-        return scene, cam, bound
+        this renderer's device (`frame_args`)."""
+        return frame_args(self.spec, self.params, self.topology, self.device, arrays, cam_vec)
 
     def _grid_cull(self, bounds, cam, grid: tuple, tile: int, tile_px: int, extra_angle: float) -> TileCull:
         """The TileCull of a kernel whose threads cover `grid` = (rows,
@@ -1335,16 +1393,21 @@ class PrepassRenderer:
         return fine(scene, cam, bound, self.params, *pre, cull=self.cull_args(scene, cam)[1])
 
     def __call__(self, arrays: TapeArrays, cam_vec):
+        """The band's image, or with `march_only` its AA rays' (t, hit)
+        f32[N], flat in pixel-major order."""
         scene, cam, bound = self.scene_args(arrays, cam_vec)
         cc, fc = self.cull_args(scene, cam)
-        return fine(scene, cam, bound, self.params, *self.prepass(scene, cam, bound, cc), cull=fc)
+        pass_ = fine_march if self.march_only else fine
+        return pass_(scene, cam, bound, self.params, *self.prepass(scene, cam, bound, cc), cull=fc)
 
     def render_plain(self, arrays: TapeArrays, cam_vec):
-        """The same frame through the plain versions, on this device."""
+        """The same frame (or march) through the plain versions, on this
+        device."""
         scene, cam, bound = self.scene_args(arrays, cam_vec)
         cc, fc = self.cull_args(scene, cam)
-        return fine_plain(scene, cam, bound, self.params, *self.prepass(scene, cam, bound, cc, plain=True),
-                          cull=fc)
+        out = fine_res_plain(scene, cam, bound, self.params,
+                             *self.prepass(scene, cam, bound, cc, plain=True), cull=fc)
+        return tuple(v.reshape(-1) for v in out[1:3]) if self.march_only else out[0]
 
 
 def _not_ported(option: str, item: str):
@@ -1406,9 +1469,12 @@ def make_pallas_image_render_aa(
       soft fused VJP's forward; with `cfg.leaf_cull` the leaf bounds take
       the soft inflation.
     `device` defaults to the card ("cuda"); "cpu" runs the plain versions.
+    - `march_only=True`: the renderer returns each AA ray's (t, hit)
+      f32[N], flat in pixel-major order, through the fine kernel's
+      march-only build (no taps, shading or image).
     It raises the reference's ValueErrors for prepass_chain with intervals,
-    for no_prepass with either, for march_only with soft and for soft
-    without no_prepass and aa_packed or with relax > 1. march_only, the
+    for no_prepass with either, for march_only with soft or aa_packed=False
+    and for soft without no_prepass and aa_packed or with relax > 1. The
     unpacked fine pass and a dynamic tape raise NotImplementedError naming
     their ROADMAP item.
     """
@@ -1434,20 +1500,32 @@ def make_pallas_image_render_aa(
             raise ValueError("soft requires no_prepass=True, aa_packed=True")
         if cfg.relax > 1.0:
             raise ValueError("soft requires relax=1.0 (relaxed stepping changes the closest-approach sample)")
-    if march_only:
-        _not_ported("march_only", "§1 item 5, the remaining render surfaces")
     if not aa_packed or cfg.aa_shared_normals:
         _not_ported("the unpacked fine pass (aa_shared_normals)", "§1 item 5 and §2 item 5, K4 fine_kernel")
     if spec.static_tape is None:
-        _not_ported("a dynamic tape", "§1 item 4, dynamic tape, tiered runtime and viewer")
+        _not_ported("a dynamic tape in the prepass kernels", "§1 item 4 and §2 item 3, the dynamic tape in K1/K2")
     block = max(1, int(prepass_block))
     return _cached_renderer(spec, cfg, int(width), int(height), resolve_device(device), bool(no_prepass), block,
                             ni, bool(prepass_chain) and block > 1,
-                            None if band_rows is None else int(band_rows), bool(soft))
+                            None if band_rows is None else int(band_rows), bool(soft), bool(march_only))
 
 
 @functools.lru_cache(maxsize=None)
 def _cached_renderer(spec, cfg, width, height, device, no_prepass, block=1, n_intervals=0, chain=False,
-                     band_rows=None, soft=False):
+                     band_rows=None, soft=False, march_only=False):
     return PrepassRenderer(spec, cfg, width, height, device, no_prepass, block, n_intervals, chain, band_rows,
-                           soft)
+                           soft, march_only)
+
+
+def make_pallas_image_march_fast(spec: TapeSpec, cfg: RenderConfig, width: int, height: int,
+                                 interpret: bool = False, *, device="cuda", **kw):
+    """The march-only fast path (pallas_prepass.py:1932-1949): `fn(arrays,
+    cam_vec f32[8]) -> (t[N], hit[N])` flat f32 in pixel-major AA-ray
+    order, N = aa^2 * H * W: the cone prepass, then the fine kernel's
+    march-only build (with culling when cfg.leaf_cull). `kw` are
+    `make_pallas_image_render_aa`'s options; `prepass_block` defaults to
+    the reference's 4. `interpret` has no effect."""
+    del interpret
+    kw.setdefault("prepass_block", 4)
+    return make_pallas_image_render_aa(spec, cfg, width, height, device=device, aa_packed=True, march_only=True,
+                                       **kw)

@@ -1,15 +1,20 @@
-"""Scene SDF evaluation in torch: the static-tape part of `raymarch_tpu.ops.sdf`.
+"""Scene SDF evaluation in torch: `raymarch_tpu.ops.sdf`.
 
 Leaf SDFs over struct-of-arrays parameter rows (`TapeArrays.leaf_params`),
-quaternion rotation, the smooth blends, and the unrolled combine phase over a
-static tape (`TapeSpec.static_tape`). Formulas and f32 op order follow the JAX
-package (which follows the reference kernels, wgsl:229-252, and their
-standard extensions). `_apply_static_tape` takes the per-tile cull hook of the
-JAX version (sdf.py:212-275) per leaf: a culled leaf's distance is `FAR`.
+quaternion rotation, the smooth blends, the unrolled combine phase over a
+static tape (`TapeSpec.static_tape`) and the stack machine over a dynamic
+one (`TapeArrays.tape_ops` / `tape_arg` / `out_slot`), and the scene
+functions `make_scene_fn` / `make_scene_color_fn` built from them. Formulas
+and f32 op order follow the JAX package (which follows the reference
+kernels, wgsl:229-252, and their standard extensions). `_apply_static_tape`
+takes the per-tile cull hook of the JAX version (sdf.py:212-275) per leaf: a
+culled leaf's distance is `FAR`. Everything is differentiable through torch
+autograd with respect to `leaf_params`, `op_param` and the points.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from . import opcodes as oc
@@ -282,9 +287,10 @@ def scene_distance(spec: TapeSpec, leaf_params, op_param, points, max_dist):
     """Static-tape scene SDF at points[N,3] -> d[N] (the bank-row form of
     `_apply_static_tape`, as the JAX package evaluates it on jnp arrays)."""
     if spec.static_tape is None:
-        raise NotImplementedError(
-            "dynamic tapes are not ported yet (ROADMAP §1.12 dynamic tape, "
-            "tiered runtime and viewer)"
+        raise ValueError(
+            "scene_distance reads a static tape; a dynamic tape's instructions "
+            "are in its arrays: use make_scene_fn(spec, cfg)(points, arrays) "
+            "(ROADMAP §1 item 4 covers the dynamic tape in the prepass kernels)"
         )
     rows = _leaf_row_types(spec)
 
@@ -293,3 +299,167 @@ def scene_distance(spec: TapeSpec, leaf_params, op_param, points, max_dist):
         return _single_leaf_distance(points, leaf_params[row], t, rot)
 
     return _apply_static_tape(spec, op_param, leaf_fn, max_dist, points[:, 0])
+
+
+# --- dynamic tapes and the scene functions (sdf.py:138-155, 349-530) --------
+
+
+def leaf_distances(points, spec: TapeSpec, leaf_params):
+    """points[N,3] -> D[n_leaves, N]: the distance from every point to every
+    bank row, type slice by type slice; trailing padding rows read 0."""
+    n = points.shape[0]
+    blocks = []
+    covered = 0
+    for t, start, stop in spec.type_slices:
+        P = leaf_params[start:stop]
+        local = points[None, :, :] - P[:, None, 4:7]
+        if spec.rotated_types[t]:
+            local = quat_rotate_inv(P[:, None, 0:4], local)
+        blocks.append(_LEAF_FNS[t](local, P))
+        covered = stop
+    if covered < spec.n_leaves:  # trailing padding rows (leafless scenes)
+        blocks.append(points.new_zeros((spec.n_leaves - covered, n)))
+    return torch.cat(blocks, dim=0) if len(blocks) > 1 else blocks[0]
+
+
+def host_tape(arrays) -> list:
+    """The dynamic tape of `arrays` as host lists [(op, arg, slot), ...]:
+    numpy arrays or tensors on any device (one read each)."""
+    cols = []
+    for v in (arrays.tape_ops, arrays.tape_arg, arrays.out_slot):
+        cols.append(v.detach().cpu().tolist() if torch.is_tensor(v) else [int(x) for x in v])
+    return list(zip(*cols))
+
+
+def _apply_dynamic_tape(tape, op_param, leaf_fn, max_dist, like, stack_depth):
+    """The reference's dynamic combine phase (sdf.py:485-530) over a tape
+    read to the host: a stack of `stack_depth + 1` rows started at
+    `max_dist`, so that an all-NOP tape is the empty scene; NOP leaves its
+    slot as it is (the reference writes it back unchanged), PUSH loads
+    `leaf_fn(row)`, the other eight ops combine slots (s, s + 1) into s."""
+    stack = [like * 0.0 + max_dist] * (stack_depth + 1)
+    for i, (op, arg, s) in enumerate(tape):
+        if op == oc.COP_NOP:
+            continue
+        if op == oc.COP_PUSH:
+            stack[s] = leaf_fn(arg)
+            continue
+        kp = op_param[i]
+        a = stack[s]
+        if op == oc.COP_ROUND:
+            stack[s] = a - kp
+        elif op == oc.COP_ONION:
+            stack[s] = torch.abs(a) - kp
+        else:
+            stack[s] = _combine_static(op, a, stack[s + 1], kp)
+    return stack[0]
+
+
+def _apply_dynamic_tape_color(tape, op_param, leaf_fn, max_dist, like, default_rgb, stack_depth):
+    """`_apply_dynamic_tape` propagating (distance, albedo) (sdf.py:384-460):
+    every slot starts at (max_dist, default_rgb); hard ops take the winner's
+    colour by the tie rules of `_apply_static_tape_color`, smooth ops blend
+    by `_mat_weight_smooth`, round and onion keep their operand's."""
+    base = (like * 0.0 + max_dist, tuple(like * 0.0 + c for c in default_rgb))
+    stack = [base] * (stack_depth + 1)
+    for i, (op, arg, s) in enumerate(tape):
+        if op == oc.COP_NOP:
+            continue
+        if op == oc.COP_PUSH:
+            stack[s] = leaf_fn(arg)
+            continue
+        kp = op_param[i]
+        a, ca = stack[s]
+        if op in (oc.COP_ROUND, oc.COP_ONION):
+            stack[s] = ((a if op == oc.COP_ROUND else torch.abs(a)) - kp, ca)
+            continue
+        b, cb = stack[s + 1]
+        if op == oc.COP_UNION:
+            w = torch.where(a <= b, 1.0, 0.0)
+        elif op == oc.COP_INTERSECTION:
+            w = torch.where(a >= b, 1.0, 0.0)
+        elif op == oc.COP_SUBTRACTION:
+            w = torch.where(a >= -b, 1.0, 0.0)
+        elif op == oc.COP_SMOOTH_UNION:
+            w = _mat_weight_smooth(a, b, kp)
+        elif op == oc.COP_SMOOTH_INTERSECTION:
+            w = _mat_weight_smooth(b, a, kp)
+        else:
+            w = _mat_weight_smooth(-b, a, kp)
+        stack[s] = (_combine_static(op, a, b, kp), tuple(w * x + (1.0 - w) * y for x, y in zip(ca, cb)))
+    return stack[0]
+
+
+def _param(x, like: torch.Tensor) -> torch.Tensor:
+    """A parameter array as an f32 tensor on the points' device: numpy is
+    uploaded; a tensor is used as it is (its autograd graph kept)."""
+    if torch.is_tensor(x):
+        return x
+    return torch.as_tensor(np.asarray(x, np.float32), device=like.device)
+
+
+def make_scene_fn(spec: TapeSpec, cfg):
+    """Build `scene(points[N,3], arrays) -> d[N]` (sdf.py:461-530), on the
+    points' device. A static spec unrolls its tape and evaluates only the
+    pushed leaves; a dynamic spec evaluates every bank row
+    (`leaf_distances`) and runs the tape of `arrays` on the stack machine,
+    so one function serves every scene of the spec. Differentiable with
+    respect to `arrays.leaf_params`, `arrays.op_param` and the points."""
+    if spec.static_tape is not None:
+        rows = _leaf_row_types(spec)
+
+        def scene_static(points, arrays):
+            lp = _param(arrays.leaf_params, points)
+
+            def leaf_fn(row):
+                t, rot = rows[row]
+                return _single_leaf_distance(points, lp[row], t, rot)
+
+            return _apply_static_tape(spec, _param(arrays.op_param, points), leaf_fn, cfg.max_dist,
+                                      points[:, 0])
+
+        return scene_static
+
+    def scene_dynamic(points, arrays):
+        D = leaf_distances(points, spec, _param(arrays.leaf_params, points))
+        return _apply_dynamic_tape(host_tape(arrays), _param(arrays.op_param, points), lambda r: D[r],
+                                   cfg.max_dist, points[:, 0], spec.stack_depth)
+
+    return scene_dynamic
+
+
+def _leaf_rgb(lp, default):
+    """Per-row albedo f32[n_leaves, 3]: the row's own where its material
+    flag is set, else the config default."""
+    flag = lp[:, oc.LEAF_MAT_FLAG : oc.LEAF_MAT_FLAG + 1]
+    return flag * lp[:, oc.LEAF_ALBEDO : oc.LEAF_ALBEDO + 3] + (1.0 - flag) * default[None, :]
+
+
+def make_scene_color_fn(spec: TapeSpec, cfg):
+    """Build `scene_color(points[N,3], arrays) -> (d[N], albedo[N,3])`
+    (sdf.py:349-458): one scene evaluation that also carries the materials.
+    Unpainted leaves shade with cfg.albedo."""
+
+    def scene_color(points, arrays):
+        lp = _param(arrays.leaf_params, points)
+        opp = _param(arrays.op_param, points)
+        default = torch.as_tensor(np.asarray(cfg.albedo, np.float32), device=points.device)
+        rgb = _leaf_rgb(lp, default)
+        dflt = (default[0], default[1], default[2])
+        if spec.static_tape is not None:
+            rows = _leaf_row_types(spec)
+
+            def leaf_fn(row):
+                t, rot = rows[row]
+                return _single_leaf_distance(points, lp[row], t, rot), (rgb[row, 0], rgb[row, 1], rgb[row, 2])
+
+            d, (r, g, b) = _apply_static_tape_color(spec, opp, leaf_fn, cfg.max_dist, points[:, 0], dflt)
+        else:
+            D = leaf_distances(points, spec, lp)
+            d, (r, g, b) = _apply_dynamic_tape_color(
+                host_tape(arrays), opp, lambda row: (D[row], (rgb[row, 0], rgb[row, 1], rgb[row, 2])),
+                cfg.max_dist, points[:, 0], dflt, spec.stack_depth)
+        ones = torch.ones_like(d)
+        return d, torch.stack([r * ones, g * ones, b * ones], dim=-1)
+
+    return scene_color

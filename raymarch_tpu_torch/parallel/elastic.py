@@ -8,7 +8,7 @@ Port of `raymarch_tpu/parallel/elastic.py` (50-222) at world size 1:
   never corrupts the latest checkpoint; `keep` bounds disk use; a
   checkpoint written for another TapeSpec refuses to restore. The rule of
   the multi-process job (only process 0 writes) comes with the
-  multi-device port (ROADMAP §1.11).
+  multi-device port (ROADMAP §1 item 7).
 - **Watchdog**: a background thread watches step heartbeats and, after
   `timeout` seconds of silence, calls `on_stall`; `exit_code` turns that
   into a hard exit, so a supervisor relaunches the job into the resume

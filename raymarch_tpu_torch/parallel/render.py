@@ -9,6 +9,13 @@ reference's arguments in its order (208-222), plus the keyword-only
 `device` (default "cuda"); `interpret` (the Pallas interpreter) has no
 effect here.
 
+Backends: "pallas_fused" (the fused forward + backward kernels), and, as
+`_local_renderer`'s non-fused branch (96-136), "jnp" (the torch march in
+mode "implicit", "unrolled" or "soft") and "pallas" (K5's forward with the
+implicit-function VJP), whose band is raygen + march + shading in torch. The
+reference's "pallas" fit step crashes in soft mode (ROADMAP §3 fault 13);
+the port raises the ValueError of its `make_renderer` instead.
+
 `mode="soft"` trains through the soft-coverage VJP (silhouette gradients).
 The reference's `pallas_fused` fit step builds its fused VJP without
 `soft` and so trains the implicit gradients whatever the mode (ROADMAP §3
@@ -37,12 +44,63 @@ from ..ops.cuda_prepass import resolve_device
 from ..ops.tape import TapeArrays, TapeSpec
 from ..utils.camera import Camera, cam_vec
 
-_NOT_PORTED = {
-    "jnp": "§1 item 3, the torch reference renderer",
-    "pallas": "§1 item 5, the remaining render surfaces, K5",
-    "pallas_image": "§1 item 5, the remaining render surfaces, K6",
-    "pallas_full": "§1 item 5, the remaining render surfaces, K7",
-}
+
+def _row_band_indices(i0, rows, width, height, aa_samples, device):
+    """Flat (pixel-major, see ops.raygen) ray indices of image rows [i0,
+    i0 + rows): r = (i * W + j) * S + s."""
+    s = aa_samples * aa_samples
+    ri = (i0 + torch.arange(rows, dtype=torch.int64, device=device))[:, None, None] * (width * s)
+    ci = torch.arange(width, dtype=torch.int64, device=device)[None, :, None] * s
+    si = torch.arange(s, dtype=torch.int64, device=device)[None, None, :]
+    return (ri + ci + si).reshape(-1)
+
+
+def _local_renderer(spec, width, height, cfg, mode, backend, device):
+    """The band renderer of backends "jnp" and "pallas" (render.py:96-136):
+    (arrays, camera, i0, rows) -> image f32[rows, W, 3], raygen, march and
+    shading in torch, differentiable with respect to the parameters and the
+    camera (tensors)."""
+    from ..ops.cuda_march import make_march_pallas
+    from ..ops.march import _arrays_on, _gamma, _make_albedo_fn, make_march, make_march_soft, shade, shade_soft
+    from ..ops.raygen import raygen_flat
+    from ..ops.sdf import make_scene_fn
+
+    scene = make_scene_fn(spec, cfg)
+    soft = mode == "soft"
+    if backend == "pallas":
+        if soft:
+            # ROADMAP §3 fault 13: the reference's step unpacks four outputs
+            # of this three-output march here.
+            raise ValueError("pallas backend supports modes 'forward'/'implicit'")
+        march = make_march_pallas(spec, cfg, device=device)
+    elif soft:
+        march = make_march_soft(spec, cfg)
+    elif mode == "forward":
+        raise ValueError("mode 'forward' carries no gradient through the march: train with 'implicit', "
+                         "'unrolled' or 'soft'")
+    else:
+        march = make_march(spec, cfg, mode)
+    albedo_fn = _make_albedo_fn(spec, cfg)
+    s = cfg.aa_samples * cfg.aa_samples
+
+    def render_band(arrays, camera, i0, rows):
+        idx = _row_band_indices(i0, rows, width, height, cfg.aa_samples, device)
+        origins, dirs = raygen_flat(idx, camera.position, camera.rotation, width, height, cfg)
+        a = _arrays_on(arrays, origins)
+        if soft:
+            t, hit, s_min, t_min = march(origins, dirs, a)
+            color = shade_soft(scene, origins, dirs, t, hit, s_min, t_min, a, cfg, albedo_fn)
+        else:
+            t, hit, _ = march(origins, dirs, a)
+            color = shade(scene, origins, dirs, t, hit, a, cfg, albedo_fn)
+        return _gamma(color).reshape(rows, width, s, 3).mean(dim=2)
+
+    render_band.backward_info = {
+        "kind": "pallas_fwd_jnp_vjp" if backend == "pallas" else f"jnp_{mode}",
+        "compact": False,
+        "reason": None,
+    }
+    return render_band
 
 
 @dataclasses.dataclass
@@ -114,7 +172,8 @@ def make_fit_step(
 
     The loss is sum((img - target)^2) / (H * W * 3), a 0-d tensor on the
     device (reading it is the caller's one synchronisation per step). The
-    gradient runs through `backend="pallas_fused"`. `grad_mask` = (leaf
+    gradient runs through `backend` "pallas_fused", "jnp" or "pallas"
+    (the module docstring). `grad_mask` = (leaf
     mask, op mask), 1.0 = trainable, multiplies the gradients before the
     optimizer. With `fit_camera`, the pose is trained by `camera_optimizer`
     (default SGD, lr 1e-2) and the rotation is projected back to unit norm
@@ -127,12 +186,9 @@ def make_fit_step(
         raise NotImplementedError(
             "row_interleave is not ported yet (ROADMAP: §1 item 7, multi-device)"
         )
-    if backend != "pallas_fused":
-        item = _NOT_PORTED.get(backend)
-        if item is None:
-            raise ValueError(f"backend {backend!r} cannot be differentiated")
-        raise NotImplementedError(f"backend {backend!r} is not ported yet (ROADMAP: {item})")
-    if mode not in ("implicit", "soft"):
+    if backend not in ("pallas_fused", "jnp", "pallas"):
+        raise ValueError(f"backend {backend!r} cannot be differentiated")
+    if backend == "pallas_fused" and mode not in ("implicit", "soft"):
         raise ValueError("pallas_fused backend supports 'implicit'/'soft'")
     dev = resolve_device(device)
     if optimizer is None:
@@ -140,7 +196,20 @@ def make_fit_step(
                          "functools.partial(torch.optim.Adam, lr=1e-2)")
     if fit_camera and camera_optimizer is None:
         camera_optimizer = functools.partial(torch.optim.SGD, lr=1e-2)
-    render = make_fused_render_vjp(spec, cfg, width, height, soft=mode == "soft", device=dev)
+    if backend == "pallas_fused":
+        fused = make_fused_render_vjp(spec, cfg, width, height, soft=mode == "soft", device=dev)
+
+        def render(a, camera):
+            return fused(a, cam_vec(camera, 0.0, device=dev))
+
+        render.backward_info = fused.backward_info
+    else:
+        band = _local_renderer(spec, width, height, cfg, mode, backend, dev)
+
+        def render(a, camera):
+            return band(a, camera, 0, height)
+
+        render.backward_info = band.backward_info
     denom = float(height * width * 3)
     masks = None
     if grad_mask is not None:
@@ -150,16 +219,16 @@ def make_fit_step(
         lp = _on(arrays.leaf_params, dev).requires_grad_(True)
         opp = _on(arrays.op_param, dev).requires_grad_(True)
         a = dataclasses.replace(arrays, leaf_params=lp, op_param=opp)
+        cam = camera
         if fit_camera:
             pos = _on(camera.position, dev).requires_grad_(True)
             rot = _on(camera.rotation, dev).requires_grad_(True)
-            cv = cam_vec(Camera(position=pos, rotation=rot), 0.0, device=dev)
-        else:
-            cv = cam_vec(camera, 0.0, device=dev)
-        img = render(a, cv)
+            cam = Camera(position=pos, rotation=rot)
+        img = render(a, cam)
         loss = torch.sum((img - _on(target, dev)) ** 2) / denom
         inputs = (lp, opp, pos, rot) if fit_camera else (lp, opp)
-        grads = torch.autograd.grad(loss, inputs)
+        grads = torch.autograd.grad(loss, inputs, allow_unused=True)
+        grads = tuple(torch.zeros_like(x) if g is None else g for g, x in zip(grads, inputs))
         g_leaf, g_op = grads[0], grads[1]
         if masks is not None:
             # Restrict the fit to the selected parameters (adaptive

@@ -749,3 +749,106 @@ def test_soft_renderer_defaults_to_the_card(dev):
     lp = torch.tensor(arrays0.leaf_params, device=dev, requires_grad=True)
     torch.mean((render(dataclasses.replace(arrays0, leaf_params=lp), cam) - target) ** 2).backward()
     assert float(lp.grad[0, 4]) > 1e-7
+
+
+# --- K5, K6, K7 and K2's march-only build (csrc/march.cu, fine_march.cu) ----
+
+FLAT_CASES = {
+    "config2_static": (_config2, True, CFG),
+    "config2_dynamic": (_config2, False, CFG),
+    "empty_dynamic": (lambda m: None, False, CFG),
+    "rich_dynamic_relax": (_rich, False, dataclasses.replace(CFG, relax=1.6)),
+    "painted_dynamic": (lambda m: _config2(m).paint((0.9, 0.2, 0.1)) | m.sphere(center=(0, 1.2, 0), radius=0.3),
+                        False, CFG),
+}
+
+
+def _flat(case, dev):
+    build, static, cfg = FLAT_CASES[case]
+    spec, arrays = rt.compile_scene(build(rt), static=static)
+    from raymarch_tpu_torch.ops import cuda_march as cm
+
+    fm = cm.FlatMarch(spec, cfg, W, H, dev)
+    sc, cam, bound = fm.scene_args(arrays, rt.cam_vec(CAM, device=dev))
+    return cm, fm.params, sc, cam, bound
+
+
+@pytest.mark.parametrize("case", sorted(FLAT_CASES))
+def test_flat_march_kernels_match_plain(dev, case):
+    """K5 and K6 against their plain versions ray for ray (-fmad=false: hit
+    and steps equal, t within 1e-5 on hits), K7's image in the exact class."""
+    cm, p, sc, cam, bound = _flat(case, dev)
+    before = (cm.image_march.launches, cm.ray_march.launches, cm.image_render.launches)
+    t, hit, steps = cm.image_march(sc, cam, bound, p)
+    t_p, hit_p, steps_p = cm.image_march_plain(sc, cam, bound, p)
+    torch.testing.assert_close(hit, hit_p, rtol=0, atol=0)
+    torch.testing.assert_close(steps, steps_p, rtol=0, atol=0)
+    m = hit_p > 0.5
+    torch.testing.assert_close(t[m], t_p[m], rtol=0, atol=1e-5)
+    o, d = rt.raygen_flat(torch.arange(1000 + 37, device=dev), CAM.position, CAM.rotation, W, H, p_cfg(case))
+    o, d = o.contiguous(), d.contiguous()
+    got = cm.ray_march(sc, bound, p, o, d)
+    ref = cm.ray_march_plain(sc, bound, p, o, d)
+    for a, b in zip(got[1:], ref[1:]):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    rgb = cm.image_render(sc, cam, bound, p)
+    rgb_p = cm.image_render_plain(sc, cam, bound, p)
+    img = torch.stack(rgb, -1).reshape(H, W, -1, 3).mean(2)
+    img_p = torch.stack(rgb_p, -1).reshape(H, W, -1, 3).mean(2)
+    assert float((img - img_p).abs().max()) < 1e-3
+    assert (cm.image_march.launches, cm.ray_march.launches, cm.image_render.launches) == tuple(
+        b + 1 for b in before)
+
+
+def p_cfg(case):
+    return FLAT_CASES[case][2]
+
+
+@pytest.mark.parametrize("kw", [dict(prepass_block=1), dict(prepass_block=4),
+                                dict(prepass_block=1, n_intervals=2)], ids=["b1", "b4", "intervals"])
+@pytest.mark.parametrize("relax", [1.0, 1.6], ids=["plain", "relax"])
+def test_march_only_build_matches_fine_res(dev, kw, relax):
+    """K2's march-only build writes the (t, hit) of the fine kernel with
+    residuals bit for bit (both built with FMA contraction)."""
+    cfg = dataclasses.replace(CFG, relax=relax)
+    spec, arrays = rt.compile_scene(_config2(rt), static=True)
+    rp = cp.make_pallas_image_march_fast(spec, cfg, W, H, device=dev, **kw)
+    cv = rt.cam_vec(CAM, device=dev)
+    before = cp.fine_march.launches
+    t, hit = rp(arrays, cv)
+    assert cp.fine_march.launches == before + 1 and t.shape == (W * H * 16,)
+    sc, cam, bound = rp.scene_args(arrays, cv)
+    pre = rp.prepass(sc, cam, bound, None)
+    _, t_r, h_r = cp.fine_res(sc, cam, bound, rp.params, *pre)
+    torch.testing.assert_close(t, t_r.reshape(-1), rtol=0, atol=0)
+    torch.testing.assert_close(hit, h_r.reshape(-1), rtol=0, atol=0)
+    t_p, h_p = rp.render_plain(arrays, cv)
+    assert float((hit != h_p).float().mean()) < 1e-3
+
+
+@pytest.mark.parametrize("backend", ["jnp", "pallas", "pallas_image", "pallas_full"])
+def test_render_surfaces_on_the_card_match_cpu(dev, backend):
+    """Each backend's frame on the card against the same frame on the CPU
+    (the dynamic tape of compile_scene's default)."""
+    spec, arrays = rt.compile_scene(_config2(rt))
+    cfg = dataclasses.replace(CFG, aa_samples=2)
+    img = rt.make_renderer(spec, W, H, cfg, mode="forward", backend=backend)(arrays, CAM)
+    ref = rt.make_renderer(spec, W, H, cfg, mode="forward", backend=backend, device="cpu")(arrays, CAM)
+    assert img.device == dev
+    assert float((img.cpu() - ref).abs().max()) < 1e-3
+
+
+def test_pallas_backend_gradients_on_the_card(dev):
+    """make_renderer(backend="pallas", mode="implicit") on the card (K5's
+    forward, the implicit VJP, chunked as bench.py's fwdbwd_jnp) against the
+    same renderer on the CPU (the plain K5): the gradient class."""
+    spec, arrays = rt.compile_scene(_config2(rt))
+    cfg = dataclasses.replace(CFG, aa_samples=2)
+    grads = []
+    for device in (dev, "cpu"):
+        lp = torch.tensor(arrays.leaf_params, device=device, requires_grad=True)
+        render = rt.make_renderer(spec, W, H, cfg, mode="implicit", backend="pallas", chunk=2048, device=device)
+        torch.mean(render(dataclasses.replace(arrays, leaf_params=lp), CAM) ** 2).backward()
+        grads.append(lp.grad.cpu())
+    assert bool(torch.isfinite(grads[0]).all()) and float(grads[0].abs().max()) > 0
+    torch.testing.assert_close(grads[0], grads[1], rtol=0, atol=0.01 * float(grads[1].abs().max()))

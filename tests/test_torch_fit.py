@@ -159,7 +159,9 @@ def test_fit_scene_equals_step_loop(compiled):
 @pytest.mark.parametrize(
     "kw,exc",
     [
-        (dict(backend="jnp"), NotImplementedError),
+        # backend "jnp" is ported (tests/test_torch_surfaces_grad.py); its
+        # mode "forward" carries no gradient through the march.
+        (dict(backend="jnp", mode="forward"), ValueError),
         (dict(backend="pallas_prepass"), ValueError),
         # mode "soft" is ported (tests/test_torch_soft.py); it raises the
         # reference's ValueError where aa_samples^2 does not divide 128.

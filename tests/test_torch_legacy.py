@@ -280,8 +280,12 @@ def test_reference_style_calls(entry):
         target = np.zeros((H, W, 3), np.float32) + 0.2
         a1, _, _, loss = step(arrays, cam, step.init_opt_state(arrays), target)
         assert float(loss) > 0 and a1.leaf_params.shape == arrays.leaf_params.shape
-    with pytest.raises(NotImplementedError, match="ROADMAP: §1 item 3"):
-        rt.make_renderer(spec, W, H, cfg, "implicit", None, "jnp", device="cpu")
+    # The "jnp" backend is ported (tests/test_torch_march.py); what the
+    # reference's make_renderer takes and the port still refuses is the
+    # unpacked fine pass of aa_shared_normals (march.py:446-449), K4.
+    with pytest.raises(NotImplementedError, match="ROADMAP: §1 item 5 and §2 item 5, K4"):
+        rt.make_renderer(spec, W, H, dataclasses.replace(cfg, aa_shared_normals=True), "forward", None,
+                         "pallas_prepass", device="cpu")
 
 
 def test_painted_fit_recovers_albedo():

@@ -104,20 +104,21 @@ def test_runtime_edit_reuses_renderer(frame):
 
 @pytest.mark.parametrize("backend", ["jnp", "pallas", "pallas_image", "pallas_full", "pallas_fused"])
 def test_unported_backends_raise(frame, backend):
+    # Every backend is ported (the "jnp", "pallas", "pallas_image" and
+    # "pallas_full" ones: tests/test_torch_march.py, tests/
+    # test_torch_surfaces*.py); each raises the reference's ValueError for a
+    # mode it does not take (march.py:405-435, 468-469, 489-490).
     spec = frame[0]
-    if backend == "pallas_fused":
-        # Ported; like the reference (march.py:468-469) it has no forward mode.
-        with pytest.raises(ValueError, match="implicit"):
-            rt.make_renderer(spec, W, H, CFG, mode="forward", backend=backend, device="cpu")
-    else:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            rt.make_renderer(spec, W, H, CFG, mode="forward", backend=backend, device="cpu")
+    mode = {"jnp": "nope", "pallas": "unrolled", "pallas_fused": "forward"}.get(backend, "implicit")
+    with pytest.raises(ValueError, match="mode|implicit|forward-only"):
+        rt.make_renderer(spec, W, H, CFG, mode=mode, backend=backend, device="cpu")
     with pytest.raises(ValueError):
         rt.make_renderer(spec, W, H, CFG, mode="forward", backend="nope", device="cpu")
 
 
 def test_prepass_backend_is_forward_only(frame):
-    with pytest.raises(NotImplementedError, match="forward"):
+    # The reference's ValueError (march.py:440-441).
+    with pytest.raises(ValueError, match="forward"):
         rt.make_renderer(frame[0], W, H, CFG, mode="implicit", backend="pallas_prepass", device="cpu")
 
 
@@ -135,7 +136,9 @@ def test_prepass_backend_is_forward_only(frame):
         # soft is ported (tests/test_torch_soft.py); without no_prepass it
         # raises the reference's ValueError (pallas_prepass.py:642-656).
         (dict(soft=True), {}, ValueError),
-        (dict(march_only=True), {}, NotImplementedError),
+        # march_only is ported (tests/test_torch_surfaces.py); with soft it
+        # raises the reference's ValueError (pallas_prepass.py:637).
+        (dict(march_only=True, soft=True, no_prepass=True), {}, ValueError),
         (dict(band_rows=0), {}, ValueError),
         (dict(aa_packed=False), {}, NotImplementedError),
         (dict(n_intervals=cp.MAX_NI + 1), dict(relax=1.6), NotImplementedError),

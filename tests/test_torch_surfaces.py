@@ -1,0 +1,150 @@
+"""The port's remaining render surfaces against raymarch_tpu's.
+
+The plain versions of K5 (`make_pallas_ray_march`), K6
+(`make_pallas_image_march`) and K7 (`make_pallas_image_render`), and of the
+fine kernel's march-only build (`make_pallas_image_march_fast`), against the
+JAX kernels in interpret mode, at the sizes of tests/test_pallas.py, on
+static, dynamic, empty, painted and relaxed scenes, and the reference's
+ValueErrors (the gradients, backends and fits of this slice:
+tests/test_torch_surfaces_grad.py). Hit flags and step counts are held
+equal on every ray, t within 1e-5 on hits, images in the exact-semantics
+class (max |d| < 1e-3).
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+import raymarch_tpu as rm
+import raymarch_tpu_torch as rt
+from raymarch_tpu.ops import pallas_march as pm_j
+from raymarch_tpu.ops.pallas_prepass import make_pallas_image_march_fast as march_fast_j
+from raymarch_tpu_torch.ops import cuda_march as cm
+from raymarch_tpu_torch.ops import cuda_prepass as cp
+from raymarch_tpu_torch.ops.tape import from_reference
+
+from test_torch_tape import SCENES
+
+# One torch thread per process: the suite runs in several worker processes
+# at once, and a thread pool per process oversubscribes the cores.
+torch.set_num_threads(1)
+
+CFG = rm.RenderConfig(aa_samples=2, max_iter=60)
+CFG_B = dataclasses.replace(CFG, bound_accel=True)
+CFG_R = dataclasses.replace(CFG, bound_accel=True, relax=1.6)
+CONFIGS = {"plain": CFG, "bound": CFG_B, "relax": CFG_R}
+W = H = 24
+CAM = rm.Camera.looking_at(position=(0.0, 1.5, 4.0), target=(0, 0, 0))
+CAM_T = rt.Camera(CAM.position, CAM.rotation)
+CV = np.concatenate([CAM.position, CAM.rotation, [0.0]]).astype(np.float32)
+IMG_ATOL = 1e-3  # the exact-semantics class (bench.py:236-259)
+
+# scene, tape form, config
+CASES = {
+    "config2_static": ("config2", True, "bound"),
+    "config2_dynamic": ("config2", False, "bound"),
+    "empty_dynamic": ("empty", False, "bound"),
+    "painted_dynamic": ("painted_transformed", False, "plain"),
+    "config2_dynamic_relax": ("config2", False, "relax"),
+    "all_prims_static_relax": ("all_prims", True, "relax"),
+}
+
+
+def _t(cfg):
+    return rt.RenderConfig(**dataclasses.asdict(cfg))
+
+
+def _case(case):
+    name, static, c = CASES[case]
+    spec_j, arr_j = rm.compile_scene(SCENES[name](rm), static=static)
+    return CONFIGS[c], (spec_j, arr_j), from_reference(spec_j, arr_j)
+
+
+def _march_equal(got, ref):
+    t, hit, steps = (np.asarray(v) for v in got)
+    t_j, hit_j, steps_j = (np.asarray(v) for v in ref)
+    np.testing.assert_array_equal(hit, hit_j)
+    np.testing.assert_array_equal(steps, steps_j)
+    m = hit_j > 0.5
+    np.testing.assert_allclose(t[m], t_j[m], atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_k5_plain_matches_jax(case):
+    cfg, (spec_j, arr_j), (spec, arr) = _case(case)
+    n = 1024 + 130  # no multiple of the reference's tile
+    o, d = (np.asarray(v) for v in rm.raygen_flat(jnp.arange(n, dtype=jnp.int32), CAM.position, CAM.rotation,
+                                                  48, 48, cfg))
+    ref = jax.jit(pm_j.make_pallas_ray_march(spec_j, cfg, True))(arr_j, o, d)
+    got = cm.make_pallas_ray_march(spec, _t(cfg), device="cpu")(arr, torch.as_tensor(o), torch.as_tensor(d))
+    assert got[2].dtype == torch.int32
+    _march_equal(got, ref)
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_k6_plain_matches_jax(case):
+    cfg, (spec_j, arr_j), (spec, arr) = _case(case)
+    ref = jax.jit(pm_j.make_pallas_image_march(spec_j, cfg, W, H, True))(arr_j, jnp.asarray(CV))
+    got = cm.make_pallas_image_march(spec, _t(cfg), W, H, device="cpu")(arr, torch.as_tensor(CV))
+    assert got[0].shape == (W * H * 4,)
+    _march_equal(got, ref)
+    st = rt.march_stats(got[2], got[1])
+    assert st.n_rays == W * H * 4 and st.max_steps == int(np.asarray(ref[2]).max())
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_k7_plain_matches_jax(case):
+    cfg, (spec_j, arr_j), (spec, arr) = _case(case)
+    ref = jax.jit(pm_j.make_pallas_image_render(spec_j, cfg, W, H, True))(arr_j, jnp.asarray(CV))
+    got = cm.make_pallas_image_render(spec, _t(cfg), W, H, device="cpu")(arr, torch.as_tensor(CV))
+    assert all(bool(torch.isfinite(g).all()) for g in got)
+    img = torch.stack(got, dim=-1).reshape(H, W, 4, 3).mean(dim=2).numpy()
+    img_j = np.stack([np.asarray(r) for r in ref], axis=-1).reshape(H, W, 4, 3).mean(axis=2)
+    assert np.abs(img - img_j).max() < IMG_ATOL
+
+
+@pytest.mark.parametrize("kw", [dict(prepass_block=1), dict(prepass_block=4), dict(prepass_block=1, n_intervals=2)],
+                         ids=["b1", "b4", "intervals"])
+@pytest.mark.parametrize("relax", [1.0, 1.6], ids=["plain", "relax"])
+def test_march_only_build_matches_jax(kw, relax):
+    cfg = dataclasses.replace(CFG_B, relax=relax)
+    spec_j, arr_j = rm.compile_scene(SCENES["config2"](rm), static=True)
+    spec, arr = from_reference(spec_j, arr_j)
+    t_j, h_j = (np.asarray(v) for v in march_fast_j(spec_j, cfg, W, H, interpret=True, bm_coarse=8, bm_fine=8,
+                                                     **kw)(arr_j, jnp.asarray(CV)))
+    rp = cp.make_pallas_image_march_fast(spec, _t(cfg), W, H, device="cpu", **kw)
+    t, h = (v.numpy() for v in rp(arr, torch.as_tensor(CV)))
+    assert t.shape == (W * H * 4,)
+    # The conservative prepass class: hits agree but on rays that graze a
+    # silhouette within one min_dist step of the cone's stop.
+    assert np.mean(h != h_j) < 0.01
+    m = (h > 0.5) & (h_j > 0.5)
+    assert np.abs(t[m] - t_j[m]).max() < 1e-3
+    # Its plain version is fine_res_plain's (t, hit), ray for ray.
+    full = cp.make_pallas_image_render_aa(spec, _t(cfg), W, H, device="cpu", **kw)
+    sc, cam, bound = full.scene_args(arr, torch.as_tensor(CV))
+    _, t_r, h_r = cp.fine_res_plain(sc, cam, bound, full.params, *full.prepass(sc, cam, bound, None, plain=True))
+    np.testing.assert_array_equal(t, t_r.reshape(-1).numpy())
+    np.testing.assert_array_equal(h, h_r.reshape(-1).numpy())
+
+
+@pytest.mark.parametrize(
+    "backend,mode",
+    [("pallas", "unrolled"), ("pallas", "soft"), ("pallas_image", "implicit"), ("pallas_full", "implicit"),
+     ("pallas_prepass", "implicit"), ("pallas_fused", "forward"), ("nope", "forward")],
+)
+def test_reference_value_errors(backend, mode):
+    spec, _ = rt.compile_scene(SCENES["config2"](rt))
+    with pytest.raises(ValueError):
+        rt.make_renderer(spec, W, H, _t(CFG), mode=mode, backend=backend, device="cpu")
+    spec_s, _ = rt.compile_scene(SCENES["config2"](rt), static=True)
+    with pytest.raises(ValueError, match="march_only"):
+        cp.make_pallas_image_render_aa(spec_s, _t(CFG), W, H, device="cpu", march_only=True, aa_packed=False)
+    with pytest.raises(ValueError, match="march_only"):
+        cp.make_pallas_image_render_aa(spec_s, _t(CFG), W, H, device="cpu", march_only=True, soft=True,
+                                       no_prepass=True)

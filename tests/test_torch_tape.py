@@ -190,3 +190,23 @@ def test_cam_vec_layout():
     np.testing.assert_array_equal(
         v.numpy(), np.concatenate([cam.position, cam.rotation, [48.0]]).astype(np.float32)
     )
+
+
+def test_march_stats_equal():
+    """utils/stats.py is a copy of the reference's (numpy), fed by K6's
+    steps: equal statistics, with and without the divergence factor, from
+    numpy arrays and from tensors."""
+    import torch
+
+    from raymarch_tpu.utils import stats as stats_j
+    from raymarch_tpu_torch.utils import stats as stats_t
+
+    rng = np.random.default_rng(5)
+    steps = rng.integers(0, 100, 4096).astype(np.int32)
+    hit = (rng.uniform(size=4096) > 0.6).astype(np.float32)
+    for tile in (None, 128, 5000):
+        ref = stats_j.march_stats(steps, hit, tile)
+        assert stats_t.march_stats(steps, hit, tile) == stats_t.MarchStats(**dataclasses.asdict(ref))
+        assert stats_t.march_stats(torch.as_tensor(steps), torch.as_tensor(hit), tile) == stats_t.march_stats(
+            steps, hit, tile)
+        assert str(stats_t.march_stats(steps, hit, tile)) == str(ref)
