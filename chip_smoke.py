@@ -114,14 +114,34 @@ Run from the repository root: `python3 chip_smoke.py`. It
    `fwdbwd_jnp` (backend "pallas", implicit, chunk 2^20: step, K5 launches,
    peak memory), K5 alone on the frame's rays against its plain version,
    each kernel's time alone, plain time and bound;
-15. prints one JSON line of per-kernel records (time, plain time, launches,
+15. live editing: gates at 256x144 of the DYN builds of the coarse and
+   fine kernels (the dynamic tape: config 2 un-culled, gated and at relax
+   1.6, the empty scene, `rich` gated at relax 1.6, 16 painted spheres
+   un-culled and gated), of the unpacked fine pass K4 (shared normals on
+   static and dynamic tapes, aa = 3, aa = 3 dynamic and gated; with its
+   residuals), of K8 on K4's residuals at aa = 3, and the dynamic frame
+   against the static one in bench.py's dynamic-tape class; then at
+   1920x1080 with 16 AA rays per pixel bench.py's `dynamic_tape_prepass`
+   against the static headline (S D D S in one call: frame ms, Grays/s,
+   launches, the DYN kernels alone, their bounds and plain times), the
+   `aa_shared_normals` frame (K4 alone, bound, plain) and an aa = 3 fwd+bwd
+   step (K1, K4 with residuals, K8; its gradients against `bwd_plain`);
+   then a `TieredRenderer` at 960x540 (the viewer's size on an
+   accelerator) with its static tier built in the background: a topology
+   edit's first (dynamic) frame, the static tier's readiness, each tier's
+   steady frames, a numeric edit that builds nothing and a topology edit
+   within the bucket that keeps the dynamic renderer; and a `ViewerApp`
+   through `make_server` on localhost: an `/edit` adding a node and a
+   `frame.png`, timed;
+16. prints one JSON line of per-kernel records (time, plain time, launches,
    the roofline bound from this run's counted work) for the headline
    builds, the culled builds of the 64-leaf path, the compact backward per
    plan kind, the fine kernel with materials, the interval and block
    builds of the coarse and fine kernels and K3, K8's builds of phase 12,
    the fine kernel at B = 4 with residuals and at aa = 8, the soft builds
-   of phase 13, K5, K6, K7 and K2's march-only build of phase 14, then,
-   last, {"ok": true, "device": {...}}.
+   of phase 13, K5, K6, K7 and K2's march-only build of phase 14, the DYN
+   builds and K4 of phase 15, then the script's total seconds and, last,
+   {"ok": true, "device": {...}}.
 
 Any failed check raises, so the script exits non-zero and prints no result.
 """
@@ -144,6 +164,7 @@ FIT_STEPS = 5
 PLAIN_BAND = 64  # rows of the band on which the 256/1024-leaf plain versions run
 IDLE_PAUSE_S = 0.25  # the pause between the profiled warm-up run and the measured runs
 DEVICE = "cuda"
+T_START = time.perf_counter()  # reset at the start of main()
 Q = (0.9, 0.2, -0.3, 0.25)
 
 
@@ -2386,8 +2407,365 @@ def surfaces(rt, cp, dev, smi, cfg, gcam_pos):
     return records, out
 
 
+# --- phase 15: live editing (DYN K1/K2, K4, the tiered runtime, the viewer) --
+LIVE_W, LIVE_H = 960, 540  # the viewer's size on an accelerator (viewer.py:686)
+LIVE_FRAMES = 10
+
+
+def host_frames(fn, n=LIVE_FRAMES):
+    """Mean host ms of `fn` over n calls (each returns a numpy frame, so
+    each call waits for its frame)."""
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    return (time.perf_counter() - t0) * 1e3 / n
+
+
+def live(rt, cp, cg, dev, smi, cfg, gcam_pos):
+    """Phase 15: live editing (see the module docstring). Returns the kernel
+    records of the DYN builds of K1/K2 and of K4, and the path's numbers."""
+    import json
+    import threading
+    import urllib.request
+
+    import numpy as np
+    import torch
+
+    from raymarch_tpu_torch import _build
+    from raymarch_tpu_torch.runtime import TieredRenderer, to_numpy
+    from raymarch_tpu_torch.viewer import ViewerApp, make_server
+
+    t_phase = time.perf_counter()
+    gcv = rt.cam_vec(rt.Camera.looking_at(position=gcam_pos, target=(0, 0, 0)), device=dev)
+    gated = dataclasses.replace(cfg, leaf_cull=True)
+    out, records = {}, []
+
+    def record(name, source, replaces, launches, err, ms, p_ms, bound):
+        records.append(dict(name=name, route="cuda", source=source, replaces=replaces, launches=launches,
+                            max_abs_err=err, ms=ms, plain_ms=p_ms, bound_ms=bound[0], bound_by=bound[1],
+                            library_ms=None))
+
+    # -- 15a. gates at 256x144 ------------------------------------------------
+    # The coarse planes of the 16 spheres take coarse_agreement's full-size
+    # class: on one of their 8,920 near pixels the centre ray's slack lands
+    # within rounding of min_dist, and the kernel (FMA contraction) and the
+    # plain version stop it one ~min_dist step apart.
+    gates = (
+        ("config2", scene_config2, cfg, True),
+        ("config2 gated", scene_config2, gated, True),
+        ("config2 relax 1.6", scene_config2, dataclasses.replace(cfg, relax=1.6), True),
+        ("empty", lambda m: None, cfg, True),
+        ("rich gated relax 1.6", scene_rich, dataclasses.replace(cfg, leaf_cull=True, relax=1.6), True),
+        ("16 painted spheres", lambda m: scene_painted(m, 16), cfg, False),
+        ("16 painted spheres gated", lambda m: scene_painted(m, 16), gated, False),
+    )
+    for name, build, cfg_g, strict in gates:
+        spec_d, arrays_d = rt.compile_scene(build(rt))
+        rp = cp.make_pallas_image_render_aa(spec_d, cfg_g, GATE_W, GATE_H, device=dev)
+        sc, cam, bound = rp.scene_args(arrays_d, gcv)
+        cc, fc = rp.cull_args(sc, cam)
+        pre_k = cp.coarse(sc, cam, bound, rp.params, cc)
+        pre_p = cp.coarse_plain(sc, cam, bound, rp.params, cc)
+        if build(rt) is None:  # no surface: every centre ray escapes
+            if not (torch.equal(pre_k[1], pre_p[1]) and float(pre_k[1].max()) == 0.0):
+                raise AssertionError("the empty dynamic scene's coarse planes differ from the plain version's")
+            log("gate DYN coarse_kernel vs coarse_plain, empty: status all 0 in both PASS")
+        else:
+            coarse_agreement(f"gate DYN coarse_kernel vs coarse_plain, {name}", pre_k, pre_p, strict=strict)
+        img_k = cp.fine(sc, cam, bound, rp.params, *pre_k, cull=fc)
+        image_class(f"gate DYN fine_kernel vs fine_plain, {name}", img_k,
+                    cp.fine_plain(sc, cam, bound, rp.params, *pre_k, cull=fc))
+    spec_s, arrays_s = rt.compile_scene(scene_config2(rt), static=True)
+    spec_d, arrays_d = rt.compile_scene(scene_config2(rt))
+    k4_gates = (
+        ("shared normals, static", spec_s, arrays_s, dataclasses.replace(cfg, aa_shared_normals=True)),
+        ("shared normals, dynamic", spec_d, arrays_d, dataclasses.replace(cfg, aa_shared_normals=True)),
+        ("aa = 3, static", spec_s, arrays_s, dataclasses.replace(cfg, aa_samples=3)),
+        ("aa = 3, dynamic, gated", spec_d, arrays_d, dataclasses.replace(gated, aa_samples=3)),
+    )
+    for name, spec_g, arrays_g, cfg_g in k4_gates:
+        rp = cp.make_pallas_image_render_aa(spec_g, cfg_g, GATE_W, GATE_H, device=dev, aa_packed=not
+                                            cfg_g.aa_shared_normals)
+        if not rp.params.unpacked:
+            raise AssertionError(f"K4 gate {name} did not take the unpacked fine pass")
+        sc, cam, bound = rp.scene_args(arrays_g, gcv)
+        cc, fc = rp.cull_args(sc, cam)
+        pre = rp.prepass(sc, cam, bound, cc)
+        img_k = cp.fine_unpacked(sc, cam, bound, rp.params, *pre, cull=fc)
+        img_r, t_k, hit_k = cp.fine_unpacked_res(sc, cam, bound, rp.params, *pre, cull=fc)
+        if not torch.equal(img_r, img_k):
+            raise AssertionError("the residual output changed K4's image")
+        img_p, t_p, hit_p = cp.fine_unpacked_plain(sc, cam, bound, rp.params, *pre, cull=fc)
+        image_class(f"gate K4 fine_unpacked_kernel vs fine_unpacked_plain, {name}", img_k, img_p)
+        residual_agreement(f"gate K4 residuals vs fine_unpacked_plain, {name}", (t_k, hit_k), (t_p, hit_p),
+                           strict=False)
+    cfg3 = dataclasses.replace(cfg, aa_samples=3)
+    fr3 = cg.make_fused_render_vjp(spec_s, cfg3, GATE_W, GATE_H, device=dev)
+    if fr3.backward_info["aa_packed"] or fr3.backward_info["kind"] != "pallas_legacy_unrolled":
+        raise AssertionError(f"the aa = 3 VJP did not take the unpacked route: {fr3.backward_info}")
+    sc, cam, bound = fr3.prepass.scene_args(arrays_s, gcv)
+    _, t3, h3 = cp.fine_unpacked_res(sc, cam, bound, fr3.params, *fr3.prepass.prepass(sc, cam, bound, None))
+    g_img = seeded_cotangent(GATE_H, GATE_W, dev, 11)
+    grad_class("gate aa = 3: fused_bwd_kernel on K4's residuals vs bwd_plain",
+               cg.bwd(sc, cam, fr3.params, fr3.layout, t3, h3, g_img),
+               cg.bwd_plain(sc, cam, fr3.params, fr3.layout, t3, h3, g_img))
+    img_dyn = cp.make_pallas_image_render_aa(spec_d, cfg, GATE_W, GATE_H, device=dev)(arrays_d, gcv)
+    img_sta = cp.make_pallas_image_render_aa(spec_s, cfg, GATE_W, GATE_H, device=dev)(arrays_s, gcv)
+    image_class("gate dynamic-tape frame vs static frame (bench.py's dynamic-tape class)", img_dyn, img_sta)
+    torch.cuda.synchronize()
+    log(f"phase 15 gates: {time.perf_counter() - t_phase:.1f} s")
+
+    # -- 15b. 1920x1080, 16 AA rays per pixel ------------------------------------
+    camera = rt.Camera.looking_at(position=(0.0, 1.6, 4.2), target=(0.0, 0.0, 0.0))
+    cv = rt.cam_vec(camera, device=dev)
+    n_px = WIDTH * HEIGHT
+    n_rays = n_px * cfg.aa_samples ** 2
+    rp_s = cp.make_pallas_image_render_aa(spec_s, cfg, WIDTH, HEIGHT, device=dev, prepass_block=1, aa_packed=True)
+    rp_d = cp.make_pallas_image_render_aa(spec_d, cfg, WIDTH, HEIGHT, device=dev, prepass_block=1, aa_packed=True)
+
+    def frames(fn, n=FRAMES, warmup=WARMUP):
+        """(ms by CUDA events, host ms) over n runs after `warmup`; the
+        launch counts are set to 0 just before the run."""
+        cp.reset_launch_counts()
+        cg.reset_launch_counts()
+        for _ in range(warmup):
+            r = fn()
+        torch.cuda.synchronize()
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        h0 = time.perf_counter()
+        e0.record()
+        for _ in range(n):
+            r = fn()
+        e1.record()
+        torch.cuda.synchronize()
+        return e0.elapsed_time(e1) / n, (time.perf_counter() - h0) * 1e3 / n, r
+
+    # dynamic_tape_prepass (bench.py:640-655) against the static headline, S D D S.
+    ms_s1, _, img_s = frames(lambda: rp_s(arrays_s, cv))
+    ms_d1, host_d1, img_d = frames(lambda: rp_d(arrays_d, cv))
+    dyn_launches = {"coarse_kernel (DYN)": cp.coarse.dyn_launches, "fine_kernel (DYN)": cp.fine.dyn_launches}
+    ms_d2, host_d2, _ = frames(lambda: rp_d(arrays_d, cv))
+    ms_s2, _, _ = frames(lambda: rp_s(arrays_s, cv))
+    log(f"dynamic_tape_prepass {WIDTH}x{HEIGHT} x16 AA: {ms_d1:.4f} / {ms_d2:.4f} ms/frame (CUDA events, {FRAMES} "
+        f"after {WARMUP}; host {host_d1:.4f} / {host_d2:.4f} ms), {n_rays / (ms_d1 * 1e-3) / 1e9:.4f} Grays/s; "
+        f"static headline {ms_s1:.4f} / {ms_s2:.4f} ms (S D D S); launches in the dynamic run {dyn_launches} ({smi})")
+    if min(dyn_launches.values()) <= 0:
+        raise AssertionError(f"a DYN kernel of the dynamic-tape frame never launched: {dyn_launches}")
+    image_class("dynamic_tape_prepass frame vs the static headline frame", img_d, img_s)
+    sc, cam, bound = rp_d.scene_args(arrays_d, cv)
+    sc_s, _, bound_s = rp_s.scene_args(arrays_s, cv)
+    pre_d = cp.coarse(sc, cam, bound, rp_d.params)
+    pre_s = cp.coarse(sc_s, cam, bound_s, rp_s.params)
+    k_ms = {
+        "coarse DYN": cuda_ms(lambda: cp.coarse(sc, cam, bound, rp_d.params), KERNEL_REPS),
+        "coarse static": cuda_ms(lambda: cp.coarse(sc_s, cam, bound_s, rp_s.params), KERNEL_REPS),
+        "fine DYN": cuda_ms(lambda: cp.fine(sc, cam, bound, rp_d.params, *pre_d), KERNEL_REPS),
+        "fine static": cuda_ms(lambda: cp.fine(sc_s, cam, bound_s, rp_s.params, *pre_s), KERNEL_REPS),
+    }
+    work_c = cp.WorkCount()
+    pre_p, c_plain_ms = plain_ms(lambda: cp.coarse_plain(sc, cam, bound, rp_d.params, work=work_c))
+    c_err = coarse_agreement("full-size DYN coarse_kernel vs coarse_plain", pre_d, pre_p, strict=False)
+    del pre_p
+    work_f = cp.WorkCount()
+    img_p, f_plain_ms = plain_ms(lambda: cp.fine_plain(sc, cam, bound, rp_d.params, *pre_d, work=work_f))
+    f_err = image_class("full-size DYN fine_kernel vs fine_plain (same planes)",
+                        cp.fine(sc, cam, bound, rp_d.params, *pre_d), img_p)
+    del img_p
+    c_bound = roofline(march_flops(work_c, n_px, spec_s, False), n_px * 8)
+    f_bound = roofline(march_flops(work_f, n_rays, spec_s, False, float(work_f.hits), fine=True), n_px * 20)
+    log(f"DYN kernels alone: coarse {k_ms['coarse DYN']:.4f} ms (static {k_ms['coarse static']:.4f}), fine "
+        f"{k_ms['fine DYN']:.4f} ms (static {k_ms['fine static']:.4f}); bounds coarse {c_bound[0]:.4f} ms "
+        f"({c_bound[1]}), fine {f_bound[0]:.4f} ms ({f_bound[1]}); plain coarse {c_plain_ms:.2f} ms, fine "
+        f"{f_plain_ms:.2f} ms ({smi})")
+    record("coarse_kernel (DYN)", "raymarch_tpu_torch/csrc/prepass_dyn.cu", "raymarch_tpu/ops/pallas_prepass.py:885",
+           dyn_launches["coarse_kernel (DYN)"], c_err, k_ms["coarse DYN"], c_plain_ms, c_bound)
+    record("fine_kernel (DYN)", "raymarch_tpu_torch/csrc/prepass_dyn.cu", "raymarch_tpu/ops/pallas_prepass.py:1521",
+           dyn_launches["fine_kernel (DYN)"], f_err, k_ms["fine DYN"], f_plain_ms, f_bound)
+    out["dynamic"] = dict(ms=(ms_d1, ms_d2), static_ms=(ms_s1, ms_s2), kernels=k_ms, launches=dyn_launches)
+
+    # The aa_shared_normals frame: K4 through make_renderer (aa_packed=False).
+    cfg_sh = dataclasses.replace(cfg, aa_shared_normals=True)
+    render_sh = rt.make_renderer(spec_s, WIDTH, HEIGHT, cfg_sh, mode="forward", backend="pallas_prepass", device=dev)
+    ms_sh, host_sh, img_sh = frames(lambda: render_sh(arrays_s, camera))
+    k4_launches = cp.fine_unpacked.launches
+    if k4_launches <= 0 or cp.coarse.launches <= 0:
+        raise AssertionError("the shared-normals frame did not run K1 and K4")
+    rp_sh = render_sh.renderer
+    p_sh = rp_sh.params
+    pre = cp.coarse(sc_s, cam, bound_s, p_sh)
+    k4_ms = cuda_ms(lambda: cp.fine_unpacked(sc_s, cam, bound_s, p_sh, *pre), KERNEL_REPS)
+    work_4 = cp.WorkCount()
+    img_p, k4_plain_ms = plain_ms(lambda: cp.fine_unpacked_plain(sc_s, cam, bound_s, p_sh, *pre, work=work_4)[0])
+    k4_err = image_class("full-size K4 (shared normals) vs fine_unpacked_plain", cp.fine_unpacked(
+        sc_s, cam, bound_s, p_sh, *pre), img_p)
+    del img_p
+    d_sh = (img_sh - img_s).abs()
+    k4_bound = roofline(march_flops(work_4, n_rays, spec_s, False, float(work_4.hits), fine=True), n_px * 20)
+    log(f"aa_shared_normals frame: {ms_sh:.4f} ms (host {host_sh:.4f} ms), K4 launches {k4_launches}; K4 alone "
+        f"{k4_ms:.4f} ms, bound {k4_bound[0]:.4f} ms ({k4_bound[1]}), plain {k4_plain_ms:.2f} ms; against the "
+        f"per-sample-normal frame mean|d| {float(d_sh.mean()):.3e}, share of pixels > 0.05 "
+        f"{float((d_sh.amax(-1) > 0.05).float().mean()):.5f} ({smi})")
+    record("fine_unpacked_kernel (K4, shared normals)", "raymarch_tpu_torch/csrc/fine_unpacked.cu",
+           "raymarch_tpu/ops/pallas_prepass.py:1010", k4_launches, k4_err, k4_ms, k4_plain_ms, k4_bound)
+    out["shared"] = dict(ms=ms_sh, k4_ms=k4_ms, launches=k4_launches)
+    del img_sh, d_sh
+
+    # One aa = 3 fwd+bwd step: K1, K4 with residuals, K8.
+    render3 = rt.make_renderer(spec_s, WIDTH, HEIGHT, cfg3, mode="implicit", backend="pallas_fused", device=dev)
+    lp0 = torch.tensor(arrays_s.leaf_params, device=dev)
+    op0 = torch.tensor(arrays_s.op_param, device=dev)
+
+    def step3():
+        lp = lp0.clone().requires_grad_(True)
+        opp = op0.clone().requires_grad_(True)
+        c = cv.clone().requires_grad_(True)
+        img3 = render3.renderer(dataclasses.replace(arrays_s, leaf_params=lp, op_param=opp), c)
+        torch.mean(img3 * img3).backward()
+        return lp.grad, opp.grad, c.grad
+
+    ms3, host3, g3 = frames(step3, n=BWD_STEPS, warmup=BWD_WARMUP)
+    launches3 = {"coarse_kernel": cp.coarse.launches, "fine_unpacked_kernel (residuals)": cp.fine_unpacked_res.launches,
+                 "fused_bwd_kernel": cg.bwd.launches}
+    if min(launches3.values()) <= 0:
+        raise AssertionError(f"a kernel of the aa = 3 step never launched: {launches3}")
+    n_rays3 = n_px * 9
+    p3 = render3.renderer.params
+    pre3 = cp.coarse(sc_s, cam, bound_s, p3)
+    k4r_ms = cuda_ms(lambda: cp.fine_unpacked_res(sc_s, cam, bound_s, p3, *pre3), KERNEL_REPS)
+    img_k3, t_k3, h_k3 = cp.fine_unpacked_res(sc_s, cam, bound_s, p3, *pre3)
+    work_3 = cp.WorkCount()
+    (img_p3, t_p3, h_p3), k4r_plain_ms = plain_ms(lambda: cp.fine_unpacked_plain(sc_s, cam, bound_s, p3, *pre3,
+                                                                                  work=work_3))
+    k4r_err = image_class("full-size K4 with residuals (aa = 3) vs fine_unpacked_plain", img_k3, img_p3)
+    residual_agreement("full-size K4 residuals (aa = 3) vs fine_unpacked_plain", (t_k3, h_k3), (t_p3, h_p3),
+                       strict=False)
+    del img_p3, t_p3, h_p3
+    ref3 = cg.bwd_plain(sc_s, cam, p3, render3.renderer.layout, t_k3, h_k3, 2.0 * img_k3 / img_k3.numel())
+    grad_class("aa = 3 step's gradients vs bwd_plain on K4's residuals", g3, ref3)
+    k4r_bound = roofline(march_flops(work_3, n_rays3, spec_s, False, float(work_3.hits), fine=True),
+                         n_px * 20 + n_rays3 * 8)
+    log(f"aa = 3 fwd+bwd step {WIDTH}x{HEIGHT}: {ms3:.4f} ms/step (CUDA events, {BWD_STEPS} after {BWD_WARMUP}; "
+        f"host {host3:.4f} ms), launches {launches3}, backward {render3.backward_info}; K4 with residuals alone "
+        f"{k4r_ms:.4f} ms, bound {k4r_bound[0]:.4f} ms ({k4r_bound[1]}), plain {k4r_plain_ms:.2f} ms ({smi})")
+    record("fine_unpacked_kernel (K4, residuals t, hit, aa = 3)", "raymarch_tpu_torch/csrc/fine_unpacked.cu",
+           "raymarch_tpu/ops/pallas_prepass.py:1010", launches3["fine_unpacked_kernel (residuals)"], k4r_err,
+           k4r_ms, k4r_plain_ms, k4r_bound)
+    out["aa3_step"] = dict(ms=ms3, k4_ms=k4r_ms, launches=launches3)
+    del img_k3, t_k3, h_k3, ref3, g3
+    torch.cuda.synchronize()
+
+    # -- 15c. TieredRenderer at the viewer's size ------------------------------
+    scene0 = scene_config2(rt)
+    scene1 = scene0 | rt.sphere(center=(0.0, 1.4, 0.0), radius=0.3)  # a topology edit in the bucket
+    tiered = TieredRenderer(LIVE_W, LIVE_H, cfg, backend="pallas_prepass", device=dev)  # the card's default
+    tiered.render(scene0, camera)
+    if not tiered.wait(timeout=300.0):
+        raise AssertionError("the first static tier never arrived")
+    tiered.render(scene0, camera)
+    cp.reset_launch_counts()
+    t0 = time.perf_counter()
+    img1 = tiered.render(scene1, camera)
+    first_ms = (time.perf_counter() - t0) * 1e3
+    tier1 = tiered.tier
+    t1 = time.perf_counter()
+    if not tiered.wait(timeout=300.0):
+        raise AssertionError("the static tier of the edit never arrived")
+    static_s = time.perf_counter() - t1
+    tier_launches = {"coarse_kernel (DYN)": cp.coarse.dyn_launches, "fine_kernel (DYN)": cp.fine.dyn_launches,
+                     "coarse_kernel": cp.coarse.launches, "fine_kernel": cp.fine.launches}
+    if tier1 != "dynamic" or min(tier_launches.values()) <= 0:
+        raise AssertionError(f"the edit's first frame was not the dynamic tier's ({tier1}) or a kernel of the "
+                             f"tiers never launched: {tier_launches}")
+    spec_d1, arrays_d1 = rt.compile_scene(scene1)
+    spec_s1, arrays_s1 = rt.compile_scene(scene1, static=True)
+    dyn_rnd, sta_rnd = tiered._dynamic[spec_d1], tiered._static[spec_s1]
+    # Each tier's renderer alone, then render() as the viewer calls it
+    # (compile_scene of the scene, the static tier's frame, the copy out).
+    dyn_ms = host_frames(lambda: to_numpy(dyn_rnd(arrays_d1, camera)))
+    sta_ms = host_frames(lambda: to_numpy(sta_rnd(arrays_s1, camera)))
+    render_ms = host_frames(lambda: tiered.render(scene1, camera))
+    if tiered.tier != "static":
+        raise AssertionError("the static tier does not serve the edited scene")
+    img1s = tiered.render(scene1, camera)
+    d1 = np.abs(img1 - img1s)
+    # A numeric edit: no new renderer, no nvcc build.
+    builds, compiles, n_dyn = _build.stats["builds"], tiered.static_compiles, len(tiered._dynamic)
+    moved = scene_config2(rt).translate((0.2, 0.0, 0.0)) | rt.sphere(center=(0.0, 1.5, 0.0), radius=0.35)
+    img_m = tiered.render(moved, camera)
+    numeric_ok = (tiered.tier == "static" and tiered.static_compiles == compiles and len(tiered._dynamic) == n_dyn
+                  and _build.stats["builds"] == builds and float(np.abs(img_m - img1s).max()) > 0.05)
+    # A topology edit within the bucket: the same dynamic renderer.
+    scene2 = scene0 | rt.box(center=(0.0, 1.4, 0.0), half_extents=(0.3, 0.3, 0.3))
+    img2 = tiered.render(scene2, camera)
+    same_dyn = (tiered.tier == "dynamic" and tiered._dynamic.get(rt.compile_scene(scene2)[0]) is dyn_rnd
+                and len(tiered._dynamic) == n_dyn and _build.stats["builds"] == builds)
+    tiered.wait(timeout=300.0)
+    log(f"TieredRenderer {LIVE_W}x{LIVE_H} x16 AA (background): topology edit -> first frame {first_ms:.2f} ms "
+        f"(tier {tier1}); static tier ready {static_s:.3f} s after that frame; steady frames (host clock, numpy "
+        f"out): dynamic tier {dyn_ms:.2f} ms, static tier {sta_ms:.2f} ms, render() {render_ms:.2f} ms; tier switch "
+        f"max|d| {float(d1.max()):.3e} mean "
+        f"{float(d1.mean()):.3e}; launches in the edit's run {tier_launches}; numeric edit: no new renderer, no "
+        f"build {numeric_ok}; topology edit in the bucket: same dynamic renderer {same_dyn}; stats "
+        f"{tiered.stats()} ({smi})")
+    if not (numeric_ok and same_dyn and float(d1.mean()) < 5e-4 and float(np.abs(img2 - img1s).max()) > 0.05):
+        raise AssertionError("the tiered runtime rebuilt on an edit, or its tiers disagree")
+    out["tiered"] = dict(first_ms=first_ms, static_s=static_s, dyn_ms=dyn_ms, static_ms=sta_ms, render_ms=render_ms)
+
+    # -- 15d. ViewerApp through its HTTP server on localhost ----------------------
+    app = ViewerApp(width=LIVE_W, height=LIVE_H, cfg=cfg, backend="pallas_prepass", device=dev)
+    srv = make_server(app, port=0)
+    th = threading.Thread(target=srv.serve_forever, daemon=True)
+    th.start()
+    try:
+        url = f"http://127.0.0.1:{srv.server_address[1]}"
+        urllib.request.urlopen(url + "/frame.png").read()  # builds the dynamic tier
+        app._tiered.wait(timeout=300.0)
+
+        def edit(op):
+            req = urllib.request.Request(url + "/edit", data=json.dumps(op).encode())
+            return json.loads(urllib.request.urlopen(req).read())
+
+        t0 = time.perf_counter()
+        nid = edit({"op": "add", "template": "Sphere"})["id"]
+        edit_ms = (time.perf_counter() - t0) * 1e3
+        edit({"op": "set_input", "id": nid, "name": "center", "value": [0.0, 1.5, 0.0]})
+        edit({"op": "set_input", "id": nid, "name": "radius", "value": 0.35})
+        g = json.loads(urllib.request.urlopen(url + "/graph").read())
+        root = next(n for n in g["nodes"] if n["template"] == "Root")
+        u = edit({"op": "add", "template": "Union"})["id"]
+        edit({"op": "connect", "src": root["inputs"]["SDF"]["$node"], "dst": u, "input": "A"})
+        edit({"op": "connect", "src": nid, "dst": u, "input": "B"})
+        edit({"op": "connect", "src": u, "dst": root["id"], "input": "SDF"})
+        t0 = time.perf_counter()
+        png = urllib.request.urlopen(url + "/frame.png").read()
+        png_ms = (time.perf_counter() - t0) * 1e3
+        state = json.loads(urllib.request.urlopen(url + "/state").read())
+        app._tiered.wait(timeout=300.0)
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        th.join(timeout=60.0)
+    import struct
+
+    w_png, h_png = struct.unpack(">II", png[16:24])
+    log(f"ViewerApp on the card through make_server (localhost): /edit adding a node {edit_ms:.2f} ms; frame.png "
+        f"after the node is wired in {png_ms:.2f} ms ({len(png)} bytes, {w_png}x{h_png}, tier {state['tier']}); "
+        f"state {state['tiered']} ({smi})")
+    if (w_png, h_png) != (LIVE_W, LIVE_H) or state["tier"] != "dynamic" or state["device"] != str(dev):
+        raise AssertionError(f"the viewer's frame or state is wrong: {w_png}x{h_png}, {state}")
+    out["viewer"] = dict(edit_ms=edit_ms, png_ms=png_ms)
+    torch.cuda.synchronize()
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 15: {out['seconds']:.1f} s")
+    return records, out
+
+
 def main() -> int:
     import torch
+
+    global T_START
+    T_START = time.perf_counter()
 
     smi = None
     try:
@@ -2726,6 +3104,9 @@ def main() -> int:
     # -- 14. the render surfaces ---------------------------------------------
     surface_records, su = surfaces(rt, cp, dev, smi, cfg, (0.0, 2.6, 4.2))
 
+    # -- 15. live editing ----------------------------------------------------
+    live_records, sv = live(rt, cp, cg, dev, smi, cfg, (0.0, 2.6, 4.2))
+
     log(f"card: {smi}")
     kernels = [
         dict(name="coarse_kernel", route="cuda", source="raymarch_tpu_torch/csrc/prepass.cu",
@@ -2755,6 +3136,7 @@ def main() -> int:
         *legacy_records,
         *soft_records,
         *surface_records,
+        *live_records,
     ]
     log(f"64-leaf summary: step {s64['step_ms']:.4f} ms, forward frame {s64['fwd64_ms']:.4f} ms, idle share "
         f"{s64['idle']}, masks and lists {s64['cull_ms']:.4f} ms in {s64['n_cull']} device operations "
@@ -2787,6 +3169,16 @@ def main() -> int:
             (f", kernel alone {r['kernel_ms']:.4f} ms" if "kernel_ms" in r else "") +
             (f", {r['stats']}" if "stats" in r else "") + (f", peak {r['peak']:.2f} GiB" if "peak" in r else "") +
             f" ({smi})")
+    d = sv["dynamic"]
+    log(f"live editing summary: dynamic_tape_prepass {d['ms'][0]:.4f} / {d['ms'][1]:.4f} ms against the static "
+        f"headline {d['static_ms'][0]:.4f} / {d['static_ms'][1]:.4f} ms; DYN coarse {d['kernels']['coarse DYN']:.4f} "
+        f"ms, fine {d['kernels']['fine DYN']:.4f} ms; shared-normals frame {sv['shared']['ms']:.4f} ms (K4 "
+        f"{sv['shared']['k4_ms']:.4f} ms); aa = 3 step {sv['aa3_step']['ms']:.4f} ms (K4 with residuals "
+        f"{sv['aa3_step']['k4_ms']:.4f} ms); tiered: edit -> first frame {sv['tiered']['first_ms']:.2f} ms, static "
+        f"tier {sv['tiered']['static_s']:.3f} s, frames dynamic {sv['tiered']['dyn_ms']:.2f} / static "
+        f"{sv['tiered']['static_ms']:.2f} / render() {sv['tiered']['render_ms']:.2f} ms; viewer /edit {sv['viewer']['edit_ms']:.2f} ms, frame.png "
+        f"{sv['viewer']['png_ms']:.2f} ms; phase {sv['seconds']:.1f} s ({smi})")
+    log(f"chip_smoke total {time.perf_counter() - T_START:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)

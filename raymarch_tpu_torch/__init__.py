@@ -6,14 +6,16 @@ compiled to a flat tape, on an NVIDIA GPU: the scene DSL and tape compiler
 shading, implicit and soft gradients), the flat march kernels, the
 cone-prepass forward renderer, the fused forward+backward renderer and the
 scene fit, whose kernels are CUDA C++ (`csrc/`, built with nvcc at first
-use). On the CPU the kernels' plain torch versions run instead. This
+use), and the live-editing layer: the node graph, the tiered runtime and
+the viewer. On the CPU the kernels' plain torch versions run instead. This
 package imports neither jax nor `raymarch_tpu`.
 """
 
 from .config import DEFAULT_CONFIG, RenderConfig
 from .fit import FitResult, fit_scene
-from .models import csg
+from .models import csg, graph
 from .models.csg import box, capsule, cone, cylinder, plane, sphere, torus
+from .models.graph import CSGNodeGraph
 from .ops.march import make_march, make_renderer, render_rays
 from .ops.raygen import camera_rays_np, raygen_flat
 from .ops.sdf import make_scene_fn
@@ -21,10 +23,14 @@ from .ops.tape import TapeArrays, TapeSpec, compile_scene, compile_wire, encode_
 from .parallel import make_fit_step
 from .utils.camera import Camera, OrbitCameraController, cam_vec
 from .utils.stats import MarchStats, march_stats
+from .viewer import ViewerApp
+from .runtime import TieredRenderer
 
 __version__ = "0.1.0"
 
 __all__ = [
+    "graph",
+    "CSGNodeGraph",
     "MarchStats",
     "march_stats",
     "DEFAULT_CONFIG",
@@ -54,4 +60,6 @@ __all__ = [
     "Camera",
     "OrbitCameraController",
     "cam_vec",
+    "ViewerApp",
+    "TieredRenderer",
 ]

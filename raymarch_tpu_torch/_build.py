@@ -16,6 +16,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -39,15 +40,20 @@ SOURCE_FLAGS = {"fused_bwd.cu": ("-fmad=false",), "compact_bwd.cu": ("-fmad=fals
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    # leaf_params, row_kind, tape, n_instr, op_param, cam, bound, params,
-    # cull, t0_out, status_out, block_params, stream
-    "rmt_coarse_launch": (_P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P),
+    # leaf_params, row_kind, tape, n_instr, op_param, dyn, cam, bound,
+    # params, cull, t0_out, status_out, block_params, stream
+    "rmt_coarse_launch": (_P, _P, _P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P),
     # leaf_params, row_kind, tape, n_instr, op_param, cam, bound, params,
     # t_blk, status_blk, t0_out, status_out, block_params, stream
     "rmt_coarse_px_launch": (_P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P),
-    # ... params, cull, t0_in, status_in, img, t_out, hit_out, mats,
+    # leaf_params, row_kind, tape, n_instr, op_param, dyn, cam, bound,
+    # params, cull, t0_in, status_in, img, t_out, hit_out, mats,
     # block_params, soft, soft_params, stream
-    "rmt_fine_launch": (_P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _P, _P),
+    "rmt_fine_launch": (_P, _P, _P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _P, _P),
+    # leaf_params, row_kind, tape, n_instr, op_param, dyn, cam, bound,
+    # params, cull, t0_in, status_in, img, t_out, hit_out, mats, shared,
+    # block_params, stream
+    "rmt_fine_unpacked_launch": (_P, _P, _P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P),
     # leaf_params, row_kind, tape, n_instr, op_param, push_slot, cam, params,
     # grad_denom_clamp, t, hit, g_img, nscal, op_base, cam_base, mats, soft,
     # hist, partials, max_blocks, out, stream
@@ -72,6 +78,10 @@ _SIGNATURES = {
 _lib = None
 # Build record of this process: compiles run, seconds spent, ptxas report.
 stats = {"builds": 0, "seconds": 0.0, "ptxas": "", "path": None}
+# Held around the check, the build and the load: the tiered runtime renders
+# on one thread while it warms another tier's renderer on a second, and the
+# first use on either must not run nvcc twice or publish a half-set `_lib`.
+_LOCK = threading.Lock()
 
 
 def find_nvcc() -> str:
@@ -133,10 +143,16 @@ def _compile(lib_path: Path) -> str:
 
 
 def load() -> ctypes.CDLL:
-    """The kernel library, built on first use in this process."""
-    global _lib
+    """The kernel library, built on first use in this process; safe to call
+    from several threads at once (one builds, the others wait for it)."""
     if _lib is not None:
         return _lib
+    with _LOCK:
+        return _lib if _lib is not None else _load_locked()
+
+
+def _load_locked() -> ctypes.CDLL:
+    global _lib
     lib_path = BUILD_DIR / f"librmt_kernels_{_digest()}.so"
     if not lib_path.exists():
         t0 = time.perf_counter()

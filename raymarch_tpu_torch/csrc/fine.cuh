@@ -185,12 +185,109 @@ __device__ __forceinline__ float interval_march(const SceneView& sc,
   return hit;
 }
 
+// The fine march of one AA ray from (t, live) (_fine_march_tile, 477-525)
+// -> hit; t ends where the ray does. Plain sphere-tracing steps or, with
+// RELAX, over-relaxed stepping: step omega*d; when consecutive safe spheres
+// stop overlapping the step overshot, so step back by (1 - relax)*step and
+// drop the ray to omega = 1. Hit and escape are tested only at samples that
+// did not overshoot. The march of K2's legacy planes and of K4.
+template <int MODE, bool RELAX>
+__device__ __forceinline__ float legacy_march(const SceneView& sc,
+                                              const CullView& cv, int tile,
+                                              const Ray& r,
+                                              const RenderParams& p,
+                                              float live, float& t,
+                                              float t_cap) {
+  float hit = 0.0f;
+  if constexpr (RELAX) {
+    float prev_r = 0.0f, step_len = 0.0f, omega = p.relax;
+    for (int k = 0; k < p.max_iter && live > 0.0f; ++k) {
+      const float d = scene_distance_tile<MODE>(
+          sc, cv, tile, r.ox + r.dx * t, r.oy + r.dy * t, r.oz + r.dz * t);
+      const bool fail = omega > 1.0f && d + prev_r < step_len;
+      const float new_step = fail ? p.relax_back * step_len : omega * d;
+      if (fail) {
+        omega = 1.0f;
+      } else if (d < p.min_dist) {
+        hit = 1.0f;
+        live = 0.0f;
+      } else if (d > p.max_dist || t > t_cap) {
+        live = 0.0f;
+      }
+      if (live > 0.0f) t = t + new_step;
+      prev_r = d;
+      step_len = new_step;
+    }
+  } else {
+    for (int k = 0; k < p.max_iter && live > 0.0f; ++k) {
+      const float d = scene_distance_tile<MODE>(
+          sc, cv, tile, r.ox + r.dx * t, r.oy + r.dy * t, r.oz + r.dz * t);
+      if (d < p.min_dist) {
+        hit = 1.0f;
+        live = 0.0f;
+      } else if (d > p.max_dist || t > t_cap) {
+        live = 0.0f;
+      } else {
+        t = t + d;
+      }
+    }
+  }
+  return hit;
+}
+
+// The tetrahedron taps' unnormalised normal at p (pallas_march._tet_taps
+// 1049): k in {(+,-,-), (-,-,+), (-,+,-), (+,+,+)}, summed in that order.
+template <int MODE>
+__device__ __forceinline__ void tet_normal(const SceneView& sc,
+                                           const CullView& cv, int tile,
+                                           float e, float px, float py,
+                                           float pz, float& nx, float& ny,
+                                           float& nz) {
+  const float d0 = scene_distance_tile<MODE>(sc, cv, tile, px + e, py - e, pz - e);
+  const float d1 = scene_distance_tile<MODE>(sc, cv, tile, px - e, py - e, pz + e);
+  const float d2 = scene_distance_tile<MODE>(sc, cv, tile, px - e, py + e, pz - e);
+  const float d3 = scene_distance_tile<MODE>(sc, cv, tile, px + e, py + e, pz + e);
+  nx = 0.0f;
+  ny = 0.0f;
+  nz = 0.0f;
+  nx = nx + d0; ny = ny - d0; nz = nz - d0;
+  nx = nx - d1; ny = ny - d1; nz = nz + d1;
+  nx = nx - d2; ny = ny + d2; nz = nz - d2;
+  nx = nx + d3; ny = ny + d3; nz = nz + d3;
+}
+
+// Lambert's diffuse term of the surface point p with normal n against the
+// point light, floored at the ambient term; with MATS, alb takes the
+// albedo the tape's colour walk carries to p (scene_color, gated by the
+// tile's leaf mask under culling, as the reference's colour pass is).
+template <int MODE, bool MATS>
+__device__ __forceinline__ float lambert(const SceneView& sc,
+                                         const CullView& cv, int tile,
+                                         const RenderParams& p, float px,
+                                         float py, float pz, float nx,
+                                         float ny, float nz, float alb[3]) {
+  const float ninv = 1.0f / sqrtf(nx * nx + ny * ny + nz * nz + 1e-20f);
+  const float tlx = px - p.light[0];
+  const float tly = py - p.light[1];
+  const float tlz = pz - p.light[2];
+  const float linv = 1.0f / sqrtf(tlx * tlx + tly * tly + tlz * tlz + 1e-20f);
+  float diff = (nx * tlx + ny * tly + nz * tlz) * (ninv * linv);
+  diff = fmaxf(diff, p.ambient);
+  if constexpr (MATS) {
+    scene_color<mode_dyn(MODE)>(
+        sc, px, py, pz, p.albedo, alb,
+        mode_culled(MODE) ? cv.masks + (size_t)tile * cv.n_words : nullptr);
+  }
+  return diff;
+}
+
 // One thread per AA ray. Lane q of a row is (pixel j, sample s) with
 // q = j * S + s, so a pixel's S samples sit in S adjacent lanes of one warp
 // (S divides 32, or is 64 and fills two warps; the wrapper checks). Writes the image f32[rows, width, 3]
 // and, when t_out is not null, the residuals t and hit f32[rows, width, S]
 // (with PRE 3 also s_min and t_min, at sp).
-// MODE is the culling mode, RELAX whether cfg.relax > 1, MATS whether the
+// MODE is the culling mode (scene_eval.cuh; 3 and 4 the DYN builds, in
+// prepass_dyn.cu), RELAX whether cfg.relax > 1, MATS whether the
 // scene carries materials, PRE the prepass planes: 0 t0_in and status_in
 // f32[rows, width] (or none with no_prepass), 1 the same at block
 // resolution f32[brows, bcols], 2 the 2*ni interval planes f32[2*ni, brows,
@@ -219,7 +316,7 @@ __global__ void fine_kernel(SceneView sc, const float* __restrict__ cam,
     float x, y;
     aa_screen_xy(cam, p, i, j, s, x, y);
     const Ray r = view_ray(cam, p, x, y);
-    const int tile = MODE != 0 ? tile_of(cv, i, j) : 0;
+    const int tile = mode_culled(MODE) ? tile_of(cv, i, j) : 0;
     float t, hit = 0.0f;
     float s_min = 0.0f, t_min = 0.0f;
     if constexpr (PRE == 3) {
@@ -263,42 +360,8 @@ __global__ void fine_kernel(SceneView sc, const float* __restrict__ cam,
         }
         hit = interval_march<MODE, RELAX>(sc, cv, tile, r, p, st, en, live, t,
                                           t_cap);
-      } else if constexpr (RELAX) {
-        // Over-relaxed stepping (_fine_march_tile 491-525): step omega*d;
-        // when consecutive safe spheres stop overlapping the step overshot,
-        // so step back by (1 - relax)*step and drop the ray to omega = 1. Hit
-        // and escape are tested only at samples that did not overshoot.
-        float prev_r = 0.0f, step_len = 0.0f, omega = p.relax;
-        for (int k = 0; k < p.max_iter && live > 0.0f; ++k) {
-          const float d = scene_distance_tile<MODE>(
-              sc, cv, tile, r.ox + r.dx * t, r.oy + r.dy * t, r.oz + r.dz * t);
-          const bool fail = omega > 1.0f && d + prev_r < step_len;
-          const float new_step = fail ? p.relax_back * step_len : omega * d;
-          if (fail) {
-            omega = 1.0f;
-          } else if (d < p.min_dist) {
-            hit = 1.0f;
-            live = 0.0f;
-          } else if (d > p.max_dist || t > t_cap) {
-            live = 0.0f;
-          }
-          if (live > 0.0f) t = t + new_step;
-          prev_r = d;
-          step_len = new_step;
-        }
       } else {
-        for (int k = 0; k < p.max_iter && live > 0.0f; ++k) {
-          const float d = scene_distance_tile<MODE>(
-              sc, cv, tile, r.ox + r.dx * t, r.oy + r.dy * t, r.oz + r.dz * t);
-          if (d < p.min_dist) {
-            hit = 1.0f;
-            live = 0.0f;
-          } else if (d > p.max_dist || t > t_cap) {
-            live = 0.0f;
-          } else {
-            t = t + d;
-          }
-        }
+        hit = legacy_march<MODE, RELAX>(sc, cv, tile, r, p, live, t, t_cap);
       }
     }
     if (t_out != nullptr) {
@@ -332,30 +395,9 @@ __global__ void fine_kernel(SceneView sc, const float* __restrict__ cam,
     float diff = 0.0f;
     float alb[3] = {p.albedo[0], p.albedo[1], p.albedo[2]};
     if (cover > 0.0f) {
-      // Tetrahedron taps: k in {(+,-,-), (-,-,+), (-,+,-), (+,+,+)}.
-      const float e = p.eps;
-      const float d0 = scene_distance_tile<MODE>(sc, cv, tile, px + e, py - e, pz - e);
-      const float d1 = scene_distance_tile<MODE>(sc, cv, tile, px - e, py - e, pz + e);
-      const float d2 = scene_distance_tile<MODE>(sc, cv, tile, px - e, py + e, pz - e);
-      const float d3 = scene_distance_tile<MODE>(sc, cv, tile, px + e, py + e, pz + e);
-      float nx = 0.0f, ny = 0.0f, nz = 0.0f;
-      nx = nx + d0; ny = ny - d0; nz = nz - d0;
-      nx = nx - d1; ny = ny - d1; nz = nz + d1;
-      nx = nx - d2; ny = ny + d2; nz = nz - d2;
-      nx = nx + d3; ny = ny + d3; nz = nz + d3;
-      const float ninv = 1.0f / sqrtf(nx * nx + ny * ny + nz * nz + 1e-20f);
-      const float tlx = px - p.light[0];
-      const float tly = py - p.light[1];
-      const float tlz = pz - p.light[2];
-      const float linv =
-          1.0f / sqrtf(tlx * tlx + tly * tly + tlz * tlz + 1e-20f);
-      diff = (nx * tlx + ny * tly + nz * tlz) * (ninv * linv);
-      diff = fmaxf(diff, p.ambient);
-      if constexpr (MATS) {
-        scene_color(sc, px, py, pz, p.albedo, alb,
-                    MODE != 0 ? cv.masks + (size_t)tile * cv.n_words
-                              : nullptr);
-      }
+      float nx, ny, nz;
+      tet_normal<MODE>(sc, cv, tile, p.eps, px, py, pz, nx, ny, nz);
+      diff = lambert<MODE, MATS>(sc, cv, tile, p, px, py, pz, nx, ny, nz, alb);
     }
 
     // Analytic checkerboard floor on a miss (wgsl:117-128).
@@ -455,6 +497,10 @@ struct FineLaunch {
 
 // Launches the soft build (PRE 3) for cull->mode `mode` (fine_soft.cu).
 cudaError_t launch_fine_soft(const FineLaunch& L, int mode, bool mats);
+// Launches the DYN build (MODE 3 for cull->mode 0, 4 for 2) of the hard
+// fine kernel (prepass_dyn.cu).
+cudaError_t launch_fine_dyn(const FineLaunch& L, int mode, bool relax,
+                            bool mats, int kind);
 // Launches the march-only build for cull->mode `mode` and prepass planes
 // `kind` (fine_march.cu).
 cudaError_t launch_fine_march(const FineLaunch& L, int mode, bool relax,

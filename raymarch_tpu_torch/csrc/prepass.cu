@@ -33,8 +33,10 @@
 // surface term enters multiplied by alpha.
 // Block planes (PRE 1 and 2) are read at block (i / B, j / B): the
 // reference's repeat of the planes to pixel resolution (1397-1406) as an
-// index map. fine_kernel's body is in fine.cuh: this file instantiates its
-// hard builds, fine_soft.cu (compiled with -fmad=false) the soft ones.
+// index map. fine_kernel's body is in fine.cuh, coarse_kernel's in
+// coarse.cuh: this file instantiates their static-tape hard builds,
+// fine_soft.cu (compiled with -fmad=false) the soft ones and prepass_dyn.cu
+// the DYN builds of both, which interpret the frame's dynamic tape.
 //
 // With leaf culling (cfg.leaf_cull) both kernels evaluate the scene of a
 // point through its pixel's tile (scene_distance_tile): the compact plan's
@@ -78,165 +80,12 @@
 
 #include <cuda_runtime.h>
 
+#include "coarse.cuh"
 #include "fine.cuh"
 #include "render_common.cuh"
 #include "scene_eval.cuh"
 
 namespace rmt {
-
-constexpr int COARSE_THREADS = 128;
-
-// The cone march of one centre ray from (t, live) at cone angle omega
-// (_cone_march_tile, 157-174) -> status; t ends at the stop distance.
-template <int MODE>
-__device__ __forceinline__ float cone_march(const SceneView& sc,
-                                            const CullView& cv, int tile,
-                                            const Ray& r, const RenderParams& p,
-                                            float omega, float inv1w,
-                                            float live, float& t,
-                                            float t_cap) {
-  float near = 0.0f;
-  for (int k = 0; k < p.max_iter && live > 0.0f; ++k) {
-    const float d = scene_distance_tile<MODE>(
-        sc, cv, tile, r.ox + r.dx * t, r.oy + r.dy * t, r.oz + r.dz * t);
-    const float slack = d - omega * t;
-    if (slack < p.min_dist) {
-      near = 1.0f;
-      live = 0.0f;
-    } else if (d > p.max_dist || t > t_cap) {
-      live = 0.0f;
-    } else {
-      t = t + slack * inv1w;
-    }
-  }
-  return near;
-}
-
-// The centre ray's scan for near intervals (_cone_interval_march_tile,
-// 225-293): plain sphere steps inside a near zone, cone steps outside, for
-// 2 * max_iter steps. idx counts the closed zones. A zone's end reverts to
-// FAR_T when the centre ray hits inside it, when the budget ends with it
-// open, and (the last zone) when one more zone would open; the ray then
-// stops. Indices are selected by unrolled compares so that st/en stay in
-// registers.
-template <int MODE>
-__device__ __forceinline__ void interval_scan(const SceneView& sc,
-                                              const CullView& cv, int tile,
-                                              const Ray& r,
-                                              const RenderParams& p,
-                                              const BlockParams& bp,
-                                              float live, float t,
-                                              float t_cap, float (&st)[MAX_NI],
-                                              float (&en)[MAX_NI]) {
-#pragma unroll
-  for (int q = 0; q < MAX_NI; ++q) st[q] = en[q] = FAR_T;
-  bool was_near = false;
-  int idx = 0;
-  for (int k = 0; k < 2 * p.max_iter && live > 0.0f; ++k) {
-    const float d = scene_distance_tile<MODE>(
-        sc, cv, tile, r.ox + r.dx * t, r.oy + r.dy * t, r.oz + r.dz * t);
-    const float slack = d - p.omega * t;
-    const bool near = slack < p.min_dist;
-    const bool hit_c = near && d < p.min_dist;
-    const bool esc = !hit_c && (d > p.max_dist || t > t_cap);
-    const bool closing = was_near && (!near || esc);
-    const bool overflow = near && !was_near && idx >= bp.ni;
-    const bool opening = near && !was_near && !overflow;
-#pragma unroll
-    for (int q = 0; q < MAX_NI; ++q) {
-      if (q == idx) {
-        if (opening) st[q] = t;
-        if (closing) en[q] = t;
-        if (hit_c) en[q] = FAR_T;
-      }
-      if (overflow && q == bp.ni - 1) en[q] = FAR_T;
-    }
-    if (closing) ++idx;
-    const bool live2 = !(hit_c || esc || overflow);
-    if (live2) t = t + (near ? d : slack * p.inv1w);
-    was_near = near && live2;
-    live = live2 ? 1.0f : 0.0f;
-  }
-  if (was_near) {
-#pragma unroll
-    for (int q = 0; q < MAX_NI; ++q)
-      if (q == idx) en[q] = FAR_T;
-  }
-}
-
-// KIND 0: one thread per pixel of the band, writes t0 and status
-// f32[rows, width] (B = 1, no intervals). KIND 1: one thread per block of
-// the band, t0 and status f32[brows, bcols]. KIND 2: one thread per block,
-// the 2*ni interval planes f32[2*ni, brows, bcols] (starts, then ends) at
-// t0_out. MODE is the culling mode (CullView::mode); under culling a block
-// reads the coarse tile that holds it (tiles of whole blocks).
-template <int MODE, int KIND>
-__global__ void coarse_kernel(SceneView sc, const float* __restrict__ cam,
-                              const float* __restrict__ bound, RenderParams p,
-                              CullView cv, float* __restrict__ t0_out,
-                              float* __restrict__ status_out, BlockParams bp) {
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  const int i = blockIdx.y;
-  if constexpr (KIND == 0) {
-    if (j >= p.width || i >= p.rows) return;
-    // Pixel-centre screen coordinates, f32 op order of pallas_prepass.py:910-911.
-    const float x = 2.0f * ((float)j + 0.5f) / (float)p.width - 1.0f;
-    const float y =
-        1.0f - 2.0f * (((float)i + 0.5f) + __ldg(cam + 7)) / (float)p.height;
-    const Ray r = view_ray(cam, p, x, y);
-
-    const int tile = MODE != 0 ? tile_of(cv, i, j) : 0;
-    float live = 1.0f, t = 0.0f, t_cap = 3.0e38f;
-    if (p.use_bound) bound_clip(bound, r, p.min_dist, live, t, t_cap);
-    float near = 0.0f;
-    for (int k = 0; k < p.max_iter && live > 0.0f; ++k) {
-      const float d = scene_distance_tile<MODE>(
-          sc, cv, tile, r.ox + r.dx * t, r.oy + r.dy * t, r.oz + r.dz * t);
-      const float slack = d - p.omega * t;
-      if (slack < p.min_dist) {
-        near = 1.0f;
-        live = 0.0f;
-      } else if (d > p.max_dist || t > t_cap) {
-        live = 0.0f;
-      } else {
-        t = t + slack * p.inv1w;
-      }
-    }
-    const size_t o = (size_t)i * p.width + j;
-    t0_out[o] = t;
-    status_out[o] = near;
-  } else {
-    if (j >= bp.bcols || i >= bp.brows) return;
-    // Block-centre screen coordinates (910-911): an edge block's centre may
-    // lie outside the image and is marched all the same.
-    const float bsz = (float)bp.block;
-    const float x = 2.0f * (((float)j + 0.5f) * bsz) / (float)p.width - 1.0f;
-    const float y =
-        1.0f - 2.0f * (((float)i + 0.5f) * bsz + __ldg(cam + 7)) / (float)p.height;
-    const Ray r = view_ray(cam, p, x, y);
-    const int tile = MODE != 0 ? tile_of(cv, i, j) : 0;
-    float live = 1.0f, t = 0.0f, t_cap = FAR_T;
-    if (p.use_bound) bound_clip(bound, r, p.min_dist, live, t, t_cap);
-    const size_t o = (size_t)i * bp.bcols + j;
-    if constexpr (KIND == 2) {
-      float st[MAX_NI], en[MAX_NI];
-      interval_scan<MODE>(sc, cv, tile, r, p, bp, live, t, t_cap, st, en);
-      const size_t plane = (size_t)bp.brows * bp.bcols;
-#pragma unroll
-      for (int q = 0; q < MAX_NI; ++q) {
-        if (q < bp.ni) {
-          t0_out[q * plane + o] = st[q];
-          t0_out[(bp.ni + q) * plane + o] = en[q];
-        }
-      }
-    } else {
-      const float near = cone_march<MODE>(sc, cv, tile, r, p, p.omega, p.inv1w,
-                                          live, t, t_cap);
-      t0_out[o] = t;
-      status_out[o] = near;
-    }
-  }
-}
 
 // One thread per pixel of the band (prepass_chain, B > 1): the pixel's cone
 // ray at omega_px over the whole tape, started at max(its bound-clip start,
@@ -282,42 +131,40 @@ extern "C" {
 // t0 (status null). soft != 0 runs the soft build (no prepass, relax 1),
 // which also writes s_min and t_min where soft_params gives them. img null
 // runs the march-only build (fine_march.cu), which writes t and hit only.
+// dyn != 0 reads `tape` as the frame's dynamic tape (the DYN builds of
+// prepass_dyn.cu: un-culled or gated, hard, no march-only build).
 int rmt_coarse_launch(const float* leaf_params, const int* row_kind,
                       const int* tape, int n_instr, const float* op_param,
-                      const float* cam, const float* bound,
+                      int dyn, const float* cam, const float* bound,
                       const rmt::RenderParams* params,
                       const rmt::CullView* cull, float* t0_out,
                       float* status_out, const rmt::BlockParams* block_params,
                       void* stream) {
-  const rmt::RenderParams p = *params;
-  const rmt::BlockParams bp = *block_params;
-  const rmt::SceneView sc = rmt::make_scene(leaf_params, row_kind, tape,
-                                            n_instr, op_param, p.max_dist);
-  if (bp.ni > rmt::MAX_NI) return (int)cudaErrorInvalidValue;
-  const int kind = bp.ni > 0 ? 2 : (bp.block > 1 ? 1 : 0);
-  const int cols = kind == 0 ? p.width : bp.bcols;
-  const dim3 block(rmt::COARSE_THREADS);
-  const dim3 grid((cols + rmt::COARSE_THREADS - 1) / rmt::COARSE_THREADS,
-                  kind == 0 ? p.rows : bp.brows);
-  cudaStream_t st = (cudaStream_t)stream;
-#define RMT_COARSE(MODE, KIND)                                           \
-  rmt::coarse_kernel<MODE, KIND><<<grid, block, 0, st>>>(sc, cam, bound, p, \
-                                                         *cull, t0_out,    \
-                                                         status_out, bp)
-  switch (cull->mode * 3 + kind) {
-    case 0: RMT_COARSE(0, 0); break;
-    case 1: RMT_COARSE(0, 1); break;
-    case 2: RMT_COARSE(0, 2); break;
-    case 3: RMT_COARSE(1, 0); break;
-    case 4: RMT_COARSE(1, 1); break;
-    case 5: RMT_COARSE(1, 2); break;
-    case 6: RMT_COARSE(2, 0); break;
-    case 7: RMT_COARSE(2, 1); break;
-    case 8: RMT_COARSE(2, 2); break;
+  rmt::CoarseLaunch L;
+  L.p = *params;
+  L.bp = *block_params;
+  L.sc = rmt::make_scene(leaf_params, row_kind, tape, n_instr, op_param,
+                         L.p.max_dist);
+  if (L.bp.ni > rmt::MAX_NI) return (int)cudaErrorInvalidValue;
+  const int kind = L.bp.ni > 0 ? 2 : (L.bp.block > 1 ? 1 : 0);
+  const int cols = kind == 0 ? L.p.width : L.bp.bcols;
+  L.block = dim3(rmt::COARSE_THREADS);
+  L.grid = dim3((cols + rmt::COARSE_THREADS - 1) / rmt::COARSE_THREADS,
+                kind == 0 ? L.p.rows : L.bp.brows);
+  L.st = (cudaStream_t)stream;
+  L.cam = cam;
+  L.bound = bound;
+  L.cv = *cull;
+  L.t0_out = t0_out;
+  L.status_out = status_out;
+  if (dyn) return (int)rmt::launch_coarse_dyn(L, cull->mode, kind);
+  switch (cull->mode) {
+    case 0: L.kinds<0>(kind); break;
+    case 1: L.kinds<1>(kind); break;
+    case 2: L.kinds<2>(kind); break;
     default:
       return (int)cudaErrorInvalidValue;
   }
-#undef RMT_COARSE
   return (int)cudaGetLastError();
 }
 
@@ -342,7 +189,7 @@ int rmt_coarse_px_launch(const float* leaf_params, const int* row_kind,
 
 int rmt_fine_launch(const float* leaf_params, const int* row_kind,
                     const int* tape, int n_instr, const float* op_param,
-                    const float* cam, const float* bound,
+                    int dyn, const float* cam, const float* bound,
                     const rmt::RenderParams* params,
                     const rmt::CullView* cull, const float* t0_in,
                     const float* status_in, float* img, float* t_out,
@@ -372,7 +219,7 @@ int rmt_fine_launch(const float* leaf_params, const int* row_kind,
   L.bp = bp;
   L.sp = *soft_params;
   const bool relax = p.relax > 1.0f;
-  if (soft && (relax || !p.no_prepass ||
+  if (soft && (dyn || relax || !p.no_prepass ||
                (t_out != nullptr && (L.sp.s_min_out == nullptr ||
                                      L.sp.t_min_out == nullptr))))
     return (int)cudaErrorInvalidValue;
@@ -383,9 +230,11 @@ int rmt_fine_launch(const float* leaf_params, const int* row_kind,
                                                 : 0;
   if (img == nullptr) {
     // The march-only build: t and hit only (fine_march.cu).
-    if (t_out == nullptr || hit_out == nullptr) return (int)cudaErrorInvalidValue;
+    if (dyn || t_out == nullptr || hit_out == nullptr)
+      return (int)cudaErrorInvalidValue;
     return (int)rmt::launch_fine_march(L, cull->mode, relax, kind);
   }
+  if (dyn) return (int)rmt::launch_fine_dyn(L, cull->mode, relax, mats != 0, kind);
   switch (cull->mode) {
     case 0: L.flags<0>(relax, mats != 0, kind); break;
     case 1: L.flags<1>(relax, mats != 0, kind); break;

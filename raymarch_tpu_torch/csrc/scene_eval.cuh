@@ -438,9 +438,22 @@ __device__ __forceinline__ float scene_distance_compact(const SceneView& sc,
   return has_chain ? fminf(d, chain) : d;
 }
 
-// The scene distance at a point of pixel tile `tile` under culling mode
-// MODE (CullView::mode). A template parameter, so that each kernel is built
-// once per mode and the unculled build carries no culling code.
+// The kernels' MODE template parameter: the culling mode (CullView::mode)
+// of a static tape, 0 none, 1 the compact plan's item lists, 2 the gated
+// tape; and MODE 3 and 4, the DYN builds of modes 0 and 2, which interpret
+// the frame's dynamic tape (scene_distance<true>), un-culled or gated by the
+// tile's leaf mask. A dynamic tape has no compact plan (build_compact_plan
+// returns None for it, as the reference's does: pallas_march.py:279-280),
+// so no build reads item lists of one.
+__host__ __device__ constexpr bool mode_dyn(int mode) { return mode >= 3; }
+// The point's tile matters: the kernel reads its lists or its leaf mask.
+__host__ __device__ constexpr bool mode_culled(int mode) {
+  return mode == 1 || mode == 2 || mode == 4;
+}
+
+// The scene distance at a point of pixel tile `tile` under MODE. A
+// template parameter, so that each kernel is built once per mode and the
+// unculled build carries no culling code.
 template <int MODE>
 __device__ __forceinline__ float scene_distance_tile(const SceneView& sc,
                                                      const CullView& cv,
@@ -448,11 +461,11 @@ __device__ __forceinline__ float scene_distance_tile(const SceneView& sc,
                                                      float py, float pz) {
   if constexpr (MODE == 1) {
     return scene_distance_compact(sc, cv, tile, px, py, pz);
-  } else if constexpr (MODE == 2) {
-    return scene_distance(sc, px, py, pz,
-                          cv.masks + (size_t)tile * cv.n_words);
+  } else if constexpr (MODE == 2 || MODE == 4) {
+    return scene_distance<mode_dyn(MODE)>(sc, px, py, pz,
+                                          cv.masks + (size_t)tile * cv.n_words);
   } else {
-    return scene_distance(sc, px, py, pz);
+    return scene_distance<mode_dyn(MODE)>(sc, px, py, pz);
   }
 }
 

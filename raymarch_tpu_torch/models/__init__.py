@@ -1,3 +1,3 @@
-from . import csg
+from . import csg, graph
 
-__all__ = ["csg"]
+__all__ = ["csg", "graph"]

@@ -4,7 +4,7 @@ Plays the role of the reference's `enum CSGNode` AST
 (reference src/ray_marching/csg/mod.rs:30-45 and csg/primitives/, csg/operations/),
 but as plain Python frozen dataclasses with operator sugar, built for programmatic
 scene construction (the reference's visual node editor is replaced by this DSL plus
-`raymarch_tpu.models.graph`, not ported yet).
+`raymarch_tpu_torch.models.graph`).
 
 Supported nodes (reference parity and the BASELINE-mandated extensions):
 

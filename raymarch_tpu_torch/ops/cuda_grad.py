@@ -12,7 +12,9 @@ and painted pools.
   `prepass_block`), then the fine kernel with residuals
   (`cuda_prepass.fine_res`, the counterpart of the Pallas fine kernel with
   `emit_th=True`): the image, and each AA ray's march end t and hit flag;
-  culled per tile with `cfg.leaf_cull`.
+  culled per tile with `cfg.leaf_cull`. Where the layout is unpacked
+  (aa_packed=False, or aa_samples^2 not dividing 128) the unpacked fine
+  pass K4 (`cuda_prepass.fine_unpacked_res`) writes the same residuals.
 - Compact backward (`compact_bwd`; kernel `compact_bwd_kernel` in
   csrc/compact_bwd.cu, replacing `_make_compact_bwd.bwd_kernel`,
   pallas_grad.py:256): the same gradient with every scene evaluation
@@ -86,7 +88,6 @@ from .cuda_prepass import (
     _scene_ptrs,
     _view_dirs,
     aa_screen,
-    fine_res,
     make_pallas_image_render_aa,
     resolve_device,
     shade_plain,
@@ -601,7 +602,8 @@ class _FusedRender(torch.autograd.Function):
         coarse_cull, fine_cull = rp.cull_args(scene, cam_d)
         # Soft mode runs no coarse pass (pallas_grad.py:1863-1868).
         pre = rp.prepass(scene, cam_d, bound, coarse_cull)
-        img, *res = fine_res(scene, cam_d, bound, rp.params, *pre, cull=fine_cull)
+        # K2 with residuals, or K4's where the layout is unpacked.
+        img, *res = rp.fine_pass(residuals=True)(scene, cam_d, bound, rp.params, *pre, cull=fine_cull)
         ctx.fr = fr
         # The backward reads, for each ray, the fine list its forward used.
         ctx.fine_cull = fine_cull
@@ -651,22 +653,24 @@ def plan_kind(spec: TapeSpec):
     return "stream" if plan["stream"] else "pool"
 
 
-def backward_route(spec: TapeSpec, cfg: RenderConfig, soft: bool = False):
+def backward_route(spec: TapeSpec, cfg: RenderConfig, soft: bool = False, packed: bool = True):
     """(plan kind, reason): why the compact O(active) backward is not taken,
     or reason None when it is, by the eligibility chain of
     pallas_grad.py:1279-1298 with the reference's reason strings. This is
     the one place that decides; every compact plan without residual
     subtrees takes K9 (pool, seg1 and stream plans, painted pools), but in
     soft mode a painted scene takes K8 ("painted materials in soft mode",
-    first in the reference's chain).
+    first in the reference's chain), and so does a forward without the
+    AA-packed layout (`packed` False: aa_packed=False, or an AA grid whose
+    aa_samples^2 does not divide 128), whose residuals K4 writes ("AA-packed
+    layout unavailable", last in the chain).
 
-    Two of the reference's gates do not apply to the port. The AA-packed
-    layout is always available. The 64-item history cap of the TPU's VMEM
-    (1278, 1292) is not carried: the port sizes the history to the plan's
-    total ordered span (`history_layout`, ROADMAP §3.1), so a seg1 chain or
-    stream group of more than 64 items takes K9 here where the reference
-    takes its legacy backward with the reason "ordered fold history exceeds
-    the VMEM budget (64)"."""
+    The 64-item history cap of the TPU's VMEM (1278, 1292) is not carried:
+    the port sizes the history to the plan's total ordered span
+    (`history_layout`, ROADMAP §3.1), so a seg1 chain or stream group of
+    more than 64 items takes K9 here where the reference takes its legacy
+    backward with the reason "ordered fold history exceeds the VMEM budget
+    (64)"."""
     if soft and spec.has_materials:
         return (plan_kind(spec) if cfg.leaf_cull else None), "painted materials in soft mode"
     if not cfg.leaf_cull:
@@ -678,6 +682,8 @@ def backward_route(spec: TapeSpec, cfg: RenderConfig, soft: bool = False):
         return kind, "plan has residual (unrolled) subtrees"
     if spec.has_materials and kind != "pool":
         return kind, "painted materials on smooth/ordered segments"
+    if not packed:
+        return kind, "AA-packed layout unavailable"
     return kind, None
 
 
@@ -699,24 +705,24 @@ class FusedRenderer:
     """
 
     def __init__(self, spec: TapeSpec, cfg: RenderConfig, width: int, height: int, device, reason,
-                 prepass_block: int = 1, soft: bool = False):
+                 prepass_block: int = 1, soft: bool = False, packed: bool = True):
         self.spec = spec
         self.cfg = cfg
         self.device = device
         self.prepass = make_pallas_image_render_aa(spec, cfg, width, height, device=device,
-                                                   prepass_block=prepass_block, no_prepass=soft, soft=soft)
+                                                   prepass_block=prepass_block, no_prepass=soft,
+                                                   aa_packed=packed, soft=soft)
         self.params = self.prepass.params
         self.layout = GradLayout.of(spec, cfg)
         # `reason` is backward_route's: None takes the compact backward.
         self.compact_bwd = reason is None
         # The keys and strings of the reference (pallas_grad.py:1887-1895).
-        # The port always keeps a pixel's AA samples in adjacent lanes (the
-        # packed layout) and has no row-block size.
+        # The port has no row-block size.
         self.backward_info = {
             "kind": "pallas_compact" if self.compact_bwd else "pallas_legacy_unrolled",
             "compact": self.compact_bwd,
             "reason": reason,
-            "aa_packed": True,
+            "aa_packed": not self.prepass.params.unpacked,
             "bm": None,
             "soft": soft,
         }
@@ -747,7 +753,7 @@ def make_fused_render_vjp(
     cached per (spec, cfg, width, height, prepass_block, soft, device);
     `device` defaults to the card ("cuda"), "cpu" runs the plain versions.
 
-    Serves every static tape with the packed layout: without `cfg.leaf_cull`
+    Serves every static tape: without `cfg.leaf_cull`
     the legacy backward (K8); with it the culled forward, then the compact
     backward (K9) for every compact plan without residual subtrees (pool,
     seg1 chain, streams; painted pools) and K8 for any other scene, as the
@@ -755,6 +761,16 @@ def make_fused_render_vjp(
     painted scenes (the albedo words) and tapes of any length.
     `prepass_block` = B >= 1 runs the block prepass (values below 1 read as
     1, as the reference's).
+
+    `aa_packed` picks the forward's layout as the reference's route does
+    (pallas_grad.py:1296-1310): False, or an AA grid whose aa_samples^2 does
+    not divide 128 (aa = 3), takes the unpacked fine pass K4 with residuals,
+    then K8 ("AA-packed layout unavailable"); the compact backward and soft
+    mode force the packed layout. None packs wherever it can and takes K4
+    with `cfg.aa_shared_normals` (whose forward then shades with the
+    shared normals, and K8 with each ray's own, as the reference's does).
+    Like the reference it raises ValueError for aa_packed=True with an AA
+    grid that does not pack, and for a packed VJP with aa_shared_normals.
 
     `soft=True` renders soft coverage (silhouette gradients): the packed
     no-prepass forward that keeps (s_min, t_min), then the soft backward;
@@ -764,27 +780,33 @@ def make_fused_render_vjp(
 
     `interpret` and `bm` set the TPU kernels' layout in the reference (the
     Pallas interpreter; the backward's row-block size) and have no effect
-    here. `band_rows` and `aa_packed=False` raise NotImplementedError
-    naming their ROADMAP item, as does a dynamic tape.
+    here. `band_rows` raises NotImplementedError naming its ROADMAP item,
+    as does a dynamic tape (the reference's raises too,
+    pallas_grad.py:1239-1242).
     """
     del interpret, bm  # TPU layout only
     if spec.static_tape is None:
-        _not_ported("fused-VJP rendering of a dynamic tape (compile_scene(static=True) is required)",
-                    "§1 item 4, dynamic tape, tiered runtime and viewer")
+        _not_ported("fused-VJP rendering of a dynamic tape (compile_scene(static=True) is required, as in "
+                    "the reference)", "§2 item 3: K8 and K9 take static tapes only")
+    S = cfg.aa_samples ** 2
     if soft:
-        S = cfg.aa_samples ** 2
         if S and 128 % S:
             raise ValueError("soft VJP needs aa_samples^2 dividing 128")
         aa_packed = True  # pallas_grad.py:1243-1249
     if band_rows is not None:
         _not_ported("band_rows", "§1 item 7, multi-device")
-    if aa_packed is False:
-        _not_ported("the unpacked layout", "§1 item 5 and §2 item 5, K4 fine_kernel")
-    _, reason = backward_route(spec, cfg, soft)
+    if aa_packed and 128 % S:
+        raise ValueError("aa_packed VJP needs aa_samples^2 dividing 128")
+    _, reason = backward_route(spec, cfg, soft, packed=aa_packed is not False and 128 % S == 0)
+    # The compact backward forces the packed layout (1299-1301).
+    packed = reason is None or bool(aa_packed) or (
+        aa_packed is None and 128 % S == 0 and not cfg.aa_shared_normals)
+    if packed and cfg.aa_shared_normals:
+        raise ValueError("aa_packed excludes aa_shared_normals")
     return _cached_fused(spec, cfg, int(width), int(height), resolve_device(device), reason,
-                         1 if soft else max(1, int(prepass_block)), bool(soft))
+                         1 if soft else max(1, int(prepass_block)), bool(soft), packed)
 
 
 @functools.lru_cache(maxsize=None)
-def _cached_fused(spec, cfg, width, height, device, reason, prepass_block, soft=False):
-    return FusedRenderer(spec, cfg, width, height, device, reason, prepass_block, soft)
+def _cached_fused(spec, cfg, width, height, device, reason, prepass_block, soft=False, packed=True):
+    return FusedRenderer(spec, cfg, width, height, device, reason, prepass_block, soft, packed)

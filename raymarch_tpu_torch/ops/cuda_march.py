@@ -253,8 +253,8 @@ def scene_plain(scene: SceneBuffers, max_dist: float, px, py, pz, cull=None):
     `cull(row)` (a bool tensor like the points) gates leaves as the tile
     mask of the kernel's gated tape does (`sdf._apply_static_tape`). A
     dynamic scene runs its tape (read to the host) on the reference's stack
-    machine (`sdf._apply_dynamic_tape`), the plain version of the kernels'
-    DYN interpreter."""
+    machine (`sdf._apply_dynamic_tape`, gated the same way), the plain
+    version of the kernels' DYN interpreter."""
     row_types = {r: (t, rot) for r, t, rot in _leaf_static_rows(scene.spec)}
     lp = scene.leaf_params
 
@@ -263,10 +263,8 @@ def scene_plain(scene: SceneBuffers, max_dist: float, px, py, pz, cull=None):
         return _leaf_distance_plain(lp[row], t, rot, px, py, pz)
 
     if scene.dynamic:
-        if cull is not None:
-            raise ValueError("a dynamic tape is never culled")
         return _apply_dynamic_tape(_host_tape(scene), scene.op_param, leaf_fn, max_dist, px,
-                                   scene.spec.stack_depth)
+                                   scene.spec.stack_depth, cull=cull)
     return _apply_static_tape(scene.spec, scene.op_param, leaf_fn, max_dist, px, cull=cull)
 
 
@@ -734,10 +732,8 @@ def scene_color_plain(scene: SceneBuffers, max_dist: float, default_rgb, px, py,
         return _leaf_distance_plain(lp[row], t, rot, px, py, pz), leaf_rgb_plain(lp[row], default_rgb)
 
     if scene.dynamic:
-        if cull is not None:
-            raise ValueError("a dynamic tape is never culled")
         d, rgb = _apply_dynamic_tape_color(_host_tape(scene), scene.op_param, leaf_fn, max_dist, px,
-                                           default_rgb, scene.spec.stack_depth)
+                                           default_rgb, scene.spec.stack_depth, cull=cull)
     else:
         d, rgb = _apply_static_tape_color(scene.spec, scene.op_param, leaf_fn, max_dist, px, default_rgb,
                                           cull=cull)

@@ -1,7 +1,7 @@
-"""Cone-prepass forward renderer: three CUDA kernels and their plain versions.
+"""Cone-prepass forward renderer: four CUDA kernels and their plain versions.
 
-Port of `raymarch_tpu/ops/pallas_prepass.py:make_pallas_image_render_aa`
-with aa_packed=True, for a band of `rows` image rows starting at cam[7]:
+Port of `raymarch_tpu/ops/pallas_prepass.py:make_pallas_image_render_aa`,
+for a band of `rows` image rows starting at cam[7]:
 
 1. **Coarse pass** (`coarse`; kernel `coarse_kernel` in csrc/prepass.cu,
    replacing the Pallas `coarse_kernel`, pallas_prepass.py:885). One cone
@@ -36,6 +36,19 @@ with aa_packed=True, for a band of `rows` image rows starting at cam[7]:
    build (`fine_march`, csrc/fine_march.cu) writes each AA ray's (t, hit)
    and nothing else: the reference's `march_only` launch (1827) behind
    `make_pallas_image_march_fast`.
+4. **Unpacked fine pass** (`fine_unpacked`; kernel `fine_unpacked_kernel`
+   in csrc/fine_unpacked.cu, replacing the Pallas `fine_kernel`,
+   pallas_prepass.py:1010, launched at 1504). The same AA rays, march and
+   shading as the fine pass, in one thread per pixel that walks its S
+   samples in order: it takes any aa_samples and `cfg.aa_shared_normals`
+   (the first sample to hit a pixel computes the 4-tap normal, the later
+   ones reuse it), which the AA-packed layout cannot.
+
+A dynamic tape (`compile_scene(scene)`) runs on the DYN builds of the
+coarse and fine kernels and of K4 (csrc/prepass_dyn.cu, fine_unpacked.cu):
+the frame's tape is uploaded with its arrays, and the plain versions run it
+on the reference's stack machine (`sdf._apply_dynamic_tape`, gated by the
+tile masks under culling).
 
 Each wrapper takes tensors on one device. On the CPU it runs its plain
 version (`coarse_plain`, `coarse_px_plain`, `fine_plain`: vectorised torch
@@ -146,6 +159,8 @@ class PrepassParams:
     beta_inv: float  # f32(1 / coverage_beta)
     soft_infl: float  # f32(min_dist + soft_cull_log_alpha * coverage_beta): the soft bound's inflation
     soft_gate: float  # f32(1e-4 * min(1, coverage_beta)): the soft backward's per-ray work gate
+    unpacked: bool = False  # the fine pass is K4 (`fine_unpacked`), one thread per pixel
+    shared_normals: bool = False  # K4 shares each pixel's first hit normal (cfg.aa_shared_normals)
 
     @property
     def plane_block(self) -> int:
@@ -159,7 +174,8 @@ class PrepassParams:
 
     @staticmethod
     def make(cfg: RenderConfig, width: int, height: int, no_prepass: bool = False, block: int = 1,
-             n_intervals: int = 0, chain: bool = False, band_rows: int | None = None, soft: bool = False):
+             n_intervals: int = 0, chain: bool = False, band_rows: int | None = None, soft: bool = False,
+             unpacked: bool = False):
         tanf = math.tan(cfg.fovy / 2.0)
         omega = cone_omega(cfg, width, height, block)
         omega_px = cone_omega(cfg, width, height, 1)
@@ -202,6 +218,8 @@ class PrepassParams:
             beta_inv=_f32(1.0 / cfg.coverage_beta),
             soft_infl=_f32(cfg.min_dist + cfg.soft_cull_log_alpha * cfg.coverage_beta),
             soft_gate=_f32(1e-4 * min(1.0, float(cfg.coverage_beta))),
+            unpacked=bool(unpacked),
+            shared_normals=bool(unpacked and cfg.aa_shared_normals),
         )
 
 
@@ -485,7 +503,12 @@ def leaves_per_point(scene: SceneBuffers, cull: TileCull | None, tid=None):
         return cull.counts.sum(dim=1)[tid].to(torch.float32)
     from .culling import _active_from_mask
 
-    return _active_from_mask(scene.spec, cull.masks).sum(dim=1)[tid].to(torch.float32)
+    active = _active_from_mask(scene.spec, cull.masks)
+    if scene.dynamic:  # the rows this frame's tape pushes
+        pushed = torch.zeros(scene.spec.n_leaves, dtype=torch.bool, device=active.device)
+        pushed[scene.tape[1][scene.tape[0] == oc.COP_PUSH].long()] = True
+        active = active & pushed[None, :]
+    return active.sum(dim=1)[tid].to(torch.float32)
 
 
 def _band_ij(p: PrepassParams, dev):
@@ -680,6 +703,19 @@ def aa_screen(p: PrepassParams, cam, i0: int = 0, n_rows: int | None = None):
     return tuple(v.contiguous() for v in torch.broadcast_tensors(x, y))
 
 
+def _fine_rays(scene: SceneBuffers, cam, p: PrepassParams, cull: TileCull | None, work: WorkCount | None):
+    """What the plain fine passes (K2's and K4's) start from: the AA rays
+    (ox, oy, oz, dx, dy, dz) f32[rows, W, S], the pass's scene and albedo
+    functions under `cull`, and the leaves per point when `work` counts."""
+    x, y = aa_screen(p, cam)
+    dx, dy, dz = _view_dirs(x, y, cam, p)
+    ox, oy, oz = _origin(cam, dx)
+    tid = cull.tile_index(*_band_ij(p, cam.device)) if cull is not None else None
+    leaves = leaves_per_point(scene, cull, tid) if work is not None else None
+    return ((ox, oy, oz, dx, dy, dz), scene_fn_plain(scene, p.max_dist, cull, tid),
+            albedo_fn_plain(scene, p, cull, tid), leaves)
+
+
 def fine_res_plain(scene: SceneBuffers, cam, bound, p: PrepassParams, *pre, cull: TileCull | None = None,
                    work: WorkCount | None = None):
     """Plain version of the fine kernel with residuals -> (image f32[rows,
@@ -691,13 +727,7 @@ def fine_res_plain(scene: SceneBuffers, cam, bound, p: PrepassParams, *pre, cull
     culled frame; `work`, when given, counts the pass's scene and leaf
     evaluations (in soft mode its `hits` counts the rays that take the
     surface term, alpha > 0)."""
-    x, y = aa_screen(p, cam)
-    dx, dy, dz = _view_dirs(x, y, cam, p)
-    ox, oy, oz = _origin(cam, dx)
-    tid = cull.tile_index(*_band_ij(p, cam.device)) if cull is not None else None
-    scene_fn = scene_fn_plain(scene, p.max_dist, cull, tid)
-    leaves = leaves_per_point(scene, cull, tid) if work is not None else None
-    albedo_fn = albedo_fn_plain(scene, p, cull, tid)
+    (ox, oy, oz, dx, dy, dz), scene_fn, albedo_fn, leaves = _fine_rays(scene, cam, p, cull, work)
     if p.soft:
         t, hit, s_min, t_min = _soft_march_plain(scene_fn, p, bound, ox, oy, oz, dx, dy, dz, work, leaves)
         cols = shade_soft_plain(scene, p, ox, oy, oz, dx, dy, dz, t, hit, s_min, t_min, scene_fn, albedo_fn)
@@ -708,6 +738,21 @@ def fine_res_plain(scene: SceneBuffers, cam, bound, p: PrepassParams, *pre, cull
         img = torch.stack([torch.sum(c, dim=-1) * p.inv_s for c in cols], dim=-1)
         return img, t, hit, s_min, t_min
 
+    t, hit = _hard_march_plain(scene_fn, p, bound, (ox, oy, oz, dx, dy, dz), pre, work, leaves)
+    if work is not None:
+        work.add(hit, leaves, points_per=4)  # the normal taps of hit rays
+        work.hits = work.hits + hit.sum()
+    cols = shade_plain(scene, p, ox, oy, oz, dx, dy, dz, t, hit, scene_fn, albedo_fn)
+    img = torch.stack([torch.sum(c, dim=-1) * p.inv_s for c in cols], dim=-1)
+    return img, t, hit
+
+
+def _hard_march_plain(scene_fn, p: PrepassParams, bound, rays, pre, work=None, leaves=None):
+    """The fine march of the AA rays `rays` = (ox, oy, oz, dx, dy, dz)
+    f32[rows, W, S] from the prepass planes `pre` -> (t, hit): from each
+    pixel's t0 (or t = 0 without a prepass), plainly or over-relaxed, or
+    through its block's near intervals; the march K2 and K4 share."""
+    ox, oy, oz, dx, dy, dz = rays
     zero = torch.zeros_like(dx)
     pre = [expand_plane(v, p.plane_block, p.rows, p.width)[:, :, None] for v in pre]
     if p.no_prepass:
@@ -727,33 +772,65 @@ def fine_res_plain(scene: SceneBuffers, cam, bound, p: PrepassParams, *pre, cull
             bound, ox, oy, oz, dx, dy, dz, live, t, t_cap, p.min_dist
         )
     if p.ni and not p.no_prepass:
-        t, hit = _interval_march_plain(scene_fn, p, ox, oy, oz, dx, dy, dz, t, live, t_cap,
-                                       [zero + v for v in pre[: p.ni]], [zero + v for v in pre[p.ni:]],
-                                       work, leaves)
-    elif p.relax > 1.0:
-        t, hit = _relaxed_march_plain(scene_fn, p, ox, oy, oz, dx, dy, dz, t, live, t_cap,
-                                      work, leaves)
-    else:
-        hit = zero
-        for _ in range(p.max_iter):
-            if not bool(live.any()):
-                break
-            if work is not None:
-                work.add(live, leaves)
-            d = scene_fn(ox + dx * t, oy + dy * t, oz + dz * t)
-            hit_now = torch.where(d < p.min_dist, live, 0.0)
-            escaped = torch.where((d > p.max_dist) | (t > t_cap), live, 0.0)
-            escaped = escaped - escaped * hit_now
-            advance = live - hit_now - escaped
-            t = t + d * advance
-            live = live - hit_now - escaped
-            hit = hit + hit_now
+        return _interval_march_plain(scene_fn, p, ox, oy, oz, dx, dy, dz, t, live, t_cap,
+                                     [zero + v for v in pre[: p.ni]], [zero + v for v in pre[p.ni:]],
+                                     work, leaves)
+    if p.relax > 1.0:
+        return _relaxed_march_plain(scene_fn, p, ox, oy, oz, dx, dy, dz, t, live, t_cap, work, leaves)
+    hit = zero
+    for _ in range(p.max_iter):
+        if not bool(live.any()):
+            break
+        if work is not None:
+            work.add(live, leaves)
+        d = scene_fn(ox + dx * t, oy + dy * t, oz + dz * t)
+        hit_now = torch.where(d < p.min_dist, live, 0.0)
+        escaped = torch.where((d > p.max_dist) | (t > t_cap), live, 0.0)
+        escaped = escaped - escaped * hit_now
+        advance = live - hit_now - escaped
+        t = t + d * advance
+        live = live - hit_now - escaped
+        hit = hit + hit_now
+    return t, hit
+
+
+def fine_unpacked_plain(scene: SceneBuffers, cam, bound, p: PrepassParams, *pre, cull: TileCull | None = None,
+                        work: WorkCount | None = None):
+    """Plain version of the unpacked fine kernel K4 -> (image f32[rows, W,
+    3], t, hit f32[rows, W, S]). Each AA ray marches and shades as in
+    `fine_res_plain`; with `p.shared_normals` the first sample in sample
+    order that hits a pixel takes the 4 taps at its own hit point, and every
+    hitting sample of the pixel shades with that normal and its own hit
+    point (pallas_prepass.py:1206-1232). The AA mean sums the samples in
+    sample order, then scales by 1/S, as the kernel (and the reference's
+    accumulator) does. `work` counts the taps per hit ray, or per pixel
+    with a hit when the normal is shared."""
+    (ox, oy, oz, dx, dy, dz), scene_fn, albedo_fn, leaves = _fine_rays(scene, cam, p, cull, work)
+    t, hit = _hard_march_plain(scene_fn, p, bound, (ox, oy, oz, dx, dy, dz), pre, work, leaves)
+    normal = None
+    if p.shared_normals:
+        # The first hitting sample of each pixel (argmax takes the first of
+        # equal maxima; a pixel without a hit takes sample 0, unread).
+        first = torch.argmax(hit, dim=-1, keepdim=True)
+        at = [torch.gather(v, -1, first) for v in (ox + dx * t * hit, oy + dy * t * hit, oz + dz * t * hit)]
+        normal = tet_taps_plain(scene_fn, *at, p.eps)
+        tapped = (hit.amax(dim=-1, keepdim=True) > 0.0).to(torch.float32)
     if work is not None:
-        work.add(hit, leaves, points_per=4)  # the normal taps of hit rays
+        work.add(tapped if p.shared_normals else hit, leaves, points_per=4)  # the normal taps
         work.hits = work.hits + hit.sum()
-    cols = shade_plain(scene, p, ox, oy, oz, dx, dy, dz, t, hit, scene_fn, albedo_fn)
-    img = torch.stack([torch.sum(c, dim=-1) * p.inv_s for c in cols], dim=-1)
+    px, py, pz = ox + dx * t * hit, oy + dy * t * hit, oz + dz * t * hit
+    cols = _shade_at(scene, p, ox, oy, oz, dx, dy, dz, px, py, pz, hit, scene_fn, albedo_fn, normal)
+    img = torch.stack([_sample_order_mean(c, p.inv_s) for c in cols], dim=-1)
     return img, t, hit
+
+
+def _sample_order_mean(c, inv_s: float):
+    """The mean over the last (sample) axis as K4 takes it: the sum in
+    sample order, then times f32(1/S)."""
+    acc = c[..., 0]
+    for s in range(1, c.shape[-1]):
+        acc = acc + c[..., s]
+    return acc * inv_s
 
 
 def _soft_march_plain(scene_fn, p: PrepassParams, bound, ox, oy, oz, dx, dy, dz, work=None, leaves=None):
@@ -944,13 +1021,16 @@ def shade_soft_plain(scene: SceneBuffers, p: PrepassParams, ox, oy, oz, dx, dy, 
 
 
 def _shade_at(scene: SceneBuffers, p: PrepassParams, ox, oy, oz, dx, dy, dz, px, py, pz, cover, scene_fn,
-              albedo_fn):
+              albedo_fn, normal=None):
     """The colour of rays whose surface term sits at (px, py, pz) with
     coverage `cover` (the hit mask, or the soft alpha): cover * albedo *
-    Lambert + (1 - cover) * the checker floor, then sqrt gamma."""
+    Lambert + (1 - cover) * the checker floor, then sqrt gamma. `normal`,
+    when given, is the unnormalised normal (nx, ny, nz) to shade with (K4's
+    shared normal), broadcasting against the rays; else the taps at (px,
+    py, pz)."""
     if scene_fn is None:
         scene_fn = scene_fn_plain(scene, p.max_dist, None)
-    nx, ny, nz = tet_taps_plain(scene_fn, px, py, pz, p.eps)
+    nx, ny, nz = normal if normal is not None else tet_taps_plain(scene_fn, px, py, pz, p.eps)
     ninv = 1.0 / sqrt_rn(nx * nx + ny * ny + nz * nz + 1e-20)
     tlx = px - p.light[0]
     tly = py - p.light[1]
@@ -1016,18 +1096,27 @@ def _check_scene(scene: SceneBuffers, cam, bound, p: PrepassParams):
     _check("op_param", scene.op_param, torch.float32, (spec.n_instr,), dev)
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {dev}")
-    if dev.type == "cuda":
-        S = p.naa * p.naa
-        if 32 % S and S != 64:
-            raise NotImplementedError(
-                f"the fine kernel reduces the AA mean within a warp, or over "
-                f"two (aa_samples = 8): aa_samples^2 = {S} must divide 32 or be 64; "
-                "other counts take the unpacked fine pass, which is not ported yet "
-                "(ROADMAP: §2 item 5, K4 fine_kernel)"
-            )
-        if p.rows > 65535:
-            raise ValueError(f"{p.rows} rows exceed the launch grid")
+    if dev.type == "cuda" and p.rows > 65535:
+        raise ValueError(f"{p.rows} rows exceed the launch grid")
     return dev
+
+
+def _check_packed(p: PrepassParams):
+    """The AA-packed fine kernel K2 averages a pixel's samples over adjacent
+    lanes: within a warp, or over two (aa_samples = 8). Other AA grids take
+    the unpacked fine pass K4 (`fine_unpacked`), as the renderer routes
+    them."""
+    S = p.naa * p.naa
+    if 32 % S and S != 64:
+        raise ValueError(
+            f"the AA-packed fine kernel needs aa_samples^2 dividing 32 or equal to 64, got {S}: "
+            "use the unpacked fine pass (fine_unpacked; make_pallas_image_render_aa routes it)"
+        )
+
+
+def _not_dynamic(scene: SceneBuffers, what: str, item: str):
+    if scene.dynamic:
+        _not_ported(f"{what} on a dynamic tape", item)
 
 
 def _scene_ptrs(scene: SceneBuffers):
@@ -1038,6 +1127,11 @@ def _scene_ptrs(scene: SceneBuffers):
         scene.n_instr,
         scene.op_param.data_ptr(),
     )
+
+
+def _scene_ptrs_dyn(scene: SceneBuffers):
+    """`_scene_ptrs` and the DYN flag, as the prepass launchers take them."""
+    return (*_scene_ptrs(scene), int(scene.dynamic))
 
 
 def _raise_on(err: int, what: str):
@@ -1084,12 +1178,14 @@ def coarse(scene: SceneBuffers, cam, bound, p: PrepassParams, cull: TileCull | N
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.rmt_coarse_launch(
-            *_scene_ptrs(scene), cam.data_ptr(), bound.data_ptr(),
+            *_scene_ptrs_dyn(scene), cam.data_ptr(), bound.data_ptr(),
             ctypes.addressof(cp), ctypes.addressof(cc), planes.data_ptr(),
             None if p.ni else planes[1].data_ptr(), ctypes.addressof(cb), stream,
         )
     _raise_on(err, "coarse_kernel")
-    if p.ni:
+    if scene.dynamic:
+        coarse.dyn_launches += 1
+    elif p.ni:
         coarse.interval_launches += 1
     else:
         coarse.launches += 1
@@ -1098,6 +1194,7 @@ def coarse(scene: SceneBuffers, cam, bound, p: PrepassParams, cull: TileCull | N
 
 coarse.launches = 0  # the legacy planes (t0, status)
 coarse.interval_launches = 0  # the interval scan
+coarse.dyn_launches = 0  # the DYN builds (a dynamic tape), any planes
 
 
 def coarse_px(scene: SceneBuffers, cam, bound, p: PrepassParams, t_blk, status_blk):
@@ -1106,6 +1203,7 @@ def coarse_px(scene: SceneBuffers, cam, bound, p: PrepassParams, t_blk, status_b
     dev = _check_scene(scene, cam, bound, p)
     if not p.chain:
         raise ValueError("the chained pixel pass needs prepass_chain=True and prepass_block > 1")
+    _not_dynamic(scene, "the chained pixel pass (K3)", _DYN_CHAIN)
     _check("t_blk", t_blk, torch.float32, (p.brows, p.bcols), dev)
     _check("status_blk", status_blk, torch.float32, (p.brows, p.bcols), dev)
     if dev.type == "cpu":
@@ -1131,7 +1229,7 @@ def coarse_px(scene: SceneBuffers, cam, bound, p: PrepassParams, t_blk, status_b
 coarse_px.launches = 0
 
 
-def _fine_launch(scene: SceneBuffers, cam, bound, p: PrepassParams, pre, residuals: bool, cull):
+def _check_fine(scene: SceneBuffers, cam, bound, p: PrepassParams, pre, cull):
     dev = _check_scene(scene, cam, bound, p)
     _check_cull(cull, scene.spec, (p.rows, p.width), dev)
     n_pre = 0 if p.no_prepass else (2 * p.ni if p.ni else 2)
@@ -1139,9 +1237,17 @@ def _fine_launch(scene: SceneBuffers, cam, bound, p: PrepassParams, pre, residua
         raise ValueError(f"the fine pass takes {n_pre} prepass planes, got {len(pre)}")
     for k, v in enumerate(pre):
         _check(f"prepass plane {k}", v, torch.float32, p.plane_shape, dev)
+    return dev
+
+
+def _fine_launch(scene: SceneBuffers, cam, bound, p: PrepassParams, pre, residuals: bool, cull):
+    dev = _check_fine(scene, cam, bound, p, pre, cull)
+    if p.soft:
+        _not_dynamic(scene, "soft coverage", _DYN_SOFT)
     if dev.type == "cpu":
         out = fine_res_plain(scene, cam, bound, p, *pre, cull=cull)
         return out if residuals else out[0]
+    _check_packed(p)
     from .. import _build
 
     lib = _build.load()
@@ -1165,7 +1271,7 @@ def _fine_launch(scene: SceneBuffers, cam, bound, p: PrepassParams, pre, residua
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.rmt_fine_launch(
-            *_scene_ptrs(scene), cam.data_ptr(), bound.data_ptr(),
+            *_scene_ptrs_dyn(scene), cam.data_ptr(), bound.data_ptr(),
             ctypes.addressof(cp), ctypes.addressof(cc),
             planes.data_ptr() if p.ni else (pre[0].data_ptr() if pre else None),
             pre[1].data_ptr() if pre and not p.ni else None,
@@ -1187,6 +1293,8 @@ def _fine_launch(scene: SceneBuffers, cam, bound, p: PrepassParams, pre, residua
         return (img, *res)
     if p.soft:
         fine.soft_launches += 1
+    elif scene.dynamic:
+        fine.dyn_launches += 1
     elif p.ni:
         fine.interval_launches += 1
     else:
@@ -1222,15 +1330,11 @@ def fine_march(scene: SceneBuffers, cam, bound, p: PrepassParams, *pre, cull: Ti
     form of `fine`; no soft mode."""
     if p.soft:
         raise ValueError("march_only requires aa_packed=True, soft=False")
-    dev = _check_scene(scene, cam, bound, p)
-    _check_cull(cull, scene.spec, (p.rows, p.width), dev)
-    n_pre = 0 if p.no_prepass else (2 * p.ni if p.ni else 2)
-    if len(pre) != n_pre:
-        raise ValueError(f"the fine pass takes {n_pre} prepass planes, got {len(pre)}")
-    for k, v in enumerate(pre):
-        _check(f"prepass plane {k}", v, torch.float32, p.plane_shape, dev)
+    dev = _check_fine(scene, cam, bound, p, pre, cull)
+    _not_dynamic(scene, "march_only", _DYN_MARCH_ONLY)
     if dev.type == "cpu":
         return tuple(v.reshape(-1) for v in fine_res_plain(scene, cam, bound, p, *pre, cull=cull)[1:3])
+    _check_packed(p)
     from .. import _build
 
     lib = _build.load()
@@ -1245,7 +1349,7 @@ def fine_march(scene: SceneBuffers, cam, bound, p: PrepassParams, *pre, cull: Ti
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.rmt_fine_launch(
-            *_scene_ptrs(scene), cam.data_ptr(), bound.data_ptr(),
+            *_scene_ptrs_dyn(scene), cam.data_ptr(), bound.data_ptr(),
             ctypes.addressof(cp), ctypes.addressof(cc),
             planes.data_ptr() if p.ni else (pre[0].data_ptr() if pre else None),
             pre[1].data_ptr() if pre and not p.ni else None,
@@ -1256,24 +1360,78 @@ def fine_march(scene: SceneBuffers, cam, bound, p: PrepassParams, *pre, cull: Ti
     return t, hit
 
 
+def _fine_unpacked_launch(scene: SceneBuffers, cam, bound, p: PrepassParams, pre, residuals: bool, cull):
+    dev = _check_fine(scene, cam, bound, p, pre, cull)
+    if p.soft:
+        raise ValueError("soft requires no_prepass=True, aa_packed=True")
+    if dev.type == "cpu":
+        out = fine_unpacked_plain(scene, cam, bound, p, *pre, cull=cull)
+        return out if residuals else out[0]
+    from .. import _build
+
+    lib = _build.load()
+    planes = torch.stack(pre) if p.ni else None  # held until the launch is queued
+    img = torch.empty((p.rows, p.width, 3), dtype=torch.float32, device=dev)
+    t = hit = None
+    if residuals:
+        t, hit = (torch.empty((p.rows, p.width, p.naa * p.naa), dtype=torch.float32, device=dev)
+                  for _ in range(2))
+    cp = _CParams.of(p)
+    cc = _CCull.of(cull)
+    cb = _CBlockParams.of(p)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.rmt_fine_unpacked_launch(
+            *_scene_ptrs_dyn(scene), cam.data_ptr(), bound.data_ptr(),
+            ctypes.addressof(cp), ctypes.addressof(cc),
+            planes.data_ptr() if p.ni else (pre[0].data_ptr() if pre else None),
+            pre[1].data_ptr() if pre and not p.ni else None,
+            img.data_ptr(), None if t is None else t.data_ptr(), None if hit is None else hit.data_ptr(),
+            int(scene.spec.has_materials), int(p.shared_normals), ctypes.addressof(cb), stream,
+        )
+    _raise_on(err, "fine_unpacked_kernel")
+    counter = fine_unpacked_res if residuals else fine_unpacked
+    if scene.dynamic:
+        counter.dyn_launches += 1
+    else:
+        counter.launches += 1
+    return (img, t, hit) if residuals else img
+
+
+def fine_unpacked(scene: SceneBuffers, cam, bound, p: PrepassParams, *pre, cull: TileCull | None = None):
+    """The unpacked fine pass K4 (`csrc/fine_unpacked.cu`) -> image f32[rows,
+    W, 3] on the inputs' device: every AA sample of a pixel in one thread,
+    in sample order; with `p.shared_normals` the pixel's first hit normal is
+    shared. Takes every prepass form of `fine`, static and dynamic tapes,
+    and any aa_samples."""
+    return _fine_unpacked_launch(scene, cam, bound, p, pre, False, cull)
+
+
+def fine_unpacked_res(scene: SceneBuffers, cam, bound, p: PrepassParams, *pre, cull: TileCull | None = None):
+    """K4 that also keeps its residuals -> (image, t, hit f32[rows, W, S]),
+    in the layout `fine_res` writes them (the legacy backward K8 reads
+    either)."""
+    return _fine_unpacked_launch(scene, cam, bound, p, pre, True, cull)
+
+
 fine.launches = 0  # legacy planes (t0, status) or no prepass
 fine.interval_launches = 0  # the march through near intervals
 fine.soft_launches = 0  # the soft-coverage march
+fine.dyn_launches = 0  # the DYN builds (a dynamic tape), any planes
 fine_res.launches = 0
 fine_res.soft_launches = 0
 fine_march.launches = 0
+fine_unpacked.launches = 0  # K4, static tapes
+fine_unpacked.dyn_launches = 0  # K4, dynamic tapes
+fine_unpacked_res.launches = 0
+fine_unpacked_res.dyn_launches = 0
 
 
 def reset_launch_counts():
-    coarse.launches = 0
-    coarse.interval_launches = 0
-    coarse_px.launches = 0
-    fine.launches = 0
-    fine.interval_launches = 0
-    fine.soft_launches = 0
-    fine_res.launches = 0
-    fine_res.soft_launches = 0
-    fine_march.launches = 0
+    for fn in (coarse, coarse_px, fine, fine_res, fine_march, fine_unpacked, fine_unpacked_res):
+        for name in vars(fn):
+            if name.endswith("launches"):
+                setattr(fn, name, 0)
 
 
 # --------------------------------------------------------------------------
@@ -1315,13 +1473,13 @@ class PrepassRenderer:
     """
 
     def __init__(self, spec, cfg, width, height, device, no_prepass, block=1, n_intervals=0, chain=False,
-                 band_rows=None, soft=False, march_only=False):
+                 band_rows=None, soft=False, march_only=False, unpacked=False):
         self.march_only = march_only
         self.spec = spec
         self.cfg = cfg
         self.device = device
         self.params = PrepassParams.make(cfg, width, height, no_prepass, block, n_intervals, chain, band_rows,
-                                         soft)
+                                         soft, unpacked)
         self.topology = scene_topology(spec, device)
         plan = build_compact_plan(spec) if cfg.leaf_cull else None
         # A plan with residual subtrees takes the gated tape (culling.py's
@@ -1388,30 +1546,45 @@ class PrepassRenderer:
         scene, cam, bound = self.scene_args(arrays, cam_vec)
         return self.prepass(scene, cam, bound, self.cull_args(scene, cam)[0])
 
+    def fine_pass(self, residuals: bool = False):
+        """The fine pass of this renderer: K2 (`fine`, `fine_res`), K4
+        (`fine_unpacked`, `fine_unpacked_res`) or the march-only build."""
+        if self.march_only:
+            return fine_march
+        if self.params.unpacked:
+            return fine_unpacked_res if residuals else fine_unpacked
+        return fine_res if residuals else fine
+
     def fine(self, arrays, cam_vec, pre):
         scene, cam, bound = self.scene_args(arrays, cam_vec)
-        return fine(scene, cam, bound, self.params, *pre, cull=self.cull_args(scene, cam)[1])
+        return self.fine_pass()(scene, cam, bound, self.params, *pre, cull=self.cull_args(scene, cam)[1])
 
     def __call__(self, arrays: TapeArrays, cam_vec):
         """The band's image, or with `march_only` its AA rays' (t, hit)
         f32[N], flat in pixel-major order."""
         scene, cam, bound = self.scene_args(arrays, cam_vec)
         cc, fc = self.cull_args(scene, cam)
-        pass_ = fine_march if self.march_only else fine
-        return pass_(scene, cam, bound, self.params, *self.prepass(scene, cam, bound, cc), cull=fc)
+        return self.fine_pass()(scene, cam, bound, self.params, *self.prepass(scene, cam, bound, cc), cull=fc)
 
     def render_plain(self, arrays: TapeArrays, cam_vec):
         """The same frame (or march) through the plain versions, on this
         device."""
         scene, cam, bound = self.scene_args(arrays, cam_vec)
         cc, fc = self.cull_args(scene, cam)
-        out = fine_res_plain(scene, cam, bound, self.params,
-                             *self.prepass(scene, cam, bound, cc, plain=True), cull=fc)
+        plain = fine_unpacked_plain if self.params.unpacked else fine_res_plain
+        out = plain(scene, cam, bound, self.params, *self.prepass(scene, cam, bound, cc, plain=True), cull=fc)
         return tuple(v.reshape(-1) for v in out[1:3]) if self.march_only else out[0]
 
 
 def _not_ported(option: str, item: str):
     raise NotImplementedError(f"{option} is not ported yet (ROADMAP: {item})")
+
+
+# The dynamic-tape options no caller of the live path passes, each a ROADMAP
+# item of its own.
+_DYN_CHAIN = "§2 item 6, K3's DYN build"
+_DYN_MARCH_ONLY = "§2 item 7, the DYN march-only build of K2"
+_DYN_SOFT = "§2 item 8, the DYN soft build of K2"
 
 
 def resolve_device(device) -> torch.device:
@@ -1442,7 +1615,7 @@ def make_pallas_image_render_aa(
     prepass_chain: bool = False,
     n_intervals: int = 0,
     no_prepass: bool = False,
-    aa_packed: bool = True,
+    aa_packed: bool | None = None,
     soft: bool = False,
     march_only: bool = False,
 ) -> PrepassRenderer:
@@ -1450,10 +1623,12 @@ def make_pallas_image_render_aa(
     `raymarch_tpu.ops.pallas_prepass.make_pallas_image_render_aa`), cached
     per (spec, cfg, width, height, device and the options below).
 
-    Takes a static tape (painted or not) with aa_packed=True, with or
-    without `cfg.leaf_cull` (per-tile culling: compacted item lists for a
-    compact plan, else the gated tape) and `cfg.relax > 1` (relaxed fine
-    march), and:
+    Takes a static tape (painted or not) or a dynamic one
+    (`compile_scene(scene)`: the frame's tape is uploaded with its arrays
+    and interpreted by the kernels' DYN builds, so a topology edit within
+    the bucket builds nothing), with or without `cfg.leaf_cull` (per-tile
+    culling: compacted item lists for a static compact plan, else the gated
+    tape) and `cfg.relax > 1` (relaxed fine march), and:
     - `prepass_block` = B >= 1: one coarse cone per B x B pixel block
       (values below 1 read as 1, as the reference's);
     - `n_intervals` = ni in 0..MAX_NI: the near-interval prepass (0: the
@@ -1468,17 +1643,32 @@ def make_pallas_image_render_aa(
       `fine_res` also keeps each ray's closest approach (s_min, t_min), the
       soft fused VJP's forward; with `cfg.leaf_cull` the leaf bounds take
       the soft inflation.
+    - `aa_packed` picks the fine pass. The AA-packed kernel K2 keeps a
+      pixel's samples in adjacent lanes and takes aa_samples^2 dividing
+      128 (aa 1, 2, 4, 8); the unpacked kernel K4 walks a pixel's samples
+      in one thread and takes any aa_samples and `cfg.aa_shared_normals`.
+      None (the default; the reference's default is False) packs wherever
+      K2 can render the call and takes K4 elsewhere: with
+      `cfg.aa_shared_normals` or an AA grid that does not pack. True packs
+      too, and also falls to K4 where the grid does not pack (so the
+      reference's `make_renderer` call form, `aa_packed=not
+      cfg.aa_shared_normals`, renders aa = 3); with `cfg.aa_shared_normals`
+      it raises the reference's ValueError. False takes K4.
     `device` defaults to the card ("cuda"); "cpu" runs the plain versions.
     - `march_only=True`: the renderer returns each AA ray's (t, hit)
       f32[N], flat in pixel-major order, through the fine kernel's
       march-only build (no taps, shading or image).
     It raises the reference's ValueErrors for prepass_chain with intervals,
-    for no_prepass with either, for march_only with soft or aa_packed=False
-    and for soft without no_prepass and aa_packed or with relax > 1. The
-    unpacked fine pass and a dynamic tape raise NotImplementedError naming
-    their ROADMAP item.
+    for no_prepass with either, for march_only or soft without packing,
+    for soft without no_prepass or with relax > 1, and for aa_packed with
+    aa_shared_normals. A dynamic tape with prepass_chain, march_only or soft
+    raises NotImplementedError naming its ROADMAP item.
     """
-    if march_only and (not aa_packed or soft):
+    S = cfg.aa_samples ** 2
+    if aa_packed and cfg.aa_shared_normals:
+        raise ValueError("aa_packed excludes aa_shared_normals")
+    unpacked = aa_packed is False or bool(cfg.aa_shared_normals) or 128 % S != 0
+    if march_only and (unpacked or soft):
         raise ValueError("march_only requires aa_packed=True, soft=False")
     ni = max(0, int(n_intervals))
     if ni and prepass_chain:
@@ -1496,25 +1686,29 @@ def make_pallas_image_render_aa(
         # The closest approach can lie anywhere along the ray: a prepass
         # would skip it and relaxed steps would move the sampled argmin
         # (pallas_prepass.py:642-656).
-        if not (no_prepass and aa_packed):
+        if not no_prepass or unpacked:
             raise ValueError("soft requires no_prepass=True, aa_packed=True")
         if cfg.relax > 1.0:
             raise ValueError("soft requires relax=1.0 (relaxed stepping changes the closest-approach sample)")
-    if not aa_packed or cfg.aa_shared_normals:
-        _not_ported("the unpacked fine pass (aa_shared_normals)", "§1 item 5 and §2 item 5, K4 fine_kernel")
-    if spec.static_tape is None:
-        _not_ported("a dynamic tape in the prepass kernels", "§1 item 4 and §2 item 3, the dynamic tape in K1/K2")
     block = max(1, int(prepass_block))
+    chain = bool(prepass_chain) and block > 1
+    if spec.static_tape is None:
+        if chain:
+            _not_ported("prepass_chain on a dynamic tape", _DYN_CHAIN)
+        if march_only:
+            _not_ported("march_only on a dynamic tape", _DYN_MARCH_ONLY)
+        if soft:
+            _not_ported("soft coverage on a dynamic tape", _DYN_SOFT)
     return _cached_renderer(spec, cfg, int(width), int(height), resolve_device(device), bool(no_prepass), block,
-                            ni, bool(prepass_chain) and block > 1,
-                            None if band_rows is None else int(band_rows), bool(soft), bool(march_only))
+                            ni, chain, None if band_rows is None else int(band_rows), bool(soft), bool(march_only),
+                            unpacked)
 
 
 @functools.lru_cache(maxsize=None)
 def _cached_renderer(spec, cfg, width, height, device, no_prepass, block=1, n_intervals=0, chain=False,
-                     band_rows=None, soft=False, march_only=False):
+                     band_rows=None, soft=False, march_only=False, unpacked=False):
     return PrepassRenderer(spec, cfg, width, height, device, no_prepass, block, n_intervals, chain, band_rows,
-                           soft, march_only)
+                           soft, march_only, unpacked)
 
 
 def make_pallas_image_march_fast(spec: TapeSpec, cfg: RenderConfig, width: int, height: int,

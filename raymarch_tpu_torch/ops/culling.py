@@ -355,7 +355,11 @@ def tile_leaf_masks(bounds, cam_vec, cfg: RenderConfig, width: int, height: int,
 def _pushed_rows(spec: TapeSpec) -> np.ndarray:
     """Static bool[n_leaves]: rows referenced by a COP_PUSH. Bank padding
     rows carry zero params (a phantom radius-0 sphere at the origin) whose
-    bounds can test active, so compaction never emits them."""
+    bounds can test active, so compaction never emits them. A dynamic
+    tape's pushes are per-frame data: every row may be pushed, and the tape
+    reads the bit of the rows it does push."""
+    if spec.static_tape is None:
+        return np.ones(spec.n_leaves, bool)
     pushed = np.zeros(spec.n_leaves, bool)
     for cop, arg, _slot in spec.static_tape or ():
         if cop == oc.COP_PUSH:

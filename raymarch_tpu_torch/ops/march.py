@@ -413,7 +413,10 @@ def _renderer(spec, width, height, cfg, mode, chunk, backend, dev):
             raise ValueError("pallas_prepass backend is forward-only")
         from .cuda_prepass import make_pallas_image_render_aa
 
-        rp = make_pallas_image_render_aa(spec, cfg, width, height, device=dev)
+        # The reference's call form (march.py:446-449); an AA grid that does
+        # not pack falls to the unpacked fine pass K4.
+        rp = make_pallas_image_render_aa(spec, cfg, width, height, device=dev,
+                                         aa_packed=not cfg.aa_shared_normals)
 
         def render_prepass(arrays: TapeArrays, camera):
             return rp(arrays, cam_vec(camera, 0.0, device=rp.device))

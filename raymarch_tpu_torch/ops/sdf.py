@@ -331,18 +331,24 @@ def host_tape(arrays) -> list:
     return list(zip(*cols))
 
 
-def _apply_dynamic_tape(tape, op_param, leaf_fn, max_dist, like, stack_depth):
+def _apply_dynamic_tape(tape, op_param, leaf_fn, max_dist, like, stack_depth, cull=None):
     """The reference's dynamic combine phase (sdf.py:485-530) over a tape
     read to the host: a stack of `stack_depth + 1` rows started at
     `max_dist`, so that an all-NOP tape is the empty scene; NOP leaves its
     slot as it is (the reference writes it back unchanged), PUSH loads
-    `leaf_fn(row)`, the other eight ops combine slots (s, s + 1) into s."""
+    `leaf_fn(row)`, the other eight ops combine slots (s, s + 1) into s.
+    `cull(row)` gates the pushed leaves as in `_apply_static_tape` (the
+    reference's dynamic interpreter takes the same per-row cond,
+    pallas_march.py:736-745): the plain version of the kernels' gated DYN
+    builds."""
+    from .culling import FAR
+
     stack = [like * 0.0 + max_dist] * (stack_depth + 1)
     for i, (op, arg, s) in enumerate(tape):
         if op == oc.COP_NOP:
             continue
         if op == oc.COP_PUSH:
-            stack[s] = leaf_fn(arg)
+            stack[s] = leaf_fn(arg) if cull is None else torch.where(cull(arg), leaf_fn(arg), FAR)
             continue
         kp = op_param[i]
         a = stack[s]
@@ -355,18 +361,27 @@ def _apply_dynamic_tape(tape, op_param, leaf_fn, max_dist, like, stack_depth):
     return stack[0]
 
 
-def _apply_dynamic_tape_color(tape, op_param, leaf_fn, max_dist, like, default_rgb, stack_depth):
+def _apply_dynamic_tape_color(tape, op_param, leaf_fn, max_dist, like, default_rgb, stack_depth, cull=None):
     """`_apply_dynamic_tape` propagating (distance, albedo) (sdf.py:384-460):
     every slot starts at (max_dist, default_rgb); hard ops take the winner's
     colour by the tie rules of `_apply_static_tape_color`, smooth ops blend
-    by `_mat_weight_smooth`, round and onion keep their operand's."""
+    by `_mat_weight_smooth`, round and onion keep their operand's. A leaf
+    that `cull(row)` drops reads `culling.FAR` with `default_rgb`, as in
+    `_apply_static_tape_color`."""
+    from .culling import FAR
+
     base = (like * 0.0 + max_dist, tuple(like * 0.0 + c for c in default_rgb))
     stack = [base] * (stack_depth + 1)
     for i, (op, arg, s) in enumerate(tape):
         if op == oc.COP_NOP:
             continue
         if op == oc.COP_PUSH:
-            stack[s] = leaf_fn(arg)
+            d, rgb = leaf_fn(arg)
+            if cull is not None:
+                on = cull(arg)
+                d = torch.where(on, d, FAR)
+                rgb = tuple(torch.where(on, c, dc) for c, dc in zip(rgb, default_rgb))
+            stack[s] = (d, rgb)
             continue
         kp = op_param[i]
         a, ca = stack[s]

@@ -1,3 +1,3 @@
-from . import camera, math3d
+from . import camera, image, math3d
 
-__all__ = ["camera", "math3d"]
+__all__ = ["camera", "image", "math3d"]

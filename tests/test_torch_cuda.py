@@ -121,10 +121,20 @@ def test_renderer_on_cuda_matches_plain(dev):
 
 
 def test_aa_not_dividing_a_warp_raises(dev):
+    """aa = 3 does not pack into a warp: the renderer takes the unpacked
+    fine pass K4, which renders against its plain version; K2 itself raises
+    on such params."""
     spec, arrays = rt.compile_scene(_config2(rt), static=True)
-    sc, cam, bound, p = _args(spec, arrays, dataclasses.replace(CFG, aa_samples=3), dev)
-    with pytest.raises(NotImplementedError):
-        cp.coarse(sc, cam, bound, p)
+    cfg3 = dataclasses.replace(CFG, aa_samples=3)
+    sc, cam, bound, p = _args(spec, arrays, cfg3, dev)
+    assert p.unpacked
+    pre = cp.coarse(sc, cam, bound, p)
+    with pytest.raises(ValueError, match="unpacked"):
+        cp.fine(sc, cam, bound, p, *pre)
+    render = rt.make_renderer(spec, W, H, cfg3, mode="forward", backend="pallas_prepass", device=dev)
+    img = render(arrays, CAM)
+    ref = render.renderer.render_plain(arrays, rt.cam_vec(CAM, device=dev))
+    assert float((img - ref).abs().mean()) < 5e-4 and _neigh_frac(img, ref) < 0.008
 
 
 def test_cpu_tensors_on_cuda_renderer_raise(dev):
@@ -852,3 +862,103 @@ def test_pallas_backend_gradients_on_the_card(dev):
         grads.append(lp.grad.cpu())
     assert bool(torch.isfinite(grads[0]).all()) and float(grads[0].abs().max()) > 0
     torch.testing.assert_close(grads[0], grads[1], rtol=0, atol=0.01 * float(grads[1].abs().max()))
+
+
+# --- the live path: DYN builds of K1/K2, K4, the tiered runtime ------------
+
+LIVE_CASES = {
+    "config2": (_config2, CFG, {}),
+    "empty": (lambda m: None, CFG, {}),
+    "rich_gated_relax": (_rich, dataclasses.replace(CFG, leaf_cull=True, relax=1.6), {}),
+    "painted": (_painted, CFG, {}),
+    "config2_block4": (_config2, CFG, dict(prepass_block=4)),
+    "config2_intervals": (_config2, dataclasses.replace(CFG, relax=1.6), dict(n_intervals=2)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(LIVE_CASES))
+def test_dynamic_kernels_match_plain(dev, case):
+    """The DYN builds of the coarse and fine kernels (csrc/prepass_dyn.cu)
+    against their plain versions on a dynamic tape, in the class of
+    test_kernels_match_plain; the frame against the static tape's."""
+    build, cfg, kw = LIVE_CASES[case]
+    spec, arrays = rt.compile_scene(build(rt))
+    rp = cp.make_pallas_image_render_aa(spec, cfg, W, H, device=dev, **kw)
+    sc, cam, bound = rp.scene_args(arrays, rt.cam_vec(CAM, device=dev))
+    cc, fc = rp.cull_args(sc, cam)
+    before = (cp.coarse.dyn_launches, cp.fine.dyn_launches)
+    pre_k = rp.prepass(sc, cam, bound, cc)
+    pre_p = rp.prepass(sc, cam, bound, cc, plain=True)
+    if not kw.get("n_intervals"):
+        assert float((pre_k[1] == pre_p[1]).float().mean()) >= 0.999
+    img_k = cp.fine(sc, cam, bound, rp.params, *pre_k, cull=fc)
+    img_p = cp.fine_plain(sc, cam, bound, rp.params, *pre_k, cull=fc)
+    assert (cp.coarse.dyn_launches, cp.fine.dyn_launches) == (before[0] + 1, before[1] + 1)
+    assert bool(torch.isfinite(img_k).all())
+    assert float((img_k - img_p).abs().mean()) < 5e-4 and _neigh_frac(img_k, img_p) < 0.008
+    spec_s, arrays_s = rt.compile_scene(build(rt), static=True)
+    img_s = cp.make_pallas_image_render_aa(spec_s, cfg, W, H, device=dev, **kw)(arrays_s, rt.cam_vec(CAM, device=dev))
+    assert float((rp(arrays, rt.cam_vec(CAM, device=dev)) - img_s).abs().mean()) < 5e-4
+
+
+@pytest.mark.parametrize(
+    "aa,shared,static,cfg_kw",
+    [(3, False, True, {}), (2, True, True, {}), (3, True, False, {}), (4, True, True, dict(leaf_cull=True)),
+     (3, False, False, dict(leaf_cull=True, relax=1.6))],
+    ids=["aa3", "shared", "aa3_shared_dynamic", "shared_culled", "aa3_dynamic_gated_relax"],
+)
+def test_unpacked_kernel_matches_plain(dev, aa, shared, static, cfg_kw):
+    """K4 (csrc/fine_unpacked.cu) against `fine_unpacked_plain`, with and
+    without residuals: the image in the accelerated class, (t, hit) as K2's
+    residuals are held (hit nearly everywhere equal, t to rtol 1e-4)."""
+    cfg = dataclasses.replace(CFG, aa_samples=aa, aa_shared_normals=shared, **cfg_kw)
+    spec, arrays = rt.compile_scene((_rich if cfg_kw else _config2)(rt), static=static)
+    rp = cp.make_pallas_image_render_aa(spec, cfg, W, H, device=dev, aa_packed=False)
+    assert rp.params.unpacked and rp.params.shared_normals == shared
+    sc, cam, bound = rp.scene_args(arrays, rt.cam_vec(CAM, device=dev))
+    cc, fc = rp.cull_args(sc, cam)
+    pre = rp.prepass(sc, cam, bound, cc)
+    img_k = cp.fine_unpacked(sc, cam, bound, rp.params, *pre, cull=fc)
+    img_r, t_k, hit_k = cp.fine_unpacked_res(sc, cam, bound, rp.params, *pre, cull=fc)
+    assert torch.equal(img_r, img_k)
+    img_p, t_p, hit_p = cp.fine_unpacked_plain(sc, cam, bound, rp.params, *pre, cull=fc)
+    assert float((img_k - img_p).abs().mean()) < 5e-4 and _neigh_frac(img_k, img_p) < 0.008
+    assert float((hit_k == hit_p).float().mean()) >= 0.999
+    both = (hit_k > 0.5) & (hit_p > 0.5)
+    torch.testing.assert_close(t_k[both], t_p[both], rtol=1e-4, atol=0.0)
+
+
+def test_unpacked_residuals_feed_k8(dev):
+    """The fused step at aa = 3: K4 with residuals, then K8, against
+    `bwd_plain` on the same residuals, in the gradient class."""
+    cfg = dataclasses.replace(CFG, aa_samples=3)
+    spec, arrays = rt.compile_scene(_config2(rt), static=True)
+    fr = cg.make_fused_render_vjp(spec, cfg, W, H, device=dev)
+    assert fr.backward_info["aa_packed"] is False
+    sc, cam, bound = fr.prepass.scene_args(arrays, rt.cam_vec(CAM, device=dev))
+    pre = fr.prepass.prepass(sc, cam, bound, None)
+    img, t, hit = cp.fine_unpacked_res(sc, cam, bound, fr.params, *pre)
+    g = 2.0 * img / img.numel()
+    got = cg.bwd(sc, cam, fr.params, fr.layout, t, hit, g)
+    ref = cg.bwd_plain(sc, cam, fr.params, fr.layout, t, hit, g)
+    scale = float(ref[0].abs().max())
+    assert scale > 0
+    torch.testing.assert_close(got[0], ref[0], rtol=0.0, atol=0.01 * scale)
+    torch.testing.assert_close(got[1], ref[1], rtol=0.0, atol=0.01 * scale)
+    torch.testing.assert_close(got[2], ref[2], rtol=0.0, atol=0.02 * float(ref[2].abs().max()))
+
+
+def test_tiered_renderer_on_the_card(dev):
+    """TieredRenderer's default backend on the card: a dynamic frame, the
+    static tier built in the background, then a static frame; numpy out."""
+    from raymarch_tpu_torch.runtime import TieredRenderer
+
+    tiered = TieredRenderer(W, H, CFG)
+    assert tiered.backend == "pallas_prepass" and tiered.device == dev
+    scene = _config2(rt)
+    img_d = tiered.render(scene, CAM)
+    assert tiered.tier == "dynamic" and isinstance(img_d, np.ndarray) and img_d.shape == (H, W, 3)
+    assert tiered.wait(timeout=300.0)
+    img_s = tiered.render(scene, CAM)
+    assert tiered.tier == "static"
+    assert float(np.abs(img_d - img_s).mean()) < 5e-4

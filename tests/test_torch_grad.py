@@ -232,15 +232,25 @@ def test_backward_info_is_the_references(small):
         # leaf_cull, prepass_block and painted scenes are ported
         # (tests/test_torch_legacy.py); these cases raise as before.
         (dict(band_rows=8), {}, None, NotImplementedError),
-        (dict(aa_packed=False), {}, None, NotImplementedError),
+        # The unpacked route is ported (tests/test_torch_unpacked.py): K4
+        # with residuals, then K8; it trains (None below).
+        (dict(aa_packed=False), {}, None, None),
         ({}, {}, "dynamic", NotImplementedError),
     ],
     ids=["soft", "band_rows", "unpacked", "dynamic"],
 )
 def test_unported_options_raise(kw, cfg_kw, what, exc):
     scene = SCENES["config2"](rt)
-    spec, _ = rt.compile_scene(scene, static=what != "dynamic")
+    spec, arrays = rt.compile_scene(scene, static=what != "dynamic")
     cfg = dataclasses.replace(_cfg_t(CFG), **cfg_kw)
+    if exc is None:
+        fr = cg.make_fused_render_vjp(spec, cfg, W, H, device="cpu", **kw)
+        assert fr.prepass.params.unpacked and fr.backward_info["aa_packed"] is False
+        lp = torch.tensor(arrays.leaf_params, requires_grad=True)
+        img = fr(dataclasses.replace(arrays, leaf_params=lp), torch.tensor(_cv(CAM)))
+        torch.mean(img * img).backward()
+        assert bool(torch.isfinite(lp.grad).all()) and float(lp.grad.abs().max()) > 0
+        return
     with pytest.raises(exc, match="ROADMAP" if exc is NotImplementedError else "128"):
         cg.make_fused_render_vjp(spec, cfg, W, H, device="cpu", **kw)
 

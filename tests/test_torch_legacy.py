@@ -215,8 +215,9 @@ def test_backward_info_is_the_references(name):
     ref = fused_vjp_j(spec_j, cfg, W, H, interpret=True, bm=8, **kw).backward_info
     spec, _ = from_reference(spec_j, arrays_j)
     fr = cg.make_fused_render_vjp(spec, _cfg_t(cfg), W, H, device="cpu", **kw)
-    # aa_packed is left out: the port always packs a pixel's samples, where
-    # the reference's VMEM budget may unpack the legacy kernel's layout.
+    # aa_packed is left out: the port packs a pixel's samples wherever
+    # aa_samples^2 divides 128, where the reference's VMEM budget may unpack
+    # the legacy kernel's layout.
     for key in ("kind", "compact", "reason", "soft"):
         assert fr.backward_info[key] == ref[key], key
     assert (fr.backward_info["kind"], fr.backward_info["reason"]) == ("pallas_legacy_unrolled", reason)
@@ -280,12 +281,14 @@ def test_reference_style_calls(entry):
         target = np.zeros((H, W, 3), np.float32) + 0.2
         a1, _, _, loss = step(arrays, cam, step.init_opt_state(arrays), target)
         assert float(loss) > 0 and a1.leaf_params.shape == arrays.leaf_params.shape
-    # The "jnp" backend is ported (tests/test_torch_march.py); what the
-    # reference's make_renderer takes and the port still refuses is the
-    # unpacked fine pass of aa_shared_normals (march.py:446-449), K4.
-    with pytest.raises(NotImplementedError, match="ROADMAP: §1 item 5 and §2 item 5, K4"):
-        rt.make_renderer(spec, W, H, dataclasses.replace(cfg, aa_shared_normals=True), "forward", None,
-                         "pallas_prepass", device="cpu")
+    # The "jnp" backend is ported (tests/test_torch_march.py), and so is the
+    # unpacked fine pass K4 that the reference's make_renderer takes with
+    # aa_shared_normals (march.py:446-449; tests/test_torch_unpacked.py).
+    shared = rt.make_renderer(spec, W, H, dataclasses.replace(cfg, aa_shared_normals=True), "forward", None,
+                              "pallas_prepass", device="cpu")
+    assert shared.renderer.params.unpacked and shared.renderer.params.shared_normals
+    img = shared(arrays, cam)
+    assert img.shape == (H, W, 3) and bool(torch.isfinite(img).all())
 
 
 def test_painted_fit_recovers_albedo():

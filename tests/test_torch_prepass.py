@@ -191,7 +191,9 @@ def test_params_layout_matches_cuda_struct():
     fields in the same order, all 4 bytes wide (no padding): RenderParams,
     then BlockParams, then the soft-mode constants that the soft builds
     take in their own structs (SoftParams of the fine kernel, SoftRes of
-    the backwards: two pointers, then two floats)."""
+    the backwards: two pointers, then two floats), then the unpacked fine
+    pass's flags (the layout, and the shared normal K4 takes as a launch
+    argument)."""
     csrc = Path(cp.__file__).parent.parent / "csrc"
     src = (csrc / "render_common.cuh").read_text()
     all_ct = []
@@ -206,7 +208,8 @@ def test_params_layout_matches_cuda_struct():
         assert ctypes.sizeof(mirror) == 4 * n_words
         all_ct += ct_fields
     soft = ["soft", "beta_inv", "soft_infl", "soft_gate"]
-    assert all_ct + soft == [f.name for f in dataclasses.fields(cp.PrepassParams)]
+    unpacked = ["unpacked", "shared_normals"]
+    assert all_ct + soft + unpacked == [f.name for f in dataclasses.fields(cp.PrepassParams)]
     for path, struct, mirror in (("fine.cuh", "SoftParams", cp._CSoftParams),
                                  ("scene_grad.cuh", "SoftRes", cg._CSoftRes)):
         body = re.search(rf"struct {struct} \{{(.*?)\}};", (csrc / path).read_text(), re.S).group(1)

@@ -140,19 +140,28 @@ def test_prepass_backend_is_forward_only(frame):
         # raises the reference's ValueError (pallas_prepass.py:637).
         (dict(march_only=True, soft=True, no_prepass=True), {}, ValueError),
         (dict(band_rows=0), {}, ValueError),
-        (dict(aa_packed=False), {}, NotImplementedError),
+        # The unpacked fine pass K4 is ported (tests/test_torch_unpacked.py):
+        # aa_packed=False and aa_shared_normals render (None below).
+        (dict(aa_packed=False), {}, None),
         (dict(n_intervals=cp.MAX_NI + 1), dict(relax=1.6), NotImplementedError),
         # leaf_cull and soft culling are ported (tests/test_torch_cull.py,
         # tests/test_torch_soft.py); soft with relax > 1 raises the
         # reference's ValueError.
         (dict(soft=True, no_prepass=True), dict(leaf_cull=True, relax=1.6), ValueError),
-        ({}, dict(aa_shared_normals=True), NotImplementedError),
+        ({}, dict(aa_shared_normals=True), None),
     ],
     ids=["block4", "chain", "intervals", "soft", "march_only", "band_rows",
          "unpacked", "relax", "leaf_cull", "shared_normals"],
 )
 def test_unported_options_raise(frame, kw, cfg_kw, exc):
     cfg = dataclasses.replace(CFG, **cfg_kw)
+    if exc is None:  # ported: the call renders, through K4
+        rp = cp.make_pallas_image_render_aa(frame[0], cfg, W, H, device="cpu", **kw)
+        assert rp.params.unpacked and rp.params.shared_normals == cfg.aa_shared_normals
+        img = rp(frame[1], rt.cam_vec(frame[3], device="cpu"))
+        assert img.shape == (H, W, 3) and bool(torch.isfinite(img).all())
+        assert float((img - frame[4]).abs().mean()) < 5e-3
+        return
     with pytest.raises(exc, match="ROADMAP" if exc is NotImplementedError else None):
         cp.make_pallas_image_render_aa(frame[0], cfg, W, H, device="cpu", **kw)
 
@@ -160,9 +169,18 @@ def test_unported_options_raise(frame, kw, cfg_kw, exc):
 @pytest.mark.parametrize("what", ["dynamic", "materials"])
 def test_unported_scenes_raise(what):
     if what == "dynamic":
-        spec, _ = rt.compile_scene(SCENES["config2"](rt), static=False)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            rt.make_renderer(spec, W, H, CFG, mode="forward", backend="pallas_prepass", device="cpu")
+        # The dynamic tape in K1/K2 is ported (tests/test_torch_dynamic.py):
+        # it renders the static frame of the same scene, in bench.py's class
+        # of its dynamic-tape gate (bench.py:273-276): the dynamic spec's
+        # scene bound keeps its bank's padding rows, as the reference's does
+        # (pallas_march.py:1228-1240), so the rays start elsewhere.
+        spec, arrays = rt.compile_scene(SCENES["config2"](rt), static=False)
+        cam = rt.Camera.looking_at(position=POS, target=TARGET)
+        img = rt.make_renderer(spec, W, H, CFG, mode="forward", backend="pallas_prepass", device="cpu")(arrays, cam)
+        spec_s, arrays_s = rt.compile_scene(SCENES["config2"](rt), static=True)
+        ref = rt.make_renderer(spec_s, W, H, CFG, mode="forward", backend="pallas_prepass", device="cpu")(
+            arrays_s, cam)
+        _assert_gate_class(img.numpy(), ref.numpy())
         return
     # The painted forward is ported (tests/test_torch_blend.py), and so is
     # the legacy backward's albedo words, which a painted scene without

@@ -210,3 +210,85 @@ def test_march_stats_equal():
         assert stats_t.march_stats(torch.as_tensor(steps), torch.as_tensor(hit), tile) == stats_t.march_stats(
             steps, hit, tile)
         assert str(stats_t.march_stats(steps, hit, tile)) == str(ref)
+
+
+def _graph_edits(graph_mod):
+    """The same edit session on each package's node graph: the viewer's
+    default scene, a sphere added and wired under a new union, a smooth
+    blend, a material node, a rotation, a value edit, a disconnect, a
+    removal; the snapshots and evaluated trees after each step."""
+    from raymarch_tpu_torch.viewer import default_graph as dg_t
+
+    if graph_mod.__name__.startswith("raymarch_tpu_torch"):
+        g = dg_t()
+    else:
+        from raymarch_tpu.viewer import default_graph as dg_j
+
+        g = dg_j()
+    out = []
+
+    def snap():
+        out.append((g.to_dict(), g.evaluate_root()))
+
+    snap()
+    root = next(n.id for n in g.nodes.values() if n.template == "Root")
+    top = g.nodes[root].inputs["SDF"][1]
+    s = g.add_node("Sphere", center=(0.0, 1.6, 0.0), radius=0.4)
+    u = g.add_node("SmoothUnion", k=0.3)
+    g.connect(top, u, "A")
+    g.connect(s, u, "B")
+    g.connect(u, root, "SDF")
+    snap()
+    m = g.add_node("Material", albedo=(0.9, 0.1, 0.1))
+    r = g.add_node("Rotate", axis=(0.0, 1.0, 0.0), angle=0.7)
+    g.connect(u, r, "A")
+    g.connect(r, m, "A")
+    g.connect(m, root, "SDF")
+    snap()
+    g.set_input(s, "radius", 0.55)
+    g.disconnect(u, "B")
+    snap()
+    g.remove_node(s)
+    snap()
+    g2 = graph_mod.CSGNodeGraph.from_dict(g.to_dict())
+    out.append((g2.to_dict(), g2.evaluate_root()))
+    return out
+
+
+def test_node_graph_equal():
+    """models/graph.py is a copy of the reference's: its templates, and for
+    the same edits equal to_dict snapshots and equal compiled tapes (static
+    and dynamic) of the evaluated scenes."""
+    from raymarch_tpu.models import graph as graph_j
+    from raymarch_tpu_torch.models import graph as graph_t
+
+    assert graph_t.all_templates() == graph_j.all_templates()
+    for name, tpl in graph_j.TEMPLATES.items():
+        assert [(s.name, s.kind, s.default) for s in graph_t.TEMPLATES[name].inputs] == [
+            (s.name, s.kind, s.default) for s in tpl.inputs]
+    steps_j, steps_t = _graph_edits(graph_j), _graph_edits(graph_t)
+    assert len(steps_j) == len(steps_t) == 6
+    for (dj, tree_j), (dt, tree_t) in zip(steps_j, steps_t):
+        assert dt == dj
+        assert (tree_j is None) == (tree_t is None)
+        for static in (True, False):
+            _assert_programs_equal(rm.compile_scene(tree_j, static=static), rt.compile_scene(tree_t, static=static))
+
+
+def test_png_bytes_identical():
+    """utils/image.py is a copy of the reference's: byte-identical PNGs and
+    previews from float and uint8 images, numpy or tensors."""
+    import torch
+
+    from raymarch_tpu.utils import image as image_j
+    from raymarch_tpu_torch.utils import image as image_t
+
+    rng = np.random.default_rng(9)
+    img = rng.uniform(-0.2, 1.2, (17, 23, 3)).astype(np.float32)
+    for a in (img, image_j.to_uint8(img)):
+        assert image_t.png_bytes(a) == image_j.png_bytes(a)
+    assert image_t.png_bytes(torch.as_tensor(img)) == image_j.png_bytes(img)
+    np.testing.assert_array_equal(image_t.to_uint8(img), image_j.to_uint8(img))
+    assert image_t.ascii_preview(img, 8) == image_j.ascii_preview(img, 8)
+    with pytest.raises(ValueError):
+        image_t.png_bytes(img[..., :2])
