@@ -69,12 +69,12 @@ Run from the repository root: `python3 chip_smoke.py`. It
 12. the legacy backward (K8) of every static scene the reference sends to
    it, at 1920x1080 with 16 AA rays per pixel: (a) the 64 painted spheres
    of `fwdbwd_64leaf_painted` without culling and (b) bench.py's smooth
-   chain with every sphere painted (seed 19), both through K8's long build
+   chain with every sphere painted (seed 19), both through K8's warp-row build
    with the albedo words; (c) the 64 spheres intersected with a box (129
-   instructions, 1,176 gradient words: the long build); (d) config 2 at
+   instructions, 1,176 gradient words: the warp-row build); (d) config 2 at
    `prepass_block=4` (the fine kernel with residuals on block planes, then
-   the headline build); (e) 16 painted spheres (the per-thread build with
-   the albedo words): for each the fwd+bwd step of mean(img^2) (CUDA
+   the headline's per-thread build); (e) 16 painted spheres (294 gradient
+   words: the warp-row build with the albedo words): for each the fwd+bwd step of mean(img^2) (CUDA
    events, launches), the reference's backward_info, K8 alone, K8 against
    `bwd_plain` on the whole frame (the albedo and flag words of (a), (b),
    (e), and the op words of (b), non-zero and within 0.01 of their own
@@ -83,7 +83,7 @@ Run from the repository root: `python3 chip_smoke.py`. It
    plain path;
 13. soft coverage (silhouette gradients): gates at 256x144 of the fine
    kernel's soft build (un-culled, lists, gated tape; with materials) and
-   of the soft builds of K8 (per thread and long, with and without the
+   of the soft builds of K8 (per-thread and warp rows, with and without the
    albedo words) and K9 (pool, seg1 chain, stream in two groups), each
    against its plain version, with a camera that shows no horizon; then
    bench.py's three soft rows at 1920x1080 with 16 AA rays per pixel
@@ -133,7 +133,20 @@ Run from the repository root: `python3 chip_smoke.py`. It
    within the bucket that keeps the dynamic renderer; and a `ViewerApp`
    through `make_server` on localhost: an `/edit` adding a node and a
    `frame.png`, timed;
-16. prints one JSON line of per-kernel records (time, plain time, launches,
+16. the render options repaired for dynamic tapes and for any
+   n_intervals, and the scenes past a block's shared gradient row: gates at
+   256x144 of K3's DYN build (config 2's dynamic tape, B = 4, chained), of
+   K2's DYN march-only build (equal bit for bit to the DYN fine kernel's
+   (t, hit), and against fine_res_plain) and DYN soft build (un-culled and
+   gated), of the coarse scan and the fine passes that keep more than MAX_NI
+   intervals in the planes (coaxial tori at B = 4: ni = 6 static and
+   dynamic relaxed, K2's march-only build, K4 at ni = 5, aa = 3), of K9 on
+   a 4,096-sphere pool (96x54) and of K8 on a 3,600-leaf tape (64x36), each after
+   a training step through make_renderer; then at 1920x1080 with 16 AA rays
+   per pixel the chained dynamic frame, `march_only_fast` on the dynamic
+   tape, the dynamic soft frame and the ni = 6 frame of the tori (frame ms,
+   launches, the kernels alone, plain, bound);
+17. prints one JSON line of per-kernel records (time, plain time, launches,
    the roofline bound from this run's counted work) for the headline
    builds, the culled builds of the 64-leaf path, the compact backward per
    plan kind, the fine kernel with materials, the interval and block
@@ -1312,7 +1325,7 @@ def legacy(rt, cp, cg, dev, smi, cfg):
     camera_h = rt.Camera.looking_at(position=(0.0, 1.6, 4.2), target=(0.0, 0.0, 0.0))
     _, chain_painted, _ = scenes_bench64(rt, chain_rgb=np.random.default_rng(19))
     # name, what, scene, config, camera, make_fused_render_vjp keywords, the
-    # reference's reason, (long build, albedo words)
+    # reference's reason, (warp-row build, albedo words)
     paths = (
         ("a", "64 painted spheres of fwdbwd_64leaf_painted, leaf_cull=False", scene_painted(rt), nocull,
          camera64, {}, "leaf_cull disabled", (True, True)),
@@ -1323,7 +1336,7 @@ def legacy(rt, cp, cg, dev, smi, cfg):
         ("d", "config 2 at prepass_block=4, headline camera", scene_config2(rt), cfg, camera_h,
          dict(prepass_block=4), "leaf_cull disabled", (False, False)),
         ("e", "16 painted spheres, leaf_cull=False", scene_painted(rt, 16), nocull, camera64, {},
-         "leaf_cull disabled", (False, True)),
+         "leaf_cull disabled", (True, True)),
     )
     n_rays = WIDTH * HEIGHT * cfg.aa_samples ** 2
     records, steps = [], {}
@@ -1343,7 +1356,7 @@ def legacy(rt, cp, cg, dev, smi, cfg):
         info = (fr.backward_info["kind"], fr.backward_info["reason"])
         if info != ("pallas_legacy_unrolled", reason) or (lay.long, spec_p.has_materials) != build:
             raise AssertionError(f"path ({name}) routes to {info}, long={lay.long}: expected {reason}, {build}")
-        kname = ("fused_bwd_long_kernel" if lay.long else "fused_bwd_kernel") + (
+        kname = "fused_bwd_kernel" + (" (warp rows)" if lay.long else " (per-thread rows)") + (
             " (albedo words)" if spec_p.has_materials else "")
         lp0 = torch.tensor(arrays_p.leaf_params, device=dev)
         op0 = torch.tensor(arrays_p.op_param, device=dev)
@@ -1892,12 +1905,12 @@ def soft(rt, cp, cg, dev, smi, cfg):
     camera64 = rt.Camera.looking_at(position=(0.0, 2.5, 9.0), target=(0.0, 0.0, 0.0))
 
     # -- 13a. every soft build against its plain version at 256x144 ----------
-    # name, scene, config, gate camera, (backward kind, reason), K8's long build
+    # name, scene, config, gate camera, (backward kind, reason), K8's warp-row build
     gates = (
         ("config2", scene_config2(rt), nocull, (0.0, 2.6, 4.2), ("pallas_legacy_unrolled", "leaf_cull disabled"),
          False),
         ("16 painted spheres", scene_painted(rt, 16), nocull, SOFT_GATE_POS,
-         ("pallas_legacy_unrolled", "painted materials in soft mode"), False),
+         ("pallas_legacy_unrolled", "painted materials in soft mode"), True),
         ("64 painted spheres", scene_painted(rt), nocull, SOFT_GATE_POS,
          ("pallas_legacy_unrolled", "painted materials in soft mode"), True),
         ("64 spheres & box", scene_spheres(rt) & rt.box(half_extents=(3.2, 1.2, 3.2)), cfg64, SOFT_GATE_POS,
@@ -1931,7 +1944,7 @@ def soft(rt, cp, cg, dev, smi, cfg):
             got = cg.compact_bwd(sc, fc, cam, p, clamp, t, hit, g_img, soft=(s_min, t_min))
             ref = cg.compact_bwd_plain(sc, fc, cam, p, clamp, t, hit, g_img, band_rows=16, soft=(s_min, t_min))
         else:
-            what = ("fused_bwd_long_kernel" if fr.layout.long else "fused_bwd_kernel") + " soft" + (
+            what = "fused_bwd_kernel" + (" (warp rows)" if fr.layout.long else " (per-thread rows)") + " soft" + (
                 " (albedo words)" if spec_g.has_materials else "")
             got = cg.bwd(sc, cam, p, fr.layout, t, hit, g_img, soft=(s_min, t_min))
             ref = cg.bwd_plain(sc, cam, p, fr.layout, t, hit, g_img, band_rows=16, soft=(s_min, t_min))
@@ -2761,6 +2774,302 @@ def live(rt, cp, cg, dev, smi, cfg, gcam_pos):
     return records, out
 
 
+# --- phase 16: the repaired render options, the scenes past the shared row ----
+CAM_AXIS_POS = (0.0, 0.0, 8.0)  # looks down the axis of scene_tori
+BIG_POOL = 4096  # K9's largest gate: a gradient row of 16 x 4,096 + 8,198 words
+BIG_TAPE = 3600  # K8's: 7,199 instructions, 61,206 words
+# The gate frames of those two: their plain versions take ~160 s for the pool
+# and ~280 s for the tape at 256x144 and 128x72 on an H100, ~80 and ~140 s here.
+BIG_GATE_POOL = (96, 54)
+BIG_GATE_TAPE = (64, 36)
+
+
+def scene_tori(m, n=7):
+    """n thin tori on the view axis from CAM_AXIS_POS, their axes along it
+    (tests/test_torch_interval.py's layered scene): a 4 x 4 block's centre
+    ray threads them all and its cone comes near each, up to 7 near
+    intervals per block."""
+    return functools.reduce(lambda a, b: a | b, [
+        m.torus(center=(0.0, 0.0, 4.0 - 1.5 * k), major_radius=0.3, minor_radius=0.1,
+                rotation=(0.7071068, 0.7071068, 0.0, 0.0)) for k in range(n)])
+
+
+def repairs(rt, cp, cg, dev, smi, cfg):
+    """Phase 16: the render options that now take a dynamic tape (K3's DYN
+    build, K2's DYN march-only and soft builds), any n_intervals (the coarse
+    scan and the fine passes that keep the intervals in the planes), and the
+    scenes whose gradient row exceeds a block's shared memory (K9 on a
+    4,096-sphere pool, K8 on a 3,600-leaf tape): gates against the plain
+    versions at 256x144 (those two at 96x54 and 64x36), then 1080p frames with
+    launches, the kernels alone, plain and bound. Returns the kernel records
+    and the numbers the summary prints."""
+    import torch
+
+    records, out = [], {}
+    t_phase = time.perf_counter()
+    cfg_ir = dataclasses.replace(cfg, relax=1.6)
+    gcv = rt.cam_vec(rt.Camera.looking_at(position=(0.0, 2.6, 4.2), target=(0.0, 0.0, 0.0)), device=dev)
+    scv = rt.cam_vec(rt.Camera.looking_at(position=SOFT_GATE_POS, target=(0.0, 0.0, 0.0)), device=dev)
+    hcv = rt.cam_vec(rt.Camera.looking_at(position=(0.0, 1.6, 4.2), target=(0.0, 0.0, 0.0)), device=dev)
+    acv = rt.cam_vec(rt.Camera.looking_at(position=CAM_AXIS_POS, target=(0.0, 0.0, 0.0)), device=dev)
+    spec_d, arrays_d = rt.compile_scene(scene_config2(rt))
+    # The dynamic tape's real instructions are the static tape's: the bounds
+    # count their operations from it.
+    spec_cost = rt.compile_scene(scene_config2(rt), static=True)[0]
+    spec_t, arrays_t = rt.compile_scene(scene_tori(rt), static=True)
+    spec_td, arrays_td = rt.compile_scene(scene_tori(rt))
+    if spec_d.static_tape is not None or spec_td.static_tape is not None:
+        raise AssertionError("compile_scene's default is not a dynamic tape")
+
+    # -- 16a. gates at 256x144 -------------------------------------------------
+    rp = cp.make_pallas_image_render_aa(spec_d, cfg, GATE_W, GATE_H, device=dev, prepass_block=4,
+                                        prepass_chain=True)
+    sc, cam, bnd = rp.scene_args(arrays_d, gcv)
+    blk = cp.coarse(sc, cam, bnd, rp.params)
+    px = cp.coarse_px(sc, cam, bnd, rp.params, *blk)
+    coarse_agreement("gate DYN coarse_px_kernel (K3) vs coarse_px_plain, config 2 dynamic, B=4", px,
+                     cp.coarse_px_plain(sc, cam, bnd, rp.params, *blk), strict=False)
+    image_class("gate DYN chained frame vs its plain path", rp(arrays_d, gcv), rp.render_plain(arrays_d, gcv))
+    for kw, cfg_m in ((dict(prepass_block=4), cfg), (dict(prepass_block=1, n_intervals=2), cfg_ir)):
+        mo = cp.make_pallas_image_march_fast(spec_d, cfg_m, GATE_W, GATE_H, device=dev, **kw)
+        sc, cam, bnd = mo.scene_args(arrays_d, gcv)
+        pre = mo.prepass(sc, cam, bnd, None)
+        got = cp.fine_march(sc, cam, bnd, mo.params, *pre)
+        _, t_r, h_r = cp.fine_res(sc, cam, bnd, mo.params, *pre)
+        same = bool(torch.equal(got[0], t_r.reshape(-1)) and torch.equal(got[1], h_r.reshape(-1)))
+        log(f"gate DYN march-only build vs the DYN fine kernel with residuals, {kw}, relax {cfg_m.relax}: (t, hit) "
+            f"equal bit for bit {same} {'PASS' if same else 'FAIL'}")
+        if not same:
+            raise AssertionError("the DYN march-only build's (t, hit) differ from the DYN fine kernel's")
+        # The plain version in the class the DYN fine kernel's residuals are
+        # held to: its builds contract FMAs, so a relaxed ray can end one
+        # step apart (the static march-only gate of phase 14 happens to be
+        # exact; this one is not).
+        _, t_p, h_p = cp.fine_res_plain(sc, cam, bnd, mo.params, *pre)
+        residual_agreement(f"gate DYN K2 march-only vs fine_res_plain's (t, hit), {kw}, relax {cfg_m.relax}", got,
+                           (t_p.reshape(-1), h_p.reshape(-1)), strict=False)
+    for cfg_s, how in ((cfg, "un-culled"), (dataclasses.replace(cfg, leaf_cull=True), "gated")):
+        rs = cp.make_pallas_image_render_aa(spec_d, cfg_s, GATE_W, GATE_H, device=dev, no_prepass=True, soft=True)
+        sc, cam, bnd = rs.scene_args(arrays_d, scv)
+        _, fc = rs.cull_args(sc, cam)
+        img_k, *res_k = cp.fine_res(sc, cam, bnd, rs.params, cull=fc)
+        img_p, *res_p = cp.fine_res_plain(sc, cam, bnd, rs.params, cull=fc)
+        image_max(f"gate DYN soft fine kernel vs fine_res_plain, config 2 dynamic, {how}", img_k, img_p)
+        soft_residual_agreement(f"gate DYN soft residuals, {how}", cp, rs.params, res_k, res_p)
+    # More than MAX_NI near intervals: K1's scan and K2's march in place
+    # (static and DYN, relaxed), K2's march-only build, K4 at aa = 3.
+    for spec_w, arrays_w, cfg_w, ni, how in ((spec_t, arrays_t, cfg, 6, "static"),
+                                             (spec_td, arrays_td, cfg_ir, 6, "dynamic, relax 1.6"),
+                                             (spec_t, arrays_t, dataclasses.replace(cfg, aa_samples=3), 5,
+                                              "static, aa 3 (K4)")):
+        rw = cp.make_pallas_image_render_aa(spec_w, cfg_w, GATE_W, GATE_H, device=dev, prepass_block=4,
+                                            n_intervals=ni)
+        sc, cam, bnd = rw.scene_args(arrays_w, acv)
+        pre = cp.coarse(sc, cam, bnd, rw.params)
+        interval_agreement(f"gate coarse kernel, {ni} intervals in place, tori ({how}) vs coarse_plain", pre,
+                           cp.coarse_plain(sc, cam, bnd, rw.params))
+        n_open = int(sum((v < 9e37).int() for v in pre[:ni]).max())
+        log(f"  the most intervals a block keeps: {n_open} (more than MAX_NI = {cp.MAX_NI}: {n_open > cp.MAX_NI})")
+        if n_open <= cp.MAX_NI:
+            raise AssertionError("the tori gate keeps no more than MAX_NI intervals in any block")
+        if rw.params.unpacked:
+            image_class(f"gate K4 through {ni} intervals in place ({how}) vs fine_unpacked_plain",
+                        cp.fine_unpacked(sc, cam, bnd, rw.params, *pre),
+                        cp.fine_unpacked_plain(sc, cam, bnd, rw.params, *pre)[0])
+            continue
+        image_class(f"gate fine kernel through {ni} intervals in place ({how}) vs fine_plain",
+                    cp.fine(sc, cam, bnd, rw.params, *pre), cp.fine_plain(sc, cam, bnd, rw.params, *pre))
+        got = cp.fine_march(sc, cam, bnd, rw.params, *pre)
+        _, t_r, h_r = cp.fine_res(sc, cam, bnd, rw.params, *pre)
+        if not (torch.equal(got[0], t_r.reshape(-1)) and torch.equal(got[1], h_r.reshape(-1))):
+            raise AssertionError(f"the march-only build through {ni} intervals differs from the fine kernel's")
+        log(f"gate march-only build through {ni} intervals ({how}): (t, hit) equal to the fine kernel's PASS")
+
+    # The scenes past the shared row: a training step each through
+    # make_renderer (launch counts), the kernel alone, against its plain
+    # version, and its bound.
+    big = (
+        ("compact_bwd_kernel", f"{BIG_POOL}-sphere pool", BIG_POOL, True, BIG_GATE_POOL, 16),
+        ("fused_bwd_kernel", f"{BIG_TAPE}-leaf tape", BIG_TAPE, False, BIG_GATE_TAPE, 4),
+    )
+    for kname, what, n, cull, (gw, gh), band in big:
+        cfg_b = dataclasses.replace(cfg, relax=1.6, leaf_cull=cull)
+        spec_b, arrays_b = rt.compile_scene(scene_balanced(rt, n, 5, 12.0, 2.5), static=True)
+        camera = rt.Camera.looking_at(position=(0.0, 6.0, 30.0), target=(0.0, 0.0, 0.0))
+        render = rt.make_renderer(spec_b, gw, gh, cfg_b, mode="implicit", backend="pallas_fused", device=dev)
+        fr = render.renderer
+        nscal = 16 * n + spec_b.n_instr + 7
+        if fr.compact_bwd != cull or nscal * 4 <= cg.SMEM_PER_BLOCK:
+            raise AssertionError(f"the {what} routes to {fr.backward_info}, {nscal} words")
+        lp = torch.tensor(arrays_b.leaf_params, device=dev, requires_grad=True)
+        cp.reset_launch_counts()
+        cg.reset_launch_counts()
+        torch.mean(render(dataclasses.replace(arrays_b, leaf_params=lp), camera) ** 2).backward()
+        launches = (cg.compact_bwd if cull else cg.bwd).launches
+        if launches != 1 or not bool(torch.isfinite(lp.grad).all()) or float(lp.grad.abs().max()) <= 0:
+            raise AssertionError(f"the {what}'s training step: {launches} launches, gradient not finite or zero")
+        rp, p = fr.prepass, fr.params
+        cv = rt.cam_vec(camera, device=dev)
+        sc, cam, bnd = rp.scene_args(arrays_b, cv)
+        cc, fc = rp.cull_args(sc, cam)
+        img, t, hit = cp.fine_res(sc, cam, bnd, p, *rp.prepass(sc, cam, bnd, cc), cull=fc)
+        g = 2.0 * img / img.numel()
+        clamp = fr.layout.grad_denom_clamp
+        if cull:
+            fn = lambda: cg.compact_bwd(sc, fc, cam, p, clamp, t, hit, g)  # noqa: E731
+            plain = lambda: cg.compact_bwd_plain(sc, fc, cam, p, clamp, t, hit, g, band_rows=band)  # noqa: E731
+            routes = cg.CompactRoutes.of(spec_b)
+            where = f"row in shared memory {routes.row_smem}, lists staged {routes.stage}"
+        else:
+            lay = fr.layout
+            fn = lambda: cg.bwd(sc, cam, p, lay, t, hit, g)  # noqa: E731
+            plain = lambda: cg.bwd_plain(sc, cam, p, lay, t, hit, g, band_rows=band)  # noqa: E731
+            where = f"warp rows {lay.long}, row in shared memory {lay.row_in_smem}, records in shared memory " \
+                    f"{lay.rec_in_smem(False)}"
+        k_ms = cuda_ms(fn, 3)
+        ref, p_ms = plain_ms(plain)
+        err = grad_class(f"gate {kname} on the {what} ({nscal} gradient words; {where}) vs its plain version at "
+                         f"{gw}x{gh}", fn(), ref)
+        n_rays = gw * gh * cfg.aa_samples ** 2
+        bound = (k9_bound(sc, fc, p, cam, t, hit, n_rays) if cull
+                 else k8_bound(sc, p, cam, t, hit, fr.layout, n_rays))
+        log(f"{kname} on the {what} at {gw}x{gh}: {k_ms:.4f} ms alone, plain {p_ms:.2f} ms, bound {bound[0]:.4f} ms "
+            f"({bound[1]}), hit fraction {float(hit.mean()):.4f} ({smi})")
+        records.append(dict(
+            name=f"{kname} ({what}, {gw}x{gh}: the row in device memory)", route="cuda",
+            source=f"raymarch_tpu_torch/csrc/{'compact_bwd' if cull else 'fused_bwd'}.cu",
+            replaces="raymarch_tpu/ops/pallas_grad.py:" + ("256" if cull else "1432"), launches=launches,
+            max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=bound[0], bound_by=bound[1], library_ms=None))
+        out[kname] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=bound[0])
+        del ref, img, t, hit, g, lp
+        torch.cuda.empty_cache()
+
+    # -- 16b. 1080p frames -----------------------------------------------------
+    n_px, n_rays = WIDTH * HEIGHT, WIDTH * HEIGHT * cfg.aa_samples ** 2
+
+    def dyn_counts():
+        return {"coarse_kernel (DYN)": cp.coarse.dyn_launches, "coarse_px_kernel (DYN)": cp.coarse_px.dyn_launches,
+                "fine_kernel (DYN)": cp.fine.dyn_launches, "fine_kernel (march only, DYN)": cp.fine_march.dyn_launches,
+                "fine_kernel (soft, DYN)": cp.fine.dyn_soft_launches,
+                "coarse_kernel (intervals in place)": cp.coarse.wide_launches,
+                "fine_kernel (intervals in place)": cp.fine.wide_launches}
+
+    def frames(fn):
+        cp.reset_launch_counts()
+        ms, host_ms, _ = timed_frames(cp, fn)
+        return ms, host_ms, dyn_counts()
+
+    # The chained dynamic frame (config 2, B = 4): K1 and K3 DYN, K2 DYN.
+    rp = cp.make_pallas_image_render_aa(spec_d, cfg, WIDTH, HEIGHT, device=dev, prepass_block=4, prepass_chain=True)
+    ms, host_ms, launches = frames(lambda: rp(arrays_d, hcv))
+    sc, cam, bnd = rp.scene_args(arrays_d, hcv)
+    blk = cp.coarse(sc, cam, bnd, rp.params)
+    k3_ms = cuda_ms(lambda: cp.coarse_px(sc, cam, bnd, rp.params, *blk), KERNEL_REPS)
+    work = cp.WorkCount()
+    px_p, k3_plain_ms = plain_ms(lambda: cp.coarse_px_plain(sc, cam, bnd, rp.params, *blk, work=work))
+    k3_err = coarse_agreement("full-size DYN coarse_px_kernel (K3) vs coarse_px_plain, config 2 dynamic, B=4",
+                              cp.coarse_px(sc, cam, bnd, rp.params, *blk), px_p, strict=False)
+    k3_bound = roofline(march_flops(work, n_px, spec_cost, False), n_px * 8 + rp.params.brows * rp.params.bcols * 8)
+    image_class("full-size chained dynamic frame vs the plain path", rp(arrays_d, hcv), rp.render_plain(arrays_d, hcv))
+    if min(launches["coarse_px_kernel (DYN)"], launches["fine_kernel (DYN)"]) <= 0:
+        raise AssertionError(f"a DYN kernel of the chained frame never launched: {launches}")
+    log(f"chained dynamic frame (config 2, B=4) {WIDTH}x{HEIGHT} x16 AA: {ms:.4f} ms/frame (host {host_ms:.4f} ms), "
+        f"launches {launches}; DYN K3 alone {k3_ms:.4f} ms, plain {k3_plain_ms:.2f} ms, bound {k3_bound[0]:.4f} ms "
+        f"({k3_bound[1]}) ({smi})")
+    records.append(dict(
+        name="coarse_px_kernel (K3 DYN: config 2 dynamic, B=4)", route="cuda",
+        source="raymarch_tpu_torch/csrc/prepass_dyn.cu", replaces="raymarch_tpu/ops/pallas_prepass.py:969",
+        launches=launches["coarse_px_kernel (DYN)"], max_abs_err=k3_err, ms=k3_ms, plain_ms=k3_plain_ms,
+        bound_ms=k3_bound[0], bound_by=k3_bound[1], library_ms=None))
+    out["chain_dynamic"] = dict(ms=ms, k3_ms=k3_ms, launches=launches)
+    del blk, px_p
+
+    # march_only_fast on the dynamic tape (bench.py:678-693's options).
+    mo = cp.make_pallas_image_march_fast(spec_d, cfg_ir, WIDTH, HEIGHT, device=dev, prepass_block=1, n_intervals=2)
+    ms, host_ms, launches = frames(lambda: mo(arrays_d, hcv))
+    sc, cam, bnd = mo.scene_args(arrays_d, hcv)
+    pre = mo.prepass(sc, cam, bnd, None)
+    fm_ms = cuda_ms(lambda: cp.fine_march(sc, cam, bnd, mo.params, *pre), KERNEL_REPS)
+    work = cp.WorkCount()
+    (_, t_p, h_p), p_ms = plain_ms(lambda: cp.fine_res_plain(sc, cam, bnd, mo.params, *pre, work=work))
+    t_k, h_k = cp.fine_march(sc, cam, bnd, mo.params, *pre)
+    mo_err = residual_agreement("full-size DYN march-only build vs fine_res_plain's (t, hit)", (t_k, h_k),
+                                (t_p.reshape(-1), h_p.reshape(-1)), strict=False)
+    n_push = scene_cost(spec_cost)[0]
+    march_work = cp.WorkCount(points=float(work.points) - 4 * float(work.hits),
+                              leaf_evals=float(work.leaf_evals) - 4 * float(work.hits) * n_push)
+    mo_bound = roofline(march_flops(march_work, n_rays, spec_cost, False), n_rays * 8 + 4 * n_px * 4)
+    if launches["fine_kernel (march only, DYN)"] <= 0:
+        raise AssertionError(f"the DYN march-only build never launched: {launches}")
+    log(f"march_only_fast on the dynamic tape: {ms:.4f} ms/frame, {n_rays / (ms * 1e-3) / 1e9:.4f} Grays/s, launches "
+        f"{launches}; DYN march-only build alone {fm_ms:.4f} ms, plain {p_ms:.2f} ms, bound {mo_bound[0]:.4f} ms "
+        f"({mo_bound[1]}) ({smi})")
+    records.append(dict(
+        name="fine_kernel (march only, DYN: march_only_fast on the dynamic tape)", route="cuda",
+        source="raymarch_tpu_torch/csrc/fine_march.cu", replaces="raymarch_tpu/ops/pallas_prepass.py:1827",
+        launches=launches["fine_kernel (march only, DYN)"], max_abs_err=mo_err, ms=fm_ms, plain_ms=p_ms,
+        bound_ms=mo_bound[0], bound_by=mo_bound[1], library_ms=None))
+    out["march_fast_dynamic"] = dict(ms=ms, kernel_ms=fm_ms, launches=launches)
+    del t_p, h_p, t_k, h_k
+
+    # The soft frame on the dynamic tape (no prepass, relax 1).
+    rs = cp.make_pallas_image_render_aa(spec_d, cfg, WIDTH, HEIGHT, device=dev, no_prepass=True, soft=True)
+    ms, host_ms, launches = frames(lambda: rs(arrays_d, hcv))
+    sc, cam, bnd = rs.scene_args(arrays_d, hcv)
+    sf_ms = cuda_ms(lambda: cp.fine(sc, cam, bnd, rs.params), KERNEL_REPS)
+    work = cp.WorkCount()
+    (img_p, *_), p_ms = plain_ms(lambda: cp.fine_res_plain(sc, cam, bnd, rs.params, work=work))
+    sf_err = image_class("full-size DYN soft fine kernel vs fine_res_plain", cp.fine(sc, cam, bnd, rs.params), img_p)
+    sf_bound = roofline(march_flops(work, n_rays, spec_cost, False, float(work.hits), fine=True), n_px * 12)
+    if launches["fine_kernel (soft, DYN)"] <= 0:
+        raise AssertionError(f"the DYN soft build never launched: {launches}")
+    log(f"soft frame on the dynamic tape: {ms:.4f} ms/frame, launches {launches}; DYN soft fine kernel alone "
+        f"{sf_ms:.4f} ms, plain {p_ms:.2f} ms, bound {sf_bound[0]:.4f} ms ({sf_bound[1]}) ({smi})")
+    records.append(dict(
+        name="fine_kernel (soft, DYN: config 2 dynamic)", route="cuda", source="raymarch_tpu_torch/csrc/fine_soft.cu",
+        replaces="raymarch_tpu/ops/pallas_prepass.py:1521", launches=launches["fine_kernel (soft, DYN)"],
+        max_abs_err=sf_err, ms=sf_ms, plain_ms=p_ms, bound_ms=sf_bound[0], bound_by=sf_bound[1], library_ms=None))
+    out["soft_dynamic"] = dict(ms=ms, kernel_ms=sf_ms, launches=launches)
+    del img_p
+
+    # The tori at n_intervals = 6, B = 4: both passes keep the intervals in
+    # the planes.
+    rw = cp.make_pallas_image_render_aa(spec_t, cfg, WIDTH, HEIGHT, device=dev, prepass_block=4, n_intervals=6)
+    ms, host_ms, launches = frames(lambda: rw(arrays_t, acv))
+    sc, cam, bnd = rw.scene_args(arrays_t, acv)
+    pre = cp.coarse(sc, cam, bnd, rw.params)
+    c_ms = cuda_ms(lambda: cp.coarse(sc, cam, bnd, rw.params), KERNEL_REPS)
+    f_ms = cuda_ms(lambda: cp.fine(sc, cam, bnd, rw.params, *pre), KERNEL_REPS)
+    work_c, work_f = cp.WorkCount(), cp.WorkCount()
+    pre_p, c_plain_ms = plain_ms(lambda: cp.coarse_plain(sc, cam, bnd, rw.params, work=work_c))
+    c_err = interval_agreement("full-size coarse kernel, 6 intervals in place, tori", pre, pre_p)
+    img_p, f_plain_ms = plain_ms(lambda: cp.fine_plain(sc, cam, bnd, rw.params, *pre, work=work_f))
+    f_err = image_class("full-size fine kernel through 6 intervals in place, tori", cp.fine(sc, cam, bnd, rw.params,
+                                                                                            *pre), img_p)
+    n_blk = rw.params.brows * rw.params.bcols
+    c_bound = roofline(march_flops(work_c, n_blk, spec_t, False), n_blk * 12 * 4)
+    f_bound = roofline(march_flops(work_f, n_rays, spec_t, False, float(work_f.hits), fine=True),
+                       n_px * 12 + n_blk * 12 * 4)
+    if min(launches["coarse_kernel (intervals in place)"], launches["fine_kernel (intervals in place)"]) <= 0:
+        raise AssertionError(f"a kernel of the 6-interval frame never launched: {launches}")
+    log(f"n_intervals = 6 frame (tori, B = 4) {WIDTH}x{HEIGHT} x16 AA: {ms:.4f} ms/frame, launches {launches}; coarse "
+        f"alone {c_ms:.4f} ms (plain {c_plain_ms:.2f}, bound {c_bound[0]:.4f} {c_bound[1]}), fine alone {f_ms:.4f} ms "
+        f"(plain {f_plain_ms:.2f}, bound {f_bound[0]:.4f} {f_bound[1]}) ({smi})")
+    for name, src, rep, n_l, err, k_ms, pl_ms, bd in (
+            ("coarse_kernel (6 intervals in place: tori, B = 4)", "prepass.cu", "885",
+             launches["coarse_kernel (intervals in place)"], c_err, c_ms, c_plain_ms, c_bound),
+            ("fine_kernel (6 intervals in place: tori, B = 4)", "intervals_wide.cu", "1521",
+             launches["fine_kernel (intervals in place)"], f_err, f_ms, f_plain_ms, f_bound)):
+        records.append(dict(name=name, route="cuda", source=f"raymarch_tpu_torch/csrc/{src}",
+                            replaces=f"raymarch_tpu/ops/pallas_prepass.py:{rep}", launches=n_l, max_abs_err=err,
+                            ms=k_ms, plain_ms=pl_ms, bound_ms=bd[0], bound_by=bd[1], library_ms=None))
+    out["ni6"] = dict(ms=ms, coarse_ms=c_ms, fine_ms=f_ms, launches=launches)
+    del pre, pre_p, img_p
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    return records, out
+
+
 def main() -> int:
     import torch
 
@@ -3107,6 +3416,9 @@ def main() -> int:
     # -- 15. live editing ----------------------------------------------------
     live_records, sv = live(rt, cp, cg, dev, smi, cfg, (0.0, 2.6, 4.2))
 
+    # -- 16. the repaired render options, the scenes past the shared row ----
+    repair_records, sr = repairs(rt, cp, cg, dev, smi, cfg)
+
     log(f"card: {smi}")
     kernels = [
         dict(name="coarse_kernel", route="cuda", source="raymarch_tpu_torch/csrc/prepass.cu",
@@ -3137,6 +3449,7 @@ def main() -> int:
         *soft_records,
         *surface_records,
         *live_records,
+        *repair_records,
     ]
     log(f"64-leaf summary: step {s64['step_ms']:.4f} ms, forward frame {s64['fwd64_ms']:.4f} ms, idle share "
         f"{s64['idle']}, masks and lists {s64['cull_ms']:.4f} ms in {s64['n_cull']} device operations "
@@ -3178,6 +3491,13 @@ def main() -> int:
         f"tier {sv['tiered']['static_s']:.3f} s, frames dynamic {sv['tiered']['dyn_ms']:.2f} / static "
         f"{sv['tiered']['static_ms']:.2f} / render() {sv['tiered']['render_ms']:.2f} ms; viewer /edit {sv['viewer']['edit_ms']:.2f} ms, frame.png "
         f"{sv['viewer']['png_ms']:.2f} ms; phase {sv['seconds']:.1f} s ({smi})")
+    log(f"repairs summary: chained dynamic frame {sr['chain_dynamic']['ms']:.4f} ms (DYN K3 "
+        f"{sr['chain_dynamic']['k3_ms']:.4f} ms), dynamic march_only_fast {sr['march_fast_dynamic']['ms']:.4f} ms "
+        f"(DYN march-only build {sr['march_fast_dynamic']['kernel_ms']:.4f} ms), dynamic soft frame "
+        f"{sr['soft_dynamic']['ms']:.4f} ms (DYN soft build {sr['soft_dynamic']['kernel_ms']:.4f} ms), ni = 6 frame "
+        f"{sr['ni6']['ms']:.4f} ms (coarse {sr['ni6']['coarse_ms']:.4f}, fine {sr['ni6']['fine_ms']:.4f} ms); "
+        f"K9 {BIG_POOL}-sphere pool {sr['compact_bwd_kernel']['ms']:.4f} ms, K8 {BIG_TAPE}-leaf tape "
+        f"{sr['fused_bwd_kernel']['ms']:.4f} ms at the gate; phase {sr['seconds']:.1f} s ({smi})")
     log(f"chip_smoke total {time.perf_counter() - T_START:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -43,9 +43,9 @@ _SIGNATURES = {
     # leaf_params, row_kind, tape, n_instr, op_param, dyn, cam, bound,
     # params, cull, t0_out, status_out, block_params, stream
     "rmt_coarse_launch": (_P, _P, _P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P),
-    # leaf_params, row_kind, tape, n_instr, op_param, cam, bound, params,
-    # t_blk, status_blk, t0_out, status_out, block_params, stream
-    "rmt_coarse_px_launch": (_P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P),
+    # leaf_params, row_kind, tape, n_instr, op_param, dyn, cam, bound,
+    # params, t_blk, status_blk, t0_out, status_out, block_params, stream
+    "rmt_coarse_px_launch": (_P, _P, _P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P),
     # leaf_params, row_kind, tape, n_instr, op_param, dyn, cam, bound,
     # params, cull, t0_in, status_in, img, t_out, hit_out, mats,
     # block_params, soft, soft_params, stream
@@ -54,19 +54,18 @@ _SIGNATURES = {
     # params, cull, t0_in, status_in, img, t_out, hit_out, mats, shared,
     # block_params, stream
     "rmt_fine_unpacked_launch": (_P, _P, _P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P),
-    # leaf_params, row_kind, tape, n_instr, op_param, push_slot, cam, params,
-    # grad_denom_clamp, t, hit, g_img, nscal, op_base, cam_base, mats, soft,
-    # hist, partials, max_blocks, out, stream
+    # leaf_params, packed tape, n_instr, op_param, shape (host int[7]), cam,
+    # params, grad_denom_clamp, t, hit, g_img, mats, soft, rec, partials,
+    # max_blocks, out, stream
     "rmt_fused_bwd_launch": (
-        _P, _P, _P, _I, _P, _P, _P, _P, ctypes.c_float, _P, _P, _P, _I, _I, _I,
-        _I, _P, _P, _P, _I, _P, _P,
+        _P, _P, _I, _P, _P, _P, _P, ctypes.c_float, _P, _P, _P, _I, _P, _P, _P, _I, _P, _P,
     ),
     # leaf_params, row_kind, tape, n_instr, op_param, cull, cam, params,
-    # grad_denom_clamp, t, hit, g_img, nscal, op_base, cam_base, mats, soft,
-    # hist, hist_off, partials, max_blocks, n_blocks (int*), stream
+    # grad_denom_clamp, t, hit, g_img, shape (host int[8]), mats, soft,
+    # hist, tile_next, partials, max_blocks, n_blocks (int*), out, stream
     "rmt_compact_bwd_launch": (
-        _P, _P, _P, _I, _P, _P, _P, _P, ctypes.c_float, _P, _P, _P, _I, _I,
-        _I, _I, _P, _P, _I, _P, _I, _P, _P,
+        _P, _P, _P, _I, _P, _P, _P, _P, ctypes.c_float, _P, _P, _P, _P, _I,
+        _P, _P, _P, _P, _I, _P, _P, _P,
     ),
     # partials, n_blocks, nscal, out, stream
     "rmt_bwd_finalize_launch": (_P, _I, _I, _P, _P),

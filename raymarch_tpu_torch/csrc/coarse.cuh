@@ -1,7 +1,10 @@
-// The coarse (cone) kernel of the cone-prepass renderer: the device code
-// that prepass.cu (the static-tape builds, MODE 0-2) and prepass_dyn.cu (the
-// DYN builds, MODE 3 and 4) instantiate. prepass.cu's header describes it.
+// The coarse (cone) kernel and the chained pixel kernel of the cone-prepass
+// renderer: the device code that prepass.cu (the static-tape builds, MODE
+// 0-2) and prepass_dyn.cu (the DYN builds, MODE 3 and 4) instantiate.
+// prepass.cu's header describes them.
 #pragma once
+
+#include <type_traits>
 
 #include <cuda_runtime.h>
 
@@ -45,8 +48,9 @@ __device__ __forceinline__ float cone_march(const SceneView& sc,
 // FAR_T when the centre ray hits inside it, when the budget ends with it
 // open, and (the last zone) when one more zone would open; the ray then
 // stops. Indices are selected by unrolled compares so that st/en stay in
-// registers.
-template <int MODE>
+// registers; given `planes` (KIND 3, more than MAX_NI intervals), the zones
+// are written in place in the planes instead (st, en unused).
+template <int MODE, class Planes = NoPlanes>
 __device__ __forceinline__ void interval_scan(const SceneView& sc,
                                               const CullView& cv, int tile,
                                               const Ray& r,
@@ -54,9 +58,15 @@ __device__ __forceinline__ void interval_scan(const SceneView& sc,
                                               const BlockParams& bp,
                                               float live, float t,
                                               float t_cap, float (&st)[MAX_NI],
-                                              float (&en)[MAX_NI]) {
+                                              float (&en)[MAX_NI],
+                                              const Planes& planes = Planes()) {
+  constexpr bool REG = std::is_same<Planes, NoPlanes>::value;
+  if constexpr (REG) {
 #pragma unroll
-  for (int q = 0; q < MAX_NI; ++q) st[q] = en[q] = FAR_T;
+    for (int q = 0; q < MAX_NI; ++q) st[q] = en[q] = FAR_T;
+  } else {
+    planes.clear();
+  }
   bool was_near = false;
   int idx = 0;
   for (int k = 0; k < 2 * p.max_iter && live > 0.0f; ++k) {
@@ -69,14 +79,18 @@ __device__ __forceinline__ void interval_scan(const SceneView& sc,
     const bool closing = was_near && (!near || esc);
     const bool overflow = near && !was_near && idx >= bp.ni;
     const bool opening = near && !was_near && !overflow;
+    if constexpr (REG) {
 #pragma unroll
-    for (int q = 0; q < MAX_NI; ++q) {
-      if (q == idx) {
-        if (opening) st[q] = t;
-        if (closing) en[q] = t;
-        if (hit_c) en[q] = FAR_T;
+      for (int q = 0; q < MAX_NI; ++q) {
+        if (q == idx) {
+          if (opening) st[q] = t;
+          if (closing) en[q] = t;
+          if (hit_c) en[q] = FAR_T;
+        }
+        if (overflow && q == bp.ni - 1) en[q] = FAR_T;
       }
-      if (overflow && q == bp.ni - 1) en[q] = FAR_T;
+    } else {
+      planes.mark(idx, opening, closing, hit_c, overflow, t);
     }
     if (closing) ++idx;
     const bool live2 = !(hit_c || esc || overflow);
@@ -85,9 +99,13 @@ __device__ __forceinline__ void interval_scan(const SceneView& sc,
     live = live2 ? 1.0f : 0.0f;
   }
   if (was_near) {
+    if constexpr (REG) {
 #pragma unroll
-    for (int q = 0; q < MAX_NI; ++q)
-      if (q == idx) en[q] = FAR_T;
+      for (int q = 0; q < MAX_NI; ++q)
+        if (q == idx) en[q] = FAR_T;
+    } else {
+      planes.reopen(idx);
+    }
   }
 }
 
@@ -95,8 +113,9 @@ __device__ __forceinline__ void interval_scan(const SceneView& sc,
 // f32[rows, width] (B = 1, no intervals). KIND 1: one thread per block of
 // the band, t0 and status f32[brows, bcols]. KIND 2: one thread per block,
 // the 2*ni interval planes f32[2*ni, brows, bcols] (starts, then ends) at
-// t0_out. MODE is the culling mode (CullView::mode); under culling a block
-// reads the coarse tile that holds it (tiles of whole blocks).
+// t0_out, ni <= MAX_NI; KIND 3 the same for any ni, written in place. MODE
+// is the culling mode (CullView::mode); under culling a block reads the
+// coarse tile that holds it (tiles of whole blocks).
 template <int MODE, int KIND>
 __global__ void coarse_kernel(SceneView sc, const float* __restrict__ cam,
                               const float* __restrict__ bound, RenderParams p,
@@ -156,6 +175,11 @@ __global__ void coarse_kernel(SceneView sc, const float* __restrict__ cam,
           t0_out[(bp.ni + q) * plane + o] = en[q];
         }
       }
+    } else if constexpr (KIND == 3) {
+      PlaneIntervals planes;
+      planes.load(t0_out, (size_t)bp.brows * bp.bcols, o, bp.ni);
+      float st[MAX_NI], en[MAX_NI];  // unused: the zones go to the planes
+      interval_scan<MODE>(sc, cv, tile, r, p, bp, live, t, t_cap, st, en, planes);
     } else {
       const float near = cone_march<MODE>(sc, cv, tile, r, p, p.omega, p.inv1w,
                                           live, t, t_cap);
@@ -183,14 +207,59 @@ struct CoarseLaunch {
   }
   template <int MODE>
   void kinds(int kind) const {
-    if (kind == 2) go<MODE, 2>();
+    if (kind == 3) go<MODE, 3>();
+    else if (kind == 2) go<MODE, 2>();
     else if (kind == 1) go<MODE, 1>();
     else go<MODE, 0>();
   }
 };
 
-// Launches the DYN build (MODE 3 for cull mode 0, 4 for 2) of the coarse
-// kernel (prepass_dyn.cu).
+// Launches the DYN build (MODE 3 or 4) of the coarse kernel
+// (prepass_dyn.cu).
 cudaError_t launch_coarse_dyn(const CoarseLaunch& L, int mode, int kind);
+
+// The chained pixel kernel K3 (prepass_chain, B > 1), one thread per pixel
+// of the band: the pixel's cone ray at omega_px over the whole tape, started
+// at max(its bound-clip start, its block's t0) and dead where its block's
+// status is 0 (_cone_march_tile 152-154). Writes t0 and status f32[rows,
+// width]. MODE 0 reads the static tape, 3 the frame's dynamic tape
+// (prepass_dyn.cu): un-culled, as the reference's.
+template <int MODE>
+__global__ void coarse_px_kernel(SceneView sc, const float* __restrict__ cam,
+                                 const float* __restrict__ bound,
+                                 RenderParams p,
+                                 const float* __restrict__ t_blk,
+                                 const float* __restrict__ status_blk,
+                                 float* __restrict__ t0_out,
+                                 float* __restrict__ status_out,
+                                 BlockParams bp) {
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  const int i = blockIdx.y;
+  if (j >= p.width || i >= p.rows) return;
+  const float x = 2.0f * ((float)j + 0.5f) / (float)p.width - 1.0f;
+  const float y =
+      1.0f - 2.0f * (((float)i + 0.5f) + __ldg(cam + 7)) / (float)p.height;
+  const Ray r = view_ray(cam, p, x, y);
+  float live = 1.0f, t = 0.0f, t_cap = FAR_T;
+  if (p.use_bound) bound_clip(bound, r, p.min_dist, live, t, t_cap);
+  const size_t bo = (size_t)(i / bp.block) * bp.bcols + j / bp.block;
+  const float live_in = status_blk[bo];
+  live = live * live_in;
+  t = fmaxf(t, t_blk[bo]) * live_in;
+  const CullView uncull{};
+  const float near = cone_march<MODE>(sc, uncull, 0, r, p, bp.omega_px,
+                                      bp.inv1w_px, live, t, t_cap);
+  const size_t o = (size_t)i * p.width + j;
+  t0_out[o] = t;
+  status_out[o] = near;
+}
+
+// Launches K3's DYN build (prepass_dyn.cu).
+void launch_coarse_px_dyn(dim3 grid, dim3 block, cudaStream_t st,
+                          const SceneView& sc, const float* cam,
+                          const float* bound, const RenderParams& p,
+                          const float* t_blk, const float* status_blk,
+                          float* t0_out, float* status_out,
+                          const BlockParams& bp);
 
 }  // namespace rmt

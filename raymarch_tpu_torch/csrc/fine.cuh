@@ -12,6 +12,7 @@
 #pragma once
 
 #include <cstdint>
+#include <type_traits>
 
 #include <cuda_runtime.h>
 
@@ -49,6 +50,53 @@ constexpr float FAR_T = 3.0e38f;   // "no interval" (pallas_prepass.py:188)
 // A multiple of 64: a pixel's 64 samples (aa_samples = 8) share a block.
 constexpr int FINE_THREADS = 128;
 constexpr float FAR_TEST = 9.0e37f;
+
+// The interval bounds of more than MAX_NI near intervals, read and written
+// in place in the 2*ni interval planes (starts, then ends; block offset po,
+// plane size `plane`) through L1: the PRE 4 builds of the fine passes
+// (intervals_wide.cu) and the KIND 3 builds of the coarse scan, so that no
+// build caps n_intervals. The builds for at most MAX_NI keep them in
+// registers, selected by unrolled compares (NoPlanes: their code).
+struct NoPlanes {};
+struct PlaneIntervals {
+  float* base;  // the block's word of plane 0
+  size_t plane;
+  int ni;
+
+  __device__ __forceinline__ void load(const float* planes, size_t plane_,
+                                       size_t po, int ni_) {
+    base = const_cast<float*>(planes) + po;
+    plane = plane_;
+    ni = ni_;
+  }
+  __device__ __forceinline__ float& st(int q) const { return base[q * plane]; }
+  __device__ __forceinline__ float& en(int q) const {
+    return base[(ni + q) * plane];
+  }
+  // The end of interval idx and the start of interval idx + 1 (FAR_T past
+  // the last).
+  __device__ __forceinline__ void bounds(int idx, float& e, float& ns) const {
+    e = idx < ni ? en(idx) : FAR_T;
+    ns = idx + 1 < ni ? st(idx + 1) : FAR_T;
+  }
+  // The interval scan's steps (coarse.cuh interval_scan).
+  __device__ __forceinline__ void clear() const {
+    for (int q = 0; q < ni; ++q) st(q) = en(q) = FAR_T;
+  }
+  __device__ __forceinline__ void mark(int idx, bool opening, bool closing,
+                                       bool hit_c, bool overflow,
+                                       float t) const {
+    if (idx < ni) {
+      if (opening) st(idx) = t;
+      if (closing) en(idx) = t;
+      if (hit_c) en(idx) = FAR_T;
+    }
+    if (overflow) en(ni - 1) = FAR_T;
+  }
+  __device__ __forceinline__ void reopen(int idx) const {
+    if (idx < ni) en(idx) = FAR_T;
+  }
+};
 
 // The soft build's outputs and constants (PRE 3), the fine kernel's last
 // argument; mirrored by cuda_prepass.py:_CSoftParams. s_min_out and
@@ -127,7 +175,9 @@ __device__ __forceinline__ float soft_march(const SceneView& sc,
 // of the legacy march); a step past e_idx jumps to max(t, s_{idx+1}) with
 // omega, step and previous radius reset, or is a miss when no interval is
 // left. Hit and escape are tested only at samples that did not overshoot.
-template <int MODE, bool RELAX>
+// st, en hold at most MAX_NI intervals; given `planes` (PRE 4), the bounds
+// are read from the planes instead.
+template <int MODE, bool RELAX, class Planes = NoPlanes>
 __device__ __forceinline__ float interval_march(const SceneView& sc,
                                                 const CullView& cv, int tile,
                                                 const Ray& r,
@@ -135,7 +185,8 @@ __device__ __forceinline__ float interval_march(const SceneView& sc,
                                                 const float (&st)[MAX_NI],
                                                 const float (&en)[MAX_NI],
                                                 float live, float& t,
-                                                float t_cap) {
+                                                float t_cap,
+                                                const Planes& planes = Planes()) {
   float hit = 0.0f;
   float prev_r = 0.0f, step_len = 0.0f, omega = p.relax;
   int idx = 0;
@@ -160,10 +211,14 @@ __device__ __forceinline__ float interval_march(const SceneView& sc,
     if (live > 0.0f) {
       const float t2 = t + new_step;
       float e = FAR_T, ns = FAR_T;  // e_idx, and s_{idx+1} (FAR_T past the last)
+      if constexpr (std::is_same<Planes, NoPlanes>::value) {
 #pragma unroll
-      for (int q = 0; q < MAX_NI; ++q) {
-        if (q == idx) e = en[q];
-        if (q == idx + 1) ns = st[q];
+        for (int q = 0; q < MAX_NI; ++q) {
+          if (q == idx) e = en[q];
+          if (q == idx + 1) ns = st[q];
+        }
+      } else {
+        planes.bounds(idx, e, ns);
       }
       if (t2 > e && ns > FAR_TEST) {
         t = t2;
@@ -291,7 +346,9 @@ __device__ __forceinline__ float lambert(const SceneView& sc,
 // scene carries materials, PRE the prepass planes: 0 t0_in and status_in
 // f32[rows, width] (or none with no_prepass), 1 the same at block
 // resolution f32[brows, bcols], 2 the 2*ni interval planes f32[2*ni, brows,
-// bcols] at t0_in; 3 none: the soft build. MO is the march-only build
+// bcols] at t0_in; 3 none: the soft build; 4 the interval planes of more
+// than MAX_NI intervals, read in place (intervals_wide.cu). MO is the
+// march-only build
 // (pallas_prepass.py:1621-1640, launched at 1827): it writes t_out and
 // hit_out, flat in pixel-major AA-ray order, and skips the taps, the
 // shading and the image.
@@ -324,7 +381,7 @@ __global__ void fine_kernel(SceneView sc, const float* __restrict__ cam,
                              t_min);
     } else {
       float live;
-      if constexpr (PRE == 2) {
+      if constexpr (PRE == 2 || PRE == 4) {
         // A ray lives iff its block has a first interval, and starts there
         // (pallas_prepass.py:1604-1608).
         const float s0 = t0_in[(size_t)(i / bp.block) * bp.bcols + j / bp.block];
@@ -348,18 +405,25 @@ __global__ void fine_kernel(SceneView sc, const float* __restrict__ cam,
         float l = live, t_unused = t;
         bound_clip(bound, r, p.min_dist, l, t_unused, t_cap);
       }
-      if constexpr (PRE == 2) {
+      if constexpr (PRE == 2 || PRE == 4) {
         // The block's intervals, FAR_T past the last.
         const size_t po = (size_t)(i / bp.block) * bp.bcols + j / bp.block;
         const size_t plane = (size_t)bp.brows * bp.bcols;
         float st[MAX_NI], en[MAX_NI];
+        if constexpr (PRE == 2) {
   #pragma unroll
-        for (int n = 0; n < MAX_NI; ++n) {
-          st[n] = n < bp.ni ? t0_in[n * plane + po] : FAR_T;
-          en[n] = n < bp.ni ? t0_in[(bp.ni + n) * plane + po] : FAR_T;
+          for (int n = 0; n < MAX_NI; ++n) {
+            st[n] = n < bp.ni ? t0_in[n * plane + po] : FAR_T;
+            en[n] = n < bp.ni ? t0_in[(bp.ni + n) * plane + po] : FAR_T;
+          }
+          hit = interval_march<MODE, RELAX>(sc, cv, tile, r, p, st, en, live, t,
+                                            t_cap);
+        } else {  // more than MAX_NI: read in place (st, en unused)
+          PlaneIntervals planes;
+          planes.load(t0_in, plane, po, bp.ni);
+          hit = interval_march<MODE, RELAX>(sc, cv, tile, r, p, st, en, live, t,
+                                            t_cap, planes);
         }
-        hit = interval_march<MODE, RELAX>(sc, cv, tile, r, p, st, en, live, t,
-                                          t_cap);
       } else {
         hit = legacy_march<MODE, RELAX>(sc, cv, tile, r, p, live, t, t_cap);
       }
@@ -441,7 +505,15 @@ __global__ void fine_kernel(SceneView sc, const float* __restrict__ cam,
   }
 }
 
-// The fine kernel's launch, dispatched to its build by template flags.
+struct FineLaunch;
+// Launches the PRE 4 build (more than MAX_NI intervals) of fine_kernel
+// <MODE, RELAX, MATS, 4, MO>: defined and instantiated in intervals_wide.cu.
+template <int MODE, bool RELAX, bool MATS, bool MO>
+void fine_wide(const FineLaunch& L);
+
+// The fine kernel's launch, dispatched to its build by template flags. kind
+// is the prepass planes: 0 pixel or none, 1 block, 2 at most MAX_NI
+// intervals, 3 more.
 struct FineLaunch {
   dim3 grid, block;
   cudaStream_t st;
@@ -461,7 +533,8 @@ struct FineLaunch {
   }
   template <int MODE, bool RELAX, bool MATS>
   void pre(int kind) const {
-    if (kind == 2) go<MODE, RELAX, MATS, 2>();
+    if (kind == 3) fine_wide<MODE, RELAX, MATS, false>(*this);
+    else if (kind == 2) go<MODE, RELAX, MATS, 2>();
     else if (kind == 1) go<MODE, RELAX, MATS, 1>();
     else go<MODE, RELAX, MATS, 0>();
   }
@@ -484,25 +557,35 @@ struct FineLaunch {
   template <int MODE>
   void march_flags(bool relax, int kind) const {
     if (relax) {
-      if (kind == 2) go_march<MODE, true, 2>();
+      if (kind == 3) fine_wide<MODE, true, false, true>(*this);
+      else if (kind == 2) go_march<MODE, true, 2>();
       else if (kind == 1) go_march<MODE, true, 1>();
       else go_march<MODE, true, 0>();
     } else {
-      if (kind == 2) go_march<MODE, false, 2>();
+      if (kind == 3) fine_wide<MODE, false, false, true>(*this);
+      else if (kind == 2) go_march<MODE, false, 2>();
       else if (kind == 1) go_march<MODE, false, 1>();
       else go_march<MODE, false, 0>();
     }
   }
 };
 
-// Launches the soft build (PRE 3) for cull->mode `mode` (fine_soft.cu).
+// The kernels' MODE for cull->mode `mode` on a static (dyn false) or dynamic
+// tape: a dynamic tape takes MODE 3 (un-culled) or 4 (gated); -1 where no
+// build exists (a dynamic tape has no item lists).
+inline int build_mode(int mode, bool dyn) {
+  if (!dyn) return mode >= 0 && mode <= 2 ? mode : -1;
+  return mode == 0 ? 3 : (mode == 2 ? 4 : -1);
+}
+
+// Launches the soft build (PRE 3) of MODE `mode` (fine_soft.cu).
 cudaError_t launch_fine_soft(const FineLaunch& L, int mode, bool mats);
-// Launches the DYN build (MODE 3 for cull->mode 0, 4 for 2) of the hard
-// fine kernel (prepass_dyn.cu).
+// Launches the DYN build (MODE 3 or 4) of the hard fine kernel
+// (prepass_dyn.cu).
 cudaError_t launch_fine_dyn(const FineLaunch& L, int mode, bool relax,
                             bool mats, int kind);
-// Launches the march-only build for cull->mode `mode` and prepass planes
-// `kind` (fine_march.cu).
+// Launches the march-only build of MODE `mode` and prepass planes `kind`
+// (fine_march.cu).
 cudaError_t launch_fine_march(const FineLaunch& L, int mode, bool relax,
                               int kind);
 

@@ -1,5 +1,7 @@
 // The soft builds of the fine kernel (fine_kernel<MODE, false, MATS, 3>,
-// fine.cuh): soft coverage, replacing the soft branch of raymarch_tpu/ops/
+// fine.cuh) on static tapes (MODE 0-2) and on the frame's dynamic tape
+// (MODE 3 un-culled, 4 gated; the reference's soft fine kernel interprets
+// dynamic specs too): soft coverage, replacing the soft branch of raymarch_tpu/ops/
 // pallas_prepass.py:fine_packed_kernel (1521; _fine_march_tile_soft 380,
 // the shading 1696-1760). Compiled with -fmad=false (_build.py
 // SOURCE_FLAGS): the closest approach is an argmin over a grazing ray's
@@ -25,6 +27,10 @@ cudaError_t launch_fine_soft(const FineLaunch& L, int mode, bool mats) {
     case 3: L.go<1, false, true, 3>(); break;
     case 4: L.go<2, false, false, 3>(); break;
     case 5: L.go<2, false, true, 3>(); break;
+    case 6: L.go<3, false, false, 3>(); break;
+    case 7: L.go<3, false, true, 3>(); break;
+    case 8: L.go<4, false, false, 3>(); break;
+    case 9: L.go<4, false, true, 3>(); break;
     default:
       return cudaErrorInvalidValue;
   }

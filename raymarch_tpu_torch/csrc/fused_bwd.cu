@@ -2,10 +2,10 @@
 // respect to the leaf bank, the op words and the camera, from the forward's
 // per-ray residuals (t, hit). Plain C interface for ctypes.
 //
-// fused_bwd_kernel and fused_bwd_long_kernel replace raymarch_tpu/ops/
-// pallas_grad.py: make_fused_render_vjp.bwd_kernel (1432, launched at 1809)
-// in its legacy (unrolled, hard) form, for any static tape, painted or not.
-// Per AA ray that hit, with g the pixel's cotangent over S:
+// fused_bwd_kernel replaces raymarch_tpu/ops/pallas_grad.py:
+// make_fused_render_vjp.bwd_kernel (1432, launched at 1809) in its legacy
+// (unrolled, hard) form, for any static tape, painted or not. Per AA ray
+// that hit, with g the pixel's cotangent over S:
 //   1. replay raygen from cam[0:7] (the raw quaternion, 1404-1421), the hit
 //      point p = o + d t, the 4 tetrahedron taps, the normal and Lambert
 //      term, c = sqrt(albedo * diff + 1e-12) (shade_loss, 1600-1651); on a
@@ -21,8 +21,8 @@
 //      denominator clamped to +-grad_denom_clamp, w = -g_t / denom, and one
 //      more scene adjoint at p with seed w feeds theta and the camera.
 // A ray that missed contributes exactly zero: its colour is the checker
-// floor, piecewise constant in the camera (1701-1730), so it returns at
-// once; the Pallas kernel's per-tile skip is a coarser form of the same.
+// floor, piecewise constant in the camera (1701-1730); the Pallas kernel's
+// per-tile skip is a coarser form of the same.
 //
 // The SOFT builds (soft-coverage mode, pallas_grad.py:1510-1597, 1683-1743)
 // read the closest-approach residuals (s_min, t_min) too and run every ray
@@ -31,29 +31,34 @@
 // adjoint, the implicit term on hit rays and the envelope term at o + d
 // t_min, one more scene adjoint per ray (ray_backward, scene_grad.cuh).
 //
-// The gradient is a sum over 33 M rays of NSCAL = 16 n_rows + n_real + 7
-// words, in one of two builds (ops/cuda_grad.py GradLayout.long chooses):
-// - fused_bwd_kernel (tapes of at most MAX_BWD_INSTR instructions whose
-//   rows fit): each thread keeps its own running sum of every word in
-//   shared memory (word k of thread t at k * (blockDim + 1) + t: no bank
-//   conflicts, no atomics) and its reverse records in a local array;
-// - fused_bwd_long_kernel (any length; nscal up to a block's shared
-//   memory, ~58k words): the reverse records sit in the thread's slice of a
-//   device-memory History, the sums in one shared row per block filled with
-//   atomics.
-// Both run one body (ray_backward, scene_grad.cuh), whose sweeps skip every
-// leaf and op whose cotangent is exactly zero (the losers of hard unions).
-// At the end each block writes one partial row, and bwd_finalize_kernel
-// sums the partial rows in a fixed order.
+// The design (scene_grad.cuh). Each warp takes 32 consecutive AA rays at a
+// time, in the fine kernel's lane order (row i, then q = j * S + s: two
+// pixels' 16 samples, which mostly reach the same leaves), and keeps its
+// lanes converged through the ray's backward: a lane whose ray does no
+// work runs with a zero cotangent. The tape is read packed, one 16-byte
+// word per instruction; each ray evaluates it forward 5 times (the taps,
+// recorded in the primal pass, and the surface point, whose records serve
+// its two sweeps) and backward 6 times; the reverse records are 2 bits per
+// hard op and one float per smooth op (4 in the colour walk), in a slice
+// of shared memory per thread, or in device memory where a tape's records
+// would crowd the block out of shared memory (ops/cuda_grad.py GradLayout
+// .rec_in_smem). The gradient is a sum over 33 M rays of nscal = 16 n_rows +
+// n_real + 7 words:
+// - ROWS (the per-thread build): every thread keeps its own running sum of
+//   every word in shared memory (word k of thread t at k * (blockDim + 1) +
+//   t: no bank conflicts, no atomics), for tapes of at most 64 instructions
+//   and rows of at most 126 words (ops/cuda_grad.py GradLayout.long), where
+//   it beats the warp-row build (measured in PERF.md);
+// - otherwise warp-aggregated adds (WarpRow) into one row per block in
+//   shared memory, or, where nscal exceeds a block's shared memory, into
+//   the output in device memory: the row has no size cap.
+// At the end each block writes its partial row, and bwd_finalize_kernel
+// sums the partial rows in a fixed order (not when the row is the output).
 //
-// What bounds it on an H100: instruction issue in the interpreted tape,
-// run 4 + 6 times forward and 6 times backward per hit ray (the colour walk
-// once more on a painted scene), and the reverse records: local memory in
-// the per-thread build; in the long build 8 bytes per instruction per
-// sweep written to device memory (6 KB per hit ray at 127 instructions, 8.6
-// KB with the colour walk's 20), read back only where the cotangent is not
-// zero; it reads 8 bytes of residuals and 12 of cotangent per ray and
-// writes nothing per ray.
+// What bounds it on an H100: instruction issue in the interpreted tape, 5
+// forward and 6 reverse passes per hit ray (with every tap replayed before
+// its sweep, 11 forward passes were its time: PERF.md); it reads 8 bytes of
+// residuals and 12 of cotangent per ray and writes nothing per ray.
 #include <cuda_runtime.h>
 
 #include "render_common.cuh"
@@ -61,17 +66,8 @@
 
 namespace rmt {
 
-constexpr int BWD_THREADS = 64;
-constexpr int BWD_LONG_THREADS = 128;
-
-// Adds to a thread's running sums in shared memory.
-struct SharedAcc {
-  float* base;  // word 0 of this thread
-  int stride;   // blockDim.x + 1
-  __device__ __forceinline__ void operator()(int k, float v) const {
-    base[k * stride] += v;
-  }
-};
+constexpr int BWD_THREADS = 64;        // the per-thread build
+constexpr int BWD_WARP_THREADS = 128;  // the warp-row build
 
 // What ray_backward reads of a ray beyond t: nothing (hard), or its soft
 // residuals.
@@ -98,95 +94,80 @@ __device__ __forceinline__ bool ray_residuals(const float* __restrict__ hit_in,
                    sr.gate);
 }
 
-// Grid-stride over the AA rays of the band, in the fine kernel's lane order
-// (row i, then q = j * S + s). Writes one partial row of nscal words per
-// block. MATS: the scene is painted (the albedo words); SOFT: soft coverage.
-template <bool MATS, bool SOFT>
-__global__ void fused_bwd_kernel(SceneView sc, const int* __restrict__ push_slot,
-                                 const float* __restrict__ cam, RenderParams p,
-                                 float clamp, const float* __restrict__ t_in,
+// Each warp walks 32 consecutive AA rays of the band at a time (grid-stride
+// over warps) and keeps its lanes converged. ROWS: per-thread rows in
+// shared memory; else one row per block, in shared memory or, with
+// row_out, the output in device memory. rec null: the records sit in
+// shared memory after the rows (rec_words per thread), else in rec (a
+// slice per thread of the launch). Writes one partial row of nscal words
+// per block unless row_out is given. MATS: the scene is painted (the
+// albedo words); SOFT: soft coverage.
+template <bool MATS, bool SOFT, bool ROWS>
+__global__ void fused_bwd_kernel(BwdTape tp, const float* __restrict__ cam,
+                                 RenderParams p, float clamp,
+                                 const float* __restrict__ t_in,
                                  const float* __restrict__ hit_in,
                                  const float* __restrict__ g_img, int nscal,
-                                 int op_base, int cam_base,
+                                 int op_base, int cam_base, uint32_t* rec_g,
+                                 float* row_out,
                                  float* __restrict__ partials, SoftRes soft) {
-  extern __shared__ float acc_s[];
+  extern __shared__ float smem[];
   const int tid = threadIdx.x;
-  const int stride = blockDim.x + 1;
-  for (int k = 0; k < nscal; ++k) acc_s[k * stride + tid] = 0.0f;
-  SharedAcc acc{acc_s + tid, stride};
-  float rec_v[(MATS ? REC_PER_INSTR_MATS : REC_PER_INSTR) * MAX_BWD_INSTR];
-  const LocalBuf rec{rec_v};
+  const int T = blockDim.x;
+  // The rows: a row per thread, one per block, or none (row_out).
+  const int row_floats = ROWS ? nscal * (T + 1) : (row_out ? 0 : nscal);
+  for (int k = tid; k < row_floats; k += T) smem[k] = 0.0f;
+  __syncthreads();
+  const long long me = (long long)blockIdx.x * T + tid;
+  const RecStore rec =
+      rec_g != nullptr
+          ? RecStore{rec_g + me, (long long)gridDim.x * T}
+          : RecStore{reinterpret_cast<uint32_t*>(smem + row_floats) + tid, T};
+  using Acc = std::conditional_t<ROWS, ThreadRows, WarpRow>;
+  Acc acc;
+  if constexpr (ROWS) {
+    acc = ThreadRows{smem + tid, T + 1};
+  } else {
+    acc = WarpRow{row_out ? row_out : smem};
+  }
 
+  float gcam[7] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
   const int S = p.naa * p.naa;
   const long long row_lanes = (long long)p.width * S;
   const long long total = row_lanes * p.rows;
-  const long long step = (long long)gridDim.x * blockDim.x;
-  for (long long g = (long long)blockIdx.x * blockDim.x + tid; g < total;
-       g += step) {
+  const int lane = tid & 31;
+  const long long warps = (long long)gridDim.x * (T >> 5);
+  for (long long base = (me >> 5) << 5; base < total; base += warps << 5) {
+    const long long g = base + lane < total ? base + lane : total - 1;
     RayIn<SOFT> ray;
-    if (!ray_residuals(hit_in, soft, p, g, ray)) continue;
+    const bool work =
+        ray_residuals(hit_in, soft, p, g, ray) && base + lane < total;
+    if (!__any_sync(FULL_MASK, work)) continue;
+    if constexpr (SOFT) {
+      if (!work) ray.hit = 0.0f;  // no implicit term either
+    }
     const int i = (int)(g / row_lanes);
     const int q = (int)(g - (long long)i * row_lanes);
     const int j = q / S;
     const int s = q - j * S;
     const float* gi = g_img + ((size_t)i * p.width + j) * 3;
-    ray_backward<MATS>(sc, push_slot, cam, p, clamp, op_base, cam_base,
-                             i, j, s, __ldg(t_in + g), ray,
-                             __ldg(gi + 0) * p.inv_s, __ldg(gi + 1) * p.inv_s,
-                             __ldg(gi + 2) * p.inv_s, rec, acc);
+    const float sc = work ? p.inv_s : 0.0f;
+    ray_backward<MATS>(tp, cam, p, clamp, op_base, i, j, s, __ldg(t_in + g),
+                       ray, __ldg(gi + 0) * sc, __ldg(gi + 1) * sc,
+                       __ldg(gi + 2) * sc, rec, acc, gcam);
   }
+  acc.camera(cam_base, gcam);
+  if (row_out) return;
   __syncthreads();
-  for (int k = tid; k < nscal; k += blockDim.x) {
+  for (int k = tid; k < nscal; k += T) {
     float sum = 0.0f;
-    for (int m = 0; m < blockDim.x; ++m) sum += acc_s[k * stride + m];
+    if constexpr (ROWS) {
+      for (int m = 0; m < T; ++m) sum += smem[k * (T + 1) + m];
+    } else {
+      sum = smem[k];
+    }
     partials[(size_t)blockIdx.x * nscal + k] = sum;
   }
-}
-
-// The long form: the same rays, the reverse records in the thread's slice
-// of hist (hist_len floats: item h at hist[h * n_threads + thread]), and
-// one partial row of nscal words per block, filled with shared-memory
-// atomics (compact_bwd.cu's scheme), so neither the tape's length nor
-// nscal meets the per-thread caps of fused_bwd_kernel.
-template <bool MATS, bool SOFT>
-__global__ void fused_bwd_long_kernel(SceneView sc,
-                                      const int* __restrict__ push_slot,
-                                      const float* __restrict__ cam,
-                                      RenderParams p, float clamp,
-                                      const float* __restrict__ t_in,
-                                      const float* __restrict__ hit_in,
-                                      const float* __restrict__ g_img,
-                                      int nscal, int op_base, int cam_base,
-                                      float* __restrict__ hist,
-                                      float* __restrict__ partials,
-                                      SoftRes soft) {
-  extern __shared__ float acc_s[];
-  for (int k = threadIdx.x; k < nscal; k += blockDim.x) acc_s[k] = 0.0f;
-  __syncthreads();
-  BlockAcc acc{acc_s};
-
-  const long long step = (long long)gridDim.x * blockDim.x;
-  const long long me = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const History h{hist + me, step, 0};
-  const int S = p.naa * p.naa;
-  const long long row_lanes = (long long)p.width * S;
-  const long long total = row_lanes * p.rows;
-  for (long long g = me; g < total; g += step) {
-    RayIn<SOFT> ray;
-    if (!ray_residuals(hit_in, soft, p, g, ray)) continue;
-    const int i = (int)(g / row_lanes);
-    const int q = (int)(g - (long long)i * row_lanes);
-    const int j = q / S;
-    const int s = q - j * S;
-    const float* gi = g_img + ((size_t)i * p.width + j) * 3;
-    ray_backward<MATS>(sc, push_slot, cam, p, clamp, op_base, cam_base,
-                             i, j, s, __ldg(t_in + g), ray,
-                             __ldg(gi + 0) * p.inv_s, __ldg(gi + 1) * p.inv_s,
-                             __ldg(gi + 2) * p.inv_s, h, acc);
-  }
-  __syncthreads();
-  for (int k = threadIdx.x; k < nscal; k += blockDim.x)
-    partials[(size_t)blockIdx.x * nscal + k] = acc_s[k];
 }
 
 // out[k] = sum over blocks of partials[b, k], in block order.
@@ -200,64 +181,93 @@ __global__ void bwd_finalize_kernel(const float* __restrict__ partials,
   out[k] = sum;
 }
 
+// The gradient row and record words of one legacy backward launch.
+struct BwdShape {
+  int nscal, op_base, cam_base;
+  int n_smooth;   // smooth ops of the tape
+  int rows;       // 1: per-thread rows (the per-thread build)
+  int row_smem;   // 1: the block's row in shared memory; 0: the output
+  int rec_smem;   // 1: the records in shared memory; 0: in rec
+};
+
+template <bool MATS, bool SOFT, bool ROWS>
+cudaError_t launch_fused_bwd(const BwdTape& tp, const float* cam,
+                             const RenderParams& p, float clamp,
+                             const float* t_in, const float* hit_in,
+                             const float* g_img, const BwdShape& sh,
+                             uint32_t* rec, float* partials, int max_blocks,
+                             float* out, const SoftRes& sr, cudaStream_t st,
+                             long long* grid) {
+  const int threads = ROWS ? BWD_THREADS : BWD_WARP_THREADS;
+  const int words = rec_words(tp.n, tp.n_smooth, MATS);
+  const size_t row_floats = ROWS ? (size_t)sh.nscal * (threads + 1)
+                                 : (sh.row_smem ? (size_t)sh.nscal : 0);
+  const size_t smem =
+      (row_floats + (sh.rec_smem ? (size_t)words * threads : 0)) * 4;
+  return launch_resident(fused_bwd_kernel<MATS, SOFT, ROWS>, threads, smem, p,
+                         max_blocks, st, grid, tp, cam, p, clamp, t_in, hit_in,
+                         g_img, sh.nscal, sh.op_base, sh.cam_base,
+                         sh.rec_smem ? nullptr : rec,
+                         sh.row_smem ? nullptr : out, partials, sr);
+}
+
 }  // namespace rmt
 
 extern "C" {
 
-// Launches the legacy backward, then bwd_finalize_kernel into out
-// f32[nscal]. hist null: fused_bwd_kernel (BWD_THREADS threads, a shared
-// row of nscal words per thread, the tape within MAX_BWD_INSTR); else
-// fused_bwd_long_kernel (BWD_LONG_THREADS threads, hist_len floats of hist
-// per thread, hist holding max_blocks * BWD_LONG_THREADS * hist_len).
-// mats != 0 routes the albedo words of a painted scene; a soft argument
-// with non-null residuals (s_min, t_min) runs the soft builds. partials
-// must hold max_blocks * nscal floats. Returns the first failing
+// Launches the legacy backward into out f32[nscal]. ins is the packed tape
+// i32[n_instr, 4] (op | slot << 8, leaf row, row kind, gradient slot);
+// shape gives the gradient row's layout and the routes: rows != 0 the
+// per-thread build (BWD_THREADS threads), else the warp-row build
+// (BWD_WARP_THREADS) with the block's row in shared memory (row_smem) or
+// added straight into out (which the launcher zeroes first); rec_smem == 0
+// keeps each thread's records in rec, rec_words(n_instr, n_smooth, mats)
+// words per thread of max_blocks blocks. mats != 0 routes the albedo words
+// of a painted scene; a soft argument with non-null residuals (s_min,
+// t_min) runs the soft builds. partials holds max_blocks * nscal floats;
+// bwd_finalize_kernel then sums them into out. Returns the first failing
 // cudaError_t (0 = success).
-int rmt_fused_bwd_launch(const float* leaf_params, const int* row_kind,
-                         const int* tape, int n_instr, const float* op_param,
-                         const int* push_slot, const float* cam,
-                         const rmt::RenderParams* params, float clamp,
-                         const float* t_in, const float* hit_in,
-                         const float* g_img, int nscal, int op_base,
-                         int cam_base, int mats, const rmt::SoftRes* soft,
-                         float* hist, float* partials, int max_blocks,
-                         float* out, void* stream) {
+int rmt_fused_bwd_launch(const float* leaf_params, const int* ins, int n_instr,
+                         const float* op_param, const int* shape,
+                         const float* cam, const rmt::RenderParams* params,
+                         float clamp, const float* t_in, const float* hit_in,
+                         const float* g_img, int mats,
+                         const rmt::SoftRes* soft, unsigned int* rec,
+                         float* partials, int max_blocks, float* out,
+                         void* stream) {
   const rmt::RenderParams p = *params;
-  const rmt::SceneView sc = rmt::make_scene(leaf_params, row_kind, tape,
-                                            n_instr, op_param, p.max_dist);
+  const rmt::BwdShape sh{shape[0], shape[1], shape[2], shape[3],
+                         shape[4], shape[5], shape[6]};
+  const rmt::BwdTape tp{reinterpret_cast<const int4*>(ins), op_param,
+                        leaf_params, n_instr, sh.n_smooth, p.max_dist};
   cudaStream_t st = (cudaStream_t)stream;
   const rmt::SoftRes sr = *soft;
   const bool is_soft = sr.s_min != nullptr;
-  if (is_soft != (sr.t_min != nullptr)) return (int)cudaErrorInvalidValue;
-  long long grid = 0;
+  if (is_soft != (sr.t_min != nullptr) || (sh.rows && !sh.row_smem))
+    return (int)cudaErrorInvalidValue;
   cudaError_t err;
-  if (hist == nullptr) {
-    const int threads = rmt::BWD_THREADS;
-    const size_t smem = (size_t)nscal * (threads + 1) * sizeof(float);
-    const auto kernel =
-        is_soft ? (mats ? rmt::fused_bwd_kernel<true, true>
-                        : rmt::fused_bwd_kernel<false, true>)
-                : (mats ? rmt::fused_bwd_kernel<true, false>
-                        : rmt::fused_bwd_kernel<false, false>);
-    err = rmt::launch_resident(kernel, threads, smem, p, max_blocks, st, &grid,
-                               sc, push_slot, cam, p, clamp, t_in, hit_in,
-                               g_img, nscal, op_base, cam_base, partials, sr);
-  } else {
-    const int threads = rmt::BWD_LONG_THREADS;
-    const size_t smem = (size_t)nscal * sizeof(float);
-    const auto kernel =
-        is_soft ? (mats ? rmt::fused_bwd_long_kernel<true, true>
-                        : rmt::fused_bwd_long_kernel<false, true>)
-                : (mats ? rmt::fused_bwd_long_kernel<true, false>
-                        : rmt::fused_bwd_long_kernel<false, false>);
-    err = rmt::launch_resident(kernel, threads, smem, p, max_blocks, st, &grid,
-                               sc, push_slot, cam, p, clamp, t_in, hit_in,
-                               g_img, nscal, op_base, cam_base, hist,
-                               partials, sr);
+  if (!sh.row_smem &&
+      (err = cudaMemsetAsync(out, 0, (size_t)sh.nscal * 4, st)) != cudaSuccess)
+    return (int)err;
+  long long grid = 0;
+#define RMT_BWD(MATS, SOFT, ROWS)                                             \
+  rmt::launch_fused_bwd<MATS, SOFT, ROWS>(tp, cam, p, clamp, t_in, hit_in,    \
+                                          g_img, sh, rec, partials,           \
+                                          max_blocks, out, sr, st, &grid)
+  switch ((sh.rows ? 4 : 0) + (is_soft ? 2 : 0) + (mats ? 1 : 0)) {
+    case 0: err = RMT_BWD(false, false, false); break;
+    case 1: err = RMT_BWD(true, false, false); break;
+    case 2: err = RMT_BWD(false, true, false); break;
+    case 3: err = RMT_BWD(true, true, false); break;
+    case 4: err = RMT_BWD(false, false, true); break;
+    case 5: err = RMT_BWD(true, false, true); break;
+    case 6: err = RMT_BWD(false, true, true); break;
+    default: err = RMT_BWD(true, true, true); break;
   }
-  if (err != cudaSuccess) return (int)err;
-  rmt::bwd_finalize_kernel<<<(nscal + 127) / 128, 128, 0, st>>>(
-      partials, (int)grid, nscal, out);
+#undef RMT_BWD
+  if (err != cudaSuccess || !sh.row_smem) return (int)err;
+  rmt::bwd_finalize_kernel<<<(sh.nscal + 127) / 128, 128, 0, st>>>(
+      partials, (int)grid, sh.nscal, out);
   return (int)cudaGetLastError();
 }
 

@@ -85,43 +85,6 @@
 #include "render_common.cuh"
 #include "scene_eval.cuh"
 
-namespace rmt {
-
-// One thread per pixel of the band (prepass_chain, B > 1): the pixel's cone
-// ray at omega_px over the whole tape, started at max(its bound-clip start,
-// its block's t0) and dead where its block's status is 0
-// (_cone_march_tile 152-154). Writes t0 and status f32[rows, width].
-__global__ void coarse_px_kernel(SceneView sc, const float* __restrict__ cam,
-                                 const float* __restrict__ bound,
-                                 RenderParams p,
-                                 const float* __restrict__ t_blk,
-                                 const float* __restrict__ status_blk,
-                                 float* __restrict__ t0_out,
-                                 float* __restrict__ status_out,
-                                 BlockParams bp) {
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  const int i = blockIdx.y;
-  if (j >= p.width || i >= p.rows) return;
-  const float x = 2.0f * ((float)j + 0.5f) / (float)p.width - 1.0f;
-  const float y =
-      1.0f - 2.0f * (((float)i + 0.5f) + __ldg(cam + 7)) / (float)p.height;
-  const Ray r = view_ray(cam, p, x, y);
-  float live = 1.0f, t = 0.0f, t_cap = FAR_T;
-  if (p.use_bound) bound_clip(bound, r, p.min_dist, live, t, t_cap);
-  const size_t bo = (size_t)(i / bp.block) * bp.bcols + j / bp.block;
-  const float live_in = status_blk[bo];
-  live = live * live_in;
-  t = fmaxf(t, t_blk[bo]) * live_in;
-  const CullView uncull{};
-  const float near =
-      cone_march<0>(sc, uncull, 0, r, p, bp.omega_px, bp.inv1w_px, live, t, t_cap);
-  const size_t o = (size_t)i * p.width + j;
-  t0_out[o] = t;
-  status_out[o] = near;
-}
-
-}  // namespace rmt
-
 extern "C" {
 
 // The launchers return the cudaError_t of the launch (0 = success). t_out
@@ -131,8 +94,10 @@ extern "C" {
 // t0 (status null). soft != 0 runs the soft build (no prepass, relax 1),
 // which also writes s_min and t_min where soft_params gives them. img null
 // runs the march-only build (fine_march.cu), which writes t and hit only.
-// dyn != 0 reads `tape` as the frame's dynamic tape (the DYN builds of
-// prepass_dyn.cu: un-culled or gated, hard, no march-only build).
+// dyn != 0 reads `tape` as the frame's dynamic tape (the DYN builds, MODE 3
+// and 4: un-culled or gated; hard in prepass_dyn.cu, march-only in
+// fine_march.cu, soft in fine_soft.cu, K3's in prepass_dyn.cu). Interval
+// counts above MAX_NI take the builds of intervals_wide.cu.
 int rmt_coarse_launch(const float* leaf_params, const int* row_kind,
                       const int* tape, int n_instr, const float* op_param,
                       int dyn, const float* cam, const float* bound,
@@ -145,8 +110,9 @@ int rmt_coarse_launch(const float* leaf_params, const int* row_kind,
   L.bp = *block_params;
   L.sc = rmt::make_scene(leaf_params, row_kind, tape, n_instr, op_param,
                          L.p.max_dist);
-  if (L.bp.ni > rmt::MAX_NI) return (int)cudaErrorInvalidValue;
-  const int kind = L.bp.ni > 0 ? 2 : (L.bp.block > 1 ? 1 : 0);
+  const int kind = L.bp.ni > rmt::MAX_NI ? 3
+                   : L.bp.ni > 0         ? 2
+                   : (L.bp.block > 1 ? 1 : 0);
   const int cols = kind == 0 ? L.p.width : L.bp.bcols;
   L.block = dim3(rmt::COARSE_THREADS);
   L.grid = dim3((cols + rmt::COARSE_THREADS - 1) / rmt::COARSE_THREADS,
@@ -157,7 +123,11 @@ int rmt_coarse_launch(const float* leaf_params, const int* row_kind,
   L.cv = *cull;
   L.t0_out = t0_out;
   L.status_out = status_out;
-  if (dyn) return (int)rmt::launch_coarse_dyn(L, cull->mode, kind);
+  if (dyn) {
+    const int mode = rmt::build_mode(cull->mode, true);
+    if (mode < 0) return (int)cudaErrorInvalidValue;
+    return (int)rmt::launch_coarse_dyn(L, mode, kind);
+  }
   switch (cull->mode) {
     case 0: L.kinds<0>(kind); break;
     case 1: L.kinds<1>(kind); break;
@@ -170,7 +140,7 @@ int rmt_coarse_launch(const float* leaf_params, const int* row_kind,
 
 int rmt_coarse_px_launch(const float* leaf_params, const int* row_kind,
                          const int* tape, int n_instr, const float* op_param,
-                         const float* cam, const float* bound,
+                         int dyn, const float* cam, const float* bound,
                          const rmt::RenderParams* params, const float* t_blk,
                          const float* status_blk, float* t0_out,
                          float* status_out,
@@ -182,8 +152,13 @@ int rmt_coarse_px_launch(const float* leaf_params, const int* row_kind,
   const dim3 block(rmt::COARSE_THREADS);
   const dim3 grid((p.width + rmt::COARSE_THREADS - 1) / rmt::COARSE_THREADS,
                   p.rows);
-  rmt::coarse_px_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
-      sc, cam, bound, p, t_blk, status_blk, t0_out, status_out, bp);
+  if (dyn)
+    rmt::launch_coarse_px_dyn(grid, block, (cudaStream_t)stream, sc, cam,
+                              bound, p, t_blk, status_blk, t0_out, status_out,
+                              bp);
+  else
+    rmt::coarse_px_kernel<0><<<grid, block, 0, (cudaStream_t)stream>>>(
+        sc, cam, bound, p, t_blk, status_blk, t0_out, status_out, bp);
   return (int)cudaGetLastError();
 }
 
@@ -198,7 +173,6 @@ int rmt_fine_launch(const float* leaf_params, const int* row_kind,
                     const rmt::SoftParams* soft_params, void* stream) {
   const rmt::RenderParams p = *params;
   const rmt::BlockParams bp = *block_params;
-  if (bp.ni > rmt::MAX_NI) return (int)cudaErrorInvalidValue;
   const long long lanes = (long long)p.width * p.naa * p.naa;
   rmt::FineLaunch L;
   L.grid = dim3((unsigned)((lanes + rmt::FINE_THREADS - 1) / rmt::FINE_THREADS),
@@ -219,22 +193,25 @@ int rmt_fine_launch(const float* leaf_params, const int* row_kind,
   L.bp = bp;
   L.sp = *soft_params;
   const bool relax = p.relax > 1.0f;
-  if (soft && (dyn || relax || !p.no_prepass ||
+  const int mode = rmt::build_mode(cull->mode, dyn != 0);
+  if (mode < 0) return (int)cudaErrorInvalidValue;
+  if (soft && (relax || !p.no_prepass ||
                (t_out != nullptr && (L.sp.s_min_out == nullptr ||
                                      L.sp.t_min_out == nullptr))))
     return (int)cudaErrorInvalidValue;
-  if (soft) return (int)rmt::launch_fine_soft(L, cull->mode, mats != 0);
-  const int kind = p.no_prepass ? 0
-                   : bp.ni > 0   ? 2
+  if (soft) return (int)rmt::launch_fine_soft(L, mode, mats != 0);
+  const int kind = p.no_prepass             ? 0
+                   : bp.ni > rmt::MAX_NI    ? 3
+                   : bp.ni > 0              ? 2
                    : (bp.block > 1 && !bp.chain) ? 1
                                                 : 0;
   if (img == nullptr) {
     // The march-only build: t and hit only (fine_march.cu).
-    if (dyn || t_out == nullptr || hit_out == nullptr)
+    if (t_out == nullptr || hit_out == nullptr)
       return (int)cudaErrorInvalidValue;
-    return (int)rmt::launch_fine_march(L, cull->mode, relax, kind);
+    return (int)rmt::launch_fine_march(L, mode, relax, kind);
   }
-  if (dyn) return (int)rmt::launch_fine_dyn(L, cull->mode, relax, mats != 0, kind);
+  if (dyn) return (int)rmt::launch_fine_dyn(L, mode, relax, mats != 0, kind);
   switch (cull->mode) {
     case 0: L.flags<0>(relax, mats != 0, kind); break;
     case 1: L.flags<1>(relax, mats != 0, kind); break;

@@ -1,6 +1,9 @@
 // The DYN builds of the coarse kernel (coarse_kernel<MODE, KIND>,
-// coarse.cuh) and of the hard fine kernel (fine_kernel<MODE, RELAX, MATS,
-// PRE>, fine.cuh): MODE 3 (un-culled) and 4 (gated by the tile's leaf mask)
+// coarse.cuh), of the chained pixel kernel K3 (coarse_px_kernel<3>,
+// un-culled as the reference's coarse_px_kernel, pallas_prepass.py:969-990,
+// whose scene_eval takes dynamic specs) and of the hard fine kernel
+// (fine_kernel<MODE, RELAX, MATS, PRE>, fine.cuh): MODE 3 (un-culled) and 4
+// (gated by the tile's leaf mask)
 // interpret the frame's dynamic tape (scene_eval.cuh scene_distance<true>
 // and scene_color<true>: the stack starts at max_dist, a NOP is the
 // identity), so that a topology edit within the tape's bucket is a buffer
@@ -28,8 +31,8 @@ namespace rmt {
 
 cudaError_t launch_coarse_dyn(const CoarseLaunch& L, int mode, int kind) {
   switch (mode) {
-    case 0: L.kinds<3>(kind); break;
-    case 2: L.kinds<4>(kind); break;
+    case 3: L.kinds<3>(kind); break;
+    case 4: L.kinds<4>(kind); break;
     default:  // a dynamic tape has no compact plan: no item lists
       return cudaErrorInvalidValue;
   }
@@ -39,12 +42,23 @@ cudaError_t launch_coarse_dyn(const CoarseLaunch& L, int mode, int kind) {
 cudaError_t launch_fine_dyn(const FineLaunch& L, int mode, bool relax,
                             bool mats, int kind) {
   switch (mode) {
-    case 0: L.flags<3>(relax, mats, kind); break;
-    case 2: L.flags<4>(relax, mats, kind); break;
+    case 3: L.flags<3>(relax, mats, kind); break;
+    case 4: L.flags<4>(relax, mats, kind); break;
     default:
       return cudaErrorInvalidValue;
   }
   return cudaGetLastError();
+}
+
+void launch_coarse_px_dyn(dim3 grid, dim3 block, cudaStream_t st,
+                          const SceneView& sc, const float* cam,
+                          const float* bound, const RenderParams& p,
+                          const float* t_blk, const float* status_blk,
+                          float* t0_out, float* status_out,
+                          const BlockParams& bp) {
+  coarse_px_kernel<3><<<grid, block, 0, st>>>(sc, cam, bound, p, t_blk,
+                                              status_blk, t0_out, status_out,
+                                              bp);
 }
 
 }  // namespace rmt

@@ -23,19 +23,22 @@ and painted pools.
   reverse sweep of the seg1 chain's or a stream segment's ordered fold
   (blend radii included); on a painted pool also the winner's albedo.
   `compact_bwd_plain` is its autograd replay.
-- Backward (`bwd`; kernels `fused_bwd_kernel` and `fused_bwd_long_kernel`
-  in csrc/fused_bwd.cu, replacing `bwd_kernel`, pallas_grad.py:1432): per
-  hit ray, the adjoint of the shading chain plus the implicit-function
-  term, summed over rays into one flat vector of `16 * n_rows + n_real + 7`
-  words (pallas_grad.py:1653-1699, unpacked as `_run_bwd` does at
-  1830-1840). On a painted scene the shading reads the albedo of the colour
-  walk at the hit point, and its cotangent reaches the leaves' albedo and
-  flag words and, through the smooth blend weights, the geometry, the blend
-  radii and the hit point (`_albedo_tile`, 1386-1402). A tape of at most
-  MAX_BWD_INSTR instructions whose gradient row fits each thread's share of
-  shared memory takes the per-thread build; any other the long build, which
-  keeps the reverse records in device memory and one gradient row per
-  block (`GradLayout.long`).
+- Backward (`bwd`; kernel `fused_bwd_kernel` in csrc/fused_bwd.cu,
+  replacing `bwd_kernel`, pallas_grad.py:1432): per hit ray, the adjoint of
+  the shading chain plus the implicit-function term, summed over rays into
+  one flat vector of `16 * n_rows + n_real + 7` words (pallas_grad.py:
+  1653-1699, unpacked as `_run_bwd` does at 1830-1840). On a painted scene
+  the shading reads the albedo of the colour walk at the hit point, and its
+  cotangent reaches the leaves' albedo and flag words and, through the
+  smooth blend weights, the geometry, the blend radii and the hit point
+  (`_albedo_tile`, 1386-1402). It reads the tape packed (`GradLayout.
+  packed`), keeps compact reverse records (2 bits per hard op, a float per
+  smooth op) in shared memory or, where they would crowd the block out of
+  it, in device memory within L2 (`GradLayout.rec_in_smem`), and sums its
+  gradient in per-thread rows (the per-thread build, `GradLayout.long`
+  false) or in warp-aggregated adds to one row per block, in shared memory
+  or, for a row too large for it, in device memory (`row_in_smem`): no
+  scene is too large for it.
 
 `bwd_plain` is the same gradient by torch autograd through a replay of
 `shade_loss` and `implicit_loss` (1600-1699) from the residuals, in row
@@ -82,7 +85,6 @@ from .cuda_prepass import (
     _CParams,
     _check,
     _check_cull,
-    _not_ported,
     _origin,
     _raise_on,
     _scene_ptrs,
@@ -97,23 +99,32 @@ from .cuda_prepass import (
 )
 from .tape import TapeArrays, TapeSpec
 
-MAX_BWD_INSTR = 64  # csrc/scene_grad.cuh MAX_BWD_INSTR
-BWD_THREADS = 64  # csrc/fused_bwd.cu BWD_THREADS
-BWD_LONG_THREADS = 128  # csrc/fused_bwd.cu BWD_LONG_THREADS
+MAX_BWD_INSTR = 64  # the per-thread build's longest tape
+# Shared memory the per-thread build's rows may take a block (nscal * 65
+# floats: at most 126 words). Measured on an H100 (PERF.md): config 2's 60
+# words run faster in per-thread rows (1.90 against 2.16 ms), 16 painted
+# spheres' 294 words in the warp-row build (4.12 against 7.15 ms), where
+# per-thread rows of 76 KB a block cut its residency.
+THREAD_ROWS_SMEM = 32 << 10
+BWD_THREADS = 64  # csrc/fused_bwd.cu BWD_THREADS: the per-thread build
+BWD_WARP_THREADS = 128  # csrc/fused_bwd.cu BWD_WARP_THREADS: the warp-row build
 CBWD_THREADS = 128  # csrc/compact_bwd.cu CBWD_THREADS
 SMEM_PER_BLOCK = 232448  # an H100 block's shared memory, bytes
-# Device memory the backwards' per-thread records may take (the compact
-# backward's fold history, the long legacy backward's reverse records): the
-# launch grid shrinks until every thread's slice of hist_len floats fits.
-HIST_BUDGET = 256 << 20
-# Records per instruction of the legacy backward's sweeps: the operands
-# (a, b) of the distance sweeps, and on a painted scene (a, b) and the
-# operands' colour difference of the colour walk (csrc/scene_grad.cuh
-# REC_PER_INSTR, REC_PER_INSTR_MATS).
-REC_PER_INSTR = 2
-REC_PER_INSTR_MATS = 5
-# Where a limit of the legacy backward stands in ROADMAP.md.
-BWD_LIMIT_ITEM = "§3 fault 10, the backwards' gradient row in shared memory"
+# Shared memory a backward block gives its gradient row and its threads'
+# reverse records: past these they go to device memory (a row as atomics
+# into the output after the warp's reduction, records as a slice per
+# thread), so that several blocks stay resident on an SM.
+ROW_SMEM = 64 << 10
+REC_SMEM = 32 << 10
+# Device memory the backwards' per-thread records may take there (the
+# legacy backward's reverse records, the compact backward's fold history):
+# within the card's 50 MB L2, so that they never reach HBM; the launch grid
+# shrinks until every thread's slice fits.
+REC_BUDGET = 32 << 20
+# Record sets of a legacy backward thread (csrc/scene_grad.cuh TAP_SETS):
+# the 4 taps; a painted scene adds the colour walk's.
+TAP_SETS = 4
+SMOOTH_OPS = (oc.COP_SMOOTH_UNION, oc.COP_SMOOTH_INTERSECTION, oc.COP_SMOOTH_SUBTRACTION)
 PLAIN_BAND_ROWS = 64  # rows per autograd graph in bwd_plain
 
 
@@ -129,19 +140,30 @@ class GradLayout:
     n_real: int
     push_slot: tuple  # per real instruction: slot base of its leaf row, else 0
     grad_denom_clamp: float
+    # The tape as the kernel reads it: per real instruction (op | out_slot
+    # << 8, leaf row, the row's kind, push_slot); and its smooth ops.
+    packed: tuple = ()
+    n_smooth: int = 0
 
     @staticmethod
     def of(spec: TapeSpec, cfg: RenderConfig) -> "GradLayout":
+        from .cuda_march import ROTATED_BIT, _leaf_static_rows
+
         tape = spec.static_tape
         rows = tuple(sorted({a for c, a, _ in tape if c == oc.COP_PUSH}))
         base = {r: 16 * k for k, r in enumerate(rows)}
+        kind = {r: t | (ROTATED_BIT if rot else 0) for r, t, rot in _leaf_static_rows(spec)}
+        push_slot = tuple(base[a] if c == oc.COP_PUSH else 0 for c, a, _ in tape)
         return GradLayout(
             n_leaves=spec.n_leaves,
             n_instr=spec.n_instr,
             pushed_rows=rows,
             n_real=len(tape),
-            push_slot=tuple(base[a] if c == oc.COP_PUSH else 0 for c, a, _ in tape),
+            push_slot=push_slot,
             grad_denom_clamp=float(cfg.grad_denom_clamp),
+            packed=tuple((c | sl << 8, a if c == oc.COP_PUSH else 0, kind.get(a, 0) if c == oc.COP_PUSH else 0, ps)
+                         for (c, a, sl), ps in zip(tape, push_slot)),
+            n_smooth=sum(c in SMOOTH_OPS for c, _, _ in tape),
         )
 
     @property
@@ -158,14 +180,35 @@ class GradLayout:
 
     @property
     def long(self) -> bool:
-        """True when the backward takes its long build: the tape exceeds
-        the reverse records a thread keeps in local arrays, or the gradient
-        row exceeds a thread's share of shared memory."""
-        return self.n_real > MAX_BWD_INSTR or self.nscal * (BWD_THREADS + 1) * 4 > SMEM_PER_BLOCK
+        """True when the backward takes its warp-row build (one gradient row
+        per block, warp-aggregated adds), False for the per-thread build (a
+        row per thread in shared memory): a tape of more than MAX_BWD_INSTR
+        instructions, or rows of more than THREAD_ROWS_SMEM bytes a block."""
+        return self.n_real > MAX_BWD_INSTR or self.nscal * (BWD_THREADS + 1) * 4 > THREAD_ROWS_SMEM
 
-    def hist_len(self, mats: bool) -> int:
-        """Floats of reverse records per thread of the long build."""
-        return (REC_PER_INSTR_MATS if mats else REC_PER_INSTR) * self.n_real
+    @property
+    def threads(self) -> int:
+        return BWD_WARP_THREADS if self.long else BWD_THREADS
+
+    @property
+    def row_in_smem(self) -> bool:
+        """The warp-row build's row sits in shared memory, else it is added
+        straight into the output in device memory (the per-thread build's
+        rows always sit in shared memory)."""
+        return not self.long or self.nscal * 4 <= ROW_SMEM
+
+    def rec_words(self, mats: bool) -> int:
+        """32-bit words of reverse records per thread (csrc/scene_grad.cuh
+        rec_words): 2-bit codes of every instruction, 16 to a word, in
+        TAP_SETS sets (+1 painted), and per smooth op one float in each tap
+        set and 4 in the colour set."""
+        sets = TAP_SETS + int(mats)
+        return sets * (-(-self.n_real // 16)) + (TAP_SETS + 4 * int(mats)) * self.n_smooth
+
+    def rec_in_smem(self, mats: bool) -> bool:
+        """The threads' records fit the block's REC_SMEM bytes of shared
+        memory; else each keeps them in device memory."""
+        return self.rec_words(mats) * 4 * self.threads <= REC_SMEM
 
     def unpack(self, flat: torch.Tensor):
         """Flat f32[nscal] -> (d_lp f32[n_leaves, 16], d_opp f32[n_instr],
@@ -399,42 +442,34 @@ def _check_bwd(scene: SceneBuffers, cam, p: PrepassParams, lay: GradLayout, t, h
     _check_soft(p, soft, dev)
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {dev}")
-    if dev.type == "cuda":
-        if lay.nscal * 4 > SMEM_PER_BLOCK:
-            raise NotImplementedError(
-                f"the backward kernel keeps one row of gradient words per block in "
-                f"shared memory: {lay.nscal} words need {lay.nscal * 4} bytes, more than "
-                f"{SMEM_PER_BLOCK} (ROADMAP: {BWD_LIMIT_ITEM})"
-            )
-        rec = 4 * lay.hist_len(scene.spec.has_materials) * BWD_LONG_THREADS
-        if lay.long and rec > HIST_BUDGET:
-            raise NotImplementedError(
-                f"the backward kernel's reverse records of {lay.n_real} instructions "
-                f"take {rec} bytes per block, more than {HIST_BUDGET} (ROADMAP: {BWD_LIMIT_ITEM})"
-            )
     return dev
 
 
 @functools.lru_cache(maxsize=None)
 def _device_consts(lay: GradLayout, mats: bool, device: torch.device):
-    """(push_slot i32[n_real] on device, max grid size, floats of reverse
-    records per thread: 0 for the per-thread build) for the launcher."""
-    slots = torch.as_tensor(lay.push_slot or (0,), dtype=torch.int32, device=device)
+    """(packed tape i32[n_real, 4] on device, max grid size, the launcher's
+    shape words, words of device-memory records per thread: 0 when they sit
+    in shared memory)."""
+    ins = torch.as_tensor(lay.packed or ((0, 0, 0, 0),), dtype=torch.int32, device=device)
     n_sm = torch.cuda.get_device_properties(device).multi_processor_count
-    if not lay.long:
-        return slots, n_sm * (2048 // BWD_THREADS), 0
-    hist_len = lay.hist_len(mats)
-    max_blocks = max(1, min(n_sm * (2048 // BWD_LONG_THREADS), HIST_BUDGET // (4 * hist_len * BWD_LONG_THREADS)))
-    return slots, max_blocks, hist_len
+    max_blocks = n_sm * (2048 // lay.threads)
+    rec_words = 0 if lay.rec_in_smem(mats) else lay.rec_words(mats)
+    if rec_words:
+        max_blocks = max(1, min(max_blocks, REC_BUDGET // (4 * rec_words * lay.threads)))
+    shape = (ctypes.c_int * 7)(lay.nscal, lay.op_base, lay.cam_base, lay.n_smooth, int(not lay.long),
+                               int(lay.row_in_smem), int(not rec_words))
+    return ins, max_blocks, shape, rec_words
 
 
 def bwd(scene: SceneBuffers, cam, p: PrepassParams, lay: GradLayout, t, hit, g_img, soft=None):
     """Fused backward -> (d_lp f32[n_leaves, 16], d_opp f32[n_instr], d_cam
     f32[8]) on the inputs' device; see `bwd_plain` for the arguments. On
-    CUDA: `fused_bwd_kernel` or, when `lay.long`, `fused_bwd_long_kernel`
-    (csrc/fused_bwd.cu), each with the albedo words on a painted scene and
-    in its soft build when `soft` = (s_min, t_min) is given, then
-    `bwd_finalize_kernel` over its block rows."""
+    CUDA: `fused_bwd_kernel` (csrc/fused_bwd.cu) in the build and with the
+    routes `lay` gives (per-thread or warp rows; records and the warp-row
+    build's row in shared or device memory), with the albedo words on a
+    painted scene and in its soft build when `soft` = (s_min, t_min) is
+    given, then, when its rows sit in shared memory, `bwd_finalize_kernel`
+    over its block rows."""
     dev = _check_bwd(scene, cam, p, lay, t, hit, g_img, soft)
     if dev.type == "cpu":
         return bwd_plain(scene, cam, p, lay, t, hit, g_img, soft=soft)
@@ -442,24 +477,22 @@ def bwd(scene: SceneBuffers, cam, p: PrepassParams, lay: GradLayout, t, hit, g_i
 
     lib = _build.load()
     mats = scene.spec.has_materials
-    slots, max_blocks, hist_len = _device_consts(lay, mats, dev)
+    ins, max_blocks, shape, rec_words = _device_consts(lay, mats, dev)
     out = torch.empty(lay.nscal, dtype=torch.float32, device=dev)
-    partials = torch.empty(max_blocks * lay.nscal, dtype=torch.float32, device=dev)
-    hist = (torch.empty(max_blocks * BWD_LONG_THREADS * hist_len, dtype=torch.float32, device=dev)
-            if hist_len else None)
+    partials = torch.empty(max_blocks * lay.nscal if lay.row_in_smem else 1, dtype=torch.float32, device=dev)
+    rec = torch.empty(max_blocks * lay.threads * rec_words, dtype=torch.int32, device=dev) if rec_words else None
     cp = _CParams.of(p)
     cs = _CSoftRes.of(p, soft)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.rmt_fused_bwd_launch(
-            *_scene_ptrs(scene), slots.data_ptr(), cam.data_ptr(),
-            ctypes.addressof(cp), lay.grad_denom_clamp,
-            t.data_ptr(), hit.data_ptr(), g_img.data_ptr(),
-            lay.nscal, lay.op_base, lay.cam_base, int(mats), ctypes.addressof(cs),
-            None if hist is None else hist.data_ptr(),
+            scene.leaf_params.data_ptr(), ins.data_ptr(), lay.n_real, scene.op_param.data_ptr(), shape,
+            cam.data_ptr(), ctypes.addressof(cp), lay.grad_denom_clamp,
+            t.data_ptr(), hit.data_ptr(), g_img.data_ptr(), int(mats), ctypes.addressof(cs),
+            None if rec is None else rec.data_ptr(),
             partials.data_ptr(), max_blocks, out.data_ptr(), stream,
         )
-    _raise_on(err, "fused_bwd_long_kernel" if hist_len else "fused_bwd_kernel")
+    _raise_on(err, "fused_bwd_kernel")
     if soft is None:
         bwd.launches += 1
     else:
@@ -494,19 +527,57 @@ def _check_compact_bwd(scene: SceneBuffers, cull: TileCull, cam, p: PrepassParam
     _check_cull(cull, spec, (p.rows, p.width), dev)
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {dev}")
-    nscal = 16 * spec.n_leaves + spec.n_instr + 7
-    if dev.type == "cuda" and nscal * 4 > SMEM_PER_BLOCK:
-        raise NotImplementedError(
-            f"{nscal} gradient words need {nscal * 4} bytes of shared memory per "
-            f"block, more than {SMEM_PER_BLOCK} (ROADMAP: {BWD_LIMIT_ITEM})"
-        )
-    return dev, nscal
+    return dev, 16 * spec.n_leaves + spec.n_instr + 7
+
+
+# Shared memory a compact backward block may give one tile's staged counts
+# and active list entries; a plan with longer lists reads them in place.
+STAGE_SMEM = 48 << 10
+
+
+@dataclasses.dataclass(frozen=True)
+class CompactRoutes:
+    """Where the compact backward of a plan keeps its gradient row, its fold
+    history and each tile's lists: the row (nscal words) in shared memory up
+    to ROW_SMEM bytes, else added into the output in device memory; the
+    history (`history_layout`: hist_len floats per thread) in shared memory
+    up to REC_SMEM bytes a block, else in device memory within REC_BUDGET;
+    each tile's counts and active lists staged in shared memory up to
+    STAGE_SMEM bytes, else read in place."""
+
+    nscal: int
+    hist_off: int
+    hist_len: int
+    row_smem: bool
+    hist_smem: bool
+    stage: bool
+
+    @staticmethod
+    @functools.lru_cache(maxsize=None)
+    def of(spec: TapeSpec) -> "CompactRoutes":
+        plan = build_compact_plan(spec)
+        nscal = 16 * spec.n_leaves + spec.n_instr + 7
+        hist_off, hist_len = history_layout(spec)
+        staged = 4 * len(plan["groups"]) + plan["n_counts"] + plan["n_items"]
+        return CompactRoutes(nscal, hist_off, hist_len, nscal * 4 <= ROW_SMEM,
+                             hist_len * 4 * CBWD_THREADS <= REC_SMEM, staged * 4 <= STAGE_SMEM)
 
 
 @functools.lru_cache(maxsize=None)
-def _max_compact_blocks(device: torch.device) -> int:
+def compact_layout(spec: TapeSpec, device: torch.device):
+    """(routes, max grid size, the launcher's shape words, floats of
+    device-memory history per thread: 0 when it sits in shared memory) of
+    the compact backward of `spec`'s plan on `device`."""
+    ro = CompactRoutes.of(spec)
     n_sm = torch.cuda.get_device_properties(device).multi_processor_count
-    return n_sm * (2048 // CBWD_THREADS)
+    max_blocks = n_sm * (2048 // CBWD_THREADS)
+    hist_words = 0 if ro.hist_smem else ro.hist_len
+    if hist_words:
+        max_blocks = max(1, min(max_blocks, REC_BUDGET // (4 * hist_words * CBWD_THREADS)))
+    op_base = 16 * spec.n_leaves
+    shape = (ctypes.c_int * 8)(ro.nscal, op_base, op_base + spec.n_instr, ro.hist_off, ro.hist_len,
+                               int(ro.row_smem), int(ro.hist_smem), int(ro.stage))
+    return ro, max_blocks, shape, hist_words
 
 
 @functools.lru_cache(maxsize=None)
@@ -535,24 +606,23 @@ def compact_bwd(scene: SceneBuffers, cull: TileCull, cam, p: PrepassParams, clam
     """Compact backward -> (d_lp f32[n_leaves, 16], d_opp f32[n_instr], d_cam
     f32[8]) on the inputs' device; see `compact_bwd_plain` for the
     arguments. On CUDA: `compact_bwd_kernel` (csrc/compact_bwd.cu), in its
-    soft build when `soft` = (s_min, t_min) is given, then
-    `bwd_finalize_kernel` over its block rows."""
+    soft build when `soft` = (s_min, t_min) is given, then, when its row sits
+    in shared memory (`compact_layout`), `bwd_finalize_kernel` over its block
+    rows."""
     dev, nscal = _check_compact_bwd(scene, cull, cam, p, t, hit, g_img, soft)
     if dev.type == "cpu":
         return compact_bwd_plain(scene, cull, cam, p, clamp, t, hit, g_img, soft=soft)
     from .. import _build
 
     lib = _build.load()
-    L, n_instr = scene.spec.n_leaves, scene.spec.n_instr
-    op_base = 16 * L
-    cam_base = op_base + n_instr
-    hist_off, hist_len = history_layout(scene.spec)
-    max_blocks = _max_compact_blocks(dev)
-    if hist_len:
-        max_blocks = max(1, min(max_blocks, HIST_BUDGET // (4 * hist_len * CBWD_THREADS)))
-    hist = torch.empty(max_blocks * CBWD_THREADS * hist_len, dtype=torch.float32, device=dev)
-    partials = torch.empty(max_blocks * nscal, dtype=torch.float32, device=dev)
+    L = scene.spec.n_leaves
+    cam_base = 16 * L + scene.spec.n_instr
+    ro, max_blocks, shape, hist_words = compact_layout(scene.spec, dev)
+    row_smem = ro.row_smem
+    hist = torch.empty(max_blocks * CBWD_THREADS * hist_words, dtype=torch.float32, device=dev) if hist_words else None
+    partials = torch.empty(max_blocks * nscal if row_smem else 1, dtype=torch.float32, device=dev)
     out = torch.empty(nscal, dtype=torch.float32, device=dev)
+    tile_next = torch.empty(1, dtype=torch.int32, device=dev)
     n_blocks = ctypes.c_int(0)
     cp = _CParams.of(p)
     cc = _CCull.of(cull)
@@ -561,17 +631,18 @@ def compact_bwd(scene: SceneBuffers, cull: TileCull, cam, p: PrepassParams, clam
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.rmt_compact_bwd_launch(
             *_scene_ptrs(scene), ctypes.addressof(cc), cam.data_ptr(),
-            ctypes.addressof(cp), clamp, t.data_ptr(), hit.data_ptr(), g_img.data_ptr(),
-            nscal, op_base, cam_base, int(scene.spec.has_materials), ctypes.addressof(cs),
-            hist.data_ptr() if hist_len else None, hist_off,
-            partials.data_ptr(), max_blocks, ctypes.byref(n_blocks), stream,
+            ctypes.addressof(cp), clamp, t.data_ptr(), hit.data_ptr(), g_img.data_ptr(), shape,
+            int(scene.spec.has_materials), ctypes.addressof(cs), None if hist is None else hist.data_ptr(),
+            tile_next.data_ptr(), partials.data_ptr(), max_blocks, ctypes.byref(n_blocks), out.data_ptr(),
+            stream,
         )
         _raise_on(err, "compact_bwd_kernel")
         if soft is None:
             compact_bwd.launches += 1
         else:
             compact_bwd.soft_launches += 1
-        err = lib.rmt_bwd_finalize_launch(partials.data_ptr(), n_blocks.value, nscal, out.data_ptr(), stream)
+        if row_smem:
+            err = lib.rmt_bwd_finalize_launch(partials.data_ptr(), n_blocks.value, nscal, out.data_ptr(), stream)
     _raise_on(err, "bwd_finalize_kernel")
     d_lp = out[: 16 * L].view(L, 16)
     d_opp = out[16 * L : cam_base]
@@ -786,15 +857,16 @@ def make_fused_render_vjp(
     """
     del interpret, bm  # TPU layout only
     if spec.static_tape is None:
-        _not_ported("fused-VJP rendering of a dynamic tape (compile_scene(static=True) is required, as in "
-                    "the reference)", "§2 item 3: K8 and K9 take static tapes only")
+        # The reference's own refusal (pallas_grad.py:1239-1242).
+        raise NotImplementedError("fused-VJP rendering requires compile_scene(static=True), as in the reference "
+                                  "(ROADMAP §2 item 3: the fused VJP takes static tapes only)")
     S = cfg.aa_samples ** 2
     if soft:
         if S and 128 % S:
             raise ValueError("soft VJP needs aa_samples^2 dividing 128")
         aa_packed = True  # pallas_grad.py:1243-1249
     if band_rows is not None:
-        _not_ported("band_rows", "§1 item 7, multi-device")
+        raise NotImplementedError("band_rows is not ported yet (ROADMAP: §1 item 7, multi-device)")
     if aa_packed and 128 % S:
         raise ValueError("aa_packed VJP needs aa_samples^2 dividing 128")
     _, reason = backward_route(spec, cfg, soft, packed=aa_packed is not False and 128 % S == 0)

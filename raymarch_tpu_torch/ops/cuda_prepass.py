@@ -44,11 +44,15 @@ for a band of `rows` image rows starting at cam[7]:
    (the first sample to hit a pixel computes the 4-tap normal, the later
    ones reuse it), which the AA-packed layout cannot.
 
-A dynamic tape (`compile_scene(scene)`) runs on the DYN builds of the
-coarse and fine kernels and of K4 (csrc/prepass_dyn.cu, fine_unpacked.cu):
-the frame's tape is uploaded with its arrays, and the plain versions run it
-on the reference's stack machine (`sdf._apply_dynamic_tape`, gated by the
-tile masks under culling).
+A dynamic tape (`compile_scene(scene)`) runs on the DYN builds of every
+kernel above: the coarse, chained pixel and hard fine kernels
+(csrc/prepass_dyn.cu), the soft fine builds (csrc/fine_soft.cu), the
+march-only builds (csrc/fine_march.cu) and K4 (csrc/fine_unpacked.cu): the
+frame's tape is uploaded with its arrays, and the plain versions run it on
+the reference's stack machine (`sdf._apply_dynamic_tape`, gated by the tile
+masks under culling). `n_intervals` takes any count: up to MAX_NI the
+interval builds keep a block's intervals in registers, above it their
+builds in csrc/intervals_wide.cu read them in place from the planes.
 
 Each wrapper takes tensors on one device. On the CPU it runs its plain
 version (`coarse_plain`, `coarse_px_plain`, `fine_plain`: vectorised torch
@@ -89,7 +93,8 @@ from .tape import TapeArrays, TapeSpec
 # `< 9.0e37`, so that planes multiplied by 0/1 masks stay finite.
 _INF_CAP = 3.0e38
 _INF_TEST = 9.0e37
-# Most near intervals a kernel build keeps in registers (csrc MAX_NI).
+# Most near intervals a kernel build keeps in registers (csrc MAX_NI); more
+# take the builds that read them in place (csrc/intervals_wide.cu).
 MAX_NI = 4
 
 
@@ -1114,11 +1119,6 @@ def _check_packed(p: PrepassParams):
         )
 
 
-def _not_dynamic(scene: SceneBuffers, what: str, item: str):
-    if scene.dynamic:
-        _not_ported(f"{what} on a dynamic tape", item)
-
-
 def _scene_ptrs(scene: SceneBuffers):
     return (
         scene.leaf_params.data_ptr(),
@@ -1183,18 +1183,41 @@ def coarse(scene: SceneBuffers, cam, bound, p: PrepassParams, cull: TileCull | N
             None if p.ni else planes[1].data_ptr(), ctypes.addressof(cb), stream,
         )
     _raise_on(err, "coarse_kernel")
-    if scene.dynamic:
-        coarse.dyn_launches += 1
-    elif p.ni:
-        coarse.interval_launches += 1
-    else:
-        coarse.launches += 1
+    coarse.count(scene, p)
     return planes.unbind(0)
 
 
-coarse.launches = 0  # the legacy planes (t0, status)
-coarse.interval_launches = 0  # the interval scan
-coarse.dyn_launches = 0  # the DYN builds (a dynamic tape), any planes
+_COUNTS = ("launches", "interval_launches", "wide_launches", "soft_launches", "dyn_soft_launches",
+           "dyn_launches")
+
+
+def _counter(fn, split_intervals: bool):
+    """Gives the wrapper `fn` its launch counts (`_COUNTS`, each 0) and a
+    `count(scene, p)` that adds one to the count of the build it launched:
+    soft builds "soft_launches" (static tape) or "dyn_soft_launches"; other
+    DYN builds (a dynamic tape) "dyn_launches"; past MAX_NI intervals
+    "wide_launches"; with `split_intervals` the interval builds
+    "interval_launches"; the rest "launches"."""
+    for name in _COUNTS:
+        setattr(fn, name, 0)
+
+    def count(scene, p):
+        if p.soft:
+            name = "dyn_soft_launches" if scene.dynamic else "soft_launches"
+        elif scene.dynamic:
+            name = "dyn_launches"
+        elif p.ni > MAX_NI:
+            name = "wide_launches"
+        elif p.ni and split_intervals:
+            name = "interval_launches"
+        else:
+            name = "launches"
+        setattr(fn, name, getattr(fn, name) + 1)
+
+    fn.count = count
+
+
+_counter(coarse, split_intervals=True)
 
 
 def coarse_px(scene: SceneBuffers, cam, bound, p: PrepassParams, t_blk, status_blk):
@@ -1203,7 +1226,6 @@ def coarse_px(scene: SceneBuffers, cam, bound, p: PrepassParams, t_blk, status_b
     dev = _check_scene(scene, cam, bound, p)
     if not p.chain:
         raise ValueError("the chained pixel pass needs prepass_chain=True and prepass_block > 1")
-    _not_dynamic(scene, "the chained pixel pass (K3)", _DYN_CHAIN)
     _check("t_blk", t_blk, torch.float32, (p.brows, p.bcols), dev)
     _check("status_blk", status_blk, torch.float32, (p.brows, p.bcols), dev)
     if dev.type == "cpu":
@@ -1217,16 +1239,16 @@ def coarse_px(scene: SceneBuffers, cam, bound, p: PrepassParams, t_blk, status_b
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.rmt_coarse_px_launch(
-            *_scene_ptrs(scene), cam.data_ptr(), bound.data_ptr(), ctypes.addressof(cp),
+            *_scene_ptrs_dyn(scene), cam.data_ptr(), bound.data_ptr(), ctypes.addressof(cp),
             t_blk.data_ptr(), status_blk.data_ptr(), planes.data_ptr(), planes[1].data_ptr(),
             ctypes.addressof(cb), stream,
         )
     _raise_on(err, "coarse_px_kernel")
-    coarse_px.launches += 1
+    coarse_px.count(scene, p)
     return planes.unbind(0)
 
 
-coarse_px.launches = 0
+_counter(coarse_px, split_intervals=False)
 
 
 def _check_fine(scene: SceneBuffers, cam, bound, p: PrepassParams, pre, cull):
@@ -1242,8 +1264,6 @@ def _check_fine(scene: SceneBuffers, cam, bound, p: PrepassParams, pre, cull):
 
 def _fine_launch(scene: SceneBuffers, cam, bound, p: PrepassParams, pre, residuals: bool, cull):
     dev = _check_fine(scene, cam, bound, p, pre, cull)
-    if p.soft:
-        _not_dynamic(scene, "soft coverage", _DYN_SOFT)
     if dev.type == "cpu":
         out = fine_res_plain(scene, cam, bound, p, *pre, cull=cull)
         return out if residuals else out[0]
@@ -1285,21 +1305,8 @@ def _fine_launch(scene: SceneBuffers, cam, bound, p: PrepassParams, pre, residua
             stream,
         )
     _raise_on(err, "fine_kernel")
-    if residuals:
-        if p.soft:
-            fine_res.soft_launches += 1
-        else:
-            fine_res.launches += 1
-        return (img, *res)
-    if p.soft:
-        fine.soft_launches += 1
-    elif scene.dynamic:
-        fine.dyn_launches += 1
-    elif p.ni:
-        fine.interval_launches += 1
-    else:
-        fine.launches += 1
-    return img
+    (fine_res if residuals else fine).count(scene, p)
+    return (img, *res) if residuals else img
 
 
 def fine(scene: SceneBuffers, cam, bound, p: PrepassParams, *pre, cull: TileCull | None = None):
@@ -1331,7 +1338,6 @@ def fine_march(scene: SceneBuffers, cam, bound, p: PrepassParams, *pre, cull: Ti
     if p.soft:
         raise ValueError("march_only requires aa_packed=True, soft=False")
     dev = _check_fine(scene, cam, bound, p, pre, cull)
-    _not_dynamic(scene, "march_only", _DYN_MARCH_ONLY)
     if dev.type == "cpu":
         return tuple(v.reshape(-1) for v in fine_res_plain(scene, cam, bound, p, *pre, cull=cull)[1:3])
     _check_packed(p)
@@ -1356,7 +1362,7 @@ def fine_march(scene: SceneBuffers, cam, bound, p: PrepassParams, *pre, cull: Ti
             None, t.data_ptr(), hit.data_ptr(), 0, ctypes.addressof(cb), 0, ctypes.addressof(cs), stream,
         )
     _raise_on(err, "fine_kernel (march only)")
-    fine_march.launches += 1
+    fine_march.count(scene, p)
     return t, hit
 
 
@@ -1390,11 +1396,7 @@ def _fine_unpacked_launch(scene: SceneBuffers, cam, bound, p: PrepassParams, pre
             int(scene.spec.has_materials), int(p.shared_normals), ctypes.addressof(cb), stream,
         )
     _raise_on(err, "fine_unpacked_kernel")
-    counter = fine_unpacked_res if residuals else fine_unpacked
-    if scene.dynamic:
-        counter.dyn_launches += 1
-    else:
-        counter.launches += 1
+    (fine_unpacked_res if residuals else fine_unpacked).count(scene, p)
     return (img, t, hit) if residuals else img
 
 
@@ -1414,17 +1416,11 @@ def fine_unpacked_res(scene: SceneBuffers, cam, bound, p: PrepassParams, *pre, c
     return _fine_unpacked_launch(scene, cam, bound, p, pre, True, cull)
 
 
-fine.launches = 0  # legacy planes (t0, status) or no prepass
-fine.interval_launches = 0  # the march through near intervals
-fine.soft_launches = 0  # the soft-coverage march
-fine.dyn_launches = 0  # the DYN builds (a dynamic tape), any planes
-fine_res.launches = 0
-fine_res.soft_launches = 0
-fine_march.launches = 0
-fine_unpacked.launches = 0  # K4, static tapes
-fine_unpacked.dyn_launches = 0  # K4, dynamic tapes
-fine_unpacked_res.launches = 0
-fine_unpacked_res.dyn_launches = 0
+# The fine passes' counts by build (`_counter`); `fine` counts the march
+# through at most MAX_NI near intervals apart from the legacy planes.
+_counter(fine, split_intervals=True)
+for _fn in (fine_res, fine_march, fine_unpacked, fine_unpacked_res):
+    _counter(_fn, split_intervals=False)
 
 
 def reset_launch_counts():
@@ -1576,17 +1572,6 @@ class PrepassRenderer:
         return tuple(v.reshape(-1) for v in out[1:3]) if self.march_only else out[0]
 
 
-def _not_ported(option: str, item: str):
-    raise NotImplementedError(f"{option} is not ported yet (ROADMAP: {item})")
-
-
-# The dynamic-tape options no caller of the live path passes, each a ROADMAP
-# item of its own.
-_DYN_CHAIN = "§2 item 6, K3's DYN build"
-_DYN_MARCH_ONLY = "§2 item 7, the DYN march-only build of K2"
-_DYN_SOFT = "§2 item 8, the DYN soft build of K2"
-
-
 def resolve_device(device) -> torch.device:
     """"cpu" or "cuda[:n]" -> a torch.device with the CUDA index filled in;
     raises for CUDA without a GPU and for any other device type."""
@@ -1631,8 +1616,8 @@ def make_pallas_image_render_aa(
     tape) and `cfg.relax > 1` (relaxed fine march), and:
     - `prepass_block` = B >= 1: one coarse cone per B x B pixel block
       (values below 1 read as 1, as the reference's);
-    - `n_intervals` = ni in 0..MAX_NI: the near-interval prepass (0: the
-      first-near prepass);
+    - `n_intervals` = ni >= 0: the near-interval prepass (0: the
+      first-near prepass), any count;
     - `prepass_chain`: the chained pixel pass after a B > 1 block pass (a
       no-op at B = 1, as the reference's);
     - `band_rows`: render the band of that many rows starting at image row
@@ -1661,8 +1646,7 @@ def make_pallas_image_render_aa(
     It raises the reference's ValueErrors for prepass_chain with intervals,
     for no_prepass with either, for march_only or soft without packing,
     for soft without no_prepass or with relax > 1, and for aa_packed with
-    aa_shared_normals. A dynamic tape with prepass_chain, march_only or soft
-    raises NotImplementedError naming its ROADMAP item.
+    aa_shared_normals. Every option takes a dynamic tape, as the reference's.
     """
     S = cfg.aa_samples ** 2
     if aa_packed and cfg.aa_shared_normals:
@@ -1675,11 +1659,6 @@ def make_pallas_image_render_aa(
         raise ValueError("prepass_chain is a legacy-prepass feature")
     if no_prepass and (ni or prepass_chain):
         raise ValueError("no_prepass excludes interval/chained prepasses")
-    if ni > MAX_NI:
-        raise NotImplementedError(
-            f"n_intervals={ni} exceeds the kernels' MAX_NI={MAX_NI} (ROADMAP: §3 fault 7, "
-            "port limit MAX_NI)"
-        )
     if band_rows is not None and int(band_rows) < 1:
         raise ValueError(f"band_rows must be at least 1, got {band_rows}")
     if soft:
@@ -1692,13 +1671,6 @@ def make_pallas_image_render_aa(
             raise ValueError("soft requires relax=1.0 (relaxed stepping changes the closest-approach sample)")
     block = max(1, int(prepass_block))
     chain = bool(prepass_chain) and block > 1
-    if spec.static_tape is None:
-        if chain:
-            _not_ported("prepass_chain on a dynamic tape", _DYN_CHAIN)
-        if march_only:
-            _not_ported("march_only on a dynamic tape", _DYN_MARCH_ONLY)
-        if soft:
-            _not_ported("soft coverage on a dynamic tape", _DYN_SOFT)
     return _cached_renderer(spec, cfg, int(width), int(height), resolve_device(device), bool(no_prepass), block,
                             ni, chain, None if band_rows is None else int(band_rows), bool(soft), bool(march_only),
                             unpacked)

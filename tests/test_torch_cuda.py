@@ -531,14 +531,14 @@ def _painted_chain(m):
     return scene.subtract(m.sphere(center=(0.8, -0.2, 0.4), radius=0.3), k=0.18)
 
 
-# scene -> (scene function, config, camera position, K8's long build):
+# scene -> (scene function, config, camera position, K8's warp-row build):
 # painted scenes (the albedo words) and long tapes through the legacy
 # backward, after a culled forward where cfg64 culls.
 LEGACY_SCENES = {
     "painted_blends": (_painted_blends, CFG, (0.0, 1.6, 4.2), False),
-    "painted": (_painted, CFG, (0.0, 2.5, 9.0), False),
+    "painted": (_painted, CFG, (0.0, 2.5, 9.0), True),
     "painted33": (functools.partial(_painted, n=33), CFG, (0.0, 2.5, 9.0), True),
-    "painted_chain": (_painted_chain, CFG64, (0.3, 1.8, 5.0), False),
+    "painted_chain": (_painted_chain, CFG64, (0.3, 1.8, 5.0), True),
     "long_tape": (_long_tape, CFG64, (0.0, 2.5, 9.0), True),
 }
 
@@ -581,19 +581,22 @@ def test_legacy_kernel_matches_plain(dev, name):
 
 @pytest.mark.parametrize("name", ["painted_blends", "painted"])
 def test_long_build_matches_per_thread_build(dev, name):
-    """On a tape that fits the per-thread build, the long build sent the
-    same residuals gives the same gradients: both builds run one
-    interpreter, only the record store and the accumulator differ."""
+    """On a tape that fits the per-thread build, the per-thread and the
+    warp-row builds sent the same residuals give the same gradients: both
+    run one interpreter, only the accumulator differs."""
     build, cfg, pos, _ = LEGACY_SCENES[name]
     spec, arrays = rt.compile_scene(build(rt), static=True)
     fr = cg.make_fused_render_vjp(spec, cfg, W, H, device=dev)
-    lay = fr.layout
+    fields = {f.name: getattr(fr.layout, f.name) for f in dataclasses.fields(fr.layout)}
 
     class LongLayout(cg.GradLayout):
         long = True
 
-    lay_l = LongLayout(**{f.name: getattr(lay, f.name) for f in dataclasses.fields(lay)})
-    assert not lay.long and lay_l.long
+    class ThreadLayout(cg.GradLayout):
+        long = False
+
+    lay, lay_l = ThreadLayout(**fields), LongLayout(**fields)
+    assert lay.n_real <= cg.MAX_BWD_INSTR and not lay.long and lay_l.long
     sc, cam, bound = fr.prepass.scene_args(arrays, rt.cam_vec(rt.Camera.looking_at(position=pos, target=(0.0, 0.0, 0.0)),
                                                               device=dev))
     pre = cp.coarse(sc, cam, bound, fr.params)
@@ -654,7 +657,7 @@ def test_aa8_frame_matches_plain(dev):
 
 
 # Soft coverage: scene -> (scene function, config, camera position, the
-# backward it takes, K8's long build). Soft mode needs relax 1; CFG keeps
+# backward it takes, the route GradLayout.long gives K8). Soft mode needs relax 1; CFG keeps
 # bound_accel and exit_check_every 4. Every camera looks down more steeply
 # than half the field of view (22.5 degrees), so no frame shows the horizon:
 # there the checker floor's parity is ulp-sensitive (fx runs to 1e7), and a
@@ -662,14 +665,14 @@ def test_aa8_frame_matches_plain(dev):
 SOFT_CFG64 = dataclasses.replace(CFG, leaf_cull=True)
 SOFT_SCENES = {
     "config2": (_config2, CFG, (0.0, 2.6, 4.2), "pallas_legacy_unrolled", False),
-    "rich": (_rich, CFG, (0.0, 2.6, 4.2), "pallas_legacy_unrolled", False),
+    "rich": (_rich, CFG, (0.0, 2.6, 4.2), "pallas_legacy_unrolled", True),
     "painted_blends": (_painted_blends, CFG, (0.0, 2.6, 4.2), "pallas_legacy_unrolled", False),
     "painted33": (functools.partial(_painted, n=33), SOFT_CFG64, (0.0, 5.5, 8.0), "pallas_legacy_unrolled", True),
     "long_tape": (_long_tape, SOFT_CFG64, (0.0, 5.5, 8.0), "pallas_legacy_unrolled", True),
-    "spheres": (_spheres, SOFT_CFG64, (0.0, 5.5, 8.0), "pallas_compact", False),
-    "chain": (_chain, SOFT_CFG64, (0.3, 3.2, 4.5), "pallas_compact", False),
+    "spheres": (_spheres, SOFT_CFG64, (0.0, 5.5, 8.0), "pallas_compact", True),
+    "chain": (_chain, SOFT_CFG64, (0.3, 3.2, 4.5), "pallas_compact", True),
     "clusters9": (functools.partial(_clusters, n_clusters=9), SOFT_CFG64, (0.0, 5.0, 7.0), "pallas_compact",
-                  False),
+                  True),
 }
 
 
@@ -709,8 +712,8 @@ def test_soft_fine_kernel_matches_plain(dev, name):
 
 @pytest.mark.parametrize("name", sorted(SOFT_SCENES))
 def test_soft_backward_kernels_match_plain(dev, name):
-    """K8's soft builds (per thread and long, with and without the albedo
-    words) and K9's (pool, seg1, stream in two groups) against their plain
+    """K8's soft builds (per-thread and warp rows, with and without the
+    albedo words) and K9's (pool, seg1, stream in two groups) against their plain
     versions on the soft forward's residuals, then through the renderer."""
     _, _, _, kind, long_build = SOFT_SCENES[name]
     spec, arrays, fr, sc, cam, bound, fc, cam_vec = _soft_args(name, dev)
@@ -962,3 +965,242 @@ def test_tiered_renderer_on_the_card(dev):
     img_s = tiered.render(scene, CAM)
     assert tiered.tier == "static"
     assert float(np.abs(img_d - img_s).mean()) < 5e-4
+
+
+# --- the repaired builds: K3 / march-only / soft DYN, past MAX_NI ----------
+
+
+def _tori(m, n=7):
+    """n thin tori on the view axis of CAM_AXIS: up to 7 near intervals per
+    4 x 4 block (tests/test_torch_interval.py's layered scene)."""
+    return functools.reduce(lambda a, b: a | b, [
+        m.torus(center=(0.0, 0.0, 4.0 - 1.5 * k), major_radius=0.3, minor_radius=0.1,
+                rotation=(0.7071068, 0.7071068, 0.0, 0.0)) for k in range(n)])
+
+
+CAM_AXIS = rt.Camera.looking_at(position=(0.0, 0.0, 8.0), target=(0.0, 0.0, 0.0))
+
+
+def test_dynamic_chained_pass_matches_plain(dev):
+    """K3's DYN build (csrc/prepass_dyn.cu coarse_px_kernel<3>) on config
+    2's dynamic tape at B = 4, against coarse_px_plain as the static K3 is
+    held, and the chained dynamic frame against its plain path."""
+    spec, arrays = rt.compile_scene(_config2(rt))
+    rp = cp.make_pallas_image_render_aa(spec, CFG, W, H, device=dev, prepass_block=4, prepass_chain=True)
+    cam_vec = rt.cam_vec(CAM, device=dev)
+    sc, cam, bound = rp.scene_args(arrays, cam_vec)
+    blk = cp.coarse(sc, cam, bound, rp.params)
+    before = cp.coarse_px.dyn_launches
+    got = cp.coarse_px(sc, cam, bound, rp.params, *blk)
+    assert cp.coarse_px.dyn_launches == before + 1
+    t0p, stp = cp.coarse_px_plain(sc, cam, bound, rp.params, *blk)
+    assert float((got[1] == stp).float().mean()) >= 0.999
+    both = (got[1] == 1) & (stp == 1)
+    rel = (got[0][both] - t0p[both]).abs() / t0p[both].abs()
+    assert int(both.sum()) > 0 and float((rel > 1e-4).float().mean()) < 5e-3
+    img = rp(arrays, cam_vec)
+    ref = rp.render_plain(arrays, cam_vec)
+    assert float((img - ref).abs().mean()) < 5e-4 and _neigh_frac(img, ref) < 0.008
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(n_intervals=2)], ids=["b4", "b4_intervals"])
+def test_dynamic_march_only_build_matches_fine_res(dev, kw):
+    """K2's DYN march-only build (csrc/fine_march.cu MODE 3) writes the
+    (t, hit) of the DYN fine kernel with residuals bit for bit (both built
+    with FMA contraction), and those of fine_res_plain in the residual
+    class, through make_pallas_image_march_fast on a dynamic tape."""
+    cfg = dataclasses.replace(CFG, relax=1.6)
+    spec, arrays = rt.compile_scene(_config2(rt))
+    rp = cp.make_pallas_image_march_fast(spec, cfg, W, H, device=dev, **kw)
+    cv = rt.cam_vec(CAM, device=dev)
+    before = cp.fine_march.dyn_launches
+    t, hit = rp(arrays, cv)
+    assert cp.fine_march.dyn_launches == before + 1 and t.shape == (W * H * 16,)
+    sc, cam, bound = rp.scene_args(arrays, cv)
+    pre = rp.prepass(sc, cam, bound, None)
+    _, t_r, h_r = cp.fine_res(sc, cam, bound, rp.params, *pre)
+    assert torch.equal(t, t_r.reshape(-1)) and torch.equal(hit, h_r.reshape(-1))
+    _, t_p, h_p = cp.fine_res_plain(sc, cam, bound, rp.params, *pre)
+    assert float((hit == h_p.reshape(-1)).float().mean()) >= 0.999
+    both = (hit > 0.5) & (h_p.reshape(-1) > 0.5)
+    torch.testing.assert_close(t[both], t_p.reshape(-1)[both], rtol=1e-4, atol=0.0)
+
+
+@pytest.mark.parametrize("cfg_kw", [{}, dict(leaf_cull=True)], ids=["uncull", "gated"])
+def test_dynamic_soft_build_matches_plain(dev, cfg_kw):
+    """K2's DYN soft build (csrc/fine_soft.cu MODE 3 and 4, -fmad=false) on
+    config 2's dynamic tape against fine_res_plain, in the class of
+    test_soft_fine_kernel_matches_plain."""
+    cfg = dataclasses.replace(CFG, **cfg_kw)
+    spec, arrays = rt.compile_scene(_config2(rt))
+    rp = cp.make_pallas_image_render_aa(spec, cfg, W, H, device=dev, no_prepass=True, soft=True)
+    cam_vec = rt.cam_vec(rt.Camera.looking_at(position=(0.0, 5.5, 8.0), target=(0.0, 0.0, 0.0)), device=dev)
+    sc, cam, bound = rp.scene_args(arrays, cam_vec)
+    _, fc = rp.cull_args(sc, cam)
+    p = rp.params
+    before = cp.fine_res.dyn_soft_launches
+    img, t, hit, s_min, t_min = cp.fine_res(sc, cam, bound, p, cull=fc)
+    assert cp.fine_res.dyn_soft_launches == before + 1
+    img_p, t_p, hit_p, s_p, tm_p = cp.fine_res_plain(sc, cam, bound, p, cull=fc)
+    assert float((img - img_p).abs().max()) < 1e-3
+    assert float((hit == hit_p).float().mean()) >= 0.999
+    covered = cp.soft_alpha(p, s_p) > 0.0
+    assert int(covered.sum()) > 0
+    for a, b, atol in ((s_min, s_p, 1e-5), (t_min, tm_p, 0.0)):
+        off = (a - b).abs()[covered] > 1e-4 * b.abs()[covered] + atol
+        assert float(off.float().mean()) < 1e-3
+
+
+@pytest.mark.parametrize(
+    "ni,static,relax,aa",
+    [(6, True, 1.0, 4), (5, True, 1.6, 4), (6, False, 1.6, 4), (5, True, 1.0, 3)],
+    ids=["ni6", "ni5_relax", "ni6_dynamic_relax", "ni5_unpacked"],
+)
+def test_wide_interval_builds_match_plain(dev, ni, static, relax, aa):
+    """More than MAX_NI near intervals: the coarse scan writing the planes in
+    place (KIND 3), the fine pass reading them in place (PRE 4: K2, its
+    march-only build, K4 at aa = 3; static and DYN), against their plain
+    versions on the layered scene at B = 4, in the classes of
+    test_interval_coarse_kernel_matches_plain and test_kernels_match_plain,
+    at 65 x 47, where two blocks' centre rays thread the tori closely
+    enough to keep more than MAX_NI intervals."""
+    w, h = 65, 47
+    cfg = dataclasses.replace(CFG, relax=relax, aa_samples=aa)
+    spec, arrays = rt.compile_scene(_tori(rt), static=static)
+    rp = cp.make_pallas_image_render_aa(spec, cfg, w, h, device=dev, prepass_block=4, n_intervals=ni)
+    sc, cam, bound = rp.scene_args(arrays, rt.cam_vec(CAM_AXIS, device=dev))
+    p = rp.params
+    cp.reset_launch_counts()
+    pre = cp.coarse(sc, cam, bound, p)
+    ref = cp.coarse_plain(sc, cam, bound, p)
+    _interval_agreement(pre, ref)
+    assert int(sum((v < 9e37).int() for v in pre[:ni]).max()) > cp.MAX_NI
+    fine = cp.fine_unpacked if p.unpacked else cp.fine
+    img = fine(sc, cam, bound, p, *pre)
+    img_p = (cp.fine_unpacked_plain(sc, cam, bound, p, *pre)[0] if p.unpacked
+             else cp.fine_plain(sc, cam, bound, p, *pre))
+    assert float((img - img_p).abs().mean()) < 5e-4 and _neigh_frac(img, img_p) < 0.008
+    wide = "dyn_launches" if not static else "wide_launches"
+    assert (getattr(cp.coarse, wide), getattr(fine, wide)) == (1, 1)
+    if not p.unpacked:
+        mo = cp.make_pallas_image_march_fast(spec, cfg, w, h, device=dev, prepass_block=4, n_intervals=ni)
+        t, hit = cp.fine_march(sc, cam, bound, mo.params, *pre)
+        _, t_r, h_r = cp.fine_res(sc, cam, bound, p, *pre)
+        assert torch.equal(t, t_r.reshape(-1)) and torch.equal(hit, h_r.reshape(-1))
+
+
+# --- K8 and K9 on the H100 design: forced routes, the largest scenes -------
+
+
+@pytest.fixture
+def small_smem(monkeypatch):
+    """Sends every backward row and record to device memory: ROW_SMEM and
+    REC_SMEM at 0, the layout caches cleared before and after."""
+    def clear():
+        cg._device_consts.cache_clear()
+        cg.compact_layout.cache_clear()
+        cg.CompactRoutes.of.cache_clear()
+
+    clear()
+    monkeypatch.setattr(cg, "ROW_SMEM", 0)
+    monkeypatch.setattr(cg, "REC_SMEM", 0)
+    yield
+    monkeypatch.undo()
+    clear()
+
+
+@pytest.mark.parametrize("name", ["painted33", "long_tape", "painted_chain"])
+def test_legacy_device_routes_match_plain(dev, small_smem, name):
+    """K8's warp-row build with its row added into the output and its
+    records in device memory (forced on small scenes) against bwd_plain,
+    in the gradient class (atomics in a varying order: the sums differ in
+    their last bits from run to run)."""
+    build, cfg, pos, _ = LEGACY_SCENES[name]
+    spec, arrays = rt.compile_scene(build(rt), static=True)
+    fr = cg.make_fused_render_vjp(spec, cfg, W, H, device=dev)
+    lay = fr.layout
+
+    class WarpLayout(cg.GradLayout):
+        long = True
+
+    lay_w = WarpLayout(**{f.name: getattr(lay, f.name) for f in dataclasses.fields(lay)})
+    mats = spec.has_materials
+    assert not lay_w.row_in_smem and not lay_w.rec_in_smem(mats)
+    cam_vec = rt.cam_vec(rt.Camera.looking_at(position=pos, target=(0.0, 0.0, 0.0)), device=dev)
+    sc, cam, bound = fr.prepass.scene_args(arrays, cam_vec)
+    cc, fc = fr.prepass.cull_args(sc, cam)
+    _, t, hit = cp.fine_res(sc, cam, bound, fr.params, *cp.coarse(sc, cam, bound, fr.params, cc), cull=fc)
+    g = torch.tensor(np.random.default_rng(11).uniform(-1, 1, (H, W, 3)).astype(np.float32), device=dev)
+    got = cg.bwd(sc, cam, fr.params, lay_w, t, hit, g)
+    ref = cg.bwd_plain(sc, cam, fr.params, lay, t, hit, g, band_rows=16)
+    scale = float(ref[0].abs().max())
+    assert scale > 0
+    torch.testing.assert_close(got[0], ref[0], rtol=0.0, atol=0.01 * scale)
+    torch.testing.assert_close(got[1], ref[1], rtol=0.0, atol=0.01 * scale)
+    torch.testing.assert_close(got[2], ref[2], rtol=0.0, atol=0.02 * float(ref[2].abs().max()))
+
+
+@pytest.mark.parametrize("name", ["spheres", "chain", "clusters"])
+def test_compact_device_routes_match_plain(dev, small_smem, name):
+    """K9 with its row added into the output and its fold history in device
+    memory (forced) against compact_bwd_plain, in the gradient class."""
+    spec, arrays, rp, sc, cam, bound, (cc, fc), _ = _cull_args(name, dev)
+    ro = cg.CompactRoutes.of(spec)
+    assert not ro.row_smem and (ro.hist_len == 0 or not ro.hist_smem)
+    _, t, hit = cp.fine_res(sc, cam, bound, rp.params, *cp.coarse(sc, cam, bound, rp.params, cc), cull=fc)
+    g = torch.tensor(np.random.default_rng(13).uniform(-1, 1, (H, W, 3)).astype(np.float32), device=dev)
+    clamp = float(rp.cfg.grad_denom_clamp)
+    got = cg.compact_bwd(sc, fc, cam, rp.params, clamp, t, hit, g)
+    ref = cg.compact_bwd_plain(sc, fc, cam, rp.params, clamp, t, hit, g, band_rows=16)
+    scale = float(ref[0].abs().max())
+    assert scale > 0
+    torch.testing.assert_close(got[0], ref[0], rtol=0.0, atol=0.01 * scale)
+    torch.testing.assert_close(got[1], ref[1], rtol=0.0, atol=0.01 * scale)
+    torch.testing.assert_close(got[2], ref[2], rtol=0.0, atol=0.02 * float(ref[2].abs().max()))
+
+
+def _big_pool(m, n, seed=5, span=12.0):
+    """n random spheres in a balanced tree of hard unions (bench.py's
+    1024-leaf scene's construction)."""
+    rng = np.random.default_rng(seed)
+    parts = [m.sphere(center=(float(rng.uniform(-span, span)), float(rng.uniform(-1.0, 2.5)),
+                              float(rng.uniform(-span, span))), radius=float(rng.uniform(0.15, 0.45)))
+             for _ in range(n)]
+    while len(parts) > 1:
+        parts = [parts[i] | parts[i + 1] if i + 1 < len(parts) else parts[i] for i in range(0, len(parts), 2)]
+    return parts[0]
+
+
+@pytest.mark.parametrize("n,cull", [(4096, True), (3600, False)], ids=["k9_pool4096", "k8_3600"])
+def test_scenes_past_the_shared_row_train(dev, n, cull):
+    """Scenes whose gradient row exceeds a block's shared memory (73,735 and
+    64,806 words): K9 on a 4,096-sphere pool and K8 on a 7,199-
+    instruction tape at 64 x 36, against their plain versions in the
+    gradient class, then a training step through make_renderer."""
+    w, h = 64, 36
+    cfg = dataclasses.replace(CFG, relax=1.6, leaf_cull=cull)
+    spec, arrays = rt.compile_scene(_big_pool(rt, n), static=True)
+    fr = cg.make_fused_render_vjp(spec, cfg, w, h, device=dev)
+    assert fr.compact_bwd == cull and (16 * n + spec.n_instr + 7) * 4 > cg.SMEM_PER_BLOCK
+    cam_vec = rt.cam_vec(rt.Camera.looking_at(position=(0.0, 6.0, 30.0), target=(0.0, 0.0, 0.0)), device=dev)
+    sc, cam, bound = fr.prepass.scene_args(arrays, cam_vec)
+    cc, fc = fr.prepass.cull_args(sc, cam)
+    img, t, hit = cp.fine_res(sc, cam, bound, fr.params, *cp.coarse(sc, cam, bound, fr.params, cc), cull=fc)
+    assert float(hit.mean()) > 0.01
+    g = 2.0 * img / img.numel()
+    clamp = fr.layout.grad_denom_clamp
+    if cull:
+        got = cg.compact_bwd(sc, fc, cam, fr.params, clamp, t, hit, g)
+        ref = cg.compact_bwd_plain(sc, fc, cam, fr.params, clamp, t, hit, g, band_rows=16)
+    else:
+        assert fr.layout.long and not fr.layout.row_in_smem
+        got = cg.bwd(sc, cam, fr.params, fr.layout, t, hit, g)
+        ref = cg.bwd_plain(sc, cam, fr.params, fr.layout, t, hit, g, band_rows=8)
+    scale = float(ref[0].abs().max())
+    assert scale > 0
+    torch.testing.assert_close(got[0], ref[0], rtol=0.0, atol=0.01 * scale)
+    torch.testing.assert_close(got[1], ref[1], rtol=0.0, atol=0.01 * scale)
+    torch.testing.assert_close(got[2], ref[2], rtol=0.0, atol=0.02 * float(ref[2].abs().max()))
+    lp = torch.tensor(arrays.leaf_params, device=dev, requires_grad=True)
+    torch.mean(fr(dataclasses.replace(arrays, leaf_params=lp), cam_vec) ** 2).backward()
+    assert bool(torch.isfinite(lp.grad).all()) and float(lp.grad.abs().max()) > 0

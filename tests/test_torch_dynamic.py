@@ -3,12 +3,13 @@
 A dynamic tape (`compile_scene(scene)`, the reference's default) is data:
 the frame's tape rides with its arrays, so a topology edit within the
 tape's bucket is a buffer write and builds no renderer (runtime.py:1-27).
-The port's coarse and fine passes interpret it in their DYN builds
-(csrc/prepass_dyn.cu; here their plain versions, on CPU tensors). They are
-held against the JAX `make_pallas_image_render_aa` on the same dynamic spec
-(Pallas in interpret mode, as tests/test_prepass.py runs it), in
-tests/test_torch_prepass.py's class, and against the port's static frame of
-the same scene.
+The port's coarse, chained pixel and fine passes interpret it in their DYN
+builds (csrc/prepass_dyn.cu, the march-only builds of csrc/fine_march.cu,
+the soft ones of csrc/fine_soft.cu; here their plain versions, on CPU
+tensors). They are held against the JAX `make_pallas_image_render_aa` on
+the same dynamic spec (Pallas in interpret mode, as tests/test_prepass.py
+runs it), in tests/test_torch_prepass.py's class, and against the port's
+static frame of the same scene.
 """
 
 import dataclasses
@@ -20,6 +21,7 @@ import torch
 
 import raymarch_tpu as rm
 import raymarch_tpu_torch as rt
+from raymarch_tpu.ops.pallas_prepass import make_pallas_image_march_fast as march_fast_j
 from raymarch_tpu.ops.pallas_prepass import make_pallas_image_render_aa as render_aa_j
 from raymarch_tpu_torch.ops import cuda_prepass as cp
 
@@ -162,15 +164,57 @@ def test_plain_gated_dynamic_tape_matches_ungated():
 
 
 @pytest.mark.parametrize(
-    "kw,cfg_kw,item",
+    "kw,cfg_kw",
     [
-        (dict(prepass_block=4, prepass_chain=True), {}, "§2 item 6"),
-        (dict(march_only=True), {}, "§2 item 7"),
-        (dict(soft=True, no_prepass=True), {}, "§2 item 8"),
+        (dict(prepass_block=4, prepass_chain=True), {}),
+        (dict(prepass_block=1, march_only=True), {}),
+        (dict(soft=True, no_prepass=True), {}),
     ],
     ids=["chain", "march_only", "soft"],
 )
-def test_dynamic_options_not_ported_raise(kw, cfg_kw, item):
-    spec, _ = rt.compile_scene(SCENES["config2"](rt))
-    with pytest.raises(NotImplementedError, match=item):
-        cp.make_pallas_image_render_aa(spec, dataclasses.replace(_cfg_t(CFG), **cfg_kw), W, H, device="cpu", **kw)
+def test_dynamic_options_not_ported_raise(kw, cfg_kw):
+    """The chained pixel pass (K3's DYN build), K2's DYN march-only build
+    and K2's DYN soft build on the dynamic tape of config 2, against the JAX
+    renderer with the same options on the same dynamic spec (Pallas in
+    interpret mode), whose kernels interpret dynamic specs too: images in
+    tests/test_prepass.py's class; the march's (t, hit) in the prepass
+    class of tests/test_torch_surfaces.py (hits agree but on < 1% of the
+    rays, t within 1e-3 where both hit) and equal, ray for ray, to the
+    plain fine pass's with residuals."""
+    cfg = dataclasses.replace(CFG, **cfg_kw)
+    spec, arrays = rt.compile_scene(SCENES["config2"](rt))
+    spec_j, arrays_j = rm.compile_scene(SCENES["config2"](rm))
+    assert spec.static_tape is None and spec_j.static_tape is None
+    ref = render_aa_j(spec_j, cfg, W, H, interpret=True, bm_coarse=8, bm_fine=8, aa_packed=True,
+                      **{"prepass_block": 1, **kw})(arrays_j, _cv_j(CAM))
+    rp = cp.make_pallas_image_render_aa(spec, _cfg_t(cfg), W, H, device="cpu", **kw)
+    got = rp(arrays, _cv_t(CAM))
+    if not kw.get("march_only"):
+        assert got.shape == (H, W, 3) and bool(torch.isfinite(got).all())
+        _assert_images_close(got.numpy(), np.asarray(ref))
+        return
+    _assert_march_close(got, ref)
+    sc, cam, bound = rp.scene_args(arrays, _cv_t(CAM))
+    _, t_r, h_r = cp.fine_res_plain(sc, cam, bound, rp.params, *rp.prepass(sc, cam, bound, None, plain=True))
+    assert torch.equal(got[0], t_r.reshape(-1)) and torch.equal(got[1], h_r.reshape(-1))
+
+
+def _assert_march_close(got, ref):
+    t, h = (v.numpy() for v in got)
+    t_j, h_j = (np.asarray(v) for v in ref)
+    assert t.shape == t_j.shape == (W * H * CFG.aa_samples ** 2,)
+    assert np.mean(h != h_j) < 0.01 and 0 < h.mean() < 1
+    both = (h > 0.5) & (h_j > 0.5)
+    assert np.abs(t[both] - t_j[both]).max() < 1e-3
+
+
+def test_dynamic_march_fast_matches_jax():
+    """`make_pallas_image_march_fast` (the reference's defaults: B = 4) on
+    the dynamic tape of config 2 at relax 1.6, against the JAX one."""
+    cfg = dataclasses.replace(CFG, relax=1.6)
+    spec, arrays = rt.compile_scene(SCENES["config2"](rt))
+    spec_j, arrays_j = rm.compile_scene(SCENES["config2"](rm))
+    ref = march_fast_j(spec_j, cfg, W, H, interpret=True, bm_coarse=8, bm_fine=8)(arrays_j, _cv_j(CAM))
+    rp = cp.make_pallas_image_march_fast(spec, _cfg_t(cfg), W, H, device="cpu")
+    assert rp.params.block == 4 and rp.spec.static_tape is None
+    _assert_march_close(rp(arrays, _cv_t(CAM)), ref)

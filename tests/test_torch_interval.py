@@ -8,6 +8,7 @@ and tests/test_torch_cuda.py).
 """
 
 import dataclasses
+import functools
 
 import numpy as np
 import pytest
@@ -49,7 +50,7 @@ def _render_j(spec_j, cfg, w=W, h=H, **kw):
     return render_aa_j(spec_j, cfg, w, h, interpret=True, bm_coarse=8, aa_packed=True, **kw)
 
 
-@pytest.mark.parametrize("ni", [1, 2, 3])
+@pytest.mark.parametrize("ni", [1, 2, 3, 5, 6])
 def test_interval_planes_match_jax(compiled, ni):
     (spec_j, arrays_j), (spec, arrays) = compiled
     ref = [_unflat(v) for v in _render_j(spec_j, CFG, prepass_block=1, n_intervals=ni).coarse(
@@ -197,19 +198,60 @@ def test_bands_stack_to_the_full_frame(compiled, cull):
         (dict(prepass_chain=True, n_intervals=2), ValueError),
         (dict(no_prepass=True, n_intervals=1), ValueError),
         (dict(no_prepass=True, prepass_chain=True), ValueError),
-        (dict(n_intervals=cp.MAX_NI + 1), NotImplementedError),
+        # More intervals than the register builds keep: it renders (None).
+        (dict(n_intervals=6), None),
         (dict(band_rows=0), ValueError),
     ],
     ids=["chain_intervals", "no_prepass_intervals", "no_prepass_chain", "above_max_ni", "band_rows_0"],
 )
 def test_option_errors(compiled, kw, exc):
     (spec_j, _), (spec, _) = compiled
+    if exc is None:
+        _assert_layers_match_jax(kw["n_intervals"], CFG)
+        return
     with pytest.raises(exc):
         cp.make_pallas_image_render_aa(spec, _cfg_t(CFG), W, H, device="cpu", **kw)
     if exc is ValueError and "band_rows" not in kw:
         # The reference raises the same error for the same options.
         with pytest.raises(ValueError):
             render_aa_j(spec_j, CFG, W, H, interpret=True, aa_packed=True, **kw)
+
+
+CAM_AXIS = rm.Camera.looking_at(position=(0.0, 0.0, 8.0), target=(0.0, 0.0, 0.0))
+
+
+def _layers(m, n=7):
+    """n thin tori on the view axis of CAM_AXIS, their axes along it: a
+    block's centre ray threads them all, and its cone comes near each one
+    (up to 7 near intervals per block at B = 4)."""
+    return functools.reduce(lambda a, b: a | b, [
+        m.torus(center=(0.0, 0.0, 4.0 - 1.5 * k), major_radius=0.3, minor_radius=0.1,
+                rotation=(0.7071068, 0.7071068, 0.0, 0.0)) for k in range(n)])
+
+
+def _assert_layers_match_jax(ni, cfg):
+    """The frame at B = 4 through ni > MAX_NI near intervals (the builds
+    that read the interval planes in place on the card) against the JAX one
+    on the layered scene, in tests/test_prepass.py's class; some block must
+    keep more than MAX_NI intervals (test_interval_planes_match_jax holds
+    the planes of ni = 5 and 6 against the JAX ones at B = 1)."""
+    spec_j, arrays_j = rm.compile_scene(_layers(rm), static=True)
+    spec, arrays = rt.compile_scene(_layers(rt), static=True)
+    rnd = _render_j(spec_j, cfg, prepass_block=4, n_intervals=ni)
+    rp = cp.make_pallas_image_render_aa(spec, _cfg_t(cfg), W, H, device="cpu", prepass_block=4, n_intervals=ni)
+    planes = [v.numpy() for v in rp.coarse(arrays, _cv_t(CAM_AXIS))]
+    assert len(planes) == 2 * ni and all(np.isfinite(v).all() for v in planes)
+    n_open = sum((v < 9e37).astype(np.int32) for v in planes[:ni])
+    assert n_open.max() > cp.MAX_NI
+    img = rp(arrays, _cv_t(CAM_AXIS))
+    assert img.shape == (H, W, 3) and bool(torch.isfinite(img).all())
+    _assert_images_close(img.numpy(), np.asarray(rnd(arrays_j, _cv_j(CAM_AXIS))))
+
+
+@pytest.mark.parametrize("relax", [1.0, 1.6])
+def test_wide_interval_frames_match_jax(relax):
+    """n_intervals = 5 on the layered scene, plain and relaxed."""
+    _assert_layers_match_jax(5, dataclasses.replace(CFG, relax=relax))
 
 
 def test_prepass_options_key_the_cache(compiled):

@@ -14,7 +14,7 @@ the f64 analytic oracle (`oracle_grad.pixel_grads`, rtol 3e-2 with atol
   smooth/ordered segments"): the albedo's cotangent also reaches the blend
   weights, the geometry and the blend radius;
 - a plan with residual subtrees whose tape has 67 instructions (33 spheres
-  intersected with a box; the long build of K8 on the card). The JAX
+  intersected with a box; the warp-row build of K8 on the card). The JAX
   backward of this tape in interpret mode takes minutes, so this case is
   held against the oracle alone;
 - BASELINE config 2 with `prepass_block=4` (image and gradients).
@@ -209,7 +209,7 @@ def test_grads_match_oracle(name):
 def test_backward_info_is_the_references(name):
     """Every case takes the legacy backward with the reference's kind and
     reason, through make_fused_render_vjp and make_renderer alike; the long
-    tape takes K8's long build."""
+    tape takes K8's warp-row build."""
     build, cfg, kw, _, reason = _case(name)
     spec_j, arrays_j = rm.compile_scene(build(rm), static=True)
     ref = fused_vjp_j(spec_j, cfg, W, H, interpret=True, bm=8, **kw).backward_info
@@ -231,22 +231,92 @@ def test_backward_info_is_the_references(name):
 
 
 def test_long_build_limits():
-    """The long build's record and gradient-row sizes: 2 floats per
-    instruction (5 with materials) per thread, nscal words per block; the
-    64 spheres of bench.py intersected with a box need 129 instructions and
-    1,176 words, past both limits of the per-thread build."""
+    """The warp-row build's record and gradient-row sizes: per thread the
+    2-bit codes of every instruction in 4 tap sets (5 painted) and one float
+    per smooth op in each tap set (4 more in the colour set), per block
+    nscal words; the 64 spheres of bench.py intersected with a box need 129
+    instructions and 1,176 words, past both limits of the per-thread
+    build."""
     spec, _ = rt.compile_scene(_long_tape(rt), static=True)
     lay = cg.GradLayout.of(spec, rt.DEFAULT_CONFIG)
-    assert lay.long and lay.hist_len(False) == 2 * 67 and lay.hist_len(True) == 5 * 67
+    ns = sum(c in cg.SMOOTH_OPS for c, _, _ in spec.static_tape)
+    assert lay.long and lay.n_smooth == ns
+    assert lay.rec_words(False) == 4 * 5 + 4 * ns and lay.rec_words(True) == 5 * 5 + 8 * ns
     rng = np.random.default_rng(7)
     parts = [rt.sphere(center=tuple(rng.uniform(-3, 3, 3)), radius=0.3) for _ in range(64)]
     scene = functools.reduce(lambda a, b: a | b, parts) & rt.box(half_extents=(3.2, 1.2, 3.2))
     lay64 = cg.GradLayout.of(rt.compile_scene(scene, static=True)[0], rt.DEFAULT_CONFIG)
     assert (lay64.n_real, lay64.nscal) == (129, 1176)
     assert lay64.long and lay64.nscal * (cg.BWD_THREADS + 1) * 4 > cg.SMEM_PER_BLOCK
-    assert lay64.nscal * 4 <= cg.SMEM_PER_BLOCK
+    assert lay64.row_in_smem and lay64.rec_in_smem(False) and lay64.rec_words(False) == 4 * 9
     small = cg.GradLayout.of(rt.compile_scene(SCENES["config2"](rt), static=True)[0], rt.DEFAULT_CONFIG)
     assert not small.long
+
+
+def _spheres(n, k=None, painted=False, seed=3):
+    """n random spheres: a chain of smooth unions of blend radius k, or a
+    balanced tree of hard unions."""
+    rng = np.random.default_rng(seed)
+    parts = [rt.sphere(center=tuple(rng.uniform(-3, 3, 3)), radius=float(rng.uniform(0.2, 0.4)),
+                       material=tuple(rng.uniform(0.1, 0.9, 3)) if painted else None) for _ in range(n)]
+    if k is not None:
+        return rt.compile_scene(functools.reduce(lambda a, b: a.union(b, k=k), parts), static=True)[0]
+    while len(parts) > 1:  # a balanced hard union: any n, no deep recursion
+        parts = [parts[i] | parts[i + 1] if i + 1 < len(parts) else parts[i] for i in range(0, len(parts), 2)]
+    return rt.compile_scene(parts[0], static=True)[0]
+
+
+@pytest.mark.parametrize(
+    "n,k,painted,route",
+    [
+        (4, None, False, ("thread", True, True)),
+        (4, 0.2, True, ("thread", True, True)),
+        # 8 leaves: 150 words, per-thread rows of 39 KB, past THREAD_ROWS_SMEM.
+        (8, None, False, ("warp", True, True)),
+        (40, None, True, ("warp", True, True)),
+        # 79 instructions, 39 smooth ops: 176 words a thread, 90 KB a block.
+        (40, 0.2, False, ("warp", False, True)),
+        # 1,100 leaves, 2,199 instructions: 552 words of codes a thread,
+        # past REC_SMEM; a row of 19,806 words, 79 KB, past ROW_SMEM.
+        (1100, None, False, ("warp", False, False)),
+    ],
+    ids=["small", "small_painted_smooth", "rows", "long", "long_smooth", "huge"],
+)
+def test_grad_layout_routes(n, k, painted, route):
+    """GradLayout's routes as the tape and its records grow: the per-thread
+    build up to MAX_BWD_INSTR instructions and rows of THREAD_ROWS_SMEM
+    bytes a block; the records in shared memory up to REC_SMEM bytes; the
+    warp-row build's row in shared memory up to ROW_SMEM bytes, else in the
+    output in device memory. No scene is refused."""
+    spec = _spheres(n, k, painted)
+    lay = cg.GradLayout.of(spec, rt.DEFAULT_CONFIG)
+    mats = spec.has_materials
+    got = ("warp" if lay.long else "thread", lay.rec_in_smem(mats), lay.row_in_smem)
+    assert got == route
+    assert lay.rec_in_smem(mats) == (lay.rec_words(mats) * 4 * lay.threads <= cg.REC_SMEM)
+    assert lay.row_in_smem == (not lay.long or lay.nscal * 4 <= cg.ROW_SMEM)
+    assert lay.n_smooth == (0 if k is None else n - 1)
+    # The packed tape: op | slot << 8, row, row kind, gradient slot.
+    assert len(lay.packed) == lay.n_real
+    for (op, row, _), (word, prow, _, slot) in zip(spec.static_tape, lay.packed):
+        assert word & 255 == op and (prow == row if op == 1 else slot == 0)
+
+
+@pytest.mark.parametrize(
+    "n,k,route",
+    [(64, None, (True, True, True)), (1100, None, (False, True, True)),
+     (64, 0.15, (True, True, True)), (80, 0.15, (True, False, True))],
+    ids=["pool64", "pool1100", "chain64", "chain80"],
+)
+def test_compact_routes(n, k, route):
+    """The compact backward's routes: its row past ROW_SMEM goes to device
+    memory (a pool of 1,100 leaves), its fold history past REC_SMEM a block
+    (an 80-item ordered chain: 80 floats a thread) too; 64 items fit."""
+    spec = _spheres(n, k)
+    assert cg.plan_kind(spec) == ("pool" if k is None else "seg1")
+    ro = cg.CompactRoutes.of(spec)
+    assert (ro.row_smem, ro.hist_smem, ro.stage) == route
+    assert ro.hist_len == (0 if k is None else n)
 
 
 @pytest.mark.parametrize("entry", ["make_renderer", "make_fused_render_vjp", "make_fit_step"])

@@ -143,7 +143,9 @@ def test_prepass_backend_is_forward_only(frame):
         # The unpacked fine pass K4 is ported (tests/test_torch_unpacked.py):
         # aa_packed=False and aa_shared_normals render (None below).
         (dict(aa_packed=False), {}, None),
-        (dict(n_intervals=cp.MAX_NI + 1), dict(relax=1.6), NotImplementedError),
+        # Any n_intervals renders (tests/test_torch_interval.py): five at
+        # relax 1.6 against the JAX frame ("jax" below).
+        (dict(n_intervals=cp.MAX_NI + 1), dict(relax=1.6), "jax"),
         # leaf_cull and soft culling are ported (tests/test_torch_cull.py,
         # tests/test_torch_soft.py); soft with relax > 1 raises the
         # reference's ValueError.
@@ -155,6 +157,17 @@ def test_prepass_backend_is_forward_only(frame):
 )
 def test_unported_options_raise(frame, kw, cfg_kw, exc):
     cfg = dataclasses.replace(CFG, **cfg_kw)
+    if exc == "jax":
+        from raymarch_tpu.ops.pallas_prepass import make_pallas_image_render_aa as render_aa_j
+
+        spec_j, arrays_j = rm.compile_scene(SCENES["config2"](rm), static=True)
+        cv = np.asarray(rt.cam_vec(frame[3], device="cpu"))
+        ref = render_aa_j(spec_j, dataclasses.replace(CFG_J, **cfg_kw), W, H, interpret=True, bm_coarse=8,
+                          aa_packed=True, prepass_block=1, **kw)(arrays_j, cv)
+        img = cp.make_pallas_image_render_aa(frame[0], cfg, W, H, device="cpu", **kw)(
+            frame[1], rt.cam_vec(frame[3], device="cpu"))
+        _assert_gate_class(img.numpy(), np.asarray(ref))
+        return
     if exc is None:  # ported: the call renders, through K4
         rp = cp.make_pallas_image_render_aa(frame[0], cfg, W, H, device="cpu", **kw)
         assert rp.params.unpacked and rp.params.shared_normals == cfg.aa_shared_normals
