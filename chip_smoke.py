@@ -388,6 +388,16 @@ def scene_cost(spec):
     return len(pushed), sum(rows[a] for a in pushed) / max(len(pushed), 1), comb
 
 
+def stack_of(sc) -> str:
+    """K1/K2's value-stack route for the scene buffers `sc` (csrc/scene_eval.cuh,
+    cuda_march.stack_route) and its stack depth; the packed words and leaf
+    rows are read through L1 (no staging in shared memory)."""
+    from raymarch_tpu_torch.ops import cuda_march as cm
+
+    return (f"{cm.route_name(cm.stack_route(sc.spec))}, stack depth {sc.spec.stack_depth}; words and leaf rows "
+            "through L1, unstaged")
+
+
 def roofline(flops, nbytes):
     """(bound_ms, bound_by): the larger of the operations over the f32 peak
     and the bytes over the HBM rate."""
@@ -811,6 +821,7 @@ def many_leaf(rt, cp, cg, dev, smi, cfg, gcam_pos):
     cull_ms = cuda_ms(lambda: rp64.cull_args(sc, cam), KERNEL_REPS)
     log(f"64-leaf kernels alone: coarse {coarse_ms:.4f} ms, fine with residuals {fine_res_ms:.4f} ms, "
         f"compact_bwd {cbwd_ms:.4f} ms; per-frame masks and lists (torch ops) {cull_ms:.4f} ms ({smi})")
+    log(f"  K1/K2 stack route of these times: {stack_of(sc)}")
     n_cull, n_ksum = cull_ops(rp64, sc, cam)
     log(f"64-leaf masks and lists: {n_cull} device operations per frame (torch.profiler), of which the "
         f"pairwise path loop (_pairwise_path_ksum, path depth {culling_depth(spec64)}) {n_ksum}")
@@ -920,7 +931,7 @@ def many_leaf(rt, cp, cg, dev, smi, cfg, gcam_pos):
              max_abs_err=coarse_err, ms=coarse_ms, plain_ms=coarse_plain_ms, bound_ms=coarse_bound[0],
              bound_by=coarse_bound[1], library_ms=None),
         dict(name="fine_kernel (culled, relax, residuals)", route="cuda",
-             source="raymarch_tpu_torch/csrc/prepass.cu", replaces="raymarch_tpu/ops/pallas_prepass.py:1521",
+             source="raymarch_tpu_torch/csrc/fine_culled.cu", replaces="raymarch_tpu/ops/pallas_prepass.py:1521",
              launches=launches["fine_kernel_residuals"], max_abs_err=fine_err, ms=fine_res_ms,
              plain_ms=fine_res_plain_ms, bound_ms=fine_bound[0], bound_by=fine_bound[1], library_ms=None),
         dict(name="compact_bwd_kernel", route="cuda", source="raymarch_tpu_torch/csrc/compact_bwd.cu",
@@ -1122,6 +1133,7 @@ def blends(rt, cp, cg, dev, smi, cfg, gcam_pos):
             f"{float(fc.counts.sum(1).float().mean()):.4f} active items per fine tile (max "
             f"{int(fc.counts.sum(1).max())}); hit fraction {float(hit_k.mean()):.4f}; history "
             f"{cg.history_layout(spec_s)[1]} items ({smi})")
+        log(f"  K1/K2 stack route of these times: {stack_of(sc)}")
 
         # K9 against its plain version at full size, and its bound.
         got = cg.compact_bwd(sc, fc, cam, p, clamp, t_k, hit_k, g_img)
@@ -1167,7 +1179,7 @@ def blends(rt, cp, cg, dev, smi, cfg, gcam_pos):
                 f"{f_ms:.4f} ms ({f_by})")
             records.append(dict(
                 name="fine_kernel (materials, culled, relax, residuals)", route="cuda",
-                source="raymarch_tpu_torch/csrc/prepass.cu", replaces="raymarch_tpu/ops/pallas_prepass.py:1521",
+                source="raymarch_tpu_torch/csrc/fine_culled.cu", replaces="raymarch_tpu/ops/pallas_prepass.py:1521",
                 launches=launches["fine_kernel_residuals"], max_abs_err=fine_err, ms=fine_ms,
                 plain_ms=fine_plain_ms, bound_ms=f_ms, bound_by=f_by, library_ms=None))
         steps[name] = dict(step_ms=step_ms, idle=idle, cull_ms=cull_ms, n_cull=n_cull, cbwd_ms=cbwd_ms)
@@ -1402,7 +1414,9 @@ def legacy(rt, cp, cg, dev, smi, cfg):
         g_img = 2.0 * img_r / img_r.numel()  # the cotangent of mean(img^2)
         k8_ms = cuda_ms(lambda: cg.bwd(sc, cam, p, lay, t_k, hit_k, g_img), KERNEL_REPS)
         got = cg.bwd(sc, cam, p, lay, t_k, hit_k, g_img)
-        band = 16 if lay.long else cg.PLAIN_BAND_ROWS
+        # Warp-row paths replay long tapes: bands of 32 rows hold twice the
+        # 3.7-13.5 GiB that 16-row bands peaked at on the H100.
+        band = 32 if lay.long else cg.PLAIN_BAND_ROWS
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         e0.record()
@@ -1445,6 +1459,7 @@ def legacy(rt, cp, cg, dev, smi, cfg):
                                   n_px * 12 + n_rays * 8 + p.brows * p.bcols * 8)
             log(f"(d) fine kernel with residuals on block planes: {fine_ms:.4f} ms alone, plain "
                 f"{fine_plain_ms:.2f} ms, bound {f_ms:.4f} ms ({f_by}) ({smi})")
+            log(f"  K1/K2 stack route of these times: {stack_of(sc)}")
             records.append(dict(
                 name="fine_kernel (residuals, B = 4 block planes)", route="cuda",
                 source="raymarch_tpu_torch/csrc/prepass.cu", replaces="raymarch_tpu/ops/pallas_prepass.py:1521",
@@ -1523,6 +1538,7 @@ def legacy(rt, cp, cg, dev, smi, cfg):
                             WIDTH * HEIGHT * 20)
     log(f"fine kernel at aa = 8: {fine8_ms:.4f} ms alone, plain {fine8_plain_ms:.2f} ms, bound {f8_ms:.4f} ms "
         f"({f8_by}) ({smi})")
+    log(f"  K1/K2 stack route of these times: {stack_of(sc)}")
     records.append(dict(
         name="fine_kernel (aa_samples = 8: a pixel over two warps)", route="cuda",
         source="raymarch_tpu_torch/csrc/prepass.cu", replaces="raymarch_tpu/ops/pallas_prepass.py:1521",
@@ -1685,6 +1701,7 @@ def forward_rows(rt, cp, dev, smi, cfg, gcam_pos):
             f"{cull_ms:.4f} ms{'' if not band else ' per band'}; mean active items per fine tile "
             f"{'-' if active is None else f'{active:.4f}'}; kernels alone{' (one band)' if band else ''}: "
             f"coarse {coarse_ms:.4f} ms, fine {fine_ms:.4f} ms ({smi})")
+        log(f"  K1/K2 stack route of these times: {stack_of(sc)}")
 
         # The kernels against their plain versions on the row's own inputs
         # (the 4K row's middle band), or on one 64-row band: the coarse pass
@@ -1741,7 +1758,8 @@ def forward_rows(rt, cp, dev, smi, cfg, gcam_pos):
             if where_f == own:
                 records.append(dict(
                     name=f"fine_kernel ({how}, relax: {row})", route="cuda",
-                    source="raymarch_tpu_torch/csrc/prepass.cu", replaces="raymarch_tpu/ops/pallas_prepass.py:1521",
+                    source=f"raymarch_tpu_torch/csrc/{'prepass' if fc_p is None else 'fine_culled'}.cu",
+                    replaces="raymarch_tpu/ops/pallas_prepass.py:1521",
                     launches=launches["fine_kernel_intervals"], max_abs_err=f_err, ms=fine_ms, plain_ms=f_plain_ms,
                     bound_ms=f_bound[0], bound_by=f_bound[1], library_ms=None))
         del pre, pre_k, img, rp
@@ -1771,7 +1789,7 @@ def forward_rows(rt, cp, dev, smi, cfg, gcam_pos):
         f"{blk_ms:.4f} ms), coarse_px_plain {k3_plain_ms:.2f} ms, bound {k3_bound[0]:.4f} ms ({k3_bound[1]}; "
         f"{float(work.points):.6e} points) ({smi})")
     records.append(dict(
-        name="coarse_px_kernel (K3: config 2, B=4)", route="cuda", source="raymarch_tpu_torch/csrc/prepass.cu",
+        name="coarse_px_kernel (K3: config 2, B=4)", route="cuda", source="raymarch_tpu_torch/csrc/coarse_px.cu",
         replaces="raymarch_tpu/ops/pallas_prepass.py:969", launches=launches["coarse_px_kernel"],
         max_abs_err=k3_err, ms=k3_ms, plain_ms=k3_plain_ms, bound_ms=k3_bound[0], bound_by=k3_bound[1],
         library_ms=None))
@@ -2096,10 +2114,11 @@ def soft(rt, cp, cg, dev, smi, cfg):
             f"{n_env:.0f} envelope of {n_rays}; cull_args {cull_ms:.4f} ms, mean active items per fine tile "
             f"{'-' if active is None else f'{active:.4f}'}; device idle share "
             f"{'not measured' if idle is None else f'{idle:.4f} ({busy:.4f} ms busy a step)'} ({smi})")
+        log(f"  K1/K2 stack route of these times: {stack_of(sc)}")
         how = "un-culled" if fc is None else "culled lists"
         records.append(dict(
             name=f"fine_kernel (soft, {how}, residuals t, hit, s_min, t_min: {row})", route="cuda",
-            source="raymarch_tpu_torch/csrc/prepass.cu", replaces="raymarch_tpu/ops/pallas_prepass.py:1521",
+            source="raymarch_tpu_torch/csrc/fine_soft.cu", replaces="raymarch_tpu/ops/pallas_prepass.py:1521",
             launches=launches["fine_kernel_soft_residuals"], max_abs_err=k2_err, ms=k2_ms, plain_ms=k2_plain_ms,
             bound_ms=k2_bound[0], bound_by=k2_bound[1], library_ms=None))
         records.append(dict(
@@ -2321,6 +2340,7 @@ def surfaces(rt, cp, dev, smi, cfg, gcam_pos):
         f"{launches_f}, coarse interval scan {coarse_launches}; hit rate {float(h_f.mean()):.4f}; march-only "
         f"build alone {fm_ms:.4f} ms, bound {bnd_f[0]:.4f} ms ({bnd_f[1]}), plain (fine_res_plain) {p_ms:.2f} ms "
         f"({smi})")
+    log(f"  K1/K2 stack route of these times: {stack_of(sc)}")
     out["march_only_fast"] = dict(ms=ms_f, kernel_ms=fm_ms, launches=launches_f, coarse=coarse_launches)
     record("fine_kernel (march only)", "raymarch_tpu_torch/csrc/fine_march.cu",
            "raymarch_tpu/ops/pallas_prepass.py:1827", launches_f, err_f, fm_ms, p_ms, bnd_f)
@@ -2459,18 +2479,18 @@ def live(rt, cp, cg, dev, smi, cfg, gcam_pos):
                             library_ms=None))
 
     # -- 15a. gates at 256x144 ------------------------------------------------
-    # The coarse planes of the 16 spheres take coarse_agreement's full-size
-    # class: on one of their 8,920 near pixels the centre ray's slack lands
-    # within rounding of min_dist, and the kernel (FMA contraction) and the
-    # plain version stop it one ~min_dist step apart.
+    # Every gate in the exact class (rel <= 1e-4 everywhere): the DYN builds
+    # round each operation as the plain versions do (no FMA contraction),
+    # so a centre ray whose slack lands within rounding of min_dist stops
+    # where the plain version's does.
     gates = (
         ("config2", scene_config2, cfg, True),
         ("config2 gated", scene_config2, gated, True),
         ("config2 relax 1.6", scene_config2, dataclasses.replace(cfg, relax=1.6), True),
         ("empty", lambda m: None, cfg, True),
         ("rich gated relax 1.6", scene_rich, dataclasses.replace(cfg, leaf_cull=True, relax=1.6), True),
-        ("16 painted spheres", lambda m: scene_painted(m, 16), cfg, False),
-        ("16 painted spheres gated", lambda m: scene_painted(m, 16), gated, False),
+        ("16 painted spheres", lambda m: scene_painted(m, 16), cfg, True),
+        ("16 painted spheres gated", lambda m: scene_painted(m, 16), gated, True),
     )
     for name, build, cfg_g, strict in gates:
         spec_d, arrays_d = rt.compile_scene(build(rt))
@@ -2591,6 +2611,7 @@ def live(rt, cp, cg, dev, smi, cfg, gcam_pos):
         f"{k_ms['fine DYN']:.4f} ms (static {k_ms['fine static']:.4f}); bounds coarse {c_bound[0]:.4f} ms "
         f"({c_bound[1]}), fine {f_bound[0]:.4f} ms ({f_bound[1]}); plain coarse {c_plain_ms:.2f} ms, fine "
         f"{f_plain_ms:.2f} ms ({smi})")
+    log(f"  K1/K2 stack route of these times: {stack_of(sc)}")
     record("coarse_kernel (DYN)", "raymarch_tpu_torch/csrc/prepass_dyn.cu", "raymarch_tpu/ops/pallas_prepass.py:885",
            dyn_launches["coarse_kernel (DYN)"], c_err, k_ms["coarse DYN"], c_plain_ms, c_bound)
     record("fine_kernel (DYN)", "raymarch_tpu_torch/csrc/prepass_dyn.cu", "raymarch_tpu/ops/pallas_prepass.py:1521",
@@ -2778,10 +2799,34 @@ def live(rt, cp, cg, dev, smi, cfg, gcam_pos):
 CAM_AXIS_POS = (0.0, 0.0, 8.0)  # looks down the axis of scene_tori
 BIG_POOL = 4096  # K9's largest gate: a gradient row of 16 x 4,096 + 8,198 words
 BIG_TAPE = 3600  # K8's: 7,199 instructions, 61,206 words
-# The gate frames of those two: their plain versions take ~160 s for the pool
-# and ~280 s for the tape at 256x144 and 128x72 on an H100, ~80 and ~140 s here.
+# The gate frames of those two. Their plain versions' time grows with the
+# number of row bands far more than with the rays in a band (each band
+# replays the whole tape through autograd): at 96x54 in bands of 16 rows and
+# 64x36 in bands of 4 they took 80-101 and 140-192 s on an H100's host. So
+# the gates run bands of 32 and 8 rows: half the bands, and no more rays in
+# a band than 256x144 and 128x72 frames held in bands of 16 and 4.
 BIG_GATE_POOL = (96, 54)
 BIG_GATE_TAPE = (64, 36)
+
+
+def big_gate_cover(cg, spec, cull, fc, lay, hit, dev) -> str:
+    """What a gate of a gradient row in device memory covers: the blocks
+    that add into the row (as many as the card keeps resident, at most one
+    per `threads` AA rays) and the work they share (K9: the fine tiles, which
+    its blocks pull one at a time; K8: the AA rays), and the hit rays."""
+    import torch
+
+    rows, width, _ = hit.shape
+    n_rays, n_hit = hit.numel(), int(hit.sum())
+    if cull:
+        max_blocks, threads = cg.compact_layout(spec, dev)[1], cg.CBWD_THREADS
+        tid = fc.tile_index(torch.arange(rows, device=dev)[:, None], torch.arange(width, device=dev)[None, :])
+        work = (f"pull {int(torch.unique(tid).numel())} fine tiles, "
+                f"{int(torch.unique(tid[hit.amax(-1) > 0]).numel())} of them with a hit ray")
+    else:
+        max_blocks, threads = cg._device_consts(lay, spec.has_materials, dev)[1], lay.threads
+        work = f"over {n_rays} AA rays"
+    return f"{min(max_blocks, -(-n_rays // threads))} blocks of {threads} threads {work}; {n_hit} hit rays"
 
 
 def scene_tori(m, n=7):
@@ -2841,13 +2886,12 @@ def repairs(rt, cp, cg, dev, smi, cfg):
             f"equal bit for bit {same} {'PASS' if same else 'FAIL'}")
         if not same:
             raise AssertionError("the DYN march-only build's (t, hit) differ from the DYN fine kernel's")
-        # The plain version in the class the DYN fine kernel's residuals are
-        # held to: its builds contract FMAs, so a relaxed ray can end one
-        # step apart (the static march-only gate of phase 14 happens to be
-        # exact; this one is not).
+        # The plain version in the exact class: the DYN builds round each
+        # operation as it does (no FMA contraction), so no relaxed ray ends
+        # a step apart.
         _, t_p, h_p = cp.fine_res_plain(sc, cam, bnd, mo.params, *pre)
         residual_agreement(f"gate DYN K2 march-only vs fine_res_plain's (t, hit), {kw}, relax {cfg_m.relax}", got,
-                           (t_p.reshape(-1), h_p.reshape(-1)), strict=False)
+                           (t_p.reshape(-1), h_p.reshape(-1)), strict=True)
     for cfg_s, how in ((cfg, "un-culled"), (dataclasses.replace(cfg, leaf_cull=True), "gated")):
         rs = cp.make_pallas_image_render_aa(spec_d, cfg_s, GATE_W, GATE_H, device=dev, no_prepass=True, soft=True)
         sc, cam, bnd = rs.scene_args(arrays_d, scv)
@@ -2889,8 +2933,8 @@ def repairs(rt, cp, cg, dev, smi, cfg):
     # make_renderer (launch counts), the kernel alone, against its plain
     # version, and its bound.
     big = (
-        ("compact_bwd_kernel", f"{BIG_POOL}-sphere pool", BIG_POOL, True, BIG_GATE_POOL, 16),
-        ("fused_bwd_kernel", f"{BIG_TAPE}-leaf tape", BIG_TAPE, False, BIG_GATE_TAPE, 4),
+        ("compact_bwd_kernel", f"{BIG_POOL}-sphere pool", BIG_POOL, True, BIG_GATE_POOL, 32),
+        ("fused_bwd_kernel", f"{BIG_TAPE}-leaf tape", BIG_TAPE, False, BIG_GATE_TAPE, 8),
     )
     for kname, what, n, cull, (gw, gh), band in big:
         cfg_b = dataclasses.replace(cfg, relax=1.6, leaf_cull=cull)
@@ -2930,6 +2974,8 @@ def repairs(rt, cp, cg, dev, smi, cfg):
         ref, p_ms = plain_ms(plain)
         err = grad_class(f"gate {kname} on the {what} ({nscal} gradient words; {where}) vs its plain version at "
                          f"{gw}x{gh}", fn(), ref)
+        log(f"  {kname} gate on the {what} covers: "
+            f"{big_gate_cover(cg, spec_b, cull, fc, fr.layout, hit, dev)}")
         n_rays = gw * gh * cfg.aa_samples ** 2
         bound = (k9_bound(sc, fc, p, cam, t, hit, n_rays) if cull
                  else k8_bound(sc, p, cam, t, hit, fr.layout, n_rays))
@@ -2978,7 +3024,7 @@ def repairs(rt, cp, cg, dev, smi, cfg):
         f"({k3_bound[1]}) ({smi})")
     records.append(dict(
         name="coarse_px_kernel (K3 DYN: config 2 dynamic, B=4)", route="cuda",
-        source="raymarch_tpu_torch/csrc/prepass_dyn.cu", replaces="raymarch_tpu/ops/pallas_prepass.py:969",
+        source="raymarch_tpu_torch/csrc/coarse_px.cu", replaces="raymarch_tpu/ops/pallas_prepass.py:969",
         launches=launches["coarse_px_kernel (DYN)"], max_abs_err=k3_err, ms=k3_ms, plain_ms=k3_plain_ms,
         bound_ms=k3_bound[0], bound_by=k3_bound[1], library_ms=None))
     out["chain_dynamic"] = dict(ms=ms, k3_ms=k3_ms, launches=launches)
@@ -2994,7 +3040,7 @@ def repairs(rt, cp, cg, dev, smi, cfg):
     (_, t_p, h_p), p_ms = plain_ms(lambda: cp.fine_res_plain(sc, cam, bnd, mo.params, *pre, work=work))
     t_k, h_k = cp.fine_march(sc, cam, bnd, mo.params, *pre)
     mo_err = residual_agreement("full-size DYN march-only build vs fine_res_plain's (t, hit)", (t_k, h_k),
-                                (t_p.reshape(-1), h_p.reshape(-1)), strict=False)
+                                (t_p.reshape(-1), h_p.reshape(-1)), strict=True)
     n_push = scene_cost(spec_cost)[0]
     march_work = cp.WorkCount(points=float(work.points) - 4 * float(work.hits),
                               leaf_evals=float(work.leaf_evals) - 4 * float(work.hits) * n_push)
@@ -3004,9 +3050,10 @@ def repairs(rt, cp, cg, dev, smi, cfg):
     log(f"march_only_fast on the dynamic tape: {ms:.4f} ms/frame, {n_rays / (ms * 1e-3) / 1e9:.4f} Grays/s, launches "
         f"{launches}; DYN march-only build alone {fm_ms:.4f} ms, plain {p_ms:.2f} ms, bound {mo_bound[0]:.4f} ms "
         f"({mo_bound[1]}) ({smi})")
+    log(f"  K1/K2 stack route of these times: {stack_of(sc)}")
     records.append(dict(
         name="fine_kernel (march only, DYN: march_only_fast on the dynamic tape)", route="cuda",
-        source="raymarch_tpu_torch/csrc/fine_march.cu", replaces="raymarch_tpu/ops/pallas_prepass.py:1827",
+        source="raymarch_tpu_torch/csrc/fine_march_dyn.cu", replaces="raymarch_tpu/ops/pallas_prepass.py:1827",
         launches=launches["fine_kernel (march only, DYN)"], max_abs_err=mo_err, ms=fm_ms, plain_ms=p_ms,
         bound_ms=mo_bound[0], bound_by=mo_bound[1], library_ms=None))
     out["march_fast_dynamic"] = dict(ms=ms, kernel_ms=fm_ms, launches=launches)
@@ -3025,6 +3072,7 @@ def repairs(rt, cp, cg, dev, smi, cfg):
         raise AssertionError(f"the DYN soft build never launched: {launches}")
     log(f"soft frame on the dynamic tape: {ms:.4f} ms/frame, launches {launches}; DYN soft fine kernel alone "
         f"{sf_ms:.4f} ms, plain {p_ms:.2f} ms, bound {sf_bound[0]:.4f} ms ({sf_bound[1]}) ({smi})")
+    log(f"  K1/K2 stack route of these times: {stack_of(sc)}")
     records.append(dict(
         name="fine_kernel (soft, DYN: config 2 dynamic)", route="cuda", source="raymarch_tpu_torch/csrc/fine_soft.cu",
         replaces="raymarch_tpu/ops/pallas_prepass.py:1521", launches=launches["fine_kernel (soft, DYN)"],
@@ -3055,6 +3103,7 @@ def repairs(rt, cp, cg, dev, smi, cfg):
     log(f"n_intervals = 6 frame (tori, B = 4) {WIDTH}x{HEIGHT} x16 AA: {ms:.4f} ms/frame, launches {launches}; coarse "
         f"alone {c_ms:.4f} ms (plain {c_plain_ms:.2f}, bound {c_bound[0]:.4f} {c_bound[1]}), fine alone {f_ms:.4f} ms "
         f"(plain {f_plain_ms:.2f}, bound {f_bound[0]:.4f} {f_bound[1]}) ({smi})")
+    log(f"  K1/K2 stack route of these times: {stack_of(sc)}")
     for name, src, rep, n_l, err, k_ms, pl_ms, bd in (
             ("coarse_kernel (6 intervals in place: tori, B = 4)", "prepass.cu", "885",
              launches["coarse_kernel (intervals in place)"], c_err, c_ms, c_plain_ms, c_bound),
@@ -3105,7 +3154,8 @@ def main() -> int:
     _build.load()
     build_s = time.perf_counter() - t
     log(f"build: {build_s:.2f} s total, nvcc {_build.stats['seconds']:.2f} s, "
-        f"{_build.stats['builds']} compile(s) -> {_build.stats['path']}")
+        f"{_build.stats['builds']} compile(s) -> {_build.stats['path']}; each source's nvcc done at (s): "
+        f"{_build.stats['source_seconds']}")
     for line in _build.stats["ptxas"].splitlines():
         if "registers" in line or "Compiling entry" in line or "spill" in line:
             log(f"  ptxas: {line.strip()}")
@@ -3230,6 +3280,7 @@ def main() -> int:
     log(f"kernels alone: coarse {coarse_ms:.4f} ms, fine {fine_ms:.4f} ms; plain on the card: "
         f"coarse_plain {coarse_plain_ms:.2f} ms, fine_plain {fine_plain_ms:.2f} ms, "
         f"plain frame {plain_frame_ms:.2f} ms vs kernel frame {frame_ms:.4f} ms ({smi})")
+    log(f"  K1/K2 stack route of these times: {stack_of(sc)}")
     image_class("full-size frame: kernel path vs plain path", img, img_plain)
     del img_plain
 
@@ -3335,6 +3386,7 @@ def main() -> int:
         f"(peak {bwd_plain_gib:.2f} GiB) ({smi}); bounds fine with residuals {res_bound[0]:.4f} ms "
         f"({res_bound[1]}), fused_bwd {bwd_bound[0]:.4f} ms ({bwd_bound[1]}, {k8_flops:.6e} operations, "
         f"{k8_reach:.4f} leaves reached per hit point)")
+    log(f"  K1/K2 stack route of these times: {stack_of(sc)}")
     del t_k, hit_k, ref
 
     # -- 8. fits: the headline at full size, BASELINE config 3 at 48x48 ------

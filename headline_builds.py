@@ -16,8 +16,11 @@ change, parent), each output to a file, then
     python3 headline_builds.py --compare PARENT.json CHANGE.json
 
 counts the builds whose ptxas line is the same in both and lists the
-others. A `fine_kernel` build without the march-only flag is keyed as one
-with it false, so that adding the flag renames no build.
+others, then lists each tree's coarse and fine kernel builds that keep a
+stack frame. A `fine_kernel` build without the march-only flag is keyed as
+one with it false, so that adding the flag renames no build; its stack
+route (`STK`: 2 a register, 0 shared memory) is a sixth key where the
+build has one, as is the coarse kernel's third.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ import dataclasses
 import json
 import re
 import sys
+import time
 
 FRAMES, STEPS = 20, 10
 
@@ -37,15 +41,25 @@ def ptxas_lines(report: str) -> dict:
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             entry = m.group(1)
-            k = re.search(r"fine_kernelILi(\d)ELb(\d)ELb(\d)ELi(\d)(?:ELb(\d))?E", entry)
+            k = re.search(r"fine_kernelILi(\d)ELb(\d)ELb(\d)ELi(\d)(?:ELb(\d))?(?:ELi(\d+))?E", entry)
+            c = re.search(r"coarse_kernelILi(\d)ELi(\d)(?:ELi(\d+))?E", entry)
             if k:
-                entry = "fine_kernel<{}, {}, {}, {}, {}>".format(*k.group(1, 2, 3, 4), k.group(5) or "0")
+                stk = "" if k.group(6) is None else f", {k.group(6)}"
+                entry = "fine_kernel<{}, {}, {}, {}, {}{}>".format(*k.group(1, 2, 3, 4), k.group(5) or "0", stk)
+            elif c:
+                entry = "coarse_kernel<{}, {}{}>".format(*c.group(1, 2), "" if c.group(3) is None else f", {c.group(3)}")
             continue
         m = re.search(r"Used \d+ registers.*", line)
         if m and entry:
             out[entry] = m.group(0).strip()
             entry = None
     return out
+
+
+def stack_bytes(line: str) -> int:
+    """The stack a ptxas line reports (cumulative stack size or stack frame)."""
+    m = re.search(r"(\d+) bytes (?:cumulative stack size|stack frame)", line)
+    return int(m.group(1)) if m else 0
 
 
 def compare(a_path: str, b_path: str) -> int:
@@ -56,6 +70,12 @@ def compare(a_path: str, b_path: str) -> int:
     for k in a["ptxas"]:
         if k not in same:
             print(f"  differs: {k}: {a['ptxas'][k]} | {b['ptxas'].get(k)}")
+    for path, run in ((a_path, a), (b_path, b)):
+        k12 = [k for k in run["ptxas"] if k.startswith(("fine_kernel<", "coarse_kernel<"))]
+        framed = [k for k in k12 if stack_bytes(run["ptxas"][k])]
+        print(f"{path}: {len(framed)} of {len(k12)} coarse/fine kernel builds keep a stack frame")
+        for k in framed:
+            print(f"  stack: {k}: {run['ptxas'][k]}")
     return 0
 
 
@@ -69,10 +89,13 @@ def main() -> int:
     import raymarch_tpu_torch as rt
     from raymarch_tpu_torch import _build
     from raymarch_tpu_torch.ops import cuda_grad as cg
+    from raymarch_tpu_torch.ops import cuda_march as cm
     from raymarch_tpu_torch.ops import cuda_prepass as cp
 
     smi = cs.card_line()
+    t0 = time.perf_counter()
     _build.load()
+    build_s = time.perf_counter() - t0
     dev = cp.resolve_device("cuda")
     cfg = dataclasses.replace(rt.DEFAULT_CONFIG, bound_accel=True, exit_check_every=4)
     spec, arrays = rt.compile_scene(cs.scene_config2(rt), static=True)
@@ -102,7 +125,11 @@ def main() -> int:
         "step": cs.cuda_ms(step, STEPS),
     }
     print(f"headline ms ({smi}): " + ", ".join(f"{k} {v:.4f}" for k, v in times.items()), file=sys.stderr)
-    print(json.dumps({"card": smi, "ms": times, "ptxas": ptxas_lines(_build.stats["ptxas"])}), flush=True)
+    route = getattr(cm, "stack_route", None)  # a parent tree may predate the routes
+    stack = f"{cm.route_name(route(spec))}, depth {spec.stack_depth}" if route else "local memory"
+    print(f"headline K1/K2 stack route: {stack}; build {build_s:.1f} s", file=sys.stderr)
+    print(json.dumps({"card": smi, "ms": times, "stack_route": stack, "build_s": build_s,
+                      "ptxas": ptxas_lines(_build.stats["ptxas"])}), flush=True)
     return 0
 
 

@@ -33,23 +33,28 @@ NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"
 # soft fine builds likewise: their closest approach is an argmin over a
 # grazing ray's samples, which an FMA's rounding moves by a whole step. So
 # do the flat march kernels K5-K7, whose steps per ray are held equal to
-# their plain versions' on every ray.
-SOURCE_FLAGS = {"fused_bwd.cu": ("-fmad=false",), "compact_bwd.cu": ("-fmad=false",),
-                "fine_soft.cu": ("-fmad=false",), "march.cu": ("-fmad=false",)}
+# their plain versions' on every ray, and every build of the coarse and fine
+# kernels K1/K2, whose planes and (t, hit) are held equal to theirs. K3
+# (coarse_px.cu) and K4 (fine_unpacked*.cu) keep nvcc's default.
+K12_SOURCES = ("prepass.cu", "fine_culled.cu", "prepass_dyn.cu", "fine_dyn_gated.cu", "fine_soft.cu",
+               "fine_march.cu", "fine_march_dyn.cu", "intervals_wide.cu")
+SOURCE_FLAGS = {name: ("-fmad=false",) for name in ("fused_bwd.cu", "compact_bwd.cu", "march.cu", *K12_SOURCES)}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    # leaf_params, row_kind, tape, n_instr, op_param, dyn, cam, bound,
-    # params, cull, t0_out, status_out, block_params, stream
-    "rmt_coarse_launch": (_P, _P, _P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P),
+    # leaf_params, row_kind, words, n_instr, op_param, dyn, stk,
+    # stack_depth, cam, bound, params, cull, t0_out, status_out,
+    # block_params, stream
+    "rmt_coarse_launch": (_P, _P, _P, _I, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P),
     # leaf_params, row_kind, tape, n_instr, op_param, dyn, cam, bound,
     # params, t_blk, status_blk, t0_out, status_out, block_params, stream
     "rmt_coarse_px_launch": (_P, _P, _P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P),
-    # leaf_params, row_kind, tape, n_instr, op_param, dyn, cam, bound,
-    # params, cull, t0_in, status_in, img, t_out, hit_out, mats,
-    # block_params, soft, soft_params, stream
-    "rmt_fine_launch": (_P, _P, _P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _P, _P),
+    # leaf_params, row_kind, words, n_instr, op_param, dyn, stk,
+    # stack_depth, cam, bound, params, cull, t0_in, status_in, img, t_out,
+    # hit_out, mats, block_params, soft, soft_params, stream
+    "rmt_fine_launch": (_P, _P, _P, _I, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _P,
+                        _P),
     # leaf_params, row_kind, tape, n_instr, op_param, dyn, cam, bound,
     # params, cull, t0_in, status_in, img, t_out, hit_out, mats, shared,
     # block_params, stream
@@ -75,8 +80,9 @@ _SIGNATURES = {
 }
 
 _lib = None
-# Build record of this process: compiles run, seconds spent, ptxas report.
-stats = {"builds": 0, "seconds": 0.0, "ptxas": "", "path": None}
+# Build record of this process: compiles run, seconds spent (and per
+# source, from the common start to that nvcc's exit), ptxas report.
+stats = {"builds": 0, "seconds": 0.0, "source_seconds": {}, "ptxas": "", "path": None}
 # Held around the check, the build and the load: the tiered runtime renders
 # on one thread while it warms another tier's renderer on a second, and the
 # first use on either must not run nvcc twice or publish a half-set `_lib`.
@@ -121,17 +127,28 @@ def _compile(lib_path: Path) -> str:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         procs = []
+        t0 = time.perf_counter()
         for src in sorted(CSRC.glob("*.cu")):
             obj = Path(tmp) / f"{src.stem}.o"
             cmd = [nvcc, *NVCC_FLAGS, *SOURCE_FLAGS.get(src.name, ()), "-c", str(src), "-o", str(obj)]
             procs.append((src, obj, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        outs = {}
+
+        def finish(src, proc):
+            outs[src] = proc.communicate()[0]
+            stats["source_seconds"][src.name] = round(time.perf_counter() - t0, 1)
+
+        waiters = [threading.Thread(target=finish, args=(src, proc)) for src, _, proc in procs]
+        for w in waiters:
+            w.start()
+        for w in waiters:
+            w.join()
         report = []
         for src, _, proc in procs:
-            out, _ = proc.communicate()
-            report.append(out)
+            report.append(outs[src])
             if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed on {src.name} ({proc.returncode}):\n{out}")
+                raise RuntimeError(f"nvcc failed on {src.name} ({proc.returncode}):\n{outs[src]}")
         out_tmp = Path(tmp) / lib_path.name
         link = [nvcc, *ARCH, "-shared", "-o", str(out_tmp), *(str(o) for _, o, _ in procs)]
         proc = subprocess.run(link, capture_output=True, text=True)

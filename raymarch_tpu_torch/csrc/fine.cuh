@@ -1,14 +1,17 @@
 // The fine kernel (march + shade + AA mean) of the cone-prepass renderer:
-// the device code that prepass.cu (the hard builds, with nvcc's default FMA
-// contraction) and fine_soft.cu (the soft builds, compiled with
-// -fmad=false) instantiate. prepass.cu's header describes the kernel.
+// the device code that the K1/K2 sources (_build.py K12_SOURCES, every one
+// with -fmad=false) instantiate, one group of builds each (launch_fine_hard
+// below); prepass.cu's header describes the kernel. The march
+// functions take the scene as a function of the point (scene_eval.cuh
+// WordScene; TileScene for the unpacked fine pass K4, which shares them).
 //
-// The soft builds round every operation on its own, as the plain torch
+// Every K2 build rounds each operation on its own, as the plain torch
 // versions do: a soft ray's closest approach is the argmin over its
 // samples, and on a grazing ray two samples can lie within an ulp of each
-// other, so a contracted FMA anywhere in the march or the scene moves t_min
-// by a whole step and the surface term with it (a quarter of a sample's
-// colour).
+// other, so a contracted FMA anywhere in the march or the scene would move
+// t_min by a whole step and the surface term with it (a quarter of a
+// sample's colour); a hard ray's slack that lands within rounding of
+// min_dist would stop one step apart.
 #pragma once
 
 #include <cstdint>
@@ -54,9 +57,10 @@ constexpr float FAR_TEST = 9.0e37f;
 // The interval bounds of more than MAX_NI near intervals, read and written
 // in place in the 2*ni interval planes (starts, then ends; block offset po,
 // plane size `plane`) through L1: the PRE 4 builds of the fine passes
-// (intervals_wide.cu) and the KIND 3 builds of the coarse scan, so that no
-// build caps n_intervals. The builds for at most MAX_NI keep them in
-// registers, selected by unrolled compares (NoPlanes: their code).
+// (intervals_wide.cu) and every interval build of the coarse scan (KIND 2),
+// so that no build caps n_intervals. K2's builds for at most MAX_NI keep
+// them in registers (ShiftIntervals), K4's select them by unrolled
+// compares (NoPlanes: their code).
 struct NoPlanes {};
 struct PlaneIntervals {
   float* base;  // the block's word of plane 0
@@ -98,6 +102,37 @@ struct PlaneIntervals {
   }
 };
 
+// At most MAX_NI near intervals in registers (K2's PRE 2 builds): the
+// current interval's end at en[0] and the next one's start at st[1]; a jump
+// to the next interval shifts both arrays down. No index depends on the
+// ray, so the arrays stay in registers (a compare against the ray's
+// interval index lets the compiler fold the selects into an indexed load
+// from local memory).
+struct ShiftIntervals {
+  mutable float st[MAX_NI], en[MAX_NI];
+
+  __device__ __forceinline__ void load(const float* planes, size_t plane,
+                                       size_t po, int ni) {
+#pragma unroll
+    for (int n = 0; n < MAX_NI; ++n) {
+      st[n] = n < ni ? planes[n * plane + po] : FAR_T;
+      en[n] = n < ni ? planes[(ni + n) * plane + po] : FAR_T;
+    }
+  }
+  __device__ __forceinline__ void bounds(int, float& e, float& ns) const {
+    e = en[0];
+    ns = st[1];
+  }
+  __device__ __forceinline__ void advance() const {
+#pragma unroll
+    for (int n = 0; n + 1 < MAX_NI; ++n) {
+      st[n] = st[n + 1];
+      en[n] = en[n + 1];
+    }
+    st[MAX_NI - 1] = en[MAX_NI - 1] = FAR_T;
+  }
+};
+
 // The soft build's outputs and constants (PRE 3), the fine kernel's last
 // argument; mirrored by cuda_prepass.py:_CSoftParams. s_min_out and
 // t_min_out f32[rows, width, S] may be null (no residuals).
@@ -115,10 +150,8 @@ struct SoftParams {
 // has alpha 0 either way), caps t at -bq + R + min_dist and ends the ray
 // past the sphere's centre once |p - c| - R exceeds s_min: no later sample
 // could lower s_min or hit. At most max_iter samples count.
-template <int MODE>
-__device__ __forceinline__ float soft_march(const SceneView& sc,
-                                            const CullView& cv, int tile,
-                                            const Ray& r,
+template <class Scene>
+__device__ __forceinline__ float soft_march(const Scene& scene, const Ray& r,
                                             const float* __restrict__ bound,
                                             const RenderParams& p, float infl,
                                             float& t, float& s_min,
@@ -149,7 +182,7 @@ __device__ __forceinline__ float soft_march(const SceneView& sc,
     const float px = r.ox + r.dx * t;
     const float py = r.oy + r.dy * t;
     const float pz = r.oz + r.dz * t;
-    const float d = scene_distance_tile<MODE>(sc, cv, tile, px, py, pz);
+    const float d = scene(px, py, pz);
     if (d < s_min) {
       s_min = d;
       t_min = t;
@@ -175,11 +208,12 @@ __device__ __forceinline__ float soft_march(const SceneView& sc,
 // of the legacy march); a step past e_idx jumps to max(t, s_{idx+1}) with
 // omega, step and previous radius reset, or is a miss when no interval is
 // left. Hit and escape are tested only at samples that did not overshoot.
-// st, en hold at most MAX_NI intervals; given `planes` (PRE 4), the bounds
-// are read from the planes instead.
-template <int MODE, bool RELAX, class Planes = NoPlanes>
-__device__ __forceinline__ float interval_march(const SceneView& sc,
-                                                const CullView& cv, int tile,
+// st, en hold at most MAX_NI intervals; given `planes` (K2's
+// ShiftIntervals, or PlaneIntervals for PRE 4), the bounds come from it
+// instead. scene(px, py, pz) is the scene function (WordScene for K2,
+// TileScene for K4).
+template <bool RELAX, class Scene, class Planes = NoPlanes>
+__device__ __forceinline__ float interval_march(const Scene& scene,
                                                 const Ray& r,
                                                 const RenderParams& p,
                                                 const float (&st)[MAX_NI],
@@ -191,8 +225,7 @@ __device__ __forceinline__ float interval_march(const SceneView& sc,
   float prev_r = 0.0f, step_len = 0.0f, omega = p.relax;
   int idx = 0;
   for (int k = 0; k < p.max_iter && live > 0.0f; ++k) {
-    const float d = scene_distance_tile<MODE>(
-        sc, cv, tile, r.ox + r.dx * t, r.oy + r.dy * t, r.oz + r.dz * t);
+    const float d = scene(r.ox + r.dx * t, r.oy + r.dy * t, r.oz + r.dz * t);
     float new_step = d;
     bool fail = false;
     if constexpr (RELAX) {
@@ -226,6 +259,8 @@ __device__ __forceinline__ float interval_march(const SceneView& sc,
       } else if (t2 > e) {
         t = fmaxf(t2, ns);
         ++idx;
+        if constexpr (std::is_same<Planes, ShiftIntervals>::value)
+          planes.advance();
         omega = p.relax;
         step_len = 0.0f;
         prev_r = 0.0f;
@@ -246,9 +281,8 @@ __device__ __forceinline__ float interval_march(const SceneView& sc,
 // stop overlapping the step overshot, so step back by (1 - relax)*step and
 // drop the ray to omega = 1. Hit and escape are tested only at samples that
 // did not overshoot. The march of K2's legacy planes and of K4.
-template <int MODE, bool RELAX>
-__device__ __forceinline__ float legacy_march(const SceneView& sc,
-                                              const CullView& cv, int tile,
+template <bool RELAX, class Scene>
+__device__ __forceinline__ float legacy_march(const Scene& scene,
                                               const Ray& r,
                                               const RenderParams& p,
                                               float live, float& t,
@@ -257,8 +291,7 @@ __device__ __forceinline__ float legacy_march(const SceneView& sc,
   if constexpr (RELAX) {
     float prev_r = 0.0f, step_len = 0.0f, omega = p.relax;
     for (int k = 0; k < p.max_iter && live > 0.0f; ++k) {
-      const float d = scene_distance_tile<MODE>(
-          sc, cv, tile, r.ox + r.dx * t, r.oy + r.dy * t, r.oz + r.dz * t);
+      const float d = scene(r.ox + r.dx * t, r.oy + r.dy * t, r.oz + r.dz * t);
       const bool fail = omega > 1.0f && d + prev_r < step_len;
       const float new_step = fail ? p.relax_back * step_len : omega * d;
       if (fail) {
@@ -275,8 +308,7 @@ __device__ __forceinline__ float legacy_march(const SceneView& sc,
     }
   } else {
     for (int k = 0; k < p.max_iter && live > 0.0f; ++k) {
-      const float d = scene_distance_tile<MODE>(
-          sc, cv, tile, r.ox + r.dx * t, r.oy + r.dy * t, r.oz + r.dz * t);
+      const float d = scene(r.ox + r.dx * t, r.oy + r.dy * t, r.oz + r.dz * t);
       if (d < p.min_dist) {
         hit = 1.0f;
         live = 0.0f;
@@ -292,16 +324,34 @@ __device__ __forceinline__ float legacy_march(const SceneView& sc,
 
 // The tetrahedron taps' unnormalised normal at p (pallas_march._tet_taps
 // 1049): k in {(+,-,-), (-,-,+), (-,+,-), (+,+,+)}, summed in that order.
-template <int MODE>
-__device__ __forceinline__ void tet_normal(const SceneView& sc,
-                                           const CullView& cv, int tile,
-                                           float e, float px, float py,
-                                           float pz, float& nx, float& ny,
-                                           float& nz) {
-  const float d0 = scene_distance_tile<MODE>(sc, cv, tile, px + e, py - e, pz - e);
-  const float d1 = scene_distance_tile<MODE>(sc, cv, tile, px - e, py - e, pz + e);
-  const float d2 = scene_distance_tile<MODE>(sc, cv, tile, px - e, py + e, pz - e);
-  const float d3 = scene_distance_tile<MODE>(sc, cv, tile, px + e, py + e, pz + e);
+// A scene whose TAP_LOOP is set (WordScene) takes the taps in a loop that
+// is not unrolled: one copy of the scene function instead of four (nvcc's
+// time and the instruction cache), the same operations in the same order
+// (a tap's sign times e or d is exact).
+template <class Scene>
+__device__ __forceinline__ void tet_normal(const Scene& scene, float e,
+                                           float px, float py, float pz,
+                                           float& nx, float& ny, float& nz) {
+  if constexpr (Scene::TAP_LOOP) {
+    nx = 0.0f;
+    ny = 0.0f;
+    nz = 0.0f;
+#pragma unroll 1
+    for (int k = 0; k < 4; ++k) {
+      const float sx = (k == 0 || k == 3) ? 1.0f : -1.0f;
+      const float sy = k >= 2 ? 1.0f : -1.0f;
+      const float sz = (k == 1 || k == 3) ? 1.0f : -1.0f;
+      const float d = scene(px + sx * e, py + sy * e, pz + sz * e);
+      nx = nx + sx * d;
+      ny = ny + sy * d;
+      nz = nz + sz * d;
+    }
+    return;
+  }
+  const float d0 = scene(px + e, py - e, pz - e);
+  const float d1 = scene(px - e, py - e, pz + e);
+  const float d2 = scene(px - e, py + e, pz - e);
+  const float d3 = scene(px + e, py + e, pz + e);
   nx = 0.0f;
   ny = 0.0f;
   nz = 0.0f;
@@ -313,11 +363,10 @@ __device__ __forceinline__ void tet_normal(const SceneView& sc,
 
 // Lambert's diffuse term of the surface point p with normal n against the
 // point light, floored at the ambient term; with MATS, alb takes the
-// albedo the tape's colour walk carries to p (scene_color, gated by the
+// albedo the tape's colour walk carries to p (scene.color: gated by the
 // tile's leaf mask under culling, as the reference's colour pass is).
-template <int MODE, bool MATS>
-__device__ __forceinline__ float lambert(const SceneView& sc,
-                                         const CullView& cv, int tile,
+template <bool MATS, class Scene>
+__device__ __forceinline__ float lambert(const Scene& scene,
                                          const RenderParams& p, float px,
                                          float py, float pz, float nx,
                                          float ny, float nz, float alb[3]) {
@@ -328,11 +377,7 @@ __device__ __forceinline__ float lambert(const SceneView& sc,
   const float linv = 1.0f / sqrtf(tlx * tlx + tly * tly + tlz * tlz + 1e-20f);
   float diff = (nx * tlx + ny * tly + nz * tlz) * (ninv * linv);
   diff = fmaxf(diff, p.ambient);
-  if constexpr (MATS) {
-    scene_color<mode_dyn(MODE)>(
-        sc, px, py, pz, p.albedo, alb,
-        mode_culled(MODE) ? cv.masks + (size_t)tile * cv.n_words : nullptr);
-  }
+  if constexpr (MATS) scene.color(px, py, pz, p.albedo, alb);
   return diff;
 }
 
@@ -351,9 +396,11 @@ __device__ __forceinline__ float lambert(const SceneView& sc,
 // march-only build
 // (pallas_prepass.py:1621-1640, launched at 1827): it writes t_out and
 // hit_out, flat in pixel-major AA-ray order, and skips the taps, the
-// shading and the image.
-template <int MODE, bool RELAX, bool MATS, int PRE, bool MO = false>
-__global__ void fine_kernel(SceneView sc, const float* __restrict__ cam,
+// shading and the image. STK is the value stack's route (scene_eval.cuh:
+// REG_STACK, a register, or STK_SMEM, the dynamic shared memory of
+// FineLaunch::stack_bytes); the scene is read from its packed words.
+template <int MODE, bool RELAX, bool MATS, int PRE, bool MO, int STK>
+__global__ void fine_kernel(SceneWords sw, const float* __restrict__ cam,
                             const float* __restrict__ bound, RenderParams p,
                             CullView cv, const float* __restrict__ t0_in,
                             const float* __restrict__ status_in,
@@ -374,11 +421,11 @@ __global__ void fine_kernel(SceneView sc, const float* __restrict__ cam,
     aa_screen_xy(cam, p, i, j, s, x, y);
     const Ray r = view_ray(cam, p, x, y);
     const int tile = mode_culled(MODE) ? tile_of(cv, i, j) : 0;
+    const WordScene<MODE, STK> scene{sw, cv, tile};
     float t, hit = 0.0f;
     float s_min = 0.0f, t_min = 0.0f;
     if constexpr (PRE == 3) {
-      hit = soft_march<MODE>(sc, cv, tile, r, bound, p, sp.infl, t, s_min,
-                             t_min);
+      hit = soft_march(scene, r, bound, p, sp.infl, t, s_min, t_min);
     } else {
       float live;
       if constexpr (PRE == 2 || PRE == 4) {
@@ -406,26 +453,17 @@ __global__ void fine_kernel(SceneView sc, const float* __restrict__ cam,
         bound_clip(bound, r, p.min_dist, l, t_unused, t_cap);
       }
       if constexpr (PRE == 2 || PRE == 4) {
-        // The block's intervals, FAR_T past the last.
+        // The block's intervals, FAR_T past the last: in registers, or
+        // (more than MAX_NI) read in place.
         const size_t po = (size_t)(i / bp.block) * bp.bcols + j / bp.block;
         const size_t plane = (size_t)bp.brows * bp.bcols;
-        float st[MAX_NI], en[MAX_NI];
-        if constexpr (PRE == 2) {
-  #pragma unroll
-          for (int n = 0; n < MAX_NI; ++n) {
-            st[n] = n < bp.ni ? t0_in[n * plane + po] : FAR_T;
-            en[n] = n < bp.ni ? t0_in[(bp.ni + n) * plane + po] : FAR_T;
-          }
-          hit = interval_march<MODE, RELAX>(sc, cv, tile, r, p, st, en, live, t,
-                                            t_cap);
-        } else {  // more than MAX_NI: read in place (st, en unused)
-          PlaneIntervals planes;
-          planes.load(t0_in, plane, po, bp.ni);
-          hit = interval_march<MODE, RELAX>(sc, cv, tile, r, p, st, en, live, t,
-                                            t_cap, planes);
-        }
+        std::conditional_t<PRE == 2, ShiftIntervals, PlaneIntervals> planes;
+        planes.load(t0_in, plane, po, bp.ni);
+        float unused[MAX_NI];  // interval_march's st, en: K4's arrays
+        hit = interval_march<RELAX>(scene, r, p, unused, unused, live, t,
+                                    t_cap, planes);
       } else {
-        hit = legacy_march<MODE, RELAX>(sc, cv, tile, r, p, live, t, t_cap);
+        hit = legacy_march<RELAX>(scene, r, p, live, t, t_cap);
       }
     }
     if (t_out != nullptr) {
@@ -460,8 +498,8 @@ __global__ void fine_kernel(SceneView sc, const float* __restrict__ cam,
     float alb[3] = {p.albedo[0], p.albedo[1], p.albedo[2]};
     if (cover > 0.0f) {
       float nx, ny, nz;
-      tet_normal<MODE>(sc, cv, tile, p.eps, px, py, pz, nx, ny, nz);
-      diff = lambert<MODE, MATS>(sc, cv, tile, p, px, py, pz, nx, ny, nz, alb);
+      tet_normal(scene, p.eps, px, py, pz, nx, ny, nz);
+      diff = lambert<MATS>(scene, p, px, py, pz, nx, ny, nz, alb);
     }
 
     // Analytic checkerboard floor on a miss (wgsl:117-128).
@@ -507,17 +545,26 @@ __global__ void fine_kernel(SceneView sc, const float* __restrict__ cam,
 
 struct FineLaunch;
 // Launches the PRE 4 build (more than MAX_NI intervals) of fine_kernel
-// <MODE, RELAX, MATS, 4, MO>: defined and instantiated in intervals_wide.cu.
-template <int MODE, bool RELAX, bool MATS, bool MO>
+// <MODE, RELAX, MATS, 4, MO, STK>: defined and instantiated in
+// intervals_wide.cu.
+template <int MODE, bool RELAX, bool MATS, bool MO, int STK>
 void fine_wide(const FineLaunch& L);
 
-// The fine kernel's launch, dispatched to its build by template flags. kind
-// is the prepass planes: 0 pixel or none, 1 block, 2 at most MAX_NI
-// intervals, 3 more.
+// Whether a build reads the value stack: every one but the compact item
+// lists' without materials (MODE 1 folds its lists; the colour walk of a
+// painted scene reads the gated tape).
+__host__ __device__ constexpr bool uses_stack(int mode, bool mats) {
+  return mode != 1 || mats;
+}
+
+// The fine kernel's launch, dispatched to its build by template flags: the
+// prepass planes `kind` (0 pixel or none, 1 block, 2 at most MAX_NI
+// intervals, 3 more), and the stack route stk (STK).
 struct FineLaunch {
   dim3 grid, block;
   cudaStream_t st;
-  SceneView sc;
+  SceneWords sw;
+  int stk;
   const float *cam, *bound;
   RenderParams p;
   CullView cv;
@@ -526,17 +573,44 @@ struct FineLaunch {
   BlockParams bp;
   SoftParams sp;
 
-  template <int MODE, bool RELAX, bool MATS, int PRE>
-  void go() const {
-    fine_kernel<MODE, RELAX, MATS, PRE><<<grid, block, 0, st>>>(
-        sc, cam, bound, p, cv, t0_in, status_in, img, t_out, hit_out, bp, sp);
+  // Dynamic shared memory of build STK: the stack columns of the block's
+  // threads, four stacks for the colour walk (MATS).
+  template <bool MATS, int STK>
+  size_t stack_bytes() const {
+    if constexpr (STK != STK_SMEM) return 0;
+    return (size_t)sw.rows * block.x * sizeof(float) * (MATS ? 4 : 1);
   }
-  template <int MODE, bool RELAX, bool MATS>
+  template <int MODE, bool RELAX, bool MATS, int PRE, bool MO, int STK>
+  void launch() const {
+    const auto k = fine_kernel<MODE, RELAX, MATS, PRE, MO, STK>;
+    const size_t smem = stack_bytes<MATS, STK>();
+    if (smem > 48 * 1024)
+      cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)smem);
+    k<<<grid, block, smem, st>>>(sw, cam, bound, p, cv, t0_in, status_in, img,
+                                 t_out, hit_out, bp, sp);
+  }
+  template <int MODE, bool RELAX, bool MATS, int PRE, bool MO, int STK>
+  void run() const {
+    if constexpr (PRE == 4) fine_wide<MODE, RELAX, MATS, MO, STK>(*this);
+    else launch<MODE, RELAX, MATS, PRE, MO, STK>();
+  }
+  template <int MODE, bool RELAX, bool MATS, int PRE, bool MO = false>
+  void go() const {
+    if constexpr (!uses_stack(MODE, MATS)) {
+      run<MODE, RELAX, MATS, PRE, MO, REG_STACK>();
+    } else if (stk == REG_STACK) {
+      run<MODE, RELAX, MATS, PRE, MO, REG_STACK>();
+    } else {
+      run<MODE, RELAX, MATS, PRE, MO, STK_SMEM>();
+    }
+  }
+  template <int MODE, bool RELAX, bool MATS, bool MO = false>
   void pre(int kind) const {
-    if (kind == 3) fine_wide<MODE, RELAX, MATS, false>(*this);
-    else if (kind == 2) go<MODE, RELAX, MATS, 2>();
-    else if (kind == 1) go<MODE, RELAX, MATS, 1>();
-    else go<MODE, RELAX, MATS, 0>();
+    if (kind == 3) go<MODE, RELAX, MATS, 4, MO>();
+    else if (kind == 2) go<MODE, RELAX, MATS, 2, MO>();
+    else if (kind == 1) go<MODE, RELAX, MATS, 1, MO>();
+    else go<MODE, RELAX, MATS, 0, MO>();
   }
   template <int MODE>
   void flags(bool relax, bool mats, int kind) const {
@@ -549,24 +623,10 @@ struct FineLaunch {
     }
   }
   // The march-only build (MO): no image, no materials.
-  template <int MODE, bool RELAX, int PRE>
-  void go_march() const {
-    fine_kernel<MODE, RELAX, false, PRE, true><<<grid, block, 0, st>>>(
-        sc, cam, bound, p, cv, t0_in, status_in, img, t_out, hit_out, bp, sp);
-  }
   template <int MODE>
   void march_flags(bool relax, int kind) const {
-    if (relax) {
-      if (kind == 3) fine_wide<MODE, true, false, true>(*this);
-      else if (kind == 2) go_march<MODE, true, 2>();
-      else if (kind == 1) go_march<MODE, true, 1>();
-      else go_march<MODE, true, 0>();
-    } else {
-      if (kind == 3) fine_wide<MODE, false, false, true>(*this);
-      else if (kind == 2) go_march<MODE, false, 2>();
-      else if (kind == 1) go_march<MODE, false, 1>();
-      else go_march<MODE, false, 0>();
-    }
+    if (relax) pre<MODE, true, false, true>(kind);
+    else pre<MODE, false, false, true>(kind);
   }
 };
 
@@ -580,13 +640,35 @@ inline int build_mode(int mode, bool dyn) {
 
 // Launches the soft build (PRE 3) of MODE `mode` (fine_soft.cu).
 cudaError_t launch_fine_soft(const FineLaunch& L, int mode, bool mats);
-// Launches the DYN build (MODE 3 or 4) of the hard fine kernel
-// (prepass_dyn.cu).
-cudaError_t launch_fine_dyn(const FineLaunch& L, int mode, bool relax,
-                            bool mats, int kind);
-// Launches the march-only build of MODE `mode` and prepass planes `kind`
-// (fine_march.cu).
-cudaError_t launch_fine_march(const FineLaunch& L, int mode, bool relax,
-                              int kind);
+
+// Launches the hard build of MODE for relax, mats and the prepass planes
+// `kind` (fine_kernel<MODE, RELAX, MATS, PRE, false, STK>), or (march_only)
+// its march-only build. Each MODE's builds are instantiated in one source
+// (the extern templates below), so that nvcc compiles the groups in
+// parallel: hard MODE 0 in prepass.cu, 1 and 2 in fine_culled.cu, 3 in
+// prepass_dyn.cu, 4 in fine_dyn_gated.cu; march-only MODE 0-2 in
+// fine_march.cu, 3 and 4 in fine_march_dyn.cu.
+template <int MODE>
+cudaError_t launch_fine_hard(const FineLaunch& L, bool relax, bool mats,
+                             int kind) {
+  L.flags<MODE>(relax, mats, kind);
+  return cudaGetLastError();
+}
+template <int MODE>
+cudaError_t launch_fine_march(const FineLaunch& L, bool relax, int kind) {
+  L.march_flags<MODE>(relax, kind);
+  return cudaGetLastError();
+}
+#define RMT_FINE_MODE(M)                                                    \
+  extern template cudaError_t launch_fine_hard<M>(const FineLaunch&, bool, \
+                                                  bool, int);              \
+  extern template cudaError_t launch_fine_march<M>(const FineLaunch&, bool, \
+                                                   int);
+RMT_FINE_MODE(0)
+RMT_FINE_MODE(1)
+RMT_FINE_MODE(2)
+RMT_FINE_MODE(3)
+RMT_FINE_MODE(4)
+#undef RMT_FINE_MODE
 
 }  // namespace rmt

@@ -1,4 +1,4 @@
-// The soft builds of the fine kernel (fine_kernel<MODE, false, MATS, 3>,
+// The soft builds of the fine kernel (fine_kernel<MODE, false, MATS, 3, false, STK>,
 // fine.cuh) on static tapes (MODE 0-2) and on the frame's dynamic tape
 // (MODE 3 un-culled, 4 gated; the reference's soft fine kernel interprets
 // dynamic specs too): soft coverage, replacing the soft branch of raymarch_tpu/ops/

@@ -13,7 +13,7 @@
 // 1: the legacy (t0, status) planes read at block (i / B, j / B), B = 1
 // after the chained pixel pass, or no prepass at all; PRE 2: the block's
 // near intervals, through fine.cuh's interval_march; PRE 4 more than MAX_NI
-// of them, read in place, in intervals_wide.cu), plainly or, with
+// of them, read in place, in fine_unpacked_wide.cu), plainly or, with
 // RELAX, over-relaxed; it takes the 4 tetrahedron taps at its hit point,
 // Lambert shading with the albedo of the tape's colour walk (MATS), the
 // checker floor on a miss and sqrt gamma, as K2 does. The pixel's colour is
@@ -31,8 +31,9 @@
 // so a warp holds 32 pixels and waits for its slowest pixel's S marches.
 // The design is the simple one (the first-hit rule falls out of the sample
 // loop); it reads 8 bytes of planes per pixel and writes 12 (plus 8 per
-// sample with residuals). Built with nvcc's default FMA contraction, as
-// K2's hard builds.
+// sample with residuals). Built with nvcc's default FMA contraction; it
+// keeps SceneView's interpreter (scene_eval.cuh TileScene), which K2 and
+// K1 replaced by the packed words.
 #include <cuda_runtime.h>
 
 #include "fine_unpacked.cuh"

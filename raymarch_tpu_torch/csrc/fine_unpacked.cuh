@@ -33,6 +33,7 @@ __global__ void fine_unpacked_kernel(SceneView sc, const float* __restrict__ cam
   if (j >= p.width || i >= p.rows) return;
   const int S = p.naa * p.naa;
   const int tile = mode_culled(MODE) ? tile_of(cv, i, j) : 0;
+  const TileScene<MODE> scene{sc, cv, tile};
 
   // The pixel's prepass: the same for all of its samples.
   float t_start = 0.0f, live0 = 1.0f;
@@ -81,13 +82,12 @@ __global__ void fine_unpacked_kernel(SceneView sc, const float* __restrict__ cam
     }
     float hit;
     if constexpr (PRE == 2) {
-      hit = interval_march<MODE, RELAX>(sc, cv, tile, r, p, st, en, live0, t,
-                                        t_cap);
+      hit = interval_march<RELAX>(scene, r, p, st, en, live0, t, t_cap);
     } else if constexpr (PRE == 4) {
-      hit = interval_march<MODE, RELAX>(sc, cv, tile, r, p, st, en, live0, t,
-                                        t_cap, planes);
+      hit = interval_march<RELAX>(scene, r, p, st, en, live0, t, t_cap,
+                                  planes);
     } else {
-      hit = legacy_march<MODE, RELAX>(sc, cv, tile, r, p, live0, t, t_cap);
+      hit = legacy_march<RELAX>(scene, r, p, live0, t, t_cap);
     }
     if (t_out != nullptr) {
       const size_t ri = ((size_t)i * p.width + j) * S + s;
@@ -102,10 +102,10 @@ __global__ void fine_unpacked_kernel(SceneView sc, const float* __restrict__ cam
       const float py = r.oy + r.dy * t;
       const float pz = r.oz + r.dz * t;
       if (!(shared && have_normal)) {
-        tet_normal<MODE>(sc, cv, tile, p.eps, px, py, pz, nx, ny, nz);
+        tet_normal(scene, p.eps, px, py, pz, nx, ny, nz);
         have_normal = true;
       }
-      diff = lambert<MODE, MATS>(sc, cv, tile, p, px, py, pz, nx, ny, nz, alb);
+      diff = lambert<MATS>(scene, p, px, py, pz, nx, ny, nz, alb);
     }
     float fc[3];
     floor_colour(r, p, fc);
@@ -122,7 +122,7 @@ __global__ void fine_unpacked_kernel(SceneView sc, const float* __restrict__ cam
 
 struct UnpackedLaunch;
 // Launches the PRE 4 build (more than MAX_NI intervals) of
-// fine_unpacked_kernel<MODE, RELAX, MATS, 4>: in intervals_wide.cu.
+// fine_unpacked_kernel<MODE, RELAX, MATS, 4>: in fine_unpacked_wide.cu.
 template <int MODE, bool RELAX, bool MATS>
 void unpacked_wide(const UnpackedLaunch& L);
 

@@ -11,10 +11,8 @@
 // of the whole scene that records up to ni near intervals per block
 // (_cone_interval_march_tile 191).
 //
-// coarse_px_kernel replaces coarse_px_kernel (969): with prepass_chain and
-// B > 1, one cone ray per pixel at the pixel cone angle, from its block's
-// stop distance (_cone_march_tile with t_in/live_in, 152-154), through the
-// whole tape: un-culled, as the reference's.
+// The chained pixel kernel K3 (coarse_px_kernel, replacing the Pallas
+// coarse_px_kernel at 969) is in coarse_px.cu.
 //
 // fine_kernel replaces fine_packed_kernel (1521) in its forward forms, hard
 // and soft, and its march-only form (fine_march.cu): every AA ray sphere-
@@ -35,8 +33,17 @@
 // reference's repeat of the planes to pixel resolution (1397-1406) as an
 // index map. fine_kernel's body is in fine.cuh, coarse_kernel's in
 // coarse.cuh: this file instantiates their static-tape hard builds,
-// fine_soft.cu (compiled with -fmad=false) the soft ones and prepass_dyn.cu
-// the DYN builds of both, which interpret the frame's dynamic tape.
+// fine_soft.cu the soft ones, fine_march.cu the march-only ones,
+// intervals_wide.cu those past MAX_NI intervals and prepass_dyn.cu the DYN
+// builds of both, which interpret the frame's dynamic tape.
+//
+// Both kernels read the scene from its packed words (scene_eval.cuh
+// SceneWords: one 16-byte word per instruction, float4 leaf rows) and keep
+// the value stack out of local memory: its top in a register, and the slot
+// below it in a register for a stack depth of at most REG_STACK (the STK
+// build REG_STACK), else the slots below the top in shared memory
+// (STK_SMEM). The host chooses the route from the spec's stack depth
+// (ops/cuda_march.py stack_route) and names it in the launch.
 //
 // With leaf culling (cfg.leaf_cull) both kernels evaluate the scene of a
 // point through its pixel's tile (scene_distance_tile): the compact plan's
@@ -71,10 +78,11 @@
 // Rounding notes: 1.0f / sqrtf(x) stands in for jax.lax.rsqrt (the
 // correctly-rounded quotient of a correctly-rounded root, closer to the
 // reference's f32 result than the approximate rsqrtf). The checker floor
-// rounds half to even with rintf, as jnp.round does. nvcc's default FMA
-// contraction is left on in the march of the hard builds; the ray setup
-// rounds every operation (render_common.cuh), and so does all of the soft
-// builds (fine.cuh). "No interval" is the reference's finite 3.0e38,
+// rounds half to even with rintf, as jnp.round does. Every K1/K2 source
+// builds with -fmad=false (_build.py SOURCE_FLAGS): no FMA contraction, so
+// each operation of the march and the scene rounds as the plain torch
+// versions' do and the kernels' planes and (t, hit) equal theirs, static
+// and DYN builds alike. "No interval" is the reference's finite 3.0e38,
 // tested with < 9.0e37, never INFINITY.
 #include <cstdint>
 
@@ -94,13 +102,16 @@ extern "C" {
 // t0 (status null). soft != 0 runs the soft build (no prepass, relax 1),
 // which also writes s_min and t_min where soft_params gives them. img null
 // runs the march-only build (fine_march.cu), which writes t and hit only.
-// dyn != 0 reads `tape` as the frame's dynamic tape (the DYN builds, MODE 3
-// and 4: un-culled or gated; hard in prepass_dyn.cu, march-only in
-// fine_march.cu, soft in fine_soft.cu, K3's in prepass_dyn.cu). Interval
-// counts above MAX_NI take the builds of intervals_wide.cu.
+// words is the packed tape int32[n_instr, 4] (ops/cuda_march.py
+// pack_words); dyn != 0 marks it as the frame's dynamic tape (the DYN
+// builds, MODE 3 and 4: un-culled or gated; hard in prepass_dyn.cu,
+// march-only in fine_march.cu, soft in fine_soft.cu); stack_depth is the
+// spec's, whose route (REG_STACK or STK_SMEM) the launch names in stk.
+// Interval counts above MAX_NI take the builds of intervals_wide.cu.
 int rmt_coarse_launch(const float* leaf_params, const int* row_kind,
-                      const int* tape, int n_instr, const float* op_param,
-                      int dyn, const float* cam, const float* bound,
+                      const int* words, int n_instr, const float* op_param,
+                      int dyn, int stk, int stack_depth, const float* cam,
+                      const float* bound,
                       const rmt::RenderParams* params,
                       const rmt::CullView* cull, float* t0_out,
                       float* status_out, const rmt::BlockParams* block_params,
@@ -108,11 +119,11 @@ int rmt_coarse_launch(const float* leaf_params, const int* row_kind,
   rmt::CoarseLaunch L;
   L.p = *params;
   L.bp = *block_params;
-  L.sc = rmt::make_scene(leaf_params, row_kind, tape, n_instr, op_param,
-                         L.p.max_dist);
-  const int kind = L.bp.ni > rmt::MAX_NI ? 3
-                   : L.bp.ni > 0         ? 2
-                   : (L.bp.block > 1 ? 1 : 0);
+  if (!rmt::make_words(leaf_params, row_kind, words, n_instr, op_param,
+                       L.p.max_dist, stk, stack_depth, &L.sw))
+    return (int)cudaErrorInvalidValue;
+  L.stk = stk;
+  const int kind = L.bp.ni > 0 ? 2 : (L.bp.block > 1 ? 1 : 0);
   const int cols = kind == 0 ? L.p.width : L.bp.bcols;
   L.block = dim3(rmt::COARSE_THREADS);
   L.grid = dim3((cols + rmt::COARSE_THREADS - 1) / rmt::COARSE_THREADS,
@@ -123,48 +134,21 @@ int rmt_coarse_launch(const float* leaf_params, const int* row_kind,
   L.cv = *cull;
   L.t0_out = t0_out;
   L.status_out = status_out;
-  if (dyn) {
-    const int mode = rmt::build_mode(cull->mode, true);
-    if (mode < 0) return (int)cudaErrorInvalidValue;
-    return (int)rmt::launch_coarse_dyn(L, mode, kind);
-  }
-  switch (cull->mode) {
-    case 0: L.kinds<0>(kind); break;
-    case 1: L.kinds<1>(kind); break;
-    case 2: L.kinds<2>(kind); break;
-    default:
+  switch (rmt::build_mode(cull->mode, dyn != 0)) {
+    case 0: return (int)rmt::launch_coarse<0>(L, kind);
+    case 1: return (int)rmt::launch_coarse<1>(L, kind);
+    case 2: return (int)rmt::launch_coarse<2>(L, kind);
+    case 3: return (int)rmt::launch_coarse<3>(L, kind);
+    case 4: return (int)rmt::launch_coarse<4>(L, kind);
+    default:  // a dynamic tape has no compact plan: no item lists
       return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
-}
-
-int rmt_coarse_px_launch(const float* leaf_params, const int* row_kind,
-                         const int* tape, int n_instr, const float* op_param,
-                         int dyn, const float* cam, const float* bound,
-                         const rmt::RenderParams* params, const float* t_blk,
-                         const float* status_blk, float* t0_out,
-                         float* status_out,
-                         const rmt::BlockParams* block_params, void* stream) {
-  const rmt::RenderParams p = *params;
-  const rmt::BlockParams bp = *block_params;
-  const rmt::SceneView sc = rmt::make_scene(leaf_params, row_kind, tape,
-                                            n_instr, op_param, p.max_dist);
-  const dim3 block(rmt::COARSE_THREADS);
-  const dim3 grid((p.width + rmt::COARSE_THREADS - 1) / rmt::COARSE_THREADS,
-                  p.rows);
-  if (dyn)
-    rmt::launch_coarse_px_dyn(grid, block, (cudaStream_t)stream, sc, cam,
-                              bound, p, t_blk, status_blk, t0_out, status_out,
-                              bp);
-  else
-    rmt::coarse_px_kernel<0><<<grid, block, 0, (cudaStream_t)stream>>>(
-        sc, cam, bound, p, t_blk, status_blk, t0_out, status_out, bp);
-  return (int)cudaGetLastError();
 }
 
 int rmt_fine_launch(const float* leaf_params, const int* row_kind,
-                    const int* tape, int n_instr, const float* op_param,
-                    int dyn, const float* cam, const float* bound,
+                    const int* words, int n_instr, const float* op_param,
+                    int dyn, int stk, int stack_depth, const float* cam,
+                    const float* bound,
                     const rmt::RenderParams* params,
                     const rmt::CullView* cull, const float* t0_in,
                     const float* status_in, float* img, float* t_out,
@@ -179,8 +163,10 @@ int rmt_fine_launch(const float* leaf_params, const int* row_kind,
                 p.rows);
   L.block = dim3(rmt::FINE_THREADS);
   L.st = (cudaStream_t)stream;
-  L.sc = rmt::make_scene(leaf_params, row_kind, tape, n_instr, op_param,
-                         p.max_dist);
+  if (!rmt::make_words(leaf_params, row_kind, words, n_instr, op_param,
+                       p.max_dist, stk, stack_depth, &L.sw))
+    return (int)cudaErrorInvalidValue;
+  L.stk = stk;
   L.cam = cam;
   L.bound = bound;
   L.p = p;
@@ -209,17 +195,31 @@ int rmt_fine_launch(const float* leaf_params, const int* row_kind,
     // The march-only build: t and hit only (fine_march.cu).
     if (t_out == nullptr || hit_out == nullptr)
       return (int)cudaErrorInvalidValue;
-    return (int)rmt::launch_fine_march(L, mode, relax, kind);
+    switch (mode) {
+      case 0: return (int)rmt::launch_fine_march<0>(L, relax, kind);
+      case 1: return (int)rmt::launch_fine_march<1>(L, relax, kind);
+      case 2: return (int)rmt::launch_fine_march<2>(L, relax, kind);
+      case 3: return (int)rmt::launch_fine_march<3>(L, relax, kind);
+      default: return (int)rmt::launch_fine_march<4>(L, relax, kind);
+    }
   }
-  if (dyn) return (int)rmt::launch_fine_dyn(L, mode, relax, mats != 0, kind);
-  switch (cull->mode) {
-    case 0: L.flags<0>(relax, mats != 0, kind); break;
-    case 1: L.flags<1>(relax, mats != 0, kind); break;
-    case 2: L.flags<2>(relax, mats != 0, kind); break;
-    default:
-      return (int)cudaErrorInvalidValue;
+  const bool m = mats != 0;
+  switch (mode) {
+    case 0: return (int)rmt::launch_fine_hard<0>(L, relax, m, kind);
+    case 1: return (int)rmt::launch_fine_hard<1>(L, relax, m, kind);
+    case 2: return (int)rmt::launch_fine_hard<2>(L, relax, m, kind);
+    case 3: return (int)rmt::launch_fine_hard<3>(L, relax, m, kind);
+    default: return (int)rmt::launch_fine_hard<4>(L, relax, m, kind);
   }
-  return (int)cudaGetLastError();
 }
 
 }  // extern "C"
+
+namespace rmt {
+
+template cudaError_t launch_coarse<0>(const CoarseLaunch&, int);
+template cudaError_t launch_coarse<1>(const CoarseLaunch&, int);
+template cudaError_t launch_coarse<2>(const CoarseLaunch&, int);
+template cudaError_t launch_fine_hard<0>(const FineLaunch&, bool, bool, int);
+
+}  // namespace rmt

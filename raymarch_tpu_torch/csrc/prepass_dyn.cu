@@ -1,13 +1,12 @@
-// The DYN builds of the coarse kernel (coarse_kernel<MODE, KIND>,
-// coarse.cuh), of the chained pixel kernel K3 (coarse_px_kernel<3>,
-// un-culled as the reference's coarse_px_kernel, pallas_prepass.py:969-990,
-// whose scene_eval takes dynamic specs) and of the hard fine kernel
-// (fine_kernel<MODE, RELAX, MATS, PRE>, fine.cuh): MODE 3 (un-culled) and 4
-// (gated by the tile's leaf mask)
-// interpret the frame's dynamic tape (scene_eval.cuh scene_distance<true>
-// and scene_color<true>: the stack starts at max_dist, a NOP is the
-// identity), so that a topology edit within the tape's bucket is a buffer
-// write and builds nothing. They stand in for the dynamic branches of
+// The DYN builds of the coarse kernel (coarse_kernel<MODE, KIND, STK>,
+// coarse.cuh) and the un-culled DYN builds of the hard fine kernel
+// (fine_kernel<3, RELAX, MATS, PRE, false, STK>, fine.cuh; MODE 4's, gated
+// by the tile's leaf mask, are in fine_dyn_gated.cu): MODE 3 (un-culled)
+// and 4 (gated) interpret the frame's dynamic tape, packed into scene
+// words per frame (scene_eval.cuh words_distance<true> and
+// words_color<true>: the stack's top starts at max_dist, a NOP is skipped),
+// so that a topology edit within the tape's bucket is a buffer write and
+// builds nothing. They stand in for the dynamic branches of
 // raymarch_tpu/ops/pallas_march.py:_make_scene_eval (709-871) and
 // _make_scene_color_eval (873-1047) inside the Pallas coarse_kernel
 // (pallas_prepass.py:885) and fine_packed_kernel (1521). The reference
@@ -15,9 +14,10 @@
 // tape with its NOPs skipped, as K5-K7 do (march.cu).
 //
 // A translation unit of its own so that nvcc builds it beside prepass.cu,
-// with the same flags (FMA contraction on, as the static hard builds): a
-// dynamic frame's rays then take the static frame's steps wherever the two
-// tapes fold the same leaves in the same order.
+// with the same flags (-fmad=false, as every K1/K2 source): each operation
+// rounds as the plain versions' (sdf._apply_dynamic_tape) do, so a DYN
+// build's (t, hit) and planes equal its plain version's, and the static
+// frame's wherever the two tapes fold the same leaves in the same order.
 //
 // What bounds them on an H100: as the static builds, f32 instruction issue
 // in the scene interpreter and warp divergence; the dynamic tape adds a NOP
@@ -29,36 +29,8 @@
 
 namespace rmt {
 
-cudaError_t launch_coarse_dyn(const CoarseLaunch& L, int mode, int kind) {
-  switch (mode) {
-    case 3: L.kinds<3>(kind); break;
-    case 4: L.kinds<4>(kind); break;
-    default:  // a dynamic tape has no compact plan: no item lists
-      return cudaErrorInvalidValue;
-  }
-  return cudaGetLastError();
-}
-
-cudaError_t launch_fine_dyn(const FineLaunch& L, int mode, bool relax,
-                            bool mats, int kind) {
-  switch (mode) {
-    case 3: L.flags<3>(relax, mats, kind); break;
-    case 4: L.flags<4>(relax, mats, kind); break;
-    default:
-      return cudaErrorInvalidValue;
-  }
-  return cudaGetLastError();
-}
-
-void launch_coarse_px_dyn(dim3 grid, dim3 block, cudaStream_t st,
-                          const SceneView& sc, const float* cam,
-                          const float* bound, const RenderParams& p,
-                          const float* t_blk, const float* status_blk,
-                          float* t0_out, float* status_out,
-                          const BlockParams& bp) {
-  coarse_px_kernel<3><<<grid, block, 0, st>>>(sc, cam, bound, p, t_blk,
-                                              status_blk, t0_out, status_out,
-                                              bp);
-}
+template cudaError_t launch_coarse<3>(const CoarseLaunch&, int);
+template cudaError_t launch_coarse<4>(const CoarseLaunch&, int);
+template cudaError_t launch_fine_hard<3>(const FineLaunch&, bool, bool, int);
 
 }  // namespace rmt

@@ -63,7 +63,8 @@ struct Ray {
 // (__fmul_rn/__fadd_rn never contract into an FMA), as the plain torch
 // versions do: a ray direction or a floor point one ulp off flips the
 // checker's parity near its edges (0.23 of a sample's colour) and moves a
-// grazing ray's march. The march itself may contract.
+// grazing ray's march. The march contracts only in the sources built with
+// nvcc's default (K3, K4).
 
 // Screen point (x, y) -> world ray from the camera (pallas_prepass.py
 // _view_dirs, 696-711). cam = (pos3, quat wxyz, row_offset).
@@ -157,6 +158,27 @@ inline SceneView make_scene(const float* leaf_params, const int* row_kind,
   sc.n_instr = n_instr;
   sc.max_dist = max_dist;
   return sc;
+}
+
+// The K1/K2 view of a scene: its packed words (int4-aligned) and leaf rows
+// (float4-aligned, as the wrappers check), on stack route stk (REG_STACK or
+// STK_SMEM) for a tape of stack depth stack_depth. False when the route
+// does not hold the depth.
+inline bool make_words(const float* leaf_params, const int* row_kind,
+                       const int* words, int n_instr, const float* op_param,
+                       float max_dist, int stk, int stack_depth,
+                       SceneWords* sw) {
+  if (stk == STK_SMEM ? stack_depth < 1
+                      : stk != REG_STACK || stack_depth > REG_STACK)
+    return false;
+  sw->ins = reinterpret_cast<const int4*>(words);
+  sw->leaf = reinterpret_cast<const float4*>(leaf_params);
+  sw->row_kind = row_kind;
+  sw->op_param = op_param;
+  sw->n = n_instr;
+  sw->rows = stack_depth - 1;
+  sw->max_dist = max_dist;
+  return true;
 }
 
 // Launches `kernel` (a grid-stride loop over the AA rays of the band of p)

@@ -65,20 +65,57 @@ __device__ __forceinline__ float smooth_min(float a, float b, float k) {
   return fminf(a, b) - h * h * k * 0.25f;
 }
 
-__device__ __forceinline__ float leaf_distance(const float* __restrict__ P,
-                                               int kind, float px, float py,
-                                               float pz) {
+// A leaf row is 16 words in four quads: words 0-3 the quaternion (w, x, y,
+// z), 4-6 the centre and 7-11 the type's parameters. leaf_distance takes a
+// quad before it needs its words; the row reader decides what that costs.
+// K3-K9 (SceneView's rows) read each word where it is used...
+struct RowWords {
+  static constexpr bool QUADS = false;
+  const float* P;
+  struct Quad {
+    const float* P;  // the row
+    int q;           // the quad
+    __device__ __forceinline__ float operator[](int k) const {
+      return __ldg(P + (4 * q + k));
+    }
+  };
+  __device__ __forceinline__ Quad quad(int q) const { return Quad{P, q}; }
+};
+
+// ...K1/K2 (SceneWords' float4 rows) read the whole quad, in one 16-byte
+// load, where it is taken.
+struct RowQuads {
+  static constexpr bool QUADS = true;
+  const float4* P;
+  struct Quad {
+    float4 v;
+    __device__ __forceinline__ float operator[](int k) const {
+      return k == 0 ? v.x : k == 1 ? v.y : k == 2 ? v.z : v.w;
+    }
+  };
+  __device__ __forceinline__ Quad quad(int q) const {
+    return Quad{__ldg(P + q)};
+  }
+};
+
+// The distance of a leaf row at p: every primitive's formula, once, for
+// both row readers.
+template <class Row>
+__device__ __forceinline__ float leaf_distance(const Row& R, int kind,
+                                               float px, float py, float pz) {
   const int type = kind & (ROTATED_BIT - 1);
-  float x = px - __ldg(P + 4);
-  float y = py - __ldg(P + 5);
-  float z = pz - __ldg(P + 6);
+  const auto c = R.quad(1);  // the centre, then the first parameter
+  float x = px - c[0];
+  float y = py - c[1];
+  float z = pz - c[2];
   if (kind & ROTATED_BIT) {
     // Inverse-rotate by the unit quaternion (w,x,y,z):
     // t = 2 (u x v); v' = v + w t + u x t with u = -q.xyz.
-    const float qw = __ldg(P + 0);
-    const float qx = -__ldg(P + 1);
-    const float qy = -__ldg(P + 2);
-    const float qz = -__ldg(P + 3);
+    const auto q = R.quad(0);
+    const float qw = q[0];
+    const float qx = -q[1];
+    const float qy = -q[2];
+    const float qz = -q[3];
     const float tx = 2.0f * (qy * z - qz * y);
     const float ty = 2.0f * (qz * x - qx * z);
     const float tz = 2.0f * (qx * y - qy * x);
@@ -89,13 +126,20 @@ __device__ __forceinline__ float leaf_distance(const float* __restrict__ P,
     y = y2;
     z = z2;
   }
+  // A reader of whole quads skips the parameter quad of a sphere (the
+  // same formula as the switch's first case).
+  if constexpr (Row::QUADS) {
+    if (type == LEAF_SPHERE)
+      return sqrtf(x * x + y * y + z * z + 1e-20f) - c[3];
+  }
+  const auto e = R.quad(2);  // the next four parameters
   switch (type) {
     case LEAF_SPHERE:
-      return sqrtf(x * x + y * y + z * z + 1e-20f) - __ldg(P + 7);
+      return sqrtf(x * x + y * y + z * z + 1e-20f) - c[3];
     case LEAF_BOX: {
-      const float qx = fabsf(x) - __ldg(P + 7);
-      const float qy = fabsf(y) - __ldg(P + 8);
-      const float qz = fabsf(z) - __ldg(P + 9);
+      const float qx = fabsf(x) - c[3];
+      const float qy = fabsf(y) - e[0];
+      const float qz = fabsf(z) - e[1];
       const float ox = fmaxf(qx, 0.0f);
       const float oy = fmaxf(qy, 0.0f);
       const float oz = fmaxf(qz, 0.0f);
@@ -103,31 +147,31 @@ __device__ __forceinline__ float leaf_distance(const float* __restrict__ P,
       const float inside = fminf(fmaxf(qx, fmaxf(qy, qz)), 0.0f);
       return outside + inside;
     }
-    case LEAF_PLANE:
+    case LEAF_PLANE: {
       // World-space plane: the center and rotation are folded at compile
       // time.
-      return px * __ldg(P + 7) + py * __ldg(P + 8) + pz * __ldg(P + 9) +
-             __ldg(P + 10);
+      return px * c[3] + py * e[0] + pz * e[1] + e[2];
+    }
     case LEAF_TORUS: {
-      const float ring = sqrtf(x * x + z * z + 1e-20f) - __ldg(P + 7);
-      return sqrtf(ring * ring + y * y + 1e-20f) - __ldg(P + 8);
+      const float ring = sqrtf(x * x + z * z + 1e-20f) - c[3];
+      return sqrtf(ring * ring + y * y + 1e-20f) - e[0];
     }
     case LEAF_CYLINDER: {
-      const float qx = sqrtf(x * x + z * z + 1e-20f) - __ldg(P + 7);
-      const float qy = fabsf(y) - __ldg(P + 8);
+      const float qx = sqrtf(x * x + z * z + 1e-20f) - c[3];
+      const float qy = fabsf(y) - e[0];
       const float ox = fmaxf(qx, 0.0f);
       const float oy = fmaxf(qy, 0.0f);
       return sqrtf(ox * ox + oy * oy + 1e-20f) + fminf(fmaxf(qx, qy), 0.0f);
     }
     case LEAF_CAPSULE: {
-      const float h = __ldg(P + 8);
+      const float h = e[0];
       const float yy = y - fminf(fmaxf(y, -h), h);
-      return sqrtf(x * x + yy * yy + z * z + 1e-20f) - __ldg(P + 7);
+      return sqrtf(x * x + yy * yy + z * z + 1e-20f) - c[3];
     }
     case LEAF_CONE: {
-      const float h = __ldg(P + 7);
-      const float r1 = __ldg(P + 8);
-      const float r2 = __ldg(P + 9);
+      const float h = c[3];
+      const float r1 = e[0];
+      const float r2 = e[1];
       const float qx = sqrtf(x * x + z * z + 1e-20f);
       const float k2x = r2 - r1;
       const float k2y = 2.0f * h;
@@ -145,6 +189,12 @@ __device__ __forceinline__ float leaf_distance(const float* __restrict__ P,
     default:
       return __int_as_float(0x7fc00000);  // unknown type: NaN, never silent
   }
+}
+
+__device__ __forceinline__ float leaf_distance(const float* __restrict__ P,
+                                               int kind, float px, float py,
+                                               float pz) {
+  return leaf_distance(RowWords{P}, kind, px, py, pz);
 }
 
 // Distance substituted for a culled leaf (ops/culling.py FAR).
@@ -367,11 +417,11 @@ __device__ __forceinline__ int tile_of(const CullView& cv, int i, int j) {
 // mode 0 min(acc, d), 1 smooth_min(acc, d, k), 2 max(acc, -d),
 // 3 smooth_max(acc, -d, k); entry = row | tsel<<10 | mode<<13 | sid<<15 |
 // (kidx+1)<<18, k = op_param[kidx] clamped at 1e-8.
-__device__ __forceinline__ float fold_step(const SceneView& sc, float acc,
-                                           int e, float dv) {
+__device__ __forceinline__ float fold_step(const float* __restrict__ op_param,
+                                           float acc, int e, float dv) {
   const int mode = (e >> 13) & 3;
   const int ki = e >> 18;
-  const float kp = __ldg(sc.op_param + (ki - 1 > 0 ? ki - 1 : 0));
+  const float kp = __ldg(op_param + (ki - 1 > 0 ? ki - 1 : 0));
   const float kk = fmaxf(kp, 1e-8f);
   const bool is_sub = mode >= 2;
   const float hard = is_sub ? fmaxf(acc, -dv) : fminf(acc, dv);
@@ -380,6 +430,10 @@ __device__ __forceinline__ float fold_step(const SceneView& sc, float acc,
   const float h = fmaxf(kk - fabsf(diff), 0.0f) / kk;
   const float corr = h * h * kk * 0.25f;
   return is_sub ? hard + corr : hard - corr;
+}
+__device__ __forceinline__ float fold_step(const SceneView& sc, float acc,
+                                           int e, float dv) {
+  return fold_step(sc.op_param, acc, e, dv);
 }
 
 __device__ __forceinline__ float entry_distance(const SceneView& sc, int row,
@@ -394,10 +448,11 @@ __device__ __forceinline__ float entry_distance(const SceneView& sc, int row,
 // segment-id change). Replaces pallas_march.py:_make_scene_eval_compact
 // (493-660) for plans with no residual subtrees (those take the gated
 // tape). Loops run the tile's active counts: O(active leaves) per point.
-__device__ __forceinline__ float scene_distance_compact(const SceneView& sc,
-                                                        const CullView& cv,
-                                                        int tile, float px,
-                                                        float py, float pz) {
+// leaf(row) is the distance of leaf row `row` at the point.
+template <class Leaf>
+__device__ __forceinline__ float compact_fold(const Leaf& leaf,
+                                              const float* __restrict__ op_param,
+                                              const CullView& cv, int tile) {
   const int* lst = cv.lists + (size_t)tile * cv.n_items;
   const int* cnt = cv.counts + (size_t)tile * cv.n_counts;
   float d = CULL_FAR;
@@ -409,14 +464,13 @@ __device__ __forceinline__ float scene_distance_compact(const SceneView& sc,
     const int source = __ldg(cv.prog + 4 * g + 2);
     const bool ordered = __ldg(cv.prog + 4 * g + 3) != 0;
     if (source == 0) {  // free pool
-      for (int j = 0; j < n; ++j)
-        d = fminf(d, entry_distance(sc, __ldg(lst + off + j), px, py, pz));
+      for (int j = 0; j < n; ++j) d = fminf(d, leaf(__ldg(lst + off + j)));
     } else if (source == 1) {  // the seg1 chain
       has_chain = true;
       for (int j = 0; j < n; ++j) {
         const int e = __ldg(lst + off + j);
-        const float dv = entry_distance(sc, e & 1023, px, py, pz);
-        chain = ordered ? fold_step(sc, chain, e, dv) : fminf(chain, dv);
+        const float dv = leaf(e & 1023);
+        chain = ordered ? fold_step(op_param, chain, e, dv) : fminf(chain, dv);
       }
     } else {  // one stream group
       float acc_out = d, acc_seg = CULL_FAR;
@@ -428,14 +482,22 @@ __device__ __forceinline__ float scene_distance_compact(const SceneView& sc,
           acc_out = fminf(acc_out, acc_seg);
           acc_seg = CULL_FAR;
         }
-        acc_seg = fold_step(sc, acc_seg, e,
-                            entry_distance(sc, e & 1023, px, py, pz));
+        acc_seg = fold_step(op_param, acc_seg, e, leaf(e & 1023));
         prev = sid;
       }
       d = fminf(acc_out, acc_seg);
     }
   }
   return has_chain ? fminf(d, chain) : d;
+}
+
+__device__ __forceinline__ float scene_distance_compact(const SceneView& sc,
+                                                        const CullView& cv,
+                                                        int tile, float px,
+                                                        float py, float pz) {
+  return compact_fold(
+      [&](int row) { return entry_distance(sc, row, px, py, pz); },
+      sc.op_param, cv, tile);
 }
 
 // The kernels' MODE template parameter: the culling mode (CullView::mode)
@@ -468,5 +530,283 @@ __device__ __forceinline__ float scene_distance_tile(const SceneView& sc,
     return scene_distance<mode_dyn(MODE)>(sc, px, py, pz);
   }
 }
+
+// ---------------------------------------------------------------------------
+// The scene evaluator of K1 and K2 (coarse_kernel, fine_kernel, every build):
+// packed scene words and a value stack kept out of local memory. K3, K4 and
+// K5-K7 keep scene_distance / scene_color above.
+//
+// Each instruction is one 16-byte word, the format of the backwards' packed
+// tape (scene_grad.cuh BwdTape; ops/cuda_march.py pack_words): op | slot <<
+// 8, the leaf row of a PUSH, the row's kind, and a word the forward does not
+// read. A leaf row is read as float4s (a row is 64 bytes, 64-byte aligned):
+// only those its type uses. The tape is postorder with slot = stack depth
+// (compile_wire), so the interpreter keeps the top of the value stack in a
+// register and the slots below it in a store: a PUSH at slot s spills the
+// old top to slot s - 1, a binary op at slot s reads slot s and the top, a
+// unary op touches the top alone. Every lane reads the same word, so every
+// branch on it is warp-uniform. The operations and their order are
+// scene_distance's, so that a build without FMA contraction rounds as the
+// plain versions (sdf._apply_static_tape, _apply_dynamic_tape) do.
+
+// The value stack's route (ops/cuda_march.py stack_route), the STK template
+// parameter of the K1/K2 builds: a tape of stack depth <= REG_STACK keeps
+// the slot below its top in a register (STK = REG_STACK), a deeper one
+// (STK_SMEM) the slots below its top in shared memory, one column per
+// thread: slot s of thread k at [s * threads + k], 4 * (depth - 1) *
+// threads bytes a block, four times that for the colour walk's four
+// stacks. Measured on the H100 (PERF.md): at depths 4 and 8 shared memory
+// beat a register file selected by the warp-uniform slot (by unrolled
+// compares, or shifted on every push and pop) and the local-memory stack;
+// at depth 2 the register beat shared memory by 2-4% (K1 and K2 at the
+// headline), and one build for every depth, slot 0 in a register and a
+// warp-uniform branch on the slot, lost 7-15% to the two routes.
+constexpr int REG_STACK = 2;
+constexpr int STK_SMEM = 0;
+
+struct SceneWords {
+  const int4* ins;        // [n]: op | slot << 8, leaf row, row kind, unread
+  const float4* leaf;     // [n_leaves * 4]: the leaf rows
+  const int* row_kind;    // [n_leaves]: for the compact item lists
+  const float* op_param;  // [>= n]
+  int n;                  // instructions (a dynamic tape's bucket); 0 = empty
+  int rows;               // STK_SMEM: stack slots below the top, per thread
+  float max_dist;         // the empty scene's distance
+};
+
+// The slot below the top in a register (a stack of depth <= REG_STACK has
+// one).
+struct RegSlot {
+  float v;
+  __device__ __forceinline__ float get(int) const { return v; }
+  __device__ __forceinline__ void put(int, float x) { v = x; }
+};
+
+// The slots below the top in the block's dynamic shared memory.
+struct SmemSlots {
+  float* base;  // this thread's slot 0
+  int stride;   // the block's threads
+  __device__ __forceinline__ float get(int s) const { return base[s * stride]; }
+  __device__ __forceinline__ void put(int s, float x) const {
+    base[s * stride] = x;
+  }
+};
+
+// Stack `k` (0 the distance, 1-3 the colour walk's r, g, b) of route STK.
+template <int STK>
+__device__ __forceinline__ auto stack_slots(const SceneWords& sw, int k) {
+  if constexpr (STK == STK_SMEM) {
+    extern __shared__ float rmt_stack[];
+    const int stride = blockDim.x * blockDim.y;
+    return SmemSlots{rmt_stack + (size_t)k * sw.rows * stride +
+                         threadIdx.y * blockDim.x + threadIdx.x,
+                     stride};
+  } else {
+    RegSlot reg;  // written before it is read
+    return reg;
+  }
+}
+
+// scene_distance over the packed words on route STK (DYN: the frame's
+// dynamic tape; the top starts at max_dist and a NOP is skipped). With a
+// tile mask a leaf whose bit is clear reads CULL_FAR.
+template <bool DYN, int STK>
+__device__ __forceinline__ float words_distance(const SceneWords& sw, float px,
+                                                float py, float pz,
+                                                const int* mask = nullptr) {
+  auto below = stack_slots<STK>(sw, 0);
+  float top = sw.max_dist;
+  for (int i = 0; i < sw.n; ++i) {
+    const int4 w = __ldg(sw.ins + i);
+    const int op = w.x & 0xff;
+    if constexpr (DYN) {
+      if (op == COP_NOP) continue;
+    }
+    const int s = w.x >> 8;
+    if (op == COP_PUSH) {
+      const float d = (mask != nullptr && !mask_bit(mask, w.y))
+                          ? CULL_FAR
+                          : leaf_distance(RowQuads{sw.leaf + 4 * w.y}, w.z, px,
+                                          py, pz);
+      if (s > 0) below.put(s - 1, top);
+      top = d;
+      continue;
+    }
+    const float k = op >= COP_SMOOTH_UNION ? __ldg(sw.op_param + i) : 0.0f;
+    if (op == COP_ROUND || op == COP_ONION) {
+      top = (op == COP_ROUND ? top : fabsf(top)) - k;
+      continue;
+    }
+    const float a = below.get(s);
+    switch (op) {
+      case COP_UNION:
+        top = fminf(a, top);
+        break;
+      case COP_INTERSECTION:
+        top = fmaxf(a, top);
+        break;
+      case COP_SUBTRACTION:
+        top = fmaxf(a, -top);
+        break;
+      case COP_SMOOTH_UNION:
+        top = smooth_min(a, top, k);
+        break;
+      case COP_SMOOTH_INTERSECTION:
+        top = -smooth_min(-a, -top, k);
+        break;
+      case COP_SMOOTH_SUBTRACTION:
+        top = -smooth_min(-a, top, k);
+        break;
+      default:  // COP_NOP never appears in a static tape
+        break;
+    }
+  }
+  return top;
+}
+
+// scene_color over the packed words: the distance and the albedo the tape
+// carries to p, its four stacks on route STK.
+template <bool DYN, int STK>
+__device__ __forceinline__ float words_color(const SceneWords& sw, float px,
+                                             float py, float pz,
+                                             const float* def, float rgb[3],
+                                             const int* mask = nullptr) {
+  auto bd = stack_slots<STK>(sw, 0);
+  auto br = stack_slots<STK>(sw, 1);
+  auto bg = stack_slots<STK>(sw, 2);
+  auto bb = stack_slots<STK>(sw, 3);
+  float td = sw.max_dist, tr = def[0], tg = def[1], tb = def[2];
+  for (int i = 0; i < sw.n; ++i) {
+    const int4 w = __ldg(sw.ins + i);
+    const int op = w.x & 0xff;
+    if constexpr (DYN) {
+      if (op == COP_NOP) continue;
+    }
+    const int s = w.x >> 8;
+    if (op == COP_PUSH) {
+      float d, r = def[0], g = def[1], b = def[2];
+      if (mask != nullptr && !mask_bit(mask, w.y)) {
+        d = CULL_FAR;
+      } else {
+        const float4* P = sw.leaf + 4 * w.y;
+        d = leaf_distance(RowQuads{P}, w.z, px, py, pz);
+        const float4 al = __ldg(P + 3);  // albedo, material flag
+        const float fl = al.w;
+        r = fl * al.x + (1.0f - fl) * def[0];
+        g = fl * al.y + (1.0f - fl) * def[1];
+        b = fl * al.z + (1.0f - fl) * def[2];
+      }
+      if (s > 0) {
+        bd.put(s - 1, td);
+        br.put(s - 1, tr);
+        bg.put(s - 1, tg);
+        bb.put(s - 1, tb);
+      }
+      td = d;
+      tr = r;
+      tg = g;
+      tb = b;
+      continue;
+    }
+    const float k = op >= COP_SMOOTH_UNION ? __ldg(sw.op_param + i) : 0.0f;
+    if (op == COP_ROUND || op == COP_ONION) {
+      td = (op == COP_ROUND ? td : fabsf(td)) - k;
+      continue;
+    }
+    const float a = bd.get(s), b = td;
+    float r, wt;
+    switch (op) {
+      case COP_UNION:
+        r = fminf(a, b);
+        wt = a <= b ? 1.0f : 0.0f;
+        break;
+      case COP_INTERSECTION:
+        r = fmaxf(a, b);
+        wt = a >= b ? 1.0f : 0.0f;
+        break;
+      case COP_SUBTRACTION:
+        r = fmaxf(a, -b);
+        wt = a >= -b ? 1.0f : 0.0f;
+        break;
+      case COP_SMOOTH_UNION:
+        r = smooth_min(a, b, k);
+        wt = mat_weight_smooth(a, b, k);
+        break;
+      case COP_SMOOTH_INTERSECTION:
+        r = -smooth_min(-a, -b, k);
+        wt = mat_weight_smooth(b, a, k);
+        break;
+      case COP_SMOOTH_SUBTRACTION:
+        r = -smooth_min(-a, b, k);
+        wt = mat_weight_smooth(-b, a, k);
+        break;
+      default:  // COP_NOP never appears in a static tape
+        continue;
+    }
+    td = r;
+    tr = wt * br.get(s) + (1.0f - wt) * tr;
+    tg = wt * bg.get(s) + (1.0f - wt) * tg;
+    tb = wt * bb.get(s) + (1.0f - wt) * tb;
+  }
+  rgb[0] = tr;
+  rgb[1] = tg;
+  rgb[2] = tb;
+  return td;
+}
+
+// The scene function of a K1/K2 thread at points of pixel tile `tile`
+// under MODE, on stack route STK: the compact item lists over float4 leaf
+// rows (MODE 1), else the packed words, gated by the tile's leaf mask in
+// MODE 2 and 4. color() is the hit point's colour walk (gated under any
+// culling, as the reference's colour pass is).
+template <int MODE, int STK>
+struct WordScene {
+  static constexpr bool TAP_LOOP = true;  // fine.cuh tet_normal
+  const SceneWords& sw;
+  const CullView& cv;
+  int tile;
+
+  __device__ __forceinline__ const int* mask() const {
+    return mode_culled(MODE) ? cv.masks + (size_t)tile * cv.n_words : nullptr;
+  }
+  __device__ __forceinline__ float operator()(float px, float py,
+                                              float pz) const {
+    if constexpr (MODE == 1) {
+      return compact_fold(
+          [&](int row) {
+            return leaf_distance(RowQuads{sw.leaf + 4 * row},
+                                 __ldg(sw.row_kind + row), px, py, pz);
+          },
+          sw.op_param, cv, tile);
+    } else {
+      return words_distance<mode_dyn(MODE), STK>(sw, px, py, pz, mask());
+    }
+  }
+  __device__ __forceinline__ void color(float px, float py, float pz,
+                                        const float* def, float rgb[3]) const {
+    words_color<mode_dyn(MODE), STK>(sw, px, py, pz, def, rgb, mask());
+  }
+};
+
+// The same over SceneView's interpreter (scene_distance_tile,
+// scene_color): the scene function of K3 and K4.
+template <int MODE>
+struct TileScene {
+  static constexpr bool TAP_LOOP = false;
+  const SceneView& sc;
+  const CullView& cv;
+  int tile;
+
+  __device__ __forceinline__ float operator()(float px, float py,
+                                              float pz) const {
+    return scene_distance_tile<MODE>(sc, cv, tile, px, py, pz);
+  }
+  __device__ __forceinline__ void color(float px, float py, float pz,
+                                        const float* def, float rgb[3]) const {
+    scene_color<mode_dyn(MODE)>(
+        sc, px, py, pz, def, rgb,
+        mode_culled(MODE) ? cv.masks + (size_t)tile * cv.n_words : nullptr);
+  }
+};
 
 }  // namespace rmt

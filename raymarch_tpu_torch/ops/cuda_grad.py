@@ -66,6 +66,7 @@ import dataclasses
 import functools
 import types
 
+import numpy as np
 import torch
 
 from ..config import RenderConfig
@@ -147,13 +148,13 @@ class GradLayout:
 
     @staticmethod
     def of(spec: TapeSpec, cfg: RenderConfig) -> "GradLayout":
-        from .cuda_march import ROTATED_BIT, _leaf_static_rows
+        from .cuda_march import pack_words, row_kinds
 
         tape = spec.static_tape
         rows = tuple(sorted({a for c, a, _ in tape if c == oc.COP_PUSH}))
         base = {r: 16 * k for k, r in enumerate(rows)}
-        kind = {r: t | (ROTATED_BIT if rot else 0) for r, t, rot in _leaf_static_rows(spec)}
         push_slot = tuple(base[a] if c == oc.COP_PUSH else 0 for c, a, _ in tape)
+        cols = np.asarray(tape, np.int32).reshape(-1, 3).T
         return GradLayout(
             n_leaves=spec.n_leaves,
             n_instr=spec.n_instr,
@@ -161,8 +162,7 @@ class GradLayout:
             n_real=len(tape),
             push_slot=push_slot,
             grad_denom_clamp=float(cfg.grad_denom_clamp),
-            packed=tuple((c | sl << 8, a if c == oc.COP_PUSH else 0, kind.get(a, 0) if c == oc.COP_PUSH else 0, ps)
-                         for (c, a, sl), ps in zip(tape, push_slot)),
+            packed=tuple(map(tuple, pack_words(*cols, row_kinds(spec), push_slot).tolist())),
             n_smooth=sum(c in SMOOTH_OPS for c, _, _ in tape),
         )
 

@@ -4,8 +4,13 @@ The kernels' shared device function is `csrc/scene_eval.cuh`; this module
 holds what surrounds it:
 
 - `SceneBuffers` / `scene_buffers`: a scene's tape topology (fixed per
-  `TapeSpec`; a dynamic spec's tape comes with each frame's arrays) and its
-  numeric arrays (uploaded per frame), as tensors on one device.
+  `TapeSpec`; a dynamic spec's tape comes with each frame's arrays), its
+  packed scene words (`pack_words`: what K1/K2 and the backwards read, one
+  16-byte word per instruction) and its numeric arrays (uploaded per
+  frame), as tensors on one device. `stack_route` picks K1/K2's value-stack
+  route from the spec's stack depth; `scene_words_plain` is the plain
+  version of their evaluator, reading exactly the packed words on that
+  route.
 - `scene_plain`: the same distance in plain torch, per leaf in the f32 op
   order of `raymarch_tpu/ops/pallas_march.py:_leaf_distance_tile` (63-133),
   folded by `sdf._apply_static_tape` as the static branch of
@@ -43,6 +48,11 @@ from .tape import TapeArrays, TapeSpec
 # (csrc/scene_eval.cuh ROTATED_BIT).
 ROTATED_BIT = 256
 MAX_STACK = 32  # csrc/scene_eval.cuh MAX_STACK
+# The value stack's routes of K1/K2 (csrc/scene_eval.cuh REG_STACK,
+# STK_SMEM): the slot below the stack's top in a register (stack depth <=
+# REG_STACK), or the slots below the top in shared memory.
+REG_STACK = 2
+STK_SMEM = 0
 
 
 def _leaf_static_rows(spec: TapeSpec):
@@ -52,6 +62,59 @@ def _leaf_static_rows(spec: TapeSpec):
         for r in range(start, stop):
             rows.append((r, t, bool(spec.rotated_types[t])))
     return rows
+
+
+@functools.lru_cache(maxsize=64)
+def row_kinds(spec: TapeSpec) -> np.ndarray:
+    """i32[n_leaves] (read-only): each bank row's leaf type | ROTATED_BIT
+    (the bucket's padding rows too)."""
+    kind = np.zeros(spec.n_leaves, np.int32)
+    for r, t, rot in _leaf_static_rows(spec):
+        kind[r] = t | (ROTATED_BIT if rot else 0)
+    kind.setflags(write=False)
+    return kind
+
+
+def pack_words(ops, arg, slot, row_kind, push_slot=None):
+    """The packed tape i32[n, 4] (csrc/scene_eval.cuh SceneWords, the
+    backwards' BwdTape): per instruction op | slot << 8, the leaf row of a
+    PUSH (else 0), that row's kind (else 0) and `push_slot` (the backwards'
+    gradient slot of the row; 0 in a forward tape). numpy columns give a
+    numpy array; tensors give a tensor on their device, with no host read."""
+    if torch.is_tensor(ops):
+        ops, arg, slot = (c.to(torch.int32) for c in (ops, arg, slot))
+        push = ops == oc.COP_PUSH
+        rows = torch.where(push, arg, 0)
+        kind = torch.where(push, row_kind[rows.long()], 0)
+        last = torch.zeros_like(ops) if push_slot is None else push_slot.to(torch.int32)
+        return torch.stack([ops | (slot << 8), rows, kind, last], dim=1).contiguous()
+    ops, arg, slot = (np.asarray(c, np.int32) for c in (ops, arg, slot))
+    push = ops == oc.COP_PUSH
+    rows = np.where(push, arg, 0).astype(np.int32)
+    kind = np.where(push, np.asarray(row_kind, np.int32)[rows], 0)
+    last = np.zeros_like(ops) if push_slot is None else np.asarray(push_slot, np.int32)
+    return np.stack([ops | (slot << 8), rows, kind, last], axis=1).astype(np.int32)
+
+
+def stack_route(spec: TapeSpec) -> int:
+    """K1/K2's value-stack route for `spec`'s stack depth (the dynamic
+    tape's bucket depth for a dynamic spec): REG_STACK (depth <= 2: the
+    slot below the top in a register) or STK_SMEM (deeper: the slots below
+    the top in shared memory, 4 * (depth - 1) bytes a thread, four times
+    that for the colour walk). Shared memory beat registers selected by the
+    slot at depths 4 and 8 on the H100, the register beat shared memory by
+    2-4% at depth 2 (PERF.md §6).
+
+    A dynamic spec's frame tapes must keep every slot below
+    `spec.stack_depth`: the kernels size the route's slots by it.
+    `scene_buffers` checks a tape given as numpy arrays and raises; a tape
+    given as tensors is not read to the host, so that is the caller's
+    contract (any tape compiled for the spec keeps it)."""
+    return REG_STACK if spec.stack_depth <= REG_STACK else STK_SMEM
+
+
+def route_name(route: int) -> str:
+    return "shared memory" if route == STK_SMEM else "a register"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -64,6 +127,9 @@ class SceneBuffers:
     row_kind:    i32[n_leaves]: leaf type | ROTATED_BIT (fixed per TapeSpec).
     leaf_params: f32[n_leaves, 16] (per frame).
     op_param:    f32[TapeSpec.n_instr] (per frame).
+    words:       i32[n_instr, 4]: the tape packed by `pack_words` (per
+                 TapeSpec, or per frame for a dynamic spec); what K1/K2
+                 read. None where no such kernel runs.
     """
 
     spec: TapeSpec
@@ -71,6 +137,7 @@ class SceneBuffers:
     row_kind: torch.Tensor
     leaf_params: torch.Tensor
     op_param: torch.Tensor
+    words: torch.Tensor | None = None
 
     @property
     def dynamic(self) -> bool:
@@ -83,19 +150,18 @@ class SceneBuffers:
         return self.spec.n_instr if self.dynamic else len(self.spec.static_tape)
 
 
-def scene_topology(spec: TapeSpec, device) -> tuple[torch.Tensor | None, torch.Tensor]:
-    """(tape, row_kind) tensors of a spec on `device`. A dynamic spec has no
-    fixed tape (None: it comes with each frame's arrays); its row kinds
-    cover every row of `spec.type_slices`, the bucket's padding rows too."""
+def scene_topology(spec: TapeSpec, device) -> tuple[torch.Tensor | None, torch.Tensor, torch.Tensor | None]:
+    """(tape, row_kind, words) tensors of a spec on `device`. A dynamic
+    spec has no fixed tape or words (None: they come with each frame's
+    arrays); its row kinds cover every row of `spec.type_slices`, the
+    bucket's padding rows too."""
     if spec.stack_depth > MAX_STACK:
         raise ValueError(
             f"stack depth {spec.stack_depth} exceeds the kernels' {MAX_STACK}"
         )
-    kind = np.zeros(spec.n_leaves, np.int32)
-    for r, t, rot in _leaf_static_rows(spec):
-        kind[r] = t | (ROTATED_BIT if rot else 0)
+    kind = np.array(row_kinds(spec))  # a writable copy of the cached array
     if spec.static_tape is None:
-        return None, torch.as_tensor(kind, device=device)
+        return None, torch.as_tensor(kind, device=device), None
     n = len(spec.static_tape)
     tape = np.zeros((3, max(n, 1)), np.int32)
     if n:
@@ -103,25 +169,37 @@ def scene_topology(spec: TapeSpec, device) -> tuple[torch.Tensor | None, torch.T
     return (
         torch.as_tensor(tape, device=device),
         torch.as_tensor(kind, device=device),
+        torch.as_tensor(pack_words(*tape, kind), device=device),
     )
 
 
-def _dynamic_tape(spec: TapeSpec, arrays: TapeArrays, device) -> torch.Tensor:
+def _dynamic_tape(spec: TapeSpec, arrays: TapeArrays, device, row_kind: torch.Tensor):
     """The frame's dynamic tape i32[3, n_instr] (opcodes, leaf rows, stack
-    slots) on `device`: numpy arrays are stacked and uploaded at once;
-    tensors must lie on `device` already and are stacked there, with no host
+    slots) and its packed words i32[n_instr, 4] on `device`: numpy arrays
+    are packed on the host and uploaded in one buffer, after checking that
+    no slot passes the spec's stack depth (`stack_route`); tensors must lie
+    on `device` already and are stacked and packed there, with no host
     read."""
     cols = (arrays.tape_ops, arrays.tape_arg, arrays.out_slot)
+    n = spec.n_instr
     if any(torch.is_tensor(c) for c in cols):
         for c in cols:
             if not torch.is_tensor(c) or c.device != device:
                 raise ValueError(f"the dynamic tape's arrays must all be tensors on {device}")
         tape = torch.stack([c.to(torch.int32) for c in cols])
-    else:
-        tape = torch.as_tensor(np.stack([np.asarray(c, np.int32) for c in cols]), device=device)
-    if tuple(tape.shape) != (3, spec.n_instr):
-        raise ValueError(f"the dynamic tape has shape {tuple(tape.shape)}, expected (3, {spec.n_instr})")
-    return tape
+        if tuple(tape.shape) != (3, n):
+            raise ValueError(f"the dynamic tape has shape {tuple(tape.shape)}, expected (3, {n})")
+        return tape, pack_words(*tape, row_kind)
+    tape = np.stack([np.asarray(c, np.int32) for c in cols])
+    if tape.shape != (3, n):
+        raise ValueError(f"the dynamic tape has shape {tape.shape}, expected (3, {n})")
+    deepest = int(tape[2][tape[0] != oc.COP_NOP].max(initial=0))
+    if deepest >= spec.stack_depth:
+        raise ValueError(f"the dynamic tape writes stack slot {deepest}, past the spec's depth {spec.stack_depth}")
+    # The words first, so that they start 16-byte aligned.
+    words = pack_words(*tape, row_kinds(spec))
+    buf = torch.as_tensor(np.concatenate([words.ravel(), tape.ravel()]), device=device)
+    return buf[4 * n:].view(3, n), buf[: 4 * n].view(n, 4)
 
 
 def _device_array(name: str, x, device) -> torch.Tensor:
@@ -142,9 +220,9 @@ def scene_buffers(spec: TapeSpec, arrays: TapeArrays, device, topology=None) -> 
     row_kind) pair of an earlier `scene_topology` call. Parameters given as
     numpy arrays are uploaded; tensors must lie on `device` already."""
     device = torch.device(device)
-    tape, row_kind = topology if topology is not None else scene_topology(spec, device)
+    tape, row_kind, words = topology if topology is not None else scene_topology(spec, device)
     if spec.static_tape is None:
-        tape = _dynamic_tape(spec, arrays, device)
+        tape, words = _dynamic_tape(spec, arrays, device, row_kind)
     lp = _device_array("leaf_params", arrays.leaf_params, device)
     opp = _device_array("op_param", arrays.op_param, device)
     if tuple(lp.shape) != (spec.n_leaves, oc.LEAF_PARAM_WIDTH) or tuple(opp.shape) != (spec.n_instr,):
@@ -152,7 +230,7 @@ def scene_buffers(spec: TapeSpec, arrays: TapeArrays, device, topology=None) -> 
             f"arrays do not fit the spec: leaf_params {tuple(lp.shape)}, op_param "
             f"{tuple(opp.shape)} vs ({spec.n_leaves}, {oc.LEAF_PARAM_WIDTH}), ({spec.n_instr},)"
         )
-    return SceneBuffers(spec=spec, tape=tape, row_kind=row_kind, leaf_params=lp, op_param=opp)
+    return SceneBuffers(spec=spec, tape=tape, row_kind=row_kind, leaf_params=lp, op_param=opp, words=words)
 
 
 class _SqrtRN(torch.autograd.Function):
@@ -738,6 +816,70 @@ def scene_color_plain(scene: SceneBuffers, max_dist: float, default_rgb, px, py,
         d, rgb = _apply_static_tape_color(scene.spec, scene.op_param, leaf_fn, max_dist, px, default_rgb,
                                           cull=cull)
     return d, tuple(px * 0.0 + c for c in rgb)
+
+
+def scene_words_plain(scene: SceneBuffers, max_dist: float, px, py, pz, cull=None, default_rgb=None):
+    """The plain version of K1/K2's evaluator (csrc/scene_eval.cuh
+    words_distance, and with `default_rgb` words_color -> (d, (r, g, b))):
+    it reads the scene's packed words (to the host) and keeps the value
+    stack as the kernels do on the spec's route (`stack_route`): the top,
+    and below it one slot (depth - 1 on the shared-memory route). A
+    PUSH at slot s spills the top to slot s - 1, a binary op at slot s reads
+    slot s and the top, a unary op the top alone; a slot past the route's
+    raises, where the kernel would have none. A dynamic tape starts its top
+    at max_dist and skips NOPs. `cull(row)` gates leaves as `scene_plain`'s
+    does. Held equal to `sdf._apply_static_tape` / `_apply_dynamic_tape` and
+    their colour forms."""
+    from .culling import FAR
+    from .sdf import _combine_static, _mat_weight_smooth
+
+    route = stack_route(scene.spec)
+    below = [None] * (scene.spec.stack_depth - 1 if route == STK_SMEM else REG_STACK - 1)
+    lp = scene.leaf_params
+    colour = default_rgb is not None
+    base = px * 0.0 + max_dist
+    top = (base, tuple(base * 0.0 + c for c in default_rgb) if colour else None)
+    for i, (w0, row, kind, _) in enumerate(scene.words.tolist()):
+        op, s = w0 & 0xFF, w0 >> 8
+        if op == oc.COP_NOP:  # skipped (a dynamic tape's padding)
+            continue
+        if op == oc.COP_PUSH:
+            d = _leaf_distance_plain(lp[row], kind & (ROTATED_BIT - 1), bool(kind & ROTATED_BIT), px, py, pz)
+            rgb = leaf_rgb_plain(lp[row], default_rgb) if colour else None
+            if cull is not None:
+                on = cull(row)
+                d = torch.where(on, d, FAR)
+                rgb = tuple(torch.where(on, c, dc) for c, dc in zip(rgb, default_rgb)) if colour else None
+            if s > 0:
+                if s - 1 >= len(below):
+                    raise ValueError(f"slot {s - 1} is past the {len(below)} slots of the stack's route")
+                below[s - 1] = top
+            top = (d, rgb)
+            continue
+        kp = scene.op_param[i]
+        b, cb = top
+        if op in (oc.COP_ROUND, oc.COP_ONION):
+            top = ((b if op == oc.COP_ROUND else torch.abs(b)) - kp, cb)
+            continue
+        a, ca = below[s]
+        d = _combine_static(op, a, b, kp)
+        if not colour:
+            top = (d, None)
+            continue
+        if op == oc.COP_UNION:
+            w = torch.where(a <= b, 1.0, 0.0)
+        elif op == oc.COP_INTERSECTION:
+            w = torch.where(a >= b, 1.0, 0.0)
+        elif op == oc.COP_SUBTRACTION:
+            w = torch.where(a >= -b, 1.0, 0.0)
+        elif op == oc.COP_SMOOTH_UNION:
+            w = _mat_weight_smooth(a, b, kp)
+        elif op == oc.COP_SMOOTH_INTERSECTION:
+            w = _mat_weight_smooth(b, a, kp)
+        else:
+            w = _mat_weight_smooth(-b, a, kp)
+        top = (d, tuple(w * x + (1.0 - w) * y for x, y in zip(ca, cb)))
+    return (top[0], tuple(px * 0.0 + c for c in top[1])) if colour else top[0]
 
 
 def _fold_smooth(e: int) -> bool:

@@ -50,9 +50,20 @@ kernel above: the coarse, chained pixel and hard fine kernels
 march-only builds (csrc/fine_march.cu) and K4 (csrc/fine_unpacked.cu): the
 frame's tape is uploaded with its arrays, and the plain versions run it on
 the reference's stack machine (`sdf._apply_dynamic_tape`, gated by the tile
-masks under culling). `n_intervals` takes any count: up to MAX_NI the
-interval builds keep a block's intervals in registers, above it their
-builds in csrc/intervals_wide.cu read them in place from the planes.
+masks under culling). `n_intervals` takes any count: up to MAX_NI the fine
+passes' interval builds keep a block's intervals in registers, above it
+their builds in csrc/intervals_wide.cu read them in place from the planes;
+the coarse scan writes them in place for any count.
+
+The coarse and fine kernels read the scene as packed words
+(`SceneBuffers.words`, one 16-byte word per instruction; float4 leaf rows)
+and keep the value stack out of local memory on the route the spec's
+stack depth picks (`cuda_march.stack_route`: its top and the slots below
+it in registers up to a depth of REG_STACK, else the slots below the top
+in shared memory); each launch names its route. Every build of theirs is
+compiled without FMA contraction, so its planes and (t, hit) equal its
+plain version's. K3 and K4 keep the tape interpreter of scene_eval.cuh's
+`scene_distance`.
 
 Each wrapper takes tensors on one device. On the CPU it runs its plain
 version (`coarse_plain`, `coarse_px_plain`, `fine_plain`: vectorised torch
@@ -85,6 +96,7 @@ from .cuda_march import (
     scene_plain,
     scene_topology,
     sqrt_rn,
+    stack_route,
     tet_taps_plain,
 )
 from .tape import TapeArrays, TapeSpec
@@ -1130,8 +1142,26 @@ def _scene_ptrs(scene: SceneBuffers):
 
 
 def _scene_ptrs_dyn(scene: SceneBuffers):
-    """`_scene_ptrs` and the DYN flag, as the prepass launchers take them."""
+    """`_scene_ptrs` and the DYN flag, as K3's and K4's launchers take them."""
     return (*_scene_ptrs(scene), int(scene.dynamic))
+
+
+def _words_ptrs(scene: SceneBuffers):
+    """The scene as K1's and K2's launchers take it -> (pointers, the leaf
+    rows they point at): the leaf rows (float4 loads: 16-byte aligned; a
+    view that is not is copied), row kinds, the packed words, the
+    instruction count, op params, the DYN flag, the value stack's route
+    (`stack_route`) and the spec's stack depth."""
+    spec = scene.spec
+    if scene.words is None:
+        raise ValueError("the scene has no packed words: build it with scene_buffers")
+    _check("words", scene.words, torch.int32, (max(scene.n_instr, 1), 4), scene.row_kind.device)
+    lp = scene.leaf_params
+    if lp.data_ptr() % 16:
+        lp = lp.clone()
+    ptrs = (lp.data_ptr(), scene.row_kind.data_ptr(), scene.words.data_ptr(), scene.n_instr,
+            scene.op_param.data_ptr(), int(scene.dynamic), stack_route(spec), spec.stack_depth)
+    return ptrs, lp
 
 
 def _raise_on(err: int, what: str):
@@ -1175,10 +1205,11 @@ def coarse(scene: SceneBuffers, cam, bound, p: PrepassParams, cull: TileCull | N
     cp = _CParams.of(p)
     cc = _CCull.of(cull)
     cb = _CBlockParams.of(p)
+    ptrs, _rows = _words_ptrs(scene)  # the rows are held until the launch is queued
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.rmt_coarse_launch(
-            *_scene_ptrs_dyn(scene), cam.data_ptr(), bound.data_ptr(),
+            *ptrs, cam.data_ptr(), bound.data_ptr(),
             ctypes.addressof(cp), ctypes.addressof(cc), planes.data_ptr(),
             None if p.ni else planes[1].data_ptr(), ctypes.addressof(cb), stream,
         )
@@ -1288,10 +1319,11 @@ def _fine_launch(scene: SceneBuffers, cam, bound, p: PrepassParams, pre, residua
         if residuals:
             cs.s_min_out = res[2].data_ptr()
             cs.t_min_out = res[3].data_ptr()
+    ptrs, _rows = _words_ptrs(scene)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.rmt_fine_launch(
-            *_scene_ptrs_dyn(scene), cam.data_ptr(), bound.data_ptr(),
+            *ptrs, cam.data_ptr(), bound.data_ptr(),
             ctypes.addressof(cp), ctypes.addressof(cc),
             planes.data_ptr() if p.ni else (pre[0].data_ptr() if pre else None),
             pre[1].data_ptr() if pre and not p.ni else None,
@@ -1352,10 +1384,11 @@ def fine_march(scene: SceneBuffers, cam, bound, p: PrepassParams, *pre, cull: Ti
     cc = _CCull.of(cull)
     cb = _CBlockParams.of(p)
     cs = _CSoftParams()
+    ptrs, _rows = _words_ptrs(scene)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.rmt_fine_launch(
-            *_scene_ptrs_dyn(scene), cam.data_ptr(), bound.data_ptr(),
+            *ptrs, cam.data_ptr(), bound.data_ptr(),
             ctypes.addressof(cp), ctypes.addressof(cc),
             planes.data_ptr() if p.ni else (pre[0].data_ptr() if pre else None),
             pre[1].data_ptr() if pre and not p.ni else None,

@@ -1204,3 +1204,61 @@ def test_scenes_past_the_shared_row_train(dev, n, cull):
     lp = torch.tensor(arrays.leaf_params, device=dev, requires_grad=True)
     torch.mean(fr(dataclasses.replace(arrays, leaf_params=lp), cam_vec) ** 2).backward()
     assert bool(torch.isfinite(lp.grad).all()) and float(lp.grad.abs().max()) > 0
+
+
+def _painted16(m):
+    rng = np.random.default_rng(17)
+    parts = [m.sphere(center=tuple(rng.uniform(-2, 2, 3)), radius=float(rng.uniform(0.2, 0.5)),
+                      material=tuple(rng.uniform(0.1, 0.9, 3))) for _ in range(16)]
+    while len(parts) > 1:
+        parts = [parts[i] | parts[i + 1] for i in range(0, len(parts), 2)]
+    return parts[0]
+
+
+# K1/K2's value-stack routes (csrc/scene_eval.cuh, cuda_march.stack_route):
+# a stack depth of 2 keeps the slot below the top in a register, a deeper
+# one the slots below the top in shared memory; compile_scene's stack_depth
+# puts a scene on the route of that depth. Every K1/K2 build
+# rounds as its plain version (no FMA contraction), so planes, t and hit
+# equal theirs on every route, static and DYN alike.
+ROUTE_SCENES = {"config2": _config2, "rich": _rich, "painted16": _painted16}
+
+
+@pytest.mark.parametrize("culled", [False, True], ids=["uncull", "culled"])
+@pytest.mark.parametrize("static", [True, False], ids=["static", "dyn"])
+@pytest.mark.parametrize("name,depth,route", [
+    ("config2", None, 2), ("config2", 4, 0), ("config2", 16, 0), ("rich", None, 0), ("rich", 32, 0),
+    ("painted16", None, 0), ("painted16", 32, 0)])
+def test_stack_routes_match_plain_exactly(dev, name, depth, route, static, culled):
+    from raymarch_tpu_torch.ops import cuda_march as cm
+
+    kw = {} if depth is None else {"stack_depth": depth}
+    spec, arrays = rt.compile_scene(ROUTE_SCENES[name](rt), static=static, **kw)
+    assert cm.stack_route(spec) == route
+    cfg = dataclasses.replace(CFG, leaf_cull=culled, relax=1.6 if name == "rich" else 1.0)
+    rp = cp.make_pallas_image_render_aa(spec, cfg, W, H, device=dev)
+    sc, cam, bound = rp.scene_args(arrays, rt.cam_vec(CAM, device=dev))
+    cc, fc = rp.cull_args(sc, cam)
+    for k, p in zip(cp.coarse(sc, cam, bound, rp.params, cc), cp.coarse_plain(sc, cam, bound, rp.params, cc)):
+        assert torch.equal(k, p)
+    pre = cp.coarse_plain(sc, cam, bound, rp.params, cc)
+    img_k, t_k, hit_k = cp.fine_res(sc, cam, bound, rp.params, *pre, cull=fc)
+    img_p, t_p, hit_p = cp.fine_res_plain(sc, cam, bound, rp.params, *pre, cull=fc)
+    assert torch.equal(t_k, t_p) and torch.equal(hit_k, hit_p) and float(hit_k.sum()) > 0
+    assert float((img_k - img_p).abs().max()) < 1e-5  # the AA sums' order
+    t_m, hit_m = cp.fine_march(sc, cam, bound, rp.params, *pre, cull=fc)
+    assert torch.equal(t_m, t_k.reshape(-1)) and torch.equal(hit_m, hit_k.reshape(-1))
+
+
+@pytest.mark.parametrize("name,depth", [("config2", None), ("config2", 16), ("painted16", None), ("painted16", 32)])
+def test_soft_stack_routes_match_plain_exactly(dev, name, depth):
+    kw = {} if depth is None else {"stack_depth": depth}
+    spec, arrays = rt.compile_scene(ROUTE_SCENES[name](rt), static=True, **kw)
+    fr = cg.make_fused_render_vjp(spec, CFG, W, H, soft=True, device=dev)
+    sc, cam, bound = fr.prepass.scene_args(arrays, rt.cam_vec(CAM, device=dev))
+    _, fc = fr.prepass.cull_args(sc, cam)
+    img_k, *res_k = cp.fine_res(sc, cam, bound, fr.prepass.params, cull=fc)
+    img_p, *res_p = cp.fine_res_plain(sc, cam, bound, fr.prepass.params, cull=fc)
+    for k, p in zip(res_k, res_p):
+        assert torch.equal(k, p)
+    assert float((img_k - img_p).abs().max()) < 1e-5

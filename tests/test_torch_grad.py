@@ -300,3 +300,11 @@ def test_kernel_constants_match_cuda_sources():
     assert f"constexpr int BWD_WARP_THREADS = {cg.BWD_WARP_THREADS};" in (csrc / "fused_bwd.cu").read_text()
     assert f"constexpr int CBWD_THREADS = {cg.CBWD_THREADS};" in (csrc / "compact_bwd.cu").read_text()
     assert f"constexpr int TAP_SETS = {cg.TAP_SETS};" in (csrc / "scene_grad.cuh").read_text()
+    # K1/K2's value-stack routes: the register depth and the shared-memory
+    # route's code, and the deepest tape the kernels take.
+    from raymarch_tpu_torch.ops import cuda_march as cm
+
+    scene_eval = (csrc / "scene_eval.cuh").read_text()
+    assert f"constexpr int REG_STACK = {cm.REG_STACK};" in scene_eval
+    assert f"constexpr int STK_SMEM = {cm.STK_SMEM};" in scene_eval
+    assert f"constexpr int MAX_STACK = {cm.MAX_STACK};" in scene_eval
