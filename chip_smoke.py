@@ -97,23 +97,28 @@ Run from the repository root: `python3 chip_smoke.py`. It
    64-sphere row;
 14. the render surfaces of the reference's make_renderer: gates at 256x144
    of the flat march kernels K5 (raygen_flat rays of the gate camera, a
-   count that is no multiple of 128), K6 and K7 (config 2 static and as
-   compile_scene's default dynamic tape, the empty dynamic scene, `rich`
-   and 16 painted spheres as dynamic tapes, config 2 at relax 1.6), each
-   against its plain version (hit and steps equal on every ray, t within
-   1e-5 on hits, images max|d| < 1e-3), of K2's march-only build (B = 1;
+   count that is no multiple of 128), K6, K7 per AA ray and K7's pixel
+   build (config 2 static and as compile_scene's default dynamic tape, the
+   empty dynamic scene, `rich` and 16 painted spheres as dynamic tapes,
+   config 2 at relax 1.6, 64 spheres and 16 painted spheres static at
+   stack depth 8: every stack route and flag), and of the pixel build at
+   aa 2, 3, 4 and 8, each against its plain version (hit and steps equal
+   on every ray, t within 1e-5 on hits, images max|d| < 1e-3), of K2's
+   march-only build (B = 1;
    n_intervals=2 at relax 1.6) against fine_res_plain's (t, hit), and of
    make_renderer(backend="pallas", mode="implicit")'s gradients against
    backend "jnp"'s (gated without bound_accel, where both march the same
    samples; the deviation with it is logged); then at 1920x1080 with 16 AA
    rays per pixel bench.py's `march_only` (K6; static and dynamic tapes;
-   march_stats), `march_only_fast` (K1's interval scan and K2's march-only
-   build, relax 1.6), the `pallas_full` frame (K7; static and dynamic;
-   against its plain version and the no-prepass fine kernel's frame), the
-   make_renderer frames of backends "pallas" and "jnp" (dynamic tape) and
-   `fwdbwd_jnp` (backend "pallas", implicit, chunk 2^20: step, K5 launches,
-   peak memory), K5 alone on the frame's rays against its plain version,
-   each kernel's time alone, plain time and bound;
+   march_stats; K6 alone), `march_only_fast` (K1's interval scan and K2's
+   march-only build, relax 1.6), the `pallas_full` frame (K7's pixel
+   build; static and dynamic; against its plain version and the
+   no-prepass fine kernel's frame), K7 per AA ray through
+   make_pallas_image_render, the make_renderer frames of backends "pallas"
+   and "jnp" (dynamic tape) and `fwdbwd_jnp` (backend "pallas", implicit,
+   chunk 2^20: step, K5 launches, peak memory), K5 alone in the step's
+   2^20-ray launches against its plain version, each kernel's time alone,
+   plain time and bound;
 15. live editing: gates at 256x144 of the DYN builds of the coarse and
    fine kernels (the dynamic tape: config 2 un-culled, gated and at relax
    1.6, the empty scene, `rich` gated at relax 1.6, 16 painted spheres
@@ -152,7 +157,7 @@ Run from the repository root: `python3 chip_smoke.py`. It
    plan kind, the fine kernel with materials, the interval and block
    builds of the coarse and fine kernels and K3, K8's builds of phase 12,
    the fine kernel at B = 4 with residuals and at aa = 8, the soft builds
-   of phase 13, K5, K6, K7 and K2's march-only build of phase 14, the DYN
+   of phase 13, K5, K6, K7 (per AA ray and per pixel) and K2's march-only build of phase 14, the DYN
    builds and K4 of phase 15, then the script's total seconds and, last,
    {"ok": true, "device": {...}}.
 
@@ -2158,6 +2163,7 @@ def soft(rt, cp, cg, dev, smi, cfg):
 
 # --- phase 14: the render surfaces (K5, K6, K7, K2's march-only build) -------
 MARCH_STEPS_WARMUP, MARCH_STEPS = 1, 4  # fwdbwd_jnp steps (bench.py:928: 4 frames after 1)
+SURFACE_WIDE_POS = (0.0, 2.5, 9.0)  # the many-sphere scenes' gate camera of phase 14
 
 
 def march_agreement(name, k, p):
@@ -2196,41 +2202,68 @@ def surfaces(rt, cp, dev, smi, cfg, gcam_pos):
 
     from raymarch_tpu_torch.ops import cuda_march as cm
 
+    t_phase = time.perf_counter()
     cfg_ir = dataclasses.replace(cfg, relax=1.6)
     gcv = rt.cam_vec(rt.Camera.looking_at(position=gcam_pos, target=(0, 0, 0)), device=dev)
 
     # -- 14a. gates at 256x144 ------------------------------------------------
+    # K5 (raygen_flat rays of the gate camera, a count that is no multiple of
+    # 128), K6, K7 per AA ray and K7's pixel build, each against its plain
+    # version, on every stack route (config 2: a register; 64 spheres and 16
+    # painted spheres, depth 8: shared memory, the painted scene's colour
+    # walk on four stacks there) and flag (DYN, relax, MATS).
+    wide = rt.Camera.looking_at(position=SURFACE_WIDE_POS, target=(0, 0, 0))
+    near = rt.Camera.looking_at(position=gcam_pos, target=(0, 0, 0))
     gates = (
-        ("config2 static", scene_config2(rt), True, cfg),
-        ("config2 dynamic", scene_config2(rt), False, cfg),
-        ("empty dynamic", None, False, cfg),
-        ("rich dynamic", scene_rich(rt), False, cfg),
-        ("painted spheres dynamic", scene_painted(rt, 16), False, cfg),
-        ("config2 relax 1.6", scene_config2(rt), True, cfg_ir),
+        ("config2 static", scene_config2(rt), True, cfg, near),
+        ("config2 dynamic", scene_config2(rt), False, cfg, near),
+        ("empty dynamic", None, False, cfg, near),
+        ("rich dynamic", scene_rich(rt), False, cfg, near),
+        ("painted spheres dynamic", scene_painted(rt, 16), False, cfg, near),
+        ("config2 relax 1.6", scene_config2(rt), True, cfg_ir, near),
+        ("64 spheres static (depth 8)", scene_spheres(rt, 64), True, cfg, wide),
+        ("16 painted spheres static (depth 8)", scene_painted(rt, 16), True, cfg, wide),
     )
-    for name, scene, static, cfg_g in gates:
+    for name, scene, static, cfg_g, cam_g in gates:
         spec_g, arrays_g = rt.compile_scene(scene, static=static)
+        cv_g = rt.cam_vec(cam_g, device=dev)
         fm = cm.FlatMarch(spec_g, cfg_g, GATE_W, GATE_H, dev)
-        sc, cam, bound = fm.scene_args(arrays_g, gcv)
+        sc, cam, bound = fm.scene_args(arrays_g, cv_g)
+        log(f"gate {name}: stack route {cm.route_name(sc.route)}, depth {spec_g.stack_depth}, "
+            f"{'DYN' if sc.dynamic else 'static'}, materials {spec_g.has_materials}")
         march_agreement(f"gate K6 image_march vs image_march_plain, {name}", cm.image_march(sc, cam, bound, fm.params),
                         cm.image_march_plain(sc, cam, bound, fm.params))
+        n5 = GATE_W * GATE_H * cfg_g.aa_samples ** 2 - 77  # not a multiple of 128
+        o, d = rt.raygen_flat(torch.arange(n5, device=dev), cam_g.position, cam_g.rotation, GATE_W, GATE_H, cfg_g)
+        o, d = o.contiguous(), d.contiguous()
+        march_agreement(f"gate K5 ray_march vs ray_march_plain ({n5} raygen_flat rays), {name}",
+                        cm.ray_march(sc, bound, fm.params, o, d), cm.ray_march_plain(sc, bound, fm.params, o, d))
+        img_p = cm.image_pixels_plain(sc, cam, bound, fm.params)
         img_k = aa_mean(cm.image_render(sc, cam, bound, fm.params), GATE_H, GATE_W)
-        img_p = aa_mean(cm.image_render_plain(sc, cam, bound, fm.params), GATE_H, GATE_W)
         image_max(f"gate K7 image_render vs image_render_plain, {name}", img_k, img_p)
+        image_max(f"gate K7 pixel build vs image_pixels_plain, {name}", cm.image_pixels(sc, cam, bound, fm.params),
+                  img_p)
         if scene is None:
             fl = float((img_k[..., 2] > img_k[..., 1]).float().mean())  # the floor's blue base
             log(f"  empty scene: floor share {fl:.4f}, finite {bool(torch.isfinite(img_k).all())}")
             if not fl > 0.1:
                 raise AssertionError("the empty scene shows no floor")
+    # K7's pixel build at every kind of AA sum: aa 2 and 4 by xor shuffles
+    # within a warp, aa 3 and 8 through shared memory (after the stacks'
+    # columns on the shared-memory route).
+    for name, scene, cam_g, aas in (("config2 static", scene_config2(rt), near, (2, 3, 4, 8)),
+                                    ("16 painted spheres static", scene_painted(rt, 16), wide, (3, 8)),
+                                    ("64 spheres static", scene_spheres(rt, 64), wide, (3,))):
+        spec_g, arrays_g = rt.compile_scene(scene, static=True)
+        cv_g = rt.cam_vec(cam_g, device=dev)
+        for aa in aas:
+            fm = cm.FlatMarch(spec_g, dataclasses.replace(cfg, aa_samples=aa), GATE_W, GATE_H, dev)
+            sc, cam, bound = fm.scene_args(arrays_g, cv_g)
+            image_max(f"gate K7 pixel build vs image_pixels_plain, {name}, aa {aa} "
+                      f"({'shuffles' if 32 % (aa * aa) == 0 else 'shared memory'})",
+                      cm.image_pixels(sc, cam, bound, fm.params), cm.image_pixels_plain(sc, cam, bound, fm.params))
     spec_s, arrays_s = rt.compile_scene(scene_config2(rt), static=True)
-    fm = cm.FlatMarch(spec_s, cfg, GATE_W, GATE_H, dev)
-    sc, cam, bound = fm.scene_args(arrays_s, gcv)
-    n5 = GATE_W * GATE_H * 16 - 77  # not a multiple of 128
-    gcam = rt.Camera.looking_at(position=gcam_pos, target=(0, 0, 0))
-    o, d = rt.raygen_flat(torch.arange(n5, device=dev), gcam.position, gcam.rotation, GATE_W, GATE_H, cfg)
-    o, d = o.contiguous(), d.contiguous()
-    march_agreement(f"gate K5 ray_march vs ray_march_plain ({n5} raygen_flat rays)", cm.ray_march(sc, bound, fm.params, o, d),
-                    cm.ray_march_plain(sc, bound, fm.params, o, d))
+    gcam = near
     for kw, cfg_m in ((dict(prepass_block=1), cfg), (dict(prepass_block=1, n_intervals=2), cfg_ir)):
         rp = cp.make_pallas_image_march_fast(spec_s, cfg_m, GATE_W, GATE_H, device=dev, **kw)
         sc2, cam2, bound2 = rp.scene_args(arrays_s, gcv)
@@ -2269,6 +2302,7 @@ def surfaces(rt, cp, dev, smi, cfg, gcam_pos):
     log(f"gate pallas vs jnp gradients with bound_accel (not gated): max|d| / max|g| leaf {dev_lp:.4f}, camera "
         f"{dev_cam:.4f}")
     torch.cuda.synchronize()
+    log(f"phase 14 gates: {time.perf_counter() - t_phase:.1f} s")
 
     # -- 14b. bench.py's rows at 1080p ------------------------------------------
     camera = rt.Camera.looking_at(position=(0.0, 1.6, 4.2), target=(0.0, 0.0, 0.0))
@@ -2297,24 +2331,28 @@ def surfaces(rt, cp, dev, smi, cfg, gcam_pos):
                             max_abs_err=err, ms=ms, plain_ms=p_ms, bound_ms=bound[0], bound_by=bound[1],
                             library_ms=None))
 
-    # march_only: K6 (bench.py:657-674), static and dynamic tapes.
+    # march_only: K6 (bench.py:657-674), static and dynamic tapes: the frame
+    # through make_pallas_image_march (the parameters' upload and the bound
+    # included), and K6 alone on the frame's prepared arguments.
     for tag, spec_m, arrays_m in (("static", spec_s, arrays_s), ("dynamic", spec_d, arrays_d)):
         im = cm.make_pallas_image_march(spec_m, cfg, WIDTH, HEIGHT, device=dev)
         ms, launches, (t_k, h_k, s_k) = timed(lambda: im(arrays_m, cv), cm.image_march)
         st = rt.march_stats(s_k, h_k, 32)
         sc, cam, bound = im.flat.scene_args(arrays_m, cv)
+        k_ms = cuda_ms(lambda: cm.image_march(sc, cam, bound, im.flat.params), KERNEL_REPS)
         work = cp.WorkCount()
         ref, p_ms = plain_ms(lambda: cm.image_march_plain(sc, cam, bound, im.flat.params, work=work))
         err = march_agreement(f"march_only K6 ({tag} tape) vs image_march_plain at 1080p", (t_k, h_k, s_k), ref)
         del ref
         bnd = roofline(march_flops(work, n_rays, spec_s, False), n_rays * 12)
         log(f"march_only ({tag} tape): {ms:.4f} ms/frame (CUDA events, {FRAMES} frames after {WARMUP}), "
-            f"{n_rays / (ms * 1e-3) / 1e9:.4f} Grays/s, launches {launches}; {st}; plain {p_ms:.2f} ms; "
-            f"bound {bnd[0]:.4f} ms ({bnd[1]}; {float(work.points):.6e} points) ({smi})")
-        out[f"march_only_{tag}"] = dict(ms=ms, grays=n_rays / (ms * 1e-3) / 1e9, stats=st, launches=launches,
-                                        plain_ms=p_ms, bound=bnd)
+            f"{n_rays / (ms * 1e-3) / 1e9:.4f} Grays/s, launches {launches}; K6 alone {k_ms:.4f} ms; {st}; plain "
+            f"{p_ms:.2f} ms; bound {bnd[0]:.4f} ms ({bnd[1]}; {float(work.points):.6e} points); stack route "
+            f"{cm.route_name(sc.route)} ({smi})")
+        out[f"march_only_{tag}"] = dict(ms=ms, kernel_ms=k_ms, grays=n_rays / (ms * 1e-3) / 1e9, stats=st,
+                                        launches=launches, plain_ms=p_ms, bound=bnd)
         record("image_march_kernel (K6)" + ("" if tag == "static" else ", dynamic tape"),
-               "raymarch_tpu_torch/csrc/march.cu", "raymarch_tpu/ops/pallas_march.py:1390", launches, err, ms,
+               "raymarch_tpu_torch/csrc/march.cuh", "raymarch_tpu/ops/pallas_march.py:1390", launches, err, k_ms,
                p_ms, bnd)
         del t_k, h_k, s_k
 
@@ -2346,37 +2384,52 @@ def surfaces(rt, cp, dev, smi, cfg, gcam_pos):
            "raymarch_tpu/ops/pallas_prepass.py:1827", launches_f, err_f, fm_ms, p_ms, bnd_f)
     del t_f, h_f
 
-    # pallas_full: K7 (march.py:488-507), static and dynamic tapes, held
-    # against its plain version in the exact class, and against the
-    # no-prepass fine kernel's image in the accelerated class: with
-    # bound_accel K7 starts each ray at the bound's entry, the fine kernel at
-    # t = 0, so their rays stop at other points within min_dist of the
-    # surface. Where such a point lies within min_dist of a CSG crease (the
-    # torus cut into the box) the normal's taps see the other face, and a
-    # whole pixel's shade moves by up to 0.71 at 1080p; a few thousand of
-    # the 33 M rays also flip between hit and miss. The largest |d| is
-    # logged.
+    # pallas_full: K7's pixel build (march.py:488-507: the AA mean inside
+    # the kernel), static and dynamic tapes, held against its plain version
+    # (image_render_plain, stacked and averaged) in the exact class, and
+    # against the no-prepass fine kernel's image in the accelerated class:
+    # with bound_accel K7 starts each ray at the bound's entry, the fine
+    # kernel at t = 0, so their rays stop at other points within min_dist of
+    # the surface. Where such a point lies within min_dist of a CSG crease
+    # (the torus cut into the box) the normal's taps see the other face, and
+    # a whole pixel's shade moves by up to 0.71 at 1080p; a few thousand of
+    # the 33 M rays also flip between hit and miss (ROADMAP §3 fault 15).
+    # The largest |d| is logged. Then K7 per AA ray, as
+    # make_pallas_image_render returns it, frame and kernel alone.
     rp0 = cp.make_pallas_image_render_aa(spec_s, cfg, WIDTH, HEIGHT, device=dev, no_prepass=True)
     img_np = rp0(arrays_s, cv)
     for tag, spec_m, arrays_m in (("static", spec_s, arrays_s), ("dynamic", spec_d, arrays_d)):
         render = rt.make_renderer(spec_m, WIDTH, HEIGHT, cfg, mode="forward", backend="pallas_full", device=dev)
-        ms, launches, img = timed(lambda: render(arrays_m, camera), cm.image_render)
-        image_class(f"pallas_full K7 frame ({tag} tape) vs the no-prepass fine kernel's frame", img, img_np)
+        ms, launches, img = timed(lambda: render(arrays_m, camera), cm.image_pixels)
+        image_class(f"pallas_full K7 pixel-build frame ({tag} tape) vs the no-prepass fine kernel's frame", img,
+                    img_np)
         fm = render.renderer.flat
         sc, cam, bound = fm.scene_args(arrays_m, cv)
-        k_ms = cuda_ms(lambda: cm.image_render(sc, cam, bound, fm.params), KERNEL_REPS)
+        k_ms = cuda_ms(lambda: cm.image_pixels(sc, cam, bound, fm.params), KERNEL_REPS)
         work = cp.WorkCount()
-        rgb_p, p_ms = plain_ms(lambda: cm.image_render_plain(sc, cam, bound, fm.params, work=work))
-        err = image_max(f"pallas_full K7 ({tag} tape) vs image_render_plain at 1080p", img,
-                        aa_mean(rgb_p, HEIGHT, WIDTH))
-        del rgb_p
-        bnd = roofline(march_flops(work, n_rays, spec_s, False, float(work.hits), fine=True), n_rays * 12)
-        log(f"pallas_full ({tag} tape): frame {ms:.4f} ms, K7 alone {k_ms:.4f} ms, launches {launches}, plain "
-            f"{p_ms:.2f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}) ({smi})")
-        out[f"pallas_full_{tag}"] = dict(ms=ms, kernel_ms=k_ms, launches=launches, plain_ms=p_ms, bound=bnd)
-        record("image_render_kernel (K7)" + ("" if tag == "static" else ", dynamic tape"),
-               "raymarch_tpu_torch/csrc/march.cu", "raymarch_tpu/ops/pallas_march.py:1566", launches, err, k_ms,
-               p_ms, bnd)
+        img_p, p_ms = plain_ms(lambda: cm.image_pixels_plain(sc, cam, bound, fm.params, work=work))
+        err = image_max(f"pallas_full K7 pixel build ({tag} tape) vs image_pixels_plain at 1080p", img, img_p)
+        flops = march_flops(work, n_rays, spec_s, False, float(work.hits), fine=True)
+        bnd = roofline(flops, n_px * 12)
+        # K7 per AA ray through the reference's per-sample entry point.
+        rgb_render = cm.make_pallas_image_render(spec_m, cfg, WIDTH, HEIGHT, device=dev)
+        ms_s, launches_s, rgb = timed(lambda: rgb_render(arrays_m, cv), cm.image_render)
+        err_s = image_max(f"K7 per AA ray ({tag} tape), its AA mean, vs image_pixels_plain at 1080p",
+                          aa_mean(rgb, HEIGHT, WIDTH), img_p)
+        del rgb, img_p
+        ks_ms = cuda_ms(lambda: cm.image_render(sc, cam, bound, fm.params), KERNEL_REPS)
+        bnd_s = roofline(flops, n_rays * 12)
+        log(f"pallas_full ({tag} tape): frame {ms:.4f} ms, K7's pixel build alone {k_ms:.4f} ms, launches "
+            f"{launches}, plain {p_ms:.2f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}); K7 per AA ray: "
+            f"make_pallas_image_render frame {ms_s:.4f} ms, alone {ks_ms:.4f} ms, launches {launches_s}, bound "
+            f"{bnd_s[0]:.4f} ms ({bnd_s[1]}); stack route {cm.route_name(sc.route)} ({smi})")
+        out[f"pallas_full_{tag}"] = dict(ms=ms, kernel_ms=k_ms, launches=launches, plain_ms=p_ms, bound=bnd,
+                                         per_ray_frame_ms=ms_s, per_ray_ms=ks_ms, per_ray_launches=launches_s)
+        suffix = "" if tag == "static" else ", dynamic tape"
+        record("image_render_kernel (K7, pixel build)" + suffix, "raymarch_tpu_torch/csrc/march_pixel.cu",
+               "raymarch_tpu/ops/pallas_march.py:1566", launches, err, k_ms, p_ms, bnd)
+        record("image_render_kernel (K7, per AA ray)" + suffix, "raymarch_tpu_torch/csrc/march_render.cu",
+               "raymarch_tpu/ops/pallas_march.py:1566", launches_s, err_s, ks_ms, p_ms, bnd_s)
     img_full = img
     # Where the two starts part: rays whose hit flag differs between K6 (from
     # the bound's entry) and the no-prepass fine kernel (from t = 0), and
@@ -2419,24 +2472,37 @@ def surfaces(rt, cp, dev, smi, cfg, gcam_pos):
         f"{n_rays / (ms_b * 1e-3) / 1e9:.4f} Grays/s, K5 launches {launches_b} ({-(-n_rays // (1 << 20))} chunks "
         f"a step), peak {peak:.2f} GiB; max|d_lp| {float(g[0].abs().max()):.4e} ({smi})")
     out["fwdbwd_jnp"] = dict(ms=ms_b, launches=launches_b, peak=peak)
-    # K5 alone on the frame's rays, against its plain version.
+    # K5 alone at the shape fwdbwd_jnp launches it: the frame's rays in
+    # chunks of 2^20 (the last one shorter), every chunk timed, the mean a
+    # launch; its plain version once over the frame, its time and the bound
+    # per chunk (the frame's over the chunk count), so that launches x
+    # (ms - bound) prices the row at its launches' shape.
     idx = torch.arange(n_rays, device=dev)
     o, d = rt.raygen_flat(idx, camera.position, camera.rotation, WIDTH, HEIGHT, cfg)
     o, d = o.contiguous(), d.contiguous()
     fm = cm.FlatMarch(spec_s, cfg, 1, 1, dev)
     sc, _, bound = fm.scene_args(arrays_s)
-    k5 = cm.ray_march(sc, bound, fm.params, o, d)
-    k5_ms = cuda_ms(lambda: cm.ray_march(sc, bound, fm.params, o, d), KERNEL_REPS)
+    chunk = 1 << 20
+    spans = [(i, min(i + chunk, n_rays)) for i in range(0, n_rays, chunk)]
+
+    def k5_frame():
+        return [cm.ray_march(sc, bound, fm.params, o[i:j], d[i:j]) for i, j in spans]
+
+    k5 = [torch.cat(v) for v in zip(*k5_frame())]
+    k5_ms = cuda_ms(k5_frame, KERNEL_REPS) / len(spans)
     work = cp.WorkCount()
     ref, p_ms = plain_ms(lambda: cm.ray_march_plain(sc, bound, fm.params, o, d, work=work))
-    err5 = march_agreement("K5 ray_march vs ray_march_plain on the 1080p frame's rays", k5, ref)
+    err5 = march_agreement("K5 ray_march in 2^20-ray chunks vs ray_march_plain on the 1080p frame's rays", k5, ref)
     del ref, k5, o, d
-    bnd5 = roofline(march_flops(work, n_rays, spec_s, False), n_rays * (24 + 12))
-    log(f"K5 alone on {n_rays} rays: {k5_ms:.4f} ms, plain {p_ms:.2f} ms, bound {bnd5[0]:.4f} ms ({bnd5[1]}) ({smi})")
-    record("ray_march_kernel (K5)", "raymarch_tpu_torch/csrc/march.cu", "raymarch_tpu/ops/pallas_march.py:1297",
-           launches_b, err5, k5_ms, p_ms, bnd5)
+    bnd5 = roofline(march_flops(work, n_rays, spec_s, False) / len(spans), n_rays * (24 + 12) / len(spans))
+    log(f"K5 alone on the 1080p frame's {n_rays} rays in {len(spans)} launches of 2^20: {k5_ms:.4f} ms a launch "
+        f"(mean), plain {p_ms / len(spans):.2f} ms a chunk ({p_ms:.2f} ms the frame), bound {bnd5[0]:.4f} ms a "
+        f"chunk ({bnd5[1]}) ({smi})")
+    record("ray_march_kernel (K5, per 2^20-ray launch)", "raymarch_tpu_torch/csrc/march.cu",
+           "raymarch_tpu/ops/pallas_march.py:1297", launches_b, err5, k5_ms, p_ms / len(spans), bnd5)
     out["k5_ms"] = k5_ms
     torch.cuda.synchronize()
+    log(f"phase 14: {time.perf_counter() - t_phase:.1f} s")
     return records, out
 
 
@@ -3532,6 +3598,8 @@ def main() -> int:
         r = su[row]
         log(f"{row} summary: {r['ms']:.4f} ms, launches {r['launches']}" +
             (f", kernel alone {r['kernel_ms']:.4f} ms" if "kernel_ms" in r else "") +
+            (f", K7 per AA ray: frame {r['per_ray_frame_ms']:.4f} ms, alone {r['per_ray_ms']:.4f} ms"
+             if "per_ray_ms" in r else "") +
             (f", {r['stats']}" if "stats" in r else "") + (f", peak {r['peak']:.2f} GiB" if "peak" in r else "") +
             f" ({smi})")
     d = sv["dynamic"]

@@ -38,7 +38,9 @@ NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"
 # (coarse_px.cu) and K4 (fine_unpacked*.cu) keep nvcc's default.
 K12_SOURCES = ("prepass.cu", "fine_culled.cu", "prepass_dyn.cu", "fine_dyn_gated.cu", "fine_soft.cu",
                "fine_march.cu", "fine_march_dyn.cu", "intervals_wide.cu")
-SOURCE_FLAGS = {name: ("-fmad=false",) for name in ("fused_bwd.cu", "compact_bwd.cu", "march.cu", *K12_SOURCES)}
+# The flat march kernels K5-K7, one source per output (csrc/march.cuh).
+MARCH_SOURCES = ("march.cu", "march_render.cu", "march_pixel.cu")
+SOURCE_FLAGS = {name: ("-fmad=false",) for name in ("fused_bwd.cu", "compact_bwd.cu", *MARCH_SOURCES, *K12_SOURCES)}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -74,9 +76,10 @@ _SIGNATURES = {
     ),
     # partials, n_blocks, nscal, out, stream
     "rmt_bwd_finalize_launch": (_P, _I, _I, _P, _P),
-    # leaf_params, row_kind, tape, n_instr, op_param, dyn, mats, origins,
-    # dirs, cam, bound, params, n, out, o0, o1, o2, steps, stream
-    "rmt_march_launch": (_P, _P, _P, _I, _P, _I, _I, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P),
+    # leaf_params, row_kind, words, n_instr, op_param, dyn, stk,
+    # stack_depth, mats, origins, dirs, cam, bound, params, n, out, o0, o1,
+    # o2, steps, stream
+    "rmt_march_launch": (_P, _P, _P, _I, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P),
 }
 
 _lib = None

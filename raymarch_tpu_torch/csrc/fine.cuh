@@ -573,17 +573,10 @@ struct FineLaunch {
   BlockParams bp;
   SoftParams sp;
 
-  // Dynamic shared memory of build STK: the stack columns of the block's
-  // threads, four stacks for the colour walk (MATS).
-  template <bool MATS, int STK>
-  size_t stack_bytes() const {
-    if constexpr (STK != STK_SMEM) return 0;
-    return (size_t)sw.rows * block.x * sizeof(float) * (MATS ? 4 : 1);
-  }
   template <int MODE, bool RELAX, bool MATS, int PRE, bool MO, int STK>
   void launch() const {
     const auto k = fine_kernel<MODE, RELAX, MATS, PRE, MO, STK>;
-    const size_t smem = stack_bytes<MATS, STK>();
+    const size_t smem = stack_smem_bytes<MATS, STK>(sw, block.x);
     if (smem > 48 * 1024)
       cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            (int)smem);

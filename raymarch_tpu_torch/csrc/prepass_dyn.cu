@@ -11,7 +11,7 @@
 // _make_scene_color_eval (873-1047) inside the Pallas coarse_kernel
 // (pallas_prepass.py:885) and fine_packed_kernel (1521). The reference
 // interprets macroize_streams' fused entries; this interpreter runs the raw
-// tape with its NOPs skipped, as K5-K7 do (march.cu).
+// tape with its NOPs skipped, as K5-K7 do (march.cuh).
 //
 // A translation unit of its own so that nvcc builds it beside prepass.cu,
 // with the same flags (-fmad=false, as every K1/K2 source): each operation

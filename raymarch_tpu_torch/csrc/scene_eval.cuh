@@ -68,7 +68,7 @@ __device__ __forceinline__ float smooth_min(float a, float b, float k) {
 // A leaf row is 16 words in four quads: words 0-3 the quaternion (w, x, y,
 // z), 4-6 the centre and 7-11 the type's parameters. leaf_distance takes a
 // quad before it needs its words; the row reader decides what that costs.
-// K3-K9 (SceneView's rows) read each word where it is used...
+// K3, K4, K8 and K9 (SceneView's rows) read each word where it is used...
 struct RowWords {
   static constexpr bool QUADS = false;
   const float* P;
@@ -82,8 +82,8 @@ struct RowWords {
   __device__ __forceinline__ Quad quad(int q) const { return Quad{P, q}; }
 };
 
-// ...K1/K2 (SceneWords' float4 rows) read the whole quad, in one 16-byte
-// load, where it is taken.
+// ...K1, K2 and K5-K7 (SceneWords' float4 rows) read the whole quad, in one
+// 16-byte load, where it is taken.
 struct RowQuads {
   static constexpr bool QUADS = true;
   const float4* P;
@@ -532,9 +532,10 @@ __device__ __forceinline__ float scene_distance_tile(const SceneView& sc,
 }
 
 // ---------------------------------------------------------------------------
-// The scene evaluator of K1 and K2 (coarse_kernel, fine_kernel, every build):
-// packed scene words and a value stack kept out of local memory. K3, K4 and
-// K5-K7 keep scene_distance / scene_color above.
+// The scene evaluator of K1, K2 (coarse_kernel, fine_kernel, every build)
+// and K5-K7 (march.cuh march_kernel, every build): packed scene words and a
+// value stack kept out of local memory. K3 and K4 keep scene_distance /
+// scene_color above.
 //
 // Each instruction is one 16-byte word, the format of the backwards' packed
 // tape (scene_grad.cuh BwdTape; ops/cuda_march.py pack_words): op | slot <<
@@ -605,6 +606,15 @@ __device__ __forceinline__ auto stack_slots(const SceneWords& sw, int k) {
     RegSlot reg;  // written before it is read
     return reg;
   }
+}
+
+// Dynamic shared memory of route STK's stack columns for a block of
+// `threads`: rows slots a thread, four stacks for the colour walk (MATS).
+template <bool MATS, int STK>
+__host__ __device__ inline size_t stack_smem_bytes(const SceneWords& sw,
+                                                   int threads) {
+  if (STK != STK_SMEM) return 0;
+  return (size_t)sw.rows * threads * sizeof(float) * (MATS ? 4 : 1);
 }
 
 // scene_distance over the packed words on route STK (DYN: the frame's
@@ -758,7 +768,8 @@ __device__ __forceinline__ float words_color(const SceneWords& sw, float px,
 // under MODE, on stack route STK: the compact item lists over float4 leaf
 // rows (MODE 1), else the packed words, gated by the tile's leaf mask in
 // MODE 2 and 4. color() is the hit point's colour walk (gated under any
-// culling, as the reference's colour pass is).
+// culling, as the reference's colour pass is). The flat march kernels
+// K5-K7 take MODE 0 or 3 (march.cuh), which read neither cv nor tile.
 template <int MODE, int STK>
 struct WordScene {
   static constexpr bool TAP_LOOP = true;  // fine.cuh tet_normal

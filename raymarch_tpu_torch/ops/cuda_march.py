@@ -25,10 +25,13 @@ holds what surrounds it:
   device form (`PlanBuffers`), and `scene_compact_plain`, the plain version
   of `scene_distance_compact` in csrc/scene_eval.cuh (the O(active)
   evaluator `_make_scene_eval_compact`, 493-660, over per-tile lists).
-- The flat march kernels K5, K6 and K7 (csrc/march.cu): their wrappers
-  (`ray_march`, `image_march`, `image_render`), plain versions and the
-  reference's factories (`make_pallas_ray_march`, `make_pallas_image_march`,
-  `make_march_pallas`, `make_pallas_image_render`).
+- The flat march kernels K5, K6 and K7 (csrc/march.cuh, over the packed
+  words as K1/K2): their wrappers (`ray_march`, `image_march`,
+  `image_render`, and `image_pixels`, K7's build that takes each pixel's
+  AA mean), plain versions and the reference's factories
+  (`make_pallas_ray_march`, `make_pallas_image_march`, `make_march_pallas`,
+  `make_pallas_image_render`), with `make_pallas_pixel_render` for the
+  "pallas_full" frame.
 """
 
 from __future__ import annotations
@@ -129,7 +132,8 @@ class SceneBuffers:
     op_param:    f32[TapeSpec.n_instr] (per frame).
     words:       i32[n_instr, 4]: the tape packed by `pack_words` (per
                  TapeSpec, or per frame for a dynamic spec); what K1/K2
-                 read. None where no such kernel runs.
+                 and K5-K7 read, on the stack route `route`. None where no
+                 such kernel runs.
     """
 
     spec: TapeSpec
@@ -148,6 +152,12 @@ class SceneBuffers:
         """Instructions the kernels run: the static tape's, or a dynamic
         tape's whole bucket (NOP padding included)."""
         return self.spec.n_instr if self.dynamic else len(self.spec.static_tape)
+
+    @property
+    def route(self) -> int:
+        """The value stack's route of the kernels that read `words`
+        (`stack_route`)."""
+        return stack_route(self.spec)
 
 
 def scene_topology(spec: TapeSpec, device) -> tuple[torch.Tensor | None, torch.Tensor, torch.Tensor | None]:
@@ -1014,15 +1024,26 @@ def scene_compact_plain(scene: SceneBuffers, plan, active, px, py, pz, work: Fol
     return d
 
 
-# --- the flat march kernels K5, K6, K7 (csrc/march.cu) ----------------------
+# --- the flat march kernels K5, K6, K7 (csrc/march.cuh) ---------------------
 #
-# `ray_march` (K5, pallas_march.py:1297), `image_march` (K6, 1390) and
-# `image_render` (K7, 1566) launch csrc/march.cu's one kernel template on a
-# CUDA tensor and run their plain versions on a CPU tensor; the factories
-# below (`make_pallas_ray_march`, `make_pallas_image_march`,
-# `make_march_pallas`, `make_pallas_image_render`) take the reference's
-# arguments and return its call forms. The host constants are those of the
-# prepass renderer (`cuda_prepass.PrepassParams`, no prepass).
+# `ray_march` (K5, pallas_march.py:1297), `image_march` (K6, 1390),
+# `image_render` (K7, 1566) and `image_pixels` (K7's pixel build: the AA
+# mean of each pixel inside the kernel) launch csrc/march.cuh's one kernel
+# template on a CUDA tensor and run their plain versions on a CPU tensor;
+# the factories below (`make_pallas_ray_march`, `make_pallas_image_march`,
+# `make_march_pallas`, `make_pallas_image_render`,
+# `make_pallas_pixel_render`) take the reference's arguments and return its
+# call forms. The kernels read the scene's packed words on its stack route
+# (`SceneBuffers.words`, `.route`), as K1/K2 do; the host constants are
+# those of the prepass renderer (`cuda_prepass.PrepassParams`, no prepass).
+
+# The pixel build's blocks hold whole pixels (csrc/march.cuh
+# pixel_threads): at most PIXEL_MAX_THREADS threads, so aa_samples <= 32,
+# and at most SMEM_MAX bytes of dynamic shared memory a block (the H100's
+# opt-in limit).
+MARCH_THREADS = 128
+PIXEL_MAX_THREADS = 1024
+SMEM_MAX = 227 * 1024
 
 
 def march_tile_plain(scene_fn, p, bound, ox, oy, oz, dx, dy, dz, work=None, leaves=None):
@@ -1140,6 +1161,31 @@ def image_render_plain(scene: SceneBuffers, cam, bound, p, work=None):
                  for c in range(3))
 
 
+def image_pixels_plain(scene: SceneBuffers, cam, bound, p, work=None):
+    """Plain version of K7's pixel build -> the image f32[rows, W, 3]: the
+    mean of each pixel's S gamma-corrected samples of `image_render_plain`,
+    as make_renderer(backend="pallas_full") takes it (the reference's
+    stack and mean, raymarch_tpu/ops/march.py:488-507)."""
+    rgb = image_render_plain(scene, cam, bound, p, work)
+    return torch.stack(rgb, dim=-1).reshape(p.rows, p.width, p.naa * p.naa, 3).mean(dim=2)
+
+
+def pixel_threads(s: int) -> int:
+    """Threads a block of the pixel build for `s` samples a pixel
+    (csrc/march.cuh pixel_threads): whole pixels, one when s > 128."""
+    return s if s >= MARCH_THREADS else (MARCH_THREADS // s) * s
+
+
+def pixel_smem(spec: TapeSpec, s: int) -> int:
+    """Dynamic shared memory of a block of the pixel build (csrc/march.cuh
+    stack_smem_bytes + march_sum_bytes): the stack columns on the
+    shared-memory route (four stacks for a painted scene's colour walk),
+    and three floats a thread where s does not divide 32."""
+    n = pixel_threads(s)
+    stack = (spec.stack_depth - 1) * n * 4 * (4 if spec.has_materials else 1) if stack_route(spec) == STK_SMEM else 0
+    return stack + (3 * n * 4 if 32 % s else 0)
+
+
 def _check_flat(scene: SceneBuffers, cam, bound, n: int):
     from .cuda_prepass import _check
 
@@ -1160,27 +1206,32 @@ def _check_flat(scene: SceneBuffers, cam, bound, n: int):
 
 
 def _march_launch(scene: SceneBuffers, cam, bound, p, origins, dirs, n: int, out: int):
-    """One launch of csrc/march.cu's kernel -> its outputs (t, hit, steps)
-    or (r, g, b)."""
+    """One launch of csrc/march.cuh's kernel -> its outputs: (t, hit,
+    steps), (r, g, b) per AA ray, or (out 2) the image f32[rows, W, 3]."""
     from .. import _build
-    from .cuda_prepass import _CParams, _raise_on
+    from .cuda_prepass import _CParams, _raise_on, _words_ptrs
 
     dev = bound.device
     lib = _build.load()
-    o = [torch.empty(n, dtype=torch.float32, device=dev) for _ in range(2 if out == 0 else 3)]
+    if out == 2:
+        o = [torch.empty((p.rows, p.width, 3), dtype=torch.float32, device=dev)]
+    else:
+        o = [torch.empty(n, dtype=torch.float32, device=dev) for _ in range(2 if out == 0 else 3)]
     steps = torch.empty(n, dtype=torch.int32, device=dev) if out == 0 else None
     cp_ = _CParams.of(p)
+    ptrs, _rows = _words_ptrs(scene)  # the rows are held until the launch is queued
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.rmt_march_launch(
-            scene.leaf_params.data_ptr(), scene.row_kind.data_ptr(), scene.tape.data_ptr(), scene.n_instr,
-            scene.op_param.data_ptr(), int(scene.dynamic), int(scene.spec.has_materials),
+            *ptrs, int(scene.spec.has_materials),
             None if origins is None else origins.data_ptr(), None if dirs is None else dirs.data_ptr(),
             None if cam is None else cam.data_ptr(), bound.data_ptr(), ctypes.addressof(cp_), n, out,
-            o[0].data_ptr(), o[1].data_ptr(), o[2].data_ptr() if out == 1 else None,
+            o[0].data_ptr(), o[1].data_ptr() if out < 2 else None, o[2].data_ptr() if out == 1 else None,
             None if steps is None else steps.data_ptr(), stream,
         )
     _raise_on(err, "march_kernel")
+    if out == 2:
+        return o[0]
     return (o[0], o[1], steps) if out == 0 else tuple(o)
 
 
@@ -1224,15 +1275,40 @@ def image_render(scene: SceneBuffers, cam, bound, p):
     return out
 
 
+def image_pixels(scene: SceneBuffers, cam, bound, p):
+    """K7's pixel build: render the image from `cam` -> f32[rows, W, 3],
+    each pixel the mean of its S = aa^2 gamma-corrected samples, reduced
+    inside the kernel. Raises on an AA grid or stack the build does not
+    take (more than PIXEL_MAX_THREADS samples a pixel, or more than
+    SMEM_MAX bytes of shared memory a block); it has no other build to
+    fall back to."""
+    s = p.naa * p.naa
+    n = s * p.rows * p.width
+    dev = _check_flat(scene, cam, bound, n)
+    if s > PIXEL_MAX_THREADS:
+        raise ValueError(f"aa_samples {p.naa}: {s} samples a pixel exceed the pixel build's {PIXEL_MAX_THREADS}")
+    smem = pixel_smem(scene.spec, s)
+    if smem > SMEM_MAX:
+        raise ValueError(f"aa_samples {p.naa} at stack depth {scene.spec.stack_depth}: the pixel build's block "
+                         f"needs {smem} bytes of shared memory, over {SMEM_MAX}")
+    if dev.type == "cpu":
+        return image_pixels_plain(scene, cam, bound, p)
+    out = _march_launch(scene, cam, bound, p, None, None, n, 2)
+    image_pixels.launches += 1
+    return out
+
+
 ray_march.launches = 0
 image_march.launches = 0
 image_render.launches = 0
+image_pixels.launches = 0
 
 
 def reset_launch_counts():
     ray_march.launches = 0
     image_march.launches = 0
     image_render.launches = 0
+    image_pixels.launches = 0
 
 
 class FlatMarch:
@@ -1322,6 +1398,24 @@ def make_pallas_image_render(spec: TapeSpec, cfg, width: int, height: int, inter
 
     render_rgb.flat = fm
     return render_rgb
+
+
+def make_pallas_pixel_render(spec: TapeSpec, cfg, width: int, height: int, *, device="cuda"):
+    """The pallas_full frame through K7's pixel build: `render(arrays,
+    cam_vec f32[8]) -> f32[H, W, 3]`, each pixel the mean of its AA
+    samples' gamma-corrected colours, the image that
+    `make_pallas_image_render` followed by the reference's stack and mean
+    gives (raymarch_tpu/ops/march.py:488-507)."""
+    from .cuda_prepass import resolve_device
+
+    fm = _flat(spec, cfg, int(width), int(height), resolve_device(device))
+
+    def render(arrays: TapeArrays, cam_vec):
+        scene, cam, bound = fm.scene_args(arrays, cam_vec)
+        return image_pixels(scene, cam, bound, fm.params)
+
+    render.flat = fm
+    return render
 
 
 def make_march_pallas(spec: TapeSpec, cfg, interpret: bool = False, *, device="cuda"):

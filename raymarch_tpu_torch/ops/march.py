@@ -426,13 +426,14 @@ def _renderer(spec, width, height, cfg, mode, chunk, backend, dev):
     if backend == "pallas_full":
         if mode != "forward":
             raise ValueError("pallas_full backend is forward-only")
-        rgb_render = cm.make_pallas_image_render(spec, cfg, width, height, device=dev)
+        # K7's pixel build takes the reference's AA mean (march.py:488-507)
+        # inside the kernel.
+        pixel_render = cm.make_pallas_pixel_render(spec, cfg, width, height, device=dev)
 
         def render_full(arrays: TapeArrays, camera):
-            r, g, b = rgb_render(arrays, cam_vec(camera, 0.0, device=dev))
-            return torch.stack([r, g, b], dim=-1).reshape(height, width, s, 3).mean(dim=2)
+            return pixel_render(arrays, cam_vec(camera, 0.0, device=dev))
 
-        render_full.renderer = rgb_render
+        render_full.renderer = pixel_render
         return render_full
 
     scene = make_scene_fn(spec, cfg)

@@ -773,6 +773,10 @@ FLAT_CASES = {
     "rich_dynamic_relax": (_rich, False, dataclasses.replace(CFG, relax=1.6)),
     "painted_dynamic": (lambda m: _config2(m).paint((0.9, 0.2, 0.1)) | m.sphere(center=(0, 1.2, 0), radius=0.3),
                         False, CFG),
+    # Stack depth 8: the value stack in shared memory (cuda_march.stack_route);
+    # the painted one with the colour walk's four stacks there.
+    "spheres_static_depth8": (_spheres, True, CFG),
+    "painted_static_depth8": (lambda m: _painted16(m), True, CFG),
 }
 
 
@@ -815,6 +819,30 @@ def test_flat_march_kernels_match_plain(dev, case):
 
 def p_cfg(case):
     return FLAT_CASES[case][2]
+
+
+@pytest.mark.parametrize("aa", [2, 3, 4])
+@pytest.mark.parametrize("case", ["config2_static", "config2_dynamic", "spheres_static_depth8",
+                                  "painted_static_depth8"])
+def test_pixel_build_matches_plain(dev, case, aa):
+    """K7's pixel build (the AA mean inside the kernel: xor shuffles where
+    aa^2 divides 32, shared memory at aa 3) against its plain version,
+    image_render_plain's samples stacked and averaged: the exact class; and
+    against the per-sample build's mean, up to the sums' order."""
+    build, static, cfg = FLAT_CASES[case]
+    cfg = dataclasses.replace(cfg, aa_samples=aa)
+    spec, arrays = rt.compile_scene(build(rt), static=static)
+    from raymarch_tpu_torch.ops import cuda_march as cm
+
+    fm = cm.FlatMarch(spec, cfg, W, H, dev)
+    sc, cam, bound = fm.scene_args(arrays, rt.cam_vec(CAM, device=dev))
+    before = cm.image_pixels.launches
+    img = cm.image_pixels(sc, cam, bound, fm.params)
+    assert cm.image_pixels.launches == before + 1 and img.shape == (H, W, 3)
+    ref = cm.image_pixels_plain(sc, cam, bound, fm.params)
+    assert float((img - ref).abs().max()) < 1e-3
+    per_ray = torch.stack(cm.image_render(sc, cam, bound, fm.params), -1).reshape(H, W, -1, 3).mean(2)
+    assert float((img - per_ray).abs().max()) < 1e-5
 
 
 @pytest.mark.parametrize("kw", [dict(prepass_block=1), dict(prepass_block=4),

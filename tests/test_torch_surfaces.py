@@ -148,3 +148,70 @@ def test_reference_value_errors(backend, mode):
     with pytest.raises(ValueError, match="march_only"):
         cp.make_pallas_image_render_aa(spec_s, _t(CFG), W, H, device="cpu", march_only=True, soft=True,
                                        no_prepass=True)
+
+
+@pytest.mark.parametrize("aa", [2, 3, 4])
+@pytest.mark.parametrize("case", ["config2_static", "config2_dynamic", "painted_dynamic"])
+def test_pixel_build_plain_matches_jax_pallas_full(case, aa):
+    """K7's pixel build (the AA mean inside the kernel) through its plain
+    version, `make_renderer(backend="pallas_full")` on the CPU, against the
+    JAX package's pallas_full frame in interpret mode: the exact class.
+    aa 3 is the build's shared-memory sum, aa 2 and 4 its shuffles."""
+    cfg, (spec_j, arr_j), (spec, arr) = _case(case)
+    cfg = dataclasses.replace(cfg, aa_samples=aa)
+    img_j = np.asarray(jax.jit(rm.make_renderer(spec_j, W, H, cfg, mode="forward", backend="pallas_full",
+                                                interpret=True))(arr_j, CAM))
+    render = rt.make_renderer(spec, W, H, _t(cfg), mode="forward", backend="pallas_full", device="cpu")
+    before = cm.image_pixels.launches
+    img = render(arr, CAM_T)
+    assert cm.image_pixels.launches == before  # the plain version: no kernel ran
+    assert img.shape == (H, W, 3) and bool(torch.isfinite(img).all())
+    assert np.abs(img.numpy() - img_j).max() < IMG_ATOL
+    fm = render.renderer.flat
+    sc, cam, bound = fm.scene_args(arr, torch.as_tensor(CV))
+    per_ray = torch.stack(cm.image_render_plain(sc, cam, bound, fm.params), -1).reshape(H, W, aa * aa, 3).mean(2)
+    assert torch.equal(cm.image_pixels_plain(sc, cam, bound, fm.params), per_ray)
+
+
+@pytest.mark.parametrize("name,static", [("config2", True), ("config2", False), ("all_prims", True),
+                                         ("painted_transformed", False)])
+def test_flat_scene_buffers_carry_words_and_route(name, static):
+    """The flat path hands K5-K7 the packed words (per TapeSpec, or per frame
+    for a dynamic tape) and the route of the spec's stack depth, as K1/K2
+    get them."""
+    spec, arr = rt.compile_scene(SCENES[name](rt), static=static)
+    fm = cm.FlatMarch(spec, _t(CFG_B), W, H, torch.device("cpu"))
+    sc, _, _ = fm.scene_args(arr, torch.as_tensor(CV))
+    assert sc.words is not None and tuple(sc.words.shape) == (max(sc.n_instr, 1), 4)
+    np.testing.assert_array_equal(sc.words.numpy(), cm.pack_words(*sc.tape.numpy(), cm.row_kinds(spec)))
+    assert sc.route == cm.stack_route(spec) == (cm.REG_STACK if spec.stack_depth <= 2 else cm.STK_SMEM)
+
+
+def test_flat_path_refuses_a_dynamic_tape_deeper_than_its_spec():
+    """A frame's dynamic tape whose slots pass the spec's stack depth raises
+    on the flat path too: the kernels size the stack's route by the spec."""
+    spec, arr = rt.compile_scene(SCENES["config2"](rt), static=False)
+    slots = np.asarray(arr.out_slot).copy()
+    slots[np.asarray(arr.tape_ops) != 0] = spec.stack_depth
+    deep = dataclasses.replace(arr, out_slot=slots)
+    for factory in (cm.make_pallas_image_march, cm.make_pallas_image_render, cm.make_pallas_pixel_render):
+        with pytest.raises(ValueError, match="past the spec's depth"):
+            factory(spec, _t(CFG_B), W, H, device="cpu")(deep, torch.as_tensor(CV))
+    with pytest.raises(ValueError, match="past the spec's depth"):
+        cm.make_pallas_ray_march(spec, _t(CFG_B), device="cpu")(deep, torch.zeros(4, 3), torch.ones(4, 3))
+
+
+def test_pixel_build_refuses_what_it_does_not_take():
+    """The pixel build holds a pixel's samples in one block: more than 1,024
+    samples a pixel raise (on the CPU as on the card), as does a block whose
+    stacks pass the card's shared memory (a painted scene's four stacks at
+    depth 32 and aa 32); the wrapper has no other build to fall back to."""
+    spec, arr = rt.compile_scene(SCENES["config2"](rt), static=True)
+    render = cm.make_pallas_pixel_render(spec, _t(dataclasses.replace(CFG_B, aa_samples=33)), 2, 2, device="cpu")
+    with pytest.raises(ValueError, match="exceed the pixel build's"):
+        render(arr, torch.as_tensor(CV))
+    deep, arr_d = rt.compile_scene(SCENES["painted_transformed"](rt), static=True, stack_depth=32)
+    assert deep.has_materials and cm.pixel_smem(deep, 32 * 32) > cm.SMEM_MAX >= cm.pixel_smem(deep, 16 * 16)
+    render = cm.make_pallas_pixel_render(deep, _t(dataclasses.replace(CFG_B, aa_samples=32)), 2, 2, device="cpu")
+    with pytest.raises(ValueError, match="shared memory"):
+        render(arr_d, torch.as_tensor(CV))

@@ -224,3 +224,58 @@ def test_fault13_pallas_fit_step_in_soft_mode():
                          mode="soft", backend="pallas", device="cpu")
     with pytest.raises(ValueError, match="pallas backend"):
         rt.make_renderer(spec, W, H, _t(CFG), mode="soft", backend="pallas", device="cpu")
+
+
+def test_fault15_ray_starts_against_oracle():
+    """ROADMAP §3 fault 15, classed against the f64 oracle
+    (`oracle_grad.pixel_grads`, which marches from t = 0): a 32x24 frame
+    over config 2's torus cut, weighted-pixel-loss gradients of every tape
+    word and of the camera. Backend "jnp" starts its rays at t = 0 and
+    lands in the reference's oracle class (tests/test_pallas_grad.py:
+    277-293). Backend "pallas" (K5's plain version, as the JAX package's
+    Pallas flat kernels) starts them at the bound's entry: a grazing ray
+    there samples other points and stops on another surface, and that one
+    ray moves the gradient by about max|g|. The bound-entry start is the
+    fault; when its repair lands, the second assertion turns round."""
+    from raymarch_tpu.ops.oracle_grad import pixel_grads
+
+    from test_grad_oracle import _word_map
+
+    cfg = dataclasses.replace(rm.DEFAULT_CONFIG, aa_samples=2, max_iter=120, bound_accel=True)
+    cam = rm.Camera.looking_at(position=(0.3, 2.4, 2.0), target=(0.0, 0.6, 0.0))
+    w, h, s = 32, 24, 4
+    scene = SCENES["config2"](rm)
+    tape = rm.encode_wire(scene)
+    spec_j, arr_j = rm.compile_scene(scene, static=True, rebalance=False)
+    wmap = _word_map(tape, spec_j)
+    o, d = rm.raygen_flat(jnp.arange(w * h * s, dtype=jnp.int32), jnp.asarray(cam.position, jnp.float64),
+                          jnp.asarray(cam.rotation, jnp.float64), w, h, cfg)
+    col, dcol, dcam = pixel_grads(tape, np.asarray(o, np.float64), np.asarray(d, np.float64), cfg,
+                                  cam_rotation=np.asarray(cam.rotation))
+    g = np.random.default_rng(23).uniform(0.5, 1.5, (h, w, 3))
+    g_ray = np.repeat(g[:, :, None, :], s, axis=2).reshape(-1, 3) / s
+    oracle_words = np.einsum("nc,ncw->w", g_ray, dcol)
+    oracle_cam = np.einsum("nc,ncw->w", g_ray, dcam)
+    scale, cscale = np.abs(oracle_words).max(), np.abs(oracle_cam).max()
+    spec, arr = from_reference(spec_j, arr_j)
+    off = {}
+    for backend in ("jnp", "pallas"):
+        render = rt.make_renderer(spec, w, h, _t(cfg), mode="implicit", backend=backend, device="cpu")
+        lp = torch.tensor(arr.leaf_params, requires_grad=True)
+        opp = torch.tensor(arr.op_param, requires_grad=True)
+        pos = torch.tensor(np.asarray(cam.position, np.float32), requires_grad=True)
+        rot = torch.tensor(np.asarray(cam.rotation, np.float32), requires_grad=True)
+        img = render(dataclasses.replace(arr, leaf_params=lp, op_param=opp), rt.Camera(pos, rot))
+        torch.sum(img * torch.tensor(g, dtype=torch.float32)).backward()
+        words = np.zeros(len(tape))
+        for wd, m in wmap.items():
+            words[wd] = lp.grad[m[1], m[2]] if m[0] == "leaf" else opp.grad[m[1]]
+        gcam = torch.cat([pos.grad, rot.grad]).numpy()
+        if backend == "jnp":
+            np.testing.assert_allclose(words, oracle_words, rtol=3e-2, atol=1e-3 * scale)
+            rel = np.abs(words - oracle_words) / (np.abs(oracle_words) + 1e-3 * scale)
+            assert np.median(rel) < 1e-2
+            np.testing.assert_allclose(gcam, oracle_cam, rtol=3e-2, atol=1e-3 * cscale)
+        off[backend] = (np.abs(words - oracle_words).max() / scale, np.abs(gcam - oracle_cam).max() / cscale)
+    assert off["jnp"][0] < 1e-2 and off["jnp"][1] < 1e-2
+    assert off["pallas"][0] > 0.1 and off["pallas"][1] > 0.1, off
