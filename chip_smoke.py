@@ -105,7 +105,10 @@ Run from the repository root: `python3 chip_smoke.py`. It
    aa 2, 3, 4 and 8, each against its plain version (hit and steps equal
    on every ray, t within 1e-5 on hits, images max|d| < 1e-3), of K2's
    march-only build (B = 1;
-   n_intervals=2 at relax 1.6) against fine_res_plain's (t, hit), and of
+   n_intervals=2 at relax 1.6) against fine_res_plain's (t, hit), of K5
+   alone (t, hit and steps equal on every ray at 1, 31, 33 and 2^20 + 5
+   rays of the camera and of seeded incoherent rays, on config 2's dynamic
+   tape, at relax 1.6 and on 64 spheres), and of
    make_renderer(backend="pallas", mode="implicit")'s gradients against
    backend "jnp"'s (gated without bound_accel, where both march the same
    samples; the deviation with it is logged); then at 1920x1080 with 16 AA
@@ -117,14 +120,17 @@ Run from the repository root: `python3 chip_smoke.py`. It
    make_pallas_image_render, the make_renderer frames of backends "pallas"
    and "jnp" (dynamic tape) and `fwdbwd_jnp` (backend "pallas", implicit,
    chunk 2^20: step, K5 launches, peak memory), K5 alone in the step's
-   2^20-ray launches against its plain version, each kernel's time alone,
-   plain time and bound;
+   2^20-ray launches (CUDA events and torch.profiler's device time a
+   launch) against its plain version, each
+   kernel's time alone, plain time and bound;
 15. live editing: gates at 256x144 of the DYN builds of the coarse and
    fine kernels (the dynamic tape: config 2 un-culled, gated and at relax
    1.6, the empty scene, `rich` gated at relax 1.6, 16 painted spheres
-   un-culled and gated), of the unpacked fine pass K4 (shared normals on
-   static and dynamic tapes, aa = 3, aa = 3 dynamic and gated; with its
-   residuals), of K8 on K4's residuals at aa = 3, and the dynamic frame
+   un-culled and gated), of the unpacked fine pass K4 (aa 1-6 with and
+   without shared normals on both tapes, every prepass form, relax 1.6, 16
+   painted spheres, culled frames whose blocks cross a list tile's edge,
+   aa 12; its residuals t and hit equal to the plain version's on every
+   ray), of K8 on K4's residuals at aa = 3, and the dynamic frame
    against the static one in bench.py's dynamic-tape class; then at
    1920x1080 with 16 AA rays per pixel bench.py's `dynamic_tape_prepass`
    against the static headline (S D D S in one call: frame ms, Grays/s,
@@ -2164,6 +2170,7 @@ def soft(rt, cp, cg, dev, smi, cfg):
 # --- phase 14: the render surfaces (K5, K6, K7, K2's march-only build) -------
 MARCH_STEPS_WARMUP, MARCH_STEPS = 1, 4  # fwdbwd_jnp steps (bench.py:928: 4 frames after 1)
 SURFACE_WIDE_POS = (0.0, 2.5, 9.0)  # the many-sphere scenes' gate camera of phase 14
+K5_GATE_COUNTS = (1, 31, 33, (1 << 20) + 5)  # rays of the K5 gates: part-filled runs, warps and grids
 
 
 def march_agreement(name, k, p):
@@ -2185,6 +2192,20 @@ def march_agreement(name, k, p):
         log(f"  {int(diff.sum())} rays differ, first at {diff.nonzero()[:5].flatten().tolist()}")
         raise AssertionError(f"{name} outside its tolerance")
     return mx
+
+
+def ray_agreement(name, k, p):
+    """K5 against ray_march_plain: t, hit and steps equal on every ray."""
+    import torch
+
+    eq = [bool(torch.equal(a, b)) for a, b in zip(k, p)]
+    ok = all(eq) and len(k) == len(p) == 3
+    log(f"{name}: {k[0].numel()} rays, t / hit / steps equal {eq} (need all equal) {'PASS' if ok else 'FAIL'}")
+    if not ok:
+        diff = (k[0] != p[0]) | (k[1] != p[1]) | (k[2] != p[2])
+        log(f"  {int(diff.sum())} rays differ, first at {diff.nonzero()[:5].flatten().tolist()}")
+        raise AssertionError(f"{name} outside its tolerance")
+    return 0.0
 
 
 def aa_mean(rgb, h, w):
@@ -2248,6 +2269,29 @@ def surfaces(rt, cp, dev, smi, cfg, gcam_pos):
             log(f"  empty scene: floor share {fl:.4f}, finite {bool(torch.isfinite(img_k).all())}")
             if not fl > 0.1:
                 raise AssertionError("the empty scene shows no floor")
+    # K5 (march.cuh march_kernel, SRC 0): t, hit and steps equal to
+    # ray_march_plain's on every ray, at counts that leave a warp or a block
+    # part-filled (1, 31, 33, 2^20 + 5), on the camera's rays and on seeded
+    # incoherent rays (origins uniform in [-3, 3]^3, directions uniform on
+    # the sphere), on a dynamic tape, at relax 1.6 and on 64 spheres (the
+    # stack in shared memory).
+    rng = np.random.default_rng(13)
+    for name, scene, static, cfg_g, cam_g in (("config2 dynamic", scene_config2(rt), False, cfg, near),
+                                              ("config2 relax 1.6", scene_config2(rt), True, cfg_ir, near),
+                                              ("64 spheres static (depth 8)", scene_spheres(rt, 64), True, cfg, wide)):
+        spec_g, arrays_g = rt.compile_scene(scene, static=static)
+        fm = cm.FlatMarch(spec_g, cfg_g, 1, 1, dev)
+        sc, _, bound = fm.scene_args(arrays_g)
+        for n5 in K5_GATE_COUNTS:
+            o_i = rng.uniform(-3.0, 3.0, (n5, 3)).astype(np.float32)
+            d_i = rng.normal(size=(n5, 3))
+            d_i = (d_i / np.linalg.norm(d_i, axis=1, keepdims=True)).astype(np.float32)
+            o_c, d_c = rt.raygen_flat(torch.arange(n5, device=dev) % (GATE_W * GATE_H * cfg_g.aa_samples ** 2),
+                                      cam_g.position, cam_g.rotation, GATE_W, GATE_H, cfg_g)
+            for kind, o, d in (("camera", o_c.contiguous(), d_c.contiguous()),
+                               ("incoherent", torch.tensor(o_i, device=dev), torch.tensor(d_i, device=dev))):
+                ray_agreement(f"gate K5 march_kernel vs ray_march_plain, {name}, {n5} {kind} rays",
+                              cm.ray_march(sc, bound, fm.params, o, d), cm.ray_march_plain(sc, bound, fm.params, o, d))
     # K7's pixel build at every kind of AA sum: aa 2 and 4 by xor shuffles
     # within a warp, aa 3 and 8 through shared memory (after the stacks'
     # columns on the shared-memory route).
@@ -2490,16 +2534,20 @@ def surfaces(rt, cp, dev, smi, cfg, gcam_pos):
 
     k5 = [torch.cat(v) for v in zip(*k5_frame())]
     k5_ms = cuda_ms(k5_frame, KERNEL_REPS) / len(spans)
+    share, dev_ms = device_idle_share(k5_frame, KERNEL_REPS, k5_ms * len(spans))
+    k5_dev = None if dev_ms is None else dev_ms / len(spans)
     work = cp.WorkCount()
     ref, p_ms = plain_ms(lambda: cm.ray_march_plain(sc, bound, fm.params, o, d, work=work))
-    err5 = march_agreement("K5 ray_march in 2^20-ray chunks vs ray_march_plain on the 1080p frame's rays", k5, ref)
+    err5 = ray_agreement("K5 march_kernel in 2^20-ray chunks vs ray_march_plain on the 1080p frame's rays", k5, ref)
     del ref, k5, o, d
     bnd5 = roofline(march_flops(work, n_rays, spec_s, False) / len(spans), n_rays * (24 + 12) / len(spans))
+    dev_txt = "not measured" if k5_dev is None else f"{k5_dev:.4f} ms a launch (idle share {share:.4f})"
     log(f"K5 alone on the 1080p frame's {n_rays} rays in {len(spans)} launches of 2^20: {k5_ms:.4f} ms a launch "
-        f"(mean), plain {p_ms / len(spans):.2f} ms a chunk ({p_ms:.2f} ms the frame), bound {bnd5[0]:.4f} ms a "
-        f"chunk ({bnd5[1]}) ({smi})")
+        f"(mean, CUDA events), device time {dev_txt} (torch.profiler), plain {p_ms / len(spans):.2f} ms a chunk "
+        f"({p_ms:.2f} ms the frame), bound {bnd5[0]:.4f} ms a chunk ({bnd5[1]}) ({smi})")
     record("ray_march_kernel (K5, per 2^20-ray launch)", "raymarch_tpu_torch/csrc/march.cu",
            "raymarch_tpu/ops/pallas_march.py:1297", launches_b, err5, k5_ms, p_ms / len(spans), bnd5)
+    records[-1]["device_ms"] = k5_dev
     out["k5_ms"] = k5_ms
     torch.cuda.synchronize()
     log(f"phase 14: {time.perf_counter() - t_phase:.1f} s")
@@ -2576,19 +2624,60 @@ def live(rt, cp, cg, dev, smi, cfg, gcam_pos):
                     cp.fine_plain(sc, cam, bound, rp.params, *pre_k, cull=fc))
     spec_s, arrays_s = rt.compile_scene(scene_config2(rt), static=True)
     spec_d, arrays_d = rt.compile_scene(scene_config2(rt))
-    k4_gates = (
-        ("shared normals, static", spec_s, arrays_s, dataclasses.replace(cfg, aa_shared_normals=True)),
-        ("shared normals, dynamic", spec_d, arrays_d, dataclasses.replace(cfg, aa_shared_normals=True)),
-        ("aa = 3, static", spec_s, arrays_s, dataclasses.replace(cfg, aa_samples=3)),
-        ("aa = 3, dynamic, gated", spec_d, arrays_d, dataclasses.replace(gated, aa_samples=3)),
-    )
-    for name, spec_g, arrays_g, cfg_g in k4_gates:
-        rp = cp.make_pallas_image_render_aa(spec_g, cfg_g, GATE_W, GATE_H, device=dev, aa_packed=not
-                                            cfg_g.aa_shared_normals)
+    # K4 (one lane per AA sample over the packed words, -fmad=false): the
+    # image in the accelerated class and (t, hit) equal to the plain
+    # version's on every ray (rel <= 1e-4 everywhere), at aa 1-6 with and
+    # without shared normals (aa 1, 2, 4: a pixel within a warp, by ballot
+    # and shuffles; 3, 5, 6 across warps, through shared memory), on both
+    # tapes, every prepass form (PRE 1 pixel and B = 4 block planes, PRE 2,
+    # PRE 4 in place), relax 1.6, the 16 painted spheres (materials, the
+    # stacks in shared memory), culled frames whose blocks of 14 pixels
+    # (aa 3) cross a 16-pixel list tile's edge, and aa 12 (two samples a
+    # lane).
+    wide = rt.cam_vec(rt.Camera.looking_at(position=SURFACE_WIDE_POS, target=(0, 0, 0)), device=dev)
+    k4_gates = [
+        ("shared normals, static", scene_config2, True, dict(aa_shared_normals=True), {}, gcv),
+        ("shared normals, dynamic", scene_config2, False, dict(aa_shared_normals=True), {}, gcv),
+        ("aa = 3, static", scene_config2, True, dict(aa_samples=3), {}, gcv),
+        ("aa = 3, dynamic, gated", scene_config2, False, dict(aa_samples=3, leaf_cull=True), {}, gcv),
+    ]
+    for aa in range(1, 7):
+        for sh in (False, True):
+            static = (aa + sh) % 2 == 0
+            k4_gates.append((f"aa {aa}{', shared' if sh else ''}, {'static' if static else 'dynamic'}", scene_config2,
+                             static, dict(aa_samples=aa, aa_shared_normals=sh), {}, gcv))
+    k4_gates += [
+        ("aa 3, shared, 2 intervals (PRE 2), static", scene_config2, True,
+         dict(aa_samples=3, aa_shared_normals=True), dict(n_intervals=2), gcv),
+        ("aa 5, 5 intervals in place (PRE 4), B = 4, dynamic", scene_config2, False, dict(aa_samples=5),
+         dict(n_intervals=5, prepass_block=4), gcv),
+        ("aa 3, shared, B = 4 block planes, dynamic", scene_config2, False,
+         dict(aa_samples=3, aa_shared_normals=True), dict(prepass_block=4), gcv),
+        ("aa 3, shared, relax 1.6, dynamic", scene_config2, False,
+         dict(aa_samples=3, aa_shared_normals=True, relax=1.6), {}, gcv),
+        ("aa 6, relax 1.6, 2 intervals, static", scene_config2, True, dict(aa_samples=6, relax=1.6),
+         dict(n_intervals=2), gcv),
+        ("16 painted spheres, aa 3, shared, static (depth 8)", lambda m: scene_painted(m, 16), True,
+         dict(aa_samples=3, aa_shared_normals=True), {}, wide),
+        ("16 painted spheres, aa 4, dynamic", lambda m: scene_painted(m, 16), False, dict(aa_samples=4), {}, wide),
+        ("64 spheres culled (item lists), aa 3, relax 1.6: blocks across tile edges", scene_spheres, True,
+         dict(aa_samples=3, leaf_cull=True, relax=1.6), {}, wide),
+        ("rich gated, aa 3, shared: blocks across tile edges", scene_rich, True,
+         dict(aa_samples=3, aa_shared_normals=True, leaf_cull=True), {}, gcv),
+        ("rich gated, aa 5, dynamic", scene_rich, False, dict(aa_samples=5, leaf_cull=True), {}, gcv),
+        ("aa 12, shared, static: two samples a lane", scene_config2, True,
+         dict(aa_samples=12, aa_shared_normals=True), {}, gcv),
+    ]
+    for name, build, static, cfg_kw, kw, cv_g in k4_gates:
+        spec_g, arrays_g = rt.compile_scene(build(rt), static=static)
+        cfg_g = dataclasses.replace(cfg, **cfg_kw)
+        rp = cp.make_pallas_image_render_aa(spec_g, cfg_g, GATE_W, GATE_H, device=dev, aa_packed=False, **kw)
         if not rp.params.unpacked:
             raise AssertionError(f"K4 gate {name} did not take the unpacked fine pass")
-        sc, cam, bound = rp.scene_args(arrays_g, gcv)
+        sc, cam, bound = rp.scene_args(arrays_g, cv_g)
         cc, fc = rp.cull_args(sc, cam)
+        if cfg_g.leaf_cull and (fc is None or 16 % cfg_g.aa_samples == 0):
+            raise AssertionError(f"K4 gate {name}: no culled frame whose blocks cross a tile's edge")
         pre = rp.prepass(sc, cam, bound, cc)
         img_k = cp.fine_unpacked(sc, cam, bound, rp.params, *pre, cull=fc)
         img_r, t_k, hit_k = cp.fine_unpacked_res(sc, cam, bound, rp.params, *pre, cull=fc)
@@ -2597,7 +2686,7 @@ def live(rt, cp, cg, dev, smi, cfg, gcam_pos):
         img_p, t_p, hit_p = cp.fine_unpacked_plain(sc, cam, bound, rp.params, *pre, cull=fc)
         image_class(f"gate K4 fine_unpacked_kernel vs fine_unpacked_plain, {name}", img_k, img_p)
         residual_agreement(f"gate K4 residuals vs fine_unpacked_plain, {name}", (t_k, hit_k), (t_p, hit_p),
-                           strict=False)
+                           strict=True)
     cfg3 = dataclasses.replace(cfg, aa_samples=3)
     fr3 = cg.make_fused_render_vjp(spec_s, cfg3, GATE_W, GATE_H, device=dev)
     if fr3.backward_info["aa_packed"] or fr3.backward_info["kind"] != "pallas_legacy_unrolled":
@@ -2739,7 +2828,7 @@ def live(rt, cp, cg, dev, smi, cfg, gcam_pos):
                                                                                   work=work_3))
     k4r_err = image_class("full-size K4 with residuals (aa = 3) vs fine_unpacked_plain", img_k3, img_p3)
     residual_agreement("full-size K4 residuals (aa = 3) vs fine_unpacked_plain", (t_k3, h_k3), (t_p3, h_p3),
-                       strict=False)
+                       strict=True)
     del img_p3, t_p3, h_p3
     ref3 = cg.bwd_plain(sc_s, cam, p3, render3.renderer.layout, t_k3, h_k3, 2.0 * img_k3 / img_k3.numel())
     grad_class("aa = 3 step's gradients vs bwd_plain on K4's residuals", g3, ref3)

@@ -19,17 +19,35 @@ stores: the per-ray floor); the `march_only` frame
 (`make_pallas_image_march`) and the `pallas_full` frame
 (`make_renderer(backend="pallas_full")`) on both tapes; and the
 torch.profiler device time of the static `pallas_full` frame split by
-operation. It prints one JSON object: the card, those times and, per
-kernel build, ptxas's register / stack / spill line. To compare two trees,
+operation. Then the unpacked fine pass K4 and the explicit-ray march K5
+(`k45_times`): K4 on config 2's static and dynamic tapes with shared
+normals (16 AA), on the static tape with a normal a sample (16 AA) and at
+aa 3 with residuals, each also
+at max_iter 0, with the divergence of a one-thread-per-pixel layout and
+of a one-lane-per-sample layout (mean over warps of the warp's largest
+step count over the mean step count; from the plain version's march steps
+on the card); K5 in the 32 chunk launches of 2^20 rays that
+`make_renderer(backend="pallas", chunk=1 << 20)` makes of the frame
+(CUDA events per launch, torch.profiler's device time per launch, and the
+host microseconds of one `ray_march` call without the kernel's launch),
+in one
+33 M-ray launch, at max_iter 0, and its divergence (32 consecutive rays a
+warp) on config 2, on 64 spheres under the camera (0, 2.5, 9) and on
+seeded incoherent rays (origins uniform in [-3, 3]^3, directions uniform
+on the sphere). `--k45` runs the K4/K5 rows alone. It prints one JSON
+object: the card, those times and, per kernel build, ptxas's register /
+stack / spill line. To compare two trees,
 unpack the other under `build/` and run the script from each root in one
 call (parent, change, change, parent), each output to a file, then
 
     python3 headline_builds.py --compare PARENT.json CHANGE.json
 
 counts the builds whose ptxas line is the same in both and lists the
-others, the flat march builds apart, then lists each tree's coarse and
-fine kernel builds that keep a stack frame and each tree's flat march
-builds with their stack frames. A `fine_kernel` build without the
+others, K4's and the flat march builds apart, then counts each tree's K4
+builds that keep a stack (`fine_unpacked_kernel<MODE, RELAX, MATS, PRE,
+STK>`; a parent tree's have no STK) and lists each tree's coarse and fine
+kernel builds that keep a stack frame and its flat march builds with
+their stack frames. A `fine_kernel` build without the
 march-only flag is keyed as one with it false, so that adding the flag
 renames no build; its stack route (`STK`: 2 a register, 0 shared memory)
 is a sixth key where the build has one, as is the coarse kernel's third
@@ -48,6 +66,10 @@ import time
 FRAMES, STEPS = 20, 10
 FLAT_REPS = 30  # runs of each flat march time
 SPLIT_FRAMES = 10  # frames of the profiled pallas_full frame
+K45_REPS = 30  # runs of each K4 / K5 time
+HOST_CALLS = 2000  # ray_march calls timed without their launch
+K5_CHUNK = 1 << 20  # the rays of one K5 launch in a chunked frame (make_renderer(chunk=1 << 20))
+K5_MID = 1 << 21  # half the 64-sphere divergence sample: 2^22 consecutive rays mid-frame
 
 
 def ptxas_lines(report: str) -> dict:
@@ -60,7 +82,11 @@ def ptxas_lines(report: str) -> dict:
             k = re.search(r"fine_kernelILi(\d)ELb(\d)ELb(\d)ELi(\d)(?:ELb(\d))?(?:ELi(\d+))?E", entry)
             c = re.search(r"coarse_kernelILi(\d)ELi(\d)(?:ELi(\d+))?E", entry)
             m5 = re.search(r"march_kernelILi(\d)ELi(\d)ELb(\d)ELb(\d)ELb(\d)(?:ELi(\d+))?E", entry)
-            if m5:
+            k4 = re.search(r"fine_unpacked_kernelILi(\d)ELb(\d)ELb(\d)ELi(\d)(?:ELi(\d+))?E", entry)
+            if k4:
+                stk = "" if k4.group(5) is None else f", {k4.group(5)}"
+                entry = "fine_unpacked_kernel<{}, {}, {}, {}{}>".format(*k4.group(1, 2, 3, 4), stk)
+            elif m5:
                 stk = "" if m5.group(6) is None else f", {m5.group(6)}"
                 entry = "march_kernel<{}, {}, {}, {}, {}{}>".format(*m5.group(1, 2, 3, 4, 5), stk)
             elif k:
@@ -85,13 +111,21 @@ def stack_bytes(line: str) -> int:
 def compare(a_path: str, b_path: str) -> int:
     a, b = (json.loads(open(p).read().strip().splitlines()[-1]) for p in (a_path, b_path))
     flat = lambda k: k.startswith("march_kernel<")  # noqa: E731
+    k4 = lambda k: k.startswith("fine_unpacked_kernel<")  # noqa: E731
     same = [k for k in a["ptxas"] if b["ptxas"].get(k) == a["ptxas"][k]]
     print(f"{len(same)} of {len(a['ptxas'])} builds of {a_path} have the same ptxas line in {b_path} "
           f"({len(b['ptxas'])} builds there)")
-    rest = [k for k in a["ptxas"] if not flat(k)]
+    rest = [k for k in a["ptxas"] if not flat(k) and not k4(k)]
     rest_same = [k for k in rest if k in same]
-    print(f"  builds other than the flat march kernels: {len(rest_same)} of {len(rest)} the same "
-          f"({sum(1 for k in b['ptxas'] if not flat(k))} in {b_path})")
+    print(f"  builds other than K4's and the flat march kernels': {len(rest_same)} of {len(rest)} the same "
+          f"({sum(1 for k in b['ptxas'] if not flat(k) and not k4(k))} in {b_path})")
+    for k in (k for k in a["ptxas"] if flat(k)):
+        if k not in same:
+            print(f"  flat build differs: {k}: {a['ptxas'][k]} | {b['ptxas'].get(k)}")
+    for path, run in ((a_path, a), (b_path, b)):
+        k4s = [k for k in run["ptxas"] if k4(k)]
+        framed = [k for k in k4s if stack_bytes(run["ptxas"][k])]
+        print(f"{path}: {len(framed)} of {len(k4s)} K4 builds keep a stack")
     for k in rest:
         if k not in same:
             print(f"  differs: {k}: {a['ptxas'][k]} | {b['ptxas'].get(k)}")
@@ -107,7 +141,7 @@ def compare(a_path: str, b_path: str) -> int:
         print(f"{path}: {len(framed)} of {len(k57)} flat march kernel builds keep a stack frame")
         for k in k57:
             print(f"  {k}: {run['ptxas'][k]}")
-    for key in ("ms", "flat_ms"):
+    for key in ("ms", "flat_ms", "k45"):
         for k in a.get(key, {}):
             print(f"  {key} {k}: {a[key][k]} | {b.get(key, {}).get(k)}")
     return 0
@@ -202,8 +236,155 @@ def flat_times(rt, cs, dev):
         torch.cuda.synchronize()
     return out, split
 
+class StepCount:
+    """A `work` argument of the plain fine passes that keeps each AA ray's
+    march steps (the scene evaluations of live rays; the normal taps, added
+    with points_per 4, are left out)."""
 
-def main() -> int:
+    def __init__(self):
+        self.steps = 0.0
+        self.hits = 0.0
+
+    def add(self, live, leaves, points_per=1):
+        if points_per == 1:
+            self.steps = self.steps + live
+
+
+def warp_divergence(lanes):
+    """Mean over warps of the warp's largest step count over the mean step
+    count of a lane, for `lanes` f32[..., 32] (a warp's lanes last; -1 marks
+    a lane with no ray)."""
+    lanes = lanes.reshape(-1, 32)
+    valid = lanes >= 0
+    warps = valid.any(dim=1)
+    top = lanes.amax(dim=1)[warps]
+    return float(top.mean() / lanes[valid].mean())
+
+
+def k4_layouts(steps, threads_per_pixel_block=128):
+    """(one thread per pixel, one lane per sample) divergence of K4's AA
+    rays' march steps f32[rows, W, S]: a warp of 32 neighbouring pixels of a
+    row, each thread its pixel's S marches in turn; or a block of whole
+    pixels of a row (floor(128 / S) of them, one where S > 128), a lane per
+    sample, a warp 32 consecutive lanes of the block."""
+    import torch
+
+    rows, w, s = steps.shape
+    per_px = steps.sum(dim=-1)
+    pad = -w % 32
+    px = torch.cat([per_px, per_px.new_full((rows, pad), -1.0)], dim=1)
+    n_px = threads_per_pixel_block // s if s < threads_per_pixel_block else 1
+    nb = -(-w // n_px)
+    lanes = torch.cat([steps, steps.new_full((rows, nb * n_px - w, s), -1.0)], dim=1)
+    lanes = lanes.reshape(rows, nb, n_px * s)
+    lanes = torch.cat([lanes, lanes.new_full((rows, nb, -(n_px * s) % 32), -1.0)], dim=2)
+    return warp_divergence(px), warp_divergence(lanes)
+
+
+def k45_times(rt, cs, dev):
+    """{name: ms, or a divergence or step count} of K4 and K5; see the
+    module docstring."""
+    import numpy as np
+    import torch
+
+    from raymarch_tpu_torch import _build
+    from raymarch_tpu_torch.ops import cuda_march as cm
+    from raymarch_tpu_torch.ops import cuda_prepass as cp
+
+    w, h = cs.WIDTH, cs.HEIGHT
+    cfg = dataclasses.replace(rt.DEFAULT_CONFIG, bound_accel=True, exit_check_every=4)
+    head = rt.Camera.looking_at(position=(0.0, 1.6, 4.2), target=(0.0, 0.0, 0.0))
+    wide = rt.Camera.looking_at(position=(0.0, 2.5, 9.0), target=(0.0, 0.0, 0.0))
+    cv = rt.cam_vec(head, device=dev)
+    out = {}
+    k4 = (("shared static", True, dataclasses.replace(cfg, aa_shared_normals=True), False),
+          ("per-sample normals static", True, cfg, False),
+          ("shared dynamic", False, dataclasses.replace(cfg, aa_shared_normals=True), False),
+          ("aa 3 residuals static", True, dataclasses.replace(cfg, aa_samples=3), True))
+    for name, static, cfg_k, res in k4:
+        spec, arrays = rt.compile_scene(cs.scene_config2(rt), static=static)
+        rp = cp.make_pallas_image_render_aa(spec, cfg_k, w, h, device=dev, aa_packed=False)
+        sc, c, b = rp.scene_args(arrays, cv)
+        pre = rp.prepass(sc, c, b, None)
+        fn = cp.fine_unpacked_res if res else cp.fine_unpacked
+        for tag, p in (("", rp.params), (" max_iter 0", dataclasses.replace(rp.params, max_iter=0))):
+            out[f"K4 {name}{tag}"] = cs.cuda_ms(lambda: fn(sc, c, b, p, *pre), K45_REPS)
+        if static and res or name == "shared static":
+            work = StepCount()
+            cp.fine_unpacked_plain(sc, c, b, rp.params, *pre, work=work)
+            thread, lane = k4_layouts(work.steps)
+            out[f"K4 {name} divergence, a thread a pixel"] = thread
+            out[f"K4 {name} divergence, a lane a sample"] = lane
+            out[f"K4 {name} steps an AA ray"] = float(work.steps.mean())
+            del work
+        torch.cuda.synchronize()
+
+    spec, arrays = rt.compile_scene(cs.scene_config2(rt), static=True)
+    n = w * h * cfg.aa_samples ** 2
+    o, d = rt.raygen_flat(torch.arange(n, device=dev), head.position, head.rotation, w, h, cfg)
+    o, d = o.contiguous(), d.contiguous()
+    fm = cm.FlatMarch(spec, cfg, 1, 1, dev)
+    sc, _, b = fm.scene_args(arrays)
+    p = fm.params
+    chunk = K5_CHUNK
+    spans = [(i, min(i + chunk, n)) for i in range(0, n, chunk)]
+
+    def chunks():
+        return [cm.ray_march(sc, b, p, o[i:j], d[i:j]) for i, j in spans]
+
+    out["K5 a 2^20-ray launch of 32"] = cs.cuda_ms(chunks, K45_REPS) / len(spans)
+    out["K5 one 33 M-ray launch"] = cs.cuda_ms(lambda: cm.ray_march(sc, b, p, o, d), K45_REPS)
+    p0 = dataclasses.replace(p, max_iter=0)
+    out["K5 one 33 M-ray launch max_iter 0"] = cs.cuda_ms(lambda: cm.ray_march(sc, b, p0, o, d), K45_REPS)
+    out["K5 a 2^20-ray launch of 32 max_iter 0"] = cs.cuda_ms(
+        lambda: [cm.ray_march(sc, b, p0, o[i:j], d[i:j]) for i, j in spans], K45_REPS) / len(spans)
+    dev_ms = device_split(chunks, K45_REPS)
+    kern = {k: v for k, v in dev_ms.items() if "march_kernel" in k}
+    out["K5 a 2^20-ray launch of 32, device ms (torch.profiler)"] = sum(kern.values()) / len(spans)
+    out["K5 32 launches, device busy ms (torch.profiler)"] = dev_ms["busy"]
+    lib = _build.load()
+
+    class NoLaunch:
+        def __getattr__(self, name):
+            return lambda *a: 0
+
+    _build._lib = NoLaunch()
+    try:
+        o1, d1 = o[:chunk], d[:chunk]
+        for _ in range(50):
+            cm.ray_march(sc, b, p, o1, d1)
+        t0 = time.perf_counter()
+        for _ in range(HOST_CALLS):
+            cm.ray_march(sc, b, p, o1, d1)
+        out["K5 host us a ray_march call without its launch"] = (time.perf_counter() - t0) * 1e6 / HOST_CALLS
+    finally:
+        _build._lib = lib
+    t_, hit_, steps = cm.ray_march_plain(sc, b, p, o, d)
+    out["K5 divergence, config 2"] = warp_divergence(steps.float())
+    out["K5 steps a ray, config 2"] = float(steps.float().mean())
+    del t_, hit_, steps
+    spec64, arrays64 = rt.compile_scene(cs.scene_spheres(rt, 64), static=True)
+    fm64 = cm.FlatMarch(spec64, cfg, 1, 1, dev)
+    sc64, _, b64 = fm64.scene_args(arrays64)
+    o64, d64 = rt.raygen_flat(torch.arange(n // 2 - K5_MID, n // 2 + K5_MID, device=dev), wide.position,
+                              wide.rotation, w, h, cfg)
+    _, _, steps = cm.ray_march_plain(sc64, b64, fm64.params, o64.contiguous(), d64.contiguous())
+    out["K5 divergence, 64 spheres (2^22 rays mid-frame)"] = warp_divergence(steps.float())
+    out["K5 steps a ray, 64 spheres"] = float(steps.float().mean())
+    rng = np.random.default_rng(5)
+    oi = rng.uniform(-3.0, 3.0, (chunk, 3)).astype(np.float32)
+    di = rng.normal(size=(chunk, 3))
+    di = (di / np.linalg.norm(di, axis=1, keepdims=True)).astype(np.float32)
+    oi, di = torch.tensor(oi, device=dev), torch.tensor(di, device=dev)
+    _, _, steps = cm.ray_march_plain(sc, b, p, oi, di)
+    out["K5 divergence, incoherent rays (2^20, config 2)"] = warp_divergence(steps.float())
+    out["K5 steps a ray, incoherent"] = float(steps.float().mean())
+    out["K5 incoherent, a 2^20-ray launch"] = cs.cuda_ms(lambda: cm.ray_march(sc, b, p, oi, di), K45_REPS)
+    torch.cuda.synchronize()
+    return out
+
+
+def main(only_k45: bool = False) -> int:
     import torch
 
     if not torch.cuda.is_available():
@@ -221,6 +402,12 @@ def main() -> int:
     _build.load()
     build_s = time.perf_counter() - t0
     dev = cp.resolve_device("cuda")
+    if only_k45:
+        k45 = k45_times(rt, cs, dev)
+        print(f"K4/K5 ({smi}): " + ", ".join(f"{k} {v:.4f}" for k, v in k45.items()), file=sys.stderr)
+        print(json.dumps({"card": smi, "k45": k45, "build_s": build_s, "source_s": _build.stats["source_seconds"],
+                          "ptxas": ptxas_lines(_build.stats["ptxas"])}), flush=True)
+        return 0
     cfg = dataclasses.replace(rt.DEFAULT_CONFIG, bound_accel=True, exit_check_every=4)
     spec, arrays = rt.compile_scene(cs.scene_config2(rt), static=True)
     cam = rt.Camera.looking_at(position=(0.0, 1.6, 4.2), target=(0.0, 0.0, 0.0))
@@ -254,10 +441,13 @@ def main() -> int:
           file=sys.stderr)
     print("pallas_full frame, device ms a frame by operation (torch.profiler): "
           + ", ".join(f"{k} {v:.4f}" for k, v in sorted(split.items(), key=lambda kv: -kv[1])), file=sys.stderr)
+    k45 = k45_times(rt, cs, dev)
+    print(f"K4/K5 ({smi}): " + ", ".join(f"{k} {v:.4f}" for k, v in k45.items()), file=sys.stderr)
     route = getattr(cm, "stack_route", None)  # a parent tree may predate the routes
     stack = f"{cm.route_name(route(spec))}, depth {spec.stack_depth}" if route else "local memory"
     print(f"headline K1/K2 stack route: {stack}; build {build_s:.1f} s", file=sys.stderr)
-    print(json.dumps({"card": smi, "ms": times, "flat_ms": flat, "pallas_full_split": split, "stack_route": stack,
+    print(json.dumps({"card": smi, "ms": times, "flat_ms": flat, "k45": k45, "pallas_full_split": split,
+                      "stack_route": stack,
                       "build_s": build_s, "source_s": _build.stats["source_seconds"],
                       "ptxas": ptxas_lines(_build.stats["ptxas"])}), flush=True)
     return 0
@@ -266,4 +456,4 @@ def main() -> int:
 if __name__ == "__main__":
     if len(sys.argv) == 4 and sys.argv[1] == "--compare":
         sys.exit(compare(sys.argv[2], sys.argv[3]))
-    sys.exit(main())
+    sys.exit(main(only_k45=sys.argv[1:] == ["--k45"]))

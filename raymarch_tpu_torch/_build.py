@@ -34,13 +34,17 @@ NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"
 # grazing ray's samples, which an FMA's rounding moves by a whole step. So
 # do the flat march kernels K5-K7, whose steps per ray are held equal to
 # their plain versions' on every ray, and every build of the coarse and fine
-# kernels K1/K2, whose planes and (t, hit) are held equal to theirs. K3
-# (coarse_px.cu) and K4 (fine_unpacked*.cu) keep nvcc's default.
+# kernels K1/K2 and of the unpacked fine pass K4, whose planes and (t, hit)
+# are held equal to theirs. K3 (coarse_px.cu) keeps nvcc's default.
 K12_SOURCES = ("prepass.cu", "fine_culled.cu", "prepass_dyn.cu", "fine_dyn_gated.cu", "fine_soft.cu",
                "fine_march.cu", "fine_march_dyn.cu", "intervals_wide.cu")
 # The flat march kernels K5-K7, one source per output (csrc/march.cuh).
 MARCH_SOURCES = ("march.cu", "march_render.cu", "march_pixel.cu")
-SOURCE_FLAGS = {name: ("-fmad=false",) for name in ("fused_bwd.cu", "compact_bwd.cu", *MARCH_SOURCES, *K12_SOURCES)}
+# The unpacked fine pass K4, one source per culling mode (csrc/fine_unpacked.cuh).
+K4_SOURCES = ("fine_unpacked.cu", "fine_unpacked_lists.cu", "fine_unpacked_gated.cu", "fine_unpacked_dyn.cu",
+              "fine_unpacked_dyn_gated.cu")
+SOURCE_FLAGS = {name: ("-fmad=false",)
+                for name in ("fused_bwd.cu", "compact_bwd.cu", *MARCH_SOURCES, *K12_SOURCES, *K4_SOURCES)}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -57,10 +61,11 @@ _SIGNATURES = {
     # hit_out, mats, block_params, soft, soft_params, stream
     "rmt_fine_launch": (_P, _P, _P, _I, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _P,
                         _P),
-    # leaf_params, row_kind, tape, n_instr, op_param, dyn, cam, bound,
-    # params, cull, t0_in, status_in, img, t_out, hit_out, mats, shared,
-    # block_params, stream
-    "rmt_fine_unpacked_launch": (_P, _P, _P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P),
+    # leaf_params, row_kind, words, n_instr, op_param, dyn, stk,
+    # stack_depth, cam, bound, params, cull, t0_in, status_in, img, t_out,
+    # hit_out, mats, shared, max_lanes, block_params, stream
+    "rmt_fine_unpacked_launch": (_P, _P, _P, _I, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                 _P, _P),
     # leaf_params, packed tape, n_instr, op_param, shape (host int[7]), cam,
     # params, grad_denom_clamp, t, hit, g_img, mats, soft, rec, partials,
     # max_blocks, out, stream

@@ -3,7 +3,8 @@
 // with -fmad=false) instantiate, one group of builds each (launch_fine_hard
 // below); prepass.cu's header describes the kernel. The march
 // functions take the scene as a function of the point (scene_eval.cuh
-// WordScene; TileScene for the unpacked fine pass K4, which shares them).
+// WordScene), and the unpacked fine pass K4 (fine_unpacked.cuh) shares
+// them.
 //
 // Every K2 build rounds each operation on its own, as the plain torch
 // versions do: a soft ray's closest approach is the argmin over its
@@ -58,9 +59,11 @@ constexpr float FAR_TEST = 9.0e37f;
 // in place in the 2*ni interval planes (starts, then ends; block offset po,
 // plane size `plane`) through L1: the PRE 4 builds of the fine passes
 // (intervals_wide.cu) and every interval build of the coarse scan (KIND 2),
-// so that no build caps n_intervals. K2's builds for at most MAX_NI keep
-// them in registers (ShiftIntervals), K4's select them by unrolled
-// compares (NoPlanes: their code).
+// so that no build caps n_intervals. The builds for at most MAX_NI keep
+// them in registers (ShiftIntervals). No build takes NoPlanes' path (the
+// bounds selected from st, en by unrolled compares) since K4 moved onto
+// ShiftIntervals; it stays until a change may move the K2 builds' ptxas
+// lines (removing it moved two march-only builds' register counts).
 struct NoPlanes {};
 struct PlaneIntervals {
   float* base;  // the block's word of plane 0
@@ -208,10 +211,9 @@ __device__ __forceinline__ float soft_march(const Scene& scene, const Ray& r,
 // of the legacy march); a step past e_idx jumps to max(t, s_{idx+1}) with
 // omega, step and previous radius reset, or is a miss when no interval is
 // left. Hit and escape are tested only at samples that did not overshoot.
-// st, en hold at most MAX_NI intervals; given `planes` (K2's
-// ShiftIntervals, or PlaneIntervals for PRE 4), the bounds come from it
-// instead. scene(px, py, pz) is the scene function (WordScene for K2,
-// TileScene for K4).
+// st, en hold at most MAX_NI intervals; given `planes` (ShiftIntervals,
+// or PlaneIntervals for PRE 4), the bounds come from it instead.
+// scene(px, py, pz) is the scene function (WordScene).
 template <bool RELAX, class Scene, class Planes = NoPlanes>
 __device__ __forceinline__ float interval_march(const Scene& scene,
                                                 const Ray& r,
@@ -459,7 +461,7 @@ __global__ void fine_kernel(SceneWords sw, const float* __restrict__ cam,
         const size_t plane = (size_t)bp.brows * bp.bcols;
         std::conditional_t<PRE == 2, ShiftIntervals, PlaneIntervals> planes;
         planes.load(t0_in, plane, po, bp.ni);
-        float unused[MAX_NI];  // interval_march's st, en: K4's arrays
+        float unused[MAX_NI];  // interval_march's st, en (NoPlanes')
         hit = interval_march<RELAX>(scene, r, p, unused, unused, live, t,
                                     t_cap, planes);
       } else {

@@ -7,7 +7,8 @@
 // ni planes). The coarse kernel's interval scan writes them in place for
 // any ni (coarse_kernel<MODE, 2, STK>, prepass.cu and prepass_dyn.cu). The
 // builds for ni <= MAX_NI keep the bounds in registers (ShiftIntervals).
-// K4's PRE 4 builds are in fine_unpacked.cu.
+// K4's PRE 4 builds are in its sources, one a culling mode
+// (fine_unpacked.cuh).
 //
 // A translation unit of its own, compiled as every K1/K2 source is
 // (_build.py SOURCE_FLAGS: -fmad=false), so that nvcc builds these

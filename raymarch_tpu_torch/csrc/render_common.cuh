@@ -63,8 +63,8 @@ struct Ray {
 // (__fmul_rn/__fadd_rn never contract into an FMA), as the plain torch
 // versions do: a ray direction or a floor point one ulp off flips the
 // checker's parity near its edges (0.23 of a sample's colour) and moves a
-// grazing ray's march. The march contracts only in the sources built with
-// nvcc's default (K3, K4).
+// grazing ray's march. The march contracts only in the source built with
+// nvcc's default (K3).
 
 // Screen point (x, y) -> world ray from the camera (pallas_prepass.py
 // _view_dirs, 696-711). cam = (pos3, quat wxyz, row_offset).

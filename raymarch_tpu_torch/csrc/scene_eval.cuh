@@ -68,7 +68,7 @@ __device__ __forceinline__ float smooth_min(float a, float b, float k) {
 // A leaf row is 16 words in four quads: words 0-3 the quaternion (w, x, y,
 // z), 4-6 the centre and 7-11 the type's parameters. leaf_distance takes a
 // quad before it needs its words; the row reader decides what that costs.
-// K3, K4, K8 and K9 (SceneView's rows) read each word where it is used...
+// K3, K8 and K9 (SceneView's rows) read each word where it is used...
 struct RowWords {
   static constexpr bool QUADS = false;
   const float* P;
@@ -82,8 +82,8 @@ struct RowWords {
   __device__ __forceinline__ Quad quad(int q) const { return Quad{P, q}; }
 };
 
-// ...K1, K2 and K5-K7 (SceneWords' float4 rows) read the whole quad, in one
-// 16-byte load, where it is taken.
+// ...K1, K2 and K4-K7 (SceneWords' float4 rows) read the whole quad, in
+// one 16-byte load, where it is taken.
 struct RowQuads {
   static constexpr bool QUADS = true;
   const float4* P;
@@ -532,10 +532,10 @@ __device__ __forceinline__ float scene_distance_tile(const SceneView& sc,
 }
 
 // ---------------------------------------------------------------------------
-// The scene evaluator of K1, K2 (coarse_kernel, fine_kernel, every build)
-// and K5-K7 (march.cuh march_kernel, every build): packed scene words and a
-// value stack kept out of local memory. K3 and K4 keep scene_distance /
-// scene_color above.
+// The scene evaluator of K1, K2 (coarse_kernel, fine_kernel, every build),
+// K4 (fine_unpacked_kernel) and K5-K7 (march.cuh march_kernel, every
+// build): packed scene words and a value stack kept out of local memory.
+// K3 keeps scene_distance above.
 //
 // Each instruction is one 16-byte word, the format of the backwards' packed
 // tape (scene_grad.cuh BwdTape; ops/cuda_march.py pack_words): op | slot <<
@@ -764,7 +764,7 @@ __device__ __forceinline__ float words_color(const SceneWords& sw, float px,
   return td;
 }
 
-// The scene function of a K1/K2 thread at points of pixel tile `tile`
+// The scene function of a K1/K2/K4 thread at points of pixel tile `tile`
 // under MODE, on stack route STK: the compact item lists over float4 leaf
 // rows (MODE 1), else the packed words, gated by the tile's leaf mask in
 // MODE 2 and 4. color() is the hit point's colour walk (gated under any
@@ -800,7 +800,7 @@ struct WordScene {
 };
 
 // The same over SceneView's interpreter (scene_distance_tile,
-// scene_color): the scene function of K3 and K4.
+// scene_color): the scene function of K3.
 template <int MODE>
 struct TileScene {
   static constexpr bool TAP_LOOP = false;

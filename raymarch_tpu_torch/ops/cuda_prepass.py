@@ -37,12 +37,13 @@ for a band of `rows` image rows starting at cam[7]:
    and nothing else: the reference's `march_only` launch (1827) behind
    `make_pallas_image_march_fast`.
 4. **Unpacked fine pass** (`fine_unpacked`; kernel `fine_unpacked_kernel`
-   in csrc/fine_unpacked.cu, replacing the Pallas `fine_kernel`,
+   in csrc/fine_unpacked.cuh, replacing the Pallas `fine_kernel`,
    pallas_prepass.py:1010, launched at 1504). The same AA rays, march and
-   shading as the fine pass, in one thread per pixel that walks its S
-   samples in order: it takes any aa_samples and `cfg.aa_shared_normals`
-   (the first sample to hit a pixel computes the 4-tap normal, the later
-   ones reuse it), which the AA-packed layout cannot.
+   shading as the fine pass, one lane per AA sample in a block of whole
+   pixels (`unpacked_shape`), the pixel's AA mean summed in sample order:
+   it takes any aa_samples and `cfg.aa_shared_normals` (the first sample
+   to hit a pixel computes the 4-tap normal, the later ones reuse it),
+   which the AA-packed layout cannot.
 
 A dynamic tape (`compile_scene(scene)`) runs on the DYN builds of every
 kernel above: the coarse, chained pixel and hard fine kernels
@@ -55,14 +56,14 @@ passes' interval builds keep a block's intervals in registers, above it
 their builds in csrc/intervals_wide.cu read them in place from the planes;
 the coarse scan writes them in place for any count.
 
-The coarse and fine kernels read the scene as packed words
+The coarse, fine and unpacked fine kernels read the scene as packed words
 (`SceneBuffers.words`, one 16-byte word per instruction; float4 leaf rows)
 and keep the value stack out of local memory on the route the spec's
 stack depth picks (`cuda_march.stack_route`: its top and the slots below
 it in registers up to a depth of REG_STACK, else the slots below the top
 in shared memory); each launch names its route. Every build of theirs is
 compiled without FMA contraction, so its planes and (t, hit) equal its
-plain version's. K3 and K4 keep the tape interpreter of scene_eval.cuh's
+plain version's. K3 keeps the tape interpreter of scene_eval.cuh's
 `scene_distance`.
 
 Each wrapper takes tensors on one device. On the CPU it runs its plain
@@ -96,6 +97,8 @@ from .cuda_march import (
     scene_plain,
     scene_topology,
     sqrt_rn,
+    SMEM_MAX,
+    STK_SMEM,
     stack_route,
     tet_taps_plain,
 )
@@ -176,7 +179,7 @@ class PrepassParams:
     beta_inv: float  # f32(1 / coverage_beta)
     soft_infl: float  # f32(min_dist + soft_cull_log_alpha * coverage_beta): the soft bound's inflation
     soft_gate: float  # f32(1e-4 * min(1, coverage_beta)): the soft backward's per-ray work gate
-    unpacked: bool = False  # the fine pass is K4 (`fine_unpacked`), one thread per pixel
+    unpacked: bool = False  # the fine pass is K4 (`fine_unpacked`), one lane per AA sample
     shared_normals: bool = False  # K4 shares each pixel's first hit normal (cfg.aa_shared_normals)
 
     @property
@@ -1399,10 +1402,60 @@ def fine_march(scene: SceneBuffers, cam, bound, p: PrepassParams, *pre, cull: Ti
     return t, hit
 
 
+# K4's lane map (csrc/fine_unpacked.cuh): a block holds whole pixels of a
+# row, floor(128 / lanes) of them; a pixel takes at most 128 lanes (the
+# kernel's launch bound), fewer where the stack's columns would pass
+# SMEM_MAX.
+UNPACKED_THREADS = 128
+UNPACKED_MAX_LANES = 128
+
+
+def unpacked_shape(s: int, max_lanes: int = UNPACKED_MAX_LANES) -> tuple[int, int, int, int]:
+    """K4's block for `s` samples a pixel and at most `max_lanes` lanes a
+    pixel (csrc/fine_unpacked.cuh pixel_lanes) -> (lanes a pixel, samples a
+    lane, pixels a block, threads a block): each lane walks k = ceil(s /
+    max_lanes) samples, so a pixel takes ceil(s / k) lanes, and a block
+    floor(128 / lanes) pixels (one where k > 1)."""
+    k = -(-s // max_lanes)
+    lanes = -(-s // k)
+    rounds = -(-s // lanes)
+    pixels = 1 if rounds > 1 or lanes >= UNPACKED_THREADS else UNPACKED_THREADS // lanes
+    return lanes, rounds, pixels, pixels * lanes
+
+
+def unpacked_smem(spec: TapeSpec, s: int, max_lanes: int = UNPACKED_MAX_LANES, compact: bool = False) -> int:
+    """Dynamic shared memory of a K4 block (csrc/fine_unpacked.cuh
+    UnpackedLaunch::go): the stack's columns on the shared-memory route
+    (`stack_route`; four stacks for a painted scene's colour walk; none for
+    the compact item lists of an unpainted scene, which read no stack), then
+    three floats a sample of the block's pixels and eight words a pixel
+    (the first-hit slot, its hit point and four taps)."""
+    _, _, pixels, threads = unpacked_shape(s, max_lanes)
+    stack = 0
+    if stack_route(spec) == STK_SMEM and not (compact and not spec.has_materials):
+        stack = (spec.stack_depth - 1) * threads * 4 * (4 if spec.has_materials else 1)
+    return stack + (3 * pixels * s + 8 * pixels) * 4
+
+
+def unpacked_lanes(spec: TapeSpec, s: int, compact: bool = False) -> int:
+    """The most lanes a pixel of K4 takes for `s` samples: 128, halved
+    while the block's shared memory would pass SMEM_MAX. Raises where even
+    8 lanes a pixel do not fit (a pixel over warps takes its shared
+    normal's taps on four lanes)."""
+    max_lanes = UNPACKED_MAX_LANES
+    while unpacked_smem(spec, s, max_lanes, compact) > SMEM_MAX:
+        if max_lanes == 8:
+            raise ValueError(f"aa_samples^2 = {s} at stack depth {spec.stack_depth}: a K4 block needs "
+                             f"{unpacked_smem(spec, s, 8, compact)} bytes of shared memory, over {SMEM_MAX}")
+        max_lanes //= 2
+    return max_lanes
+
+
 def _fine_unpacked_launch(scene: SceneBuffers, cam, bound, p: PrepassParams, pre, residuals: bool, cull):
     dev = _check_fine(scene, cam, bound, p, pre, cull)
     if p.soft:
         raise ValueError("soft requires no_prepass=True, aa_packed=True")
+    max_lanes = unpacked_lanes(scene.spec, p.naa * p.naa, cull is not None and cull.compact)
     if dev.type == "cpu":
         out = fine_unpacked_plain(scene, cam, bound, p, *pre, cull=cull)
         return out if residuals else out[0]
@@ -1418,15 +1471,16 @@ def _fine_unpacked_launch(scene: SceneBuffers, cam, bound, p: PrepassParams, pre
     cp = _CParams.of(p)
     cc = _CCull.of(cull)
     cb = _CBlockParams.of(p)
+    ptrs, _rows = _words_ptrs(scene)  # the rows are held until the launch is queued
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.rmt_fine_unpacked_launch(
-            *_scene_ptrs_dyn(scene), cam.data_ptr(), bound.data_ptr(),
+            *ptrs, cam.data_ptr(), bound.data_ptr(),
             ctypes.addressof(cp), ctypes.addressof(cc),
             planes.data_ptr() if p.ni else (pre[0].data_ptr() if pre else None),
             pre[1].data_ptr() if pre and not p.ni else None,
             img.data_ptr(), None if t is None else t.data_ptr(), None if hit is None else hit.data_ptr(),
-            int(scene.spec.has_materials), int(p.shared_normals), ctypes.addressof(cb), stream,
+            int(scene.spec.has_materials), int(p.shared_normals), max_lanes, ctypes.addressof(cb), stream,
         )
     _raise_on(err, "fine_unpacked_kernel")
     (fine_unpacked_res if residuals else fine_unpacked).count(scene, p)
@@ -1435,10 +1489,12 @@ def _fine_unpacked_launch(scene: SceneBuffers, cam, bound, p: PrepassParams, pre
 
 def fine_unpacked(scene: SceneBuffers, cam, bound, p: PrepassParams, *pre, cull: TileCull | None = None):
     """The unpacked fine pass K4 (`csrc/fine_unpacked.cu`) -> image f32[rows,
-    W, 3] on the inputs' device: every AA sample of a pixel in one thread,
-    in sample order; with `p.shared_normals` the pixel's first hit normal is
-    shared. Takes every prepass form of `fine`, static and dynamic tapes,
-    and any aa_samples."""
+    W, 3] on the inputs' device: every AA sample of a pixel in a lane of its
+    own, the pixel's AA mean summed in sample order; with
+    `p.shared_normals` the pixel's first hit normal is shared. Takes every
+    prepass form of `fine`, static and dynamic tapes, and any aa_samples
+    (`unpacked_lanes` raises only where one lane a pixel would not fit the
+    block's shared memory)."""
     return _fine_unpacked_launch(scene, cam, bound, p, pre, False, cull)
 
 
@@ -1663,8 +1719,9 @@ def make_pallas_image_render_aa(
       the soft inflation.
     - `aa_packed` picks the fine pass. The AA-packed kernel K2 keeps a
       pixel's samples in adjacent lanes and takes aa_samples^2 dividing
-      128 (aa 1, 2, 4, 8); the unpacked kernel K4 walks a pixel's samples
-      in one thread and takes any aa_samples and `cfg.aa_shared_normals`.
+      128 (aa 1, 2, 4, 8); the unpacked kernel K4 gives each sample a lane
+      in a block of whole pixels and takes any aa_samples and
+      `cfg.aa_shared_normals`.
       None (the default; the reference's default is False) packs wherever
       K2 can render the call and takes K4 elsewhere: with
       `cfg.aa_shared_normals` or an AA grid that does not pack. True packs

@@ -821,6 +821,30 @@ def p_cfg(case):
     return FLAT_CASES[case][2]
 
 
+@pytest.mark.parametrize("n", [1, 31, 33, 4096 + 5])
+@pytest.mark.parametrize("case", ["config2_dynamic", "rich_dynamic_relax", "spheres_static_depth8"])
+def test_ray_march_matches_plain(dev, case, n):
+    """K5 against ray_march_plain: t, hit and steps equal ray for ray, at
+    counts that leave a warp or a block part-filled, on the camera's rays
+    and on seeded incoherent rays (origins in [-3, 3]^3, directions on the
+    sphere)."""
+    cm, p, sc, cam, bound = _flat(case, dev)
+    rng = np.random.default_rng(n)
+    o_i = torch.tensor(rng.uniform(-3.0, 3.0, (n, 3)), dtype=torch.float32, device=dev)
+    d_i = rng.normal(size=(n, 3))
+    d_i = torch.tensor(d_i / np.linalg.norm(d_i, axis=1, keepdims=True), dtype=torch.float32, device=dev)
+    o_c, d_c = (v.contiguous() for v in rt.raygen_flat(torch.arange(n, device=dev), CAM.position, CAM.rotation,
+                                                       W, H, p_cfg(case)))
+    for o, d in ((o_c, d_c), (o_i, d_i)):
+        before = cm.ray_march.launches
+        got = cm.ray_march(sc, bound, p, o, d)
+        assert cm.ray_march.launches == before + 1
+        ref = cm.ray_march_plain(sc, bound, p, o, d)
+        assert got[2].dtype == torch.int32 and got[0].shape == (n,)
+        for a, b in zip(got, ref):
+            assert torch.equal(a, b)
+
+
 @pytest.mark.parametrize("aa", [2, 3, 4])
 @pytest.mark.parametrize("case", ["config2_static", "config2_dynamic", "spheres_static_depth8",
                                   "painted_static_depth8"])
@@ -932,31 +956,51 @@ def test_dynamic_kernels_match_plain(dev, case):
     assert float((rp(arrays, rt.cam_vec(CAM, device=dev)) - img_s).abs().mean()) < 5e-4
 
 
-@pytest.mark.parametrize(
-    "aa,shared,static,cfg_kw",
-    [(3, False, True, {}), (2, True, True, {}), (3, True, False, {}), (4, True, True, dict(leaf_cull=True)),
-     (3, False, False, dict(leaf_cull=True, relax=1.6))],
-    ids=["aa3", "shared", "aa3_shared_dynamic", "shared_culled", "aa3_dynamic_gated_relax"],
-)
-def test_unpacked_kernel_matches_plain(dev, aa, shared, static, cfg_kw):
-    """K4 (csrc/fine_unpacked.cu) against `fine_unpacked_plain`, with and
-    without residuals: the image in the accelerated class, (t, hit) as K2's
-    residuals are held (hit nearly everywhere equal, t to rtol 1e-4)."""
-    cfg = dataclasses.replace(CFG, aa_samples=aa, aa_shared_normals=shared, **cfg_kw)
-    spec, arrays = rt.compile_scene((_rich if cfg_kw else _config2)(rt), static=static)
+# K4's lane map (csrc/fine_unpacked.cuh): aa 2 and 4 keep a pixel in one
+# warp (ballot and shuffles); aa 3, 5 and 6 straddle warps (their first
+# hits and taps through shared memory); aa 3 on a culled frame puts 14
+# pixels in a block, so a block crosses a 16-pixel list tile's edge
+# (columns 14-27) and its lanes read two tiles; aa 12 walks two samples a
+# lane.
+UNPACKED_CASES = {
+    "aa3": (_config2, True, dict(aa_samples=3)),
+    "shared": (_config2, True, dict(aa_samples=2, aa_shared_normals=True)),
+    "aa3_shared_dynamic": (_config2, False, dict(aa_samples=3, aa_shared_normals=True)),
+    "shared_culled": (_rich, True, dict(aa_samples=4, aa_shared_normals=True, leaf_cull=True)),
+    "aa3_dynamic_gated_relax": (_rich, False, dict(aa_samples=3, leaf_cull=True, relax=1.6)),
+    "aa5_shared_static": (_config2, True, dict(aa_samples=5, aa_shared_normals=True)),
+    "aa5_dynamic": (_config2, False, dict(aa_samples=5)),
+    "aa6_shared_dynamic_relax": (_rich, False, dict(aa_samples=6, aa_shared_normals=True, relax=1.6)),
+    "aa6_spheres_depth8": (_spheres, True, dict(aa_samples=6)),  # the stack in shared memory
+    "aa3_lists_straddle": (_spheres, True, dict(aa_samples=3, leaf_cull=True)),
+    "aa3_shared_gated_straddle": (_rich, True, dict(aa_samples=3, aa_shared_normals=True, leaf_cull=True)),
+    "aa12_shared_static": (_config2, True, dict(aa_samples=12, aa_shared_normals=True)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(UNPACKED_CASES))
+def test_unpacked_kernel_matches_plain(dev, case):
+    """K4 (csrc/fine_unpacked.cuh) against `fine_unpacked_plain`, with and
+    without residuals: (t, hit) equal ray for ray (every K4 source builds
+    with -fmad=false), the image in the accelerated class, one launch a
+    call."""
+    build, static, kw = UNPACKED_CASES[case]
+    cfg = dataclasses.replace(CFG, **kw)
+    spec, arrays = rt.compile_scene(build(rt), static=static)
     rp = cp.make_pallas_image_render_aa(spec, cfg, W, H, device=dev, aa_packed=False)
-    assert rp.params.unpacked and rp.params.shared_normals == shared
+    assert rp.params.unpacked and rp.params.shared_normals == cfg.aa_shared_normals
     sc, cam, bound = rp.scene_args(arrays, rt.cam_vec(CAM, device=dev))
     cc, fc = rp.cull_args(sc, cam)
+    assert (fc is not None) == cfg.leaf_cull
     pre = rp.prepass(sc, cam, bound, cc)
     img_k = cp.fine_unpacked(sc, cam, bound, rp.params, *pre, cull=fc)
+    before = cp.fine_unpacked_res.launches + cp.fine_unpacked_res.dyn_launches
     img_r, t_k, hit_k = cp.fine_unpacked_res(sc, cam, bound, rp.params, *pre, cull=fc)
+    assert cp.fine_unpacked_res.launches + cp.fine_unpacked_res.dyn_launches == before + 1
     assert torch.equal(img_r, img_k)
     img_p, t_p, hit_p = cp.fine_unpacked_plain(sc, cam, bound, rp.params, *pre, cull=fc)
+    assert torch.equal(hit_k, hit_p) and torch.equal(t_k, t_p)
     assert float((img_k - img_p).abs().mean()) < 5e-4 and _neigh_frac(img_k, img_p) < 0.008
-    assert float((hit_k == hit_p).float().mean()) >= 0.999
-    both = (hit_k > 0.5) & (hit_p > 0.5)
-    torch.testing.assert_close(t_k[both], t_p[both], rtol=1e-4, atol=0.0)
 
 
 def test_unpacked_residuals_feed_k8(dev):

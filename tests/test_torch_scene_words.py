@@ -302,19 +302,20 @@ def test_balanced_words_match_jax(n_leaves, stack_depth, gated, points):
 
 
 def test_k12_sources_build_without_contraction():
-    """Every source that instantiates a K1/K2 build is compiled with
-    -fmad=false (each operation rounds as the plain versions'), and K3's
-    and K4's sources keep nvcc's default."""
+    """Every source that instantiates a K1/K2 build, and every source of the
+    unpacked fine pass K4, is compiled with -fmad=false (each operation
+    rounds as the plain versions'), and K3's source keeps nvcc's default."""
     from raymarch_tpu_torch import _build
 
     k12 = {src.name for src in _build.CSRC.glob("*.cu")
            if any(k in src.read_text() for k in ("launch_fine_hard<", "launch_fine_march<", "launch_coarse<",
                                                  "fine_wide<", "launch_fine_soft("))}
     assert k12 == set(_build.K12_SOURCES)
-    for name in _build.K12_SOURCES:
+    k4 = {src.name for src in _build.CSRC.glob("*.cu") if "launch_unpacked<" in src.read_text()}
+    assert k4 == set(_build.K4_SOURCES)
+    for name in (*_build.K12_SOURCES, *_build.K4_SOURCES):
         assert "-fmad=false" in _build.SOURCE_FLAGS[name]
-    for name in ("coarse_px.cu", "fine_unpacked.cu", "fine_unpacked_wide.cu"):
-        assert name not in _build.SOURCE_FLAGS
+    assert "coarse_px.cu" not in _build.SOURCE_FLAGS
 
 
 def test_far_is_the_kernels():

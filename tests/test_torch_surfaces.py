@@ -86,6 +86,36 @@ def test_k5_plain_matches_jax(case):
     _march_equal(got, ref)
 
 
+@pytest.mark.parametrize("case", ["config2_static", "config2_dynamic_relax"])
+def test_k5_chunks_match_one_call(case):
+    """K5 through `make_pallas_ray_march` in the chunks `make_renderer(
+    chunk=...)` makes (the last one shorter) gives, ray for ray, what one
+    call over every ray gives; the wrappers raise on rays and bounds they
+    do not take."""
+    cfg, _, (spec, arr) = _case(case)
+    n, chunk = 1000, 256
+    o, d = (v.contiguous() for v in rt.raygen_flat(torch.arange(n), CAM.position, CAM.rotation, 48, 48, _t(cfg)))
+    march = cm.make_pallas_ray_march(spec, _t(cfg), device="cpu")
+    whole = march(arr, o, d)
+    parts = [march(arr, o[i:i + chunk], d[i:i + chunk]) for i in range(0, n, chunk)]
+    for k in range(3):
+        assert torch.equal(torch.cat([q[k] for q in parts]), whole[k])
+    fm = march.flat
+    sc, _, bound = fm.scene_args(arr)
+    for k, v in enumerate(cm.ray_march(sc, bound, fm.params, o, d)):
+        assert torch.equal(v, whole[k])
+    with pytest.raises(ValueError, match="origins has shape"):
+        march(arr, o[:, :2], d)
+    with pytest.raises(ValueError, match="dirs has shape"):
+        cm.ray_march(sc, bound, fm.params, o, d[:-1])
+    with pytest.raises(TypeError, match="origins has dtype"):
+        cm.ray_march(sc, bound, fm.params, o.double(), d)
+    with pytest.raises(ValueError, match="dirs is not contiguous"):
+        cm.ray_march(sc, bound, fm.params, o, torch.stack([d[:, 0], d[:, 1], d[:, 2]], dim=1).t().contiguous().t())
+    with pytest.raises(ValueError, match="bound has shape"):
+        cm.ray_march(sc, bound[:4], fm.params, o, d)
+
+
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_k6_plain_matches_jax(case):
     cfg, (spec_j, arr_j), (spec, arr) = _case(case)

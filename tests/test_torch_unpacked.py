@@ -3,9 +3,11 @@
 The port's K4 plain version (`cuda_prepass.fine_unpacked_plain`, what the
 wrapper runs on CPU tensors) against the JAX `fine_kernel`
 (pallas_prepass.py:1010, `aa_packed=False`, Pallas in interpret mode as
-tests/test_prepass.py runs it): AA grids that pack and one that does not,
-with and without `aa_shared_normals`, static and dynamic tapes, un-culled
-and `leaf_cull`. Then shared normals against the NumPy oracle, K4 without
+tests/test_prepass.py runs it): AA grids that pack and ones that do not
+(aa 3 and 5, whose pixels straddle warps in the kernel's lane map), with
+and without `aa_shared_normals`, static and dynamic tapes, un-culled and
+`leaf_cull`; the Python mirror of the kernel's block shape and shared
+memory. Then shared normals against the NumPy oracle, K4 without
 sharing against the packed fine pass, K4's residuals against the packed
 build's, and the fused VJP at aa = 3 (K4 with residuals, then K8) against
 the JAX fused VJP. The CUDA kernel is held to the plain version on the card
@@ -13,6 +15,7 @@ by chip_smoke.py and tests/test_torch_cuda.py.
 """
 
 import dataclasses
+import functools
 
 import numpy as np
 import pytest
@@ -26,6 +29,7 @@ import raymarch_tpu_torch as rt
 from raymarch_tpu.ops.pallas_grad import make_fused_render_vjp as fused_vjp_j
 from raymarch_tpu.ops.pallas_prepass import make_pallas_image_render_aa as render_aa_j
 from raymarch_tpu_torch.ops import cuda_grad as cg
+from raymarch_tpu_torch.ops import cuda_march as cm
 from raymarch_tpu_torch.ops import cuda_prepass as cp
 
 from test_torch_prepass import _assert_images_close, _cfg_t, _cv_j, _cv_t
@@ -54,8 +58,11 @@ def _port_image(scene, cfg, static, **kw):
         (3, True, True, True),
         (2, True, False, False),
         (3, False, False, True),
+        (5, True, True, False),
+        (5, False, False, True),
     ],
-    ids=["aa2", "aa3", "aa2_shared", "aa3_shared_cull", "aa2_shared_dynamic", "aa3_dynamic_cull"],
+    ids=["aa2", "aa3", "aa2_shared", "aa3_shared_cull", "aa2_shared_dynamic", "aa3_dynamic_cull", "aa5_shared",
+         "aa5_dynamic_cull"],
 )
 def test_k4_plain_matches_jax_k4(aa, shared, static, cull):
     cfg = dataclasses.replace(CFG, aa_samples=aa, aa_shared_normals=shared, leaf_cull=cull)
@@ -66,6 +73,50 @@ def test_k4_plain_matches_jax_k4(aa, shared, static, cull):
     assert rp.params.unpacked and rp.params.shared_normals == shared
     assert img.shape == (H, W, 3) and np.isfinite(img).all()
     _assert_images_close(img, ref)
+
+
+# K4's block for S samples a pixel (csrc/fine_unpacked.cuh pixel_lanes):
+# (lanes a pixel, samples a lane, pixels a block, threads a block). A block
+# holds whole pixels, floor(128 / lanes) of them; past 128 samples each
+# lane walks k = ceil(S / 128) of them, a pixel ceil(S / k) lanes of a
+# block of its own.
+LANE_MAPS = {1: (1, 1, 128, 128), 4: (4, 1, 32, 128), 9: (9, 1, 14, 126), 16: (16, 1, 8, 128),
+             25: (25, 1, 5, 125), 36: (36, 1, 3, 108), 49: (49, 1, 2, 98), 64: (64, 1, 2, 128),
+             1089: (121, 9, 1, 121)}
+
+
+@pytest.mark.parametrize("route", ["register", "shared"])
+@pytest.mark.parametrize("s", sorted(LANE_MAPS))
+def test_k4_block_shape_and_shared_memory(s, route):
+    """The mirror of K4's lane map and dynamic shared memory: the stack's
+    columns on the shared-memory route (a depth-8 union of spheres: 7
+    slots a thread), then three floats a sample of the block's pixels and
+    eight words a pixel (first hit, hit point, four taps)."""
+    lanes, rounds, pixels, threads = LANE_MAPS[s]
+    assert cp.unpacked_shape(s) == LANE_MAPS[s]
+    assert lanes * rounds >= s > lanes * (rounds - 1) and pixels * lanes == threads <= 128
+    scene = SCENES["config2"] if route == "register" else (
+        lambda m: functools.reduce(lambda a, b: a | b, [m.sphere(center=(k, 0, 0), radius=0.3) for k in range(8)]))
+    spec, _ = rt.compile_scene(scene(rt), static=True, **({} if route == "register" else {"stack_depth": 8}))
+    assert (cm.stack_route(spec) == cm.STK_SMEM) == (route == "shared")
+    stack = 0 if route == "register" else 7 * threads * 4
+    exchange = (3 * pixels * s + 8 * pixels) * 4
+    assert cp.unpacked_smem(spec, s) == stack + exchange
+    assert cp.unpacked_smem(spec, s, compact=True) == exchange  # the item lists read no stack
+    assert cp.unpacked_lanes(spec, s) == cp.UNPACKED_MAX_LANES
+
+
+def test_k4_lanes_shrink_to_fit_shared_memory():
+    """A painted scene at stack depth 32 keeps four stacks of 31 slots a
+    thread (496 bytes): at aa 120 (14,400 samples a pixel, 172,800 bytes of
+    colours) a block of 128 lanes would pass the card's 227 KB, so a pixel
+    takes 64 lanes of 225 samples each."""
+    spec, _ = rt.compile_scene(SCENES["painted_transformed"](rt), static=True, stack_depth=32)
+    assert spec.has_materials
+    s = 120 * 120
+    assert cp.unpacked_smem(spec, s) > cp.SMEM_MAX >= cp.unpacked_smem(spec, s, 64)
+    assert cp.unpacked_lanes(spec, s) == 64 and cp.unpacked_shape(s, 64) == (64, 225, 1, 64)
+    assert cp.unpacked_lanes(spec, 16) == cp.UNPACKED_MAX_LANES
 
 
 def test_shared_normals_match_oracle():
