@@ -65,7 +65,10 @@ Run from the repository root: `python3 chip_smoke.py`. It
    against their plain versions: at full size, the 4K row on its middle
    720-row band, the 256/1024-leaf scenes' costliest passes on one 64-row
    band), and
-   K3 timed at 1080p on config 2 with B = 4;
+   K3 timed at 1080p on config 2 with B = 4; K3's planes (t0, status) equal
+   to its plain version's at every pixel in every gate, static and DYN, on
+   config 2 and on 64 spheres (stack depth 8: the shared-memory route), at
+   256x144 and 1920x1080;
 12. the legacy backward (K8) of every static scene the reference sends to
    it, at 1920x1080 with 16 AA rays per pixel: (a) the 64 painted spheres
    of `fwdbwd_64leaf_painted` without culling and (b) bench.py's smooth
@@ -157,7 +160,12 @@ Run from the repository root: `python3 chip_smoke.py`. It
    per pixel the chained dynamic frame, `march_only_fast` on the dynamic
    tape, the dynamic soft frame and the ni = 6 frame of the tori (frame ms,
    launches, the kernels alone, plain, bound);
-17. prints one JSON line of per-kernel records (time, plain time, launches,
+17. the headline path against the port's own f64 oracle
+   (`raymarch_tpu_torch.oracle.render`, numpy, no jax) at 96x54 from
+   bench.py's gate camera: the headline frame in bench.py's accelerated
+   class, the frames without a prepass (K2's no-prepass build, the
+   headline and the strict-reference configs) within max|d| < 1e-3;
+18. prints one JSON line of per-kernel records (time, plain time, launches,
    the roofline bound from this run's counted work) for the headline
    builds, the culled builds of the 64-leaf path, the compact backward per
    plan kind, the fine kernel with materials, the interval and block
@@ -482,12 +490,14 @@ def image_class(name, img, ref):
     return mx
 
 
-def coarse_agreement(name, k, p, strict):
+def coarse_agreement(name, k, p, strict, exact=False):
     """Coarse planes of kernel vs plain: status agrees on >= 99.9% of pixels,
     and t0 agrees within rtol 1e-4 where both statuses are 1 — at every such
     pixel when `strict`, else at all but 0.1% of them (a centre ray whose
     slack lands within rounding of min_dist takes one step of ~min_dist more
-    or less in one of the two). Returns max |t0 diff| there."""
+    or less in one of the two). With `exact`, both planes must also be
+    equal at every pixel (the kernel rounds as its plain version: K3).
+    Returns max |t0 diff| where both statuses are 1."""
     (t0k, stk), (t0p, stp) = k, p
     agree = float((stk == stp).float().mean())
     both = (stk == 1) & (stp == 1)
@@ -499,6 +509,10 @@ def coarse_agreement(name, k, p, strict):
     mx = float(dt.max()) if n else 0.0
     ok = agree >= 0.999 and n > 0 and (rel_max <= 1e-4 if strict else off < 1e-3)
     need = "rel<=1e-4 everywhere" if strict else "share rel>1e-4 < 1e-3"
+    if exact:
+        n_st, n_t0 = int((stk != stp).sum()), int((t0k != t0p).sum())
+        ok = ok and n_st == 0 and n_t0 == 0
+        need += f"; equal at every pixel: status differs at {n_st}, t0 at {n_t0} of {stk.numel()}"
     log(f"{name}: status agree={agree:.6f} (need >=0.999) t0 max rel={rel_max:.3e} "
         f"share rel>1e-4={off:.3e} max|d|={mx:.3e} over {n} px (need {need}) "
         f"{'PASS' if ok else 'FAIL'}")
@@ -650,6 +664,33 @@ def device_idle_share(fn, steps, step_ms):
     busy += cur_e - cur_s
     busy_ms = busy / steps / 1e3
     return max(0.0, 1.0 - busy_ms / step_ms), busy_ms
+
+
+def ms_text(ms):
+    return "not measured" if ms is None else f"{ms:.4f} ms"
+
+
+def kernel_device_ms(fn, kernel, reps=30):
+    """Mean device ms of one launch of the kernel whose symbol holds
+    `kernel`, over the launches torch.profiler recorded in `reps` runs of
+    `fn` after one warm-up, or None when it recorded none. The profiler can
+    lose a session's events (some runs' or all), so the mean is taken over
+    the launches it kept, never a sum divided by `reps`. For a kernel too
+    short for CUDA events over back-to-back launches, which then time the
+    host's calls."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    spans = [e.time_range.end - e.time_range.start for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA and kernel in e.name
+             and e.time_range.end > e.time_range.start]
+    return sum(spans) / len(spans) / 1e3 if spans else None
 
 
 def device_ops(fn):
@@ -1642,9 +1683,19 @@ def forward_rows(rt, cp, dev, smi, cfg, gcam_pos):
                      cp.coarse_plain(sc, cam, bnd, rp.params), strict=False)
     px = cp.coarse_px(sc, cam, bnd, rp.params, *blk)
     coarse_agreement("gate coarse_px_kernel (K3) vs coarse_px_plain, config 2", px,
-                     cp.coarse_px_plain(sc, cam, bnd, rp.params, *blk), strict=False)
+                     cp.coarse_px_plain(sc, cam, bnd, rp.params, *blk), strict=True, exact=True)
     image_class("gate fine kernel on K3's planes vs fine_plain", cp.fine(sc, cam, bnd, rp.params, *px),
                 cp.fine_plain(sc, cam, bnd, rp.params, *px))
+    # K3 on a tape of stack depth 8: the shared-memory route, static and DYN.
+    for static in (True, False):
+        spec_d, arrays_d = rt.compile_scene(spheres, static=static)
+        rp = cp.make_pallas_image_render_aa(spec_d, cfg, GATE_W, GATE_H, device=dev, prepass_block=4,
+                                            prepass_chain=True)
+        sc, cam, bnd = rp.scene_args(arrays_d, camera("spheres"))
+        blk = cp.coarse(sc, cam, bnd, rp.params)
+        coarse_agreement(f"gate {'' if static else 'DYN '}coarse_px_kernel (K3) vs coarse_px_plain, 64 spheres "
+                         f"({stack_of(sc)})", cp.coarse_px(sc, cam, bnd, rp.params, *blk),
+                         cp.coarse_px_plain(sc, cam, bnd, rp.params, *blk), strict=True, exact=True)
     rp = cp.make_pallas_image_render_aa(spec2, cfg, GATE_W, GATE_H, device=dev, prepass_block=4)
     sc, cam, bnd = rp.scene_args(arrays2, gcv)
     blk = cp.coarse(sc, cam, bnd, rp.params)
@@ -1786,17 +1837,39 @@ def forward_rows(rt, cp, dev, smi, cfg, gcam_pos):
     sc, cam, bnd = rp.scene_args(arrays2, cv2)
     blk = cp.coarse(sc, cam, bnd, rp.params)
     k3_ms = cuda_ms(lambda: cp.coarse_px(sc, cam, bnd, rp.params, *blk), KERNEL_REPS)
+    k3_dev = kernel_device_ms(lambda: cp.coarse_px(sc, cam, bnd, rp.params, *blk), "coarse_px_kernel")
     blk_ms = cuda_ms(lambda: cp.coarse(sc, cam, bnd, rp.params), KERNEL_REPS)
     work = cp.WorkCount()
     px_p, k3_plain_ms = plain_ms(lambda: cp.coarse_px_plain(sc, cam, bnd, rp.params, *blk, work=work))
     k3_err = coarse_agreement("full-size coarse_px_kernel (K3) vs coarse_px_plain, config 2, B=4",
-                              cp.coarse_px(sc, cam, bnd, rp.params, *blk), px_p, strict=False)
+                              cp.coarse_px(sc, cam, bnd, rp.params, *blk), px_p, strict=True, exact=True)
     n_px = WIDTH * HEIGHT
     # K3 reads the block planes (t0, status) and writes the pixel planes.
     k3_bound = roofline(march_flops(work, n_px, spec2, False), n_px * 8 + rp.params.brows * rp.params.bcols * 8)
     image_class("full-size chained frame vs the plain path", rp(arrays2, cv2), rp.render_plain(arrays2, cv2))
+    # K3 at 1080p on a tape of stack depth 8 (the shared-memory route),
+    # static and DYN: equal to its plain version at every pixel.
+    k3_deep = {}
+    for static in (True, False):
+        spec_d, arrays_d = rt.compile_scene(spheres, static=static)
+        rp_d = cp.make_pallas_image_render_aa(spec_d, cfg, WIDTH, HEIGHT, device=dev, prepass_block=4,
+                                              prepass_chain=True)
+        sc_d, cam_d, bnd_d = rp_d.scene_args(arrays_d, camera("spheres"))
+        blk_d = cp.coarse(sc_d, cam_d, bnd_d, rp_d.params)
+        tag = "static" if static else "DYN"
+        coarse_agreement(f"full-size {tag} coarse_px_kernel (K3) vs coarse_px_plain, 64 spheres, B=4 "
+                         f"({stack_of(sc_d)})", cp.coarse_px(sc_d, cam_d, bnd_d, rp_d.params, *blk_d),
+                         cp.coarse_px_plain(sc_d, cam_d, bnd_d, rp_d.params, *blk_d), strict=True, exact=True)
+        k3_deep[tag] = cuda_ms(lambda: cp.coarse_px(sc_d, cam_d, bnd_d, rp_d.params, *blk_d), KERNEL_REPS)
+        k3_deep[f"{tag} device"] = kernel_device_ms(
+            lambda: cp.coarse_px(sc_d, cam_d, bnd_d, rp_d.params, *blk_d), "coarse_px_kernel")
+        del rp_d, sc_d, blk_d
+    log(f"K3 alone on 64 spheres (depth 8, shared-memory stack) {WIDTH}x{HEIGHT}, B=4: static "
+        f"{k3_deep['static']:.4f} ms, DYN {k3_deep['DYN']:.4f} ms (CUDA events); device time static "
+        f"{ms_text(k3_deep['static device'])}, DYN {ms_text(k3_deep['DYN device'])} (torch.profiler) ({smi})")
     log(f"chained prepass (config 2, B=4, prepass_chain) {WIDTH}x{HEIGHT} x16 AA: {chain_ms:.4f} ms/frame "
-        f"(host clock {chain_host_ms:.4f} ms), launches {launches}; K3 alone {k3_ms:.4f} ms (its block pass "
+        f"(host clock {chain_host_ms:.4f} ms), launches {launches}; K3 alone {k3_ms:.4f} ms (device time "
+        f"{ms_text(k3_dev)}, torch.profiler; its block pass "
         f"{blk_ms:.4f} ms), coarse_px_plain {k3_plain_ms:.2f} ms, bound {k3_bound[0]:.4f} ms ({k3_bound[1]}; "
         f"{float(work.points):.6e} points) ({smi})")
     records.append(dict(
@@ -1804,7 +1877,7 @@ def forward_rows(rt, cp, dev, smi, cfg, gcam_pos):
         replaces="raymarch_tpu/ops/pallas_prepass.py:969", launches=launches["coarse_px_kernel"],
         max_abs_err=k3_err, ms=k3_ms, plain_ms=k3_plain_ms, bound_ms=k3_bound[0], bound_by=k3_bound[1],
         library_ms=None))
-    out["chain"] = dict(frame_ms=chain_ms, k3_ms=k3_ms, blk_ms=blk_ms)
+    out["chain"] = dict(frame_ms=chain_ms, k3_ms=k3_ms, k3_dev=k3_dev, blk_ms=blk_ms, k3_deep=k3_deep)
     return records, out
 
 
@@ -3028,7 +3101,7 @@ def repairs(rt, cp, cg, dev, smi, cfg):
     blk = cp.coarse(sc, cam, bnd, rp.params)
     px = cp.coarse_px(sc, cam, bnd, rp.params, *blk)
     coarse_agreement("gate DYN coarse_px_kernel (K3) vs coarse_px_plain, config 2 dynamic, B=4", px,
-                     cp.coarse_px_plain(sc, cam, bnd, rp.params, *blk), strict=False)
+                     cp.coarse_px_plain(sc, cam, bnd, rp.params, *blk), strict=True, exact=True)
     image_class("gate DYN chained frame vs its plain path", rp(arrays_d, gcv), rp.render_plain(arrays_d, gcv))
     for kw, cfg_m in ((dict(prepass_block=4), cfg), (dict(prepass_block=1, n_intervals=2), cfg_ir)):
         mo = cp.make_pallas_image_march_fast(spec_d, cfg_m, GATE_W, GATE_H, device=dev, **kw)
@@ -3166,23 +3239,26 @@ def repairs(rt, cp, cg, dev, smi, cfg):
     sc, cam, bnd = rp.scene_args(arrays_d, hcv)
     blk = cp.coarse(sc, cam, bnd, rp.params)
     k3_ms = cuda_ms(lambda: cp.coarse_px(sc, cam, bnd, rp.params, *blk), KERNEL_REPS)
+    k3_dev = kernel_device_ms(lambda: cp.coarse_px(sc, cam, bnd, rp.params, *blk), "coarse_px_kernel")
     work = cp.WorkCount()
     px_p, k3_plain_ms = plain_ms(lambda: cp.coarse_px_plain(sc, cam, bnd, rp.params, *blk, work=work))
     k3_err = coarse_agreement("full-size DYN coarse_px_kernel (K3) vs coarse_px_plain, config 2 dynamic, B=4",
-                              cp.coarse_px(sc, cam, bnd, rp.params, *blk), px_p, strict=False)
+                              cp.coarse_px(sc, cam, bnd, rp.params, *blk), px_p, strict=True, exact=True)
     k3_bound = roofline(march_flops(work, n_px, spec_cost, False), n_px * 8 + rp.params.brows * rp.params.bcols * 8)
     image_class("full-size chained dynamic frame vs the plain path", rp(arrays_d, hcv), rp.render_plain(arrays_d, hcv))
     if min(launches["coarse_px_kernel (DYN)"], launches["fine_kernel (DYN)"]) <= 0:
         raise AssertionError(f"a DYN kernel of the chained frame never launched: {launches}")
     log(f"chained dynamic frame (config 2, B=4) {WIDTH}x{HEIGHT} x16 AA: {ms:.4f} ms/frame (host {host_ms:.4f} ms), "
-        f"launches {launches}; DYN K3 alone {k3_ms:.4f} ms, plain {k3_plain_ms:.2f} ms, bound {k3_bound[0]:.4f} ms "
+        f"launches {launches}; DYN K3 alone {k3_ms:.4f} ms (device time "
+        f"{ms_text(k3_dev)}, torch.profiler), plain {k3_plain_ms:.2f} ms, "
+        f"bound {k3_bound[0]:.4f} ms "
         f"({k3_bound[1]}) ({smi})")
     records.append(dict(
         name="coarse_px_kernel (K3 DYN: config 2 dynamic, B=4)", route="cuda",
         source="raymarch_tpu_torch/csrc/coarse_px.cu", replaces="raymarch_tpu/ops/pallas_prepass.py:969",
         launches=launches["coarse_px_kernel (DYN)"], max_abs_err=k3_err, ms=k3_ms, plain_ms=k3_plain_ms,
         bound_ms=k3_bound[0], bound_by=k3_bound[1], library_ms=None))
-    out["chain_dynamic"] = dict(ms=ms, k3_ms=k3_ms, launches=launches)
+    out["chain_dynamic"] = dict(ms=ms, k3_ms=k3_ms, k3_dev=k3_dev, launches=launches)
     del blk, px_p
 
     # march_only_fast on the dynamic tape (bench.py:678-693's options).
@@ -3272,6 +3348,58 @@ def repairs(rt, cp, cg, dev, smi, cfg):
     torch.cuda.empty_cache()
     out["seconds"] = time.perf_counter() - t_phase
     return records, out
+
+
+# --- phase 17: the port's f64 oracle ---------------------------------------
+ORACLE_W, ORACLE_H = 96, 54
+ORACLE_POS = (0.0, 2.6, 4.2)  # bench.py's gate camera: the floor's horizon out of frame
+
+
+def oracle_phase(rt, cp, dev, smi):
+    """Phase 17: the headline path against the port's own f64 oracle
+    (`raymarch_tpu_torch.oracle.render`: numpy, no jax) at ORACLE_W x
+    ORACLE_H, in the reference's classes (bench.py:236-259) at its gate
+    camera. The headline frame through make_renderer(backend=
+    "pallas_prepass") (config 2, 16 AA, bound_accel: K1 and K2 behind the
+    cone prepass, a conservative accelerator) in the accelerated class, as
+    bench.py's "headline-prepass" gate holds it; the exact-semantics paths
+    (K2 without a prepass, bench.py's "no-prepass" and "strict-reference")
+    within max|d| < 1e-3. Returns the phase's numbers."""
+    import numpy as np
+    import torch
+
+    t_phase = time.perf_counter()
+    scene = scene_config2(rt)
+    tape = rt.encode_wire(scene)
+    spec, arrays = rt.compile_scene(scene, static=True)
+    cfg0 = rt.DEFAULT_CONFIG
+    cfg = dataclasses.replace(cfg0, bound_accel=True, exit_check_every=4)
+    cam = rt.Camera.looking_at(position=ORACLE_POS, target=(0.0, 0.0, 0.0))
+    t = time.perf_counter()
+    ref = torch.tensor(np.asarray(rt.oracle.render(tape, cam, ORACLE_W, ORACLE_H, cfg0), np.float32), device=dev)
+    oracle_s = time.perf_counter() - t
+    render = rt.make_renderer(spec, ORACLE_W, ORACLE_H, cfg, mode="forward", backend="pallas_prepass", device=dev)
+    cp.reset_launch_counts()
+    img = render(arrays, cam)
+    torch.cuda.synchronize()
+    launches = {"coarse_kernel": cp.coarse.launches, "fine_kernel": cp.fine.launches}
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"the headline frame did not run its kernels: {launches}")
+    if tuple(img.shape) != (ORACLE_H, ORACLE_W, 3) or not bool(torch.isfinite(img).all()):
+        raise AssertionError(f"the headline frame is not a finite {ORACLE_H}x{ORACLE_W}x3 image")
+    out = {"oracle_s": oracle_s, "launches": launches}
+    image_class(f"oracle: headline frame (pallas_prepass, {ORACLE_W}x{ORACLE_H}) vs raymarch_tpu_torch.oracle.render",
+                img, ref)
+    out["headline_max"] = float((img - ref).abs().max())
+    for name, c in (("no-prepass", cfg), ("strict-reference", cfg0)):
+        rp = cp.make_pallas_image_render_aa(spec, c, ORACLE_W, ORACLE_H, device=dev, no_prepass=True)
+        out[name] = image_max(f"oracle: {name} frame (K2 without a prepass) vs raymarch_tpu_torch.oracle.render",
+                              rp(arrays, rt.cam_vec(cam, device=dev)), ref)
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"oracle summary: the f64 oracle's frame {oracle_s:.2f} s on the host; headline max|d| "
+        f"{out['headline_max']:.3e}, no-prepass {out['no-prepass']:.3e}, strict-reference "
+        f"{out['strict-reference']:.3e}; launches {launches}; phase {out['seconds']:.1f} s ({smi})")
+    return out
 
 
 def main() -> int:
@@ -3626,6 +3754,9 @@ def main() -> int:
     # -- 16. the repaired render options, the scenes past the shared row ----
     repair_records, sr = repairs(rt, cp, cg, dev, smi, cfg)
 
+    # -- 17. the headline path against the port's f64 oracle -----------------
+    oracle_phase(rt, cp, dev, smi)
+
     log(f"card: {smi}")
     kernels = [
         dict(name="coarse_kernel", route="cuda", source="raymarch_tpu_torch/csrc/prepass.cu",
@@ -3667,7 +3798,10 @@ def main() -> int:
     log(f"painted forward frame {sb['fwd_p_ms']:.4f} ms; cluster fit {sb['fit_s']:.4f} s/step ({smi})")
     for row, r in rows.items():
         if row == "chain":
-            log(f"chained prepass frame {r['frame_ms']:.4f} ms, K3 {r['k3_ms']:.4f} ms ({smi})")
+            log(f"chained prepass frame {r['frame_ms']:.4f} ms, K3 {r['k3_ms']:.4f} ms (device time "
+                f"{ms_text(r['k3_dev'])}); "
+                f"K3 on 64 spheres (depth 8) static {r['k3_deep']['static']:.4f} ms, DYN {r['k3_deep']['DYN']:.4f} ms "
+                f"({smi})")
             continue
         log(f"{row} summary: frame {r['frame_ms']:.4f} ms, {r['grays']:.4f} Grays/s, idle share {r['idle']}, "
             f"cull_args {r['cull_ms']:.4f} ms, coarse {r['coarse_ms']:.4f} ms, fine {r['fine_ms']:.4f} ms ({smi})")

@@ -34,7 +34,22 @@ in one
 33 M-ray launch, at max_iter 0, and its divergence (32 consecutive rays a
 warp) on config 2, on 64 spheres under the camera (0, 2.5, 9) and on
 seeded incoherent rays (origins uniform in [-3, 3]^3, directions uniform
-on the sphere). `--k45` runs the K4/K5 rows alone. It prints one JSON
+on the sphere). Then the chained pixel kernel K3 (`k3_times`, 30 runs
+after one warm-up on prepared arguments, 1920x1080, B = 4,
+`prepass_chain`): on config 2's
+static and dynamic tapes under the headline camera and on 64 spheres
+(stack depth 8: the shared-memory route) under the camera (0, 2.5, 9),
+each also at max_iter 0 (raygen, the bound clip, the block planes' loads
+and the stores: the per-pixel floor), by CUDA events and by
+torch.profiler's device time a launch (CUDA events over back-to-back
+launches of a kernel this short time the host's calls where they are the
+slower), with its block pass (K1, KIND 1),
+the chained frame, and the divergence of a warp of 32 pixels of a row
+and of a warp of an 8x4-pixel tile (from the plain version's march steps
+on the card). `--k45` runs the K4/K5 rows alone, `--k3` the K3 rows;
+`--mo` times alone the two K2 march-only interval builds whose ptxas line
+moved when `interval_march` lost its unrolled bounds (`march_only_times`).
+It prints one JSON
 object: the card, those times and, per kernel build, ptxas's register /
 stack / spill line. To compare two trees,
 unpack the other under `build/` and run the script from each root in one
@@ -70,6 +85,7 @@ K45_REPS = 30  # runs of each K4 / K5 time
 HOST_CALLS = 2000  # ray_march calls timed without their launch
 K5_CHUNK = 1 << 20  # the rays of one K5 launch in a chunked frame (make_renderer(chunk=1 << 20))
 K5_MID = 1 << 21  # half the 64-sphere divergence sample: 2^22 consecutive rays mid-frame
+K3_REPS = 30  # runs of each K3 time
 
 
 def ptxas_lines(report: str) -> dict:
@@ -81,9 +97,12 @@ def ptxas_lines(report: str) -> dict:
             entry = m.group(1)
             k = re.search(r"fine_kernelILi(\d)ELb(\d)ELb(\d)ELi(\d)(?:ELb(\d))?(?:ELi(\d+))?E", entry)
             c = re.search(r"coarse_kernelILi(\d)ELi(\d)(?:ELi(\d+))?E", entry)
+            k3 = re.search(r"coarse_px_kernelILi(\d)E(?:Li(\d+)E)?E", entry)
             m5 = re.search(r"march_kernelILi(\d)ELi(\d)ELb(\d)ELb(\d)ELb(\d)(?:ELi(\d+))?E", entry)
             k4 = re.search(r"fine_unpacked_kernelILi(\d)ELb(\d)ELb(\d)ELi(\d)(?:ELi(\d+))?E", entry)
-            if k4:
+            if k3:
+                entry = "coarse_px_kernel<{}{}>".format(k3.group(1), "" if k3.group(2) is None else f", {k3.group(2)}")
+            elif k4:
                 stk = "" if k4.group(5) is None else f", {k4.group(5)}"
                 entry = "fine_unpacked_kernel<{}, {}, {}, {}{}>".format(*k4.group(1, 2, 3, 4), stk)
             elif m5:
@@ -130,9 +149,11 @@ def compare(a_path: str, b_path: str) -> int:
         if k not in same:
             print(f"  differs: {k}: {a['ptxas'][k]} | {b['ptxas'].get(k)}")
     for path, run in ((a_path, a), (b_path, b)):
-        k12 = [k for k in run["ptxas"] if k.startswith(("fine_kernel<", "coarse_kernel<"))]
+        k12 = [k for k in run["ptxas"] if k.startswith(("fine_kernel<", "coarse_kernel<", "coarse_px_kernel<"))]
         framed = [k for k in k12 if stack_bytes(run["ptxas"][k])]
-        print(f"{path}: {len(framed)} of {len(k12)} coarse/fine kernel builds keep a stack frame")
+        print(f"{path}: {len(framed)} of {len(k12)} coarse/fine/K3 kernel builds keep a stack frame")
+        for k in (k for k in k12 if k.startswith("coarse_px_kernel<")):
+            print(f"  K3: {k}: {run['ptxas'][k]}")
         for k in framed:
             print(f"  stack: {k}: {run['ptxas'][k]}")
     for path, run in ((a_path, a), (b_path, b)):
@@ -141,7 +162,7 @@ def compare(a_path: str, b_path: str) -> int:
         print(f"{path}: {len(framed)} of {len(k57)} flat march kernel builds keep a stack frame")
         for k in k57:
             print(f"  {k}: {run['ptxas'][k]}")
-    for key in ("ms", "flat_ms", "k45"):
+    for key in ("ms", "flat_ms", "k45", "k3"):
         for k in a.get(key, {}):
             print(f"  {key} {k}: {a[key][k]} | {b.get(key, {}).get(k)}")
     return 0
@@ -384,7 +405,98 @@ def k45_times(rt, cs, dev):
     return out
 
 
-def main(only_k45: bool = False) -> int:
+def tile_warps(steps, tw=8, th=4):
+    """`steps` f32[rows, W] regrouped into warps of tw x th-pixel tiles
+    (lane = row-in-tile * tw + column-in-tile; -1 past the frame's edge)
+    -> f32[n_warps, 32]."""
+    import torch
+
+    rows, w = steps.shape
+    pr, pc = -rows % th, -w % tw
+    s = torch.cat([steps, steps.new_full((rows, pc), -1.0)], dim=1)
+    s = torch.cat([s, s.new_full((pr, w + pc), -1.0)], dim=0)
+    r2, w2 = s.shape
+    return s.reshape(r2 // th, th, w2 // tw, tw).permute(0, 2, 1, 3).reshape(-1, tw * th)
+
+
+def k3_times(rt, cs, dev):
+    """{name: ms, or a divergence or step count} of K3; see the module
+    docstring."""
+    import torch
+
+    from raymarch_tpu_torch.ops import cuda_prepass as cp
+
+    w, h = cs.WIDTH, cs.HEIGHT
+    cfg = dataclasses.replace(rt.DEFAULT_CONFIG, bound_accel=True, exit_check_every=4)
+    head = rt.Camera.looking_at(position=(0.0, 1.6, 4.2), target=(0.0, 0.0, 0.0))
+    wide = rt.Camera.looking_at(position=(0.0, 2.5, 9.0), target=(0.0, 0.0, 0.0))
+    out = {}
+    for name, scene, static, cam in (("config2 static", cs.scene_config2(rt), True, head),
+                                     ("config2 dynamic", cs.scene_config2(rt), False, head),
+                                     ("64 spheres static (depth 8)", cs.scene_spheres(rt, 64), True, wide)):
+        spec, arrays = rt.compile_scene(scene, static=static)
+        cv = rt.cam_vec(cam, device=dev)
+        rp = cp.make_pallas_image_render_aa(spec, cfg, w, h, device=dev, prepass_block=4, prepass_chain=True)
+        sc, c, b = rp.scene_args(arrays, cv)
+        blk = cp.coarse(sc, c, b, rp.params)
+        p0 = dataclasses.replace(rp.params, max_iter=0)
+        out[f"K3 {name}"] = cs.cuda_ms(lambda: cp.coarse_px(sc, c, b, rp.params, *blk), K3_REPS)
+        out[f"K3 {name} max_iter 0"] = cs.cuda_ms(lambda: cp.coarse_px(sc, c, b, p0, *blk), K3_REPS)
+        for tag, p in (("", rp.params), (" max_iter 0", p0)):
+            split = device_split(lambda: cp.coarse_px(sc, c, b, p, *blk), K3_REPS)
+            out[f"K3 {name}{tag}, device ms (torch.profiler)"] = sum(
+                v for k, v in split.items() if "coarse_px_kernel" in k)
+        out[f"K1 block pass {name}"] = cs.cuda_ms(lambda: cp.coarse(sc, c, b, rp.params), K3_REPS)
+        out[f"chained frame {name}"] = cs.cuda_ms(lambda: rp(arrays, cv), K3_REPS)
+        work = StepCount()
+        cp.coarse_px_plain(sc, c, b, rp.params, *blk, work=work)
+        steps = work.steps if torch.is_tensor(work.steps) else torch.zeros((h, w), device=dev)
+        pad = -w % 32
+        rows = torch.cat([steps, steps.new_full((h, pad), -1.0)], dim=1)
+        out[f"K3 {name} divergence, 32 pixels of a row a warp"] = warp_divergence(rows)
+        out[f"K3 {name} divergence, an 8x4 tile a warp"] = warp_divergence(tile_warps(steps))
+        out[f"K3 {name} steps a pixel"] = float(steps.mean())
+        del work, steps, rows
+        torch.cuda.synchronize()
+    return out
+
+
+def march_only_times(rt, cs, dev):
+    """{name: ms} of the two K2 march-only builds that removing
+    interval_march's NoPlanes path recompiled (relax, 2 intervals, 1080p,
+    16 AA): fine_kernel<0, 1, 0, 2, 1, 0> on config 2 at stack depth 4 (the
+    shared-memory route) under the headline camera and fine_kernel<1, 1, 0,
+    2, 1, 2> on bench.py's 64 spheres with leaf_cull (the compact lists)
+    under the camera (0, 2.5, 9); by CUDA events and torch.profiler's
+    device time a launch, 30 runs after one warm-up."""
+    from raymarch_tpu_torch.ops import cuda_prepass as cp
+
+    cfg = dataclasses.replace(rt.DEFAULT_CONFIG, bound_accel=True, exit_check_every=4, relax=1.6)
+    head = rt.cam_vec(rt.Camera.looking_at(position=(0.0, 1.6, 4.2), target=(0.0, 0.0, 0.0)), device=dev)
+    wide = rt.cam_vec(rt.Camera.looking_at(position=(0.0, 2.5, 9.0), target=(0.0, 0.0, 0.0)), device=dev)
+    out = {}
+    for name, scene, kw, cfg_c, cv in (
+            ("fine_kernel<0, 1, 0, 2, 1, 0> (config 2, stack depth 4)", cs.scene_config2(rt), dict(stack_depth=4),
+             cfg, head),
+            ("fine_kernel<1, 1, 0, 2, 1, 2> (64 spheres, leaf_cull lists)", cs.scenes_bench64(rt)[0], {},
+             dataclasses.replace(cfg, leaf_cull=True), wide)):
+        spec, arrays = rt.compile_scene(scene, static=True, **kw)
+        mo = cp.make_pallas_image_march_fast(spec, cfg_c, cs.WIDTH, cs.HEIGHT, device=dev, prepass_block=1,
+                                             n_intervals=2)
+        sc, c, b = mo.scene_args(arrays, cv)
+        cc, fc = mo.cull_args(sc, c)
+        pre = mo.prepass(sc, c, b, cc)
+
+        def fn():
+            return cp.fine_march(sc, c, b, mo.params, *pre, cull=fc)
+
+        out[name] = cs.cuda_ms(fn, K3_REPS)
+        split = device_split(fn, K3_REPS)
+        out[f"{name}, device ms (torch.profiler)"] = sum(v for k, v in split.items() if "fine_kernel" in k)
+    return out
+
+
+def main(only_k45: bool = False, only_k3: bool = False, only_mo: bool = False) -> int:
     import torch
 
     if not torch.cuda.is_available():
@@ -402,6 +514,17 @@ def main(only_k45: bool = False) -> int:
     _build.load()
     build_s = time.perf_counter() - t0
     dev = cp.resolve_device("cuda")
+    if only_mo:
+        mo = march_only_times(rt, cs, dev)
+        print(f"march-only builds ({smi}): " + ", ".join(f"{k} {v:.4f}" for k, v in mo.items()), file=sys.stderr)
+        print(json.dumps({"card": smi, "mo": mo, "build_s": build_s}), flush=True)
+        return 0
+    if only_k3:
+        k3 = k3_times(rt, cs, dev)
+        print(f"K3 ({smi}): " + ", ".join(f"{k} {v:.4f}" for k, v in k3.items()), file=sys.stderr)
+        print(json.dumps({"card": smi, "k3": k3, "build_s": build_s, "source_s": _build.stats["source_seconds"],
+                          "ptxas": ptxas_lines(_build.stats["ptxas"])}), flush=True)
+        return 0
     if only_k45:
         k45 = k45_times(rt, cs, dev)
         print(f"K4/K5 ({smi}): " + ", ".join(f"{k} {v:.4f}" for k, v in k45.items()), file=sys.stderr)
@@ -443,10 +566,12 @@ def main(only_k45: bool = False) -> int:
           + ", ".join(f"{k} {v:.4f}" for k, v in sorted(split.items(), key=lambda kv: -kv[1])), file=sys.stderr)
     k45 = k45_times(rt, cs, dev)
     print(f"K4/K5 ({smi}): " + ", ".join(f"{k} {v:.4f}" for k, v in k45.items()), file=sys.stderr)
+    k3 = k3_times(rt, cs, dev)
+    print(f"K3 ({smi}): " + ", ".join(f"{k} {v:.4f}" for k, v in k3.items()), file=sys.stderr)
     route = getattr(cm, "stack_route", None)  # a parent tree may predate the routes
     stack = f"{cm.route_name(route(spec))}, depth {spec.stack_depth}" if route else "local memory"
     print(f"headline K1/K2 stack route: {stack}; build {build_s:.1f} s", file=sys.stderr)
-    print(json.dumps({"card": smi, "ms": times, "flat_ms": flat, "k45": k45, "pallas_full_split": split,
+    print(json.dumps({"card": smi, "ms": times, "flat_ms": flat, "k45": k45, "k3": k3, "pallas_full_split": split,
                       "stack_route": stack,
                       "build_s": build_s, "source_s": _build.stats["source_seconds"],
                       "ptxas": ptxas_lines(_build.stats["ptxas"])}), flush=True)
@@ -456,4 +581,5 @@ def main(only_k45: bool = False) -> int:
 if __name__ == "__main__":
     if len(sys.argv) == 4 and sys.argv[1] == "--compare":
         sys.exit(compare(sys.argv[2], sys.argv[3]))
-    sys.exit(main(only_k45=sys.argv[1:] == ["--k45"]))
+    sys.exit(main(only_k45=sys.argv[1:] == ["--k45"], only_k3=sys.argv[1:] == ["--k3"],
+                  only_mo=sys.argv[1:] == ["--mo"]))

@@ -7,15 +7,19 @@ shading, implicit and soft gradients), the flat march kernels, the
 cone-prepass forward renderer, the fused forward+backward renderer and the
 scene fit, whose kernels are CUDA C++ (`csrc/`, built with nvcc at first
 use), and the live-editing layer: the node graph, the tiered runtime and
-the viewer. On the CPU the kernels' plain torch versions run instead. This
-package imports neither jax nor `raymarch_tpu`.
+the viewer. On the CPU the kernels' plain torch versions run instead. The
+numpy layer is the reference's, copied: the scene model and tape compiler,
+`io`, the f64 `oracle` and `ops.oracle_grad`, and `native`, the binding of
+the C++ tape core. This package imports neither jax nor `raymarch_tpu`.
 """
 
+from . import io, native
 from .config import DEFAULT_CONFIG, RenderConfig
 from .fit import FitResult, fit_scene
 from .models import csg, graph
 from .models.csg import box, capsule, cone, cylinder, plane, sphere, torus
 from .models.graph import CSGNodeGraph
+from .ops import oracle
 from .ops.march import make_march, make_renderer, render_rays
 from .ops.raygen import camera_rays_np, raygen_flat
 from .ops.sdf import make_scene_fn
@@ -29,6 +33,8 @@ from .runtime import TieredRenderer
 __version__ = "0.1.0"
 
 __all__ = [
+    "io",
+    "native",
     "graph",
     "CSGNodeGraph",
     "MarchStats",
@@ -43,6 +49,7 @@ __all__ = [
     "cylinder",
     "capsule",
     "cone",
+    "oracle",
     "make_march",
     "make_renderer",
     "render_rays",

@@ -35,9 +35,10 @@ NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"
 # do the flat march kernels K5-K7, whose steps per ray are held equal to
 # their plain versions' on every ray, and every build of the coarse and fine
 # kernels K1/K2 and of the unpacked fine pass K4, whose planes and (t, hit)
-# are held equal to theirs. K3 (coarse_px.cu) keeps nvcc's default.
+# are held equal to theirs, and of the chained pixel kernel K3, whose planes
+# are held equal to coarse_px_plain's.
 K12_SOURCES = ("prepass.cu", "fine_culled.cu", "prepass_dyn.cu", "fine_dyn_gated.cu", "fine_soft.cu",
-               "fine_march.cu", "fine_march_dyn.cu", "intervals_wide.cu")
+               "fine_march.cu", "fine_march_dyn.cu", "intervals_wide.cu", "coarse_px.cu")
 # The flat march kernels K5-K7, one source per output (csrc/march.cuh).
 MARCH_SOURCES = ("march.cu", "march_render.cu", "march_pixel.cu")
 # The unpacked fine pass K4, one source per culling mode (csrc/fine_unpacked.cuh).
@@ -53,9 +54,10 @@ _SIGNATURES = {
     # stack_depth, cam, bound, params, cull, t0_out, status_out,
     # block_params, stream
     "rmt_coarse_launch": (_P, _P, _P, _I, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P),
-    # leaf_params, row_kind, tape, n_instr, op_param, dyn, cam, bound,
-    # params, t_blk, status_blk, t0_out, status_out, block_params, stream
-    "rmt_coarse_px_launch": (_P, _P, _P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P),
+    # leaf_params, row_kind, words, n_instr, op_param, dyn, stk,
+    # stack_depth, cam, bound, params, t_blk, status_blk, t0_out,
+    # status_out, block_params, stream
+    "rmt_coarse_px_launch": (_P, _P, _P, _I, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P),
     # leaf_params, row_kind, words, n_instr, op_param, dyn, stk,
     # stack_depth, cam, bound, params, cull, t0_in, status_in, img, t_out,
     # hit_out, mats, block_params, soft, soft_params, stream

@@ -1,7 +1,8 @@
 // The coarse (cone) kernel and the chained pixel kernel of the cone-prepass
-// renderer: the device code that prepass.cu (the static-tape builds, MODE
-// 0-2) and prepass_dyn.cu (the DYN builds, MODE 3 and 4) instantiate.
-// prepass.cu's header describes them.
+// renderer: the device code that prepass.cu (the coarse kernel's static-tape
+// builds, MODE 0-2), prepass_dyn.cu (its DYN builds, MODE 3 and 4) and
+// coarse_px.cu (the chained pixel kernel's) instantiate. prepass.cu's and
+// coarse_px.cu's headers describe them.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -16,8 +17,7 @@ constexpr int COARSE_THREADS = 128;
 
 // The cone march of one centre ray from (t, live) at cone angle omega
 // (_cone_march_tile, 157-174) -> status; t ends at the stop distance.
-// scene(px, py, pz) is the scene function (WordScene for K1, TileScene for
-// K3).
+// scene(px, py, pz) is the scene function (WordScene, for K1 and K3).
 template <class Scene>
 __device__ __forceinline__ float cone_march(const Scene& scene, const Ray& r,
                                             const RenderParams& p,
@@ -206,10 +206,22 @@ extern template cudaError_t launch_coarse<4>(const CoarseLaunch&, int);
 // of the band: the pixel's cone ray at omega_px over the whole tape, started
 // at max(its bound-clip start, its block's t0) and dead where its block's
 // status is 0 (_cone_march_tile 152-154). Writes t0 and status f32[rows,
-// width]. MODE 0 reads the static tape, 3 the frame's dynamic tape:
-// un-culled, as the reference's (coarse_px.cu).
-template <int MODE>
-__global__ void coarse_px_kernel(SceneView sc, const float* __restrict__ cam,
+// width]. MODE 0 reads the static tape, 3 the frame's dynamic tape, from
+// its packed words on stack route STK (WordScene; un-culled, as the
+// reference's, so cv and tile go unread): coarse_px.cu.
+//
+// A warp is a PX_TILE_W x PX_TILE_H tile of pixels (lane = row-in-tile *
+// PX_TILE_W + column-in-tile), a block PX_WARPS such tiles side by side:
+// at B = 4 a warp's 32 pixels lie in two B x B blocks, so they start at
+// two block stop distances, die together where a block is dead, and stop
+// within a few steps of each other (a row of 32 pixels spans eight
+// blocks).
+constexpr int PX_TILE_W = 8;
+constexpr int PX_TILE_H = 4;
+constexpr int PX_WARPS = COARSE_THREADS / 32;
+
+template <int MODE, int STK>
+__global__ void coarse_px_kernel(SceneWords sw, const float* __restrict__ cam,
                                  const float* __restrict__ bound,
                                  RenderParams p,
                                  const float* __restrict__ t_blk,
@@ -217,8 +229,10 @@ __global__ void coarse_px_kernel(SceneView sc, const float* __restrict__ cam,
                                  float* __restrict__ t0_out,
                                  float* __restrict__ status_out,
                                  BlockParams bp) {
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  const int i = blockIdx.y;
+  const int lane = threadIdx.x & 31;
+  const int j = (blockIdx.x * PX_WARPS + (threadIdx.x >> 5)) * PX_TILE_W +
+                lane % PX_TILE_W;
+  const int i = blockIdx.y * PX_TILE_H + lane / PX_TILE_W;
   if (j >= p.width || i >= p.rows) return;
   const float x = 2.0f * ((float)j + 0.5f) / (float)p.width - 1.0f;
   const float y =
@@ -231,7 +245,7 @@ __global__ void coarse_px_kernel(SceneView sc, const float* __restrict__ cam,
   live = live * live_in;
   t = fmaxf(t, t_blk[bo]) * live_in;
   const CullView uncull{};
-  const TileScene<MODE> scene{sc, uncull, 0};
+  const WordScene<MODE, STK> scene{sw, uncull, 0};
   const float near =
       cone_march(scene, r, p, bp.omega_px, bp.inv1w_px, live, t, t_cap);
   const size_t o = (size_t)i * p.width + j;

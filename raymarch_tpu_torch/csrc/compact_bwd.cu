@@ -85,7 +85,7 @@
 // pool-only plan runs the build without the replays and sweeps, a painted
 // pool the one with the albedo routing.
 //
-// The fold replay repeats scene_distance_compact's operation order
+// The fold replay repeats compact_fold's operation order (scene_eval.cuh)
 // (fold_step, the min folds, strict < at each segment flush), so the
 // recorded accumulators are the values the sweeps differentiate.
 //
@@ -156,7 +156,7 @@ __device__ __forceinline__ float pool_fold(const SceneView& sc,
 }
 
 // The seg1 chain at q (free prefix groups, then the ordered fold), in the
-// order of scene_distance_compact; with REC it records each item's incoming
+// order of compact_fold; with REC it records each item's incoming
 // accumulator.
 template <bool REC>
 __device__ float chain_fold(const SceneView& sc, const TileLists& tl, V3 q,

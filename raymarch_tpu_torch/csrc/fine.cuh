@@ -60,11 +60,7 @@ constexpr float FAR_TEST = 9.0e37f;
 // plane size `plane`) through L1: the PRE 4 builds of the fine passes
 // (intervals_wide.cu) and every interval build of the coarse scan (KIND 2),
 // so that no build caps n_intervals. The builds for at most MAX_NI keep
-// them in registers (ShiftIntervals). No build takes NoPlanes' path (the
-// bounds selected from st, en by unrolled compares) since K4 moved onto
-// ShiftIntervals; it stays until a change may move the K2 builds' ptxas
-// lines (removing it moved two march-only builds' register counts).
-struct NoPlanes {};
+// them in registers (ShiftIntervals).
 struct PlaneIntervals {
   float* base;  // the block's word of plane 0
   size_t plane;
@@ -211,18 +207,16 @@ __device__ __forceinline__ float soft_march(const Scene& scene, const Ray& r,
 // of the legacy march); a step past e_idx jumps to max(t, s_{idx+1}) with
 // omega, step and previous radius reset, or is a miss when no interval is
 // left. Hit and escape are tested only at samples that did not overshoot.
-// st, en hold at most MAX_NI intervals; given `planes` (ShiftIntervals,
-// or PlaneIntervals for PRE 4), the bounds come from it instead.
-// scene(px, py, pz) is the scene function (WordScene).
-template <bool RELAX, class Scene, class Planes = NoPlanes>
+// The bounds come from `planes`: ShiftIntervals (at most MAX_NI intervals,
+// in registers) or PlaneIntervals (PRE 4, in place). scene(px, py, pz) is
+// the scene function (WordScene).
+template <bool RELAX, class Scene, class Planes>
 __device__ __forceinline__ float interval_march(const Scene& scene,
                                                 const Ray& r,
                                                 const RenderParams& p,
-                                                const float (&st)[MAX_NI],
-                                                const float (&en)[MAX_NI],
                                                 float live, float& t,
                                                 float t_cap,
-                                                const Planes& planes = Planes()) {
+                                                const Planes& planes) {
   float hit = 0.0f;
   float prev_r = 0.0f, step_len = 0.0f, omega = p.relax;
   int idx = 0;
@@ -246,15 +240,7 @@ __device__ __forceinline__ float interval_march(const Scene& scene,
     if (live > 0.0f) {
       const float t2 = t + new_step;
       float e = FAR_T, ns = FAR_T;  // e_idx, and s_{idx+1} (FAR_T past the last)
-      if constexpr (std::is_same<Planes, NoPlanes>::value) {
-#pragma unroll
-        for (int q = 0; q < MAX_NI; ++q) {
-          if (q == idx) e = en[q];
-          if (q == idx + 1) ns = st[q];
-        }
-      } else {
-        planes.bounds(idx, e, ns);
-      }
+      planes.bounds(idx, e, ns);
       if (t2 > e && ns > FAR_TEST) {
         t = t2;
         live = 0.0f;  // no interval left: a miss
@@ -325,42 +311,27 @@ __device__ __forceinline__ float legacy_march(const Scene& scene,
 }
 
 // The tetrahedron taps' unnormalised normal at p (pallas_march._tet_taps
-// 1049): k in {(+,-,-), (-,-,+), (-,+,-), (+,+,+)}, summed in that order.
-// A scene whose TAP_LOOP is set (WordScene) takes the taps in a loop that
-// is not unrolled: one copy of the scene function instead of four (nvcc's
-// time and the instruction cache), the same operations in the same order
-// (a tap's sign times e or d is exact).
+// 1049): k in {(+,-,-), (-,-,+), (-,+,-), (+,+,+)}, summed in that order,
+// in a loop that is not unrolled: one copy of the scene function instead of
+// four (nvcc's time and the instruction cache), the same operations in the
+// same order (a tap's sign times e or d is exact).
 template <class Scene>
 __device__ __forceinline__ void tet_normal(const Scene& scene, float e,
                                            float px, float py, float pz,
                                            float& nx, float& ny, float& nz) {
-  if constexpr (Scene::TAP_LOOP) {
-    nx = 0.0f;
-    ny = 0.0f;
-    nz = 0.0f;
-#pragma unroll 1
-    for (int k = 0; k < 4; ++k) {
-      const float sx = (k == 0 || k == 3) ? 1.0f : -1.0f;
-      const float sy = k >= 2 ? 1.0f : -1.0f;
-      const float sz = (k == 1 || k == 3) ? 1.0f : -1.0f;
-      const float d = scene(px + sx * e, py + sy * e, pz + sz * e);
-      nx = nx + sx * d;
-      ny = ny + sy * d;
-      nz = nz + sz * d;
-    }
-    return;
-  }
-  const float d0 = scene(px + e, py - e, pz - e);
-  const float d1 = scene(px - e, py - e, pz + e);
-  const float d2 = scene(px - e, py + e, pz - e);
-  const float d3 = scene(px + e, py + e, pz + e);
   nx = 0.0f;
   ny = 0.0f;
   nz = 0.0f;
-  nx = nx + d0; ny = ny - d0; nz = nz - d0;
-  nx = nx - d1; ny = ny - d1; nz = nz + d1;
-  nx = nx - d2; ny = ny + d2; nz = nz - d2;
-  nx = nx + d3; ny = ny + d3; nz = nz + d3;
+#pragma unroll 1
+  for (int k = 0; k < 4; ++k) {
+    const float sx = (k == 0 || k == 3) ? 1.0f : -1.0f;
+    const float sy = k >= 2 ? 1.0f : -1.0f;
+    const float sz = (k == 1 || k == 3) ? 1.0f : -1.0f;
+    const float d = scene(px + sx * e, py + sy * e, pz + sz * e);
+    nx = nx + sx * d;
+    ny = ny + sy * d;
+    nz = nz + sz * d;
+  }
 }
 
 // Lambert's diffuse term of the surface point p with normal n against the
@@ -461,9 +432,7 @@ __global__ void fine_kernel(SceneWords sw, const float* __restrict__ cam,
         const size_t plane = (size_t)bp.brows * bp.bcols;
         std::conditional_t<PRE == 2, ShiftIntervals, PlaneIntervals> planes;
         planes.load(t0_in, plane, po, bp.ni);
-        float unused[MAX_NI];  // interval_march's st, en (NoPlanes')
-        hit = interval_march<RELAX>(scene, r, p, unused, unused, live, t,
-                                    t_cap, planes);
+        hit = interval_march<RELAX>(scene, r, p, live, t, t_cap, planes);
       } else {
         hit = legacy_march<RELAX>(scene, r, p, live, t, t_cap);
       }

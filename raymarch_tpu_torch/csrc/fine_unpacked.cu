@@ -29,7 +29,7 @@
 // layout K8 (fused_bwd.cu) reads after K2: coalesced stores.
 //
 // Normals: without `shared` every hit sample takes the 4 tetrahedron taps
-// at its own hit point, in one loop (TAP_LOOP). With `shared` the first
+// at its own hit point, in one loop. With `shared` the first
 // sample in sample order that hits computes the normal at its own hit point
 // and every later hitting sample of the pixel reuses it, with its own hit
 // point for the light direction and its own albedo: a ballot over the

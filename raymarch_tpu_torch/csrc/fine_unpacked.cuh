@@ -77,7 +77,7 @@ __device__ __forceinline__ float tap(const Scene& scene, float e, int k,
   tap_signs(k, sx, sy, sz);
   return scene(px + sx * e, py + sy * e, pz + sz * e);
 }
-// The four taps' sum in tet_normal's order (its TAP_LOOP form).
+// The four taps' sum in tet_normal's order.
 __device__ __forceinline__ void tap_sum(const float (&d)[4], float& nx,
                                         float& ny, float& nz) {
   nx = 0.0f;
@@ -174,9 +174,7 @@ __global__ void __launch_bounds__(UNPACKED_THREADS,
         // (more than MAX_NI) read in place.
         std::conditional_t<PRE == 2, ShiftIntervals, PlaneIntervals> planes;
         planes.load(t0_in, (size_t)bp.brows * bp.bcols, po, bp.ni);
-        float unused[MAX_NI];  // interval_march's st, en (NoPlanes')
-        hit = interval_march<RELAX>(scene, r, p, unused, unused, live, t,
-                                    t_cap, planes);
+        hit = interval_march<RELAX>(scene, r, p, live, t, t_cap, planes);
       } else {
         hit = legacy_march<RELAX>(scene, r, p, live, t, t_cap);
       }

@@ -46,7 +46,7 @@
 // (ops/cuda_march.py stack_route) and names it in the launch.
 //
 // With leaf culling (cfg.leaf_cull) both kernels evaluate the scene of a
-// point through its pixel's tile (scene_distance_tile): the compact plan's
+// point through its pixel's tile (WordScene): the compact plan's
 // item lists of the tile (O(active leaves) per point) or, for a scene
 // without a residual-free plan, the gated tape with the tile's leaf mask.
 // Each kernel has its own tile grid; every ray (and tap) is evaluated with
@@ -55,7 +55,7 @@
 // flag (emit_th=True, 1850-1862), which the fused backward replays; the
 // image does not depend on whether they are written. A painted scene
 // (spec.has_materials) takes each hit ray's albedo from one more walk of
-// the static tape at its hit point (scene_color, pallas_prepass.py:
+// the static tape at its hit point (WordScene::color, pallas_prepass.py:
 // 1669-1681), gated by its tile's leaf mask under culling in either mode,
 // as the reference's colour pass is; a material-free build carries none of
 // it (the MATS template flag).

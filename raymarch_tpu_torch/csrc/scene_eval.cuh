@@ -44,10 +44,13 @@ constexpr int LEAF_PARAM_WIDTH = 16;
 // row_kind = leaf_type | ROTATED_BIT when the row's type carries rotations.
 constexpr int ROTATED_BIT = 256;
 
-// Value stack of the interpreter (RenderConfig.stack_depth, the reference's
-// 32, wgsl:173). The Python wrapper refuses deeper tapes.
+// The deepest value stack of a tape (RenderConfig.stack_depth, the
+// reference's 32, wgsl:173): the stacks of K8's recorded passes
+// (scene_grad.cuh). The Python wrapper refuses deeper tapes.
 constexpr int MAX_STACK = 32;
 
+// The scene as the compact backward K9 reads it (compact_bwd.cu,
+// make_scene): the tape's three i32 arrays and the leaf rows.
 struct SceneView {
   const float* leaf_params;  // f32[n_leaves, 16]
   const int* row_kind;       // i32[n_leaves]
@@ -68,7 +71,8 @@ __device__ __forceinline__ float smooth_min(float a, float b, float k) {
 // A leaf row is 16 words in four quads: words 0-3 the quaternion (w, x, y,
 // z), 4-6 the centre and 7-11 the type's parameters. leaf_distance takes a
 // quad before it needs its words; the row reader decides what that costs.
-// K3, K8 and K9 (SceneView's rows) read each word where it is used...
+// K8 and K9 (the rows of K8's packed tape and of SceneView) read each word
+// where it is used...
 struct RowWords {
   static constexpr bool QUADS = false;
   const float* P;
@@ -82,7 +86,7 @@ struct RowWords {
   __device__ __forceinline__ Quad quad(int q) const { return Quad{P, q}; }
 };
 
-// ...K1, K2 and K4-K7 (SceneWords' float4 rows) read the whole quad, in
+// ...K1-K7 (SceneWords' float4 rows) read the whole quad, in
 // one 16-byte load, where it is taken.
 struct RowQuads {
   static constexpr bool QUADS = true;
@@ -206,77 +210,6 @@ __device__ __forceinline__ bool mask_bit(const int* __restrict__ mask,
   return ((__ldg(mask + (row >> 5)) >> (row & 31)) & 1) != 0;
 }
 
-// Distance from point p to the scene. Leaves are evaluated at their PUSH, as
-// the static unroll does; a binary op at slot s reads (s, s+1), writes s.
-// With a tile mask (the gated tape of a culled frame), a leaf whose bit is
-// clear reads CULL_FAR instead of its distance: exact for hits, shading and
-// the escape test by the lemma of ops/culling.py. The plain version is
-// sdf._apply_static_tape with `cull`.
-//
-// DYN reads a dynamic tape (compile_scene(static=False)): the per-frame
-// tape of TapeArrays, NOP-padded to its bucket. As in the reference's
-// interpreter (sdf.py:523-527) the stack starts at max_dist, so that an
-// all-NOP tape is the empty scene, and a NOP is the identity. A template
-// flag, so that the static builds carry neither. The plain version is
-// sdf._apply_dynamic_tape.
-template <bool DYN = false>
-__device__ __forceinline__ float scene_distance(const SceneView& sc, float px,
-                                                float py, float pz,
-                                                const int* mask = nullptr) {
-  if (sc.n_instr == 0) return sc.max_dist;
-  float stk[MAX_STACK];
-  if constexpr (DYN) stk[0] = sc.max_dist;
-  for (int i = 0; i < sc.n_instr; ++i) {
-    const int op = __ldg(sc.tape_ops + i);
-    if constexpr (DYN) {
-      if (op == COP_NOP) continue;
-    }
-    const int s = __ldg(sc.out_slot + i);
-    if (op == COP_PUSH) {
-      const int row = __ldg(sc.tape_arg + i);
-      stk[s] = (mask != nullptr && !mask_bit(mask, row))
-                   ? CULL_FAR
-                   : leaf_distance(sc.leaf_params + row * LEAF_PARAM_WIDTH,
-                                   __ldg(sc.row_kind + row), px, py, pz);
-      continue;
-    }
-    const float k = __ldg(sc.op_param + i);
-    const float a = stk[s];
-    float r;
-    switch (op) {
-      case COP_ROUND:
-        r = a - k;
-        break;
-      case COP_ONION:
-        r = fabsf(a) - k;
-        break;
-      case COP_UNION:
-        r = fminf(a, stk[s + 1]);
-        break;
-      case COP_INTERSECTION:
-        r = fmaxf(a, stk[s + 1]);
-        break;
-      case COP_SUBTRACTION:
-        r = fmaxf(a, -stk[s + 1]);
-        break;
-      case COP_SMOOTH_UNION:
-        r = smooth_min(a, stk[s + 1], k);
-        break;
-      case COP_SMOOTH_INTERSECTION:
-        r = -smooth_min(-a, -stk[s + 1], k);
-        break;
-      case COP_SMOOTH_SUBTRACTION:
-        r = -smooth_min(-a, stk[s + 1], k);
-        break;
-      default:  // COP_NOP never appears in the real-instruction prefix
-        r = a;
-        break;
-    }
-    stk[s] = r;
-  }
-  return stk[0];
-}
-
 // Leaf-row words of the material (ops/opcodes.py LEAF_ALBEDO, LEAF_MAT_FLAG).
 constexpr int LEAF_ALBEDO = 12;
 constexpr int LEAF_MAT_FLAG = 15;
@@ -287,107 +220,6 @@ __device__ __forceinline__ float mat_weight_smooth(float da, float db,
                                                   float k) {
   k = fmaxf(k, 1e-8f);
   return fminf(fmaxf(0.5f + 0.5f * (db - da) / k, 0.0f), 1.0f);
-}
-
-// The scene distance at p, and in rgb the albedo the static tape carries to
-// it: the static branch of pallas_march.py:_make_scene_color_eval (893-909,
-// sdf._apply_static_tape_color). A leaf's colour is its own albedo where its
-// material flag is set, else def (the config albedo); hard ops take the
-// winner's colour by the tie rule of oracle.eval_tape_color (union a <= b,
-// intersection a >= b, subtraction a >= -b), smooth ops blend the two by
-// mat_weight_smooth, round and onion keep their operand's. With a tile mask
-// a culled leaf reads CULL_FAR with the default colour (the gated tape of
-// scene_distance). The kernels call it once per hit ray, not per march step.
-// DYN as in scene_distance: slot 0 starts at (max_dist, def) and a NOP is
-// the identity (sdf._apply_dynamic_tape_color).
-template <bool DYN = false>
-__device__ __forceinline__ float scene_color(const SceneView& sc, float px,
-                                            float py, float pz,
-                                            const float* def, float rgb[3],
-                                            const int* mask = nullptr) {
-  if (sc.n_instr == 0) {
-    rgb[0] = def[0];
-    rgb[1] = def[1];
-    rgb[2] = def[2];
-    return sc.max_dist;
-  }
-  float stk[MAX_STACK], cr[MAX_STACK], cg[MAX_STACK], cb[MAX_STACK];
-  if constexpr (DYN) {
-    stk[0] = sc.max_dist;
-    cr[0] = def[0];
-    cg[0] = def[1];
-    cb[0] = def[2];
-  }
-  for (int i = 0; i < sc.n_instr; ++i) {
-    const int op = __ldg(sc.tape_ops + i);
-    if constexpr (DYN) {
-      if (op == COP_NOP) continue;
-    }
-    const int s = __ldg(sc.out_slot + i);
-    if (op == COP_PUSH) {
-      const int row = __ldg(sc.tape_arg + i);
-      const float* P = sc.leaf_params + row * LEAF_PARAM_WIDTH;
-      if (mask != nullptr && !mask_bit(mask, row)) {
-        stk[s] = CULL_FAR;
-        cr[s] = def[0];
-        cg[s] = def[1];
-        cb[s] = def[2];
-      } else {
-        stk[s] = leaf_distance(P, __ldg(sc.row_kind + row), px, py, pz);
-        const float fl = __ldg(P + LEAF_MAT_FLAG);
-        cr[s] = fl * __ldg(P + LEAF_ALBEDO + 0) + (1.0f - fl) * def[0];
-        cg[s] = fl * __ldg(P + LEAF_ALBEDO + 1) + (1.0f - fl) * def[1];
-        cb[s] = fl * __ldg(P + LEAF_ALBEDO + 2) + (1.0f - fl) * def[2];
-      }
-      continue;
-    }
-    const float k = __ldg(sc.op_param + i);
-    const float a = stk[s];
-    if (op == COP_ROUND || op == COP_ONION) {
-      stk[s] = (op == COP_ROUND ? a : fabsf(a)) - k;
-      continue;
-    }
-    const float b = stk[s + 1];
-    float r, w;
-    switch (op) {
-      case COP_UNION:
-        r = fminf(a, b);
-        w = a <= b ? 1.0f : 0.0f;
-        break;
-      case COP_INTERSECTION:
-        r = fmaxf(a, b);
-        w = a >= b ? 1.0f : 0.0f;
-        break;
-      case COP_SUBTRACTION:
-        r = fmaxf(a, -b);
-        w = a >= -b ? 1.0f : 0.0f;
-        break;
-      case COP_SMOOTH_UNION:
-        r = smooth_min(a, b, k);
-        w = mat_weight_smooth(a, b, k);
-        break;
-      case COP_SMOOTH_INTERSECTION:
-        r = -smooth_min(-a, -b, k);
-        w = mat_weight_smooth(b, a, k);
-        break;
-      case COP_SMOOTH_SUBTRACTION:
-        r = -smooth_min(-a, b, k);
-        w = mat_weight_smooth(-b, a, k);
-        break;
-      default:  // COP_NOP never appears in the real-instruction prefix
-        r = a;
-        w = 1.0f;
-        break;
-    }
-    stk[s] = r;
-    cr[s] = w * cr[s] + (1.0f - w) * cr[s + 1];
-    cg[s] = w * cg[s] + (1.0f - w) * cg[s + 1];
-    cb[s] = w * cb[s] + (1.0f - w) * cb[s + 1];
-  }
-  rgb[0] = cr[0];
-  rgb[1] = cg[0];
-  rgb[2] = cb[0];
-  return stk[0];
 }
 
 // Per-tile culling of one kernel's tile grid (ops/cuda_prepass.py:TileCull,
@@ -491,19 +323,10 @@ __device__ __forceinline__ float compact_fold(const Leaf& leaf,
   return has_chain ? fminf(d, chain) : d;
 }
 
-__device__ __forceinline__ float scene_distance_compact(const SceneView& sc,
-                                                        const CullView& cv,
-                                                        int tile, float px,
-                                                        float py, float pz) {
-  return compact_fold(
-      [&](int row) { return entry_distance(sc, row, px, py, pz); },
-      sc.op_param, cv, tile);
-}
-
 // The kernels' MODE template parameter: the culling mode (CullView::mode)
 // of a static tape, 0 none, 1 the compact plan's item lists, 2 the gated
 // tape; and MODE 3 and 4, the DYN builds of modes 0 and 2, which interpret
-// the frame's dynamic tape (scene_distance<true>), un-culled or gated by the
+// the frame's dynamic tape (words_distance<true>), un-culled or gated by the
 // tile's leaf mask. A dynamic tape has no compact plan (build_compact_plan
 // returns None for it, as the reference's does: pallas_march.py:279-280),
 // so no build reads item lists of one.
@@ -513,29 +336,11 @@ __host__ __device__ constexpr bool mode_culled(int mode) {
   return mode == 1 || mode == 2 || mode == 4;
 }
 
-// The scene distance at a point of pixel tile `tile` under MODE. A
-// template parameter, so that each kernel is built once per mode and the
-// unculled build carries no culling code.
-template <int MODE>
-__device__ __forceinline__ float scene_distance_tile(const SceneView& sc,
-                                                     const CullView& cv,
-                                                     int tile, float px,
-                                                     float py, float pz) {
-  if constexpr (MODE == 1) {
-    return scene_distance_compact(sc, cv, tile, px, py, pz);
-  } else if constexpr (MODE == 2 || MODE == 4) {
-    return scene_distance<mode_dyn(MODE)>(sc, px, py, pz,
-                                          cv.masks + (size_t)tile * cv.n_words);
-  } else {
-    return scene_distance<mode_dyn(MODE)>(sc, px, py, pz);
-  }
-}
-
 // ---------------------------------------------------------------------------
 // The scene evaluator of K1, K2 (coarse_kernel, fine_kernel, every build),
-// K4 (fine_unpacked_kernel) and K5-K7 (march.cuh march_kernel, every
-// build): packed scene words and a value stack kept out of local memory.
-// K3 keeps scene_distance above.
+// K3 (coarse_px_kernel), K4 (fine_unpacked_kernel) and K5-K7 (march.cuh
+// march_kernel, every build): packed scene words and a value stack kept out
+// of local memory.
 //
 // Each instruction is one 16-byte word, the format of the backwards' packed
 // tape (scene_grad.cuh BwdTape; ops/cuda_march.py pack_words): op | slot <<
@@ -546,12 +351,13 @@ __device__ __forceinline__ float scene_distance_tile(const SceneView& sc,
 // register and the slots below it in a store: a PUSH at slot s spills the
 // old top to slot s - 1, a binary op at slot s reads slot s and the top, a
 // unary op touches the top alone. Every lane reads the same word, so every
-// branch on it is warp-uniform. The operations and their order are
-// scene_distance's, so that a build without FMA contraction rounds as the
-// plain versions (sdf._apply_static_tape, _apply_dynamic_tape) do.
+// branch on it is warp-uniform. Leaves are evaluated at their PUSH, as the
+// static unroll does; the operations and their order are the plain
+// versions' (sdf._apply_static_tape, _apply_dynamic_tape), so that a build
+// without FMA contraction rounds as they do.
 
 // The value stack's route (ops/cuda_march.py stack_route), the STK template
-// parameter of the K1/K2 builds: a tape of stack depth <= REG_STACK keeps
+// parameter of the K1-K7 builds: a tape of stack depth <= REG_STACK keeps
 // the slot below its top in a register (STK = REG_STACK), a deeper one
 // (STK_SMEM) the slots below its top in shared memory, one column per
 // thread: slot s of thread k at [s * threads + k], 4 * (depth - 1) *
@@ -617,9 +423,14 @@ __host__ __device__ inline size_t stack_smem_bytes(const SceneWords& sw,
   return (size_t)sw.rows * threads * sizeof(float) * (MATS ? 4 : 1);
 }
 
-// scene_distance over the packed words on route STK (DYN: the frame's
-// dynamic tape; the top starts at max_dist and a NOP is skipped). With a
-// tile mask a leaf whose bit is clear reads CULL_FAR.
+// The distance from p to the scene over the packed words on route STK.
+// DYN reads the frame's dynamic tape (compile_scene(static=False)),
+// NOP-padded to its bucket: as in the reference's interpreter
+// (sdf.py:523-527) the top starts at max_dist, so that an all-NOP tape is
+// the empty scene, and a NOP is skipped. With a tile mask (the gated tape
+// of a culled frame) a leaf whose bit is clear reads CULL_FAR instead of
+// its distance: exact for hits, shading and the escape test by the lemma
+// of ops/culling.py.
 template <bool DYN, int STK>
 __device__ __forceinline__ float words_distance(const SceneWords& sw, float px,
                                                 float py, float pz,
@@ -674,8 +485,18 @@ __device__ __forceinline__ float words_distance(const SceneWords& sw, float px,
   return top;
 }
 
-// scene_color over the packed words: the distance and the albedo the tape
-// carries to p, its four stacks on route STK.
+// The scene distance at p, and in rgb the albedo the tape carries to it,
+// over the packed words, its four stacks on route STK: the static branch of
+// pallas_march.py:_make_scene_color_eval (893-909,
+// sdf._apply_static_tape_color). A leaf's colour is its own albedo where
+// its material flag is set, else def (the config albedo); hard ops take
+// the winner's colour by the tie rule of oracle.eval_tape_color (union
+// a <= b, intersection a >= b, subtraction a >= -b), smooth ops blend the
+// two by mat_weight_smooth, round and onion keep their operand's. With a
+// tile mask a culled leaf reads CULL_FAR with the default colour. The
+// kernels call it once per hit ray, not per march step. DYN as in
+// words_distance: the top starts at (max_dist, def) and a NOP is skipped
+// (sdf._apply_dynamic_tape_color).
 template <bool DYN, int STK>
 __device__ __forceinline__ float words_color(const SceneWords& sw, float px,
                                              float py, float pz,
@@ -772,7 +593,6 @@ __device__ __forceinline__ float words_color(const SceneWords& sw, float px,
 // K5-K7 take MODE 0 or 3 (march.cuh), which read neither cv nor tile.
 template <int MODE, int STK>
 struct WordScene {
-  static constexpr bool TAP_LOOP = true;  // fine.cuh tet_normal
   const SceneWords& sw;
   const CullView& cv;
   int tile;
@@ -796,27 +616,6 @@ struct WordScene {
   __device__ __forceinline__ void color(float px, float py, float pz,
                                         const float* def, float rgb[3]) const {
     words_color<mode_dyn(MODE), STK>(sw, px, py, pz, def, rgb, mask());
-  }
-};
-
-// The same over SceneView's interpreter (scene_distance_tile,
-// scene_color): the scene function of K3.
-template <int MODE>
-struct TileScene {
-  static constexpr bool TAP_LOOP = false;
-  const SceneView& sc;
-  const CullView& cv;
-  int tile;
-
-  __device__ __forceinline__ float operator()(float px, float py,
-                                              float pz) const {
-    return scene_distance_tile<MODE>(sc, cv, tile, px, py, pz);
-  }
-  __device__ __forceinline__ void color(float px, float py, float pz,
-                                        const float* def, float rgb[3]) const {
-    scene_color<mode_dyn(MODE)>(
-        sc, px, py, pz, def, rgb,
-        mode_culled(MODE) ? cv.masks + (size_t)tile * cv.n_words : nullptr);
   }
 };
 

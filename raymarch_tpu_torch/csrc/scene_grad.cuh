@@ -8,7 +8,7 @@
 // raymarch_tpu/ops/oracle_grad.py (71-290), here in the f32 op order of
 // the forward.
 //
-// tape_forward(p) evaluates the tape at p as scene_distance does and keeps
+// tape_forward(p) evaluates the tape at p as words_distance does and keeps
 // the reverse records of each combine instruction in a record set; then
 // tape_reverse walks the tape backwards with a cotangent stack: every leaf
 // adds seed * dF/dparam to its 16-word bank row, every round/onion/smooth
@@ -29,7 +29,7 @@
 // memory where a tape's records do not fit beside the block's other
 // threads' (ops/cuda_grad.py GradLayout chooses).
 //
-// color_forward_rec and color_adjoint are the colour walk of scene_color
+// color_forward_rec and color_adjoint are the colour walk of words_color
 // (scene_eval.cuh) for a painted scene and its reverse: the albedo
 // cotangent reaches each contributing leaf's albedo and flag words and,
 // through the smooth blend weights (mat_weight_smooth), both operand
@@ -659,7 +659,7 @@ __device__ __forceinline__ V3 leaf_adjoint(const float* __restrict__ P,
 }
 
 // The result of combine instruction op on operands a, b (round and onion
-// read a alone) and op word k, in scene_distance's operation order.
+// read a alone) and op word k, in words_distance's operation order.
 __device__ __forceinline__ float combine(int op, float a, float b, float k) {
   switch (op) {
     case COP_ROUND:
@@ -683,7 +683,7 @@ __device__ __forceinline__ float combine(int op, float a, float b, float k) {
   }
 }
 
-// The scene distance at p as scene_distance computes it, keeping the
+// The scene distance at p as words_distance computes it, keeping the
 // records of every combine instruction in set `rs` of rec: each code in a
 // register until its word of 16 is full, each smooth op's e as it comes.
 __device__ __forceinline__ float tape_forward(const BwdTape& tp, V3 p,
@@ -787,7 +787,7 @@ __device__ __forceinline__ void mat_weight_adj(float d, float k, float gw,
   if (k >= 1e-8f) gk = -gw * q / (kc * kc);
 }
 
-// The colour walk of scene_color (no tile mask) at p, keeping in set rs
+// The colour walk of words_color (no tile mask) at p, keeping in set rs
 // (colour_set) every combine instruction's code and, for a smooth op, e
 // and the difference of its operands' colours (4 floats): the weight of a
 // hard op is its code's winner, that of a smooth op mat_weight_smooth of
@@ -1107,7 +1107,7 @@ __device__ __forceinline__ void ray_backward(
   float gdiff = 0.0f;
   float alb[3] = {p.albedo[0], p.albedo[1], p.albedo[2]};
   float galb[3];
-  // The albedo at the surface point (the forward's scene_color, un-gated as
+  // The albedo at the surface point (the forward's words_color, un-gated as
   // the reference's backward is), recorded in the colour set.
   if constexpr (MATS) color_forward_rec(tp, pt, p.albedo, alb, rec, colour_set(tp));
   float fc[3] = {0.0f, 0.0f, 0.0f};

@@ -23,7 +23,7 @@ holds what surrounds it:
 - The segmented compact plan (`build_compact_plan`, 249-438, with
   `_pack_seg_entry`, `_lin_subtree`, `_split_sensitive`, copied), its
   device form (`PlanBuffers`), and `scene_compact_plain`, the plain version
-  of `scene_distance_compact` in csrc/scene_eval.cuh (the O(active)
+  of `compact_fold` in csrc/scene_eval.cuh (the O(active)
   evaluator `_make_scene_eval_compact`, 493-660, over per-tile lists).
 - The flat march kernels K5, K6 and K7 (csrc/march.cuh, over the packed
   words as K1/K2): their wrappers (`ray_march`, `image_march`,
@@ -337,7 +337,7 @@ def _leaf_distance_plain(P, ltype, rotated, px, py, pz):
 
 def scene_plain(scene: SceneBuffers, max_dist: float, px, py, pz, cull=None):
     """Scene distance at points (px, py, pz) of any one shape, in plain
-    torch: the plain version of `scene_distance` in csrc/scene_eval.cuh.
+    torch: the plain version of `words_distance` in csrc/scene_eval.cuh.
     `cull(row)` (a bool tensor like the points) gates leaves as the tile
     mask of the kernel's gated tape does (`sdf._apply_static_tape`). A
     dynamic scene runs its tape (read to the host) on the reference's stack
@@ -807,7 +807,7 @@ def leaf_rgb_plain(P, default_rgb):
 
 def scene_color_plain(scene: SceneBuffers, max_dist: float, default_rgb, px, py, pz, cull=None):
     """(distance, (r, g, b)) at points (px, py, pz) through the whole static
-    tape with materials: the plain version of `scene_color` in
+    tape with materials: the plain version of `words_color` in
     csrc/scene_eval.cuh (`sdf._apply_static_tape_color`, gated per leaf by
     `cull(row)` as `scene_plain` is)."""
     from .sdf import _apply_dynamic_tape_color, _apply_static_tape_color
@@ -967,7 +967,7 @@ def pool_albedo_plain(scene: SceneBuffers, plan, active, default_rgb, px, py, pz
 
 def scene_compact_plain(scene: SceneBuffers, plan, active, px, py, pz, work: FoldWork | None = None):
     """Scene distance through a compact plan with per-point active sets, in
-    plain torch: the plain version of `scene_distance_compact`
+    plain torch: the plain version of `compact_fold`
     (csrc/scene_eval.cuh). `active(row)` is a bool tensor that broadcasts
     against the points: True where the leaf is in the point's tile list.
     Items are visited in plan order and a culled item is skipped, which is

@@ -56,15 +56,14 @@ passes' interval builds keep a block's intervals in registers, above it
 their builds in csrc/intervals_wide.cu read them in place from the planes;
 the coarse scan writes them in place for any count.
 
-The coarse, fine and unpacked fine kernels read the scene as packed words
-(`SceneBuffers.words`, one 16-byte word per instruction; float4 leaf rows)
-and keep the value stack out of local memory on the route the spec's
-stack depth picks (`cuda_march.stack_route`: its top and the slots below
-it in registers up to a depth of REG_STACK, else the slots below the top
-in shared memory); each launch names its route. Every build of theirs is
-compiled without FMA contraction, so its planes and (t, hit) equal its
-plain version's. K3 keeps the tape interpreter of scene_eval.cuh's
-`scene_distance`.
+The coarse, chained pixel, fine and unpacked fine kernels read the scene
+as packed words (`SceneBuffers.words`, one 16-byte word per instruction;
+float4 leaf rows) and keep the value stack out of local memory on the
+route the spec's stack depth picks (`cuda_march.stack_route`: its top and
+the slots below it in registers up to a depth of REG_STACK, else the slots
+below the top in shared memory); each launch names its route. Every build
+of theirs is compiled without FMA contraction, so its planes and (t, hit)
+equal its plain version's.
 
 Each wrapper takes tensors on one device. On the CPU it runs its plain
 version (`coarse_plain`, `coarse_px_plain`, `fine_plain`: vectorised torch
@@ -488,7 +487,7 @@ def albedo_fn_plain(scene: SceneBuffers, p: PrepassParams, cull: TileCull | None
     or None for a material-free scene (every hit shades with cfg.albedo).
     The static tape with materials (`scene_color_plain`), gated by the
     tile's leaf mask under culling in either mode, as the fine kernel's
-    `scene_color` is."""
+    `words_color` is."""
     if not scene.spec.has_materials:
         return None
     active = None if cull is None else tile_active(scene.spec, cull, tid)
@@ -1144,13 +1143,8 @@ def _scene_ptrs(scene: SceneBuffers):
     )
 
 
-def _scene_ptrs_dyn(scene: SceneBuffers):
-    """`_scene_ptrs` and the DYN flag, as K3's and K4's launchers take them."""
-    return (*_scene_ptrs(scene), int(scene.dynamic))
-
-
 def _words_ptrs(scene: SceneBuffers):
-    """The scene as K1's and K2's launchers take it -> (pointers, the leaf
+    """The scene as the launchers of K1-K4 take it -> (pointers, the leaf
     rows they point at): the leaf rows (float4 loads: 16-byte aligned; a
     view that is not is copied), row kinds, the packed words, the
     instruction count, op params, the DYN flag, the value stack's route
@@ -1270,10 +1264,11 @@ def coarse_px(scene: SceneBuffers, cam, bound, p: PrepassParams, t_blk, status_b
     planes = torch.empty((2, p.rows, p.width), dtype=torch.float32, device=dev)
     cp = _CParams.of(p)
     cb = _CBlockParams.of(p)
+    ptrs, _rows = _words_ptrs(scene)  # the rows are held until the launch is queued
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.rmt_coarse_px_launch(
-            *_scene_ptrs_dyn(scene), cam.data_ptr(), bound.data_ptr(), ctypes.addressof(cp),
+            *ptrs, cam.data_ptr(), bound.data_ptr(), ctypes.addressof(cp),
             t_blk.data_ptr(), status_blk.data_ptr(), planes.data_ptr(), planes[1].data_ptr(),
             ctypes.addressof(cb), stream,
         )

@@ -199,7 +199,7 @@ def _apply_static_tape(spec: TapeSpec, op_param, leaf_fn, max_dist, like, cull=N
     to FAR less at most the sum of its |op_param| instead of FAR, which is
     above max_dist all the same, so hits, shading and the escape test are those of the gated
     tape (the lemma of culling.py). This is the plain version of the
-    kernels' masked `scene_distance`."""
+    kernels' masked `words_distance`."""
     from .culling import FAR
 
     root = _static_tree(spec)

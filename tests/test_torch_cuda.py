@@ -498,14 +498,63 @@ def test_block_and_chained_frames_match_plain(dev, kw):
     assert float((img - ref).abs().mean()) < 5e-4
     assert _neigh_frac(img, ref) < 0.008
     if chain:
+        # K3 rounds as its plain version (-fmad=false): equal at every pixel.
         sc, cam, bound = rp.scene_args(arrays, cam_vec)
         blk = cp.coarse(sc, cam, bound, rp.params)
         got = cp.coarse_px(sc, cam, bound, rp.params, *blk)
         t0p, stp = cp.coarse_px_plain(sc, cam, bound, rp.params, *blk)
-        assert float((got[1] == stp).float().mean()) >= 0.999
-        both = (got[1] == 1) & (stp == 1)
-        rel = (got[0][both] - t0p[both]).abs() / t0p[both].abs()
-        assert int(both.sum()) > 0 and float((rel > 1e-4).float().mean()) < 5e-3
+        assert torch.equal(got[1], stp) and torch.equal(got[0], t0p)
+        assert int(stp.sum()) > 0
+
+
+def deep4(m):
+    """A union over a subtraction of a union: stack depth 4."""
+    return m.sphere(center=(-0.5, 0.0, 0.0), radius=0.8) | (
+        m.box(center=(0.6, 0.0, 0.0), half_extents=(0.5, 0.5, 0.5), rotation=Q)
+        - (m.torus(center=(0.6, 0.4, 0.0), major_radius=0.5, minor_radius=0.2)
+           | m.cylinder(center=(0.6, 0.0, 0.3), radius=0.2, half_height=0.8)))
+
+
+def deep8(m):
+    """Five nested binary ops over every primitive but the plane, one of
+    them smooth: stack depth 8."""
+    return m.sphere(center=(-0.6, 0.0, 0.0), radius=0.8) | (
+        m.box(center=(0.6, 0.0, 0.0), half_extents=(0.6, 0.5, 0.5), rotation=Q)
+        - (m.torus(center=(0.6, 0.4, 0.0), major_radius=0.5, minor_radius=0.2)
+           & (m.cylinder(center=(0.6, 0.0, 0.3), radius=0.3, half_height=0.8)
+              | (m.capsule(center=(0.4, 0.3, -0.3), radius=0.25, half_height=0.4)
+                 .subtract(m.cone(center=(0.5, 0.2, -0.2), half_height=0.5, r_bottom=0.4, r_top=0.1), k=0.1)))))
+
+
+# The chained pixel kernel K3 on every stack route: config 2 (depth 2, a
+# register) and the deep tapes (depth 4 and 8, shared memory), static and
+# dynamic.
+DEEP = {"config2": (_config2, 2), "deep4": (deep4, 4), "deep8": (deep8, 8)}
+
+
+@pytest.mark.parametrize("static", [True, False], ids=["static", "dyn"])
+@pytest.mark.parametrize("name", sorted(DEEP))
+def test_chained_pixel_pass_matches_plain_exactly(dev, name, static):
+    from raymarch_tpu_torch.ops import cuda_march as cm
+
+    fn, depth = DEEP[name]
+    spec, arrays = rt.compile_scene(fn(rt), static=static)
+    assert spec.stack_depth == depth
+    assert cm.stack_route(spec) == (cm.REG_STACK if depth <= cm.REG_STACK else cm.STK_SMEM)
+    rp = cp.make_pallas_image_render_aa(spec, CFG, W, H, device=dev, prepass_block=4, prepass_chain=True)
+    cam_vec = rt.cam_vec(CAM, device=dev)
+    sc, cam, bound = rp.scene_args(arrays, cam_vec)
+    blk = cp.coarse(sc, cam, bound, rp.params)
+    cp.reset_launch_counts()
+    got = cp.coarse_px(sc, cam, bound, rp.params, *blk)
+    assert (cp.coarse_px.launches, cp.coarse_px.dyn_launches) == ((1, 0) if static else (0, 1))
+    t0p, stp = cp.coarse_px_plain(sc, cam, bound, rp.params, *blk)
+    assert torch.equal(got[1], stp) and torch.equal(got[0], t0p)
+    assert int(stp.sum()) > 0 and int((stp == 0).sum()) > 0
+    img = rp(arrays, cam_vec)
+    ref = rp.render_plain(arrays, cam_vec)
+    assert float((img - ref).abs().mean()) < 5e-4
+    assert _neigh_frac(img, ref) < 0.008
 
 
 def _long_tape(m, n=64):

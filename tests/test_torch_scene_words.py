@@ -302,20 +302,21 @@ def test_balanced_words_match_jax(n_leaves, stack_depth, gated, points):
 
 
 def test_k12_sources_build_without_contraction():
-    """Every source that instantiates a K1/K2 build, and every source of the
-    unpacked fine pass K4, is compiled with -fmad=false (each operation
-    rounds as the plain versions'), and K3's source keeps nvcc's default."""
+    """Every source that instantiates a K1/K2 build or the chained pixel
+    kernel K3, and every source of the unpacked fine pass K4, is compiled
+    with -fmad=false (each operation rounds as the plain versions')."""
     from raymarch_tpu_torch import _build
 
     k12 = {src.name for src in _build.CSRC.glob("*.cu")
            if any(k in src.read_text() for k in ("launch_fine_hard<", "launch_fine_march<", "launch_coarse<",
-                                                 "fine_wide<", "launch_fine_soft("))}
+                                                 "fine_wide<", "launch_fine_soft(", "coarse_px_kernel<"))}
     assert k12 == set(_build.K12_SOURCES)
+    assert "coarse_px.cu" in k12
     k4 = {src.name for src in _build.CSRC.glob("*.cu") if "launch_unpacked<" in src.read_text()}
     assert k4 == set(_build.K4_SOURCES)
     for name in (*_build.K12_SOURCES, *_build.K4_SOURCES):
         assert "-fmad=false" in _build.SOURCE_FLAGS[name]
-    assert "coarse_px.cu" not in _build.SOURCE_FLAGS
+    assert "-fmad=false" in _build.SOURCE_FLAGS["coarse_px.cu"]
 
 
 def test_far_is_the_kernels():
