@@ -165,14 +165,35 @@ Run from the repository root: `python3 chip_smoke.py`. It
    bench.py's gate camera: the headline frame in bench.py's accelerated
    class, the frames without a prepass (K2's no-prepass build, the
    headline and the strict-reference configs) within max|d| < 1e-3;
-18. prints one JSON line of per-kernel records (time, plain time, launches,
+18. multi-device, the row-sharded renderer and fit step
+   (`raymarch_tpu_torch.parallel`): (a) one rank in an NCCL group of one
+   at 1920x1080 with 16 AA rays per pixel: `make_sharded_renderer(backend=
+   "pallas_prepass", row_interleave=4)` against `make_renderer`'s frame
+   (max|d| < 1e-3) with its ms/frame and launches (K1 and K2 once a band),
+   a `make_fit_step(backend="pallas_fused", row_interleave=4)` step's loss
+   and reduced gradients against the single-band step's (K1, K2 with
+   residuals and K8 once a band), both steps' ms, and K1, K2 and K8 alone
+   on the middle band against their plain versions; (b) the same step on
+   the 64 spheres of `fwdbwd_64leaf_compact` (K9 once a band, against the
+   single-band step), `cull_args` a band, the culled kernels alone on the
+   middle band, and at the 256x144 gate the sharded step against the
+   single-band step and the port's f64 gradient oracle (`ops/oracle_grad.py`)
+   on seeded hit pixels; (c) two ranks of this script (`--rank`) on the one
+   card through gloo with CUDA tensors, 2 bands each: their gathered frame
+   bit-equal to (a)'s, their loss, gradients and SGD-updated parameters
+   equal to each other and to (a)'s (rtol 1e-5; gradients in their
+   class); (d) while they run, the band kernels against their plain
+   versions at the 256x144 gate on a band of 37 rows (K1, K2 with
+   residuals, K8 on config 2; the culled K1, K2 and K9 on 64 spheres; K4
+   with shared normals) and a band reaching past the image (finite);
+19. prints one JSON line of per-kernel records (time, plain time, launches,
    the roofline bound from this run's counted work) for the headline
    builds, the culled builds of the 64-leaf path, the compact backward per
    plan kind, the fine kernel with materials, the interval and block
    builds of the coarse and fine kernels and K3, K8's builds of phase 12,
    the fine kernel at B = 4 with residuals and at aa = 8, the soft builds
    of phase 13, K5, K6, K7 (per AA ray and per pixel) and K2's march-only build of phase 14, the DYN
-   builds and K4 of phase 15, then the script's total seconds and, last,
+   builds and K4 of phase 15, the band builds of phase 18, then the script's total seconds and, last,
    {"ok": true, "device": {...}}.
 
 Any failed check raises, so the script exits non-zero and prints no result.
@@ -3402,6 +3423,518 @@ def oracle_phase(rt, cp, dev, smi):
     return out
 
 
+# --- phase 18: multi-device (the row-sharded renderer and fit step) --------------
+SHARD_K = 4  # bands of the one-rank runs of 18a/18b: 4 x 270 rows at 1080p
+MID_BAND = 2  # the band whose kernels are timed alone (rows 540-810: the scene's centre)
+BAND_GATE = (83, 37)  # (first row, rows) of the uneven gate band at 256x144: across config 2's lower edge
+BAND_PAST = (120, 37)  # a gate band that reaches 13 rows past the image (config 2: floor only)
+ORACLE_PIXELS = 48  # pixels of 18b's gate held against the f64 oracle (~7 ms a ray on the card's host)
+RANK_WORLD = 2  # 18c: ranks on the one card (gloo), each with SHARD_K // RANK_WORLD bands
+RANK_TIMEOUT_S = 240
+
+
+def Recorder(params):
+    """An optimizer over `params` that moves nothing and keeps the
+    gradients it is given (`.grads`): the fit step's reduced gradients."""
+    import torch
+
+    class _Recorder(torch.optim.Optimizer):
+        def __init__(self, ps):
+            super().__init__(ps, {})
+            self.grads = None
+
+        def step(self, closure=None):
+            self.grads = [p.grad.detach().clone() for g in self.param_groups for p in g["params"]]
+
+    return _Recorder(params)
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def fit_grads(step, arrays, camera, target):
+    """(loss, (d_lp, d_opp, d_cam f32[8])) of one step of `step` (built with
+    Recorder optimizers and fit_camera), in grad_class's layout."""
+    import torch
+
+    st = step.init_opt_state(arrays, camera)
+    _, _, st, loss = step(arrays, camera, st, target)
+    g = st.optimizer.grads + st.cam_optimizer.grads
+    return float(loss), (g[0], g[1], torch.cat([g[2], g[3], torch.zeros(1, device=g[2].device)]))
+
+
+def sharded_program(rt, mesh, dev, k, cfg):
+    """The headline's sharded frame and fit step on `mesh` at row_interleave
+    `k`: the frame's float64 checksum and digest, the loss and reduced
+    gradients of a step against a constant target, and the parameters and
+    pose after one SGD step (lr 1e-2). 18a runs it on one rank (k = 4), 18c
+    on each of two ranks (k = 2): the same 270-row bands."""
+    import functools
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    from raymarch_tpu_torch.parallel import make_fit_step, make_sharded_renderer
+
+    spec, arrays = rt.compile_scene(scene_config2(rt), static=True)
+    camera = rt.Camera.looking_at(position=(0.0, 1.6, 4.2), target=(0.0, 0.0, 0.0))
+    img = make_sharded_renderer(spec, WIDTH, HEIGHT, mesh, cfg, backend="pallas_prepass", row_interleave=k)(
+        arrays, camera)
+    host = img.cpu().numpy()
+    target = torch.full((HEIGHT, WIDTH, 3), 0.2, device=dev)
+    kw = dict(backend="pallas_fused", fit_camera=True, row_interleave=k)
+    loss, g = fit_grads(make_fit_step(spec, WIDTH, HEIGHT, mesh, Recorder, cfg, camera_optimizer=Recorder, **kw),
+                        arrays, camera, target)
+    sgd = functools.partial(torch.optim.SGD, lr=1e-2)
+    step = make_fit_step(spec, WIDTH, HEIGHT, mesh, sgd, cfg, camera_optimizer=sgd, **kw)
+    a, cam, _, loss_sgd = step(arrays, camera, step.init_opt_state(arrays, camera), target)
+    out = dict(checksum=np.float64(host.astype(np.float64).sum()),
+               digest=np.frombuffer(hashlib.sha256(host.tobytes()).digest(), np.uint8),
+               loss=np.float64(loss), loss_sgd=np.float64(float(loss_sgd)))
+    out.update({f"g{i}": v.cpu().numpy() for i, v in enumerate(g)})
+    out.update(lp=a.leaf_params.cpu().numpy(), op=a.op_param.cpu().numpy(), pos=cam.position.cpu().numpy(),
+               rot=cam.rotation.cpu().numpy())
+    return img, out
+
+
+def rank_main(rank: int, world: int, port: int, out: str, device: str) -> int:
+    """One rank of 18c (`chip_smoke.py --rank R --world N --port P --out F
+    --device D`, D the parent's device): joins a gloo group with tensors on
+    D (two ranks on one card: NCCL refuses a duplicate GPU), runs
+    `sharded_program` at row_interleave SHARD_K // world, writes its
+    results to F."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    if device.startswith("cuda") and not torch.cuda.is_available():
+        print("chip_smoke rank: CUDA is not available", file=sys.stderr)
+        return 2
+    import raymarch_tpu_torch as rt
+    from raymarch_tpu_torch.ops.cuda_prepass import resolve_device
+    from raymarch_tpu_torch.parallel import initialize_multihost, make_mesh
+
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    t0 = time.perf_counter()
+    initialize_multihost(f"localhost:{port}", world, rank, retries=3, retry_delay=2.0, initialization_timeout=120,
+                         backend="gloo", device=dev)
+    try:
+        mesh = make_mesh(device=dev)
+        if dist.get_backend() != "gloo" or mesh.shape["rays"] != world or mesh.device != dev:
+            raise AssertionError(f"rank {rank}: unexpected mesh {mesh} on {dist.get_backend()}")
+        cfg = dataclasses.replace(rt.DEFAULT_CONFIG, bound_accel=True, exit_check_every=4)
+        t1 = time.perf_counter()
+        _, res = sharded_program(rt, mesh, dev, SHARD_K // world, cfg)
+        np.savez(out, **res)
+        print(f"rank {rank}/{world} (gloo, tensors on {dev}): set-up {t1 - t0:.2f} s, program "
+              f"{time.perf_counter() - t1:.2f} s, loss {float(res['loss']):.8f}", flush=True)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def sphere_pool_words(tape):
+    """{wire word: (leaf row, column)} of a hard union of spheres: the
+    spheres' rows in wire order, centre and radius in columns 4-7
+    (tests/test_grad_oracle.py:_word_map for this one leaf type)."""
+    from raymarch_tpu_torch.ops import opcodes as oc
+
+    out, i, row = {}, 0, 0
+    while i < len(tape):
+        op = int(tape[i])
+        n = oc.WIRE_PARAM_COUNT[op]
+        if op == oc.OP_SPHERE:
+            out.update({i + 1 + c: (row, 4 + c) for c in range(n)})
+            row += 1
+        elif n:
+            raise ValueError(f"not a hard union of spheres: opcode {op} has parameters")
+        i += 1 + n
+    return out
+
+
+def band_gates(rt, cp, cg, dev, cfg, cfg64, gcam_pos):
+    """18d: the band kernels against their plain versions at the 256x144
+    gate on the uneven band BAND_GATE, at the gates of their full-frame
+    forms: K1 (planes), K2 with residuals, K8 (config 2), the culled K1/K2
+    and K9 (64 spheres), K4 with aa_shared_normals; and config 2's frame on
+    BAND_PAST, whose rows past the image must be finite and in the image
+    class of the plain version. Returns {"fused_bwd": K8's error,
+    "compact_bwd": K9's}."""
+    import torch
+
+    i0, rows = BAND_GATE
+    err = {}
+    for gname, build, pos, c in (("config 2", scene_config2, gcam_pos, cfg),
+                                 ("64 spheres", scene_spheres, (0.0, 2.5, 9.0), cfg64)):
+        spec, arrays = rt.compile_scene(build(rt), static=True)
+        fr = cg.make_fused_render_vjp(spec, c, GATE_W, GATE_H, band_rows=rows, device=dev)
+        rp, p = fr.prepass, fr.params
+        cv = rt.cam_vec(rt.Camera.looking_at(position=pos, target=(0, 0, 0)), i0, device=dev)
+        sc, cam, bnd = rp.scene_args(arrays, cv)
+        cc, fc = rp.cull_args(sc, cam)
+        what = f"{gname}, band of {rows} rows from row {i0} of {GATE_H}"
+        pre_k = cp.coarse(sc, cam, bnd, p, cc)
+        coarse_agreement(f"gate band coarse kernel vs coarse_plain, {what}", pre_k,
+                         cp.coarse_plain(sc, cam, bnd, p, cc), strict=True)
+        img_k, t_k, hit_k = cp.fine_res(sc, cam, bnd, p, *pre_k, cull=fc)
+        img_p, t_p, hit_p = cp.fine_res_plain(sc, cam, bnd, p, *pre_k, cull=fc)
+        image_class(f"gate band fine kernel with residuals vs fine_res_plain, {what}", img_k, img_p)
+        residual_agreement(f"gate band residuals vs fine_res_plain, {what}", (t_k, hit_k), (t_p, hit_p),
+                           strict=not c.leaf_cull)  # phase 9 holds the culled relaxed residuals so
+        if img_k.shape != (rows, GATE_W, 3) or not bool(torch.isfinite(img_k).all()):
+            raise AssertionError(f"the band's frame is {tuple(img_k.shape)} or not finite ({what})")
+        g_img = seeded_cotangent(rows, GATE_W, dev, 11)
+        if fr.compact_bwd:
+            clamp = float(c.grad_denom_clamp)
+            got = cg.compact_bwd(sc, fc, cam, p, clamp, t_k, hit_k, g_img)
+            ref = cg.compact_bwd_plain(sc, fc, cam, p, clamp, t_k, hit_k, g_img)
+            name = "compact_bwd"
+        else:
+            got = cg.bwd(sc, cam, p, fr.layout, t_k, hit_k, g_img)
+            ref = cg.bwd_plain(sc, cam, p, fr.layout, t_k, hit_k, g_img)
+            name = "fused_bwd"
+        err[name] = grad_class(f"gate band {name} kernel vs its plain version, {what} ({int(hit_k.sum())} hit rays)",
+                               got, ref)
+    spec, arrays = rt.compile_scene(scene_config2(rt), static=True)
+    j0, past = BAND_PAST
+    fr = cg.make_fused_render_vjp(spec, cfg, GATE_W, GATE_H, band_rows=past, device=dev)
+    sc, cam, bnd = fr.prepass.scene_args(arrays, rt.cam_vec(rt.Camera.looking_at(position=gcam_pos, target=(0, 0, 0)),
+                                                            j0, device=dev))
+    pre_k = cp.coarse(sc, cam, bnd, fr.params)
+    img_k = cp.fine_res(sc, cam, bnd, fr.params, *pre_k)[0]
+    if not bool(torch.isfinite(img_k).all()):
+        raise AssertionError("the band past the image has non-finite pixels")
+    image_class(f"gate band past the image ({past} rows from row {j0} of {GATE_H}) fine kernel vs fine_res_plain",
+                img_k, cp.fine_res_plain(sc, cam, bnd, fr.params, *cp.coarse_plain(sc, cam, bnd, fr.params))[0])
+    cfg_sn = dataclasses.replace(cfg, aa_shared_normals=True)
+    rp = cp.make_pallas_image_render_aa(spec, cfg_sn, GATE_W, GATE_H, device=dev, band_rows=rows)
+    if not rp.params.unpacked:
+        raise AssertionError("aa_shared_normals should take K4")
+    sc, cam, bnd = rp.scene_args(arrays, rt.cam_vec(rt.Camera.looking_at(position=gcam_pos, target=(0, 0, 0)), i0,
+                                                    device=dev))
+    pre = rp.prepass(sc, cam, bnd, None)
+    image_class(f"gate band K4 (aa_shared_normals) vs fine_unpacked_plain, band of {rows} rows from row {i0}",
+                cp.fine_unpacked(sc, cam, bnd, rp.params, *pre),
+                cp.fine_unpacked_plain(sc, cam, bnd, rp.params, *pre)[0])
+    return err
+
+
+def multi_device(rt, cp, cg, dev, smi, cfg, gcam_pos):
+    """Phase 18: the row-sharded renderer and fit step (see the module
+    docstring). Returns the band kernels' records and the numbers the
+    summary prints."""
+    from pathlib import Path
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from raymarch_tpu_torch.ops.oracle_grad import pixel_grads
+    from raymarch_tpu_torch.parallel import initialize_multihost, make_fit_step, make_mesh, make_sharded_renderer
+
+    t_phase = time.perf_counter()
+    out = {}
+    cfg64 = dataclasses.replace(cfg, relax=1.6, leaf_cull=True)
+    # -- 18a. one rank through NCCL at full width -----------------------------
+    initialize_multihost(f"localhost:{free_port()}", 1, 0, initialization_timeout=120, backend="nccl", device=dev)
+    try:
+        mesh = make_mesh(device=dev)
+        if mesh.group is None or dist.get_backend() != "nccl":
+            raise AssertionError(f"18a should run through an NCCL group: {mesh}, {dist.get_backend()}")
+        spec, arrays = rt.compile_scene(scene_config2(rt), static=True)
+        camera = rt.Camera.looking_at(position=(0.0, 1.6, 4.2), target=(0.0, 0.0, 0.0))
+        render_s = make_sharded_renderer(spec, WIDTH, HEIGHT, mesh, cfg, backend="pallas_prepass",
+                                         row_interleave=SHARD_K)
+        render_1 = rt.make_renderer(spec, WIDTH, HEIGHT, cfg, mode="forward", backend="pallas_prepass", device=dev)
+        ms_1 = [timed_frames(cp, lambda: render_1(arrays, camera))[0]]
+        ms_s, host_s, launches_s = timed_frames(cp, lambda: render_s(arrays, camera))
+        ms_s = [ms_s, timed_frames(cp, lambda: render_s(arrays, camera))[0]]
+        ms_1.append(timed_frames(cp, lambda: render_1(arrays, camera))[0])
+        per_frame = {k: v / (WARMUP + FRAMES) for k, v in launches_s.items()}
+        log(f"18a sharded frame (1 rank, NCCL, row_interleave {SHARD_K}: bands {render_s.bands}) {WIDTH}x{HEIGHT} "
+            f"x16 AA: {ms_s[0]:.4f} / {ms_s[1]:.4f} ms/frame against the single frame {ms_1[0]:.4f} / "
+            f"{ms_1[1]:.4f} (CUDA events, S K K S; host clock {host_s:.4f} ms); launches a frame {per_frame} "
+            f"({smi})")
+        if per_frame["coarse_kernel"] != SHARD_K or per_frame["fine_kernel"] != SHARD_K:
+            raise AssertionError(f"the sharded frame should launch K1 and K2 once a band: {per_frame}")
+        img_s, res_a = sharded_program(rt, mesh, dev, SHARD_K, cfg)
+        img_1 = render_1(arrays, camera)
+        d_frame = float((img_s - img_1).abs().max())
+        log(f"18a sharded frame vs make_renderer's frame: max|d| {d_frame:.3e} (need < 1e-3; the same kernels "
+            f"per band) {'PASS' if d_frame < 1e-3 else 'FAIL'}")
+        if not d_frame < 1e-3:
+            raise AssertionError("the sharded frame differs from the single frame")
+        del img_1
+
+        target = torch.full((HEIGHT, WIDTH, 3), 0.2, device=dev)
+        kw = dict(backend="pallas_fused", fit_camera=True, camera_optimizer=Recorder)
+        step_s = make_fit_step(spec, WIDTH, HEIGHT, mesh, Recorder, cfg, row_interleave=SHARD_K, **kw)
+        step_1 = make_fit_step(spec, WIDTH, HEIGHT, mesh, Recorder, cfg, **kw)
+        cp.reset_launch_counts()
+        cg.reset_launch_counts()
+        loss_s, g_s = fit_grads(step_s, arrays, camera, target)
+        step_launches = {"coarse_kernel": cp.coarse.launches, "fine_kernel_residuals": cp.fine_res.launches,
+                         "fused_bwd_kernel": cg.bwd.launches, "compact_bwd_kernel": cg.compact_bwd.launches}
+        log(f"18a launches in one sharded step: {step_launches}")
+        if [step_launches[k] for k in ("coarse_kernel", "fine_kernel_residuals", "fused_bwd_kernel")] != [SHARD_K] * 3:
+            raise AssertionError(f"the sharded step should launch K1, K2 and K8 once a band: {step_launches}")
+        loss_1, g_1 = fit_grads(step_1, arrays, camera, target)
+        grad_class(f"18a sharded fit step ({SHARD_K} bands) vs the single-band step", g_s, g_1)
+        log(f"18a loss {loss_s:.9f} against the single-band step's {loss_1:.9f} (need rel < 1e-5)")
+        if not abs(loss_s - loss_1) <= 1e-5 * abs(loss_1):
+            raise AssertionError("the sharded loss differs from the single-band loss")
+
+        step_ms = [timed_step_of(st_, arrays, camera, target) for st_ in (step_1, step_s, step_s, step_1)]
+        log(f"18a fit step (fwd + bwd + all_reduce + optimizer) S K K S: {' / '.join(f'{v:.4f}' for v in step_ms)} "
+            f"ms (CUDA events, {BWD_STEPS} steps after 1) ({smi})")
+        out["frame_ms"], out["frame_1_ms"], out["step_ms"], out["step_1_ms"] = ms_s, ms_1, step_ms[1:3], step_ms[::3]
+
+        # The band kernels alone on the middle band, against their plain
+        # versions there (records; the frame's launches).
+        i0m, rows_m = render_s.bands[MID_BAND]
+        band_a = f"band of {rows_m} rows, {SHARD_K} a frame"
+        fr_b = cg.make_fused_render_vjp(spec, cfg, WIDTH, HEIGHT, band_rows=rows_m, device=dev)
+        p = fr_b.params
+        sc, cam, bnd = fr_b.prepass.scene_args(arrays, rt.cam_vec(camera, i0m, device=dev))
+        n_px, n_rays = rows_m * WIDTH, rows_m * WIDTH * cfg.aa_samples ** 2
+        pre_k = cp.coarse(sc, cam, bnd, p)
+        k1_ms = cuda_ms(lambda: cp.coarse(sc, cam, bnd, p), KERNEL_REPS)
+        k2_ms = cuda_ms(lambda: cp.fine(sc, cam, bnd, p, *pre_k), KERNEL_REPS)
+        k2r_ms = cuda_ms(lambda: cp.fine_res(sc, cam, bnd, p, *pre_k), KERNEL_REPS)
+        img_r, t_k, hit_k = cp.fine_res(sc, cam, bnd, p, *pre_k)
+        g_img = seeded_cotangent(rows_m, WIDTH, dev, 13) / n_px
+        k8_ms = cuda_ms(lambda: cg.bwd(sc, cam, p, fr_b.layout, t_k, hit_k, g_img), KERNEL_REPS)
+        work_c, work_f = cp.WorkCount(), cp.WorkCount()
+        pre_p, k1_plain = plain_ms(lambda: cp.coarse_plain(sc, cam, bnd, p, work=work_c))
+        k1_err = coarse_agreement(f"18a band coarse kernel vs coarse_plain (rows {i0m}-{i0m + rows_m})", pre_k, pre_p,
+                                  strict=False)
+        (img_p, t_p, hit_p), k2r_plain = plain_ms(lambda: cp.fine_res_plain(sc, cam, bnd, p, *pre_k, work=work_f))
+        k2_err = image_class("18a band fine kernel with residuals vs fine_res_plain", img_r, img_p)
+        residual_agreement("18a band residuals vs fine_res_plain", (t_k, hit_k), (t_p, hit_p), strict=False)
+        _, k2_plain = plain_ms(lambda: cp.fine_plain(sc, cam, bnd, p, *pre_k))
+        ref, k8_plain = plain_ms(lambda: cg.bwd_plain(sc, cam, p, fr_b.layout, t_k, hit_k, g_img))
+        k8_err = grad_class("18a band fused_bwd kernel vs bwd_plain",
+                            cg.bwd(sc, cam, p, fr_b.layout, t_k, hit_k, g_img), ref)
+        del img_p, t_p, hit_p, ref
+        k1_bound = roofline(march_flops(work_c, n_px, spec, False), n_px * 8)
+        k2_bound = roofline(march_flops(work_f, n_rays, spec, False, float(work_f.hits), fine=True), n_px * 20)
+        k2r_bound = roofline(march_flops(work_f, n_rays, spec, False, float(work_f.hits), fine=True),
+                             n_px * 20 + n_rays * 8)
+        *k8_bound_, _, _, _ = k8_bound(sc, p, cam, t_k, hit_k, fr_b.layout, n_rays)
+        log(f"18a band kernels alone (rows {i0m}-{i0m + rows_m}): K1 {k1_ms:.4f} ms (plain {k1_plain:.2f}, bound "
+            f"{k1_bound[0]:.4f}), K2 {k2_ms:.4f} (plain {k2_plain:.2f}, bound {k2_bound[0]:.4f}), K2 with residuals "
+            f"{k2r_ms:.4f} (plain {k2r_plain:.2f}, bound {k2r_bound[0]:.4f}), K8 {k8_ms:.4f} (plain {k8_plain:.2f}, "
+            f"bound {k8_bound_[0]:.4f}) ({smi})")
+        del t_k, hit_k
+
+        # -- 18b. the sharded compact backward (ROADMAP §3 fault 4) -----------
+        spec64, arrays64 = rt.compile_scene(scene_spheres(rt), static=True)
+        camera64 = rt.Camera.looking_at(position=(0.0, 2.5, 9.0), target=(0.0, 0.0, 0.0))
+        step_s64 = make_fit_step(spec64, WIDTH, HEIGHT, mesh, Recorder, cfg64, row_interleave=SHARD_K, **kw)
+        step_164 = make_fit_step(spec64, WIDTH, HEIGHT, mesh, Recorder, cfg64, **kw)
+        if step_s64.backward_info["kind"] != "pallas_compact":
+            raise AssertionError(f"the sharded 64-sphere step must take K9: {step_s64.backward_info}")
+        cp.reset_launch_counts()
+        cg.reset_launch_counts()
+        loss_s64, g_s64 = fit_grads(step_s64, arrays64, camera64, target)
+        launches64 = {"coarse_kernel": cp.coarse.launches, "fine_kernel_residuals": cp.fine_res.launches,
+                      "compact_bwd_kernel": cg.compact_bwd.launches, "fused_bwd_kernel": cg.bwd.launches}
+        log(f"18b launches in one sharded 64-sphere step (culled bands on the list tiles: {step_s64.bands}): "
+            f"{launches64}")
+        if [launches64[k] for k in ("coarse_kernel", "fine_kernel_residuals", "compact_bwd_kernel",
+                                    "fused_bwd_kernel")] != [SHARD_K, SHARD_K, SHARD_K, 0]:
+            raise AssertionError(f"the sharded 64-sphere step should launch K1, K2 and K9 once a band: {launches64}")
+        loss_164, g_164 = fit_grads(step_164, arrays64, camera64, target)
+        grad_class(f"18b sharded 64-sphere step ({SHARD_K} bands, K9 per band) vs the single-band step", g_s64, g_164)
+        log(f"18b loss {loss_s64:.9f} against the single-band step's {loss_164:.9f} (need rel < 1e-5)")
+        if not abs(loss_s64 - loss_164) <= 1e-5 * abs(loss_164):
+            raise AssertionError(f"the sharded 64-sphere loss {loss_s64} differs from {loss_164}")
+        step64_ms = [timed_step_of(st_, arrays64, camera64, target) for st_ in (step_164, step_s64)]
+        fr64 = cg.make_fused_render_vjp(spec64, cfg64, WIDTH, HEIGHT, band_rows=step_s64.bands[0][1], device=dev)
+        cull_ms = []
+        for i0, _ in step_s64.bands:
+            sc64, cam64, _ = fr64.prepass.scene_args(arrays64, rt.cam_vec(camera64, i0, device=dev))
+            cull_ms.append(cuda_ms(lambda: fr64.prepass.cull_args(sc64, cam64), KERNEL_REPS))
+        fr641 = cg.make_fused_render_vjp(spec64, cfg64, WIDTH, HEIGHT, device=dev)
+        sc64, cam64, _ = fr641.prepass.scene_args(arrays64, rt.cam_vec(camera64, device=dev))
+        cull_1 = cuda_ms(lambda: fr641.prepass.cull_args(sc64, cam64), KERNEL_REPS)
+        log(f"18b 64-sphere step single / sharded: {step64_ms[0]:.4f} / {step64_ms[1]:.4f} ms (CUDA events); "
+            f"cull_args a band {' / '.join(f'{v:.4f}' for v in cull_ms)} ms (sum {sum(cull_ms):.4f}) against "
+            f"{cull_1:.4f} for the whole frame ({smi})")
+        out.update(step64_ms=step64_ms, cull_ms=cull_ms, cull_1=cull_1)
+
+        # The culled band kernels alone on the middle band (records).
+        i0m, rows_m = step_s64.bands[MID_BAND]
+        p64 = fr64.params
+        n_px, n_rays = rows_m * WIDTH, rows_m * WIDTH * cfg64.aa_samples ** 2
+        sc, cam, bnd = fr64.prepass.scene_args(arrays64, rt.cam_vec(camera64, i0m, device=dev))
+        cc, fc = fr64.prepass.cull_args(sc, cam)
+        clamp = float(cfg64.grad_denom_clamp)
+        pre_k = cp.coarse(sc, cam, bnd, p64, cc)
+        c1_ms = cuda_ms(lambda: cp.coarse(sc, cam, bnd, p64, cc), KERNEL_REPS)
+        c2_ms = cuda_ms(lambda: cp.fine_res(sc, cam, bnd, p64, *pre_k, cull=fc), KERNEL_REPS)
+        img_r, t_k, hit_k = cp.fine_res(sc, cam, bnd, p64, *pre_k, cull=fc)
+        g_img = seeded_cotangent(rows_m, WIDTH, dev, 17) / n_px
+        k9_ms = cuda_ms(lambda: cg.compact_bwd(sc, fc, cam, p64, clamp, t_k, hit_k, g_img), KERNEL_REPS)
+        work_c, work_f = cp.WorkCount(), cp.WorkCount()
+        pre_p, c1_plain = plain_ms(lambda: cp.coarse_plain(sc, cam, bnd, p64, cc, work=work_c))
+        c1_err = coarse_agreement("18b band culled coarse kernel vs coarse_plain, 64 spheres", pre_k, pre_p,
+                                  strict=False)
+        (img_p, t_p, hit_p), c2_plain = plain_ms(lambda: cp.fine_res_plain(sc, cam, bnd, p64, *pre_k, cull=fc,
+                                                                           work=work_f))
+        c2_err = image_class("18b band culled fine kernel with residuals vs fine_res_plain, 64 spheres", img_r, img_p)
+        residual_agreement("18b band culled residuals vs fine_res_plain", (t_k, hit_k), (t_p, hit_p), strict=False)
+        del img_p, t_p, hit_p
+        ref, k9_plain = plain_ms(lambda: cg.compact_bwd_plain(sc, fc, cam, p64, clamp, t_k, hit_k, g_img,
+                                                              band_rows=32))
+        k9_err = grad_class("18b band compact_bwd kernel vs compact_bwd_plain, 64 spheres",
+                            cg.compact_bwd(sc, fc, cam, p64, clamp, t_k, hit_k, g_img), ref)
+        del ref
+        list_bytes = 4 * (fc.lists.numel() + fc.counts.numel())
+        c1_bound = roofline(march_flops(work_c, n_px, spec64, True), n_px * 8 + 4 * (cc.lists.numel()
+                                                                                    + cc.counts.numel()))
+        c2_bound = roofline(march_flops(work_f, n_rays, spec64, True, float(work_f.hits), fine=True),
+                            n_px * 20 + n_rays * 8 + list_bytes)
+        *k9_bound_, _, _ = k9_bound(sc, fc, p64, cam, t_k, hit_k, n_rays)
+        log(f"18b culled band kernels alone (rows {i0m}-{i0m + rows_m}): K1 {c1_ms:.4f} ms (plain {c1_plain:.2f}, "
+            f"bound {c1_bound[0]:.4f}), K2 with residuals {c2_ms:.4f} (plain {c2_plain:.2f}, bound {c2_bound[0]:.4f}), "
+            f"K9 {k9_ms:.4f} (plain {k9_plain:.2f}, bound {k9_bound_[0]:.4f}) ({smi})")
+        del t_k, hit_k
+
+        # The sharded gate step against the single-band one and the port's
+        # f64 oracle: its target is the single-band frame minus weights G
+        # on ORACLE_PIXELS hit pixels where the frame agrees with the
+        # oracle's, so the image cotangent is 2 G / (H W 3) there, 0 elsewhere.
+        spec_u, arrays_u = rt.compile_scene(scene_spheres(rt), static=True, rebalance=False)
+        fr_g = cg.make_fused_render_vjp(spec_u, cfg64, GATE_W, GATE_H, device=dev)
+        rp = fr_g.prepass
+        sc, cam, bnd = rp.scene_args(arrays_u, rt.cam_vec(camera64, device=dev))
+        cc, fc = rp.cull_args(sc, cam)
+        img_g, _, hit_g = cp.fine_res(sc, cam, bnd, fr_g.params, *rp.prepass(sc, cam, bnd, cc), cull=fc)
+        rng = np.random.default_rng(3)
+        px = rng.choice(np.flatnonzero(hit_g.amax(-1).reshape(-1).cpu().numpy() > 0), ORACLE_PIXELS, replace=False)
+        s = cfg64.aa_samples ** 2
+        idx = torch.as_tensor((px[:, None] * s + np.arange(s)[None, :]).reshape(-1))
+        o, d = rt.raygen_flat(idx, torch.tensor(camera64.position), torch.tensor(camera64.rotation), GATE_W, GATE_H,
+                              cfg64)
+        tape = rt.encode_wire(scene_spheres(rt))
+        t_o = time.perf_counter()
+        col, dcol, dcam = pixel_grads(tape, o.numpy(), d.numpy(), cfg64, cam_rotation=np.asarray(camera64.rotation))
+        oracle_s = time.perf_counter() - t_o
+        img_h = img_g.reshape(-1, 3).cpu().numpy()
+        agree = np.abs(img_h[px] - col.reshape(-1, s, 3).mean(1)).max(-1) < 1e-4
+        G = np.zeros((GATE_H * GATE_W, 3))
+        G[px] = rng.uniform(0.5, 1.5, (ORACLE_PIXELS, 3)) * agree[:, None]
+        target_g = torch.tensor((img_h - G).reshape(GATE_H, GATE_W, 3).astype(np.float32), device=dev)
+        gate_s = make_fit_step(spec_u, GATE_W, GATE_H, mesh, Recorder, cfg64, row_interleave=SHARD_K, **kw)
+        gate_1 = make_fit_step(spec_u, GATE_W, GATE_H, mesh, Recorder, cfg64, **kw)
+        _, gg_s = fit_grads(gate_s, arrays_u, camera64, target_g)
+        _, gg_1 = fit_grads(gate_1, arrays_u, camera64, target_g)
+        grad_class(f"18b gate: sharded 64-sphere step ({SHARD_K} bands of {gate_s.bands[0][1]} rows) vs the "
+                   "single-band step", gg_s, gg_1)
+        gray = np.repeat(G[px][:, None, :], s, axis=1).reshape(-1, 3) * 2.0 / (GATE_H * GATE_W * 3) / s
+        o_words, o_cam = np.einsum("nc,ncw->w", gray, dcol), np.einsum("nc,ncw->w", gray, dcam)
+        lp_g = gg_s[0].cpu().numpy()
+        words = np.zeros(len(o_words))
+        for w, (r, c) in sphere_pool_words(tape).items():
+            words[w] = lp_g[r, c]
+        scale, cscale = np.abs(o_words).max(), np.abs(o_cam).max()
+        cam_g = gg_s[2][:7].cpu().numpy()
+        ok = (int(agree.sum()) >= 8 and scale > 0 and np.abs(words - o_words).max() <= 0.01 * scale
+              and np.abs(cam_g - o_cam).max() <= 0.02 * cscale)
+        log(f"18b gate: sharded 64-sphere step vs the port's f64 oracle (ops/oracle_grad.py; {int(agree.sum())} of "
+            f"{ORACLE_PIXELS} hit pixels agree within 1e-4, oracle {oracle_s:.2f} s): words max|d| "
+            f"{np.abs(words - o_words).max():.3e} of max|g| {scale:.3e}, camera max|d| "
+            f"{np.abs(cam_g - o_cam).max():.3e} of {cscale:.3e} (need <= 0.01, <= 0.02 of max|g|, >= 8 pixels) "
+            f"{'PASS' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("the sharded 64-sphere step disagrees with the f64 oracle")
+
+        # -- 18c. two ranks on the one card (gloo, CUDA tensors) -------------
+        rank_dir = Path(__file__).resolve().parent / "build" / "chip_smoke_ranks"
+        rank_dir.mkdir(parents=True, exist_ok=True)
+        port = free_port()
+        t_c = time.perf_counter()
+        procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--rank", str(r), "--world",
+                                   str(RANK_WORLD), "--port", str(port), "--out", str(rank_dir / f"rank{r}.npz"),
+                                   "--device", str(dev)],
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for r in range(RANK_WORLD)]
+        try:
+            # -- 18d. band gates, while the ranks start ------------------------
+            gate_err = band_gates(rt, cp, cg, dev, cfg, cfg64, gcam_pos)
+            outs = [p.communicate(timeout=RANK_TIMEOUT_S)[0] for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+        for r, (p, text) in enumerate(zip(procs, outs)):
+            for line in text.strip().splitlines()[-6:]:
+                log(f"  18c rank {r}: {line}")
+            if p.returncode != 0:
+                raise AssertionError(f"18c rank {r} failed with exit code {p.returncode}")
+        ranks = []
+        for r in range(RANK_WORLD):
+            with np.load(rank_dir / f"rank{r}.npz") as z:
+                ranks.append({k: z[k] for k in z.files})
+        same = all(np.array_equal(ranks[1][k], ranks[0][k]) for k in ranks[0])
+        r0 = ranks[0]
+        eq_frame = (np.array_equal(r0["digest"], res_a["digest"]) and float(r0["checksum"]) == float(res_a["checksum"]))
+        rel = {k: float(np.max(np.abs(r0[k] - res_a[k]) / np.maximum(np.abs(res_a[k]), 1e-30)))
+               for k in ("loss", "loss_sgd", "lp", "op", "pos", "rot")}
+        log(f"18c {RANK_WORLD} ranks x row_interleave {SHARD_K // RANK_WORLD} (gloo, CUDA tensors; "
+            f"{time.perf_counter() - t_c:.1f} s with 18d beside it): ranks bit-equal {same}; gathered frame equal to "
+            f"18a's {eq_frame} (checksum {float(r0['checksum']):.6f}); relative to 18a: {rel} (need < 1e-5)")
+        if not (same and eq_frame and max(rel.values()) < 1e-5):
+            raise AssertionError("18c: the two ranks disagree with each other or with 18a")
+        grad_class("18c gradients of the two ranks vs 18a's (one rank)",
+                   tuple(torch.tensor(r0[f"g{i}"]) for i in range(3)),
+                   tuple(torch.tensor(res_a[f"g{i}"]) for i in range(3)))
+    finally:
+        dist.destroy_process_group()
+
+    def rec(name, source, replaces, launches, err, ms, plain, bound):
+        return dict(name=name, route="cuda", source=f"raymarch_tpu_torch/csrc/{source}",
+                    replaces=f"raymarch_tpu/ops/{replaces}", launches=launches, max_abs_err=err, ms=ms,
+                    plain_ms=plain, bound_ms=bound[0], bound_by=bound[1], library_ms=None)
+
+    band = f"band of {rows_m} rows, {SHARD_K} a frame"
+    records = [
+        rec(f"coarse_kernel ({band_a})", "prepass.cu", "pallas_prepass.py:885", launches_s["coarse_kernel"], k1_err,
+            k1_ms, k1_plain, k1_bound),
+        rec(f"fine_kernel ({band_a})", "prepass.cu", "pallas_prepass.py:1521", launches_s["fine_kernel"], k2_err,
+            k2_ms, k2_plain, k2_bound),
+        rec(f"fine_kernel (residuals t, hit; {band_a})", "prepass.cu", "pallas_prepass.py:1521",
+            step_launches["fine_kernel_residuals"], k2_err, k2r_ms, k2r_plain, k2r_bound),
+        rec(f"fused_bwd_kernel ({band_a})", "fused_bwd.cu", "pallas_grad.py:1432", step_launches["fused_bwd_kernel"],
+            max(k8_err, gate_err["fused_bwd"]), k8_ms, k8_plain, k8_bound_),
+        rec(f"coarse_kernel (culled lists; {band})", "prepass.cu", "pallas_prepass.py:885",
+            launches64["coarse_kernel"], c1_err, c1_ms, c1_plain, c1_bound),
+        rec(f"fine_kernel (culled, relax, residuals; {band})", "fine_culled.cu", "pallas_prepass.py:1521",
+            launches64["fine_kernel_residuals"], c2_err, c2_ms, c2_plain, c2_bound),
+        rec(f"compact_bwd_kernel ({band})", "compact_bwd.cu", "pallas_grad.py:256", launches64["compact_bwd_kernel"],
+            max(k9_err, gate_err["compact_bwd"]), k9_ms, k9_plain, k9_bound_),
+    ]
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 18: {out['seconds']:.1f} s ({smi})")
+    return records, out
+
+
+def timed_step_of(step, arrays, camera, target):
+    """Mean ms (CUDA events) of `step` over BWD_STEPS runs after one."""
+    st = step.init_opt_state(arrays, camera)
+    return cuda_ms(lambda: step(arrays, camera, st, target), BWD_STEPS)
+
+
 def main() -> int:
     import torch
 
@@ -3757,6 +4290,9 @@ def main() -> int:
     # -- 17. the headline path against the port's f64 oracle -----------------
     oracle_phase(rt, cp, dev, smi)
 
+    # -- 18. multi-device: the row-sharded renderer and fit step --------------
+    shard_records, sm = multi_device(rt, cp, cg, dev, smi, cfg, (0.0, 2.6, 4.2))
+
     log(f"card: {smi}")
     kernels = [
         dict(name="coarse_kernel", route="cuda", source="raymarch_tpu_torch/csrc/prepass.cu",
@@ -3788,6 +4324,7 @@ def main() -> int:
         *surface_records,
         *live_records,
         *repair_records,
+        *shard_records,
     ]
     log(f"64-leaf summary: step {s64['step_ms']:.4f} ms, forward frame {s64['fwd64_ms']:.4f} ms, idle share "
         f"{s64['idle']}, masks and lists {s64['cull_ms']:.4f} ms in {s64['n_cull']} device operations "
@@ -3841,6 +4378,12 @@ def main() -> int:
         f"{sr['ni6']['ms']:.4f} ms (coarse {sr['ni6']['coarse_ms']:.4f}, fine {sr['ni6']['fine_ms']:.4f} ms); "
         f"K9 {BIG_POOL}-sphere pool {sr['compact_bwd_kernel']['ms']:.4f} ms, K8 {BIG_TAPE}-leaf tape "
         f"{sr['fused_bwd_kernel']['ms']:.4f} ms at the gate; phase {sr['seconds']:.1f} s ({smi})")
+    log(f"multi-device summary: sharded frame ({SHARD_K} bands, 1 rank, NCCL) {sm['frame_ms'][0]:.4f} / "
+        f"{sm['frame_ms'][1]:.4f} ms against the single frame {sm['frame_1_ms'][0]:.4f} / {sm['frame_1_ms'][1]:.4f}; "
+        f"fit step {sm['step_ms'][0]:.4f} / {sm['step_ms'][1]:.4f} ms against {sm['step_1_ms'][0]:.4f} / "
+        f"{sm['step_1_ms'][1]:.4f}; 64-sphere step {sm['step64_ms'][1]:.4f} ms against {sm['step64_ms'][0]:.4f}, "
+        f"cull_args {sum(sm['cull_ms']):.4f} ms over {SHARD_K} bands against {sm['cull_1']:.4f}; phase "
+        f"{sm['seconds']:.1f} s ({smi})")
     log(f"chip_smoke total {time.perf_counter() - T_START:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
@@ -3849,4 +4392,12 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if "--rank" in sys.argv:
+        import argparse
+
+        ap = argparse.ArgumentParser(description="one rank of chip_smoke.py's phase 18c")
+        for flag, kind in (("--rank", int), ("--world", int), ("--port", int), ("--out", str), ("--device", str)):
+            ap.add_argument(flag, type=kind, required=True)
+        a = ap.parse_args()
+        sys.exit(rank_main(a.rank, a.world, a.port, a.out, a.device))
     sys.exit(main())

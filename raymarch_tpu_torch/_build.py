@@ -5,12 +5,16 @@ interface (no PyTorch headers, so the build takes seconds), at the first CUDA
 launch: one nvcc per source, all started together, then one link. The
 library lands in `build/raymarch_tpu_torch/` beside the package
 (git-ignored); its name carries a hash of the sources and flags, so an edit
-rebuilds and an unchanged tree reuses the library built before.
+rebuilds and an unchanged tree reuses the library built before. The ranks of
+a job share that directory: a file lock lets one process build while the
+others wait, then load what it built.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -177,15 +181,40 @@ def load() -> ctypes.CDLL:
         return _lib if _lib is not None else _load_locked()
 
 
-def _load_locked() -> ctypes.CDLL:
-    global _lib
-    lib_path = BUILD_DIR / f"librmt_kernels_{_digest()}.so"
-    if not lib_path.exists():
+@contextlib.contextmanager
+def build_lock(directory: Path):
+    """Hold an exclusive lock on `directory`/build.lock across processes
+    (`fcntl.flock`: the kernel releases it when its holder exits, killed or
+    not, so no stale lock survives a lost build)."""
+    directory.mkdir(parents=True, exist_ok=True)
+    with open(directory / "build.lock", "a") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
+
+
+def _ensure_built(lib_path: Path) -> None:
+    """Build `lib_path` unless it exists. Processes that start at once (the
+    ranks of a job) take the file lock in turn: the first builds, the
+    others find the library when they get the lock."""
+    if lib_path.exists():
+        return
+    with build_lock(lib_path.parent):
+        if lib_path.exists():
+            return
         t0 = time.perf_counter()
         report = _compile(lib_path)
         stats["seconds"] += time.perf_counter() - t0
         lib_path.with_suffix(".log").write_text(report)
         stats["builds"] += 1
+
+
+def _load_locked() -> ctypes.CDLL:
+    global _lib
+    lib_path = BUILD_DIR / f"librmt_kernels_{_digest()}.so"
+    _ensure_built(lib_path)
     log = lib_path.with_suffix(".log")
     stats["ptxas"] = log.read_text() if log.exists() else ""
     lib = ctypes.CDLL(str(lib_path))

@@ -65,10 +65,14 @@ def fit_scene(
     resume: bool = True,
     stall_timeout: Optional[float] = None,
     stall_exit_code: Optional[int] = None,
-    device="cuda",
+    device=None,
 ) -> FitResult:
-    """Gradient-descend scene parameters toward a target image on `device`
-    (default "cuda"; "cpu" runs the plain versions).
+    """Gradient-descend scene parameters toward a target image over the
+    ranks of `mesh`: `mesh=None` builds `make_mesh(device=device)`, the
+    process group's ranks when one is initialized, else this process alone
+    (a world of one on `device`, default "cuda"; "cpu" runs the plain
+    versions). A given mesh decides the device, and `device` may only
+    repeat it.
 
     `optimizer` builds a torch optimizer over a list of tensors (default
     `torch.optim.Adam` at `learning_rate`). `leaf_mask` / `op_mask` (same
@@ -76,22 +80,24 @@ def fit_scene(
     trains everything of that group. `backend` is "pallas_fused" (mode
     "implicit" or "soft"), "jnp" ("implicit", "unrolled" or "soft") or
     "pallas" ("implicit": K5's forward, the implicit-function VJP).
-    `mesh` may be None or hold one device (more: ROADMAP §1 item 7).
 
-    `checkpoint_dir` writes an atomic checkpoint of the whole fit state every
-    `checkpoint_every` steps; with `resume` a restarted job continues from
-    the latest one. `stall_timeout` arms a Watchdog on step progress, and
+    `checkpoint_dir` (storage every rank reads) gets an atomic checkpoint of
+    the whole fit state every `checkpoint_every` steps, written by rank 0;
+    with `resume` a restarted job continues from the latest one, every rank
+    from the step rank 0 finds. `stall_timeout` arms a Watchdog on step progress, and
     `stall_exit_code` turns a stall into a hard exit for a supervisor to
     relaunch.
 
     Each step reads its loss back to the host (`float(loss)`): the one
     synchronisation per step, as in the reference.
     """
-    from .parallel import make_fit_step
+    from .parallel import make_fit_step, make_mesh
     from .parallel.elastic import FitCheckpointer, Watchdog
     from .parallel.render import _on
     from .utils.camera import Camera
 
+    if mesh is None:
+        mesh = make_mesh(device=device)
     if optimizer is None:
         optimizer = functools.partial(torch.optim.Adam, lr=learning_rate)
 

@@ -759,10 +759,11 @@ def backward_route(spec: TapeSpec, cfg: RenderConfig, soft: bool = False, packed
 
 
 class FusedRenderer:
-    """`render(arrays, cam_vec f32[8]) -> image f32[H, W, 3]` on one device,
-    differentiable with respect to `arrays.leaf_params`, `arrays.op_param`
-    and `cam_vec` (tensors; numpy parameters are uploaded and are not
-    differentiated). `cam_vec[7]` is the band's first row and gets a zero
+    """`render(arrays, cam_vec f32[8]) -> image f32[rows, W, 3]` on one
+    device, the band of `band_rows` rows (all H without it) that starts at
+    image row cam_vec[7], differentiable with respect to
+    `arrays.leaf_params`, `arrays.op_param` and `cam_vec` (tensors; numpy
+    parameters are uploaded and are not differentiated). `cam_vec[7]` is the band's first row and gets a zero
     gradient.
 
     With `cfg.leaf_cull` the forward is culled (the coarse and fine kernels
@@ -776,13 +777,13 @@ class FusedRenderer:
     """
 
     def __init__(self, spec: TapeSpec, cfg: RenderConfig, width: int, height: int, device, reason,
-                 prepass_block: int = 1, soft: bool = False, packed: bool = True):
+                 prepass_block: int = 1, soft: bool = False, packed: bool = True, band_rows=None):
         self.spec = spec
         self.cfg = cfg
         self.device = device
         self.prepass = make_pallas_image_render_aa(spec, cfg, width, height, device=device,
-                                                   prepass_block=prepass_block, no_prepass=soft,
-                                                   aa_packed=packed, soft=soft)
+                                                   prepass_block=prepass_block, band_rows=band_rows,
+                                                   no_prepass=soft, aa_packed=packed, soft=soft)
         self.params = self.prepass.params
         self.layout = GradLayout.of(spec, cfg)
         # `reason` is backward_route's: None takes the compact backward.
@@ -821,8 +822,9 @@ def make_fused_render_vjp(
 ) -> FusedRenderer:
     """The port's counterpart of `raymarch_tpu.ops.pallas_grad.
     make_fused_render_vjp`, with the reference's arguments in its order,
-    cached per (spec, cfg, width, height, prepass_block, soft, device);
-    `device` defaults to the card ("cuda"), "cpu" runs the plain versions.
+    cached per (spec, cfg, width, height, prepass_block, band_rows, soft,
+    device); `device` defaults to the card ("cuda"), "cpu" runs the plain
+    versions.
 
     Serves every static tape: without `cfg.leaf_cull`
     the legacy backward (K8); with it the culled forward, then the compact
@@ -851,9 +853,13 @@ def make_fused_render_vjp(
 
     `interpret` and `bm` set the TPU kernels' layout in the reference (the
     Pallas interpreter; the backward's row-block size) and have no effect
-    here. `band_rows` raises NotImplementedError naming its ROADMAP item,
-    as does a dynamic tape (the reference's raises too,
-    pallas_grad.py:1239-1242).
+    here. `band_rows` renders and differentiates the band of that many rows
+    that starts at image row cam_vec[7] (pallas_grad.py:1229, 1321): K1 and
+    K2 write the band's planes and residuals f32[band_rows, W, S], the
+    culling lists cover the band's tiles, and K8 or K9 run over its rows;
+    the row-sharded fit runs one per band. A dynamic tape raises
+    NotImplementedError (the reference's raises too, pallas_grad.py:
+    1239-1242).
     """
     del interpret, bm  # TPU layout only
     if spec.static_tape is None:
@@ -865,8 +871,6 @@ def make_fused_render_vjp(
         if S and 128 % S:
             raise ValueError("soft VJP needs aa_samples^2 dividing 128")
         aa_packed = True  # pallas_grad.py:1243-1249
-    if band_rows is not None:
-        raise NotImplementedError("band_rows is not ported yet (ROADMAP: §1 item 7, multi-device)")
     if aa_packed and 128 % S:
         raise ValueError("aa_packed VJP needs aa_samples^2 dividing 128")
     _, reason = backward_route(spec, cfg, soft, packed=aa_packed is not False and 128 % S == 0)
@@ -876,9 +880,10 @@ def make_fused_render_vjp(
     if packed and cfg.aa_shared_normals:
         raise ValueError("aa_packed excludes aa_shared_normals")
     return _cached_fused(spec, cfg, int(width), int(height), resolve_device(device), reason,
-                         1 if soft else max(1, int(prepass_block)), bool(soft), packed)
+                         1 if soft else max(1, int(prepass_block)), bool(soft), packed,
+                         None if band_rows is None else int(band_rows))
 
 
 @functools.lru_cache(maxsize=None)
-def _cached_fused(spec, cfg, width, height, device, reason, prepass_block, soft=False, packed=True):
-    return FusedRenderer(spec, cfg, width, height, device, reason, prepass_block, soft, packed)
+def _cached_fused(spec, cfg, width, height, device, reason, prepass_block, soft=False, packed=True, band_rows=None):
+    return FusedRenderer(spec, cfg, width, height, device, reason, prepass_block, soft, packed, band_rows)

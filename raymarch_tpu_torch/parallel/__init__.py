@@ -1,7 +1,18 @@
-"""Training around the fused renderer: the fit step and fit-run recovery,
-on one device (multi-device: ROADMAP §1 item 7)."""
+"""The multi-device layer: row-sharded rendering and training over
+`torch.distributed` ranks, and fit-run recovery."""
 
 from .elastic import FitCheckpointer, Watchdog
-from .render import FitOptState, make_fit_step
+from .mesh import RAY_AXIS, Mesh, initialize_multihost, make_mesh
+from .render import FitOptState, make_fit_step, make_sharded_renderer
 
-__all__ = ["FitCheckpointer", "FitOptState", "Watchdog", "make_fit_step"]
+__all__ = [
+    "RAY_AXIS",
+    "Mesh",
+    "initialize_multihost",
+    "make_mesh",
+    "make_fit_step",
+    "make_sharded_renderer",
+    "FitCheckpointer",
+    "FitOptState",
+    "Watchdog",
+]

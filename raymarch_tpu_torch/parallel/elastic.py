@@ -1,18 +1,22 @@
-"""Checkpoints and stall detection for long fit runs, in one process.
+"""Checkpoints and stall detection for long fit runs.
 
-Port of `raymarch_tpu/parallel/elastic.py` (50-222) at world size 1:
+Port of `raymarch_tpu/parallel/elastic.py` (50-222). The recoverable unit
+is the job: a lost rank cannot be spliced out of a running process group,
+so the job dies, is relaunched, and resumes from the last checkpoint.
 
 - **FitCheckpointer**: atomic, versioned checkpoints of the full fit state
   (TapeArrays, camera pose, optimizer state, loss history). A write goes to
   a temporary file, then `os.replace` publishes it, so a crash mid-write
   never corrupts the latest checkpoint; `keep` bounds disk use; a
-  checkpoint written for another TapeSpec refuses to restore. The rule of
-  the multi-process job (only process 0 writes) comes with the
-  multi-device port (ROADMAP §1 item 7).
+  checkpoint written for another TapeSpec refuses to restore. In a job of
+  several ranks only rank 0 writes, into storage every rank reads, and
+  every rank restores from it.
 - **Watchdog**: a background thread watches step heartbeats and, after
   `timeout` seconds of silence, calls `on_stall`; `exit_code` turns that
   into a hard exit, so a supervisor relaunches the job into the resume
-  path.
+  path. It stays per process: a peer's death shows up here as a wedged
+  collective (the step's all_reduce waits on the dead rank), which
+  `exit_code` turns into a restart.
 - **fit_scene(..., checkpoint_dir=, resume=True)** (fit.py) wires both into
   the fit loop.
 """
@@ -27,6 +31,7 @@ from typing import Callable, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..io import _host, _spec_fingerprint
 from ..ops.tape import TapeArrays, TapeSpec, arrays_from_streams
@@ -42,13 +47,18 @@ class FitCheckpointer:
     stored as the bytes `torch.save` writes, and restored into a TEMPLATE
     state from `step.init_opt_state`, whose optimizers and parameters live
     on the fit's device. Checkpoints are keyed by step; the `keep` most
-    recent are retained.
+    recent are retained. In a multi-process job only rank 0 writes;
+    `directory` must be storage every rank reads.
     """
 
     def __init__(self, directory: str, keep: int = 3):
         self.directory = directory
         self.keep = max(1, int(keep))
         os.makedirs(directory, exist_ok=True)
+
+    @staticmethod
+    def _is_writer() -> bool:
+        return not dist.is_initialized() or dist.get_rank() == 0
 
     def _path(self, step: int) -> str:
         return os.path.join(self.directory, f"{_PREFIX}{step:08d}.npz")
@@ -63,8 +73,11 @@ class FitCheckpointer:
                     continue
         return sorted(out)
 
-    def save(self, step, spec, arrays, camera, opt_state, losses) -> str:
-        """Write the checkpoint of `step`; returns its path."""
+    def save(self, step, spec, arrays, camera, opt_state, losses) -> Optional[str]:
+        """Write the checkpoint of `step`; returns its path (None on the
+        ranks that do not write)."""
+        if not self._is_writer():
+            return None
         buf = io.BytesIO()
         torch.save(opt_state.state_dict(), buf)
         payload = {
@@ -103,8 +116,19 @@ class FitCheckpointer:
         losses), or None if the directory has no checkpoint. The optimizer
         state is loaded into `opt_state_template`, which is returned. Raises
         if the checkpoint belongs to a different TapeSpec (the topology
-        changed: a stale checkpoint must not poison a new run)."""
+        changed: a stale checkpoint must not poison a new run).
+
+        In a process group every rank takes the step rank 0 finds (a
+        broadcast of rank 0's `latest_step()`): a rank that lists the
+        directory while rank 0 publishes a newer checkpoint, or that sees a
+        stale listing of shared storage, still resumes where the others
+        do."""
         step = self.latest_step()
+        if dist.is_initialized() and dist.get_world_size() > 1:
+            dev = opt_state_template.params[0].device  # the rank's device: NCCL takes no CPU tensor
+            agreed = torch.tensor([-1 if step is None else step], dtype=torch.int64, device=dev)
+            dist.broadcast(agreed, 0)
+            step = None if int(agreed) < 0 else int(agreed)
         if step is None:
             return None
         from ..utils.camera import Camera

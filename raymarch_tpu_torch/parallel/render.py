@@ -1,20 +1,23 @@
-"""The fit step for inverse rendering, on one device.
+"""Row-sharded rendering and the fit step for inverse rendering.
 
-Port of `raymarch_tpu/parallel/render.py:make_fit_step` (208-371) at world
-size 1: the image is one band (rows [0, H), so `cam_vec[7] = 0`, as
-`_band_cam_vec` (47) builds it for device 0), and no gradient crosses
-devices. Row-sharded training over several devices, `row_interleave` and
-`band_rows` come with ROADMAP §1 item 7. `make_fit_step` takes the
-reference's arguments in its order (208-222), plus the keyword-only
-`device` (default "cuda"); `interpret` (the Pallas interpreter) has no
-effect here.
+Port of `raymarch_tpu/parallel/render.py` on `torch.distributed`, one
+process per device (parallel/mesh.py). The semantics are the reference's
+(render.py:1-13): image rows are sharded over the ranks, each rank renders
+whole pixels with all their AA samples (the AA mean never crosses ranks),
+the scene and the camera are replicated, and the only communication is the
+fit step's reduction of gradients and loss, and the gather of the sharded
+image. `make_sharded_renderer` and `make_fit_step` take the reference's
+arguments in its order, plus the keyword-only `device`; `interpret` (the
+Pallas interpreter) has no effect here.
 
-Backends: "pallas_fused" (the fused forward + backward kernels), and, as
-`_local_renderer`'s non-fused branch (96-136), "jnp" (the torch march in
-mode "implicit", "unrolled" or "soft") and "pallas" (K5's forward with the
-implicit-function VJP), whose band is raygen + march + shading in torch. The
-reference's "pallas" fit step crashes in soft mode (ROADMAP §3 fault 13);
-the port raises the ValueError of its `make_renderer` instead.
+Backends: "pallas_prepass" (the forward kernels K1, K2 per band),
+"pallas_fused" (the fused forward K1, K2 and the backward K8 or K9 per
+band), and, as `_local_renderer`'s non-fused branch (render.py:96-136),
+"jnp" (the torch march in mode "forward", "implicit", "unrolled" or
+"soft") and "pallas" (K5's march with the implicit-function VJP), whose
+band is raygen + march + shading in torch. The reference's "pallas" fit
+step crashes in soft mode (ROADMAP §3 fault 13); the port raises the
+ValueError of its `make_renderer` instead.
 
 `mode="soft"` trains through the soft-coverage VJP (silhouette gradients).
 The reference's `pallas_fused` fit step builds its fused VJP without
@@ -27,22 +30,25 @@ that build a `torch.optim.Optimizer` over a list of tensors, e.g.
 the update of `optax.adam` (eps 1e-8, bias-corrected), `torch.optim.SGD`
 that of `optax.sgd`. The optimizer state (`FitOptState`) holds the
 optimizers and the tensors they update; the step updates it in place and
-returns it.
+returns it. Every rank applies its optimizer to the same reduced sums, so
+the replicas stay equal.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
+import math
 from typing import Optional
 
 import torch
 
 from ..config import DEFAULT_CONFIG, RenderConfig
 from ..ops.cuda_grad import make_fused_render_vjp
-from ..ops.cuda_prepass import resolve_device
+from ..ops.cuda_prepass import COARSE_TILE, FINE_TILE, resolve_device
 from ..ops.tape import TapeArrays, TapeSpec
 from ..utils.camera import Camera, cam_vec
+from .mesh import Mesh, all_reduce_sum, make_mesh
 
 
 def _row_band_indices(i0, rows, width, height, aa_samples, device):
@@ -55,15 +61,47 @@ def _row_band_indices(i0, rows, width, height, aa_samples, device):
     return (ri + ci + si).reshape(-1)
 
 
-def _local_renderer(spec, width, height, cfg, mode, backend, device):
-    """The band renderer of backends "jnp" and "pallas" (render.py:96-136):
-    (arrays, camera, i0, rows) -> image f32[rows, W, 3], raygen, march and
-    shading in torch, differentiable with respect to the parameters and the
-    camera (tensors)."""
+def _band_cam_vec(camera, i0, device) -> torch.Tensor:
+    """The camera vector of the band that starts at image row `i0`
+    (render.py:47-54): position, rotation, i0."""
+    return cam_vec(camera, float(i0), device=device)
+
+
+def _local_renderer(spec, width, height, cfg, mode, backend, device, rows_per):
+    """This rank's band renderer (render.py:57-137): (arrays, camera, i0,
+    rows) -> image f32[rows, W, 3] of image rows [i0, i0 + rows).
+
+    "pallas_prepass" runs the cone-prepass kernels K1 and K2 (K4 with
+    `cfg.aa_shared_normals`) per band, forward only; "pallas_fused" the
+    fused forward (K1, K2 with residuals) and its backward (K8, or K9 for a
+    compact plan) per band. Both are built for bands of `rows_per` rows and
+    read the band's first row from the camera vector, so one renderer
+    serves every band. "jnp" (the torch march in `mode`) and "pallas"
+    (K5's march, the implicit-function VJP) run raygen, march and shading
+    in torch on the band's rays, differentiable with respect to the
+    parameters and the camera (tensors)."""
     from ..ops.cuda_march import make_march_pallas
+    from ..ops.cuda_prepass import make_pallas_image_render_aa
     from ..ops.march import _arrays_on, _gamma, _make_albedo_fn, make_march, make_march_soft, shade, shade_soft
     from ..ops.raygen import raygen_flat
     from ..ops.sdf import make_scene_fn
+
+    band_rows = None if rows_per == height else rows_per  # a whole frame shares make_renderer's renderer
+    if backend in ("pallas_prepass", "pallas_fused"):
+        if backend == "pallas_prepass":
+            band = make_pallas_image_render_aa(spec, cfg, width, height, device=device, prepass_block=1,
+                                               band_rows=band_rows, aa_packed=not cfg.aa_shared_normals)
+            info = {"kind": "forward_only", "compact": False, "reason": None}
+        else:
+            band = make_fused_render_vjp(spec, cfg, width, height, band_rows=band_rows, soft=mode == "soft",
+                                         device=device)
+            info = band.backward_info
+
+        def render_band_fused(arrays, camera, i0, rows):
+            return band(arrays, _band_cam_vec(camera, i0, device))
+
+        render_band_fused.backward_info = info
+        return render_band_fused
 
     scene = make_scene_fn(spec, cfg)
     soft = mode == "soft"
@@ -75,9 +113,6 @@ def _local_renderer(spec, width, height, cfg, mode, backend, device):
         march = make_march_pallas(spec, cfg, device=device)
     elif soft:
         march = make_march_soft(spec, cfg)
-    elif mode == "forward":
-        raise ValueError("mode 'forward' carries no gradient through the march: train with 'implicit', "
-                         "'unrolled' or 'soft'")
     else:
         march = make_march(spec, cfg, mode)
     albedo_fn = _make_albedo_fn(spec, cfg)
@@ -101,6 +136,107 @@ def _local_renderer(spec, width, height, cfg, mode, backend, device):
         "reason": None,
     }
     return render_band
+
+
+def _rows_per(height: int, n_bands: int, cfg: RenderConfig) -> int:
+    """Rows of each of the image's `n_bands` bands: ceil(H / n_bands), as
+    the reference's (render.py:171), rounded up with `cfg.leaf_cull` to a
+    multiple of the culling tiles' rows. A band's tiles start at its first
+    row; aligned, they are the whole frame's tiles, so a culled band gets
+    the frame's item lists and renders exactly the frame's rows. (Other
+    tiles hold other lists, whose distance field the relaxed march follows
+    to other stops: on an H100 at 1920x1080, 270-row bands moved the
+    64-sphere step's gradients by 9% of max|g| from the whole frame's.)"""
+    rows = -(-height // n_bands)
+    if cfg.leaf_cull:
+        tile = math.lcm(COARSE_TILE, FINE_TILE)  # the coarse tiles at prepass_block 1, and the fine tiles
+        rows = -(-rows // tile) * tile
+    return rows
+
+
+def _bands(mesh: Mesh, k: int, rows_per: int, height: int):
+    """(first row, rows inside the image) of this rank's bands: band b = d
+    + j n of the image's n k bands of `rows_per` rows, for j < k (rank d of
+    n). A band that starts past the last row holds nothing of the image
+    and is left out; the last band may reach past it (the reference pads H
+    to rows_per n k, render.py:171)."""
+    n = mesh.size
+    out = []
+    for j in range(k):
+        i0 = (mesh.rank + j * n) * rows_per
+        if i0 < height:
+            out.append((i0, min(rows_per, height - i0)))
+    return out
+
+
+def _mesh_of(mesh, device) -> Mesh:
+    """`mesh`, or `make_mesh(device=device)` for None; a `device` that is
+    not the mesh's raises."""
+    if mesh is None:
+        return make_mesh(device=device)
+    if not isinstance(mesh, Mesh):
+        raise TypeError(f"mesh must be a raymarch_tpu_torch.parallel.Mesh (make_mesh), got {type(mesh).__name__}")
+    if device is not None and resolve_device(device) != mesh.device:
+        raise ValueError(f"device {device!r} is not the mesh's device {mesh.device}")
+    return mesh
+
+
+def make_sharded_renderer(
+    spec: TapeSpec,
+    width: int,
+    height: int,
+    mesh: Optional[Mesh] = None,
+    cfg: RenderConfig = DEFAULT_CONFIG,
+    mode: str = "forward",
+    backend: str = "jnp",
+    interpret: bool = False,
+    row_interleave: int = 1,
+    *,
+    device=None,
+):
+    """`render(arrays, camera) -> image f32[H, W, 3]`, row-sharded over the
+    mesh's ranks (render.py:141-205), on every rank.
+
+    The scene and camera are replicated. `row_interleave` = k splits the
+    image into n k contiguous bands of ceil(H / n k) rows (with
+    `cfg.leaf_cull` a multiple of the culling tiles' 16 rows: `_rows_per`),
+    and rank d renders bands d, d + n, ..., d + (k - 1) n: each rank gets a
+    spread of sky-heavy and scene-centre rows (the load balance of the
+    straggler band), while each launch keeps a contiguous band, so the
+    per-tile cones and culling lists keep their locality; k launches per
+    rank a frame.
+    The bands are gathered to the whole image on every rank, in image
+    order: each rank writes its bands into a zero frame and one all_reduce
+    sums the frames (a gather on any backend, gloo's CUDA tensors
+    included; exact, since each pixel is one rank's value plus zeros).
+
+    Forward only (no autograd graph): the fit step carries the gradients.
+    `mesh` None is `make_mesh(device=device)`; `interpret` (the Pallas
+    interpreter) has no effect."""
+    del interpret
+    mesh = _mesh_of(mesh, device)
+    k = max(1, int(row_interleave))
+    rows_per = _rows_per(height, mesh.size * k, cfg)
+    render_band = _local_renderer(spec, width, height, cfg, mode, backend, mesh.device, rows_per)
+    bands = _bands(mesh, k, rows_per, height)
+
+    def render(arrays: TapeArrays, camera):
+        dev = mesh.device
+        with torch.no_grad():
+            # The pose goes up once a frame: a pageable upload waits for the
+            # kernels queued before it, so one a band would keep the host
+            # from running ahead. The parameters stay as given: numpy ones
+            # take frame_args's host bound, which costs the host less than
+            # the torch form's launches.
+            cam = Camera(position=_on(camera.position, dev), rotation=_on(camera.rotation, dev))
+            img = torch.zeros((height, width, 3), dtype=torch.float32, device=dev)
+            for i0, rows in bands:
+                img[i0 : i0 + rows] = render_band(arrays, cam, i0, rows_per)[:rows]
+            return all_reduce_sum(img, mesh)
+
+    render.backward_info = render_band.backward_info
+    render.bands = bands
+    return render
 
 
 @dataclasses.dataclass
@@ -137,22 +273,11 @@ def _on(x, device) -> torch.Tensor:
     return torch.as_tensor(x, dtype=torch.float32, device=device)
 
 
-def _one_device(mesh):
-    """`mesh` may be None or hold one device; more is ROADMAP §1 item 7."""
-    if mesh is None:
-        return
-    n = len(mesh) if hasattr(mesh, "__len__") else getattr(mesh, "size", 1)
-    if n != 1:
-        raise NotImplementedError(
-            f"a fit over {n} devices is not ported yet (ROADMAP: §1 item 7, multi-device)"
-        )
-
-
 def make_fit_step(
     spec: TapeSpec,
     width: int,
     height: int,
-    mesh=None,
+    mesh: Optional[Mesh] = None,
     optimizer=None,
     cfg: RenderConfig = DEFAULT_CONFIG,
     mode: str = "implicit",
@@ -163,53 +288,50 @@ def make_fit_step(
     camera_optimizer=None,
     row_interleave: int = 1,
     *,
-    device="cuda",
+    device=None,
 ):
-    """Build the training step of inverse rendering on `device`:
+    """Build the training step of inverse rendering over the mesh's ranks
+    (render.py:208-372):
 
         step(arrays, camera, opt_state, target[H, W, 3]) ->
             (new_arrays, new_camera, opt_state, loss)
 
-    The loss is sum((img - target)^2) / (H * W * 3), a 0-d tensor on the
-    device (reading it is the caller's one synchronisation per step). The
-    gradient runs through `backend` "pallas_fused", "jnp" or "pallas"
-    (the module docstring). `grad_mask` = (leaf
-    mask, op mask), 1.0 = trainable, multiplies the gradients before the
-    optimizer. With `fit_camera`, the pose is trained by `camera_optimizer`
-    (default SGD, lr 1e-2) and the rotation is projected back to unit norm
-    after each update; `init_opt_state` then takes the camera too. The
-    returned arrays and camera hold tensors on the device.
+    Each rank renders its bands (`row_interleave` = k of them, as
+    `make_sharded_renderer` assigns them) and sums their squared error over
+    the image's rows, / (H W 3): a band's rows past the image carry no
+    cotangent. One all_reduce of one flat f32 buffer (the leaf, op and
+    camera gradients and the loss) sums them over the ranks, and every rank
+    applies the same optimizer to the same sums. The loss is a 0-d tensor
+    on the device (reading it is the caller's one synchronisation per
+    step). The gradient runs through `backend` "pallas_fused", "jnp" or
+    "pallas" (the module docstring). `grad_mask` = (leaf mask, op mask),
+    1.0 = trainable, multiplies the gradients before the optimizer. With
+    `fit_camera`, the pose is trained by `camera_optimizer` (default SGD,
+    lr 1e-2) and the rotation is projected back to unit norm after each
+    update; `init_opt_state` then takes the camera too. The returned arrays
+    and camera hold tensors on the rank's device. `mesh` None is
+    `make_mesh(device=device)` (`device` default "cuda"); with a mesh,
+    `device` may only repeat the mesh's.
     """
     del interpret  # the Pallas interpreter: no effect on the ported kernels
-    _one_device(mesh)
-    if int(row_interleave) != 1:
-        raise NotImplementedError(
-            "row_interleave is not ported yet (ROADMAP: §1 item 7, multi-device)"
-        )
     if backend not in ("pallas_fused", "jnp", "pallas"):
         raise ValueError(f"backend {backend!r} cannot be differentiated")
     if backend == "pallas_fused" and mode not in ("implicit", "soft"):
         raise ValueError("pallas_fused backend supports 'implicit'/'soft'")
-    dev = resolve_device(device)
+    if mode == "forward":
+        raise ValueError("mode 'forward' carries no gradient through the march: train with 'implicit', "
+                         "'unrolled' or 'soft'")
     if optimizer is None:
         raise ValueError("make_fit_step needs an optimizer factory, e.g. "
                          "functools.partial(torch.optim.Adam, lr=1e-2)")
+    mesh = _mesh_of(mesh, device)
+    dev = mesh.device
     if fit_camera and camera_optimizer is None:
         camera_optimizer = functools.partial(torch.optim.SGD, lr=1e-2)
-    if backend == "pallas_fused":
-        fused = make_fused_render_vjp(spec, cfg, width, height, soft=mode == "soft", device=dev)
-
-        def render(a, camera):
-            return fused(a, cam_vec(camera, 0.0, device=dev))
-
-        render.backward_info = fused.backward_info
-    else:
-        band = _local_renderer(spec, width, height, cfg, mode, backend, dev)
-
-        def render(a, camera):
-            return band(a, camera, 0, height)
-
-        render.backward_info = band.backward_info
+    k = max(1, int(row_interleave))
+    rows_per = _rows_per(height, mesh.size * k, cfg)
+    render_band = _local_renderer(spec, width, height, cfg, mode, backend, dev, rows_per)
+    bands = _bands(mesh, k, rows_per, height)
     denom = float(height * width * 3)
     masks = None
     if grad_mask is not None:
@@ -219,16 +341,25 @@ def make_fit_step(
         lp = _on(arrays.leaf_params, dev).requires_grad_(True)
         opp = _on(arrays.op_param, dev).requires_grad_(True)
         a = dataclasses.replace(arrays, leaf_params=lp, op_param=opp)
-        cam = camera
-        if fit_camera:
-            pos = _on(camera.position, dev).requires_grad_(True)
-            rot = _on(camera.rotation, dev).requires_grad_(True)
-            cam = Camera(position=pos, rotation=rot)
-        img = render(a, cam)
-        loss = torch.sum((img - _on(target, dev)) ** 2) / denom
+        pos = _on(camera.position, dev).requires_grad_(fit_camera)
+        rot = _on(camera.rotation, dev).requires_grad_(fit_camera)
+        cam = Camera(position=pos, rotation=rot)  # uploaded once a step, not once a band
         inputs = (lp, opp, pos, rot) if fit_camera else (lp, opp)
-        grads = torch.autograd.grad(loss, inputs, allow_unused=True)
-        grads = tuple(torch.zeros_like(x) if g is None else g for g, x in zip(grads, inputs))
+        tgt = _on(target, dev)
+        loss = torch.zeros((), dtype=torch.float32, device=dev)
+        for i0, rows in bands:
+            img = render_band(a, cam, i0, rows_per)[:rows]
+            loss = loss + torch.sum((img - tgt[i0 : i0 + rows]) ** 2)
+        loss = loss / denom
+        grads = (None,) * len(inputs)
+        if loss.requires_grad:  # this rank holds a band of the image
+            grads = torch.autograd.grad(loss, inputs, allow_unused=True)
+        grads = [torch.zeros_like(x) if g is None else g for g, x in zip(grads, inputs)]
+        # The step's one collective: the gradients and the loss in one buffer.
+        flat = all_reduce_sum(torch.cat([g.reshape(-1) for g in grads] + [loss.detach().reshape(1)]), mesh)
+        *grads, loss = flat.split([x.numel() for x in inputs] + [1])
+        grads = [g.view_as(x) for g, x in zip(grads, inputs)]
+        loss = loss.reshape(())
         g_leaf, g_op = grads[0], grads[1]
         if masks is not None:
             # Restrict the fit to the selected parameters (adaptive
@@ -258,7 +389,7 @@ def make_fit_step(
                 # Project the rotation back onto the unit quaternions.
                 q = q / torch.clamp_min(torch.linalg.norm(q), 1e-8)
             new_camera = Camera(position=new_pos, rotation=q)
-        return new_arrays, new_camera, opt_state, loss.detach()
+        return new_arrays, new_camera, opt_state, loss
 
     def init_opt_state(arrays: TapeArrays, camera=None) -> FitOptState:
         params = [_on(arrays.leaf_params, dev).clone().requires_grad_(True),
@@ -275,6 +406,7 @@ def make_fit_step(
     step.init_opt_state = init_opt_state
     # Which backward this step trains through, and why the fast O(active)
     # one was skipped (pallas_grad.py:1887-1895); fit_scene logs it.
-    step.backward_info = render.backward_info
+    step.backward_info = render_band.backward_info
     step.device = dev
+    step.bands = bands
     return step

@@ -166,17 +166,35 @@ def test_fit_scene_equals_step_loop(compiled):
         # mode "soft" is ported (tests/test_torch_soft.py); it raises the
         # reference's ValueError where aa_samples^2 does not divide 128.
         (dict(mode="soft", cfg=dataclasses.replace(CFG_T, aa_samples=3)), ValueError),
-        (dict(mesh=["cpu", "cpu"]), NotImplementedError),
-        (dict(row_interleave=2), NotImplementedError),
+        # Multi-device is ported (tests/test_torch_parallel.py and
+        # tests/test_torch_multiprocess.py run worlds of 2 and 4 ranks): a
+        # mesh of two devices in a world of one process raises the
+        # reference's ValueError (mesh.py:25-37).
+        (dict(mesh=2), ValueError),
+        # row_interleave is ported: it trains (None below).
+        (dict(row_interleave=2), None),
     ],
     ids=["jnp", "prepass", "soft", "two_devices", "interleave"],
 )
 def test_fit_step_unported_raise(compiled, kw, exc):
-    _, (spec, _) = compiled
+    _, (spec, arrays) = compiled
     kw = {"backend": "pallas_fused", "cfg": CFG_T, **kw}
+    opt = functools.partial(torch.optim.SGD, lr=1.0)
+    if exc is None:
+        # Two bands of 18 rows against the one band of the whole frame: the
+        # same loss, the same update up to the order of the bands' sums
+        # (tests/test_parallel.py:261-272's class).
+        steps = [rt.make_fit_step(spec, W, H, optimizer=opt, device="cpu", **{**kw, "row_interleave": k})
+                 for k in (1, 2)]
+        assert [s.bands for s in steps] == [[(0, H)], [(0, H // 2), (H // 2, H // 2)]]
+        (a1, _, _, l1), (a2, _, _, l2) = (s(arrays, CAM_T, s.init_opt_state(arrays), _target()) for s in steps)
+        assert float(l2) == pytest.approx(float(l1), rel=1e-5)
+        np.testing.assert_allclose(a2.leaf_params.numpy(), a1.leaf_params.numpy(), atol=1e-4)
+        return
     with pytest.raises(exc):
-        rt.make_fit_step(spec, W, H, optimizer=functools.partial(torch.optim.Adam, lr=1e-2),
-                         device="cpu", **kw)
+        if "mesh" in kw:
+            kw["mesh"] = rt.parallel.make_mesh(kw["mesh"], device="cpu")
+        rt.make_fit_step(spec, W, H, optimizer=opt, device="cpu", **kw)
 
 
 class TestCheckpointer:

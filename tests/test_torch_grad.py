@@ -230,8 +230,9 @@ def test_backward_info_is_the_references(small):
         # reference's ValueError where aa_samples^2 does not divide 128.
         (dict(soft=True), dict(aa_samples=3), None, ValueError),
         # leaf_cull, prepass_block and painted scenes are ported
-        # (tests/test_torch_legacy.py); these cases raise as before.
-        (dict(band_rows=8), {}, None, NotImplementedError),
+        # (tests/test_torch_legacy.py). band_rows is ported: the bands'
+        # gradients add up to the whole frame's ("band" below).
+        (dict(band_rows=10), {}, "band", None),
         # The unpacked route is ported (tests/test_torch_unpacked.py): K4
         # with residuals, then K8; it trains (None below).
         (dict(aa_packed=False), {}, None, None),
@@ -243,6 +244,9 @@ def test_unported_options_raise(kw, cfg_kw, what, exc):
     scene = SCENES["config2"](rt)
     spec, arrays = rt.compile_scene(scene, static=what != "dynamic")
     cfg = dataclasses.replace(_cfg_t(CFG), **cfg_kw)
+    if what == "band":
+        _bands_add_up(spec, arrays, cfg, kw["band_rows"])
+        return
     if exc is None:
         fr = cg.make_fused_render_vjp(spec, cfg, W, H, device="cpu", **kw)
         assert fr.prepass.params.unpacked and fr.backward_info["aa_packed"] is False
@@ -253,6 +257,38 @@ def test_unported_options_raise(kw, cfg_kw, what, exc):
         return
     with pytest.raises(exc, match="ROADMAP" if exc is NotImplementedError else "128"):
         cg.make_fused_render_vjp(spec, cfg, W, H, device="cpu", **kw)
+
+
+def _bands_add_up(spec, arrays, cfg, rows):
+    """The band VJP (band_rows = `rows`, the last band reaching past the
+    image) over the bands of the frame: the bands stack to the whole
+    frame's image, and their gradients add up to the whole frame's, at the
+    bound of two f32 sums (1% of max|g|, 2% for the camera)."""
+    whole = cg.make_fused_render_vjp(spec, cfg, W, H, device="cpu")
+    band = cg.make_fused_render_vjp(spec, cfg, W, H, device="cpu", band_rows=rows)
+    assert band.params.rows == rows and band is not whole
+    g_img = torch.zeros((-(-H // rows) * rows, W, 3))
+    g_img[:H] = torch.tensor(np.random.default_rng(5).uniform(-1, 1, (H, W, 3)).astype(np.float32))
+
+    def grads(fr, i0, n):
+        lp = torch.tensor(arrays.leaf_params, requires_grad=True)
+        opp = torch.tensor(arrays.op_param, requires_grad=True)
+        cv = torch.tensor(_cv(CAM), requires_grad=True)
+        with torch.no_grad():
+            cv[7] = float(i0)
+        img = fr(dataclasses.replace(arrays, leaf_params=lp, op_param=opp), cv)
+        assert img.shape == (n, W, 3) and bool(torch.isfinite(img).all())
+        torch.sum(img * g_img[i0 : i0 + n]).backward()
+        return img.detach(), (lp.grad, opp.grad, cv.grad)
+
+    img_w, ref = grads(whole, 0, H)
+    parts = [grads(band, i0, rows) for i0 in range(0, H, rows)]
+    torch.testing.assert_close(torch.cat([p[0] for p in parts])[:H], img_w, rtol=0, atol=1e-6)
+    got = [sum(p[1][i] for p in parts) for i in range(3)]
+    for i, (a, b) in enumerate(zip(got, ref)):
+        tol = (0.02 if i == 2 else 0.01) * float(b.abs().max())
+        torch.testing.assert_close(a, b, rtol=0, atol=tol)
+    assert float(got[2][7]) == 0.0
 
 
 def test_fused_modes(small):
