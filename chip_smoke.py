@@ -182,11 +182,25 @@ Run from the repository root: `python3 chip_smoke.py`. It
    card through gloo with CUDA tensors, 2 bands each: their gathered frame
    bit-equal to (a)'s, their loss, gradients and SGD-updated parameters
    equal to each other and to (a)'s (rtol 1e-5; gradients in their
-   class); (d) while they run, the band kernels against their plain
-   versions at the 256x144 gate on a band of 37 rows (K1, K2 with
+   class); beside them a world of three ranks (`--mesh 2`) in which every
+   rank calls `make_mesh(2)`: ranks 0 and 1, the mesh's, must give the
+   two-rank world's results bit for bit, and rank 2, outside it, must get
+   the ValueError of `make_sharded_renderer`, `make_fit_step`,
+   `FitCheckpointer` and `all_reduce_sum` without blocking; (d) while
+   they run, the band kernels against their plain versions at the 256x144
+   gate on a band of 37 rows (K1, K2 with
    residuals, K8 on config 2; the culled K1, K2 and K9 on 64 spheres; K4
    with shared normals) and a band reaching past the image (finite);
-19. prints one JSON line of per-kernel records (time, plain time, launches,
+19. the five BASELINE configs through `raymarch_tpu_torch.examples.configs`
+   at their published sizes, twice each (host seconds, launches of each
+   run): config 1 (256x256, the "jnp" march) against the port's f64
+   oracle at 64x64; config 2 (512x512, K1 and K2's materials build)
+   against its plain path; config 3's 48x48 fit (60 steps of K1, K2 with
+   residuals and K8) recovering the blend; config 4's 24 frames at
+   1920x1080 with an edit each (K1, K2 once a frame), distinct, its frame
+   0 again against the config's check and its plain path; config 5's
+   3840x2160 sharded frame (K1, K2) and distributed step;
+20. prints one JSON line of per-kernel records (time, plain time, launches,
    the roofline bound from this run's counted work) for the headline
    builds, the culled builds of the 64-leaf path, the compact backward per
    plan kind, the fine kernel with materials, the interval and block
@@ -3430,6 +3444,7 @@ BAND_GATE = (83, 37)  # (first row, rows) of the uneven gate band at 256x144: ac
 BAND_PAST = (120, 37)  # a gate band that reaches 13 rows past the image (config 2: floor only)
 ORACLE_PIXELS = 48  # pixels of 18b's gate held against the f64 oracle (~7 ms a ray on the card's host)
 RANK_WORLD = 2  # 18c: ranks on the one card (gloo), each with SHARD_K // RANK_WORLD bands
+PART_WORLD = 3  # 18c: a second world on the card, whose ranks 0..RANK_WORLD-1 form a mesh of RANK_WORLD
 RANK_TIMEOUT_S = 240
 
 
@@ -3503,12 +3518,48 @@ def sharded_program(rt, mesh, dev, k, cfg):
     return img, out
 
 
-def rank_main(rank: int, world: int, port: int, out: str, device: str) -> int:
+def outside_mesh(rt, mesh, cfg, ckpt_dir):
+    """18c's rank outside the mesh of part of the world: what the
+    factories built on the mesh raise (each must be a ValueError that says
+    so), in how many seconds, and whether the checkpointer made its
+    directory."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from raymarch_tpu_torch.parallel import FitCheckpointer, all_reduce_sum, make_fit_step, make_sharded_renderer
+
+    spec, arrays = rt.compile_scene(scene_config2(rt), static=True)
+    attempts = (
+        ("make_sharded_renderer", lambda: make_sharded_renderer(spec, WIDTH, HEIGHT, mesh, cfg,
+                                                                backend="pallas_prepass")),
+        ("make_fit_step", lambda: make_fit_step(spec, WIDTH, HEIGHT, mesh, Recorder, cfg, backend="pallas_fused")),
+        ("FitCheckpointer", lambda: FitCheckpointer(ckpt_dir, mesh=mesh)),
+        ("all_reduce_sum", lambda: all_reduce_sum(torch.zeros(3, device=mesh.device), mesh)),
+    )
+    t0 = time.perf_counter()
+    refused = []
+    for name, attempt in attempts:
+        try:
+            attempt()
+        except ValueError as e:
+            if "outside this mesh" in str(e):
+                refused.append(name)
+    return dict(refused=np.array(refused), seconds=np.float64(time.perf_counter() - t0),
+                made_dir=np.array(os.path.exists(ckpt_dir)))
+
+
+def rank_main(rank: int, world: int, port: int, out: str, device: str, mesh_size: int = 0) -> int:
     """One rank of 18c (`chip_smoke.py --rank R --world N --port P --out F
-    --device D`, D the parent's device): joins a gloo group with tensors on
-    D (two ranks on one card: NCCL refuses a duplicate GPU), runs
-    `sharded_program` at row_interleave SHARD_K // world, writes its
-    results to F."""
+    --device D [--mesh M]`, D the parent's device): joins a gloo group with
+    tensors on D (several ranks on one card: NCCL refuses a duplicate GPU),
+    takes the mesh of the world, or with M of ranks 0..M-1 (every rank
+    calls make_mesh(M)), runs `sharded_program` at row_interleave SHARD_K
+    // the mesh's ranks, and writes its results to F. A rank outside the
+    mesh writes what `outside_mesh` finds instead."""
+    from pathlib import Path
+
     import numpy as np
     import torch
     import torch.distributed as dist
@@ -3527,14 +3578,21 @@ def rank_main(rank: int, world: int, port: int, out: str, device: str) -> int:
     initialize_multihost(f"localhost:{port}", world, rank, retries=3, retry_delay=2.0, initialization_timeout=120,
                          backend="gloo", device=dev)
     try:
-        mesh = make_mesh(device=dev)
-        if dist.get_backend() != "gloo" or mesh.shape["rays"] != world or mesh.device != dev:
-            raise AssertionError(f"rank {rank}: unexpected mesh {mesh} on {dist.get_backend()}")
+        n = mesh_size or world
+        mesh = make_mesh(n, device=dev)  # collective over the world: every rank calls it
         cfg = dataclasses.replace(rt.DEFAULT_CONFIG, bound_accel=True, exit_check_every=4)
+        if not mesh.member:
+            res = outside_mesh(rt, mesh, cfg, str(Path(out).with_suffix(".ckpt")))
+            np.savez(out, **res)
+            print(f"rank {rank}/{world} outside the mesh of {n} (gloo, tensors on {dev}): refused by "
+                  f"{res['refused'].tolist()} in {float(res['seconds']):.3f} s", flush=True)
+            return 0
+        if dist.get_backend() != "gloo" or mesh.shape["rays"] != n or mesh.rank != rank or mesh.device != dev:
+            raise AssertionError(f"rank {rank}: unexpected mesh {mesh} on {dist.get_backend()}")
         t1 = time.perf_counter()
-        _, res = sharded_program(rt, mesh, dev, SHARD_K // world, cfg)
+        _, res = sharded_program(rt, mesh, dev, SHARD_K // n, cfg)
         np.savez(out, **res)
-        print(f"rank {rank}/{world} (gloo, tensors on {dev}): set-up {t1 - t0:.2f} s, program "
+        print(f"rank {rank}/{world} (mesh of {n}; gloo, tensors on {dev}): set-up {t1 - t0:.2f} s, program "
               f"{time.perf_counter() - t1:.2f} s, loss {float(res['loss']):.8f}", flush=True)
     finally:
         dist.destroy_process_group()
@@ -3858,16 +3916,25 @@ def multi_device(rt, cp, cg, dev, smi, cfg, gcam_pos):
         if not ok:
             raise AssertionError("the sharded 64-sphere step disagrees with the f64 oracle")
 
-        # -- 18c. two ranks on the one card (gloo, CUDA tensors) -------------
+        # -- 18c. two ranks on the one card (gloo, CUDA tensors); beside them
+        # a world of PART_WORLD whose ranks 0..RANK_WORLD-1 form a mesh of
+        # part of it ---------------------------------------------------------
         rank_dir = Path(__file__).resolve().parent / "build" / "chip_smoke_ranks"
         rank_dir.mkdir(parents=True, exist_ok=True)
-        port = free_port()
+        for f in rank_dir.glob("*.npz"):
+            f.unlink()
+
+        def launch(world, tag, mesh_size=0):
+            port = free_port()
+            return [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--rank", str(r), "--world",
+                                      str(world), "--port", str(port), "--out", str(rank_dir / f"{tag}{r}.npz"),
+                                      "--device", str(dev), "--mesh", str(mesh_size)],
+                                     stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                    for r in range(world)]
+
         t_c = time.perf_counter()
-        procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--rank", str(r), "--world",
-                                   str(RANK_WORLD), "--port", str(port), "--out", str(rank_dir / f"rank{r}.npz"),
-                                   "--device", str(dev)],
-                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-                 for r in range(RANK_WORLD)]
+        procs = launch(RANK_WORLD, "rank") + launch(PART_WORLD, "part", RANK_WORLD)
+        names = [f"rank {r}" for r in range(RANK_WORLD)] + [f"rank {r} of {PART_WORLD}" for r in range(PART_WORLD)]
         try:
             # -- 18d. band gates, while the ranks start ------------------------
             gate_err = band_gates(rt, cp, cg, dev, cfg, cfg64, gcam_pos)
@@ -3877,15 +3944,20 @@ def multi_device(rt, cp, cg, dev, smi, cfg, gcam_pos):
                 if p.poll() is None:
                     p.kill()
                     p.communicate()
-        for r, (p, text) in enumerate(zip(procs, outs)):
+        for name, p, text in zip(names, procs, outs):
             for line in text.strip().splitlines()[-6:]:
-                log(f"  18c rank {r}: {line}")
+                log(f"  18c {name}: {line}")
             if p.returncode != 0:
-                raise AssertionError(f"18c rank {r} failed with exit code {p.returncode}")
-        ranks = []
-        for r in range(RANK_WORLD):
-            with np.load(rank_dir / f"rank{r}.npz") as z:
-                ranks.append({k: z[k] for k in z.files})
+                raise AssertionError(f"18c {name} failed with exit code {p.returncode}")
+
+        def load(tag, world):
+            res = []
+            for r in range(world):
+                with np.load(rank_dir / f"{tag}{r}.npz") as z:
+                    res.append({k: z[k] for k in z.files})
+            return res
+
+        ranks, part = load("rank", RANK_WORLD), load("part", PART_WORLD)
         same = all(np.array_equal(ranks[1][k], ranks[0][k]) for k in ranks[0])
         r0 = ranks[0]
         eq_frame = (np.array_equal(r0["digest"], res_a["digest"]) and float(r0["checksum"]) == float(res_a["checksum"]))
@@ -3899,6 +3971,21 @@ def multi_device(rt, cp, cg, dev, smi, cfg, gcam_pos):
         grad_class("18c gradients of the two ranks vs 18a's (one rank)",
                    tuple(torch.tensor(r0[f"g{i}"]) for i in range(3)),
                    tuple(torch.tensor(res_a[f"g{i}"]) for i in range(3)))
+        # The mesh of RANK_WORLD in the world of PART_WORLD: its ranks give
+        # the two-rank world's results bit for bit; the ranks outside are
+        # refused by every factory, before any collective.
+        same_part = all(set(part[r]) == set(ranks[r]) and all(np.array_equal(part[r][k], ranks[r][k])
+                                                              for k in ranks[r]) for r in range(RANK_WORLD))
+        outside = part[RANK_WORLD:]
+        want = ["make_sharded_renderer", "make_fit_step", "FitCheckpointer", "all_reduce_sum"]
+        refused = all(o["refused"].tolist() == want and not bool(o["made_dir"]) for o in outside)
+        log(f"18c mesh of {RANK_WORLD} in a world of {PART_WORLD} (gloo, CUDA tensors): its ranks' frame, loss, "
+            f"gradients and updated parameters bit-equal to the two-rank world's {same_part}; ranks "
+            f"{list(range(RANK_WORLD, PART_WORLD))} outside it refused by {[o['refused'].tolist() for o in outside]} "
+            f"in {[round(float(o['seconds']), 4) for o in outside]} s (need all of {want}, no checkpoint directory)")
+        if not (same_part and refused):
+            raise AssertionError("18c: the mesh of part of the world disagrees with the two-rank world, or a rank "
+                                 "outside it was not refused")
     finally:
         dist.destroy_process_group()
 
@@ -3927,6 +4014,133 @@ def multi_device(rt, cp, cg, dev, smi, cfg, gcam_pos):
     out["seconds"] = time.perf_counter() - t_phase
     log(f"phase 18: {out['seconds']:.1f} s ({smi})")
     return records, out
+
+
+# --- phase 19: the five BASELINE configs through the port's examples ----------
+CONFIG_RUNS = 2  # runs of each config: the first builds its renderers, the second finds them
+# The configs' published sizes (examples/configs.py), passed on explicitly.
+CONFIG_SIZES = {"1": (256, 256), "2": (512, 512), "3": (48, 48), "4": (1920, 1080), "5": (3840, 2160)}
+CONFIG_ORACLE = 64  # config 1's oracle check, at 64x64
+CONFIG_STRIDE = 64  # config 4's check of a frame: the mean of every 64th pixel of every 64th row
+
+
+def baseline_configs(rt, cp, cg, dev, smi):
+    """Phase 19: `raymarch_tpu_torch.examples.configs` config1() ...
+    config5() on the card at their published sizes, each CONFIG_RUNS times
+    (host seconds, launches of each run: counts set to 0 just before a run
+    and read just after), with their checks: config 1 against the port's
+    f64 oracle at 64x64 (max|d| < 1e-3); config 2's frame (K1, K2's
+    materials build) against its plain path on the card; config 3's
+    recovery of the blend's centre (within 0.1) and loss (halved) through
+    K1, K2 with residuals and K8 once a step; config 4's 24 distinct
+    frames, its frame 0 again by the kernels (its check equal to the
+    config's) and against its plain path; config 5's finite 3840x2160
+    sharded frame and its step's loss. Returns the numbers the summary
+    prints."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+
+    from raymarch_tpu_torch.examples import configs
+
+    t_phase = time.perf_counter()
+    out = {}
+
+    def run(k, expect, **kw):
+        """CONFIG_RUNS runs of config k at its published size: (its last
+        result, its printed lines); `expect` maps each kernel to the
+        launches a run must make."""
+        kw.update(width=CONFIG_SIZES[k][0], height=CONFIG_SIZES[k][1])
+        seconds, counts = [], []
+        for _ in range(CONFIG_RUNS):
+            buf = io.StringIO()
+            torch.cuda.synchronize()
+            cp.reset_launch_counts()
+            cg.reset_launch_counts()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                res = configs.CONFIGS[k](dev, **kw)
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t0)
+            counts.append({"coarse_kernel": cp.coarse.launches, "fine_kernel": cp.fine.launches,
+                           "fine_kernel_residuals": cp.fine_res.launches, "fused_bwd_kernel": cg.bwd.launches,
+                           "compact_bwd_kernel": cg.compact_bwd.launches})
+        text = buf.getvalue()
+        for line in text.splitlines():
+            if line.startswith(("config", "fit")):
+                log(f"  19 config {k}: {line}")
+        log(f"19 config {k}: {' / '.join(f'{v:.4f}' for v in seconds)} s a run (host clock, first run builds its "
+            f"renderers); launches a run {counts[-1]} ({smi})")
+        for c in counts:
+            if any(c[name] != n for name, n in expect.items()) or any(
+                    v for name, v in c.items() if name not in expect):
+                raise AssertionError(f"config {k} should launch {expect} a run and nothing else: {counts}")
+        out[k] = dict(seconds=seconds, launches=counts[-1])
+        return res, text
+
+    # Config 1: the "jnp" march on both sizes, against the f64 oracle.
+    img1, text = run("1", {}, oracle_size=CONFIG_ORACLE)
+    n = CONFIG_ORACLE
+    err1 = float(text.split(f"max abs err vs oracle ({n}^2):")[1].split()[0])
+    log(f"19 config 1 at {n}x{n} vs the port's f64 oracle: max|d| {err1:.3e} (need < 1e-3) "
+        f"{'PASS' if err1 < 1e-3 else 'FAIL'}")
+    if not (err1 < 1e-3 and img1.shape == (*CONFIG_SIZES["1"][::-1], 3) and np.isfinite(img1).all()):
+        raise AssertionError("config 1 outside its oracle class, or its frame is not finite")
+
+    # Config 2: K1 and K2's materials build at 512x512, against the plain path.
+    img2, _ = run("2", {"coarse_kernel": 1, "fine_kernel": 1})
+    scene2, cam2 = configs.config2_scene()
+    spec2, arrays2 = rt.compile_scene(scene2, static=True)
+    r2 = rt.make_renderer(spec2, *CONFIG_SIZES["2"], mode="forward", backend="pallas_prepass", device=dev)
+    if not spec2.has_materials:
+        raise AssertionError("config 2's painted scene should take K2's materials build")
+    image_class("19 config 2 frame (the kernels) vs its plain path on the card",
+                torch.tensor(img2, device=dev), r2.renderer.render_plain(arrays2, rt.cam_vec(cam2, device=dev)))
+
+    # Config 3: the fit through K1, K2 with residuals and K8, 60 steps.
+    steps = 60
+    res3, _ = run("3", {"coarse_kernel": steps, "fine_kernel_residuals": steps, "fused_bwd_kernel": steps})
+    cx = float(res3.arrays.leaf_params[0, 4])
+    ok3 = abs(cx - (-0.5)) < 0.1 and res3.losses[-1] < 0.5 * res3.losses[0]
+    log(f"19 config 3: cx {cx:+.4f} (truth -0.5000, need within 0.1), loss {res3.losses[0]:.6e} -> "
+        f"{res3.losses[-1]:.6e} (need halved), {1.0 / res3.steps_per_sec:.5f} s/step, backward "
+        f"{res3.backward_info['kind']} {'PASS' if ok3 else 'FAIL'}")
+    if not ok3:
+        raise AssertionError("config 3 did not recover the blend")
+    out["3"]["step_s"] = 1.0 / res3.steps_per_sec
+
+    # Config 4: 24 frames at 1080p with an edit each, one renderer.
+    frames = 24
+    checks, _ = run("4", {"coarse_kernel": frames, "fine_kernel": frames}, frames=frames, check_stride=CONFIG_STRIDE)
+    if len(checks) != frames or len(set(checks)) != frames or not np.isfinite(checks).all():
+        raise AssertionError(f"config 4's frames should be {frames} distinct finite ones: {checks}")
+    g, s = configs.config4_graph()
+    cam4 = configs.config4_frame(g, s, rt.OrbitCameraController(target=(0, 0, 0), radius=4.5), 0)
+    spec4, arrays4 = rt.compile_scene(g.evaluate_root(), static=True)
+    r4 = rt.make_renderer(spec4, *CONFIG_SIZES["4"], mode="forward", backend="pallas_prepass", device=dev)
+    img4 = r4(arrays4, cam4)
+    check0 = float(img4[::CONFIG_STRIDE, ::CONFIG_STRIDE].mean())
+    log(f"19 config 4: {frames} distinct frames; frame 0 again by the kernels: check {check0:.7f} against the "
+        f"config's {checks[0]:.7f} (need equal)")
+    if check0 != checks[0]:
+        raise AssertionError("config 4's frame 0 differs from the config's")
+    image_class("19 config 4 frame 0 (the kernels) vs its plain path on the card", img4,
+                r4.renderer.render_plain(arrays4, rt.cam_vec(cam4, device=dev)))
+    del img4
+
+    # Config 5: the 4K sharded frame (K1, K2 over one rank's one band) and
+    # the distributed "jnp" step at 64x64.
+    img5, text = run("5", {"coarse_kernel": 1, "fine_kernel": 1})
+    loss5 = float(text.split("distributed fit step loss=")[1].split()[0])
+    if img5.shape != (*CONFIG_SIZES["5"][::-1], 3) or not np.isfinite(img5).all() or not np.isfinite(loss5):
+        raise AssertionError(f"config 5's frame is {img5.shape} or not finite, or its loss {loss5}")
+    log(f"19 config 5: {img5.shape[1]}x{img5.shape[0]} frame finite, mean {float(img5.mean()):.6f}; step loss "
+        f"{loss5:.5f}")
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 19: {out['seconds']:.1f} s ({smi})")
+    return out
 
 
 def timed_step_of(step, arrays, camera, target):
@@ -4293,6 +4507,9 @@ def main() -> int:
     # -- 18. multi-device: the row-sharded renderer and fit step --------------
     shard_records, sm = multi_device(rt, cp, cg, dev, smi, cfg, (0.0, 2.6, 4.2))
 
+    # -- 19. the five BASELINE configs ----------------------------------------
+    sc5 = baseline_configs(rt, cp, cg, dev, smi)
+
     log(f"card: {smi}")
     kernels = [
         dict(name="coarse_kernel", route="cuda", source="raymarch_tpu_torch/csrc/prepass.cu",
@@ -4384,6 +4601,9 @@ def main() -> int:
         f"{sm['step_1_ms'][1]:.4f}; 64-sphere step {sm['step64_ms'][1]:.4f} ms against {sm['step64_ms'][0]:.4f}, "
         f"cull_args {sum(sm['cull_ms']):.4f} ms over {SHARD_K} bands against {sm['cull_1']:.4f}; phase "
         f"{sm['seconds']:.1f} s ({smi})")
+    log("BASELINE configs summary: " + "; ".join(
+        f"config {k} {' / '.join(f'{v:.4f}' for v in sc5[k]['seconds'])} s" for k in "12345")
+        + f"; config 3 {sc5['3']['step_s']:.5f} s/step; phase {sc5['seconds']:.1f} s ({smi})")
     log(f"chip_smoke total {time.perf_counter() - T_START:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
@@ -4398,6 +4618,7 @@ if __name__ == "__main__":
         ap = argparse.ArgumentParser(description="one rank of chip_smoke.py's phase 18c")
         for flag, kind in (("--rank", int), ("--world", int), ("--port", int), ("--out", str), ("--device", str)):
             ap.add_argument(flag, type=kind, required=True)
+        ap.add_argument("--mesh", type=int, default=0, help="ranks 0..M-1 form the mesh (default: the world)")
         a = ap.parse_args()
-        sys.exit(rank_main(a.rank, a.world, a.port, a.out, a.device))
+        sys.exit(rank_main(a.rank, a.world, a.port, a.out, a.device, a.mesh))
     sys.exit(main())

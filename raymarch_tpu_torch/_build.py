@@ -4,7 +4,8 @@ The sources under `csrc/` compile into one shared library with a plain C
 interface (no PyTorch headers, so the build takes seconds), at the first CUDA
 launch: one nvcc per source, all started together, then one link. The
 library lands in `build/raymarch_tpu_torch/` beside the package
-(git-ignored); its name carries a hash of the sources and flags, so an edit
+(git-ignored), or in the directory `utils.cache.enable_persistent_cache`
+chose; its name carries a hash of the sources and flags, so an edit
 rebuilds and an unchanged tree reuses the library built before. The ranks of
 a job share that directory: a file lock lets one process build while the
 others wait, then load what it built.
@@ -25,7 +26,10 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "raymarch_tpu_torch"
+DEFAULT_BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "raymarch_tpu_torch"
+# Where the library is built and looked for at its first load in a process
+# (utils/cache.py's enable_persistent_cache moves it).
+BUILD_DIR = DEFAULT_BUILD_DIR
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # Flags of single sources. The backward replays the forward's scene

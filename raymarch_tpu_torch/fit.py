@@ -81,12 +81,14 @@ def fit_scene(
     "implicit" or "soft"), "jnp" ("implicit", "unrolled" or "soft") or
     "pallas" ("implicit": K5's forward, the implicit-function VJP).
 
-    `checkpoint_dir` (storage every rank reads) gets an atomic checkpoint of
-    the whole fit state every `checkpoint_every` steps, written by rank 0;
-    with `resume` a restarted job continues from the latest one, every rank
-    from the step rank 0 finds. `stall_timeout` arms a Watchdog on step progress, and
-    `stall_exit_code` turns a stall into a hard exit for a supervisor to
-    relaunch.
+    `checkpoint_dir` (storage every rank of the mesh reads) gets an atomic
+    checkpoint of the whole fit state every `checkpoint_every` steps,
+    written by the mesh's rank 0; with `resume` a restarted job continues
+    from the latest one, every rank of the mesh from the step its rank 0
+    finds. On a mesh of part of the world (make_mesh(n)) a rank outside it
+    gets ValueError before any collective. `stall_timeout` arms a Watchdog
+    on step progress, and `stall_exit_code` turns a stall into a hard exit
+    for a supervisor to relaunch.
 
     Each step reads its loss back to the host (`float(loss)`): the one
     synchronisation per step, as in the reference.
@@ -142,7 +144,7 @@ def fit_scene(
     a, cam = arrays, camera
     ckpt = None
     if checkpoint_dir is not None:
-        ckpt = FitCheckpointer(checkpoint_dir)
+        ckpt = FitCheckpointer(checkpoint_dir, mesh=mesh)
         if resume:
             restored = ckpt.restore(spec, opt_state)
             if restored is not None:

@@ -9,8 +9,9 @@ so the job dies, is relaunched, and resumes from the last checkpoint.
   a temporary file, then `os.replace` publishes it, so a crash mid-write
   never corrupts the latest checkpoint; `keep` bounds disk use; a
   checkpoint written for another TapeSpec refuses to restore. In a job of
-  several ranks only rank 0 writes, into storage every rank reads, and
-  every rank restores from it.
+  several ranks only the mesh's rank 0 writes, into storage every rank of
+  the mesh reads, and every rank of the mesh restores from it; ranks
+  outside a mesh of part of the world take no part.
 - **Watchdog**: a background thread watches step heartbeats and, after
   `timeout` seconds of silence, calls `on_stall`; `exit_code` turns that
   into a hard exit, so a supervisor relaunches the job into the resume
@@ -47,18 +48,47 @@ class FitCheckpointer:
     stored as the bytes `torch.save` writes, and restored into a TEMPLATE
     state from `step.init_opt_state`, whose optimizers and parameters live
     on the fit's device. Checkpoints are keyed by step; the `keep` most
-    recent are retained. In a multi-process job only rank 0 writes;
-    `directory` must be storage every rank reads.
+    recent are retained.
+
+    `mesh` (a `Mesh` of make_mesh) is the fit's ranks: its rank 0 writes,
+    and `restore` agrees on the step over the mesh's group. None is the
+    world: rank 0 of the process group writes and every rank of it
+    restores (a world of one process: this process). `directory` must be
+    storage every rank of the mesh reads; meshes that fit on their own
+    (make_mesh(1) on several ranks) need a directory each. A rank outside
+    the mesh gets ValueError.
     """
 
-    def __init__(self, directory: str, keep: int = 3):
+    def __init__(self, directory: str, keep: int = 3, mesh=None):
+        from .mesh import require_member
+
+        if mesh is not None:
+            require_member(mesh, "FitCheckpointer")
         self.directory = directory
         self.keep = max(1, int(keep))
+        self.mesh = mesh
         os.makedirs(directory, exist_ok=True)
 
-    @staticmethod
-    def _is_writer() -> bool:
+    def _is_writer(self) -> bool:
+        if self.mesh is not None:
+            return self.mesh.rank == 0
         return not dist.is_initialized() or dist.get_rank() == 0
+
+    def _agree(self, step: Optional[int], device) -> Optional[int]:
+        """The step the writer found, on every rank of the mesh (a
+        broadcast from the writer over the mesh's group)."""
+        if self.mesh is None:
+            if not (dist.is_initialized() and dist.get_world_size() > 1):
+                return step
+            group, src = None, 0
+        else:
+            if self.mesh.group is None or self.mesh.size == 1:
+                return step
+            group = self.mesh.group
+            src = dist.get_global_rank(group, 0)
+        agreed = torch.tensor([-1 if step is None else step], dtype=torch.int64, device=device)
+        dist.broadcast(agreed, src, group=group)
+        return None if int(agreed) < 0 else int(agreed)
 
     def _path(self, step: int) -> str:
         return os.path.join(self.directory, f"{_PREFIX}{step:08d}.npz")
@@ -118,17 +148,13 @@ class FitCheckpointer:
         if the checkpoint belongs to a different TapeSpec (the topology
         changed: a stale checkpoint must not poison a new run).
 
-        In a process group every rank takes the step rank 0 finds (a
-        broadcast of rank 0's `latest_step()`): a rank that lists the
-        directory while rank 0 publishes a newer checkpoint, or that sees a
-        stale listing of shared storage, still resumes where the others
-        do."""
-        step = self.latest_step()
-        if dist.is_initialized() and dist.get_world_size() > 1:
-            dev = opt_state_template.params[0].device  # the rank's device: NCCL takes no CPU tensor
-            agreed = torch.tensor([-1 if step is None else step], dtype=torch.int64, device=dev)
-            dist.broadcast(agreed, 0)
-            step = None if int(agreed) < 0 else int(agreed)
+        Every rank of the mesh takes the step its writer finds (a
+        broadcast of the writer's `latest_step()`): a rank that lists the
+        directory while the writer publishes a newer checkpoint, or that
+        sees a stale listing of shared storage, still resumes where the
+        others do."""
+        # The rank's device: NCCL takes no CPU tensor.
+        step = self._agree(self.latest_step(), opt_state_template.params[0].device)
         if step is None:
             return None
         from ..utils.camera import Camera

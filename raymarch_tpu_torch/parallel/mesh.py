@@ -12,6 +12,13 @@ single-device path). With one, the world is the group: start it with
 `torchrun --nproc_per_node=N` (which sets MASTER_ADDR, MASTER_PORT, RANK,
 WORLD_SIZE and LOCAL_RANK) and `initialize_multihost()`, or pass the
 address, the world size and the rank to `initialize_multihost` yourself.
+
+A mesh of part of the world, `make_mesh(n)` with 1 < n < world, is the
+reference's first n devices: ranks 0..n-1 on a `dist.new_group`. JAX's
+single controller leaves the other devices idle; here the other ranks are
+processes of their own, which every rank's `make_mesh(n)` call reaches
+(`new_group` is collective over the whole world), and which get a mesh
+with `member` False that nothing can be built on.
 """
 
 from __future__ import annotations
@@ -32,18 +39,39 @@ RAY_AXIS = "rays"
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """This process's place in the job: `group` (None for a world of one
-    process), `rank`, `size` (the world size) and `device`, the device this
-    rank renders on."""
+    """This process's place in the job: `group` (None for a mesh of this
+    process alone), `rank` (this process's rank in the mesh; None on a rank
+    of the world outside it), `size` (the mesh's ranks) and `device`, the
+    device this rank renders on."""
 
     group: Optional[object]
-    rank: int
+    rank: Optional[int]
     size: int
     device: torch.device
 
     @property
     def shape(self) -> dict:
         return {RAY_AXIS: self.size}
+
+    @property
+    def member(self) -> bool:
+        """Whether this process is one of the mesh's ranks."""
+        return self.rank is not None
+
+
+# The groups of the meshes of part of the world, by size: a second
+# make_mesh(n) creates no group. Cleared when the world is a new one (a
+# process group destroyed and initialized again).
+_GROUPS: dict = {"world": None, "by_size": {}}
+
+
+def _part_group(n: int):
+    world = dist.group.WORLD
+    if _GROUPS["world"] is not world:
+        _GROUPS["world"], _GROUPS["by_size"] = world, {}
+    if n not in _GROUPS["by_size"]:
+        _GROUPS["by_size"][n] = dist.new_group(ranks=list(range(n)))
+    return _GROUPS["by_size"][n]
 
 
 def _rank_device(device) -> torch.device:
@@ -63,13 +91,24 @@ def make_mesh(n_devices: Optional[int] = None, devices: Optional[Sequence] = Non
     """The mesh of this job's ranks along RAY_AXIS.
 
     With no initialized process group: a world of this process on `device`
-    (default "cuda"). With one: the world is the group, and this rank's
-    device is `device`, by default cuda:{LOCAL_RANK % device_count()}; it
-    is the CPU only when the caller asks. `n_devices` (or `len(devices)`,
-    the reference's device list) may be the world size or 1, a mesh of this
-    rank alone (a group of one rank keeps its group, so its reduction runs
-    through the backend); asking for more than the world raises ValueError,
-    as the reference's make_mesh does."""
+    (default "cuda"). With one: the mesh of `n_devices` ranks (or
+    `len(devices)`, the reference's device list; default the world), and
+    this rank's device is `device`, by default cuda:{LOCAL_RANK %
+    device_count()}; it is the CPU only when the caller asks.
+
+    - n = the world: every rank, on the world's group.
+    - n = 1: this rank alone (no group; in a world of one process group,
+      the world's group, so its reduction runs through the backend).
+    - 1 < n < the world: ranks 0..n-1, as the reference's first n devices,
+      on a `dist.new_group` (one per n, made at the first call). Creating
+      a group is collective over the WHOLE world: every rank must call
+      `make_mesh(n)`, in the same order as the others, those outside the
+      mesh too, or the job deadlocks. A rank outside gets a mesh with
+      `member` False (`rank` None): the renderers, fit steps and
+      checkpointers refuse it with ValueError, before any collective.
+
+    Asking for more than the world raises ValueError, as the reference's
+    make_mesh does."""
     if devices is not None:
         n_devices = len(devices)
     world = dist.get_world_size() if dist.is_initialized() else 1
@@ -79,11 +118,28 @@ def make_mesh(n_devices: Optional[int] = None, devices: Optional[Sequence] = Non
             f"make_mesh: {n} devices requested but the world has {world} process(es): start one process "
             "per device (torchrun --nproc_per_node=N, or initialize_multihost) first"
         )
-    if n not in (1, world):
-        raise ValueError(f"make_mesh: a mesh of {n} of the world's {world} ranks: use the world or 1")
+    if n < 1:
+        raise ValueError(f"make_mesh: a mesh needs at least one rank, got {n}")
+    dev = _rank_device(device)
     if dist.is_initialized() and n == world:
-        return Mesh(dist.group.WORLD, dist.get_rank(), world, _rank_device(device))
-    return Mesh(None, 0, 1, _rank_device(device))
+        return Mesh(dist.group.WORLD, dist.get_rank(), world, dev)
+    if n == 1:
+        return Mesh(None, 0, 1, dev)
+    group = _part_group(n)
+    rank = dist.get_rank()
+    return Mesh(group, dist.get_rank(group) if rank < n else None, n, dev)
+
+
+def require_member(mesh: Mesh, what: str) -> None:
+    """Raise ValueError when this rank is outside `mesh`: `what` (a
+    renderer, a fit step, a checkpointer) would enter collectives that the
+    mesh's ranks run without it."""
+    if not mesh.member:
+        raise ValueError(
+            f"{what}: rank {dist.get_rank()} of the world is outside this mesh of ranks 0..{mesh.size - 1}. "
+            f"make_mesh({mesh.size}) is called by every rank of the world; build on the mesh only on the ranks "
+            "it holds (mesh.member)"
+        )
 
 
 def initialize_multihost(
@@ -145,8 +201,10 @@ def initialize_multihost(
 
 
 def all_reduce_sum(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
-    """Sum `x` over the mesh's ranks, in place (nothing in a world of
-    one). The fit step's one collective, and the renderer's gather."""
+    """Sum `x` over the mesh's ranks (its group), in place (nothing in a
+    mesh of one process). The fit step's one collective, and the
+    renderer's gather."""
+    require_member(mesh, "all_reduce_sum")
     if mesh.group is not None:
         dist.all_reduce(x, op=dist.ReduceOp.SUM, group=mesh.group)
     return x

@@ -48,7 +48,7 @@ from ..ops.cuda_grad import make_fused_render_vjp
 from ..ops.cuda_prepass import COARSE_TILE, FINE_TILE, resolve_device
 from ..ops.tape import TapeArrays, TapeSpec
 from ..utils.camera import Camera, cam_vec
-from .mesh import Mesh, all_reduce_sum, make_mesh
+from .mesh import Mesh, all_reduce_sum, make_mesh, require_member
 
 
 def _row_band_indices(i0, rows, width, height, aa_samples, device):
@@ -169,13 +169,14 @@ def _bands(mesh: Mesh, k: int, rows_per: int, height: int):
     return out
 
 
-def _mesh_of(mesh, device) -> Mesh:
+def _mesh_of(mesh, device, what) -> Mesh:
     """`mesh`, or `make_mesh(device=device)` for None; a `device` that is
-    not the mesh's raises."""
+    not the mesh's, or a rank outside the mesh, raises ValueError."""
     if mesh is None:
         return make_mesh(device=device)
     if not isinstance(mesh, Mesh):
         raise TypeError(f"mesh must be a raymarch_tpu_torch.parallel.Mesh (make_mesh), got {type(mesh).__name__}")
+    require_member(mesh, what)
     if device is not None and resolve_device(device) != mesh.device:
         raise ValueError(f"device {device!r} is not the mesh's device {mesh.device}")
     return mesh
@@ -197,7 +198,10 @@ def make_sharded_renderer(
     """`render(arrays, camera) -> image f32[H, W, 3]`, row-sharded over the
     mesh's ranks (render.py:141-205), on every rank.
 
-    The scene and camera are replicated. `row_interleave` = k splits the
+    The scene and camera are replicated. On a mesh of part of the world
+    (make_mesh(n), 1 < n < the world) the mesh's n ranks do all of this
+    among themselves, over its group; a rank outside it gets ValueError
+    here, before any collective. `row_interleave` = k splits the
     image into n k contiguous bands of ceil(H / n k) rows (with
     `cfg.leaf_cull` a multiple of the culling tiles' 16 rows: `_rows_per`),
     and rank d renders bands d, d + n, ..., d + (k - 1) n: each rank gets a
@@ -214,7 +218,7 @@ def make_sharded_renderer(
     `mesh` None is `make_mesh(device=device)`; `interpret` (the Pallas
     interpreter) has no effect."""
     del interpret
-    mesh = _mesh_of(mesh, device)
+    mesh = _mesh_of(mesh, device, "make_sharded_renderer")
     k = max(1, int(row_interleave))
     rows_per = _rows_per(height, mesh.size * k, cfg)
     render_band = _local_renderer(spec, width, height, cfg, mode, backend, mesh.device, rows_per)
@@ -311,7 +315,8 @@ def make_fit_step(
     update; `init_opt_state` then takes the camera too. The returned arrays
     and camera hold tensors on the rank's device. `mesh` None is
     `make_mesh(device=device)` (`device` default "cuda"); with a mesh,
-    `device` may only repeat the mesh's.
+    `device` may only repeat the mesh's. A rank outside a mesh of part of
+    the world gets ValueError here, before any collective.
     """
     del interpret  # the Pallas interpreter: no effect on the ported kernels
     if backend not in ("pallas_fused", "jnp", "pallas"):
@@ -324,7 +329,7 @@ def make_fit_step(
     if optimizer is None:
         raise ValueError("make_fit_step needs an optimizer factory, e.g. "
                          "functools.partial(torch.optim.Adam, lr=1e-2)")
-    mesh = _mesh_of(mesh, device)
+    mesh = _mesh_of(mesh, device, "make_fit_step")
     dev = mesh.device
     if fit_camera and camera_optimizer is None:
         camera_optimizer = functools.partial(torch.optim.SGD, lr=1e-2)

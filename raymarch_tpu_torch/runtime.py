@@ -78,10 +78,13 @@ class TieredRenderer:
         tests.
     renderer_factory : optional override `(spec) -> fn(arrays, camera)`
         replacing make_renderer entirely (tests inject gated factories).
-    persistent_cache : accepted for the reference's signature. The port
-        compiles no per-topology program (its kernel library is built once,
-        by digest), so there is nothing to cache, and no global or
-        environment setting is touched.
+    persistent_cache : call `utils.cache.enable_persistent_cache()` (the
+        default), which keeps the kernel library's directory if one was
+        chosen, else takes $RAYMARCH_TPU_CACHE_DIR or the default
+        `build/raymarch_tpu_torch/`. The port compiles no per-topology
+        program (its kernel library is built once, by digest), so that
+        directory is the whole cache; no torch setting and no environment
+        variable is touched.
     device : "cuda" (the default) or "cpu" (the kernels' plain versions);
         "cuda" without a GPU raises RuntimeError.
 
@@ -109,7 +112,10 @@ class TieredRenderer:
     ):
         from .ops.cuda_prepass import resolve_device
 
-        del persistent_cache  # nothing is compiled per topology
+        if persistent_cache:
+            from .utils.cache import enable_persistent_cache
+
+            enable_persistent_cache()
         self.device = resolve_device(device)
         self.width = width
         self.height = height

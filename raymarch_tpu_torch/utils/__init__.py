@@ -1,3 +1,6 @@
-from . import camera, image, math3d
+from . import cache, camera, image, math3d, profiling
+from .cache import enable_persistent_cache
+from .profiling import rays_per_second, time_fn, trace
 
-__all__ = ["camera", "image", "math3d"]
+__all__ = ["cache", "camera", "image", "math3d", "profiling", "enable_persistent_cache", "rays_per_second",
+           "time_fn", "trace"]

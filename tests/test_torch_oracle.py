@@ -118,11 +118,13 @@ def test_pixel_grads_bit_identical(name):
 
 
 def test_oracle_and_native_import_neither_jax_nor_the_reference():
-    """A fresh interpreter imports the copies without loading jax or any
-    module of raymarch_tpu."""
+    """A fresh interpreter imports the copies, and the port's configs, entry
+    and utilities, without loading jax or any module of raymarch_tpu."""
     code = (
         "import sys\n"
         "import raymarch_tpu_torch.ops.oracle, raymarch_tpu_torch.ops.oracle_grad, raymarch_tpu_torch.native\n"
+        "import raymarch_tpu_torch.examples.configs, raymarch_tpu_torch.entry\n"
+        "import raymarch_tpu_torch.utils.profiling, raymarch_tpu_torch.utils.cache\n"
         "import raymarch_tpu_torch as rt\n"
         "assert rt.oracle is raymarch_tpu_torch.ops.oracle and rt.native is raymarch_tpu_torch.native\n"
         "assert rt.io.__name__ == 'raymarch_tpu_torch.io'\n"

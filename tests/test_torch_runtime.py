@@ -7,7 +7,8 @@ inside the dynamic tape's bucket reuses the dynamic renderer, the kernel
 backend ("pallas_prepass", its plain versions here) serves both tiers, and
 the runtime leaves every global and environment setting as it found it
 (the reference's `persistent_cache` sets JAX's cache directory; the port
-compiles nothing per topology and sets nothing).
+compiles nothing per topology, and its `enable_persistent_cache` keeps the
+kernel library's directory that is already set).
 """
 
 import dataclasses
@@ -217,8 +218,10 @@ def _settings():
 class TestPersistentCache:
     """The reference's `persistent_cache` points JAX's compilation cache at a
     directory (utils/cache.py, ROADMAP §3 fault 3). The port's tiers
-    compile nothing per topology, so the keyword is accepted and changes no
-    setting: fault 3 is repaired by construction."""
+    compile nothing per topology; the keyword calls the port's
+    `enable_persistent_cache()`, which keeps the kernel library's directory
+    already in place and changes no setting: fault 3 is repaired by
+    construction."""
 
     @pytest.mark.parametrize("persistent_cache", [True, False])
     def test_leaves_every_setting_as_it_found_it(self, persistent_cache):
