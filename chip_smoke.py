@@ -113,13 +113,15 @@ Run from the repository root: `python3 chip_smoke.py`. It
    rays of the camera and of seeded incoherent rays, on config 2's dynamic
    tape, at relax 1.6 and on 64 spheres), and of
    make_renderer(backend="pallas", mode="implicit")'s gradients against
-   backend "jnp"'s (gated without bound_accel, where both march the same
-   samples; the deviation with it is logged); then at 1920x1080 with 16 AA
+   backend "jnp"'s (without bound_accel and with it: both start every ray
+   at t = 0 and march the same samples); then at 1920x1080 with 16 AA
    rays per pixel bench.py's `march_only` (K6; static and dynamic tapes;
    march_stats; K6 alone), `march_only_fast` (K1's interval scan and K2's
    march-only build, relax 1.6), the `pallas_full` frame (K7's pixel
    build; static and dynamic; against its plain version and the
-   no-prepass fine kernel's frame), K7 per AA ray through
+   no-prepass fine kernel's frame, both in the exact class), K6 with
+   bound_accel against K6 without it (hit and t on hits equal, steps no
+   larger), K7 per AA ray through
    make_pallas_image_render, the make_renderer frames of backends "pallas"
    and "jnp" (dynamic tape) and `fwdbwd_jnp` (backend "pallas", implicit,
    chunk 2^20: step, K5 launches, peak memory), K5 alone in the step's
@@ -2424,13 +2426,11 @@ def surfaces(rt, cp, dev, smi, cfg, gcam_pos):
         _, t_p, h_p = cp.fine_res_plain(sc2, cam2, bound2, rp.params, *pre)
         march_agreement(f"gate K2 march-only vs fine_res_plain's (t, hit), {kw}, relax {cfg_m.relax}", got,
                         (t_p.reshape(-1), h_p.reshape(-1)))
-    # make_renderer(backend="pallas", mode="implicit") against backend "jnp".
-    # Gated without bound_accel, where both march the same samples from t =
-    # 0. With it, K5 starts at the bound's entry: its rays stop at other
-    # points within min_dist of the surface, where the shading's normal
-    # (taps 1e-4 apart near the box's and the torus's creases) and so the
-    # gradient move by more than the class; the JAX package's two backends
-    # differ there alike. That deviation is logged, not gated.
+    # make_renderer(backend="pallas", mode="implicit") against backend "jnp",
+    # without bound_accel and with it: K5 starts every ray at t = 0 and
+    # takes from the bound only its miss test and exit cap, so both march
+    # the same samples either way (the JAX package's flat kernels start at
+    # the bound's entry, where its two backends part: ROADMAP §3 fault 15).
     def pallas_vs_jnp(cfg_g):
         grads = {}
         for backend in ("pallas", "jnp"):
@@ -2449,10 +2449,8 @@ def surfaces(rt, cp, dev, smi, cfg, gcam_pos):
     grad_class("gate make_renderer(pallas, implicit) vs make_renderer(jnp, implicit) gradients, no bound_accel",
                g["pallas"], g["jnp"])
     g = pallas_vs_jnp(cfg)
-    dev_lp = float((g["pallas"][0] - g["jnp"][0]).abs().max()) / float(g["jnp"][0].abs().max())
-    dev_cam = float((g["pallas"][2] - g["jnp"][2]).abs().max()) / float(g["jnp"][2].abs().max())
-    log(f"gate pallas vs jnp gradients with bound_accel (not gated): max|d| / max|g| leaf {dev_lp:.4f}, camera "
-        f"{dev_cam:.4f}")
+    grad_class("gate make_renderer(pallas, implicit) vs make_renderer(jnp, implicit) gradients, bound_accel",
+               g["pallas"], g["jnp"])
     torch.cuda.synchronize()
     log(f"phase 14 gates: {time.perf_counter() - t_phase:.1f} s")
 
@@ -2538,23 +2536,18 @@ def surfaces(rt, cp, dev, smi, cfg, gcam_pos):
 
     # pallas_full: K7's pixel build (march.py:488-507: the AA mean inside
     # the kernel), static and dynamic tapes, held against its plain version
-    # (image_render_plain, stacked and averaged) in the exact class, and
-    # against the no-prepass fine kernel's image in the accelerated class:
-    # with bound_accel K7 starts each ray at the bound's entry, the fine
-    # kernel at t = 0, so their rays stop at other points within min_dist of
-    # the surface. Where such a point lies within min_dist of a CSG crease
-    # (the torus cut into the box) the normal's taps see the other face, and
-    # a whole pixel's shade moves by up to 0.71 at 1080p; a few thousand of
-    # the 33 M rays also flip between hit and miss (ROADMAP §3 fault 15).
-    # The largest |d| is logged. Then K7 per AA ray, as
-    # make_pallas_image_render returns it, frame and kernel alone.
+    # (image_render_plain, stacked and averaged) and against the no-prepass
+    # fine kernel's image, both in the exact class: K7 and the fine kernel
+    # start every ray at t = 0 and cap it at the bound's exit, so they march
+    # the same samples. Then K7 per AA ray, as make_pallas_image_render
+    # returns it, frame and kernel alone.
     rp0 = cp.make_pallas_image_render_aa(spec_s, cfg, WIDTH, HEIGHT, device=dev, no_prepass=True)
     img_np = rp0(arrays_s, cv)
     for tag, spec_m, arrays_m in (("static", spec_s, arrays_s), ("dynamic", spec_d, arrays_d)):
         render = rt.make_renderer(spec_m, WIDTH, HEIGHT, cfg, mode="forward", backend="pallas_full", device=dev)
         ms, launches, img = timed(lambda: render(arrays_m, camera), cm.image_pixels)
-        image_class(f"pallas_full K7 pixel-build frame ({tag} tape) vs the no-prepass fine kernel's frame", img,
-                    img_np)
+        image_max(f"pallas_full K7 pixel-build frame ({tag} tape) vs the no-prepass fine kernel's frame", img,
+                  img_np)
         fm = render.renderer.flat
         sc, cam, bound = fm.scene_args(arrays_m, cv)
         k_ms = cuda_ms(lambda: cm.image_pixels(sc, cam, bound, fm.params), KERNEL_REPS)
@@ -2583,14 +2576,30 @@ def surfaces(rt, cp, dev, smi, cfg, gcam_pos):
         record("image_render_kernel (K7, per AA ray)" + suffix, "raymarch_tpu_torch/csrc/march_render.cu",
                "raymarch_tpu/ops/pallas_march.py:1566", launches_s, err_s, ks_ms, p_ms, bnd_s)
     img_full = img
-    # Where the two starts part: rays whose hit flag differs between K6 (from
-    # the bound's entry) and the no-prepass fine kernel (from t = 0), and
-    # rays that spend K6's whole step budget.
+    # bound_accel is exact on the flat path: K6 with and without it gives
+    # the same hit on every ray, the same t on hits (bit for bit: one build,
+    # the same samples), the same steps on hits and no more elsewhere. Then
+    # the rays whose hit differs between K6 and the no-prepass fine kernel
+    # (both from t = 0), and the rays that spend K6's whole step budget.
+    t6, h6, s6 = cm.make_pallas_image_march(spec_s, cfg, WIDTH, HEIGHT, device=dev)(arrays_s, cv)
+    t6o, h6o, s6o = cm.make_pallas_image_march(spec_s, dataclasses.replace(cfg, bound_accel=False), WIDTH, HEIGHT,
+                                               device=dev)(arrays_s, cv)
+    hits6 = h6o > 0.5
+    hit_eq = bool(torch.equal(h6, h6o))
+    t_eq = bool(torch.equal(t6[hits6], t6o[hits6]))
+    steps_ok = bool(torch.equal(s6[hits6], s6o[hits6])) and bool((s6 <= s6o).all())
+    ok = hit_eq and t_eq and steps_ok
+    log(f"gate K6 with bound_accel vs without at 1080p: hit equal={hit_eq} on {n_rays} rays, t equal on "
+        f"{int(hits6.sum())} hit rays={t_eq}, steps equal on hits and no larger elsewhere={steps_ok}; steps a ray "
+        f"{float(s6.float().mean()):.4f} against {float(s6o.float().mean()):.4f} (need equal, equal, true) "
+        f"{'PASS' if ok else 'FAIL'}")
+    if not ok:
+        log(f"  {int((h6 != h6o).sum())} rays differ in hit, {int((s6 > s6o).sum())} take more steps")
+        raise AssertionError("bound_accel changed K6's hits, t or steps")
+    del t6, t6o, h6o, s6o, hits6
     _, _, h_np = cp.fine_res(*rp0.scene_args(arrays_s, cv), rp0.params)
-    _, h6, s6 = cm.make_pallas_image_march(spec_s, cfg, WIDTH, HEIGHT, device=dev)(arrays_s, cv)
-    log(f"K6 (from the bound's entry) vs the no-prepass fine kernel (from t = 0): "
-        f"{int((h6 != h_np.reshape(-1)).sum())} of {n_rays} rays differ in hit; "
-        f"{int((s6 >= cfg.max_iter).sum())} rays spend the step budget")
+    log(f"K6 vs the no-prepass fine kernel (both from t = 0): {int((h6 != h_np.reshape(-1)).sum())} of {n_rays} "
+        f"rays differ in hit; {int((s6 >= cfg.max_iter).sum())} rays spend the step budget")
     del h_np, h6, s6
 
     # make_renderer(backend="pallas" / "jnp", mode="forward") frames.

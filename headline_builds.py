@@ -48,7 +48,13 @@ the chained frame, and the divergence of a warp of 32 pixels of a row
 and of a warp of an 8x4-pixel tile (from the plain version's march steps
 on the card). `--k45` runs the K4/K5 rows alone, `--k3` the K3 rows;
 `--mo` times alone the two K2 march-only interval builds whose ptxas line
-moved when `interval_march` lost its unrolled bounds (`march_only_times`).
+moved when `interval_march` lost its unrolled bounds (`march_only_times`);
+`--flat` prices the flat kernels' march (`flat_price`): the flat rows
+above, K5 in a 2^20-ray launch of the 32 that
+`make_renderer(backend="pallas", chunk=1 << 20)` makes of the frame, the
+`fwdbwd_jnp` step through that renderer, and K6's march steps a ray
+(`rt.march_stats`) and hit rays on config 2 under the headline camera and
+on 64 spheres under (0, 2.5, 9).
 It prints one JSON
 object: the card, those times and, per kernel build, ptxas's register /
 stack / spill line. To compare two trees,
@@ -86,6 +92,7 @@ HOST_CALLS = 2000  # ray_march calls timed without their launch
 K5_CHUNK = 1 << 20  # the rays of one K5 launch in a chunked frame (make_renderer(chunk=1 << 20))
 K5_MID = 1 << 21  # half the 64-sphere divergence sample: 2^22 consecutive rays mid-frame
 K3_REPS = 30  # runs of each K3 time
+FLAT_STEPS = 3  # fwdbwd_jnp steps of `--flat` (after one warm-up; about a second each)
 
 
 def ptxas_lines(report: str) -> dict:
@@ -256,6 +263,54 @@ def flat_times(rt, cs, dev):
                 split = device_split(lambda: full(arrays, cam), SPLIT_FRAMES)
         torch.cuda.synchronize()
     return out, split
+
+def flat_price(rt, cs, dev):
+    """{name: ms, or steps a ray, or hit rays} of `--flat` (see the module
+    docstring): `flat_times`'s rows, K5 a 2^20-ray launch of the frame's
+    32 (CUDA events over the 32, FLAT_REPS runs), the `fwdbwd_jnp` step
+    (mean(img^2) backpropagated through `make_renderer(backend="pallas",
+    mode="implicit", chunk=1 << 20)`, FLAT_STEPS steps after one), and,
+    from K6's outputs, the mean steps of every AA ray, of hit rays and of
+    missed rays, and the hit rays."""
+    import torch
+
+    from raymarch_tpu_torch.ops import cuda_march as cm
+
+    out, _ = flat_times(rt, cs, dev)
+    w, h = cs.WIDTH, cs.HEIGHT
+    cfg = dataclasses.replace(rt.DEFAULT_CONFIG, bound_accel=True, exit_check_every=4)
+    head = rt.Camera.looking_at(position=(0.0, 1.6, 4.2), target=(0.0, 0.0, 0.0))
+    wide = rt.Camera.looking_at(position=(0.0, 2.5, 9.0), target=(0.0, 0.0, 0.0))
+    spec, arrays = rt.compile_scene(cs.scene_config2(rt), static=True)
+    n = w * h * cfg.aa_samples ** 2
+    o, d = rt.raygen_flat(torch.arange(n, device=dev), head.position, head.rotation, w, h, cfg)
+    o, d = o.contiguous(), d.contiguous()
+    fm = cm.FlatMarch(spec, cfg, 1, 1, dev)
+    sc, _, b = fm.scene_args(arrays)
+    spans = [(i, min(i + K5_CHUNK, n)) for i in range(0, n, K5_CHUNK)]
+    out["K5 a 2^20-ray launch of 32"] = cs.cuda_ms(
+        lambda: [cm.ray_march(sc, b, fm.params, o[i:j], d[i:j]) for i, j in spans], FLAT_REPS) / len(spans)
+    del o, d
+    render = rt.make_renderer(spec, w, h, cfg, mode="implicit", backend="pallas", chunk=K5_CHUNK, device=dev)
+    lp0 = torch.tensor(arrays.leaf_params, device=dev)
+
+    def step():
+        lp = lp0.clone().requires_grad_(True)
+        torch.mean(render(dataclasses.replace(arrays, leaf_params=lp), head) ** 2).backward()
+
+    out["fwdbwd_jnp step"] = cs.cuda_ms(step, FLAT_STEPS)
+    for name, scene, cam in (("config2", cs.scene_config2(rt), head), ("64 spheres", cs.scene_spheres(rt, 64), wide)):
+        spec_m, arrays_m = rt.compile_scene(scene, static=True)
+        _, hit, steps = cm.make_pallas_image_march(spec_m, cfg, w, h, device=dev)(arrays_m, rt.cam_vec(cam, device=dev))
+        hits = hit > 0.5
+        out[f"K6 steps a ray, {name}"] = rt.march_stats(steps, hit).avg_steps
+        out[f"K6 steps a hit ray, {name}"] = float(steps[hits].float().mean())
+        out[f"K6 steps a missed ray, {name}"] = float(steps[~hits].float().mean())
+        out[f"K6 hit rays, {name}"] = int(hits.sum())
+        del hit, steps, hits
+    torch.cuda.synchronize()
+    return out
+
 
 class StepCount:
     """A `work` argument of the plain fine passes that keeps each AA ray's
@@ -496,7 +551,7 @@ def march_only_times(rt, cs, dev):
     return out
 
 
-def main(only_k45: bool = False, only_k3: bool = False, only_mo: bool = False) -> int:
+def main(only_k45: bool = False, only_k3: bool = False, only_mo: bool = False, only_flat: bool = False) -> int:
     import torch
 
     if not torch.cuda.is_available():
@@ -514,6 +569,13 @@ def main(only_k45: bool = False, only_k3: bool = False, only_mo: bool = False) -
     _build.load()
     build_s = time.perf_counter() - t0
     dev = cp.resolve_device("cuda")
+    if only_flat:
+        flat = flat_price(rt, cs, dev)
+        print(f"flat ({smi}): " + ", ".join(f"{k} {'n/a' if v is None else f'{v:.4f}'}" for k, v in flat.items()),
+              file=sys.stderr)
+        print(json.dumps({"card": smi, "flat_ms": flat, "build_s": build_s,
+                          "ptxas": ptxas_lines(_build.stats["ptxas"])}), flush=True)
+        return 0
     if only_mo:
         mo = march_only_times(rt, cs, dev)
         print(f"march-only builds ({smi}): " + ", ".join(f"{k} {v:.4f}" for k, v in mo.items()), file=sys.stderr)
@@ -582,4 +644,4 @@ if __name__ == "__main__":
     if len(sys.argv) == 4 and sys.argv[1] == "--compare":
         sys.exit(compare(sys.argv[2], sys.argv[3]))
     sys.exit(main(only_k45=sys.argv[1:] == ["--k45"], only_k3=sys.argv[1:] == ["--k3"],
-                  only_mo=sys.argv[1:] == ["--mo"]))
+                  only_mo=sys.argv[1:] == ["--mo"], only_flat=sys.argv[1:] == ["--flat"]))

@@ -100,10 +100,11 @@ class RenderConfig:
     # un-culled soft path matters more than speed.
     soft_cull_log_alpha: float = 104.0
 
-    # Bounding-sphere march acceleration (Pallas kernels): rays missing a
-    # conservative scene bound skip the march; the rest start at the bound
-    # entry and escape at its exit. Exact (hit/t unchanged) — only step
-    # counts drop. Auto-disables for unbounded scenes (planes). Off by
+    # Bounding-sphere march acceleration (the kernels): rays missing a
+    # conservative scene bound skip the march; the rest march from t = 0
+    # (the flat kernels K5-K7; the cone prepass starts its cones at the
+    # bound's entry) and escape at its exit. Exact (hit/t unchanged) — only
+    # step counts drop. Auto-disables for unbounded scenes (planes). Off by
     # default so step statistics match the reference's march semantics.
     bound_accel: bool = False
 

@@ -22,12 +22,18 @@
 // neighbouring pixels' samples, whose rays end together. N is any count:
 // there is no padding to the reference's 16,384-ray tiles.
 //
-// The march is exact sphere tracing (_march_tile, 1088-1214): with
-// bound_accel the scene's bounding sphere sets t0 and the exit cap t_cap
-// when it is valid; a ray escapes on d > max_dist or t > t_cap, and a hit
-// wins on the boundary; steps counts the iterations in which the ray was
-// live, at most max_iter. RELAX (cfg.relax > 1) takes the over-relaxed
-// steps and their fallback (1133-1176): an overshot step is stepped back by
+// The march is exact sphere tracing (_march_tile, 1088-1214), from t = 0
+// on every ray: with bound_accel a valid scene bounding sphere gives a miss
+// test (a ray that misses it, or leaves it behind the origin, takes no
+// step) and the exit cap t_cap = t_exit + min_dist, and no start. The
+// reference's kernels start at the sphere's entry, max(t_enter, 0)
+// (1117-1131), where a grazing ray samples other points and can stop on
+// another surface; from t = 0 hit and t are those without the bound, as
+// raymarch_tpu/config.py promises, and only steps drop. A ray escapes on
+// d > max_dist or t > t_cap, and a hit wins on the boundary; steps counts
+// the iterations in which the ray was live, at most max_iter. RELAX
+// (cfg.relax > 1) takes the over-relaxed steps and their fallback
+// (1133-1176), from t = 0 as well: an overshot step is stepped back by
 // (1 - relax) * step (a negative step) and counts as a step; hit and escape
 // are tested only at samples that did not overshoot. The reference blocks
 // its exit test over a tile and K steps, but masked lanes are no-ops, so a
@@ -101,7 +107,12 @@ __device__ __forceinline__ float march_ray(const Scene& scene, const Ray& r,
   float live = 1.0f, t_cap = FAR_T, hit = 0.0f;
   t = 0.0f;
   steps = 0;
-  if (p.use_bound) bound_clip(bound, r, p.min_dist, live, t, t_cap);
+  if (p.use_bound) {
+    // Only the miss test and the exit cap: every live ray starts at t = 0,
+    // so the bound changes no sample a ray takes before it hits.
+    float t_unused = 0.0f;
+    bound_clip(bound, r, p.min_dist, live, t_unused, t_cap);
+  }
   if constexpr (RELAX) {
     float prev_r = 0.0f, step_len = 0.0f, omega = p.relax;
     for (int k = 0; k < p.max_iter && live > 0.0f; ++k) {

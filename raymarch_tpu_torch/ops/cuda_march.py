@@ -1049,19 +1049,24 @@ SMEM_MAX = 227 * 1024
 def march_tile_plain(scene_fn, p, bound, ox, oy, oz, dx, dy, dz, work=None, leaves=None):
     """Exact sphere tracing of rays (ox.., dx..) -> (t, hit, steps), f32,
     in plain torch: the Pallas `_march_tile` (pallas_march.py:1088-1214), the
-    plain version of march.cu's `march_ray`. With `p.use_bound` the scene's
-    bounding sphere sets t0 and the exit cap when it is valid; a ray escapes
-    on d > max_dist or t > t_cap, a hit wins on the boundary, and steps
-    counts the iterations in which the ray was live. With relax > 1 the
-    over-relaxed steps and their fallback (1133-1176): hit and escape are
-    tested only at samples that did not overshoot, and a stepped-back sample
-    counts. `work` counts the scene and leaf evaluations."""
+    plain version of march.cu's `march_ray`. Every ray starts at t = 0.
+    With `p.use_bound` a valid scene bounding sphere gives only a miss test
+    (a ray that misses it or leaves it behind the origin takes no step) and
+    the exit cap t_exit + min_dist, so hit and t are those without the
+    bound and only steps drop; the reference's kernel starts at the sphere's
+    entry instead (1117-1131), which moves a grazing ray's samples and can
+    stop it on another surface. A ray escapes on d > max_dist or t > t_cap,
+    a hit wins on the boundary, and steps counts the iterations in which the
+    ray was live. With relax > 1 the over-relaxed steps and their fallback
+    (1133-1176): hit and escape are tested only at samples that did not
+    overshoot, and a stepped-back sample counts. `work` counts the scene and
+    leaf evaluations."""
     from .cuda_prepass import _INF_CAP, _bound_clip
 
     zero = dx * 0.0
     t, live, t_cap = zero, zero + 1.0, zero + _INF_CAP
     if p.use_bound:
-        live, t, t_cap = _bound_clip(bound, ox, oy, oz, dx, dy, dz, live, t, t_cap, p.min_dist)
+        live, _, t_cap = _bound_clip(bound, ox, oy, oz, dx, dy, dz, live, t, t_cap, p.min_dist)
     relax = p.relax > 1.0
     hit = steps = prev_r = step_len = zero
     omega = zero + p.relax

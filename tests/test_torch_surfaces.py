@@ -6,9 +6,18 @@ fine kernel's march-only build (`make_pallas_image_march_fast`), against the
 JAX kernels in interpret mode, at the sizes of tests/test_pallas.py, on
 static, dynamic, empty, painted and relaxed scenes, and the reference's
 ValueErrors (the gradients, backends and fits of this slice:
-tests/test_torch_surfaces_grad.py). Hit flags and step counts are held
-equal on every ray, t within 1e-5 on hits, images in the exact-semantics
-class (max |d| < 1e-3).
+tests/test_torch_surfaces_grad.py). Hit flags are held equal on every ray,
+t within 1e-5 on hits, images in the exact-semantics class (max |d| <
+1e-3).
+
+The port's flat kernels start every ray at t = 0 and take from
+`bound_accel` only the bounding sphere's miss test and exit cap, so the
+bound leaves hit and t as they are and only lowers steps
+(raymarch_tpu/config.py's promise). The JAX flat kernels start a bounded
+ray at the sphere's entry, which moves a grazing ray's samples, so the
+reference of a bounded case is the JAX kernel built with
+`bound_accel=False`: steps are equal on hits and no larger elsewhere.
+Without the bound, steps are equal on every ray.
 """
 
 import dataclasses
@@ -65,13 +74,25 @@ def _case(case):
     return CONFIGS[c], (spec_j, arr_j), from_reference(spec_j, arr_j)
 
 
-def _march_equal(got, ref):
+def _unbounded(cfg):
+    """The JAX reference's config for the port's `cfg`: its flat kernels
+    march from t = 0 only without the bound (module docstring)."""
+    return dataclasses.replace(cfg, bound_accel=False)
+
+
+def _march_equal(got, ref, bounded):
+    """hit equal, t within 1e-5 on hits; steps equal on every ray, or, where
+    only `got` had the bound, equal on hits and no larger elsewhere."""
     t, hit, steps = (np.asarray(v) for v in got)
     t_j, hit_j, steps_j = (np.asarray(v) for v in ref)
     np.testing.assert_array_equal(hit, hit_j)
-    np.testing.assert_array_equal(steps, steps_j)
     m = hit_j > 0.5
     np.testing.assert_allclose(t[m], t_j[m], atol=1e-5, rtol=0)
+    if bounded:
+        np.testing.assert_array_equal(steps[m], steps_j[m])
+        assert (steps <= steps_j).all()
+    else:
+        np.testing.assert_array_equal(steps, steps_j)
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
@@ -80,10 +101,10 @@ def test_k5_plain_matches_jax(case):
     n = 1024 + 130  # no multiple of the reference's tile
     o, d = (np.asarray(v) for v in rm.raygen_flat(jnp.arange(n, dtype=jnp.int32), CAM.position, CAM.rotation,
                                                   48, 48, cfg))
-    ref = jax.jit(pm_j.make_pallas_ray_march(spec_j, cfg, True))(arr_j, o, d)
+    ref = jax.jit(pm_j.make_pallas_ray_march(spec_j, _unbounded(cfg), True))(arr_j, o, d)
     got = cm.make_pallas_ray_march(spec, _t(cfg), device="cpu")(arr, torch.as_tensor(o), torch.as_tensor(d))
     assert got[2].dtype == torch.int32
-    _march_equal(got, ref)
+    _march_equal(got, ref, cfg.bound_accel)
 
 
 @pytest.mark.parametrize("case", ["config2_static", "config2_dynamic_relax"])
@@ -119,23 +140,92 @@ def test_k5_chunks_match_one_call(case):
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_k6_plain_matches_jax(case):
     cfg, (spec_j, arr_j), (spec, arr) = _case(case)
-    ref = jax.jit(pm_j.make_pallas_image_march(spec_j, cfg, W, H, True))(arr_j, jnp.asarray(CV))
+    ref = jax.jit(pm_j.make_pallas_image_march(spec_j, _unbounded(cfg), W, H, True))(arr_j, jnp.asarray(CV))
     got = cm.make_pallas_image_march(spec, _t(cfg), W, H, device="cpu")(arr, torch.as_tensor(CV))
     assert got[0].shape == (W * H * 4,)
-    _march_equal(got, ref)
+    _march_equal(got, ref, cfg.bound_accel)
     st = rt.march_stats(got[2], got[1])
-    assert st.n_rays == W * H * 4 and st.max_steps == int(np.asarray(ref[2]).max())
+    assert st.n_rays == W * H * 4 and st.max_steps == int(np.asarray(got[2]).max())
+    assert st.max_steps <= int(np.asarray(ref[2]).max())
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_k7_plain_matches_jax(case):
     cfg, (spec_j, arr_j), (spec, arr) = _case(case)
-    ref = jax.jit(pm_j.make_pallas_image_render(spec_j, cfg, W, H, True))(arr_j, jnp.asarray(CV))
+    ref = jax.jit(pm_j.make_pallas_image_render(spec_j, _unbounded(cfg), W, H, True))(arr_j, jnp.asarray(CV))
     got = cm.make_pallas_image_render(spec, _t(cfg), W, H, device="cpu")(arr, torch.as_tensor(CV))
     assert all(bool(torch.isfinite(g).all()) for g in got)
     img = torch.stack(got, dim=-1).reshape(H, W, 4, 3).mean(dim=2).numpy()
     img_j = np.stack([np.asarray(r) for r in ref], axis=-1).reshape(H, W, 4, 3).mean(axis=2)
     assert np.abs(img - img_j).max() < IMG_ATOL
+
+
+def _flat_run(kernel, spec, arr, cfg, cv):
+    """K5 (over K6's rays), K6 or K7 through their plain versions -> a
+    tuple of tensors (t, hit, steps; or r, g, b)."""
+    if kernel == "k5":
+        o, d = (v.contiguous() for v in rt.raygen_flat(torch.arange(W * H * 4), cv[:3], cv[3:7], W, H, cfg))
+        return cm.make_pallas_ray_march(spec, cfg, device="cpu")(arr, o, d)
+    factory = cm.make_pallas_image_march if kernel == "k6" else cm.make_pallas_image_render
+    return factory(spec, cfg, W, H, device="cpu")(arr, torch.as_tensor(cv))
+
+
+CAM_IN = rm.Camera.looking_at(position=(0.0, 0.4, 1.5), target=(0, 0, 0))  # inside config 2's bound
+CV_INSIDE = np.concatenate([CAM_IN.position, CAM_IN.rotation, [0.0]]).astype(np.float32)
+
+
+@pytest.mark.parametrize("kernel", ["k5", "k6", "k7"])
+@pytest.mark.parametrize("case", sorted(CASES) + ["config2_static_inside"])
+def test_flat_bound_accel_is_exact(case, kernel):
+    """The flat kernels start every ray at t = 0 and take from bound_accel
+    only the bounding sphere's miss test and its exit cap t_exit +
+    min_dist (ROADMAP §3 fault 15): with and without the bound, hit and t
+    are bit-equal (K7's colours with them), steps are equal on hits and no
+    larger elsewhere, and fewer on some ray where the bound is valid. The
+    empty scene and the one with a plane (all_prims) have no valid bound;
+    "inside" puts the camera inside config 2's bound."""
+    cfg, _, (spec, arr) = _case(case.removesuffix("_inside"))
+    cv = CV_INSIDE if case.endswith("_inside") else CV
+    on, off = (_flat_run(kernel, spec, arr, _t(dataclasses.replace(cfg, bound_accel=b)), cv) for b in (True, False))
+    if kernel == "k7":
+        for a, b in zip(on, off):
+            assert torch.equal(a, b)
+        return
+    (t, hit, steps), (t0, hit0, steps0) = on, off
+    assert torch.equal(hit, hit0)
+    m = hit0 > 0.5
+    assert torch.equal(t[m], t0[m]) and torch.equal(steps[m], steps0[m])
+    assert bool((steps <= steps0).all())
+    if cm.compute_bound(spec, arr)[4] > 0:
+        assert bool((steps < steps0).any())
+    else:
+        assert torch.equal(steps, steps0) and torch.equal(t, t0)
+
+
+def test_flat_bound_cap_admits_samples_within_min_dist():
+    """The exit cap is t_exit + min_dist: a sample past the sphere's exit by
+    less than min_dist that does not hit marches on, and the ray hits at
+    its next sample as it does without the bound. A synthetic scene d =
+    0.99 (L - z), L = 2.005 / 0.99, on the ray from the origin along +z,
+    with the bound (0, 0, 1), R = 1 (t_exit 2, the cap 2.01) and min_dist
+    0.01: samples at t = 0, 2.005 (d = 0.02) and 2.025, which hits. A ray
+    whose sphere lies behind its origin takes no step."""
+    p = cp.PrepassParams.make(_t(CFG_B), W, H, no_prepass=True)  # the flat factories' constants
+    assert p.min_dist == np.float32(0.01)
+    k, lim = 0.99, 2.005 / 0.99
+
+    def scene(x, y, z):
+        return k * (lim - z)
+
+    bound = torch.tensor([0.0, 0.0, 1.0, 1.0, 1.0, 0.0, 0.0, 0.0])
+    zero, one = torch.zeros(1), torch.ones(1)
+    (t, hit, steps), (t0, hit0, steps0) = (
+        cm.march_tile_plain(scene, dataclasses.replace(p, use_bound=b), bound, zero, zero, zero, zero, zero, one)
+        for b in (True, False))
+    assert float(hit) == float(hit0) == 1.0 and float(steps) == float(steps0) == 3.0
+    assert torch.equal(t, t0) and float(t) > 2.02
+    t, hit, steps = cm.march_tile_plain(scene, p, bound, zero, zero, zero - 3.0, zero, zero, -one)
+    assert float(hit) == 0.0 and float(steps) == 0.0
 
 
 @pytest.mark.parametrize("kw", [dict(prepass_block=1), dict(prepass_block=4), dict(prepass_block=1, n_intervals=2)],
@@ -185,12 +275,13 @@ def test_reference_value_errors(backend, mode):
 def test_pixel_build_plain_matches_jax_pallas_full(case, aa):
     """K7's pixel build (the AA mean inside the kernel) through its plain
     version, `make_renderer(backend="pallas_full")` on the CPU, against the
-    JAX package's pallas_full frame in interpret mode: the exact class.
-    aa 3 is the build's shared-memory sum, aa 2 and 4 its shuffles."""
+    JAX package's pallas_full frame in interpret mode without the bound
+    (module docstring): the exact class. aa 3 is the build's shared-memory
+    sum, aa 2 and 4 its shuffles."""
     cfg, (spec_j, arr_j), (spec, arr) = _case(case)
     cfg = dataclasses.replace(cfg, aa_samples=aa)
-    img_j = np.asarray(jax.jit(rm.make_renderer(spec_j, W, H, cfg, mode="forward", backend="pallas_full",
-                                                interpret=True))(arr_j, CAM))
+    img_j = np.asarray(jax.jit(rm.make_renderer(spec_j, W, H, _unbounded(cfg), mode="forward",
+                                                backend="pallas_full", interpret=True))(arr_j, CAM))
     render = rt.make_renderer(spec, W, H, _t(cfg), mode="forward", backend="pallas_full", device="cpu")
     before = cm.image_pixels.launches
     img = render(arr, CAM_T)
