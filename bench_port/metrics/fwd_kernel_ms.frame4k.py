@@ -1,0 +1,5 @@
+"""fwd_kernel_ms.frame4k: fwd_kernel_ms.frame of the 4K cell on one card, which moves frame4k_ms."""
+
+from bench_port.spec import reader
+
+read = reader("fwd_kernel_ms.frame")

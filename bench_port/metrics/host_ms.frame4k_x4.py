@@ -1,0 +1,5 @@
+"""host_ms.frame4k_x4: host_ms.frame of the 4K cell on 4 cards (rank 0's), which moves frame4k_x4_ms."""
+
+from bench_port.spec import reader
+
+read = reader("host_ms.frame")

@@ -1,0 +1,5 @@
+"""idle_share.frame4k: idle_share.frame of the 4K cell on one card, which moves frame4k_ms."""
+
+from bench_port.spec import reader
+
+read = reader("idle_share.frame")

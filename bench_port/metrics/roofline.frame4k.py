@@ -1,0 +1,5 @@
+"""roofline.frame4k: roofline.frame of the 4K cell on one card, which moves frame4k_ms."""
+
+from bench_port.spec import reader
+
+read = reader("roofline.frame")
