@@ -70,6 +70,7 @@ import numpy as np
 import torch
 
 from ..config import RenderConfig
+from ..utils import profiling
 from . import opcodes as oc
 from .cuda_march import (
     SceneBuffers,
@@ -652,6 +653,8 @@ def compact_bwd(scene: SceneBuffers, cull: TileCull, cam, p: PrepassParams, clam
 
 compact_bwd.launches = 0
 compact_bwd.soft_launches = 0
+for _fn in (bwd, compact_bwd):
+    profiling.count_launches("cuda_grad", _fn, ("launches", "soft_launches"))
 
 
 def reset_launch_counts():

@@ -43,6 +43,7 @@ import functools
 import numpy as np
 import torch
 
+from ..utils import profiling
 from . import opcodes as oc
 from .sdf import _apply_dynamic_tape, _apply_static_tape, _static_tree
 from .tape import TapeArrays, TapeSpec
@@ -208,7 +209,7 @@ def _dynamic_tape(spec: TapeSpec, arrays: TapeArrays, device, row_kind: torch.Te
         raise ValueError(f"the dynamic tape writes stack slot {deepest}, past the spec's depth {spec.stack_depth}")
     # The words first, so that they start 16-byte aligned.
     words = pack_words(*tape, row_kinds(spec))
-    buf = torch.as_tensor(np.concatenate([words.ravel(), tape.ravel()]), device=device)
+    buf = profiling.uploaded(torch.as_tensor(np.concatenate([words.ravel(), tape.ravel()]), device=device))
     return buf[4 * n:].view(3, n), buf[: 4 * n].view(n, 4)
 
 
@@ -222,7 +223,7 @@ def _device_array(name: str, x, device) -> torch.Tensor:
         if x.dtype != torch.float32:
             raise TypeError(f"{name} has dtype {x.dtype}, expected torch.float32")
         return x.detach().contiguous()
-    return torch.as_tensor(np.asarray(x, np.float32), device=device)
+    return profiling.uploaded(torch.as_tensor(np.asarray(x, np.float32), device=device))
 
 
 def scene_buffers(spec: TapeSpec, arrays: TapeArrays, device, topology=None) -> SceneBuffers:
@@ -1240,6 +1241,7 @@ def _march_launch(scene: SceneBuffers, cam, bound, p, origins, dirs, n: int, out
     return (o[0], o[1], steps) if out == 0 else tuple(o)
 
 
+@profiling.spanned("launch.ray_march")
 def ray_march(scene: SceneBuffers, bound, p, origins, dirs):
     """K5: march explicit rays origins, dirs f32[N, 3] -> (t, hit f32[N],
     steps i32[N]) on the inputs' device."""
@@ -1256,6 +1258,7 @@ def ray_march(scene: SceneBuffers, bound, p, origins, dirs):
     return out
 
 
+@profiling.spanned("launch.image_march")
 def image_march(scene: SceneBuffers, cam, bound, p):
     """K6: march the N = aa^2 * H * W AA rays of the image from `cam` ->
     (t, hit f32[N], steps i32[N]), pixel-major."""
@@ -1268,6 +1271,7 @@ def image_march(scene: SceneBuffers, cam, bound, p):
     return out
 
 
+@profiling.spanned("launch.image_render")
 def image_render(scene: SceneBuffers, cam, bound, p):
     """K7: render the N AA rays of the image from `cam` -> gamma-corrected
     (r, g, b) f32[N], pixel-major; the caller takes the AA mean."""
@@ -1280,6 +1284,7 @@ def image_render(scene: SceneBuffers, cam, bound, p):
     return out
 
 
+@profiling.spanned("launch.image_pixels")
 def image_pixels(scene: SceneBuffers, cam, bound, p):
     """K7's pixel build: render the image from `cam` -> f32[rows, W, 3],
     each pixel the mean of its S = aa^2 gamma-corrected samples, reduced
@@ -1307,6 +1312,8 @@ ray_march.launches = 0
 image_march.launches = 0
 image_render.launches = 0
 image_pixels.launches = 0
+for _fn in (ray_march, image_march, image_render, image_pixels):
+    profiling.count_launches("cuda_march", _fn, ("launches",))
 
 
 def reset_launch_counts():
@@ -1341,7 +1348,7 @@ class FlatMarch:
             if x.device != self.device:
                 raise ValueError(f"rays are on {x.device}, expected {self.device}")
             return x.detach().to(torch.float32).contiguous()
-        return torch.as_tensor(np.asarray(x, np.float32), device=self.device)
+        return profiling.uploaded(torch.as_tensor(np.asarray(x, np.float32), device=self.device))
 
 
 @functools.lru_cache(maxsize=None)

@@ -83,6 +83,7 @@ import numpy as np
 import torch
 
 from ..config import RenderConfig
+from ..utils import profiling
 from . import opcodes as oc
 from .cuda_march import (
     SceneBuffers,
@@ -1185,6 +1186,7 @@ def _check_cull(cull: TileCull | None, spec: TapeSpec, grid: tuple, dev):
         _check("prog", cull.prog, torch.int32, None, dev)
 
 
+@profiling.spanned("launch.coarse")
 def coarse(scene: SceneBuffers, cam, bound, p: PrepassParams, cull: TileCull | None = None):
     """Coarse pass -> (t0, status) f32[brows, bcols] on the inputs' device,
     or with p.ni the 2*ni interval planes, starts then ends. `cull` is the
@@ -1243,11 +1245,13 @@ def _counter(fn, split_intervals: bool):
         setattr(fn, name, getattr(fn, name) + 1)
 
     fn.count = count
+    profiling.count_launches("cuda_prepass", fn, _COUNTS)
 
 
 _counter(coarse, split_intervals=True)
 
 
+@profiling.spanned("launch.coarse_px")
 def coarse_px(scene: SceneBuffers, cam, bound, p: PrepassParams, t_blk, status_blk):
     """Chained pixel pass (prepass_chain, B > 1) -> (t0, status) f32[rows,
     W] on the inputs' device, from the coarse pass's block planes."""
@@ -1339,6 +1343,7 @@ def _fine_launch(scene: SceneBuffers, cam, bound, p: PrepassParams, pre, residua
     return (img, *res) if residuals else img
 
 
+@profiling.spanned("launch.fine")
 def fine(scene: SceneBuffers, cam, bound, p: PrepassParams, *pre, cull: TileCull | None = None):
     """Fine pass -> image f32[rows, W, 3] on the inputs' device. `pre` are
     the prepass planes at `p.plane_shape` (none with `p.no_prepass`): (t0,
@@ -1347,6 +1352,7 @@ def fine(scene: SceneBuffers, cam, bound, p: PrepassParams, *pre, cull: TileCull
     return _fine_launch(scene, cam, bound, p, pre, False, cull)
 
 
+@profiling.spanned("launch.fine_res")
 def fine_res(scene: SceneBuffers, cam, bound, p: PrepassParams, *pre, cull: TileCull | None = None):
     """Fine pass that also keeps its residuals -> (image f32[rows, W, 3], t,
     hit f32[rows, W, S]), the counterpart of the Pallas fine kernel with
@@ -1358,6 +1364,7 @@ def fine_res(scene: SceneBuffers, cam, bound, p: PrepassParams, *pre, cull: Tile
     return _fine_launch(scene, cam, bound, p, pre, True, cull)
 
 
+@profiling.spanned("launch.fine_march")
 def fine_march(scene: SceneBuffers, cam, bound, p: PrepassParams, *pre, cull: TileCull | None = None):
     """The fine pass's march-only build -> (t, hit) f32[rows * W * S]: each
     AA ray's march end and hit flag, flat in pixel-major AA-ray order (r =
@@ -1482,6 +1489,7 @@ def _fine_unpacked_launch(scene: SceneBuffers, cam, bound, p: PrepassParams, pre
     return (img, t, hit) if residuals else img
 
 
+@profiling.spanned("launch.fine_unpacked")
 def fine_unpacked(scene: SceneBuffers, cam, bound, p: PrepassParams, *pre, cull: TileCull | None = None):
     """The unpacked fine pass K4 (`csrc/fine_unpacked.cu`) -> image f32[rows,
     W, 3] on the inputs' device: every AA sample of a pixel in a lane of its
@@ -1493,6 +1501,7 @@ def fine_unpacked(scene: SceneBuffers, cam, bound, p: PrepassParams, *pre, cull:
     return _fine_unpacked_launch(scene, cam, bound, p, pre, False, cull)
 
 
+@profiling.spanned("launch.fine_unpacked_res")
 def fine_unpacked_res(scene: SceneBuffers, cam, bound, p: PrepassParams, *pre, cull: TileCull | None = None):
     """K4 that also keeps its residuals -> (image, t, hit f32[rows, W, S]),
     in the layout `fine_res` writes them (the legacy backward K8 reads
@@ -1518,6 +1527,7 @@ def reset_launch_counts():
 # Renderer
 
 
+@profiling.spanned("upload")
 def frame_args(spec: TapeSpec, p: PrepassParams, topology, device, arrays: TapeArrays, cam_vec):
     """(SceneBuffers, cam f32[8] or None, bound f32[8]) for one frame, all
     on `device`. Parameters and camera given as tensors must lie there
@@ -1531,7 +1541,7 @@ def frame_args(spec: TapeSpec, p: PrepassParams, topology, device, arrays: TapeA
     elif torch.is_tensor(arrays.leaf_params) or torch.is_tensor(arrays.op_param):
         bound = compute_bound_torch(spec, scene.leaf_params, scene.op_param)
     else:
-        bound = torch.as_tensor(compute_bound(spec, arrays), device=device)
+        bound = profiling.uploaded(torch.as_tensor(compute_bound(spec, arrays), device=device))
     cam = None
     if cam_vec is not None:
         cam = torch.as_tensor(cam_vec, dtype=torch.float32).detach()
@@ -1602,13 +1612,14 @@ class PrepassRenderer:
         from .culling import leaf_bound_spheres
 
         p = self.params
-        bounds = leaf_bound_spheres(self.spec, scene, self.cfg, soft=p.soft)
-        coarse_cull = None
-        if not p.no_prepass:
-            tb = -(-COARSE_TILE // p.block)
-            omega = cone_omega(self.cfg, p.width, p.height, p.block)
-            coarse_cull = self._grid_cull(bounds, cam, (p.brows, p.bcols), tb, tb * p.block, omega)
-        return coarse_cull, self._grid_cull(bounds, cam, (p.rows, p.width), FINE_TILE, FINE_TILE, 0.0)
+        with profiling.span("cull"):
+            bounds = leaf_bound_spheres(self.spec, scene, self.cfg, soft=p.soft)
+            coarse_cull = None
+            if not p.no_prepass:
+                tb = -(-COARSE_TILE // p.block)
+                omega = cone_omega(self.cfg, p.width, p.height, p.block)
+                coarse_cull = self._grid_cull(bounds, cam, (p.brows, p.bcols), tb, tb * p.block, omega)
+            return coarse_cull, self._grid_cull(bounds, cam, (p.rows, p.width), FINE_TILE, FINE_TILE, 0.0)
 
     def prepass(self, scene: SceneBuffers, cam, bound, coarse_cull, plain: bool = False):
         """The prepass planes the fine pass reads: the coarse pass's, then,

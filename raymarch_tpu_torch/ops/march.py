@@ -47,6 +47,7 @@ import torch
 import torch.utils.checkpoint
 
 from ..config import DEFAULT_CONFIG, RenderConfig
+from ..utils import profiling
 from ..utils.camera import cam_vec
 from .raygen import raygen_flat
 from .sdf import _param, make_scene_color_fn, make_scene_fn
@@ -402,6 +403,7 @@ def _renderer(spec, width, height, cfg, mode, chunk, backend, dev):
 
         rv = make_fused_render_vjp(spec, cfg, width, height, soft=mode == "soft", device=dev)
 
+        @profiling.framed
         def render_fused(arrays: TapeArrays, camera):
             return rv(arrays, cam_vec(camera, 0.0, device=rv.device))
 
@@ -418,6 +420,7 @@ def _renderer(spec, width, height, cfg, mode, chunk, backend, dev):
         rp = make_pallas_image_render_aa(spec, cfg, width, height, device=dev,
                                          aa_packed=not cfg.aa_shared_normals)
 
+        @profiling.framed
         def render_prepass(arrays: TapeArrays, camera):
             return rp(arrays, cam_vec(camera, 0.0, device=rp.device))
 
@@ -430,6 +433,7 @@ def _renderer(spec, width, height, cfg, mode, chunk, backend, dev):
         # inside the kernel.
         pixel_render = cm.make_pallas_pixel_render(spec, cfg, width, height, device=dev)
 
+        @profiling.framed
         def render_full(arrays: TapeArrays, camera):
             return pixel_render(arrays, cam_vec(camera, 0.0, device=dev))
 
@@ -483,6 +487,7 @@ def _renderer(spec, width, height, cfg, mode, chunk, backend, dev):
 
     if backend == "pallas_image":
 
+        @profiling.framed
         def render_image(arrays: TapeArrays, camera):
             a = _arrays_on(arrays, torch.empty(0, device=dev))
             t, hit, _ = image_march(arrays, cam_vec(camera, 0.0, device=dev))
@@ -496,6 +501,7 @@ def _renderer(spec, width, height, cfg, mode, chunk, backend, dev):
         render_image.renderer = image_march
         return render_image
 
+    @profiling.framed
     def render(arrays: TapeArrays, camera):
         a = _arrays_on(arrays, torch.empty(0, device=dev))
         cols = []

@@ -47,6 +47,7 @@ from ..config import DEFAULT_CONFIG, RenderConfig
 from ..ops.cuda_grad import make_fused_render_vjp
 from ..ops.cuda_prepass import COARSE_TILE, FINE_TILE, resolve_device
 from ..ops.tape import TapeArrays, TapeSpec
+from ..utils import profiling
 from ..utils.camera import Camera, cam_vec
 from .mesh import Mesh, all_reduce_sum, make_mesh, require_member
 
@@ -224,6 +225,7 @@ def make_sharded_renderer(
     render_band = _local_renderer(spec, width, height, cfg, mode, backend, mesh.device, rows_per)
     bands = _bands(mesh, k, rows_per, height)
 
+    @profiling.framed
     def render(arrays: TapeArrays, camera):
         dev = mesh.device
         with torch.no_grad():
@@ -232,11 +234,14 @@ def make_sharded_renderer(
             # from running ahead. The parameters stay as given: numpy ones
             # take frame_args's host bound, which costs the host less than
             # the torch form's launches.
-            cam = Camera(position=_on(camera.position, dev), rotation=_on(camera.rotation, dev))
+            with profiling.span("upload"):
+                cam = Camera(position=_on(camera.position, dev), rotation=_on(camera.rotation, dev))
             img = torch.zeros((height, width, 3), dtype=torch.float32, device=dev)
             for i0, rows in bands:
-                img[i0 : i0 + rows] = render_band(arrays, cam, i0, rows_per)[:rows]
-            return all_reduce_sum(img, mesh)
+                with profiling.span("band", row=i0):
+                    img[i0 : i0 + rows] = render_band(arrays, cam, i0, rows_per)[:rows]
+            with profiling.span("gather"):
+                return all_reduce_sum(img, mesh)
 
     render.backward_info = render_band.backward_info
     render.bands = bands
@@ -274,7 +279,7 @@ def _on(x, device) -> torch.Tensor:
         if x.device != device:
             raise ValueError(f"a fit input is on {x.device}, expected {device}")
         return x.detach().to(torch.float32)
-    return torch.as_tensor(x, dtype=torch.float32, device=device)
+    return profiling.uploaded(torch.as_tensor(x, dtype=torch.float32, device=device))
 
 
 def make_fit_step(

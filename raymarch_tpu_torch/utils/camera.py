@@ -18,7 +18,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from . import math3d
+from . import math3d, profiling
 
 
 @dataclasses.dataclass
@@ -64,6 +64,7 @@ class Camera:
         )
 
 
+@profiling.spanned("upload")
 def cam_vec(camera: Camera, row_offset: float = 0.0, *, device) -> torch.Tensor:
     """f32[8] = (position xyz, rotation wxyz, row_offset) on `device`: the
     camera layout the kernels read. `row_offset` is the first image row of
@@ -88,7 +89,7 @@ def cam_vec(camera: Camera, row_offset: float = 0.0, *, device) -> torch.Tensor:
             np.asarray([row_offset], np.float32),
         ]
     )
-    return torch.as_tensor(v, device=device)
+    return profiling.uploaded(torch.as_tensor(v, device=device))
 
 
 class OrbitCameraController:

@@ -1,12 +1,14 @@
 """The port's `utils/profiling.py` and `utils/cache.py`, on the CPU, as
 tests/test_runtime.py holds the reference's cache: `time_fn` gives a
-positive best-of time, `trace` writes a Chrome trace under its directory,
-and `enable_persistent_cache` chooses the kernel library's directory in
+positive best-of time, `trace` writes a Chrome trace under its directory
+(by default a new one for each call), and `enable_persistent_cache` chooses the kernel library's directory in
 the order explicit argument, directory already chosen,
 $RAYMARCH_TPU_CACHE_DIR, default."""
 
 import json
 import os
+import shutil
+import tempfile
 
 import pytest
 import torch
@@ -42,6 +44,23 @@ def test_trace_writes_a_chrome_trace(tmp_path):
     with open(d / files[0]) as f:
         events = json.load(f)["traceEvents"]
     assert any("matmul" in e.get("name", "") for e in events)
+
+
+def test_trace_default_directory_is_new_for_each_call():
+    dirs = []
+    try:
+        for _ in range(2):
+            with trace() as d:
+                dirs.append(d)
+                torch.ones(8, 8).sum()
+        assert dirs[0] != dirs[1]
+        for d in dirs:
+            assert os.path.dirname(d) == tempfile.gettempdir()
+            files = os.listdir(d)
+            assert len(files) == 1 and files[0].endswith(".json")
+    finally:
+        for d in dirs:
+            shutil.rmtree(d, ignore_errors=True)
 
 
 @pytest.fixture
