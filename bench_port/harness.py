@@ -128,6 +128,14 @@ class StopFlag:
     def read(self, i: int) -> bool:
         return bool(self.down[(i // self.every) % 2][0])
 
+    def barrier(self) -> None:
+        """All ranks meet: one all_reduce of a zero of its own (never a
+        frame's buffers), then this rank's card synchronised."""
+        zero = torch.zeros(1, dtype=torch.int32, device=self.mesh.device)
+        self.dist.all_reduce(zero, group=self.mesh.group)
+        if zero.is_cuda:
+            torch.cuda.synchronize(zero.device)
+
 
 def frames_loop(run: Run, prog, cams, clock: Clock, state: dict, seconds: float, in_flight: int, keep=None,
                 flag: StopFlag = None):
@@ -305,10 +313,14 @@ def run_rank(cell: dict, seed: int, seconds: float, trace: bool, device, *, mesh
         run.intervals_ms = [clock.ms(marks[k - 1], marks[k]) for k in range(1, len(marks))]
         run.host_s = list(state["host"])
         if trace:
+            # On a mesh the ranks' profilers start at different times: the
+            # ranks meet once every profiler records, so no rank's window
+            # holds the first gather's wait for the others.
             state["marks"] = [clock.mark()]
             run.trace = tracewin.traced(lambda: frames_loop(run, prog, cams, clock, state, trace_seconds,
                                                             in_flight, None, flag),
-                                        lambda: len(state["marks"]), cuda)
+                                        lambda: len(state["marks"]), cuda,
+                                        align=None if flag is None else flag.barrier)
         if cuda:
             run.memory_peak_bytes = int(torch.cuda.max_memory_allocated(device))
         del prog

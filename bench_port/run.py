@@ -12,7 +12,10 @@ The last line of standard output is one JSON object: `correct`,
 `attempted`, `failed`, `metrics` (the cell's end-to-end metrics with
 `--trace 0`, its per-layer metrics with `--trace 1`), `device`, with
 `--trace 1` `breakdown`, and last `checks`, each number compared with its
-limit; the same checks end standard error.
+limit; the same checks end standard error. With `--trace 1`,
+`device.busy_s` and `device.window_s` come from one trace, rank 0's: its
+merged device time without NCCL's kernels, and its traced window, which on
+several cards opens once every rank's profiler records.
 
 Build and kernel caches stay inside the checkout: the port's kernel
 library in `build/raymarch_tpu_torch/`, and `TORCH_EXTENSIONS_DIR` and
@@ -30,7 +33,6 @@ import argparse  # noqa: E402
 import json  # noqa: E402
 import os  # noqa: E402
 import socket  # noqa: E402
-import statistics  # noqa: E402
 import subprocess  # noqa: E402
 import sys  # noqa: E402
 from pathlib import Path  # noqa: E402
@@ -79,13 +81,24 @@ def summarize(cell: dict, run, trace: bool) -> dict:
            "window_s": run.window_s}
     if trace and run.trace is not None:
         out["busy_s"] = run.trace.busy_s
+        out["compute_busy_s"] = run.trace.compute_busy_s
         out["trace_window_s"] = run.trace.window_s
         out["breakdown"] = run.trace.breakdown()
     return out
 
 
+def device_time(parts: list) -> tuple:
+    """(busy_s, window_s) of the result line, both from rank 0's trace: its
+    device time without NCCL's kernels, which spin while they wait for the
+    other ranks, and its traced window; so busy_s <= window_s. One card runs
+    no NCCL kernel, and its busy time is its whole device time."""
+    lead = parts[0]
+    return lead["compute_busy_s"], lead["trace_window_s"]
+
+
 def assemble(cell: dict, parts: list, trace: bool, forbidden: list) -> dict:
-    """The result line from the ranks' summaries (rank 0 first)."""
+    """The result line from the ranks' summaries (rank 0 first); in a
+    traced run `device.busy_s` and `window_s` are rank 0's (`device_time`)."""
     import torch
 
     from bench_port import harness
@@ -98,9 +111,8 @@ def assemble(cell: dict, parts: list, trace: bool, forbidden: list) -> dict:
               "memory_peak_bytes": max(p["memory_peak_bytes"] for p in parts), "power_limit_w": power_limit_w()}
     result = {"correct": correct, "attempted": lead["attempted"], "failed": failed, "metrics": lead["metrics"],
               "device": device}
-    if trace and "busy_s" in lead:
-        device["busy_s"] = statistics.mean(p["busy_s"] for p in parts)
-        device["window_s"] = lead["trace_window_s"]
+    if trace and "compute_busy_s" in lead:
+        device["busy_s"], device["window_s"] = device_time(parts)
         result["breakdown"] = lead["breakdown"]
     result["checks"] = checks
     return result
@@ -210,6 +222,10 @@ def main(argv=None) -> int:
     lead = parts[0]
     print(f"bench_port: {lead['units']} units in {lead['window_s']:.3f} s; reference check "
           f"{max(p['reference_s'] for p in parts):.1f} s", file=sys.stderr)
+    for r, p in enumerate(parts):
+        if "compute_busy_s" in p:
+            print(f"bench_port: rank {r} traced: busy {p['busy_s']!r} s, without NCCL {p['compute_busy_s']!r} s, "
+                  f"window {p['trace_window_s']!r} s", file=sys.stderr)
     for k, c in result["checks"].items():
         print(f"check {k} {c['value']!r} limit {c['limit']!r}", file=sys.stderr)
     print(json.dumps(result), flush=True)

@@ -68,10 +68,12 @@ def short(name: str) -> str:
     return name[5:] if name.startswith("void ") else name
 
 
-def traced(loop, units_fn, cuda: bool = True):
+def traced(loop, units_fn, cuda: bool = True, align=None):
     """Run `loop()` under torch.profiler inside a bench.window span and
     reduce the trace; `units_fn()` gives the units completed so far.
-    Without `cuda` (the CPU tests) only the host is traced."""
+    `align()`, where given, runs once the profiler records and before the
+    window opens (the ranks of a mesh meet there), so its wait lies outside
+    the window. Without `cuda` (the CPU tests) only the host is traced."""
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
 
@@ -80,6 +82,8 @@ def traced(loop, units_fn, cuda: bool = True):
     sync()
     u0 = units_fn()
     with profile(activities=activities) as prof:
+        if align is not None:
+            align()
         with record_function(WINDOW):
             loop()
             sync()
